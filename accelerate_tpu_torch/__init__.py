@@ -7,23 +7,46 @@ engine`` ports ``accelerate_tpu.serving.engine``. This package imports
 ``accelerate_tpu`` — and its entry points run on the CUDA device unless the
 caller asks for ``device="cpu"``.
 
-The ported slice so far is the paged serving engine: the Llama decoder
-(``models.transformer``), the host-side block allocator and scheduler
-(``serving``), and the two hand-written Hopper paged-attention kernels
-(``ops.flash_attention`` over ``csrc/*.cu``).
+Ported so far:
+
+- serving: the paged serving engine — the Llama decoder
+  (``models.transformer``), the host-side block allocator and scheduler
+  (``serving``), and two hand-written Hopper paged-attention kernels
+  (``ops.flash_attention`` over ``csrc/paged_*.cu``);
+- training: BERT (``models.transformer``) through ``Accelerator.prepare``
+  and ``prepare_train_loop`` (``accelerator``, ``optimizer``,
+  ``data_loader``, ``state``), with the fused attention forward and
+  backward kernels (``ops.fused_attention`` over
+  ``csrc/fused_attention_*.cu``).
 """
 
-from .models.transformer import LlamaConfig, init_llama, llama_forward
+from .accelerator import Accelerator
+from .data_loader import DataLoader
+from .models.transformer import (
+    BertConfig,
+    LlamaConfig,
+    bert_forward,
+    bert_loss,
+    init_bert,
+    init_llama,
+    llama_forward,
+)
 from .serving.buckets import BucketLattice
 from .serving.engine import ServingEngine, paged_forward
 from .serving.scheduler import Request, RequestStatus
 
 __all__ = [
+    "Accelerator",
+    "BertConfig",
     "BucketLattice",
+    "DataLoader",
     "LlamaConfig",
     "Request",
     "RequestStatus",
     "ServingEngine",
+    "bert_forward",
+    "bert_loss",
+    "init_bert",
     "init_llama",
     "llama_forward",
     "paged_forward",

@@ -10,16 +10,20 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ..utils.device import resolve_device
+
 __all__ = ["params_from_numpy", "params_to_numpy"]
 
 
 def params_from_numpy(tree: dict, device=None, dtype: Optional[torch.dtype] = None) -> dict:
     """Nested dict of array-likes → the same nesting of tensors on
-    ``device`` (CPU when omitted), cast to ``dtype`` when given."""
+    ``device`` (the CUDA device when omitted; raises without a GPU unless
+    ``device="cpu"``), cast to ``dtype`` when given."""
+    dev = resolve_device(device)
     out = {}
     for name, leaf in tree.items():
         if isinstance(leaf, dict):
-            out[name] = params_from_numpy(leaf, device=device, dtype=dtype)
+            out[name] = params_from_numpy(leaf, device=dev, dtype=dtype)
         else:
             arr = np.array(leaf, copy=True)
             # numpy has no native bf16: such leaves arrive as an extension
@@ -28,7 +32,7 @@ def params_from_numpy(tree: dict, device=None, dtype: Optional[torch.dtype] = No
             if native is not None:
                 arr = arr.astype(np.float32)
             t = torch.from_numpy(arr)
-            out[name] = t.to(device=device or "cpu", dtype=dtype or native or t.dtype)
+            out[name] = t.to(device=dev, dtype=dtype or native or t.dtype)
     return out
 
 

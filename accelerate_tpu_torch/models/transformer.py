@@ -1,4 +1,5 @@
-"""Llama decoder in PyTorch: the port of ``accelerate_tpu.models.transformer``.
+"""Llama decoder and BERT encoder in PyTorch: the port of
+``accelerate_tpu.models.transformer``.
 
 Params keep the JAX package's layout — a nested dict whose per-layer
 tensors are stacked on a leading layer axis (``params["layers"]["wq"]
@@ -6,8 +7,8 @@ tensors are stacked on a leading layer axis (``params["layers"]["wq"]
 JAX initializer load unchanged through :mod:`.convert`. Matmuls are
 ``x @ kernel`` with ``kernel`` stored ``[in, out]``, as in the reference.
 
-Only the dense SwiGLU FFN is ported; MoE configs raise
-``NotImplementedError``.
+Only the dense SwiGLU FFN is ported; MoE configs and ``dtype_recipe="fp8"``
+raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -22,9 +23,14 @@ import torch
 from ..utils.device import resolve_device
 
 __all__ = [
+    "BertConfig",
     "LlamaConfig",
     "apply_rope",
+    "bert_forward",
+    "bert_loss",
+    "init_bert",
     "init_llama",
+    "layer_norm",
     "llama_ffn",
     "llama_forward",
     "rms_norm",
@@ -35,6 +41,16 @@ __all__ = [
 def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
     var = x.float().square().mean(dim=-1, keepdim=True)
     return (x * torch.rsqrt(var + eps).to(x.dtype)) * scale
+
+
+def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+               eps: float = 1e-6) -> torch.Tensor:
+    """Mean and variance in f32, the normalised value cast back to
+    ``x.dtype`` before ``* scale + bias``."""
+    xf = x.float()
+    mean = xf.mean(dim=-1, keepdim=True)
+    var = xf.var(dim=-1, keepdim=True, unbiased=False)
+    return ((xf - mean) * torch.rsqrt(var + eps)).to(x.dtype) * scale + bias
 
 
 def rope_frequencies(head_dim: int, max_seq: int, theta: float = 10000.0):
@@ -101,8 +117,9 @@ class LlamaConfig:
         return cls(vocab_size=512, dim=128, n_layers=2, n_heads=4, n_kv_heads=2, max_seq_len=256)
 
 
-def _check_supported(config: LlamaConfig) -> None:
-    if config.moe_experts > 0:
+def _check_supported(config) -> None:
+    """Raise on the Llama/BERT config options that are not ported yet."""
+    if getattr(config, "moe_experts", 0) > 0:
         raise NotImplementedError("MoE layers are not ported yet (see ROADMAP.md)")
     if config.dtype_recipe is not None:
         raise NotImplementedError(
@@ -198,3 +215,139 @@ def llama_forward(params: dict, input_ids: torch.Tensor, config: LlamaConfig) ->
         x = rms_norm(h, layer["mlp_norm"]["scale"], config.norm_eps)
         h = h + llama_ffn(layer, x, config)
     return lm_logits(params, h, config)
+
+
+@dataclass(frozen=True)
+class BertConfig:
+    """Same fields and defaults as the JAX package's ``BertConfig``.
+    ``unroll_layers`` is carried for parity and ignored; ``attn_impl`` picks
+    the :func:`~accelerate_tpu_torch.ops.attention.dot_product_attention`
+    implementation; ``dtype_recipe="fp8"`` is not ported yet and raises at
+    init."""
+
+    vocab_size: int = 30522
+    dim: int = 768
+    n_layers: int = 12
+    n_heads: int = 12
+    ffn_dim: int = 3072
+    max_seq_len: int = 512
+    type_vocab_size: int = 2
+    num_labels: int = 2
+    norm_eps: float = 1e-12
+    unroll_layers: bool = True
+    attn_impl: str = "auto"
+    dtype_recipe: Optional[str] = None
+
+    @property
+    def head_dim(self) -> int:
+        return self.dim // self.n_heads
+
+    @classmethod
+    def base(cls) -> "BertConfig":
+        return cls()
+
+    @classmethod
+    def tiny(cls) -> "BertConfig":
+        return cls(vocab_size=1024, dim=128, n_layers=2, n_heads=4, ffn_dim=256, max_seq_len=128)
+
+
+def init_bert(config: BertConfig, generator: Optional[torch.Generator] = None,
+              device=None, dtype: torch.dtype = torch.float32) -> dict:
+    """Params with the JAX ``init_bert`` tree and key names: embeddings,
+    per-layer projections stacked on a leading layer axis, pooler and
+    classifier; kernels ``N(0, 0.02^2)``, biases zero, norm scales one.
+    Draws come from ``generator`` (a fresh one seeded 0 on the target
+    device when omitted), so they differ from JAX's threefry draws."""
+    _check_supported(config)
+    dev = resolve_device(device)
+    if generator is None:
+        generator = torch.Generator(device=dev).manual_seed(0)
+    L, D, F = config.n_layers, config.dim, config.ffn_dim
+
+    def normal(*shape):
+        w = torch.randn(*shape, generator=generator, device=generator.device)
+        return (w * 0.02).to(device=dev, dtype=dtype)
+
+    def zeros(*shape):
+        return torch.zeros(*shape, device=dev, dtype=dtype)
+
+    def ones(*shape):
+        return torch.ones(*shape, device=dev, dtype=dtype)
+
+    def norm(*lead):
+        return {"scale": ones(*lead, D), "bias": zeros(*lead, D)}
+
+    def dense(a, b):
+        return {"kernel": normal(L, a, b), "bias": zeros(L, b)}
+
+    return {
+        "embeddings": {
+            "word": {"embedding": normal(config.vocab_size, D)},
+            "position": {"embedding": normal(config.max_seq_len, D)},
+            "token_type": {"embedding": normal(config.type_vocab_size, D)},
+            "norm": norm(),
+        },
+        "layers": {
+            "wq": dense(D, D),
+            "wk": dense(D, D),
+            "wv": dense(D, D),
+            "wo": dense(D, D),
+            "attn_norm": norm(L),
+            "fc1": dense(D, F),
+            "fc2": dense(F, D),
+            "mlp_norm": norm(L),
+        },
+        "pooler": {"kernel": normal(D, D), "bias": zeros(D)},
+        "classifier": {"kernel": normal(D, config.num_labels), "bias": zeros(config.num_labels)},
+    }
+
+
+def bert_forward(params: dict, batch: dict, config: BertConfig,
+                 attention_impl: Optional[str] = None) -> torch.Tensor:
+    """Classification logits ``[B, num_labels]``. ``batch`` holds
+    ``input_ids``, ``attention_mask`` and ``token_type_ids`` (all ``[B, S]``);
+    padding reaches attention as ``segment_ids = attention_mask`` (pad 0,
+    real 1), so the fused kernels take padded batches. ``attention_impl``
+    defaults to ``config.attn_impl``."""
+    from ..ops.attention import dot_product_attention
+
+    _check_supported(config)
+    impl = config.attn_impl if attention_impl is None else attention_impl
+    ids = batch["input_ids"].long()
+    B, S = ids.shape
+    emb = params["embeddings"]
+    token_type = batch.get("token_type_ids")
+    token_type = torch.zeros_like(ids) if token_type is None else token_type.long()
+    h = (emb["word"]["embedding"][ids] + emb["position"]["embedding"][:S][None]
+         + emb["token_type"]["embedding"][token_type])
+    h = layer_norm(h, emb["norm"]["scale"], emb["norm"]["bias"], config.norm_eps)
+    mask = batch.get("attention_mask")
+    seg_ids = None if mask is None else mask.to(torch.int32)
+    # one unbind per stacked leaf: its backward is a single stack, where
+    # indexing each layer would scatter into a full-size zero tensor per layer
+    layers = {name: {k: t.unbind(0) for k, t in entry.items()}
+              for name, entry in params["layers"].items()}
+    heads = (B, S, config.n_heads, config.head_dim)
+
+    def dense(name, i, x):
+        return x @ layers[name]["kernel"][i] + layers[name]["bias"][i]
+
+    def norm(name, i, x):
+        return layer_norm(x, layers[name]["scale"][i], layers[name]["bias"][i], config.norm_eps)
+
+    for i in range(config.n_layers):
+        q, k, v = (dense(n, i, h).reshape(heads) for n in ("wq", "wk", "wv"))
+        attn = dot_product_attention(q, k, v, segment_ids=seg_ids, impl=impl).reshape(B, S, -1)
+        h = norm("attn_norm", i, h + dense("wo", i, attn))
+        x = torch.nn.functional.gelu(dense("fc1", i, h), approximate="tanh")  # jax.nn.gelu
+        h = norm("mlp_norm", i, h + dense("fc2", i, x))
+    pooled = torch.tanh(h[:, 0] @ params["pooler"]["kernel"] + params["pooler"]["bias"])
+    return pooled @ params["classifier"]["kernel"] + params["classifier"]["bias"]
+
+
+def bert_loss(params: dict, batch: dict, config: BertConfig, **kwargs) -> torch.Tensor:
+    """Mean cross-entropy of :func:`bert_forward` against ``batch["labels"]``,
+    log-softmax in f32."""
+    logits = bert_forward(params, batch, config, **kwargs)
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    return -logp.gather(-1, batch["labels"].long()[:, None]).mean()

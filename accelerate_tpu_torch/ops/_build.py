@@ -46,6 +46,16 @@ KERNELS = {
         # B, S, H, Hkv, D, block_size, W, q_dtype, kv_dtype, scale, stream
         "paged_prefill_launch": [_P] * 6 + [_I] * 9 + [_F, _P],
     },
+    "fused_attention_fwd": {
+        # q, k, v, seg (or null), out, lse,
+        # B, S, H, Hkv, D, dtype, causal, scale, stream
+        "fused_attention_fwd_launch": [_P] * 6 + [_I] * 7 + [_F, _P],
+    },
+    "fused_attention_bwd": {
+        # q, k, v, seg (or null), lse, out, dout, dq, dk, dv, delta scratch,
+        # B, S, H, Hkv, D, dtype, causal, scale, stream
+        "fused_attention_bwd_launch": [_P] * 11 + [_I] * 7 + [_F, _P],
+    },
 }
 
 _LIBS: "dict[str, ctypes.CDLL]" = {}

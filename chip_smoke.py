@@ -1,14 +1,16 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's main path on one NVIDIA GPU and check it.
+"""Drive the PyTorch/CUDA port's main paths on one NVIDIA GPU and check them.
 
 Run from the root of a checkout: ``python3 chip_smoke.py``. It needs one
 CUDA card, ``nvcc`` (the kernels are built from ``accelerate_tpu_torch/
 csrc`` at first use) and no network. Phases, each of which fails the run:
 
 1. build the CUDA kernels (one ``nvcc`` per source, in parallel);
-2. each kernel against its plain PyTorch version on the card, at the
-   serving path's shapes, in bf16 and f32, with times beside the least
-   time the card could take and one PyTorch library call as a yardstick;
+2. each kernel against its plain PyTorch version on the card, in bf16 and
+   f32, with times beside the least time the card could take and one
+   PyTorch library call as a yardstick: the paged kernels at the serving
+   path's shapes, the fused attention forward and backward at BERT-base's
+   (B=32, S=128, H=12, D=64, padded rows), a causal GQA case and S=1024;
 3. the serving engine at full Llama-1B width (dim 2048, 16 layers, 32/8
    heads, vocab 32000; random bf16 weights from seed 0) answering 9 greedy
    requests — launch counters zeroed before and read after, so the run
@@ -17,7 +19,15 @@ csrc`` at first use) and no network. Phases, each of which fails the run:
 4. the cached path (chunked prefill + 16 decode steps through
    ``paged_forward`` and the kernels) against the plain full-sequence
    forward, logits compared in f32;
-5. the card's name and power limit, one JSON line of kernel records, and
+5. training: BERT-base at full width (``attn_impl="fused"``, S=128, batch
+   32, random f32 master weights from seed 0, synthetic MRPC) through
+   ``Accelerator(mixed_precision="bf16").prepare`` and
+   ``prepare_train_loop`` (K=10 steps a call): one warm call, then timed
+   calls with the fused-kernel counters zeroed before and read after (12
+   forward and 12 backward launches a step); ``torch.profiler`` over one
+   step for the busy share and top kernels; then 3 steps in f32 through
+   the kernels against the same 3 steps through their plain versions;
+6. the card's name and power limit, one JSON line of kernel records, and
    a last line ``{"ok": true, "device": {...}}``.
 
 Without a CUDA device, or without the package beside it, it exits non-zero
@@ -26,6 +36,7 @@ and prints no result.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import os
@@ -45,12 +56,36 @@ KERNEL_ATOL = {torch.float32: 1e-5, torch.bfloat16: 2.0 ** -7}
 # accumulator would add) is expected near 1e-2 and must miss this bar —
 # phase 4 checks that it does.
 LOGIT_ATOL = 1e-3
+# Fused kernels vs plain, relative to the largest magnitude of the plain
+# result (gradients sum over up to 1024 keys): f32 differs only in the
+# order of its sums; in bf16 both sides round p, ds and the outputs to bf16
+# at the same points, so a value on the other side of a rounding boundary
+# moves by one bf16 step — two steps allowed.
+FUSED_RTOL = {torch.float32: 1e-5, torch.bfloat16: 2.0 ** -6}
+# Training through the kernels vs through their plain versions, f32, 3
+# AdamW steps (the two differ by the order of f32 sums only): losses within
+# 1e-4 relative; each param leaf's 3-step update within 1e-3 of the plain
+# run's in relative L2 norm. An update, not the param, because AdamW's
+# step g / (|g| + eps) turns the rounding noise of a gradient element near
+# zero into a visible share of lr, while a wrong gradient moves every
+# element's step by O(lr). The key projection's bias has an exactly zero
+# gradient (softmax ignores a constant added to a row's scores): its whole
+# update is such noise, so it is held to the most 3 steps can move it, 3·lr.
+TRAIN_RTOL = 1e-4
+TRAIN_UPDATE_RTOL = 1e-3
+TRAIN_LR = 2e-5
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 PEAK_OPS_PER_S = {torch.bfloat16: 989e12, torch.float32: 67e12}  # dense bf16; f32 non-tensor
 
 CONFIG_KW = dict(vocab_size=32000, dim=2048, n_layers=16, n_heads=32, n_kv_heads=8,
                  max_seq_len=512)
+FUSED_CASES = {  # name: (B, S, H, Hkv, D, causal, padded)
+    "bert": (32, 128, 12, 12, 64, False, True),
+    "gqa_causal": (8, 256, 8, 2, 128, True, False),
+    "s1024": (2, 1024, 12, 12, 64, False, True),
+}
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_K, TRAIN_CALLS = 32, 128, 10, 2
 ENGINE_KW = dict(num_blocks=160, block_size=16, max_slots=8, max_blocks_per_seq=32,
                  max_prefill_len=256)
 
@@ -204,6 +239,140 @@ def phase_kernels(dev):
                   f"plain {rec['plain_ms']:.4f} ms sdpa {rec['library_ms']:.4f} ms "
                   f"bound {rec['bound_ms']:.5f} ms ({rec['bound_by']})")
             del gathered, pools
+    return results
+
+
+def _fused_inputs(name, dtype, dev, seed):
+    """Inputs of one fused case: q, k, v, dO from a seed; padded rows of
+    different lengths (the first full) as segment ids 1 / 0."""
+    B, S, H, Hkv, D, causal, padded = FUSED_CASES[name]
+    rng = np.random.default_rng(seed)
+
+    def t(*shape):
+        return torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(dev, dtype)
+
+    seg = None
+    if padded:
+        lens = rng.integers(S // 4, S + 1, B)
+        lens[0] = S
+        seg = torch.from_numpy((np.arange(S)[None] < lens[:, None]).astype(np.int32)).to(dev)
+    return t(B, S, H, D), t(B, S, Hkv, D), t(B, S, Hkv, D), t(B, S, H, D), seg
+
+
+def _fused_bound(name, dtype, seg, backward):
+    """Least time for one call: bytes (each input read once, each output
+    written once) over HBM rate vs the products' flops on the attended
+    (query, key) pairs of these inputs over the type's peak. Forward: q, k,
+    v in, o and lse out, 2 products (4·D flops a pair and head). Backward:
+    q, k, v, o, dO, lse in, dq, dk, dv out, 5 products (10·D)."""
+    B, S, H, Hkv, D, causal, _ = FUSED_CASES[name]
+    elt = torch.tensor([], dtype=dtype).element_size()
+    allow = torch.ones(B, S, S, dtype=torch.bool)
+    if seg is not None:
+        s = seg.cpu()
+        allow &= s[:, :, None] == s[:, None, :]
+    if causal:
+        allow &= torch.ones(S, S, dtype=torch.bool).tril()
+    pairs = int(allow.sum())
+    n_q, n_kv = B * S * H * D, B * S * Hkv * D
+    small = 4 * B * H * S + (0 if seg is None else 4 * B * S)  # lse, segment ids
+    mult = 2 if backward else 1
+    nbytes = mult * (2 * n_q + 2 * n_kv) * elt + small
+    flops = (10 if backward else 4) * D * H * pairs
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / PEAK_OPS_PER_S[dtype]
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def _errs(pairs):
+    """(max abs error, max error relative to max(1, largest |want|)) over
+    (got, want) pairs."""
+    abs_errs, rel_errs = [], []
+    for got, want in pairs:
+        err = float((got.float() - want.float()).abs().max())
+        abs_errs.append(err)
+        rel_errs.append(err / max(1.0, float(want.float().abs().max())))
+    return max(abs_errs), max(rel_errs)
+
+
+def phase_fused_kernels(dev):
+    """Kernels #4 and #5 against their plain versions (out, lse; dq, dk,
+    dv), with kernel, plain, bound and SDPA times. The yardstick for #4 is
+    one ``scaled_dot_product_attention`` call with the boolean mask; for #5,
+    ``torch.autograd.grad`` through that call less the call itself."""
+    from accelerate_tpu_torch.ops import fused_attention as fa
+
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    results = {}
+    for name in FUSED_CASES:
+        B, S, H, Hkv, D, causal, _ = FUSED_CASES[name]
+        scale = 1.0 / math.sqrt(D)
+        for dtype in (torch.bfloat16, torch.float32):
+            q, k, v, do, seg = _fused_inputs(name, dtype, dev, seed=len(results))
+            out, lse = fa.fused_attention_fwd(q, k, v, seg, scale, causal)
+            grads = fa.fused_attention_bwd(q, k, v, seg, lse, out, do, scale, causal)
+            torch.cuda.synchronize()
+            ref_out, ref_lse = fa.fused_attention_fwd_reference(q, k, v, seg, scale, causal)
+            ref_grads = fa.fused_attention_bwd_reference(q, k, v, seg, lse, out, do, scale, causal)
+            errs = {"fwd": _errs([(out, ref_out), (lse, ref_lse)]),
+                    "bwd": _errs(zip(grads, ref_grads))}
+            for x in (out, lse, *grads):
+                check(bool(torch.isfinite(x.float()).all()), f"fused {name} {dtype}: non-finite")
+            for kind, (_, rel) in errs.items():
+                check(rel <= FUSED_RTOL[dtype],
+                      f"fused {kind} {name} {dtype}: rel err {rel} > {FUSED_RTOL[dtype]}")
+
+            # copies of the inputs, together past the 50 MB L2, so each
+            # timed call finds its inputs cold as a model layer does
+            per_copy = 6 * q.numel() * q.element_size()
+            n = max(1, math.ceil(128e6 / per_copy))
+            copies = [tuple(x.clone() for x in (q, k, v, do)) for _ in range(n)]
+            saved = [fa.fused_attention_fwd(c[0], c[1], c[2], seg, scale, causal)[::-1]
+                     for c in copies]  # (lse, out), in the backward's argument order
+            mask = torch.ones(B, 1, S, S, dtype=torch.bool, device=dev)
+            if seg is not None:
+                mask &= (seg[:, :, None] == seg[:, None, :])[:, None]
+            if causal:
+                mask &= torch.ones(S, S, dtype=torch.bool, device=dev).tril()
+            leaves = [tuple(x.transpose(1, 2).detach().requires_grad_(True) for x in c[:3])
+                      for c in copies]
+            dos = [c[3].transpose(1, 2) for c in copies]
+
+            def library_fwd(i):
+                return sdpa(*leaves[i], attn_mask=mask, enable_gqa=Hkv != H)
+
+            def library_fwd_bwd(i):
+                return torch.autograd.grad(library_fwd(i), leaves[i], dos[i])
+
+            fwd = {
+                "ms": lambda i: fa.fused_attention_fwd(*copies[i][:3], seg, scale, causal),
+                "plain_ms": lambda i: fa.fused_attention_fwd_reference(*copies[i][:3], seg,
+                                                                       scale, causal),
+                "library_ms": library_fwd,
+            }
+            bwd = {
+                "ms": lambda i: fa.fused_attention_bwd(*copies[i][:3], seg, *saved[i],
+                                                       copies[i][3], scale, causal),
+                "plain_ms": lambda i: fa.fused_attention_bwd_reference(
+                    *copies[i][:3], seg, *saved[i], copies[i][3], scale, causal),
+                "library_ms": library_fwd_bwd,
+            }
+            iters = 16
+            for kind, fns in (("fwd", fwd), ("bwd", bwd)):
+                rec = {key: time_ms(fn, n, iters) for key, fn in fns.items()}
+                rec["max_abs_err"], rec["rel_err"] = errs[kind]
+                rec["bound_ms"], rec["bound_by"] = _fused_bound(name, dtype, seg, kind == "bwd")
+                results[(name, kind, dtype)] = rec
+            # the library's backward alone: its forward and backward less its forward
+            bwd_rec = results[(name, "bwd", dtype)]
+            bwd_rec["library_ms"] -= results[(name, "fwd", dtype)]["library_ms"]
+            for kind in ("fwd", "bwd"):
+                rec = results[(name, kind, dtype)]
+                print(f"[fused] {kind} {name:10s} {str(dtype):15s} err {rec['max_abs_err']:.3e} "
+                      f"(rel {rec['rel_err']:.3e}, tol {FUSED_RTOL[dtype]:.1e}) kernel "
+                      f"{rec['ms']:.4f} ms plain {rec['plain_ms']:.4f} ms sdpa "
+                      f"{rec['library_ms']:.4f} ms bound {rec['bound_ms']:.5f} ms "
+                      f"({rec['bound_by']})")
+            del copies, saved, leaves, dos
     return results
 
 
@@ -363,6 +532,170 @@ def phase_cached_vs_full(params_bf16, config, dev):
           f"{fa.paged_attention_prefill.launches} (cumulative, outside the main-path count)")
 
 
+def _reset_states():
+    from accelerate_tpu_torch.state import AcceleratorState, GradientState
+
+    AcceleratorState._reset_state(reset_partial_state=True)
+    GradientState._reset_state()
+
+
+def _train_setup(dev, precision, n_batches):
+    """BERT-base (S=128, fused attention) through ``Accelerator.prepare``:
+    random f32 master weights from seed 0, synthetic MRPC from seed 0,
+    ``adamw(TRAIN_LR)``, batch 32. Returns the prepared pieces and the loop."""
+    from accelerate_tpu_torch import Accelerator, BertConfig, DataLoader, bert_loss, init_bert
+    from accelerate_tpu_torch.optimizer import adamw
+    from accelerate_tpu_torch.utils.synthetic import DictDataset, make_synthetic_mrpc
+
+    _reset_states()
+    config = dataclasses.replace(BertConfig.base(), max_seq_len=TRAIN_SEQ, attn_impl="fused")
+    acc = Accelerator(mixed_precision=precision, rng_seed=0)
+    data = make_synthetic_mrpc(TRAIN_BATCH * n_batches, TRAIN_SEQ, config.vocab_size, seed=0)
+    params = init_bert(config, torch.Generator(device=dev).manual_seed(0), device=dev)
+    params, opt, dl = acc.prepare(params, adamw(TRAIN_LR),
+                                  DataLoader(DictDataset(data), batch_size=TRAIN_BATCH))
+    loop = acc.prepare_train_loop(lambda p, b: bert_loss(p, b, config), opt)
+    return config, params, opt, list(dl), loop
+
+
+def phase_train(dev):
+    """The training main path in bf16: one warm call of the K-step loop,
+    then TRAIN_CALLS timed calls with the fused counters zeroed before and
+    read after; then ``torch.profiler`` over one step."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from accelerate_tpu_torch.ops import fused_attention as fa
+    from accelerate_tpu_torch.utils.operations import stack_batches
+
+    config, params, opt, batches, loop = _train_setup(dev, "bf16", 4)
+    n_params = sum(t.numel() for v in params.values() for e in v.values()
+                   for t in (e.values() if isinstance(e, dict) else [e]))
+    stacked = stack_batches([batches[i % len(batches)] for i in range(TRAIN_K)])
+    state = opt.opt_state
+    params, state, m = loop(params, state, stacked)
+    losses = [m["loss"]]
+    torch.cuda.synchronize()
+    fa.fused_attention_fwd.launches = 0
+    fa.fused_attention_bwd.launches = 0
+    t0 = time.perf_counter()
+    for _ in range(TRAIN_CALLS):
+        params, state, m = loop(params, state, stacked)
+        losses.append(m["loss"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"fused_attention_fwd": fa.fused_attention_fwd.launches,
+                "fused_attention_bwd": fa.fused_attention_bwd.launches}
+    steps = TRAIN_CALLS * TRAIN_K
+    losses = torch.cat(losses).cpu()
+    check(bool(torch.isfinite(losses).all()), f"non-finite training loss: {losses.tolist()}")
+    for name, count in launches.items():
+        check(count == config.n_layers * steps,
+              f"{name}: {count} launches in {steps} steps, want {config.n_layers} a step")
+    print(f"[train] BERT-base {n_params / 1e6:.1f} M params, bf16 compute / f32 masters, "
+          f"batch {TRAIN_BATCH} x seq {TRAIN_SEQ}, attn_impl=fused, adamw({TRAIN_LR:g})")
+    print(f"[train] {steps} timed steps in {wall:.3f} s: {steps * TRAIN_BATCH / wall:.1f} "
+          f"samples/s, {wall / steps * 1e3:.2f} ms/step")
+    print(f"[train] loss over {len(losses)} steps: "
+          + " ".join(f"{x:.4f}" for x in losses.tolist()))
+    print(f"[train] launches on the main path ({steps} steps): {launches}")
+
+    # where one step's time goes: device events of one profiled step over
+    # the host wall of the same step run without the profiler
+    one = stack_batches([batches[0]])
+
+    def one_step():
+        nonlocal params, state
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, state, _ = loop(params, state, one)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e6
+
+    plain_us = float(np.median([one_step() for _ in range(5)]))
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    prof.start()
+    prof_us = one_step()
+    prof.stop()
+    events = prof.key_averages()
+    # device events only: a host annotation (``Optimizer.step#AdamW.step``)
+    # also shows on the device timeline, spanning kernels counted already
+    host_keys = {e.key for e in events if e.device_type != torch.autograd.DeviceType.CUDA}
+    rows = [(e.key, e.self_device_time_total, e.count) for e in events
+            if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0
+            and e.key not in host_keys]
+    if not rows:
+        print("[train-profile] the profiler recorded no device time: busy share not measured")
+        return launches
+    device_us = sum(r[1] for r in rows)
+    print(f"[train-profile] one step: wall {plain_us / 1e3:.3f} ms ({prof_us / 1e3:.3f} under "
+          f"the profiler), device {device_us / 1e3:.3f} ms in {sum(r[2] for r in rows)} device "
+          f"events, busy share {device_us / plain_us:.3f}")
+    for key, us, count in sorted(rows, key=lambda r: -r[1])[:10]:
+        print(f"[train-profile]   {us / 1e3:8.4f} ms  {us / device_us:6.1%}  {count:5d} calls  "
+              f"{key[:80]}")
+    return launches
+
+
+def phase_train_check(dev):
+    """3 steps in f32 from the same init and data, once through the fused
+    kernels and once through their plain versions on the card: per-step
+    losses and every param leaf's 3-step update compared."""
+    from accelerate_tpu_torch.ops import fused_attention as fa
+    from accelerate_tpu_torch.utils.operations import stack_batches
+
+    def named(tree, prefix=""):
+        for key, v in tree.items():
+            if isinstance(v, dict):
+                yield from named(v, f"{prefix}{key}/")
+            else:
+                yield f"{prefix}{key}", v.detach()
+
+    def run(plain):
+        config, params, opt, batches, loop = _train_setup(dev, "no", 3)
+        init = {name: t.clone() for name, t in named(params)}
+        kernels = (fa.fused_attention_fwd, fa.fused_attention_bwd)
+        before = [k.launches for k in kernels]
+        if plain:
+            fa.fused_attention_fwd = fa.fused_attention_fwd_reference
+            fa.fused_attention_bwd = fa.fused_attention_bwd_reference
+        try:
+            params, _, m = loop(params, opt.opt_state, stack_batches(batches))
+            torch.cuda.synchronize()
+        finally:
+            fa.fused_attention_fwd, fa.fused_attention_bwd = kernels
+        launched = [k.launches - b for k, b in zip(kernels, before)]
+        want = [0, 0] if plain else [3 * config.n_layers] * 2
+        check(launched == want, f"f32 check ({'plain' if plain else 'kernels'}): fused "
+                                f"launches {launched}, want {want}")
+        return m["loss"].cpu(), {name: t - init[name] for name, t in named(params)}
+
+    k_loss, k_upd = run(plain=False)
+    p_loss, p_upd = run(plain=True)
+    check(bool(torch.isfinite(k_loss).all() and torch.isfinite(p_loss).all()),
+          "non-finite f32 loss")
+    loss_err = float(((k_loss - p_loss).abs() / p_loss.abs()).max())
+    zero_grad = "layers/wk/bias"
+    upd_err = {name: float(torch.linalg.vector_norm(a - p_upd[name])
+                           / torch.linalg.vector_norm(p_upd[name]))
+               for name, a in k_upd.items() if name != zero_grad}
+    worst = max(upd_err, key=upd_err.get)
+    bias_err = float((k_upd[zero_grad] - p_upd[zero_grad]).abs().max())
+    print(f"[train-check] f32, 3 steps, kernels vs plain attention: losses "
+          f"{' '.join(f'{x:.6f}' for x in k_loss.tolist())} vs "
+          f"{' '.join(f'{x:.6f}' for x in p_loss.tolist())}; max rel err loss {loss_err:.3e} "
+          f"(tol {TRAIN_RTOL:.0e}); updates: largest rel L2 err {upd_err[worst]:.3e} ({worst}; "
+          f"tol {TRAIN_UPDATE_RTOL:.0e}); {zero_grad} (zero gradient) abs err {bias_err:.3e} "
+          f"(bound 3 lr = {3 * TRAIN_LR:.0e})")
+    for name in sorted(upd_err, key=upd_err.get, reverse=True)[:4]:
+        print(f"[train-check]   {name}: update rel L2 err {upd_err[name]:.3e}, update max "
+              f"{float(p_upd[name].abs().max()):.3e}")
+    check(loss_err <= TRAIN_RTOL, f"f32 losses: kernels vs plain rel err {loss_err} > {TRAIN_RTOL}")
+    check(upd_err[worst] <= TRAIN_UPDATE_RTOL,
+          f"f32 3-step update of {worst}: kernels vs plain rel L2 err {upd_err[worst]} > "
+          f"{TRAIN_UPDATE_RTOL}")
+    check(bias_err <= 3 * TRAIN_LR, f"{zero_grad}: kernels vs plain {bias_err} > 3 lr")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -382,10 +715,13 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
     t_start = time.perf_counter()
+    card = gpu_info()["line"]
     print(f"[env] python {sys.version.split()[0]} torch {torch.__version__} "
-          f"cuda {torch.version.cuda} device {torch.cuda.get_device_name(0)}")
+          f"cuda {torch.version.cuda} device {torch.cuda.get_device_name(0)}; every number "
+          f"below is from this card: {card}")
     phase_build()
     kernel_results = phase_kernels(dev)
+    fused_results = phase_fused_kernels(dev)
 
     config = LlamaConfig(**CONFIG_KW)
     params = init_llama(config, torch.Generator(device=dev).manual_seed(0), device=dev,
@@ -397,7 +733,11 @@ def main() -> int:
     launches = phase_engine(params, config, dev)
     phase_profile(params, config, dev)
     phase_cached_vs_full(params, config, dev)
+    del params
+    train_launches = phase_train(dev)
+    phase_train_check(dev)
 
+    keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     records = []
     for name, kind, source, replaces in (
         ("paged_attention_decode", "decode", "accelerate_tpu_torch/csrc/paged_decode.cu",
@@ -405,10 +745,19 @@ def main() -> int:
         ("paged_attention_prefill", "prefill256", "accelerate_tpu_torch/csrc/paged_prefill.cu",
          "accelerate_tpu/ops/flash_attention.py:753"),
     ):
+        rec = kernel_results[(kind, torch.bfloat16)]
         records.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
-                        "launches": launches[name], **kernel_results[(kind, torch.bfloat16)]})
+                        "launches": launches[name], **{k: rec[k] for k in keys}})
+    for name, kind, replaces in (
+        ("fused_attention_fwd", "fwd", "accelerate_tpu/ops/fused_attention.py:90"),
+        ("fused_attention_bwd", "bwd", "accelerate_tpu/ops/fused_attention.py:107"),
+    ):
+        rec = fused_results[("bert", kind, torch.bfloat16)]
+        records.append({"name": name, "route": "cuda",
+                        "source": f"accelerate_tpu_torch/csrc/{name}.cu", "replaces": replaces,
+                        "launches": train_launches[name], **{k: rec[k] for k in keys}})
     print(f"[done] {time.perf_counter() - t_start:.1f} s")
-    print(gpu_info()["line"])
+    print(card)
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

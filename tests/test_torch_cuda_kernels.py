@@ -1,13 +1,15 @@
-"""The CUDA paged-attention kernels against their plain PyTorch versions,
-on the card (marker ``cuda``; skipped where no GPU is present).
+"""The CUDA kernels (paged attention, fused attention forward and backward)
+against their plain PyTorch versions, on the card (marker ``cuda``; skipped
+where no GPU is present).
 
 This file imports no JAX, so on a machine with a GPU and no JAX it runs
 alone: ``python -m pytest --noconftest -p no:cacheprovider -m cuda
 tests/test_torch_cuda_kernels.py``.
 
-Tolerances: f32 at atol 1e-5 (same f32 arithmetic, another summation
-order); bf16 outputs at atol 2**-7, one bf16 rounding step of outputs
-below 2 in magnitude (both sides accumulate in f32 and round once).
+Tolerances (paged): f32 at atol 1e-5 (same f32 arithmetic, another
+summation order); bf16 outputs at atol 2**-7, one bf16 rounding step of
+outputs below 2 in magnitude (both sides accumulate in f32 and round
+once). The fused kernels' tolerances are stated beside their tests.
 """
 
 import numpy as np
@@ -78,3 +80,82 @@ def test_prefill_kernel_matches_plain(dev, q_dtype, kv_dtype, S, H, Hkv, D, bs):
     assert fa.paged_attention_prefill.launches == before + 1
     ref = fa.paged_attention_prefill_plain(q, k, v, tables, qpos)
     assert float((out.float() - ref.float()).abs().max()) <= ATOL[q_dtype]
+
+
+# Fused attention (kernels #4 and #5). f32: same arithmetic, another
+# summation order — outputs and lse within 1e-5, gradients within 1e-5 of
+# their largest magnitude (they sum over up to 1024 keys). bf16: both sides
+# round p, ds and the outputs to bf16 at the same points, so a value that
+# lands on either side of a rounding boundary moves by one bf16 step: held
+# within 2**-6 of the largest magnitude (two steps).
+FUSED_CASES = [
+    # B, S, H, Hkv, D, causal, padded
+    (4, 128, 12, 12, 64, False, True),   # BERT-base's attention shape, smaller batch
+    (2, 256, 8, 2, 128, True, False),
+    (2, 256, 8, 2, 128, True, True),
+    (1, 384, 4, 4, 192, False, True),
+    (1, 128, 4, 1, 256, True, True),
+    (2, 1024, 2, 2, 64, False, True),
+]
+
+
+def _fused_case(seed, B, S, H, Hkv, D, padded, dev, dtype):
+    rng = np.random.default_rng(seed)
+
+    def t(*shape):
+        return torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(dev, dtype)
+
+    seg = None
+    if padded:
+        lens = rng.integers(S // 4, S + 1, B)
+        lens[0] = S
+        seg = torch.from_numpy((np.arange(S)[None] < lens[:, None]).astype(np.int32)).to(dev)
+    return t(B, S, H, D), t(B, S, Hkv, D), t(B, S, Hkv, D), seg, t(B, S, H, D)
+
+
+def _close(a, b, dtype):
+    scale = max(1.0, float(b.detach().float().abs().max()))
+    tol = 1e-5 if dtype == torch.float32 else 2.0 ** -6
+    return float((a.float() - b.float()).abs().max()) <= tol * scale
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,H,Hkv,D,causal,padded", FUSED_CASES)
+def test_fused_kernels_match_plain(dev, dtype, B, S, H, Hkv, D, causal, padded):
+    from accelerate_tpu_torch.ops import fused_attention as fused
+
+    q, k, v, seg, do = _fused_case(2, B, S, H, Hkv, D, padded, dev, dtype)
+    scale = 1.0 / np.sqrt(D)
+    before = (fused.fused_attention_fwd.launches, fused.fused_attention_bwd.launches)
+    out, lse = fused.fused_attention_fwd(q, k, v, seg, scale, causal)
+    dq, dk, dv = fused.fused_attention_bwd(q, k, v, seg, lse, out, do, scale, causal)
+    torch.cuda.synchronize()
+    assert (fused.fused_attention_fwd.launches, fused.fused_attention_bwd.launches) == (
+        before[0] + 1, before[1] + 1)
+    ref_out, ref_lse = fused.fused_attention_fwd_reference(q, k, v, seg, scale, causal)
+    assert out.dtype == dtype and lse.shape == (B, H, S)
+    assert _close(out, ref_out, dtype)
+    assert float((lse - ref_lse).abs().max()) <= 1e-5 * float(ref_lse.abs().max())
+    # the backward from the same saved (out, lse) on both sides
+    ref = fused.fused_attention_bwd_reference(q, k, v, seg, lse, out, do, scale, causal)
+    for got, want in zip((dq, dk, dv), ref):
+        assert got.shape == want.shape and got.dtype == dtype
+        assert _close(got, want, dtype)
+
+
+@pytest.mark.parametrize("causal,padded,Hkv", [(False, True, 4), (True, False, 2)])
+def test_fused_autograd_matches_plain_autograd(dev, causal, padded, Hkv):
+    """The autograd Function (both kernels) against autograd through the
+    plain forward, f32."""
+    from accelerate_tpu_torch.ops import fused_attention as fused
+
+    q, k, v, seg, do = _fused_case(3, 2, 256, 4, Hkv, 64, padded, dev, torch.float32)
+    ins = [x.clone().requires_grad_(True) for x in (q, k, v)]
+    out = fused.fused_attention(*ins, causal=causal, segment_ids=seg)
+    grads = torch.autograd.grad(out, ins, do)
+    ref_ins = [x.clone().requires_grad_(True) for x in (q, k, v)]
+    ref_out, _ = fused.fused_attention_fwd_reference(*ref_ins, seg, 1 / 8, causal)
+    ref_grads = torch.autograd.grad(ref_out, ref_ins, do)
+    assert _close(out, ref_out, torch.float32)
+    for got, want in zip(grads, ref_grads):
+        assert _close(got, want, torch.float32)

@@ -27,7 +27,7 @@ TCFG = tt.LlamaConfig.tiny()
 @pytest.fixture(scope="module")
 def params():
     jp = jt.init_llama(JCFG, jax.random.PRNGKey(0))
-    return jp, params_from_numpy(jax.tree_util.tree_map(np.asarray, jp))
+    return jp, params_from_numpy(jax.tree_util.tree_map(np.asarray, jp), device="cpu")
 
 
 def _rng(seed=0):
@@ -129,7 +129,8 @@ def test_params_roundtrip_and_layout(params):
     assert [p for p, _ in j_leaves] == [p for p, _ in b_leaves]
     for (_, a), (_, b) in zip(j_leaves, b_leaves):
         np.testing.assert_array_equal(a, b)
-    bf = params_from_numpy(jax.tree_util.tree_map(lambda x: np.asarray(x.astype(jnp.bfloat16)), jp))
+    bf = params_from_numpy(jax.tree_util.tree_map(lambda x: np.asarray(x.astype(jnp.bfloat16)), jp),
+                           device="cpu")
     assert bf["layers"]["wq"]["kernel"].dtype == torch.bfloat16
 
 

@@ -17,12 +17,15 @@ import sys
 import textwrap
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
 import accelerate_tpu_torch
 from accelerate_tpu_torch.ops import _build
 from accelerate_tpu_torch.ops import flash_attention as fa
+from accelerate_tpu_torch.ops import fused_attention as fused
+from accelerate_tpu_torch.models.convert import params_from_numpy
 
 REPO = Path(__file__).resolve().parent.parent
 
@@ -60,6 +63,36 @@ def test_entry_points_refuse_to_run_without_a_gpu(monkeypatch):
         accelerate_tpu_torch.ServingEngine(params, cfg)
     engine = accelerate_tpu_torch.ServingEngine(params, cfg, device="cpu")
     assert engine.pool["k"].device.type == "cpu"
+    bert = accelerate_tpu_torch.BertConfig.tiny()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        accelerate_tpu_torch.init_bert(bert)
+    bert_params = accelerate_tpu_torch.init_bert(bert, device="cpu")
+    assert bert_params["pooler"]["kernel"].device.type == "cpu"
+    from accelerate_tpu_torch.state import AcceleratorState
+
+    AcceleratorState._reset_state(reset_partial_state=True)
+    try:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            accelerate_tpu_torch.Accelerator()
+        AcceleratorState._reset_state(reset_partial_state=True)
+        assert accelerate_tpu_torch.Accelerator(cpu=True).device.type == "cpu"
+        AcceleratorState._reset_state(reset_partial_state=True)
+        assert accelerate_tpu_torch.Accelerator(device="cpu").device.type == "cpu"
+    finally:
+        AcceleratorState._reset_state(reset_partial_state=True)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        params_from_numpy({"w": np.zeros(3, np.float32)})
+
+
+def test_params_from_numpy_defaults_to_the_gpu(monkeypatch):
+    """Weights carried over from the JAX package land on the CUDA device
+    unless the CPU is asked for, like every other entry point."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    tree = {"a": {"w": np.ones((2, 3), np.float32)}, "b": np.arange(4, dtype=np.int32)}
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        params_from_numpy(tree)
+    out = params_from_numpy(tree, device="cpu")
+    assert out["a"]["w"].device.type == "cpu" and out["b"].dtype == torch.int32
 
 
 def _cuda_typed(*shapes_dtypes):
@@ -69,7 +102,16 @@ def _cuda_typed(*shapes_dtypes):
         return [torch.empty(s, dtype=d, device="cuda") for s, d in shapes_dtypes]
 
 
-@pytest.mark.parametrize("kernel", ["decode", "prefill"])
+def _fused_call(kernel):
+    """A fused wrapper and CUDA arguments it accepts (BERT-like shapes)."""
+    q, k, v, out, do = _cuda_typed(*[((2, 128, 4, 64), torch.bfloat16)] * 5)
+    seg, lse = _cuda_typed(((2, 128), torch.int32), ((2, 4, 128), torch.float32))
+    if kernel == "fused_fwd":
+        return fused.fused_attention_fwd, (q, k, v, seg, 0.125, False)
+    return fused.fused_attention_bwd, (q, k, v, seg, lse, out, do, 0.125, False)
+
+
+@pytest.mark.parametrize("kernel", ["decode", "prefill", "fused_fwd", "fused_bwd"])
 def test_wrappers_raise_on_cuda_tensors_without_a_kernel(kernel, monkeypatch, tmp_path):
     """No library and no compiler: the wrapper raises, its plain version is
     never called and its launch counter does not move."""
@@ -81,6 +123,15 @@ def test_wrappers_raise_on_cuda_tensors_without_a_kernel(kernel, monkeypatch, tm
     def plain(*a, **k):
         raise AssertionError("plain path taken for a CUDA tensor")
 
+    if kernel.startswith("fused"):
+        kind = kernel.split("_")[1]
+        monkeypatch.setattr(fused, f"fused_attention_{kind}_reference", plain)
+        wrapper, args = _fused_call(kernel)
+        before = wrapper.launches
+        with pytest.raises(RuntimeError, match="nvcc not found"):
+            wrapper(*args)
+        assert wrapper.launches == before
+        return
     monkeypatch.setattr(fa, f"paged_attention_{kernel}_plain", plain)
     S = 1 if kernel == "decode" else 8
     q, k, v, tables, index = _cuda_typed(
@@ -106,6 +157,24 @@ def test_wrappers_reject_what_the_kernels_do_not_take():
                           ((10, 16, 2, 64), torch.float16))
     with pytest.raises(TypeError, match="dtypes"):
         fa.paged_attention_decode(q, k, v, tables, lens)
+
+
+@pytest.mark.parametrize("q_shape,kv_shape,match", [
+    ((2, 96, 4, 64), (2, 96, 4, 64), "do not take"),      # S not a multiple of 128
+    ((2, 128, 4, 48), (2, 128, 4, 48), "do not take"),    # D not a multiple of 64
+    ((2, 1152, 2, 64), (2, 1152, 2, 64), "do not take"),  # S > 1024
+    ((2, 128, 6, 64), (2, 128, 4, 64), "do not take"),    # H not divisible by Hkv
+])
+def test_fused_wrappers_reject_what_the_kernels_do_not_take(q_shape, kv_shape, match):
+    q, k, v = _cuda_typed((q_shape, torch.bfloat16), (kv_shape, torch.bfloat16),
+                          (kv_shape, torch.bfloat16))
+    with pytest.raises(ValueError, match=match):
+        fused.fused_attention_fwd(q, k, v, None, 0.125, False)
+    with pytest.raises(ValueError, match="does not take"):
+        fused.fused_attention(q, k, v)
+    q16, k16, v16 = _cuda_typed(*[((2, 128, 4, 64), torch.float16)] * 3)
+    with pytest.raises(TypeError, match="one dtype"):
+        fused.fused_attention_fwd(q16, k16, v16, None, 0.125, False)
 
 
 def _fake_nvcc(tmp_path, body):
@@ -151,9 +220,14 @@ def test_build_raises_with_the_compiler_log(monkeypatch, tmp_path):
 
 
 def test_kernel_sources_name_what_they_replace():
+    import re
+
     for name in _build.KERNELS:
         text = (_build.CSRC / f"{name}.cu").read_text()
-        assert "Replaces: accelerate_tpu/ops/flash_attention.py" in text
+        replaced = re.search(r"Replaces: (accelerate_tpu/ops/\w+\.py) `(\w+)`", text)
+        assert replaced, name
+        source = REPO / replaced.group(1)
+        assert source.is_file() and f"def {replaced.group(2)}(" in source.read_text()
         assert "What bounds it" in text and "What the design does" in text
         for fn in _build.KERNELS[name]:
             assert f'extern "C" int {fn}(' in text

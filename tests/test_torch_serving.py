@@ -40,7 +40,7 @@ VOCAB = JCFG.vocab_size
 @pytest.fixture(scope="module")
 def params():
     jp = jt.init_llama(JCFG, jax.random.PRNGKey(0))
-    return jp, params_from_numpy(jax.tree_util.tree_map(np.asarray, jp))
+    return jp, params_from_numpy(jax.tree_util.tree_map(np.asarray, jp), device="cpu")
 
 
 def test_paged_forward_prefill_then_decode(params):
