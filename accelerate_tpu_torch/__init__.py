@@ -17,7 +17,13 @@ Ported so far:
   and ``prepare_train_loop`` (``accelerator``, ``optimizer``,
   ``data_loader``, ``state``), with the fused attention forward and
   backward kernels (``ops.fused_attention`` over
-  ``csrc/fused_attention_*.cu``).
+  ``csrc/fused_attention_*.cu``);
+- Llama training: ``llama_forward`` with ``attention_impl``, packed
+  ``segment_ids`` and per-segment positions, and ``llama_loss``
+  (``models.transformer``), ``utils.packing``, and the blocked flash
+  attention forward, dq and dk/dv kernels (``ops.flash_attention`` over
+  ``csrc/flash_*.cu``) behind ``flash_attention`` and
+  ``dot_product_attention(impl="flash")``.
 """
 
 from .accelerator import Accelerator
@@ -30,10 +36,12 @@ from .models.transformer import (
     init_bert,
     init_llama,
     llama_forward,
+    llama_loss,
 )
 from .serving.buckets import BucketLattice
 from .serving.engine import ServingEngine, paged_forward
 from .serving.scheduler import Request, RequestStatus
+from .ops.flash_attention import flash_attention  # after serving: the two import each other
 
 __all__ = [
     "Accelerator",
@@ -46,8 +54,10 @@ __all__ = [
     "ServingEngine",
     "bert_forward",
     "bert_loss",
+    "flash_attention",
     "init_bert",
     "init_llama",
     "llama_forward",
+    "llama_loss",
     "paged_forward",
 ]

@@ -8,7 +8,8 @@ JAX initializer load unchanged through :mod:`.convert`. Matmuls are
 ``x @ kernel`` with ``kernel`` stored ``[in, out]``, as in the reference.
 
 Only the dense SwiGLU FFN is ported; MoE configs and ``dtype_recipe="fp8"``
-raise ``NotImplementedError``.
+raise ``NotImplementedError``, as do ``llama_forward``'s ``remat`` and
+``attention_fn``.
 """
 
 from __future__ import annotations
@@ -33,8 +34,10 @@ __all__ = [
     "layer_norm",
     "llama_ffn",
     "llama_forward",
+    "llama_loss",
     "rms_norm",
     "rope_frequencies",
+    "segment_positions",
 ]
 
 
@@ -79,10 +82,12 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor,
 
 @dataclass(frozen=True)
 class LlamaConfig:
-    """Same fields and defaults as the JAX package's ``LlamaConfig``. The
-    fields that select JAX-only machinery (``unroll_layers``, ``attn_impl``)
-    are carried for parity and ignored; ``moe_experts > 0`` and
-    ``dtype_recipe="fp8"`` are not ported yet and raise at init."""
+    """Same fields and defaults as the JAX package's ``LlamaConfig``.
+    ``attn_impl`` picks :func:`llama_forward`'s attention implementation
+    (``"auto"`` is the einsum path, ``"flash"`` the blocked kernels);
+    ``unroll_layers`` selects JAX-only machinery and is carried for parity
+    and ignored; ``moe_experts > 0`` and ``dtype_recipe="fp8"`` are not
+    ported yet and raise at init."""
 
     vocab_size: int = 32000
     dim: int = 2048
@@ -193,28 +198,95 @@ def lm_logits(params: dict, h: torch.Tensor, config: LlamaConfig) -> torch.Tenso
     return h @ params["lm_head"]["kernel"]
 
 
-def llama_forward(params: dict, input_ids: torch.Tensor, config: LlamaConfig) -> torch.Tensor:
-    """Plain full-sequence causal forward: logits ``[B, S, vocab]``. No cache
-    and no kernel — the reference the cached serving path is held to."""
-    from ..generation import _masked_attention, _project_qkv
+def segment_positions(segment_ids: torch.Tensor) -> torch.Tensor:
+    """Per-segment RoPE positions of packed rows ``[B, S]``: each index minus
+    the index where its segment starts (a start is where the id differs
+    from the previous token's, and position 0)."""
+    S = segment_ids.shape[1]
+    seq_idx = torch.arange(S, device=segment_ids.device)[None, :]
+    is_start = torch.roll(segment_ids, 1, dims=1) != segment_ids
+    is_start[:, 0] = True
+    starts = torch.where(is_start, seq_idx, 0).cummax(dim=1).values
+    return seq_idx - starts
+
+
+def llama_forward(params: dict, input_ids: torch.Tensor, config: LlamaConfig,
+                  attention_impl: Optional[str] = None,
+                  segment_ids: Optional[torch.Tensor] = None,
+                  positions: Optional[torch.Tensor] = None,
+                  attention_fn=None, remat=False) -> torch.Tensor:
+    """Full-sequence causal forward: logits ``[B, S, vocab]``, no cache.
+
+    ``attention_impl`` (default ``config.attn_impl``) picks the
+    :func:`~accelerate_tpu_torch.ops.attention.dot_product_attention`
+    implementation: ``"auto"``/``"xla"`` is the plain einsum path the cached
+    serving path is held to, ``"flash"`` the blocked kernels. ``segment_ids``
+    packs documents into a row (``[B, S]``, 0 = padding): tokens attend only
+    within their segment, causally, and RoPE positions restart per segment
+    unless ``positions`` is given. ``attention_fn`` (context parallelism)
+    and ``remat`` are not ported and raise."""
+    from ..generation import _project_qkv
+    from ..ops.attention import dot_product_attention
 
     _check_supported(config)
+    if attention_fn is not None:
+        raise NotImplementedError("attention_fn (context/sequence parallelism) is not ported yet "
+                                  "(see ROADMAP.md)")
+    if remat:
+        raise NotImplementedError("remat policies are not ported yet (see ROADMAP.md)")
+    impl = config.attn_impl if attention_impl is None else attention_impl
     dev = input_ids.device
     cos, sin = (torch.from_numpy(t).to(dev) for t in
                 rope_frequencies(config.head_dim, config.max_seq_len, config.rope_theta))
     B, S = input_ids.shape
-    positions = torch.arange(S, device=dev)[None].expand(B, S)
-    causal = positions[0][None, :] <= positions[0][:, None]  # [S(q), S(kv)]
-    h = params["embed_tokens"]["embedding"][input_ids]
+    if positions is None:
+        positions = (segment_positions(segment_ids) if segment_ids is not None
+                     else torch.arange(S, device=dev)[None].expand(B, S))
+    positions = positions.long()
+    h = params["embed_tokens"]["embedding"][input_ids.long()]
+    # one unbind per stacked leaf: its backward is a single stack, where
+    # indexing each layer would scatter into a full-size zero tensor per layer
+    layers = {name: {k: t.unbind(0) for k, t in entry.items()}
+              for name, entry in params["layers"].items()}
     for i in range(config.n_layers):
-        layer = layer_params(params, i)
+        layer = {name: {k: t[i] for k, t in entry.items()} for name, entry in layers.items()}
         x = rms_norm(h, layer["attn_norm"]["scale"], config.norm_eps)
         q, k, v = _project_qkv(layer, x, positions, cos, sin, config)
-        attn = _masked_attention(q, k, v, causal[None, None])
+        attn = dot_product_attention(q, k, v, causal=True, segment_ids=segment_ids, impl=impl)
         h = h + attn.reshape(B, S, -1) @ layer["wo"]["kernel"]
         x = rms_norm(h, layer["mlp_norm"]["scale"], config.norm_eps)
         h = h + llama_ffn(layer, x, config)
     return lm_logits(params, h, config)
+
+
+def llama_loss(params: dict, batch: dict, config: LlamaConfig, **fwd_kwargs) -> torch.Tensor:
+    """Next-token cross entropy of :func:`llama_forward`, log-softmax in f32.
+    ``batch``: ``input_ids [B, S]``, optional ``segment_ids`` (or the
+    forward kwarg of that name) and ``loss_mask`` ``[B, S]``. Targets come
+    from rolling the ids left by one; the last position, segment
+    boundaries, padding (id 0) and masked positions do not count."""
+    if config.moe_experts > 0:
+        raise NotImplementedError("MoE layers are not ported yet (see ROADMAP.md)")
+    ids = batch["input_ids"].long()
+    seq_len = ids.shape[1]
+    segment_ids = batch.get("segment_ids")
+    if segment_ids is None:
+        segment_ids = fwd_kwargs.get("segment_ids")
+    elif "segment_ids" not in fwd_kwargs:
+        fwd_kwargs = {**fwd_kwargs, "segment_ids": segment_ids}
+    logits = llama_forward(params, ids, config, **fwd_kwargs)
+    targets = torch.roll(ids, -1, dims=1)
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    nll = -logp.gather(-1, targets[..., None])[..., 0]  # [B, S]
+    # position S-1 has no next token; its rolled target is position 0
+    valid = (torch.arange(seq_len, device=ids.device) < seq_len - 1).float()[None].expand_as(nll)
+    if segment_ids is not None:
+        same_seg = torch.roll(segment_ids, -1, dims=1) == segment_ids
+        valid = valid * same_seg.float() * (segment_ids > 0).float()
+    mask = batch.get("loss_mask")
+    if mask is not None:
+        valid = valid * torch.roll(mask, -1, dims=1).float()
+    return (nll * valid).sum() / valid.sum().clamp(min=1.0)
 
 
 @dataclass(frozen=True)

@@ -56,6 +56,20 @@ KERNELS = {
         # B, S, H, Hkv, D, dtype, causal, scale, stream
         "fused_attention_bwd_launch": [_P] * 11 + [_I] * 7 + [_F, _P],
     },
+    # the flash launchers end with B, S, H, Hkv, D, dtype, causal, window,
+    # block_q, block_kv, scale, stream
+    "flash_fwd": {
+        # q, k, v, seg (or null), ids, counts, out, lse
+        "flash_fwd_launch": [_P] * 8 + [_I] * 10 + [_F, _P],
+    },
+    "flash_dq": {
+        # q, k, v, seg (or null), lse, delta, dout, ids, counts, dq
+        "flash_dq_launch": [_P] * 10 + [_I] * 10 + [_F, _P],
+    },
+    "flash_dkdv": {
+        # q, k, v, seg (or null), lse, delta, dout, idsT, countsT, dk, dv
+        "flash_dkdv_launch": [_P] * 11 + [_I] * 10 + [_F, _P],
+    },
 }
 
 _LIBS: "dict[str, ctypes.CDLL]" = {}

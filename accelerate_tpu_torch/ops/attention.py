@@ -8,10 +8,11 @@ Layouts: ``q [B, Sq, H, D]``, ``k, v [B, Skv, Hkv, D]`` (BSHD); GQA when
   masked with ``finfo(f32).min``, softmax in f32, the value product in the
   input dtype;
 - ``"fused"`` — the single-pass kernels of :mod:`.fused_attention`;
+- ``"flash"`` — the blocked streaming kernels of
+  :func:`.flash_attention.flash_attention` (causal, window, segment ids);
 - ``"auto"`` — the einsum path. The JAX package picks its flash kernel past
   a crossover table measured on a TPU (``ATTN_CROSSOVER_S``); that table
-  says nothing about this card and is not carried over;
-- ``"flash"`` — not ported yet (ROADMAP.md Queue B, items 1-3).
+  says nothing about this card and is not carried over.
 """
 
 from __future__ import annotations
@@ -57,20 +58,21 @@ def dot_product_attention(
         raise ValueError("window requires causal=True (the sliding window is a causal band)")
     if impl == "auto":
         impl = "xla"
-    if impl == "flash":
-        raise NotImplementedError(
-            "impl='flash' is not ported yet (ROADMAP.md Queue B, items 1-3); use 'xla' or 'fused'"
+    if impl in ("flash", "fused") and mask is not None:
+        raise ValueError(
+            f"impl={impl!r} does not support an arbitrary mask (causal and segment_ids only); "
+            "use impl='xla', or express padding/packing as segment_ids"
         )
+    if impl == "flash":
+        from .flash_attention import flash_attention
+
+        return flash_attention(q, k, v, causal=causal, scale=scale, segment_ids=segment_ids,
+                               window=window)
     if impl == "fused":
-        if mask is not None:
-            raise ValueError(
-                "impl='fused' does not support an arbitrary mask (causal and segment_ids only); "
-                "use impl='xla', or express padding/packing as segment_ids"
-            )
         if window is not None:
             raise ValueError(
                 "impl='fused' does not support window (the short-S single-pass kernel has no "
-                "band masking); use impl='xla'"
+                "band masking); use impl='flash' or 'xla'"
             )
         from .fused_attention import fused_attention
 

@@ -88,6 +88,24 @@ FUSED_CASES = {  # name: (B, S, H, Hkv, D, causal, padded)
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_K, TRAIN_CALLS = 32, 128, 10, 2
 ENGINE_KW = dict(num_blocks=160, block_size=16, max_slots=8, max_blocks_per_seq=32,
                  max_prefill_len=256)
+# Flash kernels (#1-#3) against their plain versions: held to FUSED_RTOL for
+# the same reasons (f32: another summation order; bf16: p and ds rounded at
+# the same points against the same running max — the kernel rescales at the
+# lattice's kv-block boundaries, as the plain version does).
+FLASH_CASES = {  # name: (B, S, H, Hkv, D, window, packed); all causal
+    "llama_long": (1, 8192, 16, 8, 64, None, False),  # the training slice's shape
+    "packed": (4, 2048, 16, 8, 64, None, True),
+    "window": (2, 4096, 16, 8, 64, 1024, False),
+    "gqa_d128": (2, 2048, 8, 2, 128, None, False),
+}
+# The long-context Llama of the JAX package's run_bench_longcontext
+# (bench.py:936-938) at full width and depth, batch 1 x S=8192.
+LLAMA_KW = dict(vocab_size=32000, dim=1024, n_layers=16, n_heads=16, n_kv_heads=8,
+                max_seq_len=8192, attn_impl="flash")
+LLAMA_LR, LLAMA_K, LLAMA_CALLS = 1e-4, 2, 2
+# kernels-vs-plain training check: the same width at 2 layers, a packed
+# batch of 2 rows x 2048 tokens, 3 f32 AdamW steps
+LLAMA_CHECK_LAYERS, LLAMA_CHECK_SEQ, LLAMA_CHECK_BATCH = 2, 2048, 2
 
 
 class SmokeFailure(RuntimeError):
@@ -99,18 +117,31 @@ def check(cond: bool, msg: str) -> None:
         raise SmokeFailure(msg)
 
 
-def time_ms(fn, n_copies: int, iters: int) -> float:
+def time_ms(fn, n_copies: int, iters: int, behind_sleep: bool = True) -> float:
     """Device ms per call over ``iters`` calls cycling through ``n_copies``
     input copies (together larger than the 50 MB L2, so each call finds
     its inputs cold, as a layer of the model does), by CUDA events.
 
     The calls are queued behind a device-side sleep that outlasts the host's
     time to queue them, so the events time the device's work and not the
-    Python cost of each call; a sleep that proves too short is doubled."""
+    Python cost of each call; a sleep that proves too short is doubled. A
+    function that queues more launches than the device's launch queue holds
+    (the blocked plain flash versions queue thousands) would block the host
+    on the full queue behind the sleep: ``behind_sleep=False`` times it
+    between two events with no sleep, so a host slower than the device
+    would show in its time."""
     t0 = time.perf_counter()
     for i in range(n_copies):
         fn(i)
     torch.cuda.synchronize()
+    if not behind_sleep:
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        for it in range(iters):
+            fn(it % n_copies)
+        ev[1].record()
+        torch.cuda.synchronize()
+        return ev[0].elapsed_time(ev[1]) / iters
     host_s = (time.perf_counter() - t0) / n_copies * iters
     cycles = int(2e9 * 1.5 * host_s) + 1_000_000
     for _ in range(6):
@@ -562,8 +593,6 @@ def phase_train(dev):
     """The training main path in bf16: one warm call of the K-step loop,
     then TRAIN_CALLS timed calls with the fused counters zeroed before and
     read after; then ``torch.profiler`` over one step."""
-    from torch.profiler import ProfilerActivity, profile
-
     from accelerate_tpu_torch.ops import fused_attention as fa
     from accelerate_tpu_torch.utils.operations import stack_batches
 
@@ -598,20 +627,25 @@ def phase_train(dev):
     print(f"[train] loss over {len(losses)} steps: "
           + " ".join(f"{x:.4f}" for x in losses.tolist()))
     print(f"[train] launches on the main path ({steps} steps): {launches}")
+    _profile_step(loop, params, state, stack_batches([batches[0]]), "train-profile", 5)
+    return launches
 
-    # where one step's time goes: device events of one profiled step over
-    # the host wall of the same step run without the profiler
-    one = stack_batches([batches[0]])
+
+def _profile_step(loop, params, state, one, tag, n_plain):
+    """Where one step's time goes: device events of one profiled step
+    (``one`` is a K=1 batch) over the median host wall of ``n_plain`` steps
+    run without the profiler (whose host cost inflates the wall it
+    watches). Updates ``params``/``state`` in place, as every step does."""
+    from torch.profiler import ProfilerActivity, profile
 
     def one_step():
-        nonlocal params, state
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        params, state, _ = loop(params, state, one)
+        loop(params, state, one)
         torch.cuda.synchronize()
         return (time.perf_counter() - t0) * 1e6
 
-    plain_us = float(np.median([one_step() for _ in range(5)]))
+    plain_us = float(np.median([one_step() for _ in range(n_plain)]))
     prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
     prof.start()
     prof_us = one_step()
@@ -624,16 +658,15 @@ def phase_train(dev):
             if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0
             and e.key not in host_keys]
     if not rows:
-        print("[train-profile] the profiler recorded no device time: busy share not measured")
-        return launches
+        print(f"[{tag}] the profiler recorded no device time: busy share not measured")
+        return
     device_us = sum(r[1] for r in rows)
-    print(f"[train-profile] one step: wall {plain_us / 1e3:.3f} ms ({prof_us / 1e3:.3f} under "
+    print(f"[{tag}] one step: wall {plain_us / 1e3:.3f} ms ({prof_us / 1e3:.3f} under "
           f"the profiler), device {device_us / 1e3:.3f} ms in {sum(r[2] for r in rows)} device "
           f"events, busy share {device_us / plain_us:.3f}")
     for key, us, count in sorted(rows, key=lambda r: -r[1])[:10]:
-        print(f"[train-profile]   {us / 1e3:8.4f} ms  {us / device_us:6.1%}  {count:5d} calls  "
+        print(f"[{tag}]   {us / 1e3:8.4f} ms  {us / device_us:6.1%}  {count:5d} calls  "
               f"{key[:80]}")
-    return launches
 
 
 def phase_train_check(dev):
@@ -696,6 +729,337 @@ def phase_train_check(dev):
     check(bias_err <= 3 * TRAIN_LR, f"{zero_grad}: kernels vs plain {bias_err} > 3 lr")
 
 
+def _packed_segments(rng, rows, seq):
+    """Segment ids of ``rows`` rows packed by the port's ``pack_sequences``
+    from documents of seeded lengths (seq/16 .. seq/2 tokens)."""
+    from accelerate_tpu_torch.utils.packing import pack_sequences
+
+    docs = [np.ones(n, np.int32) for n in rng.integers(seq // 16, seq // 2, 8 * rows)]
+    ids, seg = pack_sequences(docs, seq)
+    check(ids.shape[0] >= rows, f"packing gave {ids.shape[0]} rows, want {rows}")
+    return seg[:rows]
+
+
+def _flash_inputs(name, dtype, dev, seed):
+    """q, k, v, dO of one flash case from a seed; segment ids [B, S] int32
+    (packed documents, or all zeros), the config and the lattice."""
+    from accelerate_tpu_torch.ops import flash_attention as fa
+
+    B, S, H, Hkv, D, window, packed = FLASH_CASES[name]
+    rng = np.random.default_rng(seed)
+
+    def t(*shape):
+        return torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(dev, dtype)
+
+    q, k, v, do = t(B, S, H, D), t(B, S, Hkv, D), t(B, S, Hkv, D), t(B, S, H, D)
+    seg = (torch.from_numpy(_packed_segments(rng, B, S)) if packed
+           else torch.zeros(B, S, dtype=torch.int32)).to(dev)
+    cfg = fa._FlashConfig(scale=1.0 / math.sqrt(D), causal=True, window=window, block_q=128,
+                          block_kv=128, h=H, hkv=Hkv, use_seg=packed)
+    return q, k, v, do, seg, cfg, fa._block_lattice(seg, cfg)
+
+
+def _attended_pairs(seg, cfg):
+    """(query, key) pairs the mask allows, counted on the card in row chunks."""
+    B, S = seg.shape
+    kpos = torch.arange(S, device=seg.device)
+    pairs = 0
+    for r0 in range(0, S, 1024):
+        qpos = kpos[r0 : r0 + 1024, None]
+        allow = (kpos[None] <= qpos)[None]
+        if cfg.window is not None:
+            allow = allow & (qpos - kpos[None] < cfg.window)
+        if cfg.use_seg:
+            allow = allow & (seg[:, r0 : r0 + 1024, None] == seg[:, None, :])
+        pairs += int(allow.expand(B, -1, -1).sum())
+    return pairs
+
+
+def _flash_bound(name, dtype, pairs, kind):
+    """Least time for one call: bytes (each input read once, each output
+    written once) over HBM rate vs the products' flops on the attended
+    pairs over the type's peak. fwd: q, k, v in, o and lse out, 2 products
+    (4·D flops a pair and head). dq: q, k, v, dO, lse, δ in, dq out, 3
+    products (QKᵀ, dO Vᵀ, dS K: 6·D). dk/dv: the same inputs, dk and dv out,
+    4 products (QKᵀ, dO Vᵀ, Pᵀ dO, dSᵀ Q: 8·D)."""
+    B, S, H, Hkv, D, _, packed = FLASH_CASES[name]
+    elt = torch.tensor([], dtype=dtype).element_size()
+    n_q, n_kv, rows = B * S * H * D, B * S * Hkv * D, B * H * S
+    seg_bytes = 4 * B * S if packed else 0
+    nbytes, mult = {
+        "fwd": ((2 * n_q + 2 * n_kv) * elt + 4 * rows, 4),
+        "dq": ((3 * n_q + 2 * n_kv) * elt + 8 * rows, 6),
+        "dkdv": ((2 * n_q + 4 * n_kv) * elt + 8 * rows, 8),
+    }[kind]
+    flops = mult * D * H * pairs
+    t_bytes = (nbytes + seg_bytes) / HBM_BYTES_PER_S
+    t_ops = flops / PEAK_OPS_PER_S[dtype]
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def _poison_check(dev):
+    """Block skipping on the card: NaN in K/V block 0 of the window case,
+    which the lattice never walks for q blocks >= 9 (128-row blocks, window
+    1024), must leave those rows of the output and of dq bitwise unchanged."""
+    from accelerate_tpu_torch.ops import flash_attention as fa
+
+    q, k, v, do, seg, cfg, (ids, counts, _, _) = _flash_inputs("window", torch.bfloat16, dev, 99)
+    first = 9 * cfg.block_q
+    check(bool((ids[:, 9:, 0] > 0).all()) and int(ids[:, 8, 0].max()) == 0,
+          "window lattice: q block 9 should be the first to skip kv block 0")
+
+    def run(kk, vv):
+        out, lse = fa.flash_attention_fwd(q, kk, vv, seg, ids, counts, cfg)
+        delta = (do.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+        return out, fa.flash_attention_dq(q, kk, vv, seg, lse, delta, do, ids, counts, cfg)
+
+    out, dq = run(k, v)
+    kbad, vbad = k.clone(), v.clone()
+    kbad[:, : cfg.block_kv] = float("nan")
+    vbad[:, : cfg.block_kv] = float("nan")
+    out_bad, dq_bad = run(kbad, vbad)
+    torch.cuda.synchronize()
+    check(torch.equal(out[:, first:], out_bad[:, first:]) and
+          torch.equal(dq[:, first:], dq_bad[:, first:]),
+          "NaN in a skipped K/V block changed rows that never attend it")
+    check(bool(torch.isnan(out_bad[:, :first].float()).any()),
+          "NaN in K/V block 0 reached no row that attends it: the check sees nothing")
+    print(f"[flash] NaN-poisoned K/V block 0 (window {cfg.window}): rows >= {first} of the "
+          f"output and dq bitwise unchanged, rows that attend it are NaN")
+
+
+def phase_flash_kernels(dev):
+    """Kernels #1-#3 against their plain versions (out, lse; dq; dk, dv) at
+    the four FLASH_CASES, with kernel, plain, bound and SDPA times. The
+    yardstick for #1 is one ``scaled_dot_product_attention`` call (causal,
+    with the band or the segment mask as a boolean mask where there is
+    one, ``enable_gqa``); for #2 and #3, ``torch.autograd.grad`` through
+    it less the call itself — the library's one backward call computes dq,
+    dk and dv, so the same number stands beside both kernels."""
+    from accelerate_tpu_torch.ops import flash_attention as fa
+
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    _poison_check(dev)
+    results = {}
+    for name in FLASH_CASES:
+        B, S, H, Hkv, D, window, packed = FLASH_CASES[name]
+        for dtype in (torch.bfloat16, torch.float32):
+            q, k, v, do, seg, cfg, (ids, counts, idsT, countsT) = _flash_inputs(
+                name, dtype, dev, seed=len(results))
+            out, lse = fa.flash_attention_fwd(q, k, v, seg, ids, counts, cfg)
+            delta = (do.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+            dq = fa.flash_attention_dq(q, k, v, seg, lse, delta, do, ids, counts, cfg)
+            dk, dv = fa.flash_attention_dkdv(q, k, v, seg, lse, delta, do, idsT, countsT, cfg)
+            torch.cuda.synchronize()
+            ref_out, ref_lse = fa.flash_attention_fwd_reference(q, k, v, seg, ids, counts, cfg)
+            ref_dq = fa.flash_attention_dq_reference(q, k, v, seg, lse, delta, do, ids, counts,
+                                                     cfg)
+            ref_dk, ref_dv = fa.flash_attention_dkdv_reference(q, k, v, seg, lse, delta, do,
+                                                               idsT, countsT, cfg)
+            errs = {"fwd": _errs([(out, ref_out), (lse, ref_lse)]), "dq": _errs([(dq, ref_dq)]),
+                    "dkdv": _errs([(dk, ref_dk), (dv, ref_dv)])}
+            for x in (out, lse, dq, dk, dv):
+                check(bool(torch.isfinite(x.float()).all()), f"flash {name} {dtype}: non-finite")
+            for kind, (_, rel) in errs.items():
+                check(rel <= FUSED_RTOL[dtype],
+                      f"flash {kind} {name} {dtype}: rel err {rel} > {FUSED_RTOL[dtype]}")
+            del ref_out, ref_lse, ref_dq, ref_dk, ref_dv
+
+            # copies of the inputs, together past the 50 MB L2
+            per_copy = 4 * q.numel() * q.element_size()
+            n = max(2, math.ceil(128e6 / per_copy))
+            copies = [tuple(x.clone() for x in (q, k, v, do)) for _ in range(n)]
+            saved = []
+            for c in copies:
+                o, s = fa.flash_attention_fwd(*c[:3], seg, ids, counts, cfg)
+                saved.append((s, (c[3].float() * o.float()).sum(-1).transpose(1, 2).contiguous()))
+            mask = None
+            if packed or window is not None:
+                rows = torch.arange(S, device=dev)
+                mask = (rows[None, :] <= rows[:, None])[None, None]
+                if window is not None:
+                    mask = mask & (rows[:, None] - rows[None, :] < window)
+                if packed:
+                    mask = mask & (seg[:, :, None] == seg[:, None, :])[:, None]
+            leaves = [tuple(x.transpose(1, 2).detach().requires_grad_(True) for x in c[:3])
+                      for c in copies]
+            dos = [c[3].transpose(1, 2) for c in copies]
+
+            def library_fwd(i):
+                return sdpa(*leaves[i], attn_mask=mask, is_causal=mask is None, enable_gqa=True)
+
+            def library_fwd_bwd(i):
+                return torch.autograd.grad(library_fwd(i), leaves[i], dos[i])
+
+            def lat_args(i):
+                return (*copies[i][:3], seg, saved[i][0], saved[i][1], copies[i][3])
+
+            fns = {
+                "fwd": {"ms": lambda i: fa.flash_attention_fwd(*copies[i][:3], seg, ids, counts, cfg),
+                        "plain_ms": lambda i: fa.flash_attention_fwd_reference(
+                            *copies[i][:3], seg, ids, counts, cfg),
+                        "library_ms": library_fwd},
+                "dq": {"ms": lambda i: fa.flash_attention_dq(*lat_args(i), ids, counts, cfg),
+                       "plain_ms": lambda i: fa.flash_attention_dq_reference(
+                           *lat_args(i), ids, counts, cfg)},
+                "dkdv": {"ms": lambda i: fa.flash_attention_dkdv(*lat_args(i), idsT, countsT, cfg),
+                         "plain_ms": lambda i: fa.flash_attention_dkdv_reference(
+                             *lat_args(i), idsT, countsT, cfg)},
+            }
+            iters = 4
+            pairs = _attended_pairs(seg, cfg)
+            lib_fwd_bwd = time_ms(library_fwd_bwd, n, iters)
+            for kind, kind_fns in fns.items():
+                rec = {key: time_ms(fn, n, iters, behind_sleep=key != "plain_ms")
+                       for key, fn in kind_fns.items()}
+                rec["max_abs_err"], rec["rel_err"] = errs[kind]
+                rec["bound_ms"], rec["bound_by"] = _flash_bound(name, dtype, pairs, kind)
+                results[(name, kind, dtype)] = rec
+            lib_bwd = lib_fwd_bwd - results[(name, "fwd", dtype)]["library_ms"]
+            results[(name, "dq", dtype)]["library_ms"] = lib_bwd
+            results[(name, "dkdv", dtype)]["library_ms"] = lib_bwd
+            for kind in fns:
+                rec = results[(name, kind, dtype)]
+                print(f"[flash] {kind:4s} {name:10s} {str(dtype):15s} err {rec['max_abs_err']:.3e} "
+                      f"(rel {rec['rel_err']:.3e}, tol {FUSED_RTOL[dtype]:.1e}) kernel "
+                      f"{rec['ms']:.4f} ms plain {rec['plain_ms']:.4f} ms sdpa "
+                      f"{rec['library_ms']:.4f} ms bound {rec['bound_ms']:.5f} ms "
+                      f"({rec['bound_by']}); {pairs} pairs, lattice {int(counts.sum())} of "
+                      f"{counts.numel() * ids.shape[-1]} blocks")
+            del copies, saved, leaves, dos, mask
+    return results
+
+
+FLASH_KERNELS = ("flash_attention_fwd", "flash_attention_dq", "flash_attention_dkdv")
+
+
+def _llama_setup(dev, precision, config, lr):
+    """``config`` through ``Accelerator.prepare``: random f32 master
+    weights from seed 0, ``adamw(lr)``. Returns the prepared params,
+    optimizer and loop."""
+    from accelerate_tpu_torch import Accelerator, init_llama, llama_loss
+    from accelerate_tpu_torch.optimizer import adamw
+
+    _reset_states()
+    acc = Accelerator(mixed_precision=precision, rng_seed=0)
+    params = init_llama(config, torch.Generator(device=dev).manual_seed(0), device=dev)
+    params, opt = acc.prepare(params, adamw(lr))
+    loop = acc.prepare_train_loop(lambda p, b: llama_loss(p, b, config), opt)
+    return params, opt, loop
+
+
+def phase_llama_train(dev):
+    """The Llama training main path at full width and depth in bf16: one
+    warm call of the K-step loop, then LLAMA_CALLS timed calls with the
+    flash counters zeroed before and read after (16 launches of each kernel
+    a step); then ``torch.profiler`` over one step."""
+    from accelerate_tpu_torch import LlamaConfig
+    from accelerate_tpu_torch.ops import flash_attention as fa
+
+    config = LlamaConfig(**LLAMA_KW)
+    S = config.max_seq_len
+    ids = np.random.default_rng(0).integers(0, config.vocab_size, (LLAMA_K, 1, S))
+    batches = {"input_ids": torch.from_numpy(ids.astype(np.int32)).to(dev)}
+    params, opt, loop = _llama_setup(dev, "bf16", config, LLAMA_LR)
+    n_params = sum(t.numel() for v in params.values() for e in v.values()
+                   for t in (e.values() if isinstance(e, dict) else [e]))
+    state = opt.opt_state
+    params, state, m = loop(params, state, batches)
+    losses = [m["loss"]]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for kern in FLASH_KERNELS:
+        getattr(fa, kern).launches = 0
+    t0 = time.perf_counter()
+    for _ in range(LLAMA_CALLS):
+        params, state, m = loop(params, state, batches)
+        losses.append(m["loss"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {kern: getattr(fa, kern).launches for kern in FLASH_KERNELS}
+    peak = torch.cuda.max_memory_allocated()
+    steps = LLAMA_CALLS * LLAMA_K
+    losses = torch.cat(losses).cpu()
+    check(bool(torch.isfinite(losses).all()), f"non-finite Llama loss: {losses.tolist()}")
+    for name, count in launches.items():
+        check(count == config.n_layers * steps,
+              f"{name}: {count} launches in {steps} steps, want {config.n_layers} a step")
+    print(f"[llama] {n_params / 1e6:.1f} M params, dim {config.dim}, {config.n_layers} layers, "
+          f"{config.n_heads}/{config.n_kv_heads} heads, ffn {config.hidden_dim}; bf16 compute / "
+          f"f32 masters, batch 1 x seq {S}, attn_impl=flash, adamw({LLAMA_LR:g}), no remat")
+    print(f"[llama] {steps} timed steps in {wall:.3f} s: {wall / steps * 1e3:.1f} ms/step, "
+          f"{steps * S / wall:.1f} tokens/s; peak memory {peak / 2**30:.2f} GiB")
+    print(f"[llama] loss over {len(losses)} steps: " + " ".join(f"{x:.4f}" for x in losses.tolist()))
+    print(f"[llama] launches on the main path ({steps} steps): {launches}")
+    one = {"input_ids": batches["input_ids"][:1]}
+    _profile_step(loop, params, state, one, "llama-profile", 2)
+    return launches
+
+
+def phase_llama_train_check(dev):
+    """3 f32 steps of the same width at LLAMA_CHECK_LAYERS layers on packed
+    rows, once through the flash kernels and once through their plain
+    versions on the card: per-step losses and every param leaf's 3-step
+    update compared."""
+    from accelerate_tpu_torch import LlamaConfig
+    from accelerate_tpu_torch.ops import flash_attention as fa
+
+    config = LlamaConfig(**{**LLAMA_KW, "n_layers": LLAMA_CHECK_LAYERS,
+                            "max_seq_len": LLAMA_CHECK_SEQ})
+    rng = np.random.default_rng(1)
+    shape = (3, LLAMA_CHECK_BATCH, LLAMA_CHECK_SEQ)
+    seg = np.stack([_packed_segments(rng, LLAMA_CHECK_BATCH, LLAMA_CHECK_SEQ) for _ in range(3)])
+    ids = np.where(seg > 0, rng.integers(1, config.vocab_size, shape), 0)
+    batches = {"input_ids": torch.from_numpy(ids.astype(np.int32)).to(dev),
+               "segment_ids": torch.from_numpy(seg).to(dev)}
+
+    def named(tree, prefix=""):
+        for key, v in tree.items():
+            if isinstance(v, dict):
+                yield from named(v, f"{prefix}{key}/")
+            else:
+                yield f"{prefix}{key}", v.detach()
+
+    def run(plain):
+        params, opt, loop = _llama_setup(dev, "no", config, LLAMA_LR)
+        init = {name: t.clone() for name, t in named(params)}
+        kernels = [getattr(fa, kern) for kern in FLASH_KERNELS]
+        before = [kern.launches for kern in kernels]
+        if plain:
+            for kern in FLASH_KERNELS:
+                setattr(fa, kern, getattr(fa, f"{kern}_reference"))
+        try:
+            params, _, m = loop(params, opt.opt_state, batches)
+            torch.cuda.synchronize()
+        finally:
+            for kern, fn in zip(FLASH_KERNELS, kernels):
+                setattr(fa, kern, fn)
+        launched = [kern.launches - b for kern, b in zip(kernels, before)]
+        want = [0] * 3 if plain else [3 * config.n_layers] * 3
+        check(launched == want, f"Llama f32 check ({'plain' if plain else 'kernels'}): flash "
+                                f"launches {launched}, want {want}")
+        return m["loss"].cpu(), {name: t - init[name] for name, t in named(params)}
+
+    k_loss, k_upd = run(plain=False)
+    p_loss, p_upd = run(plain=True)
+    check(bool(torch.isfinite(k_loss).all() and torch.isfinite(p_loss).all()),
+          "non-finite Llama f32 loss")
+    loss_err = float(((k_loss - p_loss).abs() / p_loss.abs()).max())
+    upd_err = {name: float(torch.linalg.vector_norm(a - p_upd[name])
+                           / torch.linalg.vector_norm(p_upd[name]))
+               for name, a in k_upd.items()}
+    worst = max(upd_err, key=upd_err.get)
+    print(f"[llama-check] {LLAMA_CHECK_LAYERS} layers, {LLAMA_CHECK_BATCH} packed rows x "
+          f"{LLAMA_CHECK_SEQ} ({int(seg.max())} documents in a row at most), f32, 3 steps, "
+          f"kernels vs plain attention: losses {' '.join(f'{x:.6f}' for x in k_loss.tolist())} vs "
+          f"{' '.join(f'{x:.6f}' for x in p_loss.tolist())}; max rel err loss {loss_err:.3e} "
+          f"(tol {TRAIN_RTOL:.0e}); updates: largest rel L2 err {upd_err[worst]:.3e} ({worst}; "
+          f"tol {TRAIN_UPDATE_RTOL:.0e})")
+    check(loss_err <= TRAIN_RTOL, f"Llama f32 losses: kernels vs plain rel err {loss_err}")
+    check(upd_err[worst] <= TRAIN_UPDATE_RTOL,
+          f"Llama f32 3-step update of {worst}: kernels vs plain rel L2 err {upd_err[worst]}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -736,8 +1100,11 @@ def main() -> int:
     del params
     train_launches = phase_train(dev)
     phase_train_check(dev)
+    flash_results = phase_flash_kernels(dev)
+    llama_launches = phase_llama_train(dev)
+    phase_llama_train_check(dev)
 
-    keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    keys =("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     records = []
     for name, kind, source, replaces in (
         ("paged_attention_decode", "decode", "accelerate_tpu_torch/csrc/paged_decode.cu",
@@ -756,6 +1123,16 @@ def main() -> int:
         records.append({"name": name, "route": "cuda",
                         "source": f"accelerate_tpu_torch/csrc/{name}.cu", "replaces": replaces,
                         "launches": train_launches[name], **{k: rec[k] for k in keys}})
+    for name, kind, source, line in (
+        ("flash_attention_fwd", "fwd", "flash_fwd", 166),
+        ("flash_attention_dq", "dq", "flash_dq", 232),
+        ("flash_attention_dkdv", "dkdv", "flash_dkdv", 281),
+    ):
+        rec = flash_results[("llama_long", kind, torch.bfloat16)]
+        records.append({"name": name, "route": "cuda",
+                        "source": f"accelerate_tpu_torch/csrc/{source}.cu",
+                        "replaces": f"accelerate_tpu/ops/flash_attention.py:{line}",
+                        "launches": llama_launches[name], **{k: rec[k] for k in keys}})
     print(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(card)
     print(json.dumps({"kernels": records}))

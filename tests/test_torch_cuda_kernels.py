@@ -1,6 +1,6 @@
-"""The CUDA kernels (paged attention, fused attention forward and backward)
-against their plain PyTorch versions, on the card (marker ``cuda``; skipped
-where no GPU is present).
+"""The CUDA kernels (paged attention, fused attention forward and backward,
+flash attention forward, dq and dk/dv) against their plain PyTorch
+versions, on the card (marker ``cuda``; skipped where no GPU is present).
 
 This file imports no JAX, so on a machine with a GPU and no JAX it runs
 alone: ``python -m pytest --noconftest -p no:cacheprovider -m cuda
@@ -9,7 +9,8 @@ tests/test_torch_cuda_kernels.py``.
 Tolerances (paged): f32 at atol 1e-5 (same f32 arithmetic, another
 summation order); bf16 outputs at atol 2**-7, one bf16 rounding step of
 outputs below 2 in magnitude (both sides accumulate in f32 and round
-once). The fused kernels' tolerances are stated beside their tests.
+once). The fused and flash kernels' tolerances are stated beside their
+tests.
 """
 
 import numpy as np
@@ -159,3 +160,119 @@ def test_fused_autograd_matches_plain_autograd(dev, causal, padded, Hkv):
     assert _close(out, ref_out, torch.float32)
     for got, want in zip(grads, ref_grads):
         assert _close(got, want, torch.float32)
+
+
+# Flash attention (kernels #1-#3). Same tolerances as the fused kernels and
+# for the same reasons: f32 within 1e-5 of the largest magnitude (another
+# summation order); bf16 within 2**-6 of it (both sides round p and ds to
+# bf16 at the same points, against the same running max — the kernel
+# rescales at the lattice's kv-block boundaries as the plain version does —
+# so a value on the other side of a rounding boundary moves by one step).
+FLASH_CASES = [
+    # B, S, H, Hkv, D, causal, window, packed, block_q, block_kv
+    (2, 512, 4, 2, 64, True, None, False, 128, 128),     # causal GQA
+    (2, 512, 4, 4, 64, True, 96, False, 128, 128),       # sliding window
+    (2, 512, 4, 2, 64, True, None, True, 128, 128),      # packed documents
+    (1, 512, 4, 2, 64, False, None, True, 64, 128),      # packed, not causal, rectangular
+    (2, 256, 8, 2, 128, True, None, False, 128, 128),    # GQA at D=128
+    (1, 512, 8, 1, 128, True, 200, True, 128, 256),      # everything at D=128
+    (1, 256, 2, 2, 256, True, None, False, 128, 128),    # D=256
+]
+
+
+def _flash_case(seed, B, S, H, Hkv, D, packed, dev, dtype):
+    from accelerate_tpu_torch.utils.packing import pack_sequences
+
+    rng = np.random.default_rng(seed)
+
+    def t(*shape):
+        return torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(dev, dtype)
+
+    seg = None
+    if packed:
+        docs = [np.ones(n, np.int32) for n in rng.integers(S // 8, S // 2, 4 * B)]
+        _, seg_np = pack_sequences(docs, S)
+        seg = torch.from_numpy(seg_np[:B]).to(dev)
+    return t(B, S, H, D), t(B, S, Hkv, D), t(B, S, Hkv, D), seg, t(B, S, H, D)
+
+
+def _flash_cfg(q, k, causal, window, seg, block_q, block_kv):
+    return fa._FlashConfig(scale=1.0 / np.sqrt(q.shape[3]), causal=causal, window=window,
+                           block_q=block_q, block_kv=block_kv, h=q.shape[2], hkv=k.shape[2],
+                           use_seg=seg is not None)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,H,Hkv,D,causal,window,packed,block_q,block_kv", FLASH_CASES)
+def test_flash_kernels_match_plain(dev, dtype, B, S, H, Hkv, D, causal, window, packed, block_q,
+                                   block_kv):
+    q, k, v, seg, do = _flash_case(4, B, S, H, Hkv, D, packed, dev, dtype)
+    cfg = _flash_cfg(q, k, causal, window, seg, block_q, block_kv)
+    seg_t = seg if seg is not None else torch.zeros(B, S, dtype=torch.int32, device=dev)
+    ids, counts, idsT, countsT = fa._block_lattice(seg_t, cfg)
+    kernels = (fa.flash_attention_fwd, fa.flash_attention_dq, fa.flash_attention_dkdv)
+    before = [kern.launches for kern in kernels]
+    out, lse = fa.flash_attention_fwd(q, k, v, seg_t, ids, counts, cfg)
+    delta = (do.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+    dq = fa.flash_attention_dq(q, k, v, seg_t, lse, delta, do, ids, counts, cfg)
+    dk, dv = fa.flash_attention_dkdv(q, k, v, seg_t, lse, delta, do, idsT, countsT, cfg)
+    torch.cuda.synchronize()
+    assert [kern.launches for kern in kernels] == [n + 1 for n in before]
+    ref_out, ref_lse = fa.flash_attention_fwd_reference(q, k, v, seg_t, ids, counts, cfg)
+    assert out.dtype == dtype and lse.shape == (B, H, S)
+    assert _close(out, ref_out, dtype)
+    assert float((lse - ref_lse).abs().max()) <= 1e-5 * float(ref_lse.abs().max())
+    # the backward passes from the same saved (out, lse, delta) on both sides
+    ref_dq = fa.flash_attention_dq_reference(q, k, v, seg_t, lse, delta, do, ids, counts, cfg)
+    ref_dk, ref_dv = fa.flash_attention_dkdv_reference(q, k, v, seg_t, lse, delta, do, idsT,
+                                                       countsT, cfg)
+    for got, want in ((dq, ref_dq), (dk, ref_dk), (dv, ref_dv)):
+        assert got.shape == want.shape and got.dtype == dtype
+        assert torch.isfinite(got.float()).all()
+        assert _close(got, want, dtype)
+
+
+@pytest.mark.parametrize("causal,window,packed,Hkv,D", [(True, None, True, 2, 64),
+                                                        (True, 128, False, 1, 128)])
+def test_flash_autograd_matches_plain_autograd(dev, causal, window, packed, Hkv, D):
+    """``flash_attention`` (the three kernels) against the same autograd
+    Function with the plain versions in their place, f32."""
+    q, k, v, seg, do = _flash_case(5, 2, 512, 4, Hkv, D, packed, dev, torch.float32)
+
+    def run():
+        ins = [x.clone().requires_grad_(True) for x in (q, k, v)]
+        out = fa.flash_attention(*ins, causal=causal, window=window, segment_ids=seg)
+        return (out, *torch.autograd.grad(out, ins, do))
+
+    got = run()
+    kernels = (fa.flash_attention_fwd, fa.flash_attention_dq, fa.flash_attention_dkdv)
+    try:
+        fa.flash_attention_fwd = fa.flash_attention_fwd_reference
+        fa.flash_attention_dq = fa.flash_attention_dq_reference
+        fa.flash_attention_dkdv = fa.flash_attention_dkdv_reference
+        want = run()
+    finally:
+        fa.flash_attention_fwd, fa.flash_attention_dq, fa.flash_attention_dkdv = kernels
+    for a, b in zip(got, want):
+        assert _close(a, b, torch.float32)
+
+
+def test_flash_kernels_skip_poisoned_blocks(dev):
+    """A K/V block that the window's lattice skips is never read: NaN in it
+    leaves every row that does not attend it bitwise unchanged, forward and
+    dq."""
+    q, k, v, _, do = _flash_case(6, 1, 512, 4, 2, 64, False, dev, torch.bfloat16)
+    kbad, vbad = k.clone(), v.clone()
+    kbad[:, :128] = float("nan")
+    vbad[:, :128] = float("nan")
+
+    def run(kk, vv):
+        ins = [x.clone().requires_grad_(True) for x in (q, kk, vv)]
+        out = fa.flash_attention(*ins, causal=True, window=64)
+        return out, torch.autograd.grad(out[:, 256:], ins[0], do[:, 256:])[0]
+
+    (out, dq), (out_bad, dq_bad) = run(k, v), run(kbad, vbad)
+    # rows >= 256 sit in q blocks 2, 3, whose window reaches kv blocks 1..3 only
+    assert torch.equal(out[:, 256:], out_bad[:, 256:])
+    assert torch.isfinite(out_bad[:, 256:].float()).all()
+    assert torch.equal(dq[:, 256:], dq_bad[:, 256:])

@@ -200,8 +200,10 @@ def test_xla_path_window_and_masks_match_jax():
 
 def test_attention_option_errors():
     q = torch.zeros(1, 128, 2, 64)
-    with pytest.raises(NotImplementedError, match="Queue B"):
-        tattn.dot_product_attention(q, q, q, impl="flash")
+    with pytest.raises(ValueError, match="arbitrary mask"):
+        tattn.dot_product_attention(q, q, q, impl="flash", mask=torch.ones(1, 1, 128, 128).bool())
+    with pytest.raises(ValueError, match="impl='xla'"):
+        tattn.dot_product_attention(q[:, :96], q, q, impl="flash")
     with pytest.raises(ValueError, match="window requires causal"):
         tattn.dot_product_attention(q, q, q, window=4)
     with pytest.raises(ValueError, match="arbitrary mask"):

@@ -111,7 +111,24 @@ def _fused_call(kernel):
     return fused.fused_attention_bwd, (q, k, v, seg, lse, out, do, 0.125, False)
 
 
-@pytest.mark.parametrize("kernel", ["decode", "prefill", "fused_fwd", "fused_bwd"])
+def _flash_call(kernel, D=64, block=128, dtype=torch.bfloat16):
+    """A flash wrapper and CUDA arguments it accepts (Llama-like shapes)."""
+    B, S, H, Hkv = 2, 256, 4, 2
+    q, do = _cuda_typed(((B, S, H, D), dtype), ((B, S, H, D), dtype))
+    k, v = _cuda_typed(((B, S, Hkv, D), dtype), ((B, S, Hkv, D), dtype))
+    seg, ids, counts = _cuda_typed(((B, S), torch.int32), ((B, 2, 2), torch.int32),
+                                   ((B, 2), torch.int32))
+    lse, delta = _cuda_typed(((B, H, S), torch.float32), ((B, H, S), torch.float32))
+    cfg = fa._FlashConfig(scale=0.125, causal=True, window=None, block_q=block, block_kv=block,
+                          h=H, hkv=Hkv, use_seg=False)
+    if kernel == "flash_fwd":
+        return fa.flash_attention_fwd, (q, k, v, seg, ids, counts, cfg)
+    wrapper = fa.flash_attention_dq if kernel == "flash_dq" else fa.flash_attention_dkdv
+    return wrapper, (q, k, v, seg, lse, delta, do, ids, counts, cfg)
+
+
+@pytest.mark.parametrize("kernel", ["decode", "prefill", "fused_fwd", "fused_bwd", "flash_fwd",
+                                    "flash_dq", "flash_dkdv"])
 def test_wrappers_raise_on_cuda_tensors_without_a_kernel(kernel, monkeypatch, tmp_path):
     """No library and no compiler: the wrapper raises, its plain version is
     never called and its launch counter does not move."""
@@ -123,6 +140,14 @@ def test_wrappers_raise_on_cuda_tensors_without_a_kernel(kernel, monkeypatch, tm
     def plain(*a, **k):
         raise AssertionError("plain path taken for a CUDA tensor")
 
+    if kernel.startswith("flash"):
+        wrapper, args = _flash_call(kernel)
+        monkeypatch.setattr(fa, f"{wrapper.__name__}_reference", plain)
+        before = wrapper.launches
+        with pytest.raises(RuntimeError, match="nvcc not found"):
+            wrapper(*args)
+        assert wrapper.launches == before
+        return
     if kernel.startswith("fused"):
         kind = kernel.split("_")[1]
         monkeypatch.setattr(fused, f"fused_attention_{kind}_reference", plain)
@@ -175,6 +200,27 @@ def test_fused_wrappers_reject_what_the_kernels_do_not_take(q_shape, kv_shape, m
     q16, k16, v16 = _cuda_typed(*[((2, 128, 4, 64), torch.float16)] * 3)
     with pytest.raises(TypeError, match="one dtype"):
         fused.fused_attention_fwd(q16, k16, v16, None, 0.125, False)
+
+
+@pytest.mark.parametrize("kernel", ["flash_fwd", "flash_dq", "flash_dkdv"])
+def test_flash_wrappers_reject_what_the_kernels_do_not_take(kernel):
+    wrapper, args = _flash_call(kernel, D=16)
+    with pytest.raises(ValueError, match="head_dim"):
+        wrapper(*args)
+    wrapper, args = _flash_call(kernel, block=32)
+    with pytest.raises(ValueError, match="multiples of 64"):
+        wrapper(*args)
+    wrapper, args = _flash_call(kernel, dtype=torch.float16)
+    with pytest.raises(TypeError, match="one dtype"):
+        wrapper(*args)
+    wrapper, args = _flash_call(kernel)
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    with FakeTensorMode():  # q as 4 of 8 heads: the right shape, not contiguous
+        q = torch.empty_strided((2, 256, 4, 64), (256 * 8 * 64, 8 * 64, 64, 1),
+                                dtype=torch.bfloat16, device="cuda")
+    with pytest.raises(ValueError, match="contiguous"):
+        wrapper(q, *args[1:])
 
 
 def _fake_nvcc(tmp_path, body):
