@@ -4,9 +4,11 @@
 // arguments, and a product whose left tile has a runtime row stride.
 //
 // The lattice (ops/flash_attention.py `_block_lattice`) is in blocks of
-// block_q query rows and block_kv key rows; a thread block works on tiles of
-// BR rows (Geo<D>::BR: 64 for D = 64, 32 above), so both block sizes are
-// multiples of BR and a tile never straddles two lattice blocks.
+// block_q query rows and block_kv key rows; a thread block of the CUDA-core
+// variants works on tiles of BR rows (Geo<D>::BR: 64 for D = 64, 32 above),
+// so both block sizes are multiples of BR and a tile never straddles two
+// lattice blocks. The tensor-core variants (bf16, D = 64 and 128) take
+// their pieces from flash_tc.cuh and tiles of 64 or 128 rows.
 #pragma once
 
 #include "fused_common.cuh"

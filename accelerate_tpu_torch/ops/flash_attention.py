@@ -17,6 +17,12 @@ and no fallback. Each wrapper counts its kernel launches in a plain integer
 attribute (``paged_attention_decode.launches``), so a run can show that its
 path went through the kernel.
 
+The flash kernels' bf16 variants at head dims 64 and 128 (every training
+path) run their products on Hopper's tensor cores (``wgmma``, with tiles
+fed by ``cp.async``; ``csrc/flash_tc.cuh``); f32 and head dim 256 run on
+CUDA-core f32 FMA. The launcher picks by dtype and head dim; both take
+every block pair :func:`_check_flash` lets through.
+
 Flash attention walks the JAX package's block lattice (:func:`_block_lattice`:
 per batch row and q block, the ascending list of kv blocks that causal,
 sliding-window and segment masks leave active), so a fully masked block is
@@ -201,7 +207,10 @@ def paged_attention(q, k_pool, v_pool, block_tables, q_positions,
 # Blocked flash attention (kernels #1-#3)
 
 _FLASH_HEAD_DIMS = (64, 128, 256)  # the JAX package's _flash_supported head dims
-_FLASH_MAX_BLOCK = 256  # a kernel block keeps one kv block's scores in shared memory
+# the CUDA-core variants keep one kv block's scores in shared memory, the
+# tensor-core ones its K and V (as one pipeline stage) and sub-tiles of up
+# to 128 keys' scores in registers
+_FLASH_MAX_BLOCK = 256
 
 
 @dataclass(frozen=True)

@@ -29,6 +29,7 @@ import torch
 
 from ..generation import _masked_attention
 from ..models.transformer import LlamaConfig
+from ..utils.device import resolve_device
 
 __all__ = [
     "NULL_BLOCK",
@@ -57,8 +58,10 @@ class BlockPoolExhausted(RuntimeError):
 def init_block_pool(config: LlamaConfig, num_blocks: int, block_size: int,
                     dtype: torch.dtype = torch.bfloat16, device=None) -> dict:
     """Device pool ``{"k","v"}: [L, num_blocks, block_size, Hkv, D]``
-    (``num_blocks`` INCLUDES the reserved null block 0), zero-filled."""
+    (``num_blocks`` INCLUDES the reserved null block 0), zero-filled, on
+    ``device`` (``None``: the CUDA device, raising without one)."""
     shape = (config.n_layers, num_blocks, block_size, config.n_kv_heads, config.head_dim)
+    device = resolve_device(device)
     return {
         "k": torch.zeros(shape, dtype=dtype, device=device),
         "v": torch.zeros(shape, dtype=dtype, device=device),

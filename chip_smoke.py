@@ -5,7 +5,9 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It needs one
 CUDA card, ``nvcc`` (the kernels are built from ``accelerate_tpu_torch/
 csrc`` at first use) and no network. Phases, each of which fails the run:
 
-1. build the CUDA kernels (one ``nvcc`` per source, in parallel);
+1. build the CUDA kernels (one ``nvcc`` per source, in parallel) and
+   check that the flash forward and dk/dv libraries hold tensor-core
+   (``HGMMA``) instructions in their SASS;
 2. each kernel against its plain PyTorch version on the card, in bf16 and
    f32, with times beside the least time the card could take and one
    PyTorch library call as a yardstick: the paged kernels at the serving
@@ -40,6 +42,7 @@ import dataclasses
 import json
 import math
 import os
+import subprocess
 import sys
 import time
 
@@ -161,6 +164,11 @@ def time_ms(fn, n_copies: int, iters: int, behind_sleep: bool = True) -> float:
     raise SmokeFailure("could not queue the timed calls behind the device sleep")
 
 
+# Libraries whose bf16 products must run on tensor cores: each must hold
+# warpgroup MMA (HGMMA) instructions in its SASS.
+TENSOR_CORE_LIBS = ("flash_fwd", "flash_dkdv")
+
+
 def phase_build():
     from accelerate_tpu_torch.ops import _build
 
@@ -169,9 +177,25 @@ def phase_build():
     print(f"[build] {len(built)} kernel libraries in {time.perf_counter() - t0:.2f} s")
     for name, info in built.items():
         print(f"[build] {name}: {info['path'].name} nvcc {info['seconds']:.2f} s")
+        entry = ""
         for line in info["ptxas"].splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"[build]   {line.strip()}")
+            if "Compiling entry function" in line:
+                entry = line.split("'")[1]
+                entry = entry[: entry.find("EEv") + 2] if "EEv" in entry else entry
+            elif "registers" in line or "spill" in line:
+                print(f"[build]   {entry}: {line.split(':')[-1].strip()}")
+    # the SASS, read with the cuobjdump of nvcc's own toolkit
+    cuobjdump = os.path.join(os.path.dirname(_build.nvcc_path()), "cuobjdump")
+    check(os.path.isfile(cuobjdump), f"cuobjdump not found beside nvcc ({cuobjdump})")
+    for name in TENSOR_CORE_LIBS:
+        sass = subprocess.run([cuobjdump, "-sass", str(built[name]["path"])], capture_output=True,
+                              text=True, timeout=300, check=True).stdout
+        counts = {op: sum(1 for line in sass.splitlines() if f" {op}." in line or f" {op} " in line)
+                  for op in ("HGMMA", "HMMA", "FFMA")}
+        print(f"[build] {name} SASS: {counts['HGMMA']} HGMMA, {counts['HMMA']} HMMA, "
+              f"{counts['FFMA']} FFMA instructions")
+        check(counts["HGMMA"] > 0, f"{name}: no HGMMA instruction in its SASS: its bf16 products "
+                                   f"do not run on the tensor cores")
 
 
 def _scrambled_tables(rng, B, W, need, nb):

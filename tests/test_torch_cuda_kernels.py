@@ -202,11 +202,11 @@ def _flash_cfg(q, k, causal, window, seg, block_q, block_kv):
                            use_seg=seg is not None)
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("B,S,H,Hkv,D,causal,window,packed,block_q,block_kv", FLASH_CASES)
-def test_flash_kernels_match_plain(dev, dtype, B, S, H, Hkv, D, causal, window, packed, block_q,
-                                   block_kv):
-    q, k, v, seg, do = _flash_case(4, B, S, H, Hkv, D, packed, dev, dtype)
+def _check_flash_kernels(q, k, v, seg, do, causal, window, block_q, block_kv):
+    """The three flash kernels against their plain versions on one input:
+    launch counts, dtypes, shapes, finiteness and the tolerances above."""
+    B, S, H, _ = q.shape
+    dtype, dev = q.dtype, q.device
     cfg = _flash_cfg(q, k, causal, window, seg, block_q, block_kv)
     seg_t = seg if seg is not None else torch.zeros(B, S, dtype=torch.int32, device=dev)
     ids, counts, idsT, countsT = fa._block_lattice(seg_t, cfg)
@@ -220,6 +220,7 @@ def test_flash_kernels_match_plain(dev, dtype, B, S, H, Hkv, D, causal, window, 
     assert [kern.launches for kern in kernels] == [n + 1 for n in before]
     ref_out, ref_lse = fa.flash_attention_fwd_reference(q, k, v, seg_t, ids, counts, cfg)
     assert out.dtype == dtype and lse.shape == (B, H, S)
+    assert torch.isfinite(out.float()).all() and torch.isfinite(lse).all()
     assert _close(out, ref_out, dtype)
     assert float((lse - ref_lse).abs().max()) <= 1e-5 * float(ref_lse.abs().max())
     # the backward passes from the same saved (out, lse, delta) on both sides
@@ -230,6 +231,77 @@ def test_flash_kernels_match_plain(dev, dtype, B, S, H, Hkv, D, causal, window, 
         assert got.shape == want.shape and got.dtype == dtype
         assert torch.isfinite(got.float()).all()
         assert _close(got, want, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,H,Hkv,D,causal,window,packed,block_q,block_kv", FLASH_CASES)
+def test_flash_kernels_match_plain(dev, dtype, B, S, H, Hkv, D, causal, window, packed, block_q,
+                                   block_kv):
+    q, k, v, seg, do = _flash_case(4, B, S, H, Hkv, D, packed, dev, dtype)
+    _check_flash_kernels(q, k, v, seg, do, causal, window, block_q, block_kv)
+
+
+# The bf16 kernels at D = 64 and 128 run on tensor cores with a block of
+# 128 rows (64 when the lattice block is not a multiple of 128) and kv
+# sub-tiles of up to 128 keys (block_kv = 256: a max pass, then a P V
+# pass): every block pair they take, both head dims.
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("block_q", [64, 256])
+@pytest.mark.parametrize("block_kv", [64, 128, 256])
+def test_flash_kernels_block_shapes(dev, dtype, D, block_q, block_kv):
+    q, k, v, seg, do = _flash_case(7, 1, 512, 4, 2, D, False, dev, dtype)
+    _check_flash_kernels(q, k, v, seg, do, True, None, block_q, block_kv)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D", [64, 128])
+def test_flash_kernels_window_masks_a_whole_first_block(dev, dtype, D):
+    """Window 40 with 64-key blocks: q block 1 (rows 128-255) walks kv
+    blocks 1-3, and rows 167-255 (keys r-39 .. r) attend nothing of kv
+    block 1, its first: their running max stays -inf through it (the shift
+    clamp)."""
+    q, k, v, seg, do = _flash_case(8, 1, 512, 4, 2, D, False, dev, dtype)
+    cfg = _flash_cfg(q, k, True, 40, None, 128, 64)
+    ids, counts, _, _ = fa._block_lattice(torch.zeros(1, 512, dtype=torch.int32, device=dev), cfg)
+    assert int(ids[0, 1, 0]) == 1 and int(counts[0, 1]) == 3
+    _check_flash_kernels(q, k, v, seg, do, True, 40, 128, 64)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D,block_q,block_kv", [(64, 128, 128), (128, 64, 256)])
+def test_flash_kernels_packed_rows_with_padding(dev, dtype, D, block_q, block_kv):
+    """Packed documents followed by padding (segment 0), which attends
+    only padding."""
+    q, k, v, _, do = _flash_case(9, 2, 512, 4, 2, D, False, dev, dtype)
+    seg = np.zeros((2, 512), np.int32)
+    seg[0, :100], seg[0, 100:250], seg[0, 250:340] = 1, 2, 3
+    seg[1, :300] = 1
+    _check_flash_kernels(q, k, v, torch.from_numpy(seg).to(dev), do, True, None, block_q,
+                         block_kv)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernels_long_sequence(dev, dtype):
+    """S = 8192, the long-context training length, at B=1 and one kv head
+    shared by two q heads."""
+    q, k, v, seg, do = _flash_case(10, 1, 8192, 2, 1, 64, False, dev, dtype)
+    _check_flash_kernels(q, k, v, seg, do, True, None, 128, 128)
+
+
+@pytest.mark.parametrize("D", [64, 128])
+def test_flash_dkdv_is_deterministic(dev, D):
+    """Each key tile's dk/dv is summed by one block in a fixed order (no
+    atomics): two launches on the same inputs agree bitwise."""
+    q, k, v, seg, do = _flash_case(11, 2, 1024, 8, 2, D, True, dev, torch.bfloat16)
+    cfg = _flash_cfg(q, k, True, None, seg, 128, 128)
+    ids, counts, idsT, countsT = fa._block_lattice(seg, cfg)
+    out, lse = fa.flash_attention_fwd(q, k, v, seg, ids, counts, cfg)
+    delta = (do.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+    first = fa.flash_attention_dkdv(q, k, v, seg, lse, delta, do, idsT, countsT, cfg)
+    second = fa.flash_attention_dkdv(q, k, v, seg, lse, delta, do, idsT, countsT, cfg)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
 
 
 @pytest.mark.parametrize("causal,window,packed,Hkv,D", [(True, None, True, 2, 64),

@@ -95,6 +95,21 @@ def test_params_from_numpy_defaults_to_the_gpu(monkeypatch):
     assert out["a"]["w"].device.type == "cpu" and out["b"].dtype == torch.int32
 
 
+def test_init_block_pool_defaults_to_the_gpu(monkeypatch):
+    """The public KV-pool constructor resolves its device like every other
+    entry point: ``None`` is the CUDA device, and the CPU only when asked."""
+    from accelerate_tpu_torch.models.transformer import LlamaConfig
+    from accelerate_tpu_torch.serving import init_block_pool
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = LlamaConfig(vocab_size=32, dim=16, n_layers=2, n_heads=2, n_kv_heads=1,
+                      max_seq_len=16)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        init_block_pool(cfg, 4, 2)
+    pool = init_block_pool(cfg, 4, 2, device="cpu")
+    assert pool["k"].device.type == "cpu" and pool["v"].shape == (2, 4, 2, 1, cfg.head_dim)
+
+
 def _cuda_typed(*shapes_dtypes):
     from torch._subclasses.fake_tensor import FakeTensorMode
 
