@@ -11,19 +11,25 @@
 // attended pairs, 6·D flops each — 206 GFLOP, 0.21 ms at the bf16
 // tensor-core peak — against ≈ 33 MB of q, k, v, dO, lse, δ and dq.
 //
-// What the design does about it, for now simply:
-// - One block owns BR query rows of one (b, h), grid (S/BR, B·H), and
-//   walks its own lattice row ids[b, qi, :counts[b, qi]] in tiles of BR keys
-//   of kv head h / (H/Hkv): skipped blocks are never read, GQA needs no
-//   repeated KV. The walk order is the forward's.
-// - δ = Σ dO·O is formed by the caller (f32, [B, H, S]) before this pass,
-//   because the dk/dv pass needs it too.
-// - ds is rounded to the key dtype before ds K, as the TPU kernel does; the
-//   scale is applied once to the f32 sum (the TPU kernel applies it to each
-//   block's product: the same value up to f32 rounding).
-// - Products on CUDA-core f32 FMA (fused_common.cuh). Later work: mma/wgmma
-//   in bf16, TMA loads, a pipelined walk.
+// What the design does about it: two variants, chosen by the launcher
+// from dtype and head dim. Both walk the q tile's own lattice row
+// ids[b, qi, :counts[b, qi]] (skipped blocks are never read; GQA through
+// the kv head's strides, no repeated KV), take δ = Σ dO·O from the caller
+// (f32, [B, H, S], formed before this pass because the dk/dv pass needs it
+// too), round ds to the key dtype before ds K as the TPU kernel does and
+// apply the scale once to the f32 sum (the TPU kernel applies it to each
+// block's product: the same value up to f32 rounding).
+//
+// bf16 at D in {64, 128} (every training path): tensor cores, dq_tc_kernel
+// in flash_bwd_tc.cuh — S = Q Kᵀ and dP = dO Vᵀ by wgmma, ds rounded in
+// registers as the A fragment of dQ += dS K, Q and dO resident in shared
+// memory, K and V through a cp.async ring.
+//
+// f32, and D = 256 (on no path): CUDA-core f32 FMA (fused_common.cuh), one
+// block of BR query rows walking the kv blocks in tiles of BR keys with ds
+// staged in shared memory.
 #include "flash_common.cuh"
+#include "flash_bwd_tc.cuh"
 
 namespace flash {
 
@@ -122,6 +128,25 @@ cudaError_t launch_d(int D, const void* q, const void* k, const void* v, const i
                                            stream);)
 }
 
+template <int D>
+cudaError_t launch_tc_d(const void* q, const void* k, const void* v, const int* seg,
+                        const float* lse, const float* delta, const void* dout, const int* ids,
+                        const int* counts, void* dq, const Args& a, cudaStream_t s) {
+  if (a.block_q % 64 || a.block_kv % 64) return cudaErrorInvalidValue;
+  constexpr int KT = kDqTile<D>;
+  float* dl = const_cast<float*>(delta);  // read only: the pass writes δ only when given out
+  const bool kv128 = a.block_kv % 128 == 0;
+  if (a.block_q % 128 == 0)
+    return kv128 ? launch_dq_tc<D, 2, KT, false>(q, k, v, seg, lse, dl, dout, nullptr, ids,
+                                                 counts, dq, a, s)
+                 : launch_dq_tc<D, 2, 64, false>(q, k, v, seg, lse, dl, dout, nullptr, ids,
+                                                 counts, dq, a, s);
+  return kv128 ? launch_dq_tc<D, 1, KT, false>(q, k, v, seg, lse, dl, dout, nullptr, ids, counts,
+                                               dq, a, s)
+               : launch_dq_tc<D, 1, 64, false>(q, k, v, seg, lse, dl, dout, nullptr, ids, counts,
+                                               dq, a, s);
+}
+
 }  // namespace flash
 
 // q, dout, dq [B,S,H,D]; k, v [B,S,Hkv,D] (dtype: 0 f32, 1 bf16; all
@@ -130,6 +155,8 @@ cudaError_t launch_d(int D, const void* q, const void* k, const void* v, const i
 // int32 (the forward's lattice). D in {64, 128, 256}; block_q, block_kv
 // multiples of 64, at most 256, dividing S; window 0 for none. Returns the
 // launch's cudaError_t (0 on success).
+// bf16 at D = 64 and 128 goes to the tensor-core kernel, f32 and D = 256
+// to the CUDA-core one.
 extern "C" int flash_dq_launch(const void* q, const void* k, const void* v, const void* seg,
                                const void* lse, const void* delta, const void* dout,
                                const void* ids, const void* counts, void* dq, int B, int S, int H,
@@ -144,9 +171,13 @@ extern "C" int flash_dq_launch(const void* q, const void* k, const void* v, cons
   const int* id = static_cast<const int*>(ids);
   const int* ct = static_cast<const int*>(counts);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == paged::kBF16 && D == 64)
+    return launch_tc_d<64>(q, k, v, sg, l, dl, dout, id, ct, dq, a, s);
+  if (dtype == paged::kBF16 && D == 128)
+    return launch_tc_d<128>(q, k, v, sg, l, dl, dout, id, ct, dq, a, s);
   if (dtype == paged::kF32)
     return launch_d<float>(D, q, k, v, sg, l, dl, dout, id, ct, dq, a, s);
-  if (dtype == paged::kBF16)
-    return launch_d<__nv_bfloat16>(D, q, k, v, sg, l, dl, dout, id, ct, dq, a, s);
+  if (dtype == paged::kBF16 && D == 256)
+    return launch<__nv_bfloat16, 256>(q, k, v, sg, l, dl, dout, id, ct, dq, a, s);
   return cudaErrorInvalidValue;
 }

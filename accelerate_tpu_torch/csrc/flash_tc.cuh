@@ -3,8 +3,9 @@
 // descriptors that read them, the m64nNk16 bf16 -> f32 wgmma wrappers
 // (both operands from shared memory, or A from registers), their
 // fence / commit / wait discipline, and the accumulator -> A-fragment
-// conversion that rounds to bf16. flash_fwd.cu and flash_dkdv.cu build
-// their bf16 variants from these; the dq pass can reuse them unchanged.
+// conversion that rounds to bf16. flash_fwd.cu and flash_bwd_tc.cuh (the
+// backward's dq and dk/dv passes, for the flash and the fused backward)
+// build their bf16 variants from these.
 //
 // Tile layout. An [R, D] bf16 tile (R rows of D values, D a multiple of
 // 64) is kept as D/64 column blocks of [R, 64], each row of a column block

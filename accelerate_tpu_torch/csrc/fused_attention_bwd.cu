@@ -12,23 +12,38 @@
 // 15 µs at 3.35 TB/s, against five products of 2·B·H·S²·D = 4.0 GFLOP,
 // 4.1 µs at the bf16 tensor-core peak.
 //
-// What the design does about it, for now simply:
-// - The TPU kernel sums dk and dv over every query inside one grid step.
-//   Hopper blocks run in no order, so instead of atomics there are two
-//   passes, both launched here, one after the other on the caller's stream:
-//   * dq pass, grid (B·H, S/BR): a block owns BR query rows of one head,
-//     computes δ for them from the stored output (kept in a scratch buffer
-//     for the next pass), walks the key tiles and accumulates dq in f32;
-//   * dk/dv pass, grid (B·Hkv, S/BR): a block owns BR key rows of one kv
-//     head, walks every query tile of every q head of its GQA group and
-//     accumulates dk and dv in f32 registers — the GQA fold happens here,
-//     in f32, and dk/dv leave the kernel as [B, S, Hkv, D].
-//   Both recompute P from lse. p and ds are rounded to the input dtype
-//   before their products, as the TPU kernel does; causal tiles that are
-//   wholly masked are skipped (their p and ds are exactly 0).
-// - BSHD in and out through strides; products on CUDA-core f32 FMA
-//   (fused_common.cuh). Later work: mma/wgmma tiles in bf16, TMA loads.
+// What the design does about it: except at S = 128 (below), two passes,
+// both launched here, one after the other on the caller's stream. The TPU
+// kernel sums dk and dv over every query inside one grid step; Hopper
+// blocks run in no order, so instead of atomics:
+// - dq pass, grid (B·H, S/R): a block owns R query rows of one head,
+//   computes δ for them from the stored output (kept in a scratch buffer
+//   for the next pass), walks the key tiles and accumulates dq in f32;
+// - dk/dv pass, grid (B·Hkv, S/R): a block owns R key rows of one kv head,
+//   walks every query tile of every q head of its GQA group and accumulates
+//   dk and dv in f32 registers — the GQA fold happens here, in f32, and
+//   dk/dv leave the kernel as [B, S, Hkv, D].
+// Both recompute P from lse; p and ds are rounded to the input dtype before
+// their products, as the TPU kernel does; causal tiles that are wholly
+// masked are skipped (their p and ds are exactly 0). BSHD in and out
+// through strides.
+//
+// bf16 at S = 128 and D = 64 (BERT's shape): one pass, bwd1_tc_kernel below,
+// built from the same per-tile bodies (flash_bwd_tc.cuh).
+//
+// bf16 at D in {64, 128} otherwise: the flash backward's tensor-core
+// passes (flash_bwd_tc.cuh, R = 128) over the dense range of 128-row blocks
+// instead of a lattice — products on wgmma, p and ds rounded to bf16 in
+// registers, Q/dO (dq pass) or K/V (dk/dv pass) resident in shared memory
+// and the other pair through a cp.async ring. The mask is
+// the segment ids (padding) and `causal`; a masked score gives p = 0, which
+// is what exp(NEG_INF - lse) is for every row that attends a key (every row
+// attends itself).
+//
+// f32, and bf16 at D in {192, 256}: CUDA-core f32 FMA (fused_common.cuh),
+// R = BR rows a block.
 #include "fused_common.cuh"
+#include "flash_bwd_tc.cuh"
 
 namespace fused {
 
@@ -233,13 +248,162 @@ cudaError_t launch_d(int D, const void* q, const void* k, const void* v, const i
                                            H, Hkv, causal, scale, stream);)
 }
 
+// ---- bf16 at S = 128, D = 64: one pass on tensor cores ----------------------
+
+constexpr int kS1 = 128;  // the one sequence length of the single pass
+
+// One block owns one (b, kv head) and the whole sequence: K, V and the
+// segment ids stay in shared memory; each q head of the GQA group brings its
+// Q, dO and lse through a two-stage cp.async ring. Per head, warpgroup w
+// first takes query rows 64w .. as the dq pass does (δ of its rows from the
+// stored output, into shared memory) and stores that head's dq, then key
+// rows 64w .. as the dk/dv pass does, summing dk and dv over the group in f32
+// registers. One launch reads each input once, where the two passes read q,
+// k, v and dO twice: at S = 128 the work is too small to hide a second
+// pass's loads.
+template <int D>
+__global__ void __launch_bounds__(256, 1)
+bwd1_tc_kernel(const tc::bf16* __restrict__ q, const tc::bf16* __restrict__ k,
+               const tc::bf16* __restrict__ v, const int* __restrict__ seg,
+               const float* __restrict__ lse, const tc::bf16* __restrict__ out,
+               const tc::bf16* __restrict__ dout, tc::bf16* __restrict__ dq,
+               tc::bf16* __restrict__ dk, tc::bf16* __restrict__ dv, flash::Args a) {
+  using namespace tc;
+  constexpr int S = kS1, NT = 256, NO = D / 2;
+  constexpr uint32_t kTile = S * D * 2;                      // an [S, D] bf16 tile
+  constexpr uint32_t kStage = round1k(2 * kTile + 2 * S * 4);  // Q, dO, lse [S], δ [S]
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* sm;
+  const uint32_t sK = aligned_base(smem_raw, &sm);  // [S, D]
+  const uint32_t sV = sK + kTile;                   // [S, D]
+  const uint32_t sSeg = sV + kTile;                 // [S] int32
+  const uint32_t sStage = sSeg + round1k(S * 4);
+  const int* segs = reinterpret_cast<const int*>(sm + (sSeg - sK));
+
+  const int tid = threadIdx.x, wg = tid >> 7, t = tid & 127, w0 = 64 * wg;
+  const int bkh = blockIdx.x, b = bkh / a.Hkv, kh = bkh - b * a.Hkv, rep = a.H / a.Hkv;
+  const long long q_rs = (long long)a.H * D, kv_rs = (long long)a.Hkv * D;
+  const long long kv_off = ((long long)b * S * a.Hkv + kh) * D;
+  const bool use_seg = seg != nullptr;
+
+  auto issue = [&](int g) {  // q head kh·rep + g into stage g % 2
+    const int h = kh * rep + g;
+    const uint32_t st = sStage + (g & 1) * kStage;
+    const long long q_off = ((long long)b * S * a.H + h) * D;
+    cp_tile<D, NT>(st, S, q + q_off, q_rs, tid);
+    cp_tile<D, NT>(st + kTile, S, dout + q_off, q_rs, tid);
+    cp_words<NT>(st + 2 * kTile, lse + ((long long)b * a.H + h) * S, S, tid);
+  };
+  cp_tile<D, NT>(sK, S, k + kv_off, kv_rs, tid);
+  cp_tile<D, NT>(sV, S, v + kv_off, kv_rs, tid);
+  if (use_seg) cp_words<NT>(sSeg, seg + (long long)b * S, S, tid);
+  issue(0);
+  cp_commit();
+
+  // this thread's two rows of its warpgroup's 64: query rows in the dq part,
+  // key rows in the dk/dv part (the same positions)
+  flash::QRows qr;
+  qr.r0 = w0 + acc_row(t, 0);
+  qr.r1 = qr.r0 + 8;
+  qr.sq0 = use_seg ? seg[(long long)b * S + qr.r0] : 0;
+  qr.sq1 = use_seg ? seg[(long long)b * S + qr.r1] : 0;
+  const flash::KRows kr{qr.r0, qr.r1, qr.sq0, qr.sq1};
+  float dka[NO], dva[NO];
+#pragma unroll
+  for (int i = 0; i < NO; ++i) dka[i] = dva[i] = 0.f;
+
+  for (int g = 0; g < rep; ++g) {
+    if (g + 1 < rep) issue(g + 1);
+    cp_commit();
+    cp_wait(1);
+    fence_async_smem();
+    __syncthreads();  // head g (and K, V, segment ids) landed for every thread
+    const int h = kh * rep + g;
+    const uint32_t sQ = sStage + (g & 1) * kStage, sdO = sQ + kTile;
+    float* lse_s = reinterpret_cast<float*>(sm + (sQ - sK) + 2 * kTile);
+    float* delta_s = lse_s + S;
+    const long long o0 = (((long long)b * S + qr.r0) * a.H + h) * D, o1 = o0 + 8 * q_rs;
+    qr.dl0 = flash::row_delta<D>(dout + o0, out + o0, t);
+    qr.dl1 = flash::row_delta<D>(dout + o1, out + o1, t);
+    qr.nl0 = -lse_s[qr.r0] * kLog2e;
+    qr.nl1 = -lse_s[qr.r1] * kLog2e;
+    if ((t & 3) == 0) {
+      delta_s[qr.r0] = qr.dl0;
+      delta_s[qr.r1] = qr.dl1;
+    }
+    // dq of query rows w0 .. w0 + 63, over the keys in 64-key sub-tiles
+    float dqa[NO];
+#pragma unroll
+    for (int i = 0; i < NO; ++i) dqa[i] = 0.f;
+#pragma unroll
+    for (int j0 = 0; j0 < S; j0 += 64) {
+      if (a.causal && j0 > w0 + 63) continue;  // warpgroup-uniform
+      const bool masked = use_seg || (a.causal && j0 + 63 > w0);
+      flash::dq_tile<D, 64>(dqa, a, qr, sQ, sdO, S, w0, sK, sV, S, j0, j0, segs + j0, use_seg,
+                            masked, t);
+    }
+#pragma unroll
+    for (int i = 0; i < NO; ++i) dqa[i] *= a.scale;
+    store_acc<D>(dq + (((long long)b * S + w0) * a.H + h) * D, q_rs, dqa, t);
+    __syncthreads();  // δ of every query row is in delta_s
+    // dk, dv of key rows w0 .. w0 + 63, over the queries in 64-row tiles
+#pragma unroll
+    for (int i0 = 0; i0 < S; i0 += 64) {
+      if (a.causal && w0 > i0 + 63) continue;  // warpgroup-uniform
+      const bool masked = use_seg || (a.causal && w0 + 63 > i0);
+      flash::dkdv_tile<D>(dka, dva, a, kr, sK, sV, S, w0, sQ, sdO, S, i0, i0, lse_s + i0,
+                          delta_s + i0, segs + i0, use_seg, masked, t);
+    }
+    __syncthreads();  // every warpgroup is done with this stage before it is refilled
+  }
+
+#pragma unroll
+  for (int i = 0; i < NO; ++i) dka[i] *= a.scale;
+  const long long wg_off = kv_off + (long long)w0 * kv_rs;
+  store_acc<D>(dk + wg_off, kv_rs, dka, t);
+  store_acc<D>(dv + wg_off, kv_rs, dva, t);
+}
+
+// bf16 at D in {64, 128}: at S = 128 and D = 64 the single pass; else the
+// tensor-core dq pass (which also writes δ), then the tensor-core dk/dv
+// pass, both over the dense block range.
+template <int D>
+cudaError_t launch_tc(const void* q, const void* k, const void* v, const int* seg,
+                      const float* lse, const void* out, const void* dout, void* dq, void* dk,
+                      void* dv, float* delta, int B, int S, int H, int Hkv, int causal,
+                      float scale, cudaStream_t stream) {
+  const flash::Args a{B, S, H, Hkv, causal, 0, 128, 128, scale};
+  if constexpr (D == 64) {
+    if (S == kS1) {
+      constexpr uint32_t tile = kS1 * D * 2;
+      constexpr size_t smem = tc::kAlignSlack + 2 * tile + tc::round1k(kS1 * 4) +
+                              2 * tc::round1k(2 * tile + 2 * kS1 * 4);
+      auto kernel = bwd1_tc_kernel<D>;
+      cudaError_t err = paged::allow_smem(kernel, smem);
+      if (err != cudaSuccess) return err;
+      kernel<<<B * Hkv, 256, smem, stream>>>(
+          static_cast<const tc::bf16*>(q), static_cast<const tc::bf16*>(k),
+          static_cast<const tc::bf16*>(v), seg, lse, static_cast<const tc::bf16*>(out),
+          static_cast<const tc::bf16*>(dout), static_cast<tc::bf16*>(dq),
+          static_cast<tc::bf16*>(dk), static_cast<tc::bf16*>(dv), a);
+      return cudaGetLastError();
+    }
+  }
+  cudaError_t err = flash::launch_dq_tc<D, 2, flash::kDqTile<D>, true>(
+      q, k, v, seg, lse, delta, dout, out, nullptr, nullptr, dq, a, stream);
+  if (err != cudaSuccess) return err;
+  return flash::launch_dkdv_tc<D, 2, true>(q, k, v, seg, lse, delta, dout, nullptr, nullptr, dk,
+                                           dv, a, stream);
+}
+
 }  // namespace fused
 
 // q, out, dout, dq [B,S,H,D]; k, v, dk, dv [B,S,Hkv,D] (dtype: 0 f32, 1
 // bf16; all contiguous, 16-byte aligned); seg [B,S] int32 or null; lse and
 // the scratch delta [B,H,S] f32. S % 128 == 0, S <= 1024, D in {64, 128,
 // 192, 256}, H % Hkv == 0. Launches the dq pass then the dk/dv pass; returns
-// the first failing launch's cudaError_t (0 on success).
+// the first failing launch's cudaError_t (0 on success). bf16 at D = 64 and
+// 128 goes to the tensor-core passes, the rest to the CUDA-core ones.
 extern "C" int fused_attention_bwd_launch(const void* q, const void* k, const void* v,
                                           const void* seg, const void* lse, const void* out,
                                           const void* dout, void* dq, void* dk, void* dv,
@@ -252,11 +416,19 @@ extern "C" int fused_attention_bwd_launch(const void* q, const void* k, const vo
   const float* l = static_cast<const float*>(lse);
   float* dl = static_cast<float*>(delta);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == paged::kBF16 && D == 64)
+    return launch_tc<64>(q, k, v, sg, l, out, dout, dq, dk, dv, dl, B, S, H, Hkv, causal, scale, s);
+  if (dtype == paged::kBF16 && D == 128)
+    return launch_tc<128>(q, k, v, sg, l, out, dout, dq, dk, dv, dl, B, S, H, Hkv, causal, scale,
+                          s);
   if (dtype == paged::kF32)
     return launch_d<float>(D, q, k, v, sg, l, out, dout, dq, dk, dv, dl, B, S, H, Hkv, causal,
                            scale, s);
-  if (dtype == paged::kBF16)
-    return launch_d<__nv_bfloat16>(D, q, k, v, sg, l, out, dout, dq, dk, dv, dl, B, S, H, Hkv,
-                                   causal, scale, s);
+  if (dtype == paged::kBF16 && D == 192)
+    return launch<__nv_bfloat16, 192>(q, k, v, sg, l, out, dout, dq, dk, dv, dl, B, S, H, Hkv,
+                                      causal, scale, s);
+  if (dtype == paged::kBF16 && D == 256)
+    return launch<__nv_bfloat16, 256>(q, k, v, sg, l, out, dout, dq, dk, dv, dl, B, S, H, Hkv,
+                                      causal, scale, s);
   return cudaErrorInvalidValue;
 }

@@ -134,10 +134,11 @@ class DataLoader:
 
 
 class DataLoaderShard:
-    """A prepared :class:`DataLoader`: batches of tensors on ``device``. A
-    short last batch is topped up from the epoch's first samples (the JAX
-    package's one-shard ``even_batches`` wraparound), so every batch has
-    the loader's batch size."""
+    """A prepared :class:`DataLoader`: batches of tensors on ``device``.
+    One process on one device reads the loader as it is, a short last batch
+    included: the JAX package's ``prepare_data_loader`` wraps the sampler in
+    ``BatchSamplerShard`` (whose ``even_batches`` top-up pads that batch)
+    only when its data axis has more than one shard."""
 
     def __init__(self, dataloader: DataLoader, device):
         self.base_dataloader = dataloader
@@ -149,19 +150,9 @@ class DataLoaderShard:
     def __len__(self) -> int:
         return len(self.base_dataloader)
 
-    def _indices(self) -> Iterator[list]:
-        first: Optional[list] = None
-        for batch in self.base_dataloader.batch_sampler:
-            if first is None:
-                first = list(batch)
-            if len(batch) < len(first):
-                batch = (list(batch) + first)[:len(first)]
-            yield batch
-
     def __iter__(self):
-        dl = self.base_dataloader
-        for indices in self._indices():
-            yield send_to_device(dl.collate_fn([dl.dataset[i] for i in indices]), self.device)
+        for batch in self.base_dataloader:
+            yield send_to_device(batch, self.device)
 
 
 def prepare_data_loader(dataloader: DataLoader, device) -> DataLoaderShard:

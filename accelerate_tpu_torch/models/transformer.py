@@ -66,12 +66,16 @@ def rope_frequencies(head_dim: int, max_seq: int, theta: float = 10000.0):
 def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor,
                positions: Optional[torch.Tensor] = None) -> torch.Tensor:
     """x ``[B, S, H, D]``; cos/sin ``[max_seq, D/2]``; half-split layout
-    (the first and second halves of ``D`` are the rotated pair)."""
+    (the first and second halves of ``D`` are the rotated pair). Positions
+    past the table read its last row, as JAX's clamping gather does: a
+    serving prefill chunk padded to its bucket can reach past
+    ``max_seq_len``, and those padded rows are thrown away."""
     seq = x.shape[1]
     if positions is None:
         cos_s = cos[:seq][None, :, None, :]
         sin_s = sin[:seq][None, :, None, :]
     else:
+        positions = positions.clamp(max=cos.shape[0] - 1)
         cos_s = cos[positions][:, :, None, :]
         sin_s = sin[positions][:, :, None, :]
     x1, x2 = x.chunk(2, dim=-1)

@@ -15,8 +15,8 @@ Public layout is BSHD (``q [B, S, H, D]``, ``k/v [B, S, Hkv, D]``), as in
 the JAX package; the kernels read it through strides, so no transpose is
 made. The rule for both wrappers: tensors on the CPU go to the plain
 version; tensors on a CUDA device launch the kernel or raise. Each wrapper
-counts its launches in ``.launches`` (one per call; the backward call
-issues its two passes as one launch of its kernel).
+counts its launches in ``.launches`` (one per call; a backward call that
+issues two passes counts as one launch of its kernel).
 
 The plain versions repeat the TPU kernels op by op, including where they
 round to the input dtype: scores in f32, masked with ``NEG_INF``; ``p``

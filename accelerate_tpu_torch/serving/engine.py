@@ -228,6 +228,9 @@ class ServingEngine:
             Sb = self.lattice.prefill_bucket(chunk.size)
             ids = np.zeros((1, Sb), np.int64)
             ids[0, : chunk.size] = chunk
+            # the padded rows' positions may pass max_seq_len: the RoPE
+            # lookup clamps them and their KV writes past the table go to the
+            # null block, as in the JAX engine
             positions = start + torch.arange(Sb, device=self.device)[None]
             logits, self.pool = paged_forward(
                 self.params, self._to_device(ids), self.pool, table, positions,

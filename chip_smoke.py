@@ -5,9 +5,10 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It needs one
 CUDA card, ``nvcc`` (the kernels are built from ``accelerate_tpu_torch/
 csrc`` at first use) and no network. Phases, each of which fails the run:
 
-1. build the CUDA kernels (one ``nvcc`` per source, in parallel) and
-   check that the flash forward and dk/dv libraries hold tensor-core
-   (``HGMMA``) instructions in their SASS;
+1. build the CUDA kernels (one ``nvcc`` per source, in parallel); check
+   that the flash forward, dq and dk/dv libraries and the fused backward
+   hold tensor-core (``HGMMA``) instructions in their SASS and that no
+   tensor-core variant spills registers;
 2. each kernel against its plain PyTorch version on the card, in bf16 and
    f32, with times beside the least time the card could take and one
    PyTorch library call as a yardstick: the paged kernels at the serving
@@ -42,6 +43,7 @@ import dataclasses
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -166,7 +168,7 @@ def time_ms(fn, n_copies: int, iters: int, behind_sleep: bool = True) -> float:
 
 # Libraries whose bf16 products must run on tensor cores: each must hold
 # warpgroup MMA (HGMMA) instructions in its SASS.
-TENSOR_CORE_LIBS = ("flash_fwd", "flash_dkdv")
+TENSOR_CORE_LIBS = ("flash_fwd", "flash_dq", "flash_dkdv", "fused_attention_bwd")
 
 
 def phase_build():
@@ -175,6 +177,7 @@ def phase_build():
     t0 = time.perf_counter()
     built = _build.build()
     print(f"[build] {len(built)} kernel libraries in {time.perf_counter() - t0:.2f} s")
+    spilled = []
     for name, info in built.items():
         print(f"[build] {name}: {info['path'].name} nvcc {info['seconds']:.2f} s")
         entry = ""
@@ -183,7 +186,12 @@ def phase_build():
                 entry = line.split("'")[1]
                 entry = entry[: entry.find("EEv") + 2] if "EEv" in entry else entry
             elif "registers" in line or "spill" in line:
-                print(f"[build]   {entry}: {line.split(':')[-1].strip()}")
+                detail = line.split(":")[-1].strip()
+                print(f"[build]   {entry}: {detail}")
+                spills = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", detail)
+                if "_tc_kernel" in entry and spills and spills.groups() != ("0", "0"):
+                    spilled.append(f"{name} {entry}: {detail}")
+    check(not spilled, "tensor-core variants spill registers: " + "; ".join(spilled))
     # the SASS, read with the cuobjdump of nvcc's own toolkit
     cuobjdump = os.path.join(os.path.dirname(_build.nvcc_path()), "cuobjdump")
     check(os.path.isfile(cuobjdump), f"cuobjdump not found beside nvcc ({cuobjdump})")

@@ -94,6 +94,9 @@ FUSED_CASES = [
     (4, 128, 12, 12, 64, False, True),   # BERT-base's attention shape, smaller batch
     (2, 256, 8, 2, 128, True, False),
     (2, 256, 8, 2, 128, True, True),
+    (2, 256, 8, 2, 64, True, True),      # causal GQA with padding at D=64
+    (2, 128, 8, 2, 64, True, True),      # the same at S=128 (the single-pass backward)
+    (2, 512, 8, 2, 128, False, True),    # padded GQA at D=128
     (1, 384, 4, 4, 192, False, True),
     (1, 128, 4, 1, 256, True, True),
     (2, 1024, 2, 2, 64, False, True),
@@ -144,22 +147,38 @@ def test_fused_kernels_match_plain(dev, dtype, B, S, H, Hkv, D, causal, padded):
         assert _close(got, want, dtype)
 
 
-@pytest.mark.parametrize("causal,padded,Hkv", [(False, True, 4), (True, False, 2)])
-def test_fused_autograd_matches_plain_autograd(dev, causal, padded, Hkv):
+@pytest.mark.parametrize("dtype,D,causal,padded,Hkv", [
+    (torch.float32, 64, False, True, 4), (torch.float32, 64, True, False, 2),
+    (torch.bfloat16, 64, True, True, 2), (torch.bfloat16, 128, False, True, 4)])
+def test_fused_autograd_matches_plain_autograd(dev, dtype, D, causal, padded, Hkv):
     """The autograd Function (both kernels) against autograd through the
-    plain forward, f32."""
+    plain forward in f32; in bf16 (the tensor-core backward) against the
+    same Function with the plain versions in the kernels' place, which
+    round p and ds at the same points."""
     from accelerate_tpu_torch.ops import fused_attention as fused
 
-    q, k, v, seg, do = _fused_case(3, 2, 256, 4, Hkv, 64, padded, dev, torch.float32)
-    ins = [x.clone().requires_grad_(True) for x in (q, k, v)]
-    out = fused.fused_attention(*ins, causal=causal, segment_ids=seg)
-    grads = torch.autograd.grad(out, ins, do)
-    ref_ins = [x.clone().requires_grad_(True) for x in (q, k, v)]
-    ref_out, _ = fused.fused_attention_fwd_reference(*ref_ins, seg, 1 / 8, causal)
-    ref_grads = torch.autograd.grad(ref_out, ref_ins, do)
-    assert _close(out, ref_out, torch.float32)
-    for got, want in zip(grads, ref_grads):
-        assert _close(got, want, torch.float32)
+    q, k, v, seg, do = _fused_case(3, 2, 256, 4, Hkv, D, padded, dev, dtype)
+
+    def run():
+        ins = [x.clone().requires_grad_(True) for x in (q, k, v)]
+        out = fused.fused_attention(*ins, causal=causal, segment_ids=seg)
+        return (out, *torch.autograd.grad(out, ins, do))
+
+    got = run()
+    if dtype == torch.float32:
+        ref_ins = [x.clone().requires_grad_(True) for x in (q, k, v)]
+        ref_out, _ = fused.fused_attention_fwd_reference(*ref_ins, seg, 1 / np.sqrt(D), causal)
+        want = (ref_out, *torch.autograd.grad(ref_out, ref_ins, do))
+    else:
+        kernels = (fused.fused_attention_fwd, fused.fused_attention_bwd)
+        try:
+            fused.fused_attention_fwd = fused.fused_attention_fwd_reference
+            fused.fused_attention_bwd = fused.fused_attention_bwd_reference
+            want = run()
+        finally:
+            fused.fused_attention_fwd, fused.fused_attention_bwd = kernels
+    for a, b in zip(got, want):
+        assert a.dtype == dtype and _close(a, b, dtype)
 
 
 # Flash attention (kernels #1-#3). Same tolerances as the fused kernels and
@@ -290,16 +309,30 @@ def test_flash_kernels_long_sequence(dev, dtype):
 
 
 @pytest.mark.parametrize("D", [64, 128])
-def test_flash_dkdv_is_deterministic(dev, D):
-    """Each key tile's dk/dv is summed by one block in a fixed order (no
-    atomics): two launches on the same inputs agree bitwise."""
+@pytest.mark.parametrize("kernel", ["flash_dq", "flash_dkdv", "fused_bwd"])
+def test_backward_kernels_are_deterministic(dev, kernel, D):
+    """Each output row of the bf16 backward passes (flash dq, flash dk/dv,
+    the fused backward's two) is summed by one block in a fixed order, with
+    no atomics: two launches on the same inputs agree bitwise."""
+    from accelerate_tpu_torch.ops import fused_attention as fused
+
     q, k, v, seg, do = _flash_case(11, 2, 1024, 8, 2, D, True, dev, torch.bfloat16)
-    cfg = _flash_cfg(q, k, True, None, seg, 128, 128)
-    ids, counts, idsT, countsT = fa._block_lattice(seg, cfg)
-    out, lse = fa.flash_attention_fwd(q, k, v, seg, ids, counts, cfg)
-    delta = (do.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
-    first = fa.flash_attention_dkdv(q, k, v, seg, lse, delta, do, idsT, countsT, cfg)
-    second = fa.flash_attention_dkdv(q, k, v, seg, lse, delta, do, idsT, countsT, cfg)
+    if kernel == "fused_bwd":
+        out, lse = fused.fused_attention_fwd(q, k, v, seg, 1 / np.sqrt(D), True)
+
+        def launch():
+            return fused.fused_attention_bwd(q, k, v, seg, lse, out, do, 1 / np.sqrt(D), True)
+    else:
+        cfg = _flash_cfg(q, k, True, None, seg, 128, 128)
+        ids, counts, idsT, countsT = fa._block_lattice(seg, cfg)
+        out, lse = fa.flash_attention_fwd(q, k, v, seg, ids, counts, cfg)
+        delta = (do.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+
+        def launch():
+            if kernel == "flash_dq":
+                return (fa.flash_attention_dq(q, k, v, seg, lse, delta, do, ids, counts, cfg),)
+            return fa.flash_attention_dkdv(q, k, v, seg, lse, delta, do, idsT, countsT, cfg)
+    first, second = launch(), launch()
     torch.cuda.synchronize()
     assert all(torch.equal(a, b) for a, b in zip(first, second))
 

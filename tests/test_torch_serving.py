@@ -9,7 +9,9 @@
 - the whole engine, greedy, f32 params and an f32 cache, through a shared
   prefix, a copy-on-write full match, preemption under a small pool and a
   prompt longer than the largest prefill bucket: the port's
-  ``output_ids()`` must equal the JAX engine's exactly.
+  ``output_ids()`` must equal the JAX engine's exactly;
+- a prompt whose last prefill chunk is padded past ``max_seq_len``: the
+  same tokens as the JAX engine, and no pad write in another block.
 """
 
 import jax
@@ -183,6 +185,31 @@ def test_engine_greedy_outputs_equal_jax_engine(params):
     assert ts["prefix_hit_tokens"] == js["prefix_hit_tokens"] > 0
     assert ts["prefill_tokens"] == js["prefill_tokens"]
     assert ts["decode_tokens"] == js["decode_tokens"]
+
+
+def test_engine_prefill_padded_past_max_seq_len_matches_jax_engine(params):
+    """A 250-token prompt at max_seq_len 256 with prefill buckets up to 100:
+    the chunks are 0-99, 100-199 and 200-249, the last padded to its bucket
+    of 64, so its padded rows sit at positions up to 263. Both engines clamp
+    the RoPE lookup of those rows and throw them away; their KV writes past
+    the 16-block table go to the null block. The port must give the JAX
+    engine's tokens and write no block but the request's own and the null
+    block."""
+    jp, tp = params
+    prompt = np.random.default_rng(0).integers(1, VOCAB, 250)
+    kw = dict(num_blocks=40, block_size=16, max_slots=2, max_prefill_len=100,
+              max_blocks_per_seq=16)
+    je = JEngine(jp, JCFG, cache_dtype=jnp.float32, **kw)
+    te = TEngine(tp, TCFG, cache_dtype=torch.float32, device="cpu", **kw)
+    jr, tr = je.submit(prompt, 4), te.submit(prompt, 4)
+    je.run()
+    te.run()
+    assert te.stats()["prefill_chunks"] == 3
+    assert tr.status is tsched.RequestStatus.FINISHED
+    assert jr.generated == [396, 436, 308, 42]
+    assert tr.generated == jr.generated
+    written = (te.pool["k"].abs().amax(dim=(0, 2, 3, 4)) > 0).nonzero().flatten().tolist()
+    assert written == list(range(17))  # the null block and the request's 16 blocks
 
 
 def test_engine_rejects_impossible_requests():

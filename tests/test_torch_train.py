@@ -87,20 +87,29 @@ def test_dataloader_order_and_contents_match_jax(seed, shuffle, drop_last):
                 np.testing.assert_array_equal(x[key], y[key])
 
 
-def test_prepared_loader_tops_up_the_last_batch_like_the_jax_shard():
-    from accelerate_tpu.data_loader import BatchSamplerShard
+def test_prepared_loader_keeps_the_short_last_batch_like_jax_prepare_data_loader():
+    """One process on one device: the port's prepared loader against the JAX
+    ``prepare_data_loader`` on a one-device mesh (data axis of one shard, so
+    it keeps the loader as it is): 21 samples in batches of 8 give a last
+    batch of 5 rows on both sides, with the same samples in every batch."""
+    from accelerate_tpu.data_loader import prepare_data_loader as jprepare_data_loader
+    from accelerate_tpu.parallelism_config import ParallelismConfig
 
     data = make_synthetic_mrpc(21, 16, 1024, seed=1)
+    data["idx"] = np.arange(21)
     dl = DataLoader(DictDataset(data), batch_size=8, shuffle=True, seed=2)
-    prepared = prepare_data_loader(dl, torch.device("cpu"))
-    got = [b["labels"] for b in prepared]
-    assert all(isinstance(b, torch.Tensor) and b.shape == (8,) for b in got)
-    shard = BatchSamplerShard(JDataLoader(DictDataset(data), batch_size=8, shuffle=True,
-                                          seed=2).batch_sampler, 1, 0)
-    want = [data["labels"][idx] for idx in shard]
-    assert len(got) == len(want) == 3
+    got = list(prepare_data_loader(dl, torch.device("cpu")))
+    pc = ParallelismConfig(dp_shard_size=1)
+    want = list(jprepare_data_loader(
+        JDataLoader(DictDataset(data), batch_size=8, shuffle=True, seed=2),
+        mesh=pc.build_mesh(), parallelism_config=pc))
+    assert [len(b["idx"]) for b in got] == [len(b["idx"]) for b in want] == [8, 8, 5]
+    np.testing.assert_array_equal(got[-1]["idx"].numpy(), [5, 3, 4, 8, 1])
     for x, y in zip(got, want):
-        np.testing.assert_array_equal(x.numpy(), y)
+        assert all(isinstance(t, torch.Tensor) for t in x.values())
+        assert x.keys() == y.keys()
+        for key in x:
+            np.testing.assert_array_equal(x[key].numpy(), np.asarray(y[key]))
 
 
 def _tree(seed, shapes):
