@@ -3,28 +3,42 @@
 // Replaces: accelerate_tpu/ops/fused_attention.py `_fwd_kernel` (launched by
 // `_fused_fwd` through pl.pallas_call), the Pallas TPU kernel that holds a
 // batch block x all heads x the whole S x S score block in VMEM and computes
-// QKᵀ → segment/causal mask → softmax → PV in one pass, writing O and the
-// row logsumexp.
+// QKᵀ → segment/causal mask (NEG_INF = -1e30) → the exact row max → p =
+// exp(s - m), l = Σp from the unrounded p → (bf16(p) V) / l in one pass,
+// writing O and the row logsumexp m + log l.
 //
 // What bounds it: bytes. At BERT-base's shape (B=32, S=128, H=12, D=64,
 // bf16) it must read q, k, v and write o (6.3 MB each) and the f32 lse:
 // ≈ 25.4 MB, 7.6 µs at 3.35 TB/s, against 4·B·H·S²·D = 1.61 GFLOP, 1.6 µs
 // at the bf16 tensor-core peak.
 //
-// What the design does about it, for now simply:
-// - The S x S block does not fit a Hopper SM (12·1024²·4 bytes at S=1024),
-//   so each block owns BR query rows of one (batch, head) — grid (B·H,
-//   S/BR) — keeps its Q tile in shared memory and streams K and V tiles of
-//   BR rows. q, k, v, o are read and written in the public BSHD layout
-//   through strides: no transposes around the kernel.
-// - Two passes over the key tiles: the first finds each row's exact max m,
-//   the second forms p = exp(s - m), sums l from the unrounded p, rounds p
-//   to the value dtype and accumulates PV in f32; o = PV / l. That is the
-//   TPU kernel's rounding exactly (p rounded before PV, division after),
-//   which an online softmax would not give. Causal key tiles past the
-//   query tile's last row are skipped: their p is exactly 0.
-// - Products on CUDA-core f32 FMA (fused_common.cuh). Later work: mma/wgmma
-//   tiles in bf16 and TMA loads; the kernel is far from its byte bound.
+// What the design does about it: two variants, chosen by the launcher
+// from dtype and head dim. Both read q, k, v and write o in the public
+// BSHD layout through strides (GQA: kv head h / (H/Hkv)), and both keep
+// the TPU kernel's rounding exactly: the exact row max first, p rounded to
+// the value type before P V, the division after — an online softmax, as in
+// the flash forward, would round p against a running max instead.
+//
+// bf16 at D in {64, 128} (every training path): tensor cores.
+// - One warpgroup (128 threads, so 2-3 blocks share an SM) owns 64 query
+//   rows of one (b, h): grid (S/64, B·H). Q is copied once into a swizzled
+//   bf16 tile (flash_tc.cuh); K and V tiles of KT keys (128 at D = 64, 64
+//   at D = 128) come through a two-stage cp.async ring, the next tile in
+//   flight while one computes.
+// - S ≤ KT (BERT's S = 128): one pass. S = Q Kᵀ by wgmma gives the whole
+//   64 x S score block in registers; scale, mask to NEG_INF, the exact row
+//   max from the registers and two quad shuffles, p = exp(s - m), l from
+//   the unrounded p, p rounded to bf16 in place as the A fragment of O =
+//   P V (register-A wgmma, V read transposed from shared memory), o / l.
+// - KT < S ≤ 1024: two passes over the key tiles, both on wgmma. The first
+//   takes the exact max (Q Kᵀ only, V not loaded), the second recomputes
+//   the scores and accumulates P V. Causal key tiles past the query tile
+//   are skipped: their p is exactly 0.
+//
+// f32, and bf16 at D in {192, 256} (on no path): CUDA-core f32 FMA
+// (fused_common.cuh), the same two passes over f32 tiles of BR rows in
+// shared memory; grid (B·H, S/BR).
+#include "flash_tc.cuh"
 #include "fused_common.cuh"
 
 namespace fused {
@@ -151,12 +165,151 @@ cudaError_t launch_d(int D, const void* q, const void* k, const void* v, const i
                                            stream);)
 }
 
+// ---- bf16, D in {64, 128}: tensor cores ------------------------------------
+
+// One warpgroup: 64 query rows of one (b, h), key tiles of KT keys.
+template <int D, int KT>
+__global__ void __launch_bounds__(128)
+fwd_tc_kernel(const tc::bf16* __restrict__ q, const tc::bf16* __restrict__ k,
+              const tc::bf16* __restrict__ v, const int* __restrict__ seg,
+              tc::bf16* __restrict__ out, float* __restrict__ lse, int S, int H, int Hkv,
+              int causal, float scale) {
+  using namespace tc;
+  constexpr int NS = KT / 2, NO = D / 2;
+  constexpr uint32_t kQ = 64 * D * 2, kKV = KT * D * 2;  // bf16 tiles [64, D], [KT, D]
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* sm;
+  const uint32_t sQ = aligned_base(smem_raw, &sm);  // [64, D]
+  const uint32_t sStage = sQ + kQ;                  // 2 x (K [KT, D], V [KT, D])
+  const uint32_t sSeg = sStage + 4 * kKV;           // 2 x [KT] int32 segment ids of the keys
+
+  const int t = threadIdx.x;
+  const int qt = causal ? gridDim.x - 1 - blockIdx.x : blockIdx.x;  // heaviest causal tiles first
+  const int bh = blockIdx.y, b = bh / H, h = bh - b * H, kh = h / (H / Hkv);
+  const int i0 = qt * 64;
+  const long long q_rs = (long long)H * D, kv_rs = (long long)Hkv * D;
+  const bf16* k_base = k + ((long long)b * S * Hkv + kh) * D;
+  const bf16* v_base = v + ((long long)b * S * Hkv + kh) * D;
+  const bool use_seg = seg != nullptr;
+  // key tiles this query tile attends; with one, a single pass, else the
+  // max pass (items 0 .. n-1) then the P V pass (items n .. 2n-1)
+  const int n = causal ? min(S / KT, (i0 + 63) / KT + 1) : S / KT;
+  const int n_max = n == 1 ? 0 : n, n_items = n_max + n;
+
+  auto issue = [&](int it) {  // item it into stage it % 2
+    const int j0 = (it < n_max ? it : it - n_max) * KT;
+    const uint32_t st = sStage + (it & 1) * 2 * kKV;
+    cp_tile<D, 128>(st, KT, k_base + j0 * kv_rs, kv_rs, t);
+    if (it >= n_max) cp_tile<D, 128>(st + kKV, KT, v_base + j0 * kv_rs, kv_rs, t);
+    if (use_seg) cp_words<128>(sSeg + (it & 1) * KT * 4, seg + (long long)b * S + j0, KT, t);
+  };
+  cp_tile<D, 128>(sQ, 64, q + (((long long)b * S + i0) * H + h) * D, q_rs, t);
+  issue(0);
+  cp_commit();
+
+  // this thread's two query rows: r0 for the even register pairs, r1 = r0 + 8
+  const int r0 = i0 + acc_row(t, 0), r1 = r0 + 8;
+  const int sq0 = use_seg ? seg[(long long)b * S + r0] : 0;
+  const int sq1 = use_seg ? seg[(long long)b * S + r1] : 0;
+  float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f, o[NO], sacc[NS];
+#pragma unroll
+  for (int i = 0; i < NO; ++i) o[i] = 0.f;
+
+  for (int it = 0; it < n_items; ++it) {
+    cp_wait(0);
+    fence_async_smem();
+    __syncthreads();  // item it landed for every thread; the other stage is free
+    if (it + 1 < n_items) issue(it + 1);
+    cp_commit();
+    const uint32_t sK = sStage + (it & 1) * 2 * kKV, sV = sK + kKV;
+    const int* segk = reinterpret_cast<const int*>(sm + (sSeg - sQ) + (it & 1) * KT * 4);
+    const int j0 = (it < n_max ? it : it - n_max) * KT;
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      Mma<KT>::ss(sacc, desc_k(sQ, 64, 0, kk), desc_k(sK, KT, 0, kk), kk);
+    wg_commit();
+    wg_wait_all();
+    hold(sacc);
+    // scale·s, NEG_INF where the segment or causal mask shuts the pair out
+    const bool masked = use_seg || (causal && j0 + KT - 1 > i0);
+    float mb0 = -INFINITY, mb1 = -INFINITY;
+#pragma unroll
+    for (int i = 0; i < NS; ++i) {
+      const bool hi = (i >> 1) & 1;
+      float x = sacc[i] * scale;
+      if (masked) {
+        const int j = acc_col(t, i);
+        if ((use_seg && (hi ? sq1 : sq0) != segk[j]) || (causal && j0 + j > (hi ? r1 : r0)))
+          x = kNegInf;
+      }
+      sacc[i] = x;
+      if (hi) mb1 = fmaxf(mb1, x);
+      else mb0 = fmaxf(mb0, x);
+    }
+    if (it < n_max) {  // the max pass
+      m0 = fmaxf(m0, mb0);
+      m1 = fmaxf(m1, mb1);
+      continue;
+    }
+    if (it == n_max) {  // the exact row max, over the quad that shares the row
+      m0 = quad_max(fmaxf(m0, mb0));
+      m1 = quad_max(fmaxf(m1, mb1));
+    }
+    uint32_t pf[KT / 16][4];
+#pragma unroll
+    for (int kk = 0; kk < KT / 16; ++kk)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int i = 8 * kk + 2 * e;  // row r0 for e even, r1 for e odd
+        const float m = (e & 1) ? m1 : m0;
+        const float pa = exp2f((sacc[i] - m) * kLog2e), pb = exp2f((sacc[i + 1] - m) * kLog2e);
+        if (e & 1) l1 += pa + pb;
+        else l0 += pa + pb;
+        pf[kk][e] = pack_bf16(pa, pb);  // p.astype(bf16)
+      }
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < KT / 16; ++kk) Mma<D>::rs(o, pf[kk], desc_mn(sV, KT, 0, kk), 1);
+    wg_commit();
+    wg_wait_all();
+    hold(o);
+    hold(pf);
+  }
+
+  l0 = quad_sum(l0);
+  l1 = quad_sum(l1);
+#pragma unroll
+  for (int i = 0; i < NO; ++i) o[i] /= ((i >> 1) & 1) ? l1 : l0;
+  store_acc<D>(out + (((long long)b * S + i0) * H + h) * D, q_rs, o, t);
+  if ((t & 3) == 0) {
+    lse[(long long)bh * S + r0] = m0 + logf(l0);
+    lse[(long long)bh * S + r1] = m1 + logf(l1);
+  }
+}
+
+template <int D, int KT>
+cudaError_t launch_tc(const void* q, const void* k, const void* v, const int* seg, void* out,
+                      float* lse, int B, int S, int H, int Hkv, int causal, float scale,
+                      cudaStream_t stream) {
+  constexpr size_t smem = tc::kAlignSlack + 64 * D * 2 + 4 * KT * D * 2 + 2 * KT * 4;
+  auto kernel = fwd_tc_kernel<D, KT>;
+  cudaError_t err = paged::allow_smem(kernel, smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<dim3(S / 64, B * H), 128, smem, stream>>>(
+      static_cast<const tc::bf16*>(q), static_cast<const tc::bf16*>(k),
+      static_cast<const tc::bf16*>(v), seg, static_cast<tc::bf16*>(out), lse, S, H, Hkv, causal,
+      scale);
+  return cudaGetLastError();
+}
+
 }  // namespace fused
 
 // q, out [B,S,H,D]; k, v [B,S,Hkv,D] (dtype: 0 f32, 1 bf16; all contiguous,
 // 16-byte aligned); seg [B,S] int32 or null; lse [B,H,S] f32. S % 128 == 0,
 // S <= 1024, D in {64, 128, 192, 256}, H % Hkv == 0. Returns the launch's
-// cudaError_t (0 on success).
+// cudaError_t (0 on success). bf16 at D = 64 and 128 goes to the
+// tensor-core kernel, f32 and D = 192, 256 to the CUDA-core one.
 extern "C" int fused_attention_fwd_launch(const void* q, const void* k, const void* v,
                                           const void* seg, void* out, void* lse, int B, int S,
                                           int H, int Hkv, int D, int dtype, int causal,
@@ -167,6 +320,10 @@ extern "C" int fused_attention_fwd_launch(const void* q, const void* k, const vo
   const int* sg = static_cast<const int*>(seg);
   float* l = static_cast<float*>(lse);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == paged::kBF16 && D == 64)
+    return launch_tc<64, 128>(q, k, v, sg, out, l, B, S, H, Hkv, causal, scale, s);
+  if (dtype == paged::kBF16 && D == 128)
+    return launch_tc<128, 64>(q, k, v, sg, out, l, B, S, H, Hkv, causal, scale, s);
   if (dtype == paged::kF32)
     return launch_d<float>(D, q, k, v, sg, out, l, B, S, H, Hkv, causal, scale, s);
   if (dtype == paged::kBF16)

@@ -6,9 +6,10 @@ CUDA card, ``nvcc`` (the kernels are built from ``accelerate_tpu_torch/
 csrc`` at first use) and no network. Phases, each of which fails the run:
 
 1. build the CUDA kernels (one ``nvcc`` per source, in parallel); check
-   that the flash forward, dq and dk/dv libraries and the fused backward
-   hold tensor-core (``HGMMA``) instructions in their SASS and that no
-   tensor-core variant spills registers;
+   that the flash forward, dq and dk/dv libraries, the fused forward and
+   backward and the paged prefill hold tensor-core (``HGMMA``)
+   instructions in their SASS and that no tensor-core variant spills
+   registers;
 2. each kernel against its plain PyTorch version on the card, in bf16 and
    f32, with times beside the least time the card could take and one
    PyTorch library call as a yardstick: the paged kernels at the serving
@@ -18,7 +19,8 @@ csrc`` at first use) and no network. Phases, each of which fails the run:
    heads, vocab 32000; random bf16 weights from seed 0) answering 9 greedy
    requests — launch counters zeroed before and read after, so the run
    shows that the path went through both kernels; then ``torch.profiler``
-   over 8 decode steps for the device's busy share and top kernels;
+   over 8 decode steps for the device's busy share and top kernels, and
+   over one step that prefills a 256-token chunk;
 4. the cached path (chunked prefill + 16 decode steps through
    ``paged_forward`` and the kernels) against the plain full-sequence
    forward, logits compared in f32;
@@ -168,7 +170,8 @@ def time_ms(fn, n_copies: int, iters: int, behind_sleep: bool = True) -> float:
 
 # Libraries whose bf16 products must run on tensor cores: each must hold
 # warpgroup MMA (HGMMA) instructions in its SASS.
-TENSOR_CORE_LIBS = ("flash_fwd", "flash_dq", "flash_dkdv", "fused_attention_bwd")
+TENSOR_CORE_LIBS = ("flash_fwd", "flash_dq", "flash_dkdv", "fused_attention_fwd",
+                    "fused_attention_bwd", "paged_prefill")
 
 
 def phase_build():
@@ -488,7 +491,8 @@ def phase_profile(params, config, dev):
     live requests; device busy share = summed time of the device's kernels
     and copies (one stream, so they do not overlap) over the host wall of
     the same 8 steps run without the profiler (whose host cost inflates
-    the wall it watches)."""
+    the wall it watches). Then the device time of one step that prefills a
+    chunk of ``max_prefill_len`` tokens, and the paged prefill's part."""
     from torch.profiler import ProfilerActivity, profile
 
     from accelerate_tpu_torch.serving import ServingEngine
@@ -516,10 +520,7 @@ def phase_profile(params, config, dev):
     plain_us = eight_steps()
     prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
     wall_us = eight_steps(prof)
-    # device-side events only (kernels, copies): an operator row carries the
-    # time of the kernels it launched, so summing both would count it twice
-    rows = [(e.key, e.self_device_time_total, e.count) for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0]
+    rows = _device_rows(prof)
     device_us = sum(r[1] for r in rows)
     if not rows:
         print("[profile] the profiler recorded no device time: busy share not measured")
@@ -529,6 +530,34 @@ def phase_profile(params, config, dev):
           f"busy share {device_us / plain_us:.3f}")
     for key, us, count in sorted(rows, key=lambda r: -r[1])[:8]:
         print(f"[profile]   {us / 8e3:8.4f} ms/step  {count / 8:6.1f} calls/step  {key[:90]}")
+
+    # one step that prefills a prompt of the largest chunk and decodes one
+    # token, profiled after the same step on a fresh engine unprofiled
+    prompt = np.random.default_rng(3).integers(0, config.vocab_size, ENGINE_KW["max_prefill_len"])
+    for prof in (None, profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])):
+        engine = ServingEngine(params, config, **ENGINE_KW)
+        engine.submit(prompt, 2)
+        torch.cuda.synchronize()
+        if prof is not None:
+            prof.start()
+        engine.step()
+        torch.cuda.synchronize()
+        if prof is not None:
+            prof.stop()
+    rows = _device_rows(prof)
+    prefill = [r for r in rows if "prefill" in r[0]]
+    print(f"[profile] one step prefilling a {len(prompt)}-token chunk through {config.n_layers} "
+          f"layers and decoding one token: device {sum(r[1] for r in rows) / 1e3:.3f} ms, the "
+          f"paged prefill kernel {sum(r[1] for r in prefill) / 1e3:.4f} ms in "
+          f"{sum(r[2] for r in prefill)} launches")
+
+
+def _device_rows(prof):
+    """(key, self device µs, count) of the device-side events (kernels,
+    copies) a profiler recorded: an operator row carries the time of the
+    kernels it launched, so summing both would count it twice."""
+    return [(e.key, e.self_device_time_total, e.count) for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0]
 
 
 def _cached_logits(params, config, tokens, n_prompt, dev, chunk=128):

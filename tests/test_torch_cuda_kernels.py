@@ -68,9 +68,24 @@ def test_decode_kernel_matches_plain(dev, q_dtype, kv_dtype, H, Hkv, D, bs):
     assert float((out.float() - ref.float()).abs().max()) <= ATOL[q_dtype]
 
 
+# bf16 at D in {64, 128}, block size 8-64 and a group of 1-16 q heads per
+# kv head takes the tensor-core kernel (tiles of 64/G queries x G heads);
+# S below not a multiple of a tile's queries tests the partial last tile.
+PREFILL_CASES = [
+    # S, H, Hkv, D, bs
+    (128, 32, 8, 64, 16), (37, 8, 2, 32, 8), (2, 4, 4, 128, 16), (70, 16, 1, 64, 64),
+    (100, 16, 16, 64, 8),    # G=1: 64 queries a tile
+    (37, 32, 8, 128, 8),     # G=4
+    (70, 16, 1, 128, 32),    # G=16: 4 queries a tile
+    (150, 4, 4, 128, 32),
+    (45, 16, 1, 64, 16),
+    (130, 8, 2, 64, 32),
+    (60, 12, 4, 64, 16),     # G=3: the CUDA-core kernel in bf16 too
+]
+
+
 @pytest.mark.parametrize("q_dtype,kv_dtype", DTYPES)
-@pytest.mark.parametrize("S,H,Hkv,D,bs", [(128, 32, 8, 64, 16), (37, 8, 2, 32, 8),
-                                          (2, 4, 4, 128, 16), (70, 16, 1, 64, 64)])
+@pytest.mark.parametrize("S,H,Hkv,D,bs", PREFILL_CASES)
 def test_prefill_kernel_matches_plain(dev, q_dtype, kv_dtype, S, H, Hkv, D, bs):
     W = -(-(S + 3 * bs) // bs)
     q, k, v, tables, qpos = _case(1, 3, S, H, Hkv, D, bs, W, [0, bs + 3, 2 * bs],
@@ -82,6 +97,34 @@ def test_prefill_kernel_matches_plain(dev, q_dtype, kv_dtype, S, H, Hkv, D, bs):
     ref = fa.paged_attention_prefill_plain(q, k, v, tables, qpos)
     assert float((out.float() - ref.float()).abs().max()) <= ATOL[q_dtype]
 
+
+
+@pytest.mark.parametrize("q_dtype,kv_dtype", DTYPES)
+@pytest.mark.parametrize("S,H,Hkv,D,bs", [(128, 32, 8, 64, 16), (37, 32, 8, 128, 8),
+                                          (70, 16, 1, 64, 32), (45, 8, 2, 32, 8)])
+def test_prefill_kernel_never_reads_past_the_walk(dev, q_dtype, kv_dtype, S, H, Hkv, D, bs):
+    """Table entries past each row's last attended block point at a block
+    of NaN: the output stays finite, bitwise equal to the kernel's on the
+    same table with those entries at a finite block, and within the
+    tolerance of the plain version on that table."""
+    W = -(-(S + 3 * bs) // bs)
+    q, k, v, tables, qpos = _case(12, 3, S, H, Hkv, D, bs, W, [0, bs + 3, 2 * bs], dev,
+                                  q_dtype, kv_dtype)
+    nan_block = k.shape[0]
+    k = torch.cat([k, torch.full_like(k[:1], float("nan"))])
+    v = torch.cat([v, torch.full_like(v[:1], float("nan"))])
+    poisoned = tables.clone()
+    last = (qpos.max(dim=1).values // bs).tolist()  # each row's last attended block
+    for b, w in enumerate(last):
+        assert w + 1 < W
+        poisoned[b, w + 1:] = nan_block
+    out = fa.paged_attention_prefill(q, k, v, tables, qpos)
+    out_poisoned = fa.paged_attention_prefill(q, k, v, poisoned, qpos)
+    torch.cuda.synchronize()
+    assert torch.isfinite(out_poisoned.float()).all()
+    assert torch.equal(out_poisoned, out)
+    ref = fa.paged_attention_prefill_plain(q, k, v, tables, qpos)
+    assert float((out_poisoned.float() - ref.float()).abs().max()) <= ATOL[q_dtype]
 
 # Fused attention (kernels #4 and #5). f32: same arithmetic, another
 # summation order — outputs and lse within 1e-5, gradients within 1e-5 of
@@ -100,6 +143,12 @@ FUSED_CASES = [
     (1, 384, 4, 4, 192, False, True),
     (1, 128, 4, 1, 256, True, True),
     (2, 1024, 2, 2, 64, False, True),
+    # the bf16 tensor-core forward at both head dims: one pass at S=128
+    # (D=64), two passes above
+    (2, 128, 8, 2, 128, True, True),     # causal, padded GQA at S=128, D=128
+    (2, 128, 4, 4, 128, False, False),   # no mask at all
+    (1, 1024, 4, 2, 128, True, True),    # causal, padded GQA at S=1024, D=128
+    (2, 1024, 4, 1, 64, True, False),    # causal GQA at S=1024, D=64
 ]
 
 
