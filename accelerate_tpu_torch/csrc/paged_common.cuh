@@ -1,16 +1,16 @@
 // Shared pieces of the paged-attention kernels (paged_decode.cu,
-// paged_prefill.cu): type conversion, warp reductions, the pipelined
-// cp.async walk over a row's block table, and the online-softmax fold of a
-// warp's query rows.
+// paged_prefill.cu): type conversion, warp reductions and the shared-memory
+// cap; then, for the prefill's CUDA-core variant, the pipelined cp.async
+// walk over a row's block table and the online-softmax fold of a warp's
+// query rows.
 //
-// Both kernels have the same inner shape: a thread block holds up to
-// kWarps * kMaxRowsPerWarp query rows that read the SAME kv head, walks
-// that head's KV blocks through shared memory one table entry at a time,
-// and each warp folds every block into the rows it owns. Later blocks'
-// copies (cp.async, no registers held) are in flight while the current one
-// is folded, so a step costs about max(copy latency / depth, fold).
-// Scores, softmax statistics and the value accumulator are f32 whatever
-// the storage type.
+// The walk's shape: a thread block holds up to kWarps * kMaxRowsPerWarp
+// query rows that read the SAME kv head, walks that head's KV blocks
+// through shared memory one table entry at a time, and each warp folds
+// every block into the rows it owns. Later blocks' copies (cp.async, no
+// registers held) are in flight while the current one is folded, so a step
+// costs about max(copy latency / depth, fold). Scores, softmax statistics
+// and the value accumulator are f32 whatever the storage type.
 #pragma once
 
 #include <cuda_bf16.h>

@@ -37,9 +37,9 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 #: returns the ``cudaError_t`` of its launch as an int
 KERNELS = {
     "paged_decode": {
-        # q, k_pool, v_pool, tables, kv_lens, out,
-        # B, H, Hkv, D, block_size, W, q_dtype, kv_dtype, scale, stream
-        "paged_decode_launch": [_P] * 6 + [_I] * 8 + [_F, _P],
+        # q, k_pool, v_pool, tables, kv_lens, out, partials, tickets,
+        # B, H, Hkv, D, block_size, W, split_keys, q_dtype, kv_dtype, scale, stream
+        "paged_decode_launch": [_P] * 8 + [_I] * 9 + [_F, _P],
     },
     "paged_prefill": {
         # q, k_pool, v_pool, tables, q_positions, out,

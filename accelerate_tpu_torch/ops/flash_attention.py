@@ -42,6 +42,7 @@ cast to ``q.dtype`` at the end.
 
 from __future__ import annotations
 
+import functools
 import math
 from dataclasses import dataclass
 from typing import Optional
@@ -73,6 +74,12 @@ _SUPPORTED = {(torch.float32, torch.float32), (torch.bfloat16, torch.bfloat16),
               (torch.float32, torch.bfloat16)}
 _HEAD_DIMS = (32, 64, 128)
 _MAX_GROUPS = 16  # query heads per kv head the decode block holds
+# keys per split of the decode kernel's walk, largest first, and the share
+# of the SMs a grid must fill before a larger split is taken
+_DECODE_SPLIT_KEYS = (128, 64, 32)
+_DECODE_SM_SHARE = 4  # at least one block for every fourth SM
+# per (device, stream): the decode kernel's scratch (partials, tickets)
+_DECODE_SCRATCH: "dict[tuple[torch.device, int], tuple[torch.Tensor, torch.Tensor]]" = {}
 
 
 def _plain(q, k_pool, v_pool, block_tables, q_positions, scale):
@@ -126,30 +133,81 @@ def _launch_error(lib, err: int, name: str) -> RuntimeError:
     return RuntimeError(f"{name} launch failed: {lib.kernel_error_string(err).decode()} ({err})")
 
 
+def _decode_split_keys(B, Hkv, keys, n_sms):
+    """Keys per split of the decode kernel's walk over a ``keys``-long
+    table (``W * block_size``), from shapes alone: the largest of
+    ``_DECODE_SPLIT_KEYS`` whose grid ``(B, Hkv, ceil(keys / C))`` has a
+    block for every ``_DECODE_SM_SHARE``-th of the ``n_sms`` SMs, else the
+    smallest. Larger splits mean fewer partials to merge, and the kernel's
+    time is latency, not work (``chip_smoke.py`` ``phase_decode_splits``
+    times each split on the card)."""
+    for c in _DECODE_SPLIT_KEYS:
+        if _DECODE_SM_SHARE * B * Hkv * -(-keys // c) >= n_sms:
+            return c
+    return _DECODE_SPLIT_KEYS[-1]
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def _decode_scratch(stream, n_partials, n_tickets):
+    """The decode kernel's scratch for launches on ``stream``: at least
+    ``n_partials`` f32 split partials and ``n_tickets`` int32 tickets (one
+    per row and kv head), kept between calls and grown when a call needs
+    more. Tickets are zeroed once, when allocated; every launch leaves them
+    at 0. Launches on one stream run one after another, so they may share
+    it; each stream has its own."""
+    key = (stream.device, stream.cuda_stream)
+    partials, tickets = _DECODE_SCRATCH.get(key, (None, None))
+    if partials is None or partials.numel() < n_partials:
+        partials = torch.empty(n_partials, dtype=torch.float32, device=stream.device)
+    if tickets is None or tickets.numel() < n_tickets:
+        tickets = torch.zeros(n_tickets, dtype=torch.int32, device=stream.device)
+    _DECODE_SCRATCH[key] = (partials, tickets)
+    return partials, tickets
+
+
 def paged_attention_decode(q, k_pool, v_pool, block_tables, kv_lens, scale=None):
     """q ``[B, 1, H, D]`` against one layer's pools ``[num_blocks,
     block_size, Hkv, D]`` through ``block_tables [B, W]`` (int32), with live
     lengths ``kv_lens [B]`` (int32). Returns ``[B, 1, H, D]`` in
-    ``q.dtype``."""
+    ``q.dtype``.
+
+    On the card each row's keys are split over blocks of
+    :func:`_decode_split_keys` keys, merged in the same launch through the
+    current stream's scratch (:func:`_decode_scratch`)."""
     B, S, H, D = q.shape
     if S != 1:
         raise ValueError(f"decode kernel wants S=1 queries, got S={S}")
     if not q.is_cuda:
         return paged_attention_decode_plain(q, k_pool, v_pool, block_tables, kv_lens, scale)
     _check_launch(q, k_pool, v_pool, block_tables, kv_lens)
-    if H // k_pool.shape[2] > _MAX_GROUPS:
+    _, bs, Hkv, _ = k_pool.shape
+    if H // Hkv > _MAX_GROUPS:
         raise ValueError(f"decode kernel holds at most {_MAX_GROUPS} q heads per kv head")
     lib = _build.load("paged_decode")
+    if k_pool.data_ptr() % 16 or v_pool.data_ptr() % 16:
+        raise ValueError("decode kernel copies the pools in 16-byte chunks: they must be "
+                         "16-byte aligned")
     q = q.contiguous()
+    if q.data_ptr() % 16:  # the kernel reads q in 16-byte vectors
+        q = q.clone()
     tables = block_tables.contiguous()
     lens = kv_lens.contiguous()
     out = torch.empty_like(q)
     sm_scale = 1.0 / math.sqrt(D) if scale is None else float(scale)
+    W = tables.shape[1]
+    split_keys = _decode_split_keys(B, Hkv, W * bs, _sm_count(q.device))
+    stream = torch.cuda.current_stream(q.device)
+    partials, tickets = _decode_scratch(
+        stream, B * Hkv * -(-W * bs // split_keys) * (H // Hkv) * (D + 2), B * Hkv)
     err = lib.paged_decode_launch(
         q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), tables.data_ptr(), lens.data_ptr(),
-        out.data_ptr(), B, H, k_pool.shape[2], D, k_pool.shape[1], tables.shape[1],
-        _DTYPE_CODES[q.dtype], _DTYPE_CODES[k_pool.dtype], sm_scale,
-        torch.cuda.current_stream(q.device).cuda_stream,
+        out.data_ptr(), partials.data_ptr(), tickets.data_ptr(),
+        B, H, Hkv, D, bs, W, split_keys, _DTYPE_CODES[q.dtype], _DTYPE_CODES[k_pool.dtype],
+        sm_scale, stream.cuda_stream,
     )
     if err:
         raise _launch_error(lib, err, "paged_decode")

@@ -8,19 +8,24 @@ csrc`` at first use) and no network. Phases, each of which fails the run:
 1. build the CUDA kernels (one ``nvcc`` per source, in parallel); check
    that the flash forward, dq and dk/dv libraries, the fused forward and
    backward and the paged prefill hold tensor-core (``HGMMA``)
-   instructions in their SASS and that no tensor-core variant spills
-   registers;
+   instructions in their SASS and that no tensor-core variant and no
+   paged decode variant spills registers;
 2. each kernel against its plain PyTorch version on the card, in bf16 and
    f32, with times beside the least time the card could take and one
    PyTorch library call as a yardstick: the paged kernels at the serving
-   path's shapes, the fused attention forward and backward at BERT-base's
-   (B=32, S=128, H=12, D=64, padded rows), a causal GQA case and S=1024;
+   path's shapes (decode at 8 ragged rows of up to 256 and 512 keys and
+   one row of 512; prefill chunks of 128 and 256), with table entries past
+   kv_len on a NaN block leaving the decode output bitwise unchanged, and
+   the decode at each keys-per-split it can take; the fused attention
+   forward and backward at BERT-base's (B=32, S=128, H=12, D=64, padded
+   rows), a causal GQA case and S=1024;
 3. the serving engine at full Llama-1B width (dim 2048, 16 layers, 32/8
    heads, vocab 32000; random bf16 weights from seed 0) answering 9 greedy
    requests — launch counters zeroed before and read after, so the run
    shows that the path went through both kernels; then ``torch.profiler``
-   over 8 decode steps for the device's busy share and top kernels, and
-   over one step that prefills a 256-token chunk;
+   over 8 decode steps for the device's busy share, top kernels and the
+   paged decode kernel's device time, and over one step that prefills a
+   256-token chunk;
 4. the cached path (chunked prefill + 16 decode steps through
    ``paged_forward`` and the kernels) against the plain full-sequence
    forward, logits compared in f32;
@@ -192,9 +197,10 @@ def phase_build():
                 detail = line.split(":")[-1].strip()
                 print(f"[build]   {entry}: {detail}")
                 spills = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", detail)
-                if "_tc_kernel" in entry and spills and spills.groups() != ("0", "0"):
+                if (("_tc_kernel" in entry or name == "paged_decode") and spills
+                        and spills.groups() != ("0", "0")):
                     spilled.append(f"{name} {entry}: {detail}")
-    check(not spilled, "tensor-core variants spill registers: " + "; ".join(spilled))
+    check(not spilled, "kernels spill registers: " + "; ".join(spilled))
     # the SASS, read with the cuobjdump of nvcc's own toolkit
     cuobjdump = os.path.join(os.path.dirname(_build.nvcc_path()), "cuobjdump")
     check(os.path.isfile(cuobjdump), f"cuobjdump not found beside nvcc ({cuobjdump})")
@@ -219,17 +225,32 @@ def _scrambled_tables(rng, B, W, need, nb):
     return tables
 
 
+# Decode cases: (table width W, kv_lens); an inactive slot (length 1 on an
+# all-null table row) is marked by a negative length. H=32, Hkv=8, D=64,
+# bs=16 as in serving.
+DECODE_CASES = {
+    "decode": (16, [1, 17, 100, 129, 200, 255, 256, -1]),
+    "decode_long": (32, [37, 130, 256, 300, 364, 420, 480, 512]),  # up to max_seq_len
+    "decode_b1": (32, [512]),  # a single request
+}
+# The paged kernel cases' seeds, by name (bf16 takes the seed, f32 the
+# next), so that adding a case leaves every other case's inputs as they were.
+KERNEL_CASE_SEEDS = {"decode": 0, "prefill128": 2, "prefill256": 4, "decode_long": 6,
+                     "decode_b1": 8}
+
+
 def _kernel_case(kind, dtype, dev, seed):
-    """Inputs at the serving path's shapes: decode B=8, H=32, Hkv=8, D=64,
-    bs=16, W=16 with ragged lengths and a null-padded row; prefill B=1 at
-    S=128 / S=256 against a W=32 table whose earlier KV has landed."""
+    """Inputs at the serving path's shapes: the DECODE_CASES (H=32, Hkv=8,
+    D=64, bs=16) with ragged lengths; prefill B=1 at S=128 / S=256 against a
+    W=32 table whose earlier KV has landed."""
     rng = np.random.default_rng(seed)
     H, Hkv, D, bs = 32, 8, 64, 16
-    if kind == "decode":
-        B, S, W = 8, 1, 16
-        lens = np.array([1, 17, 100, 129, 200, 255, 256, 1], np.int32)
-        need = [-(-int(n) // bs) for n in lens]
-        need[-1] = 0  # an inactive slot: every entry the null block
+    if kind in DECODE_CASES:
+        W, spec = DECODE_CASES[kind]
+        B, S = len(spec), 1
+        lens = np.abs(np.array(spec, np.int32))
+        # an inactive slot: every entry the null block
+        need = [0 if n < 0 else -(-n // bs) for n in spec]
         qpos = (lens - 1)[:, None]
     else:
         B, W = 1, 32
@@ -263,17 +284,81 @@ def _bound(case, dtype):
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
+def _decode_poison_check(dev):
+    """Table entries past each row's live blocks point at a block of NaN:
+    the decode kernel's output must be bitwise that of the same table with
+    those entries on the (finite) null block — it reads no entry past a
+    row's kv_len."""
+    from accelerate_tpu_torch.ops import flash_attention as fa
+
+    for kind in ("decode", "decode_long"):
+        for dtype in (torch.bfloat16, torch.float32):
+            case = _kernel_case(kind, dtype, dev, seed=77)
+            q, (k, v), tables, bs = case["q"], case["pools"][0], case["tables"], case["bs"]
+            lens = (case["qpos"][:, 0] + 1).to(torch.int32)
+            nan_block = k.shape[0]
+            k = torch.cat([k, torch.full_like(k[:1], float("nan"))])
+            v = torch.cat([v, torch.full_like(v[:1], float("nan"))])
+            poisoned = tables.clone()
+            live = [-(-int(n) // bs) for n in lens.tolist()]
+            for b, n in enumerate(live):
+                poisoned[b, n:] = nan_block
+            check(int((poisoned == nan_block).sum()) > 0, f"{kind}: no entry to poison")
+            out = fa.paged_attention_decode(q, k, v, tables, lens)
+            out_bad = fa.paged_attention_decode(q, k, v, poisoned, lens)
+            torch.cuda.synchronize()
+            ref = fa.paged_attention_decode_plain(q, k, v, tables, lens)
+            err = float((out.float() - ref.float()).abs().max())
+            check(bool(torch.isfinite(out_bad.float()).all()) and torch.equal(out_bad, out),
+                  f"{kind} {dtype}: NaN in table entries past kv_len changed the decode output")
+            check(err <= KERNEL_ATOL[dtype], f"{kind} {dtype}: poison case err {err}")
+            print(f"[kernels] {kind} {dtype}: {int((poisoned == nan_block).sum())} table entries "
+                  f"past kv_len on a NaN block: output bitwise unchanged (err vs plain {err:.3e})")
+
+
+def phase_decode_splits(dev):
+    """The decode kernel at each keys-per-split C the wrapper can pick, on
+    the DECODE_CASES in bf16: each checked against the plain version and
+    timed, beside the C the wrapper's shape rule picks on this card."""
+    from accelerate_tpu_torch.ops import flash_attention as fa
+
+    rule = fa._decode_split_keys
+    n_sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for kind in DECODE_CASES:
+        case = _kernel_case(kind, torch.bfloat16, dev, seed=5)
+        q, pools, tables = case["q"], case["pools"], case["tables"]
+        lens = (case["qpos"][:, 0] + 1).to(torch.int32)
+        ref = fa.paged_attention_decode_plain(q, *pools[0], tables, lens)
+        times = {}
+        for c in fa._DECODE_SPLIT_KEYS:
+            fa._decode_split_keys = lambda *args, c=c: c
+            try:
+                out = fa.paged_attention_decode(q, *pools[0], tables, lens)
+                torch.cuda.synchronize()
+                err = float((out.float() - ref.float()).abs().max())
+                check(err <= KERNEL_ATOL[torch.bfloat16], f"{kind} split {c}: err {err}")
+                times[c] = time_ms(lambda i: fa.paged_attention_decode(q, *pools[i], tables, lens),
+                                   len(pools), 32)
+            finally:
+                fa._decode_split_keys = rule
+        picked = rule(case["B"], case["Hkv"], case["W"] * case["bs"], n_sms)
+        print(f"[splits] {kind:11s} bf16 B={case['B']} keys={case['W'] * case['bs']}: "
+              + ", ".join(f"C={c} {t:.4f} ms" for c, t in times.items())
+              + f"; the wrapper picks C={picked} ({n_sms} SMs)")
+
+
 def phase_kernels(dev):
     from accelerate_tpu_torch.ops import flash_attention as fa
     from accelerate_tpu_torch.serving.kv_pager import gather_blocks
 
     sdpa = torch.nn.functional.scaled_dot_product_attention
     results = {}
-    for kind in ("decode", "prefill128", "prefill256"):
+    for kind in (*DECODE_CASES, "prefill128", "prefill256"):
         for dtype in (torch.bfloat16, torch.float32):
-            case = _kernel_case(kind, dtype, dev, seed=len(results))
+            seed = KERNEL_CASE_SEEDS[kind] + (dtype == torch.float32)
+            case = _kernel_case(kind, dtype, dev, seed)
             q, pools, tables, qpos = case["q"], case["pools"], case["tables"], case["qpos"]
-            if kind == "decode":
+            if kind in DECODE_CASES:
                 lens = (qpos[:, 0] + 1).to(torch.int32)
                 kernel = lambda i: fa.paged_attention_decode(q, *pools[i], tables, lens)  # noqa: E731
                 plain = lambda i: fa.paged_attention_decode_plain(q, *pools[i], tables, lens)  # noqa: E731
@@ -305,6 +390,7 @@ def phase_kernels(dev):
                   f"plain {rec['plain_ms']:.4f} ms sdpa {rec['library_ms']:.4f} ms "
                   f"bound {rec['bound_ms']:.5f} ms ({rec['bound_by']})")
             del gathered, pools
+    _decode_poison_check(dev)
     return results
 
 
@@ -530,6 +616,10 @@ def phase_profile(params, config, dev):
           f"busy share {device_us / plain_us:.3f}")
     for key, us, count in sorted(rows, key=lambda r: -r[1])[:8]:
         print(f"[profile]   {us / 8e3:8.4f} ms/step  {count / 8:6.1f} calls/step  {key[:90]}")
+    decode = [r for r in rows if "paged_decode" in r[0]]
+    print(f"[profile] the paged decode kernel over the 8 steps: "
+          f"{sum(r[1] for r in decode) / 1e3:.4f} ms of device time in "
+          f"{sum(r[2] for r in decode)} launches")
 
     # one step that prefills a prompt of the largest chunk and decodes one
     # token, profiled after the same step on a fresh engine unprofiled
@@ -1146,6 +1236,7 @@ def main() -> int:
           f"below is from this card: {card}")
     phase_build()
     kernel_results = phase_kernels(dev)
+    phase_decode_splits(dev)
     fused_results = phase_fused_kernels(dev)
 
     config = LlamaConfig(**CONFIG_KW)

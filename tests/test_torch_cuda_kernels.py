@@ -51,14 +51,48 @@ DTYPES = [(torch.float32, torch.float32), (torch.bfloat16, torch.bfloat16),
           (torch.float32, torch.bfloat16)]
 
 
-@pytest.mark.parametrize("q_dtype,kv_dtype", DTYPES)
-@pytest.mark.parametrize("H,Hkv,D,bs", [(32, 8, 64, 16), (8, 8, 32, 8), (16, 8, 128, 32),
-                                        (16, 1, 64, 64), (8, 4, 64, 5)])
-def test_decode_kernel_matches_plain(dev, q_dtype, kv_dtype, H, Hkv, D, bs):
-    q, k, v, tables, qpos = _case(0, 5, 1, H, Hkv, D, bs, 6, [0, 7, 3 * bs - 1, 6 * bs - 1, 2],
+# (H, Hkv, D, bs, split): split None takes the wrapper's own keys per
+# split on 5 rows of a 6-entry table (the last an inactive slot on the
+# null block); otherwise the split is forced and the rows sit on its edges
+# (1, C-1, C, C+1, 2C and the whole table) of a table three splits long,
+# at GQA groups of 1, 4 and 16, then B=1 at the whole table and at C+1.
+DECODE_CASES = [
+    (32, 8, 64, 16, None), (8, 8, 32, 8, None), (16, 8, 128, 32, None), (16, 1, 64, 64, None),
+    (8, 4, 64, 5, None),
+    (8, 8, 64, 16, 32),      # G=1
+    (32, 8, 64, 16, 64),     # G=4, the serving shape
+    (16, 1, 128, 16, 128),   # G=16
+    (16, 1, 64, 8, 32),
+    (4, 4, 128, 32, 64),
+    (32, 8, 32, 5, 128),     # a block size that does not divide the split
+    (16, 1, 32, 16, 64),
+    (32, 8, 128, 64, 32),    # one table entry spans two splits
+    (8, 8, 32, 16, 128),
+]
+
+
+def _decode_rows(seed, lens, H, Hkv, D, bs, W, dev, q_dtype, kv_dtype):
+    q, k, v, tables, qpos = _case(seed, len(lens), 1, H, Hkv, D, bs, W, [n - 1 for n in lens],
                                   dev, q_dtype, kv_dtype)
-    tables[4] = 0  # an inactive slot on the null block
-    lens = (qpos[:, 0] + 1).to(torch.int32)
+    return q, k, v, tables, (qpos[:, 0] + 1).to(torch.int32)
+
+
+@pytest.mark.parametrize("q_dtype,kv_dtype", DTYPES)
+@pytest.mark.parametrize("H,Hkv,D,bs,split", DECODE_CASES)
+def test_decode_kernel_matches_plain(dev, monkeypatch, q_dtype, kv_dtype, H, Hkv, D, bs, split):
+    """Kernel vs plain; then table entries past each row's kv_len on a
+    block of NaN leave the output bitwise unchanged; then a call on other
+    pools and one on the first pools again, bitwise equal to the first
+    call — each launch leaves the combine's tickets at 0."""
+    if split is None:
+        W, lens = 6, [1, 8, 3 * bs, 6 * bs, 3]
+    else:
+        monkeypatch.setattr(fa, "_decode_split_keys", lambda *args: split)
+        W = -(-3 * split // bs)
+        lens = [1, split - 1, split, split + 1, 2 * split, W * bs]
+    q, k, v, tables, lens = _decode_rows(0, lens, H, Hkv, D, bs, W, dev, q_dtype, kv_dtype)
+    if split is None:
+        tables[4] = 0  # an inactive slot on the null block
     before = fa.paged_attention_decode.launches
     out = fa.paged_attention_decode(q, k, v, tables, lens)
     torch.cuda.synchronize()
@@ -66,6 +100,53 @@ def test_decode_kernel_matches_plain(dev, q_dtype, kv_dtype, H, Hkv, D, bs):
     ref = fa.paged_attention_decode_plain(q, k, v, tables, lens)
     assert out.dtype == q.dtype and out.shape == q.shape
     assert float((out.float() - ref.float()).abs().max()) <= ATOL[q_dtype]
+
+    nan_block = k.shape[0]
+    k_nan = torch.cat([k, torch.full_like(k[:1], float("nan"))])
+    v_nan = torch.cat([v, torch.full_like(v[:1], float("nan"))])
+    poisoned = tables.clone()
+    for b, n in enumerate(lens.tolist()):
+        poisoned[b, -(-n // bs):] = nan_block
+    assert bool((poisoned == nan_block).any())
+    out_nan = fa.paged_attention_decode(q, k_nan, v_nan, poisoned, lens)
+    torch.cuda.synchronize()
+    assert torch.equal(out_nan, out)
+
+    out_other = fa.paged_attention_decode(q, v, k, tables, lens)
+    out_again = fa.paged_attention_decode(q, k, v, tables, lens)
+    torch.cuda.synchronize()
+    ref_other = fa.paged_attention_decode_plain(q, v, k, tables, lens)
+    assert float((out_other.float() - ref_other.float()).abs().max()) <= ATOL[q_dtype]
+    assert torch.equal(out_again, out)
+
+    if split is not None:  # one request alone: the whole table, then one past a split
+        for n in (W * bs, split + 1):
+            q1, k1, v1, t1, l1 = _decode_rows(1, [n], H, Hkv, D, bs, W, dev, q_dtype, kv_dtype)
+            out1 = fa.paged_attention_decode(q1, k1, v1, t1, l1)
+            torch.cuda.synchronize()
+            ref1 = fa.paged_attention_decode_plain(q1, k1, v1, t1, l1)
+            assert float((out1.float() - ref1.float()).abs().max()) <= ATOL[q_dtype]
+
+
+def test_decode_kernel_two_streams(dev):
+    """Decode calls on two streams at once, each on its own rows: every
+    output is bitwise that of the same call alone — each stream merges its
+    splits through scratch of its own."""
+    W, bs = 32, 16
+    cases = [_decode_rows(seed, lens, 32, 8, 64, bs, W, dev, torch.bfloat16, torch.bfloat16)
+             for seed, lens in ((2, [37, 130, 256, 512]), (3, [512, 300, 1, 480]))]
+    alone = [fa.paged_attention_decode(*c) for c in cases]
+    streams = [torch.cuda.Stream(dev) for _ in cases]
+    outs = [[], []]
+    for s in streams:
+        s.wait_stream(torch.cuda.current_stream(dev))
+    for _ in range(20):
+        for i, s in enumerate(streams):
+            with torch.cuda.stream(s):
+                outs[i].append(fa.paged_attention_decode(*cases[i]))
+    torch.cuda.synchronize()
+    for i in range(len(cases)):
+        assert all(torch.equal(o, alone[i]) for o in outs[i])
 
 
 # bf16 at D in {64, 128}, block size 8-64 and a group of 1-16 q heads per

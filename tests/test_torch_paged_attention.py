@@ -134,6 +134,20 @@ def test_decode_cow_divergence_point():
     _assert_decode_parity(q, k, v, tables, lens)
 
 
+# Lengths on the edges of every keys-per-split C the card kernel can take
+# (1, C-1, C, C+1) and the whole 32-entry table.
+SPLIT_EDGE_LENS = sorted({1, 32 * 8,
+                          *(n for c in fa._DECODE_SPLIT_KEYS for n in (c - 1, c, c + 1))})
+
+
+@pytest.mark.parametrize("kv_len", SPLIT_EDGE_LENS)
+def test_decode_one_request_at_split_edges(kv_len):
+    """B=1 against a W=32 table (bs=8, 256 keys): where the card kernel
+    splits a row's keys, the plain version still matches the JAX kernel."""
+    _assert_decode_parity(*_decode_case(
+        12, B=1, H=8, Hkv=2, D=16, bs=8, nb=40, W=32, lens=[kv_len]))
+
+
 @pytest.mark.parametrize("groups", [1, 2, 4])
 def test_prefill_gqa_ratios_with_landed_kv(groups):
     _assert_prefill_parity(*_prefill_case(
