@@ -23,11 +23,30 @@ Ported so far:
   (``models.transformer``), ``utils.packing``, and the blocked flash
   attention forward, dq and dk/dv kernels (``ops.flash_attention`` over
   ``csrc/flash_*.cu``) behind ``flash_attention`` and
-  ``dot_product_attention(impl="flash")``.
+  ``dot_product_attention(impl="flash")``;
+- training-loop options: gradient accumulation (``optax.MultiSteps``'
+  semantics in ``optimizer``), ``mixed_precision="fp16"`` with dynamic loss
+  scaling (``GradScalerConfig``; the fused attention kernels in fp16 too),
+  the optax schedules and ``AcceleratedScheduler`` (``scheduler``),
+  ``DummyOptim``/``DummyScheduler``, ``has_aux``, ``compute_grad_norm``,
+  ``accumulate``, ``no_sync``, ``gradient_fn`` and the eager clips.
 """
 
 from .accelerator import Accelerator
 from .data_loader import DataLoader
+from .optimizer import (
+    constant_schedule,
+    cosine_decay_schedule,
+    linear_schedule,
+    warmup_cosine_decay_schedule,
+)
+from .scheduler import AcceleratedScheduler
+from .utils.dataclasses import (
+    DummyOptim,
+    DummyScheduler,
+    GradientAccumulationPlugin,
+    GradScalerConfig,
+)
 from .models.transformer import (
     BertConfig,
     LlamaConfig,
@@ -44,20 +63,29 @@ from .serving.scheduler import Request, RequestStatus
 from .ops.flash_attention import flash_attention  # after serving: the two import each other
 
 __all__ = [
+    "AcceleratedScheduler",
     "Accelerator",
     "BertConfig",
     "BucketLattice",
     "DataLoader",
+    "DummyOptim",
+    "DummyScheduler",
+    "GradScalerConfig",
+    "GradientAccumulationPlugin",
     "LlamaConfig",
     "Request",
     "RequestStatus",
     "ServingEngine",
     "bert_forward",
     "bert_loss",
+    "constant_schedule",
+    "cosine_decay_schedule",
     "flash_attention",
     "init_bert",
     "init_llama",
+    "linear_schedule",
     "llama_forward",
     "llama_loss",
     "paged_forward",
+    "warmup_cosine_decay_schedule",
 ]

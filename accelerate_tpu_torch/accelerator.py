@@ -1,38 +1,53 @@
 """The training entry point: the port of ``accelerate_tpu.accelerator`` for
 one process on one device.
 
-``Accelerator.prepare`` places params, binds optimizers and wraps data
-loaders; ``prepare_train_step`` / ``prepare_train_loop`` build the step the
-JAX package compiles in ``_build_train_step`` (its non-fp16 branch): cast
-params and batch to the compute dtype, ``loss_fn``, loss to f32, backward
-(gradients come back through the cast in the param dtype), optimizer step,
-``metrics = {"loss": ...}``.
+``Accelerator.prepare`` places params, binds optimizers (``DummyOptim`` /
+``DummyScheduler`` included), wraps schedulers and data loaders;
+``prepare_train_step`` / ``prepare_train_loop`` build the step the JAX
+package compiles in ``_build_train_step``: cast params and batch to the
+compute dtype, ``loss_fn``, loss to f32 (times the loss scale under fp16),
+backward (gradients come back through the cast in the param dtype), under
+fp16 the gradients unscaled and zeroed when any is not finite, the
+optimizer's micro-step (an update at each accumulation boundary),
+``metrics = {"loss", ["grad_norm"], ["aux"], ["grads_finite",
+"loss_scale"]}``.
 
 The signatures stay functional — ``step(params, opt_state, batch)`` and
 ``loop(params, opt_state, batches)`` return ``(params, opt_state,
 metrics)`` — but the params and the optimizer state are updated **in
-place** and the same objects are returned. The loop's K steps run as a
-Python loop with no host sync inside it: the losses stay on the device
-until the caller reads them.
+place** and the same objects are returned. The loop's K micro-steps run as
+a Python loop with no host sync inside it: accumulation boundaries are a
+host count, the loss scale, its growth count and the finite flag stay on
+the device, and the metrics stay there until the caller reads them.
 
-Not ported yet (see ROADMAP.md): ``mixed_precision="fp16"`` (dynamic loss
-scaling) and ``"fp8"``, gradient accumulation, the mesh and its sharded
-placement, trackers, checkpointing, schedulers.
+Not ported yet (see ROADMAP.md): ``mixed_precision="fp8"``, the mesh and
+its sharded placement, the fused ZeRO-1 update, optimizer offload,
+clipping inside the compiled step, trackers and checkpointing.
 """
 
 from __future__ import annotations
 
+import contextlib
 import os
 import random
-from typing import Callable, Optional
+import warnings
+from typing import Callable, Optional, Sequence
 
 import numpy as np
 import torch
 
 from .data_loader import DataLoader, DataLoaderShard, prepare_data_loader
 from .optimizer import AcceleratedOptimizer, OptimizerFactory, param_leaves
+from .scheduler import AcceleratedScheduler
 from .state import AcceleratorState, GradientState
-from .utils.dataclasses import PrecisionType
+from .utils.dataclasses import (
+    DummyOptim,
+    DummyScheduler,
+    GradientAccumulationPlugin,
+    GradScalerConfig,
+    PrecisionType,
+)
+from .utils.operations import _tree_map, stack_batches
 
 __all__ = ["Accelerator", "set_seed"]
 
@@ -62,6 +77,10 @@ def _leading_dim(tree) -> int:
     return tree.shape[0]
 
 
+def _detach(tree):
+    return _tree_map(lambda x: x.detach() if isinstance(x, torch.Tensor) else x, tree)
+
+
 class Accelerator:
     """One process on one device: the CUDA device unless ``cpu=True`` or
     ``device="cpu"``; without a GPU and without either, construction
@@ -69,22 +88,34 @@ class Accelerator:
 
     def __init__(self, mixed_precision: Optional[str] = None, rng_seed: Optional[int] = None,
                  cpu: bool = False, device_placement: bool = True,
-                 gradient_accumulation_steps: int = 1, device=None):
+                 gradient_accumulation_steps: int = 1, device=None,
+                 gradient_accumulation_plugin: Optional[GradientAccumulationPlugin] = None,
+                 grad_scaler_config: Optional[GradScalerConfig] = None,
+                 step_scheduler_with_optimizer: bool = True,
+                 kwargs_handlers: Optional[Sequence] = None):
         precision = PrecisionType(str(mixed_precision if mixed_precision is not None
                                       else os.environ.get("ACCELERATE_MIXED_PRECISION", "no")))
-        if precision in (PrecisionType.FP16, PrecisionType.FP8):
+        if precision == PrecisionType.FP8:
             raise NotImplementedError(
-                f"mixed_precision={precision.value!r} is not ported yet (fp16 needs the dynamic "
-                "loss scaling of the JAX package's train step, fp8 its scaled matmuls; see "
-                "ROADMAP.md)"
-            )
-        if gradient_accumulation_steps > 1:
-            raise NotImplementedError(
-                "gradient_accumulation_steps > 1 is not ported yet (see ROADMAP.md)")
+                "mixed_precision='fp8' is not ported yet (it needs the JAX package's scaled fp8 "
+                "matmuls; see ROADMAP.md)")
+        if gradient_accumulation_plugin is None:
+            gradient_accumulation_plugin = GradientAccumulationPlugin(
+                num_steps=gradient_accumulation_steps)
+        for handler in kwargs_handlers or ():
+            if not isinstance(handler, GradScalerConfig):
+                raise ValueError(f"unsupported kwargs handler: {handler!r} (the port takes "
+                                 "GradScalerConfig only)")
+            if grad_scaler_config is not None:
+                raise ValueError("grad_scaler_config given both directly and as a handler")
+            grad_scaler_config = handler
         self.state = AcceleratorState(mixed_precision=precision.value, cpu=cpu, device=device)
-        self.gradient_state = GradientState(num_steps=gradient_accumulation_steps)
+        self.gradient_state = GradientState(gradient_accumulation_plugin)
+        self.grad_scaler_config = grad_scaler_config or GradScalerConfig()
+        self.step_scheduler_with_optimizer = step_scheduler_with_optimizer
         self.device_placement = device_placement
         self._optimizers: list = []
+        self._accum_count = 0
         if rng_seed is not None:
             set_seed(rng_seed)
 
@@ -96,6 +127,14 @@ class Accelerator:
     @property
     def mixed_precision(self) -> str:
         return self.state.mixed_precision.value
+
+    @property
+    def gradient_accumulation_steps(self) -> int:
+        return self.gradient_state.num_steps
+
+    @property
+    def sync_gradients(self) -> bool:
+        return self.gradient_state.sync_gradients
 
     @property
     def num_processes(self) -> int:
@@ -121,17 +160,59 @@ class Accelerator:
         device (:meth:`prepare_model`), an optimizer or a factory such as
         :func:`~accelerate_tpu_torch.optimizer.adamw` becomes an
         :class:`AcceleratedOptimizer` over those params, a :class:`DataLoader`
-        yields batches on the device. Anything else passes through."""
+        yields batches on the device, a ``torch`` lr scheduler becomes an
+        :class:`AcceleratedScheduler` (:meth:`prepare_scheduler`; wrap a
+        ``step -> lr`` schedule there). A ``DummyOptim`` becomes an
+        AdamW; prepared together with a ``DummyScheduler``, the scheduler's
+        warmup/decay schedule is that AdamW's learning rate. Anything else
+        passes through."""
         results = list(args)
         params_seen = None
+        placed = set()
         for i, obj in enumerate(args):  # params first: the optimizers bind to them
             if _is_param_tree(obj):
                 results[i] = params_seen = self.prepare_model(obj)
+                placed.add(i)
+        dummy_scheds = [o for o in args if isinstance(o, DummyScheduler)]
+        dummy_optims = [o for o in args if isinstance(o, DummyOptim)]
+        schedule_fn = None
+        if dummy_scheds:
+            lead = dummy_scheds[0]
+            if lead.optimizer is None and dummy_optims:
+                lead.optimizer = dummy_optims[0]  # base_lr is its lr
+            if lead.lr_scheduler_callable is None:
+                schedule_fn = self._dummy_schedule_fn(lead)
+            if not dummy_optims:
+                warnings.warn("DummyScheduler prepared without a DummyOptim in the same prepare() "
+                              "call: get_last_lr() reports the schedule, but updates keep the "
+                              "optimizer's own learning rate. Prepare them together.",
+                              stacklevel=2)
         for i, obj in enumerate(args):
-            if isinstance(obj, (DataLoader, DataLoaderShard)):
+            if i in placed:
+                continue
+            if isinstance(obj, DummyOptim):
+                if dummy_scheds and dummy_scheds[0].lr_scheduler_callable is not None:
+                    warnings.warn("DummyScheduler.lr_scheduler_callable does not set the "
+                                  "DummyOptim's learning rate; it keeps its constant lr",
+                                  stacklevel=2)
+                results[i] = self.prepare_optimizer(obj.to_adamw(learning_rate=schedule_fn))
+            elif isinstance(obj, (DataLoader, DataLoaderShard)):
                 results[i] = self.prepare_data_loader(obj)
             elif isinstance(obj, (AcceleratedOptimizer, torch.optim.Optimizer, OptimizerFactory)):
                 results[i] = self.prepare_optimizer(obj)
+            elif isinstance(obj, DummyScheduler):
+                # steps once per optimizer step: the schedule counts optimizer steps
+                if obj.lr_scheduler_callable is not None:
+                    underlying = obj.lr_scheduler_callable(obj.optimizer)
+                elif obj is dummy_scheds[0] and schedule_fn is not None:
+                    underlying = schedule_fn
+                else:
+                    underlying = self._dummy_schedule_fn(obj)
+                results[i] = AcceleratedScheduler(
+                    underlying, step_with_optimizer=self.step_scheduler_with_optimizer,
+                    num_processes=1)
+            elif isinstance(obj, (AcceleratedScheduler, torch.optim.lr_scheduler.LRScheduler)):
+                results[i] = self.prepare_scheduler(obj)
         if params_seen is not None:
             for opt in self._optimizers:
                 if opt.optimizer is None:
@@ -155,9 +236,40 @@ class Accelerator:
 
     def prepare_optimizer(self, optimizer) -> AcceleratedOptimizer:
         if not isinstance(optimizer, AcceleratedOptimizer):
-            optimizer = AcceleratedOptimizer(optimizer)
+            optimizer = AcceleratedOptimizer(
+                optimizer, accumulation_steps=self.gradient_accumulation_steps)
         self._optimizers.append(optimizer)
         return optimizer
+
+    @staticmethod
+    def _dummy_schedule_fn(dummy) -> Callable:
+        """The ``DummyScheduler`` schedule of the JAX package, in f32: linear
+        warmup ``base_lr·(step+1)/warmup`` over ``warmup_num_steps``, then
+        linear decay to 0 at ``total_num_steps`` (or ``base_lr`` held when
+        the total is ``None``), around the paired optimizer's lr (1e-3 when
+        it has none)."""
+        base_lr = getattr(getattr(dummy, "optimizer", None), "lr", None)
+        base = np.float32(1e-3 if base_lr is None else base_lr)
+        total = dummy.total_num_steps
+        warmup = dummy.warmup_num_steps if total is None else min(dummy.warmup_num_steps, total)
+
+        def schedule_fn(step):
+            step = np.float32(step)
+            warm = base * (step + np.float32(1)) / np.float32(max(warmup, 1))
+            if total is not None and total > warmup:
+                frac = (step - np.float32(warmup)) / np.float32(total - warmup)
+                after = base * np.maximum(np.float32(0), np.float32(1) - frac)
+            else:
+                after = base
+            return (warm if step < warmup else after) if warmup else after
+
+        return schedule_fn
+
+    def prepare_scheduler(self, scheduler) -> AcceleratedScheduler:
+        if not isinstance(scheduler, AcceleratedScheduler):
+            scheduler = AcceleratedScheduler(
+                scheduler, step_with_optimizer=self.step_scheduler_with_optimizer)
+        return scheduler
 
     def prepare_data_loader(self, dataloader) -> DataLoaderShard:
         return prepare_data_loader(dataloader, self.device)
@@ -172,10 +284,17 @@ class Accelerator:
             raise ValueError("the optimizer is not bound to params: prepare it with them")
         return optimizer
 
-    def _build_train_step(self, loss_fn: Callable, optimizer: AcceleratedOptimizer) -> Callable:
+    def _build_train_step(self, loss_fn: Callable, optimizer: AcceleratedOptimizer,
+                          has_aux: bool, compute_grad_norm: bool) -> Callable:
         policy = self.state.mixed_precision_policy
+        fp16 = self.state.mixed_precision == PrecisionType.FP16
         torch_opt = optimizer.optimizer
         bound = optimizer.params
+        # the gradients as one flat tensor: one op each for the unscale, the
+        # finite check, the zeroing, the norm and the accumulation
+        flat_path = fp16 or compute_grad_norm or optimizer.accumulation_steps > 1
+        if fp16:
+            optimizer.init_loss_scale(self.grad_scaler_config, bound[0].device)
 
         def train_step(params, opt_state, batch):
             if opt_state is not optimizer.opt_state:
@@ -185,35 +304,60 @@ class Accelerator:
             if len(leaves) != len(bound) or any(a is not b for a, b in zip(leaves, bound)):
                 raise ValueError("params are not the tensors the optimizer was prepared with")
             torch_opt.zero_grad(set_to_none=True)
-            loss = loss_fn(policy.cast_to_compute(params), policy.cast_to_compute(batch)).float()
-            loss.backward()
-            torch_opt.step()
-            return params, opt_state, {"loss": loss.detach()}
+            out = loss_fn(policy.cast_to_compute(params), policy.cast_to_compute(batch))
+            loss, aux = out if has_aux else (out, None)
+            loss = loss.float()
+            (loss * optimizer.loss_scale if fp16 else loss).backward()
+            metrics = {"loss": loss.detach()}
+            flat = None
+            if flat_path:
+                flat = optimizer.flat_grads()
+                if fp16:
+                    flat = flat / optimizer.loss_scale
+                    finite = torch.isfinite(flat).all()
+                    # an overflow feeds zeros: the update still runs, as in the JAX package
+                    flat = torch.where(finite, flat, 0.0)
+                    metrics["grads_finite"] = finite
+                if compute_grad_norm:
+                    metrics["grad_norm"] = torch.linalg.vector_norm(flat)
+            optimizer.micro_step(flat)
+            if fp16:
+                metrics["loss_scale"] = optimizer.update_loss_scale(finite)
+            if aux is not None:
+                metrics["aux"] = _detach(aux)
+            return params, opt_state, metrics
 
         return train_step
 
     def prepare_train_step(self, loss_fn: Callable,
-                           optimizer: Optional[AcceleratedOptimizer] = None) -> Callable:
+                           optimizer: Optional[AcceleratedOptimizer] = None,
+                           has_aux: bool = False, compute_grad_norm: bool = False) -> Callable:
         """``step(params, opt_state, batch) -> (params, opt_state, metrics)``
-        for ``loss_fn(params, batch) -> scalar``; updates in place."""
-        return self._build_train_step(loss_fn, self._resolve_optimizer(optimizer))
+        for ``loss_fn(params, batch) -> scalar`` (``(loss, aux)`` with
+        ``has_aux``); one micro-step, updating in place. ``compute_grad_norm``
+        adds the global L2 norm of this micro-step's (unscaled, zeroed on
+        overflow) gradients."""
+        return self._build_train_step(loss_fn, self._resolve_optimizer(optimizer), has_aux,
+                                      compute_grad_norm)
 
     def prepare_train_loop(self, loss_fn: Callable,
-                           optimizer: Optional[AcceleratedOptimizer] = None) -> Callable:
+                           optimizer: Optional[AcceleratedOptimizer] = None,
+                           has_aux: bool = False, compute_grad_norm: bool = False) -> Callable:
         """``loop(params, opt_state, batches) -> (params, opt_state, metrics)``
-        where ``batches`` carries a leading ``[K, ...]`` step axis (see
-        :func:`~accelerate_tpu_torch.utils.operations.stack_batches`) and
-        ``metrics["loss"]`` is stacked ``[K]``. The same update as K calls of
-        the :meth:`prepare_train_step` function, run as a Python loop with
-        no host sync; params and optimizer state are updated in place."""
-        step = self._build_train_step(loss_fn, self._resolve_optimizer(optimizer))
+        where ``batches`` carries a leading ``[K, ...]`` micro-step axis (see
+        :func:`~accelerate_tpu_torch.utils.operations.stack_batches`) and every
+        metric is stacked ``[K]``. The same update as K calls of the
+        :meth:`prepare_train_step` function, run as a Python loop with no
+        host sync; params and optimizer state are updated in place."""
+        step = self._build_train_step(loss_fn, self._resolve_optimizer(optimizer), has_aux,
+                                      compute_grad_norm)
 
         def train_loop(params, opt_state, batches):
-            losses = []
+            metrics = []
             for k in range(_leading_dim(batches)):
-                params, opt_state, metrics = step(params, opt_state, _step_slice(batches, k))
-                losses.append(metrics["loss"])
-            return params, opt_state, {"loss": torch.stack(losses)}
+                params, opt_state, m = step(params, opt_state, _step_slice(batches, k))
+                metrics.append(m)
+            return params, opt_state, stack_batches(metrics)
 
         return train_loop
 
@@ -227,3 +371,75 @@ class Accelerator:
                 return eval_fn(policy.cast_to_compute(params), policy.cast_to_compute(batch))
 
         return eval_step
+
+    # ------------------------------------------------- imperative surface --
+    def gradient_fn(self, loss_fn: Callable, has_aux: bool = False) -> Callable:
+        """Eager ``(params, batch) -> (value, grads)`` with the precision
+        policy applied, as the JAX package's ``jax.value_and_grad``: ``value``
+        is the loss (``(loss, aux)`` with ``has_aux``), ``grads`` a tree like
+        ``params`` in the param dtype. Params are not updated and their
+        ``.grad`` is not touched."""
+        policy = self.state.mixed_precision_policy
+
+        def value_and_grad(params, batch):
+            def leaf(x):
+                if isinstance(x, torch.Tensor) and x.is_floating_point():
+                    return x if x.requires_grad else x.detach().requires_grad_(True)
+                return x
+
+            params = _tree_map(leaf, params)
+            out = loss_fn(policy.cast_to_compute(params), policy.cast_to_compute(batch))
+            loss = out[0] if has_aux else out
+            diff = [t for t in param_leaves(params) if t.is_floating_point()]
+            grads = iter(torch.autograd.grad(loss, diff, allow_unused=True))
+
+            def grad(x):
+                if not (isinstance(x, torch.Tensor) and x.is_floating_point()):
+                    return None
+                g = next(grads)
+                return torch.zeros_like(x) if g is None else g
+
+            return _detach(out), _tree_map(grad, params)
+
+        return value_and_grad
+
+    @contextlib.contextmanager
+    def accumulate(self, *models):
+        """Marks one accumulation micro-step: ``sync_gradients`` is true on
+        every ``gradient_accumulation_steps``-th call, on a prepared loader's
+        last batch (which also starts the count again) and always with
+        ``sync_each_batch``. Bookkeeping for schedulers and user code: the
+        step's own boundaries are the optimizer's."""
+        self._accum_count += 1
+        gs = self.gradient_state
+        end = gs.end_of_dataloader and gs.sync_with_dataloader
+        gs._set_sync_gradients(self._accum_count % gs.num_steps == 0 or end
+                               or gs.plugin.sync_each_batch)
+        try:
+            yield
+        finally:
+            if end:
+                self._accum_count = 0
+
+    @contextlib.contextmanager
+    def no_sync(self, model=None):
+        """``sync_gradients`` false inside, restored after."""
+        prev = self.gradient_state.sync_gradients
+        self.gradient_state._set_sync_gradients(False)
+        try:
+            yield
+        finally:
+            self.gradient_state._set_sync_gradients(prev)
+
+    def clip_grad_norm_(self, grads, max_norm: float, norm_type: int = 2):
+        """``(grads · min(1, max_norm / (norm + 1e-6)), norm)`` with ``norm``
+        the global L2 norm of the tree (``optax.global_norm``)."""
+        if norm_type != 2:
+            raise NotImplementedError("only the L2 global norm is ported")
+        norm = torch.sqrt(sum(torch.sum(g * g) for g in param_leaves(grads)))
+        scale = torch.clamp_max(max_norm / (norm + 1e-6), 1.0)
+        return _tree_map(lambda g: g * scale, grads), norm
+
+    def clip_grad_value_(self, grads, clip_value: float):
+        """Every gradient element clipped to ``[-clip_value, clip_value]``."""
+        return _tree_map(lambda g: torch.clamp(g, -clip_value, clip_value), grads)

@@ -1,9 +1,11 @@
-// Bf16 tensor-core passes of the attention backward for Hopper (sm_90a) at
-// D in {64, 128}: the dq pass (dq_tc_kernel) and the dk/dv pass
-// (dkdv_tc_kernel), built from flash_tc.cuh. The flash backward
-// (flash_dq.cu, flash_dkdv.cu) walks the block lattice with them; the fused
-// backward (fused_attention_bwd.cu) walks every block of its short
-// sequence with them, skipping only the causally dead ones. Both passes
+// 16-bit tensor-core passes of the attention backward for Hopper (sm_90a)
+// at D in {64, 128}: the dq pass (dq_tc_kernel) and the dk/dv pass
+// (dkdv_tc_kernel), built from flash_tc.cuh, for element type E: bf16, or
+// fp16 for the fused backward, where every bf16 rounding below is an fp16
+// one (an fp16 ds past its range rounds to inf, as .astype(fp16) does).
+// The flash backward (flash_dq.cu, flash_dkdv.cu) walks the block lattice
+// with them; the fused backward (fused_attention_bwd.cu) walks every block
+// of its short sequence with them, skipping only the causally dead ones. Both passes
 // own their output rows (no atomics): deterministic.
 //
 // dq pass. A block owns R = 64·NWG query rows of one (b, h), as NWG
@@ -46,11 +48,11 @@ struct Walk {
   }
 };
 
-// δ of one row, Σ_d dO·O in f32 from bf16 dO and O (the row's first
+// δ of one row, Σ_d dO·O in f32 from 16-bit dO and O (the row's first
 // values): each lane of the quad that shares the row sums a quarter of it.
-template <int D>
-__device__ __forceinline__ float row_delta(const tc::bf16* __restrict__ dout,
-                                           const tc::bf16* __restrict__ out, int t) {
+template <int D, typename E>
+__device__ __forceinline__ float row_delta(const E* __restrict__ dout,
+                                           const E* __restrict__ out, int t) {
   constexpr int kQ = D / 4;
   const int c0 = (t & 3) * kQ;
   float acc = 0.f;
@@ -58,11 +60,11 @@ __device__ __forceinline__ float row_delta(const tc::bf16* __restrict__ dout,
   for (int c = 0; c < kQ; c += 8) {
     const uint4 x = *reinterpret_cast<const uint4*>(dout + c0 + c);
     const uint4 y = *reinterpret_cast<const uint4*>(out + c0 + c);
-    const __nv_bfloat162* xp = reinterpret_cast<const __nv_bfloat162*>(&x);
-    const __nv_bfloat162* yp = reinterpret_cast<const __nv_bfloat162*>(&y);
+    const uint32_t* xp = reinterpret_cast<const uint32_t*>(&x);
+    const uint32_t* yp = reinterpret_cast<const uint32_t*>(&y);
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
-      const float2 fx = __bfloat1622float2(xp[e]), fy = __bfloat1622float2(yp[e]);
+      const float2 fx = tc::unpack2<E>(xp[e]), fy = tc::unpack2<E>(yp[e]);
       acc = fmaf(fx.x, fy.x, acc);
       acc = fmaf(fx.y, fy.y, acc);
     }
@@ -90,7 +92,7 @@ struct KRows {
 // rows; K and V rows k_row .. of tiles sK, sV of RK rows; segk[c] is the
 // segment id of key j0 + c (read only with use_seg); masked: some pair of
 // the sub-tile may be masked.
-template <int D, int KT>
+template <int D, int KT, typename E = tc::bf16>
 __device__ __forceinline__ void dq_tile(float (&dqa)[D / 2], const Args& a, const QRows& qr,
                                         uint32_t sQ, uint32_t sdO, int RQ, int q_row,
                                         uint32_t sK, uint32_t sV, int RK, int k_row, int j0,
@@ -101,10 +103,10 @@ __device__ __forceinline__ void dq_tile(float (&dqa)[D / 2], const Args& a, cons
   wg_fence();
 #pragma unroll
   for (int kk = 0; kk < D / 16; ++kk)
-    Mma<KT>::ss(s, desc_k(sQ, RQ, q_row, kk), desc_k(sK, RK, k_row, kk), kk);
+    Mma<KT, E>::ss(s, desc_k(sQ, RQ, q_row, kk), desc_k(sK, RK, k_row, kk), kk);
 #pragma unroll
   for (int kk = 0; kk < D / 16; ++kk)
-    Mma<KT>::ss(dp, desc_k(sdO, RQ, q_row, kk), desc_k(sV, RK, k_row, kk), kk);
+    Mma<KT, E>::ss(dp, desc_k(sdO, RQ, q_row, kk), desc_k(sV, RK, k_row, kk), kk);
   wg_commit();
   wg_wait_all();
   hold(s);
@@ -124,12 +126,12 @@ __device__ __forceinline__ void dq_tile(float (&dqa)[D / 2], const Args& a, cons
         if (!allowed(a, r, j0 + c, use_seg, sq, use_seg ? segk[c] : 0)) p_lo = 0.f;
         if (!allowed(a, r, j0 + c + 1, use_seg, sq, use_seg ? segk[c + 1] : 0)) p_hi = 0.f;
       }
-      // ds.astype(bf16), ds = p (dp - δ) from the unrounded p
-      df[kk][e] = pack_bf16(p_lo * (dp[i] - dl), p_hi * (dp[i + 1] - dl));
+      // ds.astype(E), ds = p (dp - δ) from the unrounded p
+      df[kk][e] = pack2<E>(p_lo * (dp[i] - dl), p_hi * (dp[i + 1] - dl));
     }
   wg_fence();
 #pragma unroll
-  for (int kk = 0; kk < KT / 16; ++kk) Mma<D>::rs(dqa, df[kk], desc_mn(sK, RK, k_row, kk), 1);
+  for (int kk = 0; kk < KT / 16; ++kk) Mma<D, E>::rs(dqa, df[kk], desc_mn(sK, RK, k_row, kk), 1);
   wg_commit();
   wg_wait_all();
   hold(dqa);
@@ -143,7 +145,7 @@ __device__ __forceinline__ void dq_tile(float (&dqa)[D / 2], const Args& a, cons
 // MN-major). K and V are rows k_row .. of tiles sK, sV of RK rows; Q and dO
 // rows q_row .. of tiles sQ, sdO of RQ rows; lse_s[c], delta_s[c], segq[c]
 // belong to query i0 + c.
-template <int D>
+template <int D, typename E = tc::bf16>
 __device__ __forceinline__ void dkdv_tile(float (&dka)[D / 2], float (&dva)[D / 2],
                                           const Args& a, const KRows& kr, uint32_t sK,
                                           uint32_t sV, int RK, int k_row, uint32_t sQ,
@@ -156,10 +158,10 @@ __device__ __forceinline__ void dkdv_tile(float (&dka)[D / 2], float (&dva)[D / 
   wg_fence();
 #pragma unroll
   for (int kk = 0; kk < D / 16; ++kk)
-    Mma<64>::ss(s, desc_k(sK, RK, k_row, kk), desc_k(sQ, RQ, q_row, kk), kk);
+    Mma<64, E>::ss(s, desc_k(sK, RK, k_row, kk), desc_k(sQ, RQ, q_row, kk), kk);
 #pragma unroll
   for (int kk = 0; kk < D / 16; ++kk)
-    Mma<64>::ss(dp, desc_k(sV, RK, k_row, kk), desc_k(sdO, RQ, q_row, kk), kk);
+    Mma<64, E>::ss(dp, desc_k(sV, RK, k_row, kk), desc_k(sdO, RQ, q_row, kk), kk);
   wg_commit();
   wg_wait_all();
   hold(s);
@@ -179,15 +181,15 @@ __device__ __forceinline__ void dkdv_tile(float (&dka)[D / 2], float (&dva)[D / 
         if (!allowed(a, i0 + c, r, use_seg, use_seg ? segq[c] : 0, sk)) p_lo = 0.f;
         if (!allowed(a, i0 + c + 1, r, use_seg, use_seg ? segq[c + 1] : 0, sk)) p_hi = 0.f;
       }
-      // p.astype(bf16) and ds.astype(bf16), ds = p (dp - δ) from the unrounded p
-      pf[kk][e] = pack_bf16(p_lo, p_hi);
-      df[kk][e] = pack_bf16(p_lo * (dp[i] - dl.x), p_hi * (dp[i + 1] - dl.y));
+      // p.astype(E) and ds.astype(E), ds = p (dp - δ) from the unrounded p
+      pf[kk][e] = pack2<E>(p_lo, p_hi);
+      df[kk][e] = pack2<E>(p_lo * (dp[i] - dl.x), p_hi * (dp[i + 1] - dl.y));
     }
   wg_fence();
 #pragma unroll
-  for (int kk = 0; kk < 4; ++kk) Mma<D>::rs(dva, pf[kk], desc_mn(sdO, RQ, q_row, kk), 1);
+  for (int kk = 0; kk < 4; ++kk) Mma<D, E>::rs(dva, pf[kk], desc_mn(sdO, RQ, q_row, kk), 1);
 #pragma unroll
-  for (int kk = 0; kk < 4; ++kk) Mma<D>::rs(dka, df[kk], desc_mn(sQ, RQ, q_row, kk), 1);
+  for (int kk = 0; kk < 4; ++kk) Mma<D, E>::rs(dka, df[kk], desc_mn(sQ, RQ, q_row, kk), 1);
   wg_commit();
   wg_wait_all();
   hold(dva);
@@ -200,14 +202,13 @@ __device__ __forceinline__ void dkdv_tile(float (&dka)[D / 2], float (&dva)[D / 
 // stored output as Σ dO·O and written for the dk/dv pass. ids/counts: the
 // forward's lattice; kDense: none (ids, counts unread), every causally live
 // kv block instead (window 0).
-template <int D, int NWG, int KT, bool kDense>
+template <int D, int NWG, int KT, bool kDense, typename E>
 __global__ void __launch_bounds__(NWG * 128, 1)
-dq_tc_kernel(const tc::bf16* __restrict__ q, const tc::bf16* __restrict__ k,
-             const tc::bf16* __restrict__ v, const int* __restrict__ seg,
-             const float* __restrict__ lse, float* __restrict__ delta,
-             const tc::bf16* __restrict__ dout, const tc::bf16* __restrict__ out,
-             const int* __restrict__ ids, const int* __restrict__ counts,
-             tc::bf16* __restrict__ dq, Args a, int nst) {
+dq_tc_kernel(const E* __restrict__ q, const E* __restrict__ k, const E* __restrict__ v,
+             const int* __restrict__ seg, const float* __restrict__ lse,
+             float* __restrict__ delta, const E* __restrict__ dout, const E* __restrict__ out,
+             const int* __restrict__ ids, const int* __restrict__ counts, E* __restrict__ dq,
+             Args a, int nst) {
   using namespace tc;
   constexpr int R = NWG * 64, NT = NWG * 128, NO = D / 2;
   extern __shared__ unsigned char smem_raw[];
@@ -225,8 +226,8 @@ dq_tc_kernel(const tc::bf16* __restrict__ q, const tc::bf16* __restrict__ k,
   const int i0 = qt * R, iw = i0 + 64 * wg;
   const long long q_rs = (long long)a.H * D, kv_rs = (long long)a.Hkv * D;
   const long long q_off = (((long long)b * a.S + i0) * a.H + h) * D;
-  const bf16* k_base = k + ((long long)b * a.S * a.Hkv + kh) * D;
-  const bf16* v_base = v + ((long long)b * a.S * a.Hkv + kh) * D;
+  const E* k_base = k + ((long long)b * a.S * a.Hkv + kh) * D;
+  const E* v_base = v + ((long long)b * a.S * a.Hkv + kh) * D;
   const bool use_seg = seg != nullptr;
   Walk<kDense> walk{nullptr, 0, a.causal ? min(a.nkv(), (i0 + R - 1) / BK + 1) : a.nkv()};
   if constexpr (!kDense) {
@@ -258,8 +259,8 @@ dq_tc_kernel(const tc::bf16* __restrict__ q, const tc::bf16* __restrict__ k,
   qr.sq1 = use_seg ? seg[(long long)b * a.S + qr.r1] : 0;
   if (out != nullptr) {
     const long long o0 = (((long long)b * a.S + qr.r0) * a.H + h) * D, o1 = o0 + 8 * q_rs;
-    qr.dl0 = row_delta<D>(dout + o0, out + o0, t);
-    qr.dl1 = row_delta<D>(dout + o1, out + o1, t);
+    qr.dl0 = row_delta<D, E>(dout + o0, out + o0, t);
+    qr.dl1 = row_delta<D, E>(dout + o1, out + o1, t);
     if ((t & 3) == 0) {
       delta[rows + qr.r0] = qr.dl0;
       delta[rows + qr.r1] = qr.dl1;
@@ -290,7 +291,7 @@ dq_tc_kernel(const tc::bf16* __restrict__ q, const tc::bf16* __restrict__ k,
       if (empty) continue;  // warpgroup-uniform
       const bool masked = use_seg || (a.causal && j0 + KT - 1 > iw) ||
                           (a.window > 0 && iw + 63 - j0 >= a.window);
-      dq_tile<D, KT>(dqa, a, qr, sQ, sdO, R, 64 * wg, sK, sV, BK, u * KT, j0, segk + u * KT,
+      dq_tile<D, KT, E>(dqa, a, qr, sQ, sdO, R, 64 * wg, sK, sV, BK, u * KT, j0, segk + u * KT,
                      use_seg, masked, t);
     }
     __syncthreads();  // every warpgroup is done with this stage before it is refilled
@@ -321,17 +322,16 @@ dq_tc_kernel(const tc::bf16* __restrict__ q, const tc::bf16* __restrict__ k,
 //   once.
 // - A warpgroup whose keys the causal or window mask shuts out of a whole
 //   q tile skips it (its p and ds are all 0).
-template <int D, int NWG, bool kDense>
+template <int D, int NWG, bool kDense, typename E>
 __global__ void __launch_bounds__(NWG * 128, 1)
-dkdv_tc_kernel(const tc::bf16* __restrict__ q, const tc::bf16* __restrict__ k,
-               const tc::bf16* __restrict__ v, const int* __restrict__ seg,
-               const float* __restrict__ lse, const float* __restrict__ delta,
-               const tc::bf16* __restrict__ dout, const int* __restrict__ idsT,
-               const int* __restrict__ countsT, tc::bf16* __restrict__ dk,
-               tc::bf16* __restrict__ dv, Args a, int nst) {
+dkdv_tc_kernel(const E* __restrict__ q, const E* __restrict__ k, const E* __restrict__ v,
+               const int* __restrict__ seg, const float* __restrict__ lse,
+               const float* __restrict__ delta, const E* __restrict__ dout,
+               const int* __restrict__ idsT, const int* __restrict__ countsT,
+               E* __restrict__ dk, E* __restrict__ dv, Args a, int nst) {
   using namespace tc;
   constexpr int R = NWG * 64, NT = NWG * 128, NO = D / 2;
-  constexpr uint32_t kTileQ = 64 * D * 2;  // a [64, D] bf16 tile
+  constexpr uint32_t kTileQ = 64 * D * 2;  // a [64, D] 16-bit tile
   // Q [64, D], dO [64, D], lse [64], δ [64], segment ids [64]
   constexpr uint32_t kStage = round1k(2 * kTileQ + 3 * 64 * 4);
   extern __shared__ unsigned char smem_raw[];
@@ -405,7 +405,7 @@ dkdv_tc_kernel(const tc::bf16* __restrict__ q, const tc::bf16* __restrict__ k,
     if (!empty) {  // warpgroup-uniform
       const bool masked = use_seg || (a.causal && jw + 63 > i0) ||
                           (a.window > 0 && i0 + 63 - jw >= a.window);
-      dkdv_tile<D>(dka, dva, a, kr, sK, sV, R, 64 * wg, sQ, sdO, 64, 0, i0, lse_s, lse_s + 64,
+      dkdv_tile<D, E>(dka, dva, a, kr, sK, sV, R, 64 * wg, sQ, sdO, 64, 0, i0, lse_s, lse_s + 64,
                    reinterpret_cast<const int*>(lse_s + 128), use_seg, masked, t);
     }
     __syncthreads();  // every warpgroup is done with this stage before it is refilled
@@ -422,7 +422,7 @@ dkdv_tc_kernel(const tc::bf16* __restrict__ q, const tc::bf16* __restrict__ k,
 
 // The dq pass with R = 64·NWG query rows a block and KT-key sub-tiles; as
 // many cp.async stages of whole kv blocks (up to 3) as shared memory holds.
-template <int D, int NWG, int KT, bool kDense>
+template <int D, int NWG, int KT, bool kDense, typename E = tc::bf16>
 cudaError_t launch_dq_tc(const void* q, const void* k, const void* v, const int* seg,
                          const float* lse, float* delta, const void* dout, const void* out,
                          const int* ids, const int* counts, void* dq, const Args& a,
@@ -432,19 +432,19 @@ cudaError_t launch_dq_tc(const void* q, const void* k, const void* v, const int*
   int nst = 3;
   while (nst > 1 && fixed + nst * stage > tc::kMaxSmem) --nst;
   const size_t smem = fixed + nst * stage;
-  auto kernel = dq_tc_kernel<D, NWG, KT, kDense>;
+  auto kernel = dq_tc_kernel<D, NWG, KT, kDense, E>;
   cudaError_t err = paged::allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid(a.B * a.H, a.S / (NWG * 64));
   kernel<<<grid, NWG * 128, smem, stream>>>(
-      static_cast<const tc::bf16*>(q), static_cast<const tc::bf16*>(k),
-      static_cast<const tc::bf16*>(v), seg, lse, delta, static_cast<const tc::bf16*>(dout),
-      static_cast<const tc::bf16*>(out), ids, counts, static_cast<tc::bf16*>(dq), a, nst);
+      static_cast<const E*>(q), static_cast<const E*>(k), static_cast<const E*>(v), seg, lse,
+      delta, static_cast<const E*>(dout), static_cast<const E*>(out), ids, counts,
+      static_cast<E*>(dq), a, nst);
   return cudaGetLastError();
 }
 
 // The dk/dv pass with R = 64·NWG key rows a block.
-template <int D, int NWG, bool kDense>
+template <int D, int NWG, bool kDense, typename E = tc::bf16>
 cudaError_t launch_dkdv_tc(const void* q, const void* k, const void* v, const int* seg,
                            const float* lse, const float* delta, const void* dout,
                            const int* idsT, const int* countsT, void* dk, void* dv,
@@ -453,14 +453,14 @@ cudaError_t launch_dkdv_tc(const void* q, const void* k, const void* v, const in
   constexpr uint32_t fixed = tc::kAlignSlack + 2 * NWG * 64 * D * 2;
   const int nst = fixed + 3 * stage <= tc::kMaxSmem ? 3 : 2;
   const size_t smem = fixed + nst * stage;
-  auto kernel = dkdv_tc_kernel<D, NWG, kDense>;
+  auto kernel = dkdv_tc_kernel<D, NWG, kDense, E>;
   cudaError_t err = paged::allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid(a.B * a.Hkv, a.S / (NWG * 64));
   kernel<<<grid, NWG * 128, smem, stream>>>(
-      static_cast<const tc::bf16*>(q), static_cast<const tc::bf16*>(k),
-      static_cast<const tc::bf16*>(v), seg, lse, delta, static_cast<const tc::bf16*>(dout), idsT,
-      countsT, static_cast<tc::bf16*>(dk), static_cast<tc::bf16*>(dv), a, nst);
+      static_cast<const E*>(q), static_cast<const E*>(k), static_cast<const E*>(v), seg, lse,
+      delta, static_cast<const E*>(dout), idsT, countsT, static_cast<E*>(dk),
+      static_cast<E*>(dv), a, nst);
   return cudaGetLastError();
 }
 

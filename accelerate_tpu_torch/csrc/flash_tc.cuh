@@ -1,11 +1,15 @@
-// Bf16 tensor-core pieces of the flash kernels for Hopper (sm_90a):
-// swizzled bf16 tiles in shared memory filled by cp.async, the wgmma
-// descriptors that read them, the m64nNk16 bf16 -> f32 wgmma wrappers
+// 16-bit tensor-core pieces of the flash kernels for Hopper (sm_90a):
+// swizzled tiles in shared memory filled by cp.async, the wgmma
+// descriptors that read them, the m64nNk16 16-bit -> f32 wgmma wrappers
 // (both operands from shared memory, or A from registers), their
 // fence / commit / wait discipline, and the accumulator -> A-fragment
-// conversion that rounds to bf16. flash_fwd.cu and flash_bwd_tc.cuh (the
-// backward's dq and dk/dv passes, for the flash and the fused backward)
-// build their bf16 variants from these.
+// conversion that rounds to the element type. flash_fwd.cu and
+// flash_bwd_tc.cuh (the backward's dq and dk/dv passes, for the flash and
+// the fused backward) build their bf16 variants from these; the fused
+// kernels also their fp16 ones. The element type E (bf16 or fp16, default
+// bf16) changes only the wgmma's input type (.bf16 or .f16) and the
+// rounding of the A fragments and outputs: the swizzle, the descriptors
+// and the fragment layouts are the same for every 16-bit type.
 //
 // Tile layout. An [R, D] bf16 tile (R rows of D values, D a multiple of
 // 64) is kept as D/64 column blocks of [R, 64], each row of a column block
@@ -34,12 +38,16 @@
 #pragma once
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace tc {
 
 using bf16 = __nv_bfloat16;
+using f16 = __half;
 constexpr float kLog2e = 1.4426950408889634f;
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -72,13 +80,14 @@ __device__ __forceinline__ uint32_t swz(int r, int c, int R) {
   return (c >> 3) * (R * 128) + r * 128 + (((c & 7) ^ (r & 7)) << 4);
 }
 
-// Start copying rows [0, R) of a row-major bf16 source (rows `rs` elements
-// apart, D values each) into the swizzled tile at shared address dst; the
-// NT threads of the block share the 16-byte chunks, neighbours on
+// Start copying rows [0, R) of a row-major 16-bit source (rows `rs`
+// elements apart, D values each) into the swizzled tile at shared address
+// dst; the NT threads of the block share the 16-byte chunks, neighbours on
 // neighbouring global bytes.
-template <int D, int NT>
-__device__ __forceinline__ void cp_tile(uint32_t dst, int R, const bf16* __restrict__ src,
+template <int D, int NT, typename E>
+__device__ __forceinline__ void cp_tile(uint32_t dst, int R, const E* __restrict__ src,
                                         long long rs, int tid) {
+  static_assert(sizeof(E) == 2, "tiles hold 16-bit elements");
   constexpr int kChunks = D / 8;
   for (int i = tid; i < R * kChunks; i += NT) {
     const int r = i / kChunks, c = i - r * kChunks;
@@ -138,115 +147,109 @@ __device__ __forceinline__ void hold(uint32_t (&a)[N][4]) {
     for (int e = 0; e < 4; ++e) asm volatile("" : "+r"(a[i][e])::"memory");
 }
 
-// m64nNk16 bf16 x bf16 -> f32. ss: A [64, 16] K-major and B [16, N] K-major
-// through descriptors; d = A B + (acc ? d : 0). rs: A from registers, B
-// MN-major (transposed) through a descriptor; d = A B + (acc ? d : 0).
-template <int N>
+// m64nNk16 E x E -> f32 (E bf16 or fp16). ss: A [64, 16] K-major and B
+// [16, N] K-major through descriptors; d = A B + (acc ? d : 0). rs: A from
+// registers, B MN-major (transposed) through a descriptor; d = A B + (acc ?
+// d : 0). The instruction text differs only in the input type, TY.
+#define TC_D32 \
+  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), \
+  "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), \
+  "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), \
+  "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), \
+  "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+#define TC_D64 \
+  TC_D32, "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), \
+  "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), \
+  "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), \
+  "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), \
+  "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+#define TC_R32                                                                            \
+  "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "                \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+#define TC_R64                                                                            \
+  TC_R32 ", %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, "  \
+  "%47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+#define TC_SS(N, TY, REGS, OUTS, P, A, B)                                                  \
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, " P ", 0;\n"                            \
+               "wgmma.mma_async.sync.aligned.m64n" #N "k16.f32." TY "." TY " {" REGS     \
+               "}, " A ", " B ", p, 1, 1, 0, 0;\n}\n"                                     \
+               : OUTS                                                                      \
+               : "l"(da), "l"(db), "r"(acc))
+#define TC_RS(N, TY, REGS, OUTS, P, A, B)                                                  \
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, " P ", 0;\n"                            \
+               "wgmma.mma_async.sync.aligned.m64n" #N "k16.f32." TY "." TY " {" REGS     \
+               "}, {" A "}, " B ", p, 1, 1, 1;\n}\n"                                      \
+               : OUTS                                                                      \
+               : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(acc))
+
+template <int N, typename E = bf16>
 struct Mma;
 
-template <>
-struct Mma<64> {
+template <typename E>
+struct Mma<64, E> {
   static __device__ __forceinline__ void ss(float (&d)[32], uint64_t da, uint64_t db, int acc) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
-        "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-          "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-        : "l"(da), "l"(db), "r"(acc));
+    if constexpr (std::is_same<E, f16>::value)
+      TC_SS(64, "f16", TC_R32, TC_D32, "%34", "%32", "%33");
+    else
+      TC_SS(64, "bf16", TC_R32, TC_D32, "%34", "%32", "%33");
   }
   static __device__ __forceinline__ void rs(float (&d)[32], const uint32_t (&a)[4], uint64_t db,
                                             int acc) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
-        "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-          "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(acc));
+    if constexpr (std::is_same<E, f16>::value)
+      TC_RS(64, "f16", TC_R32, TC_D32, "%37", "%32, %33, %34, %35", "%36");
+    else
+      TC_RS(64, "bf16", TC_R32, TC_D32, "%37", "%32, %33, %34, %35", "%36");
   }
 };
 
-template <>
-struct Mma<128> {
+template <typename E>
+struct Mma<128, E> {
   static __device__ __forceinline__ void ss(float (&d)[64], uint64_t da, uint64_t db, int acc) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
-        "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-          "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-          "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
-          "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
-          "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-          "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-          "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-        : "l"(da), "l"(db), "r"(acc));
+    if constexpr (std::is_same<E, f16>::value)
+      TC_SS(128, "f16", TC_R64, TC_D64, "%66", "%64", "%65");
+    else
+      TC_SS(128, "bf16", TC_R64, TC_D64, "%66", "%64", "%65");
   }
   static __device__ __forceinline__ void rs(float (&d)[64], const uint32_t (&a)[4], uint64_t db,
                                             int acc) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
-        "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-          "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-          "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
-          "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
-          "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-          "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-          "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(acc));
+    if constexpr (std::is_same<E, f16>::value)
+      TC_RS(128, "f16", TC_R64, TC_D64, "%69", "%64, %65, %66, %67", "%68");
+    else
+      TC_RS(128, "bf16", TC_R64, TC_D64, "%69", "%64, %65, %66, %67", "%68");
   }
 };
+
+#undef TC_SS
+#undef TC_RS
+#undef TC_R64
+#undef TC_R32
+#undef TC_D64
+#undef TC_D32
 
 // pair (lo, hi) rounded to bf16 (round to nearest even) in one 32-bit
 // register, lo in the low half: where the TPU kernels call .astype(bf16)
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&h);
+}
+// the same for element type E: fp16 rounds to nearest even too, and a
+// value past fp16's range becomes inf (no saturation), as .astype(fp16)
+template <typename E>
+__device__ __forceinline__ uint32_t pack2(float lo, float hi) {
+  if constexpr (std::is_same<E, f16>::value) {
+    __half2 h = __floats2half2_rn(lo, hi);
+    return *reinterpret_cast<uint32_t*>(&h);
+  } else {
+    return pack_bf16(lo, hi);
+  }
+}
+// two E values of one 32-bit word as f32 (lo, hi)
+template <typename E>
+__device__ __forceinline__ float2 unpack2(uint32_t w) {
+  if constexpr (std::is_same<E, f16>::value)
+    return __half22float2(*reinterpret_cast<const __half2*>(&w));
+  else
+    return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&w));
 }
 
 // Coordinates of accumulator register i inside the warpgroup's 64-row tile.
@@ -267,15 +270,15 @@ __device__ __forceinline__ float quad_sum(float v) {
   return v + __shfl_xor_sync(0xffffffffu, v, 2);
 }
 
-// Write a warpgroup's [64, D] accumulator as bf16 into rows of a
-// row-major tensor (dst at the warpgroup's first row, rows rs apart).
-template <int D>
-__device__ __forceinline__ void store_acc(bf16* __restrict__ dst, long long rs,
+// Write a warpgroup's [64, D] accumulator as E (bf16 or fp16) into rows
+// of a row-major tensor (dst at the warpgroup's first row, rows rs apart).
+template <int D, typename E>
+__device__ __forceinline__ void store_acc(E* __restrict__ dst, long long rs,
                                           const float (&d)[D / 2], int t) {
 #pragma unroll
   for (int i = 0; i < D / 2; i += 2)
     *reinterpret_cast<uint32_t*>(dst + acc_row(t, i) * rs + acc_col(t, i)) =
-        pack_bf16(d[i], d[i + 1]);
+        pack2<E>(d[i], d[i + 1]);
 }
 
 // Bytes of dynamic shared memory a kernel asks for: its layout plus the

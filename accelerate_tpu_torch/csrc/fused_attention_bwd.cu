@@ -28,10 +28,11 @@
 // masked are skipped (their p and ds are exactly 0). BSHD in and out
 // through strides.
 //
-// bf16 at S = 128 and D = 64 (BERT's shape): one pass, bwd1_tc_kernel below,
-// built from the same per-tile bodies (flash_bwd_tc.cuh).
+// bf16 or fp16 at S = 128 and D = 64 (BERT's shape): one pass,
+// bwd1_tc_kernel below, built from the same per-tile bodies
+// (flash_bwd_tc.cuh).
 //
-// bf16 at D in {64, 128} otherwise: the flash backward's tensor-core
+// bf16 or fp16 at D in {64, 128} otherwise: the flash backward's tensor-core
 // passes (flash_bwd_tc.cuh, R = 128) over the dense range of 128-row blocks
 // instead of a lattice — products on wgmma, p and ds rounded to bf16 in
 // registers, Q/dO (dq pass) or K/V (dk/dv pass) resident in shared memory
@@ -40,8 +41,17 @@
 // is what exp(NEG_INF - lse) is for every row that attends a key (every row
 // attends itself).
 //
-// f32, and bf16 at D in {192, 256}: CUDA-core f32 FMA (fused_common.cuh),
-// R = BR rows a block.
+// f32, and bf16 or fp16 at D in {192, 256}: CUDA-core f32 FMA
+// (fused_common.cuh), R = BR rows a block.
+//
+// An overflow reaches the gradients. Scaled fp16 cotangents overflow where
+// ds is rounded: a finite ds past fp16's range becomes inf, as
+// .astype(fp16) makes it, and no select, max or saturating conversion on
+// the way to dq, dk and dv turns it back into a finite number. A
+// non-finite dO (an overflow upstream) makes δ, ds and that row of dq
+// non-finite as in the plain version; only dk and dv of keys whose tiles
+// the causal mask skips stay finite there, where the plain version's 0·inf
+// gives NaN.
 #include "fused_common.cuh"
 #include "flash_bwd_tc.cuh"
 
@@ -248,7 +258,7 @@ cudaError_t launch_d(int D, const void* q, const void* k, const void* v, const i
                                            H, Hkv, causal, scale, stream);)
 }
 
-// ---- bf16 at S = 128, D = 64: one pass on tensor cores ----------------------
+// ---- bf16 and fp16 at S = 128, D = 64: one pass on tensor cores -------------
 
 constexpr int kS1 = 128;  // the one sequence length of the single pass
 
@@ -261,16 +271,15 @@ constexpr int kS1 = 128;  // the one sequence length of the single pass
 // registers. One launch reads each input once, where the two passes read q,
 // k, v and dO twice: at S = 128 the work is too small to hide a second
 // pass's loads.
-template <int D>
+template <int D, typename E>
 __global__ void __launch_bounds__(256, 1)
-bwd1_tc_kernel(const tc::bf16* __restrict__ q, const tc::bf16* __restrict__ k,
-               const tc::bf16* __restrict__ v, const int* __restrict__ seg,
-               const float* __restrict__ lse, const tc::bf16* __restrict__ out,
-               const tc::bf16* __restrict__ dout, tc::bf16* __restrict__ dq,
-               tc::bf16* __restrict__ dk, tc::bf16* __restrict__ dv, flash::Args a) {
+bwd1_tc_kernel(const E* __restrict__ q, const E* __restrict__ k, const E* __restrict__ v,
+               const int* __restrict__ seg, const float* __restrict__ lse,
+               const E* __restrict__ out, const E* __restrict__ dout, E* __restrict__ dq,
+               E* __restrict__ dk, E* __restrict__ dv, flash::Args a) {
   using namespace tc;
   constexpr int S = kS1, NT = 256, NO = D / 2;
-  constexpr uint32_t kTile = S * D * 2;                      // an [S, D] bf16 tile
+  constexpr uint32_t kTile = S * D * 2;                      // an [S, D] 16-bit tile
   constexpr uint32_t kStage = round1k(2 * kTile + 2 * S * 4);  // Q, dO, lse [S], δ [S]
   extern __shared__ unsigned char smem_raw[];
   unsigned char* sm;
@@ -323,8 +332,8 @@ bwd1_tc_kernel(const tc::bf16* __restrict__ q, const tc::bf16* __restrict__ k,
     float* lse_s = reinterpret_cast<float*>(sm + (sQ - sK) + 2 * kTile);
     float* delta_s = lse_s + S;
     const long long o0 = (((long long)b * S + qr.r0) * a.H + h) * D, o1 = o0 + 8 * q_rs;
-    qr.dl0 = flash::row_delta<D>(dout + o0, out + o0, t);
-    qr.dl1 = flash::row_delta<D>(dout + o1, out + o1, t);
+    qr.dl0 = flash::row_delta<D, E>(dout + o0, out + o0, t);
+    qr.dl1 = flash::row_delta<D, E>(dout + o1, out + o1, t);
     qr.nl0 = -lse_s[qr.r0] * kLog2e;
     qr.nl1 = -lse_s[qr.r1] * kLog2e;
     if ((t & 3) == 0) {
@@ -339,7 +348,7 @@ bwd1_tc_kernel(const tc::bf16* __restrict__ q, const tc::bf16* __restrict__ k,
     for (int j0 = 0; j0 < S; j0 += 64) {
       if (a.causal && j0 > w0 + 63) continue;  // warpgroup-uniform
       const bool masked = use_seg || (a.causal && j0 + 63 > w0);
-      flash::dq_tile<D, 64>(dqa, a, qr, sQ, sdO, S, w0, sK, sV, S, j0, j0, segs + j0, use_seg,
+      flash::dq_tile<D, 64, E>(dqa, a, qr, sQ, sdO, S, w0, sK, sV, S, j0, j0, segs + j0, use_seg,
                             masked, t);
     }
 #pragma unroll
@@ -351,7 +360,7 @@ bwd1_tc_kernel(const tc::bf16* __restrict__ q, const tc::bf16* __restrict__ k,
     for (int i0 = 0; i0 < S; i0 += 64) {
       if (a.causal && w0 > i0 + 63) continue;  // warpgroup-uniform
       const bool masked = use_seg || (a.causal && w0 + 63 > i0);
-      flash::dkdv_tile<D>(dka, dva, a, kr, sK, sV, S, w0, sQ, sdO, S, i0, i0, lse_s + i0,
+      flash::dkdv_tile<D, E>(dka, dva, a, kr, sK, sV, S, w0, sQ, sdO, S, i0, i0, lse_s + i0,
                           delta_s + i0, segs + i0, use_seg, masked, t);
     }
     __syncthreads();  // every warpgroup is done with this stage before it is refilled
@@ -364,10 +373,10 @@ bwd1_tc_kernel(const tc::bf16* __restrict__ q, const tc::bf16* __restrict__ k,
   store_acc<D>(dv + wg_off, kv_rs, dva, t);
 }
 
-// bf16 at D in {64, 128}: at S = 128 and D = 64 the single pass; else the
-// tensor-core dq pass (which also writes δ), then the tensor-core dk/dv
-// pass, both over the dense block range.
-template <int D>
+// bf16 or fp16 (E) at D in {64, 128}: at S = 128 and D = 64 the single
+// pass; else the tensor-core dq pass (which also writes δ), then the
+// tensor-core dk/dv pass, both over the dense block range.
+template <int D, typename E>
 cudaError_t launch_tc(const void* q, const void* k, const void* v, const int* seg,
                       const float* lse, const void* out, const void* dout, void* dq, void* dk,
                       void* dv, float* delta, int B, int S, int H, int Hkv, int causal,
@@ -378,32 +387,32 @@ cudaError_t launch_tc(const void* q, const void* k, const void* v, const int* se
       constexpr uint32_t tile = kS1 * D * 2;
       constexpr size_t smem = tc::kAlignSlack + 2 * tile + tc::round1k(kS1 * 4) +
                               2 * tc::round1k(2 * tile + 2 * kS1 * 4);
-      auto kernel = bwd1_tc_kernel<D>;
+      auto kernel = bwd1_tc_kernel<D, E>;
       cudaError_t err = paged::allow_smem(kernel, smem);
       if (err != cudaSuccess) return err;
       kernel<<<B * Hkv, 256, smem, stream>>>(
-          static_cast<const tc::bf16*>(q), static_cast<const tc::bf16*>(k),
-          static_cast<const tc::bf16*>(v), seg, lse, static_cast<const tc::bf16*>(out),
-          static_cast<const tc::bf16*>(dout), static_cast<tc::bf16*>(dq),
-          static_cast<tc::bf16*>(dk), static_cast<tc::bf16*>(dv), a);
+          static_cast<const E*>(q), static_cast<const E*>(k), static_cast<const E*>(v), seg, lse,
+          static_cast<const E*>(out), static_cast<const E*>(dout), static_cast<E*>(dq),
+          static_cast<E*>(dk), static_cast<E*>(dv), a);
       return cudaGetLastError();
     }
   }
-  cudaError_t err = flash::launch_dq_tc<D, 2, flash::kDqTile<D>, true>(
+  cudaError_t err = flash::launch_dq_tc<D, 2, flash::kDqTile<D>, true, E>(
       q, k, v, seg, lse, delta, dout, out, nullptr, nullptr, dq, a, stream);
   if (err != cudaSuccess) return err;
-  return flash::launch_dkdv_tc<D, 2, true>(q, k, v, seg, lse, delta, dout, nullptr, nullptr, dk,
-                                           dv, a, stream);
+  return flash::launch_dkdv_tc<D, 2, true, E>(q, k, v, seg, lse, delta, dout, nullptr, nullptr,
+                                              dk, dv, a, stream);
 }
 
 }  // namespace fused
 
 // q, out, dout, dq [B,S,H,D]; k, v, dk, dv [B,S,Hkv,D] (dtype: 0 f32, 1
-// bf16; all contiguous, 16-byte aligned); seg [B,S] int32 or null; lse and
-// the scratch delta [B,H,S] f32. S % 128 == 0, S <= 1024, D in {64, 128,
-// 192, 256}, H % Hkv == 0. Launches the dq pass then the dk/dv pass; returns
-// the first failing launch's cudaError_t (0 on success). bf16 at D = 64 and
-// 128 goes to the tensor-core passes, the rest to the CUDA-core ones.
+// bf16, 2 fp16; all contiguous, 16-byte aligned); seg [B,S] int32 or null;
+// lse and the scratch delta [B,H,S] f32. S % 128 == 0, S <= 1024, D in {64,
+// 128, 192, 256}, H % Hkv == 0. Launches the dq pass then the dk/dv pass;
+// returns the first failing launch's cudaError_t (0 on success). bf16 and
+// fp16 at D = 64 and 128 go to the tensor-core passes, the rest to the
+// CUDA-core ones.
 extern "C" int fused_attention_bwd_launch(const void* q, const void* k, const void* v,
                                           const void* seg, const void* lse, const void* out,
                                           const void* dout, void* dq, void* dk, void* dv,
@@ -416,11 +425,19 @@ extern "C" int fused_attention_bwd_launch(const void* q, const void* k, const vo
   const float* l = static_cast<const float*>(lse);
   float* dl = static_cast<float*>(delta);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == paged::kBF16 && D == 64)
-    return launch_tc<64>(q, k, v, sg, l, out, dout, dq, dk, dv, dl, B, S, H, Hkv, causal, scale, s);
-  if (dtype == paged::kBF16 && D == 128)
-    return launch_tc<128>(q, k, v, sg, l, out, dout, dq, dk, dv, dl, B, S, H, Hkv, causal, scale,
-                          s);
+  if ((dtype == paged::kBF16 || dtype == paged::kF16) && (D == 64 || D == 128)) {
+    if (dtype == paged::kBF16 && D == 64)
+      return launch_tc<64, tc::bf16>(q, k, v, sg, l, out, dout, dq, dk, dv, dl, B, S, H, Hkv,
+                                     causal, scale, s);
+    if (dtype == paged::kBF16)
+      return launch_tc<128, tc::bf16>(q, k, v, sg, l, out, dout, dq, dk, dv, dl, B, S, H, Hkv,
+                                      causal, scale, s);
+    if (D == 64)
+      return launch_tc<64, tc::f16>(q, k, v, sg, l, out, dout, dq, dk, dv, dl, B, S, H, Hkv,
+                                    causal, scale, s);
+    return launch_tc<128, tc::f16>(q, k, v, sg, l, out, dout, dq, dk, dv, dl, B, S, H, Hkv,
+                                   causal, scale, s);
+  }
   if (dtype == paged::kF32)
     return launch_d<float>(D, q, k, v, sg, l, out, dout, dq, dk, dv, dl, B, S, H, Hkv, causal,
                            scale, s);
@@ -430,5 +447,11 @@ extern "C" int fused_attention_bwd_launch(const void* q, const void* k, const vo
   if (dtype == paged::kBF16 && D == 256)
     return launch<__nv_bfloat16, 256>(q, k, v, sg, l, out, dout, dq, dk, dv, dl, B, S, H, Hkv,
                                       causal, scale, s);
+  if (dtype == paged::kF16 && D == 192)
+    return launch<__half, 192>(q, k, v, sg, l, out, dout, dq, dk, dv, dl, B, S, H, Hkv, causal,
+                               scale, s);
+  if (dtype == paged::kF16 && D == 256)
+    return launch<__half, 256>(q, k, v, sg, l, out, dout, dq, dk, dv, dl, B, S, H, Hkv, causal,
+                               scale, s);
   return cudaErrorInvalidValue;
 }

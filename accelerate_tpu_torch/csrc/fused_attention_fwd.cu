@@ -19,7 +19,9 @@
 // the value type before P V, the division after — an online softmax, as in
 // the flash forward, would round p against a running max instead.
 //
-// bf16 at D in {64, 128} (every training path): tensor cores.
+// bf16 and fp16 at D in {64, 128} (every training path): tensor cores,
+// one kernel template over the 16-bit element type E — the wgmma input
+// type and the rounding of p and of the output change, nothing else.
 // - One warpgroup (128 threads, so 2-3 blocks share an SM) owns 64 query
 //   rows of one (b, h): grid (S/64, B·H). Q is copied once into a swizzled
 //   bf16 tile (flash_tc.cuh); K and V tiles of KT keys (128 at D = 64, 64
@@ -28,14 +30,14 @@
 // - S ≤ KT (BERT's S = 128): one pass. S = Q Kᵀ by wgmma gives the whole
 //   64 x S score block in registers; scale, mask to NEG_INF, the exact row
 //   max from the registers and two quad shuffles, p = exp(s - m), l from
-//   the unrounded p, p rounded to bf16 in place as the A fragment of O =
+//   the unrounded p, p rounded to E in place as the A fragment of O =
 //   P V (register-A wgmma, V read transposed from shared memory), o / l.
 // - KT < S ≤ 1024: two passes over the key tiles, both on wgmma. The first
 //   takes the exact max (Q Kᵀ only, V not loaded), the second recomputes
 //   the scores and accumulates P V. Causal key tiles past the query tile
 //   are skipped: their p is exactly 0.
 //
-// f32, and bf16 at D in {192, 256} (on no path): CUDA-core f32 FMA
+// f32, and bf16 or fp16 at D in {192, 256} (on no path): CUDA-core f32 FMA
 // (fused_common.cuh), the same two passes over f32 tiles of BR rows in
 // shared memory; grid (B·H, S/BR).
 #include "flash_tc.cuh"
@@ -165,18 +167,17 @@ cudaError_t launch_d(int D, const void* q, const void* k, const void* v, const i
                                            stream);)
 }
 
-// ---- bf16, D in {64, 128}: tensor cores ------------------------------------
+// ---- bf16 and fp16, D in {64, 128}: tensor cores ---------------------------
 
 // One warpgroup: 64 query rows of one (b, h), key tiles of KT keys.
-template <int D, int KT>
+template <int D, int KT, typename E>
 __global__ void __launch_bounds__(128)
-fwd_tc_kernel(const tc::bf16* __restrict__ q, const tc::bf16* __restrict__ k,
-              const tc::bf16* __restrict__ v, const int* __restrict__ seg,
-              tc::bf16* __restrict__ out, float* __restrict__ lse, int S, int H, int Hkv,
-              int causal, float scale) {
+fwd_tc_kernel(const E* __restrict__ q, const E* __restrict__ k, const E* __restrict__ v,
+              const int* __restrict__ seg, E* __restrict__ out, float* __restrict__ lse, int S,
+              int H, int Hkv, int causal, float scale) {
   using namespace tc;
   constexpr int NS = KT / 2, NO = D / 2;
-  constexpr uint32_t kQ = 64 * D * 2, kKV = KT * D * 2;  // bf16 tiles [64, D], [KT, D]
+  constexpr uint32_t kQ = 64 * D * 2, kKV = KT * D * 2;  // 16-bit tiles [64, D], [KT, D]
   extern __shared__ unsigned char smem_raw[];
   unsigned char* sm;
   const uint32_t sQ = aligned_base(smem_raw, &sm);  // [64, D]
@@ -188,8 +189,8 @@ fwd_tc_kernel(const tc::bf16* __restrict__ q, const tc::bf16* __restrict__ k,
   const int bh = blockIdx.y, b = bh / H, h = bh - b * H, kh = h / (H / Hkv);
   const int i0 = qt * 64;
   const long long q_rs = (long long)H * D, kv_rs = (long long)Hkv * D;
-  const bf16* k_base = k + ((long long)b * S * Hkv + kh) * D;
-  const bf16* v_base = v + ((long long)b * S * Hkv + kh) * D;
+  const E* k_base = k + ((long long)b * S * Hkv + kh) * D;
+  const E* v_base = v + ((long long)b * S * Hkv + kh) * D;
   const bool use_seg = seg != nullptr;
   // key tiles this query tile attends; with one, a single pass, else the
   // max pass (items 0 .. n-1) then the P V pass (items n .. 2n-1)
@@ -227,7 +228,7 @@ fwd_tc_kernel(const tc::bf16* __restrict__ q, const tc::bf16* __restrict__ k,
     wg_fence();
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk)
-      Mma<KT>::ss(sacc, desc_k(sQ, 64, 0, kk), desc_k(sK, KT, 0, kk), kk);
+      Mma<KT, E>::ss(sacc, desc_k(sQ, 64, 0, kk), desc_k(sK, KT, 0, kk), kk);
     wg_commit();
     wg_wait_all();
     hold(sacc);
@@ -266,11 +267,11 @@ fwd_tc_kernel(const tc::bf16* __restrict__ q, const tc::bf16* __restrict__ k,
         const float pa = exp2f((sacc[i] - m) * kLog2e), pb = exp2f((sacc[i + 1] - m) * kLog2e);
         if (e & 1) l1 += pa + pb;
         else l0 += pa + pb;
-        pf[kk][e] = pack_bf16(pa, pb);  // p.astype(bf16)
+        pf[kk][e] = pack2<E>(pa, pb);  // p.astype(E)
       }
     wg_fence();
 #pragma unroll
-    for (int kk = 0; kk < KT / 16; ++kk) Mma<D>::rs(o, pf[kk], desc_mn(sV, KT, 0, kk), 1);
+    for (int kk = 0; kk < KT / 16; ++kk) Mma<D, E>::rs(o, pf[kk], desc_mn(sV, KT, 0, kk), 1);
     wg_commit();
     wg_wait_all();
     hold(o);
@@ -288,28 +289,27 @@ fwd_tc_kernel(const tc::bf16* __restrict__ q, const tc::bf16* __restrict__ k,
   }
 }
 
-template <int D, int KT>
+template <int D, int KT, typename E>
 cudaError_t launch_tc(const void* q, const void* k, const void* v, const int* seg, void* out,
                       float* lse, int B, int S, int H, int Hkv, int causal, float scale,
                       cudaStream_t stream) {
   constexpr size_t smem = tc::kAlignSlack + 64 * D * 2 + 4 * KT * D * 2 + 2 * KT * 4;
-  auto kernel = fwd_tc_kernel<D, KT>;
+  auto kernel = fwd_tc_kernel<D, KT, E>;
   cudaError_t err = paged::allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;
   kernel<<<dim3(S / 64, B * H), 128, smem, stream>>>(
-      static_cast<const tc::bf16*>(q), static_cast<const tc::bf16*>(k),
-      static_cast<const tc::bf16*>(v), seg, static_cast<tc::bf16*>(out), lse, S, H, Hkv, causal,
-      scale);
+      static_cast<const E*>(q), static_cast<const E*>(k), static_cast<const E*>(v), seg,
+      static_cast<E*>(out), lse, S, H, Hkv, causal, scale);
   return cudaGetLastError();
 }
 
 }  // namespace fused
 
-// q, out [B,S,H,D]; k, v [B,S,Hkv,D] (dtype: 0 f32, 1 bf16; all contiguous,
-// 16-byte aligned); seg [B,S] int32 or null; lse [B,H,S] f32. S % 128 == 0,
-// S <= 1024, D in {64, 128, 192, 256}, H % Hkv == 0. Returns the launch's
-// cudaError_t (0 on success). bf16 at D = 64 and 128 goes to the
-// tensor-core kernel, f32 and D = 192, 256 to the CUDA-core one.
+// q, out [B,S,H,D]; k, v [B,S,Hkv,D] (dtype: 0 f32, 1 bf16, 2 fp16; all
+// contiguous, 16-byte aligned); seg [B,S] int32 or null; lse [B,H,S] f32.
+// S % 128 == 0, S <= 1024, D in {64, 128, 192, 256}, H % Hkv == 0. Returns
+// the launch's cudaError_t (0 on success). bf16 and fp16 at D = 64 and 128
+// go to the tensor-core kernel, f32 and D = 192, 256 to the CUDA-core one.
 extern "C" int fused_attention_fwd_launch(const void* q, const void* k, const void* v,
                                           const void* seg, void* out, void* lse, int B, int S,
                                           int H, int Hkv, int D, int dtype, int causal,
@@ -321,12 +321,18 @@ extern "C" int fused_attention_fwd_launch(const void* q, const void* k, const vo
   float* l = static_cast<float*>(lse);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == paged::kBF16 && D == 64)
-    return launch_tc<64, 128>(q, k, v, sg, out, l, B, S, H, Hkv, causal, scale, s);
+    return launch_tc<64, 128, tc::bf16>(q, k, v, sg, out, l, B, S, H, Hkv, causal, scale, s);
   if (dtype == paged::kBF16 && D == 128)
-    return launch_tc<128, 64>(q, k, v, sg, out, l, B, S, H, Hkv, causal, scale, s);
+    return launch_tc<128, 64, tc::bf16>(q, k, v, sg, out, l, B, S, H, Hkv, causal, scale, s);
+  if (dtype == paged::kF16 && D == 64)
+    return launch_tc<64, 128, tc::f16>(q, k, v, sg, out, l, B, S, H, Hkv, causal, scale, s);
+  if (dtype == paged::kF16 && D == 128)
+    return launch_tc<128, 64, tc::f16>(q, k, v, sg, out, l, B, S, H, Hkv, causal, scale, s);
   if (dtype == paged::kF32)
     return launch_d<float>(D, q, k, v, sg, out, l, B, S, H, Hkv, causal, scale, s);
   if (dtype == paged::kBF16)
     return launch_d<__nv_bfloat16>(D, q, k, v, sg, out, l, B, S, H, Hkv, causal, scale, s);
+  if (dtype == paged::kF16)
+    return launch_d<__half>(D, q, k, v, sg, out, l, B, S, H, Hkv, causal, scale, s);
   return cudaErrorInvalidValue;
 }

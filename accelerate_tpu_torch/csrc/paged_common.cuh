@@ -14,6 +14,7 @@
 #pragma once
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 
@@ -25,16 +26,22 @@ constexpr int kMaxRowsPerWarp = 4;  // rows a warp owns: row r of warp w is w + 
 constexpr int kMaxRows = kWarps * kMaxRowsPerWarp;
 constexpr unsigned kFull = 0xffffffffu;
 
-// dtype codes of the C interface (the Python wrapper passes these)
-enum DType : int { kF32 = 0, kBF16 = 1 };
+// dtype codes of the C interface (the Python wrappers pass these; fp16
+// only to the fused kernels)
+enum DType : int { kF32 = 0, kBF16 = 1, kF16 = 2 };
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ float to_f32(__half x) { return __half2float(x); }
 
 template <typename T> __device__ __forceinline__ T from_f32(float x);
 template <> __device__ __forceinline__ float from_f32<float>(float x) { return x; }
 template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);
+}
+// round to nearest even; past fp16's range to inf, as .astype(fp16)
+template <> __device__ __forceinline__ __half from_f32<__half>(float x) {
+  return __float2half_rn(x);
 }
 
 __device__ __forceinline__ float warp_max(float v) {

@@ -133,16 +133,30 @@ class DataLoader:
             yield self.collate_fn([self.dataset[i] for i in indices])
 
 
+_END = object()  # no batch left
+
+
 class DataLoaderShard:
     """A prepared :class:`DataLoader`: batches of tensors on ``device``.
     One process on one device reads the loader as it is, a short last batch
     included: the JAX package's ``prepare_data_loader`` wraps the sampler in
     ``BatchSamplerShard`` (whose ``even_batches`` top-up pads that batch)
-    only when its data axis has more than one shard."""
+    only when its data axis has more than one shard.
+
+    While it is iterated it is the :class:`~accelerate_tpu_torch.state.
+    GradientState`'s active loader; it reads one batch ahead so that
+    ``end_of_dataloader`` is already true while the last batch is in use
+    (``remainder``: the last batch's rows when the dataset's length is not
+    a multiple of the batch size), as the JAX package's loader does."""
 
     def __init__(self, dataloader: DataLoader, device):
+        from .state import GradientState
+
         self.base_dataloader = dataloader
         self.device = device
+        self.gradient_state = GradientState()
+        self.end_of_dataloader = False
+        self.remainder = -1
 
     def set_epoch(self, epoch: int) -> None:
         self.base_dataloader.set_epoch(epoch)
@@ -150,9 +164,29 @@ class DataLoaderShard:
     def __len__(self) -> int:
         return len(self.base_dataloader)
 
+    def _final_remainder(self) -> int:
+        dataset = getattr(self.base_dataloader, "dataset", None)
+        batch_size = getattr(self.base_dataloader, "batch_size", None)
+        if dataset is None or not batch_size or not hasattr(dataset, "__len__"):
+            return -1
+        return len(dataset) % batch_size
+
     def __iter__(self):
-        for batch in self.base_dataloader:
-            yield send_to_device(batch, self.device)
+        self.gradient_state._add_dataloader(self)
+        self.end_of_dataloader = False
+        self.remainder = -1
+        try:
+            it = iter(self.base_dataloader)
+            current = next(it, _END)
+            while current is not _END:
+                nxt = next(it, _END)
+                if nxt is _END:
+                    self.end_of_dataloader = True
+                    self.remainder = self._final_remainder()
+                yield send_to_device(current, self.device)
+                current = nxt
+        finally:
+            self.gradient_state._remove_dataloader(self)
 
 
 def prepare_data_loader(dataloader: DataLoader, device) -> DataLoaderShard:

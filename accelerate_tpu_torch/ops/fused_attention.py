@@ -11,6 +11,10 @@ each a thin wrapper with its plain PyTorch version beside it:
   GQA fold of dk/dv over the q heads of a group happens inside the kernel,
   in f32.
 
+Both kernels take f32, bf16 and fp16 (the dtypes the TPU kernels take on
+the training paths); the bf16 and fp16 variants at head dims 64 and 128
+run their products on Hopper's tensor cores.
+
 Public layout is BSHD (``q [B, S, H, D]``, ``k/v [B, S, Hkv, D]``), as in
 the JAX package; the kernels read it through strides, so no transpose is
 made. The rule for both wrappers: tensors on the CPU go to the plain
@@ -33,7 +37,7 @@ from typing import Optional
 import torch
 
 from . import _build
-from .flash_attention import _DTYPE_CODES, _launch_error
+from .flash_attention import _launch_error
 
 __all__ = [
     "NEG_INF",
@@ -46,6 +50,9 @@ __all__ = [
 ]
 
 NEG_INF = -1e30  # the TPU kernel's mask value (not finfo.min: see _xla_attention)
+# the dtypes the fused kernels are built for (codes of csrc/paged_common.cuh);
+# fp16 is theirs alone: the flash and paged kernels keep refusing it
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _MAX_S, _MAX_D = 1024, 256
 
 

@@ -5,7 +5,7 @@ one device.
 mixed-precision policy) and ``GradientState`` (accumulation bookkeeping)
 are singletons sharing their state across instances, as in the JAX
 package; ``_reset_state`` clears them. More than one process
-(``WORLD_SIZE > 1``) is not ported yet (ROADMAP.md Queue A 3, mesh and
+(``WORLD_SIZE > 1``) is not ported yet (ROADMAP.md Queue A 6, mesh and
 collectives) and raises.
 """
 
@@ -14,7 +14,7 @@ from __future__ import annotations
 import os
 from typing import Any, Optional
 
-from .utils.dataclasses import MixedPrecisionPolicy, PrecisionType
+from .utils.dataclasses import GradientAccumulationPlugin, MixedPrecisionPolicy, PrecisionType
 from .utils.device import resolve_device
 
 __all__ = ["AcceleratorState", "GradientState", "PartialState"]
@@ -33,7 +33,7 @@ class PartialState:
         if int(os.environ.get("WORLD_SIZE", "1")) > 1:
             raise NotImplementedError(
                 "more than one process (WORLD_SIZE > 1) is not ported yet "
-                "(ROADMAP.md Queue A 3: mesh and collectives)"
+                "(ROADMAP.md Queue A 6: mesh and collectives)"
             )
         self.device = resolve_device("cpu" if cpu else device)
         self.num_processes = 1
@@ -116,20 +116,26 @@ class AcceleratorState:
 
 
 class GradientState:
-    """Gradient-accumulation bookkeeping: ``sync_gradients`` marks an
-    optimizer-update boundary. With one step per update (the only mode
-    ported) every step is one."""
+    """Gradient-accumulation bookkeeping (the JAX package's
+    ``GradientState``): ``sync_gradients`` marks an optimizer-update
+    boundary; the prepared data loader being iterated registers itself as
+    ``active_dataloader`` and flips its ``end_of_dataloader`` on its last
+    batch, so the last, partial accumulation window still syncs. The train
+    step's own boundaries come from the optimizer's micro-step count, not
+    from these flags."""
 
     _shared_state: dict = {}
 
-    def __init__(self, num_steps: Optional[int] = None):
+    def __init__(self, gradient_accumulation_plugin: Optional[GradientAccumulationPlugin] = None):
         self.__dict__ = self._shared_state
         if not self.initialized:
             self.sync_gradients = True
-            self.num_steps = 1
+            self.active_dataloader = None
+            self.dataloader_references = []
+            self.plugin = gradient_accumulation_plugin or GradientAccumulationPlugin()
             self.initialized = True
-        if num_steps is not None:
-            self.num_steps = num_steps
+        elif gradient_accumulation_plugin is not None:
+            self.plugin = gradient_accumulation_plugin
 
     @property
     def initialized(self) -> bool:
@@ -139,11 +145,46 @@ class GradientState:
     def initialized(self, value: bool) -> None:
         self._shared_state["_initialized"] = value
 
+    @property
+    def num_steps(self) -> int:
+        return self.plugin.num_steps
+
+    @property
+    def adjust_scheduler(self) -> bool:
+        return self.plugin.adjust_scheduler
+
+    @property
+    def sync_with_dataloader(self) -> bool:
+        return self.plugin.sync_with_dataloader
+
+    @property
+    def in_dataloader(self) -> bool:
+        return self.active_dataloader is not None
+
+    @property
+    def end_of_dataloader(self) -> bool:
+        return self.in_dataloader and self.active_dataloader.end_of_dataloader
+
+    @property
+    def remainder(self) -> int:
+        return self.active_dataloader.remainder if self.in_dataloader else -1
+
     def _set_sync_gradients(self, sync: bool) -> None:
         self.sync_gradients = sync
 
+    def _add_dataloader(self, dataloader) -> None:
+        self.active_dataloader = dataloader
+        self.dataloader_references.append(dataloader)
+
+    def _remove_dataloader(self, dataloader) -> None:
+        if dataloader in self.dataloader_references:
+            self.dataloader_references.remove(dataloader)
+        self.active_dataloader = (self.dataloader_references[-1]
+                                  if self.dataloader_references else None)
+
     def __repr__(self) -> str:
-        return f"GradientState(sync_gradients={self.sync_gradients}, num_steps={self.num_steps})"
+        return (f"GradientState(sync_gradients={self.sync_gradients}, num_steps={self.num_steps}, "
+                f"end_of_dataloader={self.end_of_dataloader}, remainder={self.remainder})")
 
     @classmethod
     def _reset_state(cls) -> None:

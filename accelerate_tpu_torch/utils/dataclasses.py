@@ -1,5 +1,5 @@
-"""Precision settings: the port of the precision part of
-``accelerate_tpu.utils.dataclasses``.
+"""Settings: the port of the precision, loss-scaling, accumulation and
+placeholder-optimizer parts of ``accelerate_tpu.utils.dataclasses``.
 
 The policy casts at well-defined boundaries, as the JAX package does,
 rather than through ``torch.autocast``: under bf16 the whole param tree is
@@ -10,13 +10,21 @@ dtype per operator from its own lists.
 
 from __future__ import annotations
 
+import warnings
 from dataclasses import dataclass
 from enum import Enum
-from typing import Optional, Union
+from typing import Callable, Optional, Union
 
 import torch
 
-__all__ = ["MixedPrecisionPolicy", "PrecisionType"]
+__all__ = [
+    "DummyOptim",
+    "DummyScheduler",
+    "GradScalerConfig",
+    "GradientAccumulationPlugin",
+    "MixedPrecisionPolicy",
+    "PrecisionType",
+]
 
 
 class PrecisionType(str, Enum):
@@ -78,3 +86,83 @@ class MixedPrecisionPolicy:
 
     def cast_to_param(self, tree):
         return self._cast(tree, self.param_dtype)
+
+
+@dataclass
+class GradientAccumulationPlugin:
+    """How micro-steps group into optimizer updates (the JAX package's
+    ``GradientAccumulationPlugin``): ``num_steps`` micro-steps an update;
+    ``sync_with_dataloader`` forces an update on a loader's last batch;
+    ``sync_each_batch`` marks every micro-step as a sync step;
+    ``adjust_scheduler`` is kept for the surface (the scheduler steps on
+    sync steps only)."""
+
+    num_steps: int = 1
+    adjust_scheduler: bool = True
+    sync_with_dataloader: bool = True
+    sync_each_batch: bool = False
+
+    def __post_init__(self):
+        if self.num_steps < 1:
+            raise ValueError(f"gradient accumulation steps must be >= 1, got {self.num_steps}")
+
+
+@dataclass
+class GradScalerConfig:
+    """fp16 dynamic loss scaling (the JAX package's ``GradScalerConfig``):
+    the loss is multiplied by the scale before the backward; a micro-step
+    whose unscaled gradients are not all finite backs the scale off by
+    ``backoff_factor`` (never below 1), ``growth_interval`` finite
+    micro-steps in a row grow it by ``growth_factor``. ``enabled`` is kept
+    for the surface; as in the JAX package, ``mixed_precision="fp16"``
+    always scales."""
+
+    init_scale: float = 2.0 ** 15
+    growth_factor: float = 2.0
+    backoff_factor: float = 0.5
+    growth_interval: int = 2000
+    enabled: bool = True
+
+
+class DummyOptim:
+    """Placeholder optimizer (the JAX package's ``DummyOptim``):
+    ``Accelerator.prepare`` makes it an AdamW from the recorded
+    hyperparameters. ``weight_decay`` defaults to 0.0, not :func:`adamw`'s
+    1e-4; ``betas`` and ``eps`` carry over."""
+
+    def __init__(self, params=None, lr: float = 1e-3, weight_decay: float = 0.0, **kwargs):
+        self.params = params
+        self.lr = lr
+        self.weight_decay = weight_decay
+        self.kwargs = kwargs
+
+    def to_adamw(self, learning_rate: Optional[Union[float, Callable]] = None):
+        """The AdamW factory (the JAX package's ``to_optax``); a
+        ``learning_rate`` schedule overrides the constant ``lr``."""
+        from ..optimizer import adamw
+
+        kwargs = dict(self.kwargs)
+        b1, b2 = kwargs.pop("betas", (0.9, 0.999))
+        eps = kwargs.pop("eps", 1e-8)
+        kwargs.pop("params", None)
+        if kwargs:
+            warnings.warn(f"DummyOptim: ignoring unsupported hyperparameters {sorted(kwargs)}",
+                          stacklevel=2)
+        return adamw(learning_rate if learning_rate is not None else self.lr, b1=b1, b2=b2,
+                     eps=eps, weight_decay=self.weight_decay)
+
+
+class DummyScheduler:
+    """Placeholder scheduler (the JAX package's ``DummyScheduler``):
+    ``Accelerator.prepare`` makes it a linear warmup over
+    ``warmup_num_steps`` then a linear decay to 0 at ``total_num_steps``
+    (held when that is ``None``) around the paired optimizer's lr, or the
+    scheduler ``lr_scheduler_callable(optimizer)`` returns."""
+
+    def __init__(self, optimizer=None, total_num_steps: Optional[int] = None,
+                 warmup_num_steps: int = 0, lr_scheduler_callable=None, **kwargs):
+        self.optimizer = optimizer
+        self.total_num_steps = total_num_steps
+        self.warmup_num_steps = warmup_num_steps
+        self.lr_scheduler_callable = lr_scheduler_callable
+        self.kwargs = kwargs

@@ -35,8 +35,15 @@ csrc`` at first use) and no network. Phases, each of which fails the run:
    ``prepare_train_loop`` (K=10 steps a call): one warm call, then timed
    calls with the fused-kernel counters zeroed before and read after (12
    forward and 12 backward launches a step); ``torch.profiler`` over one
-   step for the busy share and top kernels; then 3 steps in f32 through
-   the kernels against the same 3 steps through their plain versions;
+   step for the busy share and top kernels; then 3 steps in f32, and 3 in
+   fp16 with dynamic loss scaling, through the kernels against the same
+   steps through their plain versions; then ``bench.py``'s config #3
+   (gradient accumulation 4, micro-batch 64, 12 micro-steps a call) in
+   bf16 and in fp16, 3 optimizer steps a call, with a profiled
+   accumulation window, and a forced fp16 overflow whose loss scale must
+   follow the scaler's rule on every micro-step; the fused kernels' fp16
+   rows and an fp16 overflow that must leave the same elements non-finite
+   in the kernel and in the plain version;
 6. the card's name and power limit, one JSON line of kernel records, and
    a last line ``{"ok": true, "device": {...}}``.
 
@@ -72,8 +79,9 @@ LOGIT_ATOL = 1e-3
 # result (gradients sum over up to 1024 keys): f32 differs only in the
 # order of its sums; in bf16 both sides round p, ds and the outputs to bf16
 # at the same points, so a value on the other side of a rounding boundary
-# moves by one bf16 step — two steps allowed.
-FUSED_RTOL = {torch.float32: 1e-5, torch.bfloat16: 2.0 ** -6}
+# moves by one bf16 step — two steps allowed; fp16 the same in fp16 steps
+# (2**-10 below 2).
+FUSED_RTOL = {torch.float32: 1e-5, torch.bfloat16: 2.0 ** -6, torch.float16: 2.0 ** -9}
 # Training through the kernels vs through their plain versions, f32, 3
 # AdamW steps (the two differ by the order of f32 sums only): losses within
 # 1e-4 relative; each param leaf's 3-step update within 1e-3 of the plain
@@ -86,9 +94,33 @@ FUSED_RTOL = {torch.float32: 1e-5, torch.bfloat16: 2.0 ** -6}
 TRAIN_RTOL = 1e-4
 TRAIN_UPDATE_RTOL = 1e-3
 TRAIN_LR = 2e-5
+# The same 3 steps in fp16 with dynamic loss scaling: kernels and plain
+# versions round p, ds and the outputs to fp16 at the same points, but sum
+# in f32 in another order, so a value on a rounding boundary lands one fp16
+# step apart; through 12 layers the step losses move by about 1e-4, and
+# AdamW's g / (|g| + eps) turns that noise in near-zero gradients into the
+# sign of small steps, as in the CPU tests' bf16 and fp16 envelopes: losses
+# within 2e-3 relative, each leaf's update within 0.3 relative L2. The key
+# bias's update is all such noise on both sides: each run moves it by at
+# most 3 AdamW steps of about lr (|m̂| / √v̂ ≤ 1.003 in the first 3 steps), in
+# any direction, so the two differ by at most 6 lr (the f32 check's 3 lr
+# holds only because there both sides' noise is alike). The loss-scale and
+# finite-flag sequences are decisions: they must be equal.
+TRAIN_FP16_RTOL = 2e-3
+TRAIN_FP16_UPDATE_RTOL = 0.3
+# bench.py's config #3 (run_bench_grad_accum, bench.py:476-551): BERT-base,
+# S=128, micro-batch 64, accumulation 4, 12 micro-steps a prepare_train_loop
+# call, adamw(2e-5); 2 warm calls, then 4 timed ones. One departure:
+# attn_impl="fused", where the bench keeps "auto" (the einsum path in both
+# packages at S=128, which would run no kernel).
+ACCUM_BATCH, ACCUM_STEPS, ACCUM_K, ACCUM_WARM, ACCUM_CALLS, ACCUM_LR = 64, 4, 12, 2, 4, 2e-5
+# forced overflow: a scale that overflows the fp16 backward, short growth
+# interval, 12 calls of one 4-micro-step window
+FORCED_SCALE, FORCED_INTERVAL, FORCED_CALLS = 2.0 ** 30, 4, 16
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
-PEAK_OPS_PER_S = {torch.bfloat16: 989e12, torch.float32: 67e12}  # dense bf16; f32 non-tensor
+# dense bf16 and fp16 tensor cores; f32 outside them
+PEAK_OPS_PER_S = {torch.bfloat16: 989e12, torch.float16: 989e12, torch.float32: 67e12}
 
 CONFIG_KW = dict(vocab_size=32000, dim=2048, n_layers=16, n_heads=32, n_kv_heads=8,
                  max_seq_len=512)
@@ -455,77 +487,116 @@ def phase_fused_kernels(dev):
 
     sdpa = torch.nn.functional.scaled_dot_product_attention
     results = {}
-    for name in FUSED_CASES:
+
+    def rows(name, dtype, seed):
         B, S, H, Hkv, D, causal, _ = FUSED_CASES[name]
         scale = 1.0 / math.sqrt(D)
+        q, k, v, do, seg = _fused_inputs(name, dtype, dev, seed=seed)
+        out, lse = fa.fused_attention_fwd(q, k, v, seg, scale, causal)
+        grads = fa.fused_attention_bwd(q, k, v, seg, lse, out, do, scale, causal)
+        torch.cuda.synchronize()
+        ref_out, ref_lse = fa.fused_attention_fwd_reference(q, k, v, seg, scale, causal)
+        ref_grads = fa.fused_attention_bwd_reference(q, k, v, seg, lse, out, do, scale, causal)
+        errs = {"fwd": _errs([(out, ref_out), (lse, ref_lse)]),
+                "bwd": _errs(zip(grads, ref_grads))}
+        for x in (out, lse, *grads):
+            check(bool(torch.isfinite(x.float()).all()), f"fused {name} {dtype}: non-finite")
+        for kind, (_, rel) in errs.items():
+            check(rel <= FUSED_RTOL[dtype],
+                  f"fused {kind} {name} {dtype}: rel err {rel} > {FUSED_RTOL[dtype]}")
+
+        # copies of the inputs, together past the 50 MB L2, so each
+        # timed call finds its inputs cold as a model layer does
+        per_copy = 6 * q.numel() * q.element_size()
+        n = max(1, math.ceil(128e6 / per_copy))
+        copies = [tuple(x.clone() for x in (q, k, v, do)) for _ in range(n)]
+        saved = [fa.fused_attention_fwd(c[0], c[1], c[2], seg, scale, causal)[::-1]
+                 for c in copies]  # (lse, out), in the backward's argument order
+        mask = torch.ones(B, 1, S, S, dtype=torch.bool, device=dev)
+        if seg is not None:
+            mask &= (seg[:, :, None] == seg[:, None, :])[:, None]
+        if causal:
+            mask &= torch.ones(S, S, dtype=torch.bool, device=dev).tril()
+        leaves = [tuple(x.transpose(1, 2).detach().requires_grad_(True) for x in c[:3])
+                  for c in copies]
+        dos = [c[3].transpose(1, 2) for c in copies]
+
+        def library_fwd(i):
+            return sdpa(*leaves[i], attn_mask=mask, enable_gqa=Hkv != H)
+
+        def library_fwd_bwd(i):
+            return torch.autograd.grad(library_fwd(i), leaves[i], dos[i])
+
+        fwd = {
+            "ms": lambda i: fa.fused_attention_fwd(*copies[i][:3], seg, scale, causal),
+            "plain_ms": lambda i: fa.fused_attention_fwd_reference(*copies[i][:3], seg,
+                                                                   scale, causal),
+            "library_ms": library_fwd,
+        }
+        bwd = {
+            "ms": lambda i: fa.fused_attention_bwd(*copies[i][:3], seg, *saved[i],
+                                                   copies[i][3], scale, causal),
+            "plain_ms": lambda i: fa.fused_attention_bwd_reference(
+                *copies[i][:3], seg, *saved[i], copies[i][3], scale, causal),
+            "library_ms": library_fwd_bwd,
+        }
+        iters = 16
+        for kind, fns in (("fwd", fwd), ("bwd", bwd)):
+            rec = {key: time_ms(fn, n, iters) for key, fn in fns.items()}
+            rec["max_abs_err"], rec["rel_err"] = errs[kind]
+            rec["bound_ms"], rec["bound_by"] = _fused_bound(name, dtype, seg, kind == "bwd")
+            results[(name, kind, dtype)] = rec
+        # the library's backward alone: its forward and backward less its forward
+        bwd_rec = results[(name, "bwd", dtype)]
+        bwd_rec["library_ms"] -= results[(name, "fwd", dtype)]["library_ms"]
+        for kind in ("fwd", "bwd"):
+            rec = results[(name, kind, dtype)]
+            print(f"[fused] {kind} {name:10s} {str(dtype):15s} err {rec['max_abs_err']:.3e} "
+                  f"(rel {rec['rel_err']:.3e}, tol {FUSED_RTOL[dtype]:.1e}) kernel "
+                  f"{rec['ms']:.4f} ms plain {rec['plain_ms']:.4f} ms sdpa "
+                  f"{rec['library_ms']:.4f} ms bound {rec['bound_ms']:.5f} ms "
+                  f"({rec['bound_by']})")
+        del copies, saved, leaves, dos
+
+    for name in FUSED_CASES:
         for dtype in (torch.bfloat16, torch.float32):
-            q, k, v, do, seg = _fused_inputs(name, dtype, dev, seed=len(results))
-            out, lse = fa.fused_attention_fwd(q, k, v, seg, scale, causal)
-            grads = fa.fused_attention_bwd(q, k, v, seg, lse, out, do, scale, causal)
-            torch.cuda.synchronize()
-            ref_out, ref_lse = fa.fused_attention_fwd_reference(q, k, v, seg, scale, causal)
-            ref_grads = fa.fused_attention_bwd_reference(q, k, v, seg, lse, out, do, scale, causal)
-            errs = {"fwd": _errs([(out, ref_out), (lse, ref_lse)]),
-                    "bwd": _errs(zip(grads, ref_grads))}
-            for x in (out, lse, *grads):
-                check(bool(torch.isfinite(x.float()).all()), f"fused {name} {dtype}: non-finite")
-            for kind, (_, rel) in errs.items():
-                check(rel <= FUSED_RTOL[dtype],
-                      f"fused {kind} {name} {dtype}: rel err {rel} > {FUSED_RTOL[dtype]}")
-
-            # copies of the inputs, together past the 50 MB L2, so each
-            # timed call finds its inputs cold as a model layer does
-            per_copy = 6 * q.numel() * q.element_size()
-            n = max(1, math.ceil(128e6 / per_copy))
-            copies = [tuple(x.clone() for x in (q, k, v, do)) for _ in range(n)]
-            saved = [fa.fused_attention_fwd(c[0], c[1], c[2], seg, scale, causal)[::-1]
-                     for c in copies]  # (lse, out), in the backward's argument order
-            mask = torch.ones(B, 1, S, S, dtype=torch.bool, device=dev)
-            if seg is not None:
-                mask &= (seg[:, :, None] == seg[:, None, :])[:, None]
-            if causal:
-                mask &= torch.ones(S, S, dtype=torch.bool, device=dev).tril()
-            leaves = [tuple(x.transpose(1, 2).detach().requires_grad_(True) for x in c[:3])
-                      for c in copies]
-            dos = [c[3].transpose(1, 2) for c in copies]
-
-            def library_fwd(i):
-                return sdpa(*leaves[i], attn_mask=mask, enable_gqa=Hkv != H)
-
-            def library_fwd_bwd(i):
-                return torch.autograd.grad(library_fwd(i), leaves[i], dos[i])
-
-            fwd = {
-                "ms": lambda i: fa.fused_attention_fwd(*copies[i][:3], seg, scale, causal),
-                "plain_ms": lambda i: fa.fused_attention_fwd_reference(*copies[i][:3], seg,
-                                                                       scale, causal),
-                "library_ms": library_fwd,
-            }
-            bwd = {
-                "ms": lambda i: fa.fused_attention_bwd(*copies[i][:3], seg, *saved[i],
-                                                       copies[i][3], scale, causal),
-                "plain_ms": lambda i: fa.fused_attention_bwd_reference(
-                    *copies[i][:3], seg, *saved[i], copies[i][3], scale, causal),
-                "library_ms": library_fwd_bwd,
-            }
-            iters = 16
-            for kind, fns in (("fwd", fwd), ("bwd", bwd)):
-                rec = {key: time_ms(fn, n, iters) for key, fn in fns.items()}
-                rec["max_abs_err"], rec["rel_err"] = errs[kind]
-                rec["bound_ms"], rec["bound_by"] = _fused_bound(name, dtype, seg, kind == "bwd")
-                results[(name, kind, dtype)] = rec
-            # the library's backward alone: its forward and backward less its forward
-            bwd_rec = results[(name, "bwd", dtype)]
-            bwd_rec["library_ms"] -= results[(name, "fwd", dtype)]["library_ms"]
-            for kind in ("fwd", "bwd"):
-                rec = results[(name, kind, dtype)]
-                print(f"[fused] {kind} {name:10s} {str(dtype):15s} err {rec['max_abs_err']:.3e} "
-                      f"(rel {rec['rel_err']:.3e}, tol {FUSED_RTOL[dtype]:.1e}) kernel "
-                      f"{rec['ms']:.4f} ms plain {rec['plain_ms']:.4f} ms sdpa "
-                      f"{rec['library_ms']:.4f} ms bound {rec['bound_ms']:.5f} ms "
-                      f"({rec['bound_by']})")
-            del copies, saved, leaves, dos
+            rows(name, dtype, len(results))
+    for name in FUSED_CASES:  # after the others: their inputs (seeds) stay as they were
+        rows(name, torch.float16, len(results))
+    _fp16_overflow_check(dev)
     return results
+
+
+def _fp16_overflow_check(dev):
+    """dO scaled as a loss scale scales it (kept inside fp16's range) until
+    ds = p (dp - δ) passes fp16's range, at the BERT and causal GQA shapes:
+    each of dq, dk and dv must be non-finite in kernel #5 exactly where it
+    is in the plain version (element by element), so the loss scaler sees
+    every overflow."""
+    from accelerate_tpu_torch.ops import fused_attention as fa
+
+    for name in ("bert", "gqa_causal"):
+        B, S, H, Hkv, D, causal, _ = FUSED_CASES[name]
+        q, k, v, do, seg = _fused_inputs(name, torch.float16, dev, seed=50)
+        scale = 1.0 / math.sqrt(D)
+        out, lse = fa.fused_attention_fwd(q, k, v, seg, scale, causal)
+        for mul in (1.0, 3e4):
+            dd = (do.float() * mul).clamp(-6e4, 6e4).half()
+            got = fa.fused_attention_bwd(q, k, v, seg, lse, out, dd, scale, causal)
+            want = fa.fused_attention_bwd_reference(q, k, v, seg, lse, out, dd, scale, causal)
+            torch.cuda.synchronize()
+            counts = [(int((~torch.isfinite(a)).sum()), int((~torch.isfinite(b)).sum()))
+                      for a, b in zip(got, want)]
+            same = all(torch.equal(torch.isfinite(a), torch.isfinite(b))
+                       for a, b in zip(got, want))
+            print(f"[fused-overflow] {name} fp16 dO x {mul:g}: non-finite (kernel, plain) "
+                  f"dq {counts[0]} dk {counts[1]} dv {counts[2]}; same elements: {same}")
+            check(same, f"fp16 overflow {name} x{mul:g}: kernel and plain non-finite "
+                        f"elements differ: {counts}")
+            if mul == 1.0:
+                check(counts[0][0] == 0, f"fp16 overflow {name}: unscaled dO overflowed")
+            else:
+                check(counts[0][0] > 0, f"fp16 overflow {name}: dO x {mul:g} did not overflow ds")
 
 
 def phase_engine(params, config, dev):
@@ -782,11 +853,13 @@ def phase_train(dev):
     return launches
 
 
-def _profile_step(loop, params, state, one, tag, n_plain):
+def _profile_step(loop, params, state, one, tag, n_plain, match=None):
     """Where one step's time goes: device events of one profiled step
-    (``one`` is a K=1 batch) over the median host wall of ``n_plain`` steps
-    run without the profiler (whose host cost inflates the wall it
-    watches). Updates ``params``/``state`` in place, as every step does."""
+    (``one`` is a K=1 batch, or one accumulation window) over the median
+    host wall of ``n_plain`` steps run without the profiler (whose host
+    cost inflates the wall it watches); the rows whose name holds ``match``
+    are printed besides the top ones. Updates ``params``/``state`` in
+    place, as every step does."""
     from torch.profiler import ProfilerActivity, profile
 
     def one_step():
@@ -815,15 +888,33 @@ def _profile_step(loop, params, state, one, tag, n_plain):
     print(f"[{tag}] one step: wall {plain_us / 1e3:.3f} ms ({prof_us / 1e3:.3f} under "
           f"the profiler), device {device_us / 1e3:.3f} ms in {sum(r[2] for r in rows)} device "
           f"events, busy share {device_us / plain_us:.3f}")
-    for key, us, count in sorted(rows, key=lambda r: -r[1])[:10]:
+    ranked = sorted(rows, key=lambda r: -r[1])
+    for key, us, count in ranked[:10]:
         print(f"[{tag}]   {us / 1e3:8.4f} ms  {us / device_us:6.1%}  {count:5d} calls  "
               f"{key[:80]}")
+    if match is not None:
+        hits = [r for r in ranked if match in r[0].lower()]
+        us = sum(r[1] for r in hits)
+        print(f"[{tag}] rows naming {match!r}: {us / 1e3:.4f} ms ({us / device_us:.1%}) in "
+              f"{sum(r[2] for r in hits)} calls")
+        for key, us, count in hits[:5]:
+            print(f"[{tag}]   {us / 1e3:8.4f} ms  {count:5d} calls  {key[:80]}")
 
 
 def phase_train_check(dev):
     """3 steps in f32 from the same init and data, once through the fused
     kernels and once through their plain versions on the card: per-step
     losses and every param leaf's 3-step update compared."""
+    k_loss, k_upd, _ = _train_run(dev, "no", plain=False)
+    p_loss, p_upd, _ = _train_run(dev, "no", plain=True)
+    _compare_runs("train-check", k_loss, k_upd, p_loss, p_upd, TRAIN_RTOL, TRAIN_UPDATE_RTOL,
+                  3 * TRAIN_LR)
+
+
+def _train_run(dev, precision, plain):
+    """3 steps from the same init and data (see :func:`_train_setup`),
+    through the fused kernels or, with ``plain``, through their plain
+    versions on the card. Returns (losses, {leaf: update}, metrics)."""
     from accelerate_tpu_torch.ops import fused_attention as fa
     from accelerate_tpu_torch.utils.operations import stack_batches
 
@@ -834,29 +925,31 @@ def phase_train_check(dev):
             else:
                 yield f"{prefix}{key}", v.detach()
 
-    def run(plain):
-        config, params, opt, batches, loop = _train_setup(dev, "no", 3)
-        init = {name: t.clone() for name, t in named(params)}
-        kernels = (fa.fused_attention_fwd, fa.fused_attention_bwd)
-        before = [k.launches for k in kernels]
-        if plain:
-            fa.fused_attention_fwd = fa.fused_attention_fwd_reference
-            fa.fused_attention_bwd = fa.fused_attention_bwd_reference
-        try:
-            params, _, m = loop(params, opt.opt_state, stack_batches(batches))
-            torch.cuda.synchronize()
-        finally:
-            fa.fused_attention_fwd, fa.fused_attention_bwd = kernels
-        launched = [k.launches - b for k, b in zip(kernels, before)]
-        want = [0, 0] if plain else [3 * config.n_layers] * 2
-        check(launched == want, f"f32 check ({'plain' if plain else 'kernels'}): fused "
-                                f"launches {launched}, want {want}")
-        return m["loss"].cpu(), {name: t - init[name] for name, t in named(params)}
+    config, params, opt, batches, loop = _train_setup(dev, precision, 3)
+    init = {name: t.clone() for name, t in named(params)}
+    kernels = (fa.fused_attention_fwd, fa.fused_attention_bwd)
+    before = [k.launches for k in kernels]
+    if plain:
+        fa.fused_attention_fwd = fa.fused_attention_fwd_reference
+        fa.fused_attention_bwd = fa.fused_attention_bwd_reference
+    try:
+        params, _, m = loop(params, opt.opt_state, stack_batches(batches))
+        torch.cuda.synchronize()
+    finally:
+        fa.fused_attention_fwd, fa.fused_attention_bwd = kernels
+    launched = [k.launches - b for k, b in zip(kernels, before)]
+    want = [0, 0] if plain else [3 * config.n_layers] * 2
+    check(launched == want, f"{precision} check ({'plain' if plain else 'kernels'}): fused "
+                            f"launches {launched}, want {want}")
+    upd = {name: (t - init[name]).float() for name, t in named(params)}
+    return m["loss"].cpu(), upd, {k: v.cpu() for k, v in m.items()}
 
-    k_loss, k_upd = run(plain=False)
-    p_loss, p_upd = run(plain=True)
+
+def _compare_runs(tag, k_loss, k_upd, p_loss, p_upd, loss_tol, upd_tol, bias_tol):
+    """Per-step losses and each leaf's 3-step update, kernels vs plain; the
+    key bias (zero gradient) within ``bias_tol``."""
     check(bool(torch.isfinite(k_loss).all() and torch.isfinite(p_loss).all()),
-          "non-finite f32 loss")
+          f"{tag}: non-finite loss")
     loss_err = float(((k_loss - p_loss).abs() / p_loss.abs()).max())
     zero_grad = "layers/wk/bias"
     upd_err = {name: float(torch.linalg.vector_norm(a - p_upd[name])
@@ -864,20 +957,200 @@ def phase_train_check(dev):
                for name, a in k_upd.items() if name != zero_grad}
     worst = max(upd_err, key=upd_err.get)
     bias_err = float((k_upd[zero_grad] - p_upd[zero_grad]).abs().max())
-    print(f"[train-check] f32, 3 steps, kernels vs plain attention: losses "
+    print(f"[{tag}] 3 steps, kernels vs plain attention: losses "
           f"{' '.join(f'{x:.6f}' for x in k_loss.tolist())} vs "
           f"{' '.join(f'{x:.6f}' for x in p_loss.tolist())}; max rel err loss {loss_err:.3e} "
-          f"(tol {TRAIN_RTOL:.0e}); updates: largest rel L2 err {upd_err[worst]:.3e} ({worst}; "
-          f"tol {TRAIN_UPDATE_RTOL:.0e}); {zero_grad} (zero gradient) abs err {bias_err:.3e} "
-          f"(bound 3 lr = {3 * TRAIN_LR:.0e})")
+          f"(tol {loss_tol:.0e}); updates: largest rel L2 err {upd_err[worst]:.3e} ({worst}; "
+          f"tol {upd_tol:.0e}); {zero_grad} (zero gradient) abs err {bias_err:.3e} "
+          f"(bound {bias_tol:.0e})")
     for name in sorted(upd_err, key=upd_err.get, reverse=True)[:4]:
-        print(f"[train-check]   {name}: update rel L2 err {upd_err[name]:.3e}, update max "
+        print(f"[{tag}]   {name}: update rel L2 err {upd_err[name]:.3e}, update max "
               f"{float(p_upd[name].abs().max()):.3e}")
-    check(loss_err <= TRAIN_RTOL, f"f32 losses: kernels vs plain rel err {loss_err} > {TRAIN_RTOL}")
-    check(upd_err[worst] <= TRAIN_UPDATE_RTOL,
-          f"f32 3-step update of {worst}: kernels vs plain rel L2 err {upd_err[worst]} > "
-          f"{TRAIN_UPDATE_RTOL}")
-    check(bias_err <= 3 * TRAIN_LR, f"{zero_grad}: kernels vs plain {bias_err} > 3 lr")
+    check(loss_err <= loss_tol, f"{tag} losses: kernels vs plain rel err {loss_err} > {loss_tol}")
+    check(upd_err[worst] <= upd_tol,
+          f"{tag} 3-step update of {worst}: kernels vs plain rel L2 err {upd_err[worst]} > "
+          f"{upd_tol}")
+    check(bias_err <= bias_tol, f"{zero_grad}: kernels vs plain {bias_err} > {bias_tol}")
+
+
+def phase_train_check_fp16(dev):
+    """The 3 steps of :func:`phase_train_check` in fp16 with the default
+    loss scaler, through the fp16 kernels and through their plain
+    versions: the same loss-scale and finite-flag sequences, losses and
+    updates within the fp16 bars (TRAIN_FP16_*)."""
+    k_loss, k_upd, k_m = _train_run(dev, "fp16", plain=False)
+    p_loss, p_upd, p_m = _train_run(dev, "fp16", plain=True)
+    print(f"[train-check-fp16] loss scale {k_m['loss_scale'].tolist()} vs "
+          f"{p_m['loss_scale'].tolist()}, grads finite {k_m['grads_finite'].tolist()} vs "
+          f"{p_m['grads_finite'].tolist()}")
+    check(torch.equal(k_m["grads_finite"], p_m["grads_finite"])
+          and torch.equal(k_m["loss_scale"], p_m["loss_scale"]),
+          "fp16 check: loss-scale decisions differ between kernels and plain versions")
+    _compare_runs("train-check-fp16", k_loss, k_upd, p_loss, p_upd, TRAIN_FP16_RTOL,
+                  TRAIN_FP16_UPDATE_RTOL, 6 * TRAIN_LR)
+
+
+def _accum_setup(dev, precision, scaler=None):
+    """bench.py's config #3 through ``Accelerator(gradient_accumulation_steps
+    =4).prepare`` and ``prepare_train_loop``: BERT-base (S=128, fused
+    attention), random f32 master weights from seed 0, ``adamw(2e-5)``, and
+    bench.py's ``micro_batch(seed)`` for seeds 0-11 (random ids from
+    ``np.random.default_rng(seed)``, all-ones mask). Returns the config,
+    params, optimizer, the 12 stacked micro-batches, the first 4 of them
+    (one accumulation window) and the loop."""
+    from accelerate_tpu_torch import Accelerator, BertConfig, bert_loss, init_bert
+    from accelerate_tpu_torch.optimizer import adamw
+    from accelerate_tpu_torch.utils.operations import stack_batches
+
+    _reset_states()
+    config = dataclasses.replace(BertConfig.base(), max_seq_len=TRAIN_SEQ, attn_impl="fused")
+    acc = Accelerator(mixed_precision=precision, gradient_accumulation_steps=ACCUM_STEPS,
+                      rng_seed=0, grad_scaler_config=scaler)
+    params = init_bert(config, torch.Generator(device=dev).manual_seed(0), device=dev)
+    params, opt = acc.prepare(params, adamw(ACCUM_LR))
+
+    def micro_batch(seed):  # bench.py's micro_batch
+        r = np.random.default_rng(seed)
+        shape = (ACCUM_BATCH, TRAIN_SEQ)
+        batch = {"input_ids": r.integers(0, config.vocab_size, shape).astype(np.int32),
+                 "attention_mask": np.ones(shape, np.int32),
+                 "token_type_ids": np.zeros(shape, np.int32),
+                 "labels": r.integers(0, 2, (ACCUM_BATCH,)).astype(np.int32)}
+        return {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+
+    batches = [micro_batch(i) for i in range(ACCUM_K)]
+    loop = acc.prepare_train_loop(lambda p, b: bert_loss(p, b, config), opt)
+    return (config, params, opt, stack_batches(batches), stack_batches(batches[:ACCUM_STEPS]),
+            loop)
+
+
+def _accum_run(dev, precision, tag):
+    """ACCUM_WARM warm calls, then ACCUM_CALLS timed calls of 12 micro-steps
+    with the fused counters zeroed before and read after; checks 3 optimizer
+    steps a call, 12 launches of each kernel a micro-step and finite
+    losses; then profiles one 4-micro-step window. Returns the launches and
+    the timed calls' metrics."""
+    from accelerate_tpu_torch.ops import fused_attention as fa
+
+    config, params, opt, stacked, window, loop = _accum_setup(dev, precision)
+    state = opt.opt_state
+    for _ in range(ACCUM_WARM):
+        params, state, m = loop(params, state, stacked)
+    torch.cuda.synchronize()
+    fa.fused_attention_fwd.launches = 0
+    fa.fused_attention_bwd.launches = 0
+    counts, metrics = [opt.step_count], []
+    t0 = time.perf_counter()
+    for _ in range(ACCUM_CALLS):
+        params, state, m = loop(params, state, stacked)
+        counts.append(opt.step_count)  # a host count: no device read
+        metrics.append(m)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"fused_attention_fwd": fa.fused_attention_fwd.launches,
+                "fused_attention_bwd": fa.fused_attention_bwd.launches}
+    micro = ACCUM_CALLS * ACCUM_K
+    metrics = {k: torch.cat([m[k] for m in metrics]).cpu() for k in metrics[0]}
+    per_call = [b - a for a, b in zip(counts, counts[1:])]
+    check(per_call == [ACCUM_K // ACCUM_STEPS] * ACCUM_CALLS,
+          f"{tag}: optimizer steps per call {per_call}, want {ACCUM_K // ACCUM_STEPS} each")
+    check(bool(torch.isfinite(metrics["loss"]).all()), f"{tag}: non-finite loss")
+    for name, count in launches.items():
+        check(count == config.n_layers * micro,
+              f"{tag} {name}: {count} launches in {micro} micro-steps, want {config.n_layers} "
+              f"a micro-step")
+    print(f"[{tag}] BERT-base, {precision} compute / f32 masters, micro-batch {ACCUM_BATCH} x "
+          f"seq {TRAIN_SEQ}, accumulation {ACCUM_STEPS}, {ACCUM_K} micro-steps a call, "
+          f"attn_impl=fused, adamw({ACCUM_LR:g})")
+    print(f"[{tag}] {ACCUM_CALLS} timed calls, {micro} micro-steps in {wall:.3f} s: "
+          f"{micro * ACCUM_BATCH / wall:.1f} samples/s, {wall / micro * 1e3:.2f} ms/micro-step; "
+          f"optimizer steps a call {per_call} (step_count {opt.step_count})")
+    print(f"[{tag}] loss over {micro} micro-steps: "
+          + " ".join(f"{x:.4f}" for x in metrics["loss"].tolist()))
+    print(f"[{tag}] launches on the main path ({micro} micro-steps): {launches}")
+    _profile_step(loop, params, state, window, f"{tag}-profile", 3, match="multi_tensor")
+    return launches, metrics
+
+
+def phase_grad_accum(dev):
+    """bench.py's config #3 at full width in bf16 (see _accum_setup)."""
+    launches, _ = _accum_run(dev, "bf16", "grad-accum")
+    return launches
+
+
+def _runs(values):
+    """[(value, repeat count), ...] of a sequence."""
+    out = []
+    for x in values:
+        if out and out[-1][0] == x:
+            out[-1][1] += 1
+        else:
+            out.append([x, 1])
+    return [tuple(r) for r in out]
+
+
+def phase_fp16(dev):
+    """The grad-accum configuration in fp16 with the default
+    ``GradScalerConfig``: the loss-scale trajectory and the non-finite
+    micro-steps. Then a forced overflow (a scale of FORCED_SCALE, growth
+    interval FORCED_INTERVAL), one 4-micro-step window a call: every
+    micro-step's scale against the rule (halved exactly when the grads are
+    not finite, never below 1; doubled after FORCED_INTERVAL finite
+    micro-steps in a row), and the params moved by an overflowed
+    boundary once AdamW has moments."""
+    from accelerate_tpu_torch import GradScalerConfig
+    from accelerate_tpu_torch.optimizer import param_leaves
+
+    launches, m = _accum_run(dev, "fp16", "fp16")
+    finite = m["grads_finite"]
+    print(f"[fp16] loss scale (value, micro-steps): {_runs(m['loss_scale'].tolist())}; "
+          f"non-finite micro-steps {int((~finite).sum())} of {len(finite)}")
+
+    cfg = GradScalerConfig(init_scale=FORCED_SCALE, growth_interval=FORCED_INTERVAL)
+    _, params, opt, _, window, loop = _accum_setup(dev, "fp16", cfg)
+    state = opt.opt_state
+    flags, scales, moved = [], [], []
+    for call in range(FORCED_CALLS):
+        before = [t.detach().clone() for t in param_leaves(params)]
+        params, state, m = loop(params, state, window)
+        flags += m["grads_finite"].tolist()
+        scales += m["loss_scale"].tolist()
+        moved.append(sum(not torch.equal(a, b) for a, b in zip(before, param_leaves(params))))
+        check(opt.step_count == call + 1, f"forced overflow: {opt.step_count} optimizer steps "
+                                          f"after {call + 1} windows")
+    check(not any(flags[:ACCUM_STEPS]),
+          f"forced overflow: a scale of {FORCED_SCALE:g} did not overflow every micro-step of "
+          f"the first window: {flags[:ACCUM_STEPS]}")
+    want, scale, growth = [], cfg.init_scale, 0
+    for ok in flags:  # the rule, on the host
+        if not ok:
+            scale, growth = max(scale * cfg.backoff_factor, 1.0), 0
+        elif growth + 1 >= cfg.growth_interval:
+            scale, growth = scale * cfg.growth_factor, 0
+        else:
+            growth += 1
+        want.append(scale)
+    # an overflowed boundary once AdamW has moments: the scale set back to
+    # FORCED_SCALE, one more window overflows on every micro-step and its
+    # update still runs, on the zeroed gradients' mean (the first windows'
+    # updates ran too, on zero moments, where lr·weight decay = 2e-9 rounds
+    # away in f32 and leaves the params as they were)
+    opt.loss_scale.fill_(FORCED_SCALE)
+    before = [t.detach().clone() for t in param_leaves(params)]
+    params, state, m = loop(params, state, window)
+    last_flags = m["grads_finite"].tolist()
+    last_moved = sum(not torch.equal(a, b) for a, b in zip(before, param_leaves(params)))
+    print(f"[fp16-forced] init scale {FORCED_SCALE:g}, growth interval {FORCED_INTERVAL}: "
+          f"(finite, scale) runs {_runs(list(zip(flags, scales)))}; param leaves moved per "
+          f"window {moved}; scale set back to {FORCED_SCALE:g}: finite {last_flags}, "
+          f"{last_moved} param leaves moved, {opt.step_count} optimizer steps")
+    check(scales == want, f"forced overflow: scales {scales} break the rule (want {want})")
+    check(not all(flags) and any(flags) and len(set(scales)) > 2,
+          "forced overflow: the run did not both back off and grow")
+    check(not any(last_flags) and last_moved > 0 and opt.step_count == FORCED_CALLS + 1,
+          f"forced overflow: the overflowed window did not update the params ({last_flags}, "
+          f"{last_moved} leaves moved, {opt.step_count} optimizer steps)")
+    return launches
 
 
 def _packed_segments(rng, rows, seq):
@@ -1252,6 +1525,9 @@ def main() -> int:
     del params
     train_launches = phase_train(dev)
     phase_train_check(dev)
+    phase_train_check_fp16(dev)
+    accum_launches = phase_grad_accum(dev)
+    fp16_launches = phase_fp16(dev)
     flash_results = phase_flash_kernels(dev)
     llama_launches = phase_llama_train(dev)
     phase_llama_train_check(dev)
@@ -1272,9 +1548,13 @@ def main() -> int:
         ("fused_attention_bwd", "bwd", "accelerate_tpu/ops/fused_attention.py:107"),
     ):
         rec = fused_results[("bert", kind, torch.bfloat16)]
+        rec16 = fused_results[("bert", kind, torch.float16)]
         records.append({"name": name, "route": "cuda",
                         "source": f"accelerate_tpu_torch/csrc/{name}.cu", "replaces": replaces,
-                        "launches": train_launches[name], **{k: rec[k] for k in keys}})
+                        "launches": train_launches[name], **{k: rec[k] for k in keys},
+                        "launches_grad_accum": accum_launches[name],
+                        "launches_fp16": fp16_launches[name],
+                        "fp16": {k: rec16[k] for k in keys}})
     for name, kind, source, line in (
         ("flash_attention_fwd", "fwd", "flash_fwd", 166),
         ("flash_attention_dq", "dq", "flash_dq", 232),

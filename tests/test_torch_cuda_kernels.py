@@ -212,7 +212,8 @@ def test_prefill_kernel_never_reads_past_the_walk(dev, q_dtype, kv_dtype, S, H, 
 # their largest magnitude (they sum over up to 1024 keys). bf16: both sides
 # round p, ds and the outputs to bf16 at the same points, so a value that
 # lands on either side of a rounding boundary moves by one bf16 step: held
-# within 2**-6 of the largest magnitude (two steps).
+# within 2**-6 of the largest magnitude (two steps). fp16: the same points
+# in fp16, whose step is 2**-10 below 2: within 2**-9 (two steps).
 FUSED_CASES = [
     # B, S, H, Hkv, D, causal, padded
     (4, 128, 12, 12, 64, False, True),   # BERT-base's attention shape, smaller batch
@@ -247,13 +248,15 @@ def _fused_case(seed, B, S, H, Hkv, D, padded, dev, dtype):
     return t(B, S, H, D), t(B, S, Hkv, D), t(B, S, Hkv, D), seg, t(B, S, H, D)
 
 
+FUSED_TOL = {torch.float32: 1e-5, torch.bfloat16: 2.0 ** -6, torch.float16: 2.0 ** -9}
+
+
 def _close(a, b, dtype):
     scale = max(1.0, float(b.detach().float().abs().max()))
-    tol = 1e-5 if dtype == torch.float32 else 2.0 ** -6
-    return float((a.float() - b.float()).abs().max()) <= tol * scale
+    return float((a.float() - b.float()).abs().max()) <= FUSED_TOL[dtype] * scale
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
 @pytest.mark.parametrize("B,S,H,Hkv,D,causal,padded", FUSED_CASES)
 def test_fused_kernels_match_plain(dev, dtype, B, S, H, Hkv, D, causal, padded):
     from accelerate_tpu_torch.ops import fused_attention as fused
@@ -279,12 +282,13 @@ def test_fused_kernels_match_plain(dev, dtype, B, S, H, Hkv, D, causal, padded):
 
 @pytest.mark.parametrize("dtype,D,causal,padded,Hkv", [
     (torch.float32, 64, False, True, 4), (torch.float32, 64, True, False, 2),
-    (torch.bfloat16, 64, True, True, 2), (torch.bfloat16, 128, False, True, 4)])
+    (torch.bfloat16, 64, True, True, 2), (torch.bfloat16, 128, False, True, 4),
+    (torch.float16, 64, True, True, 2), (torch.float16, 128, False, True, 4)])
 def test_fused_autograd_matches_plain_autograd(dev, dtype, D, causal, padded, Hkv):
     """The autograd Function (both kernels) against autograd through the
-    plain forward in f32; in bf16 (the tensor-core backward) against the
-    same Function with the plain versions in the kernels' place, which
-    round p and ds at the same points."""
+    plain forward in f32; in bf16 and fp16 (the tensor-core backward)
+    against the same Function with the plain versions in the kernels'
+    place, which round p and ds at the same points."""
     from accelerate_tpu_torch.ops import fused_attention as fused
 
     q, k, v, seg, do = _fused_case(3, 2, 256, 4, Hkv, D, padded, dev, dtype)
@@ -309,6 +313,36 @@ def test_fused_autograd_matches_plain_autograd(dev, dtype, D, causal, padded, Hk
             fused.fused_attention_fwd, fused.fused_attention_bwd = kernels
     for a, b in zip(got, want):
         assert a.dtype == dtype and _close(a, b, dtype)
+
+
+@pytest.mark.parametrize("B,S,H,Hkv,D,causal", [
+    (4, 128, 12, 12, 64, False),   # BERT-base's shape: the single-pass backward
+    (2, 256, 8, 2, 128, True),     # the two tensor-core passes
+    (2, 128, 8, 2, 64, True),
+    (1, 384, 4, 4, 192, False),    # the CUDA-core kernels
+])
+def test_fused_fp16_overflow_reaches_the_gradients(dev, B, S, H, Hkv, D, causal):
+    """dO scaled as a loss scale scales it (kept inside fp16's range) until
+    ds = p (dp - δ) passes fp16's range: every element of dq, dk and dv is
+    non-finite in the kernels exactly where it is in the plain version, so
+    the loss scaler's finite check sees the overflow."""
+    from accelerate_tpu_torch.ops import fused_attention as fused
+
+    q, k, v, seg, do = _fused_case(5, B, S, H, Hkv, D, True, dev, torch.float16)
+    scale = 1.0 / np.sqrt(D)
+    out, lse = fused.fused_attention_fwd(q, k, v, seg, scale, causal)
+    overflowed = False
+    for mul in (1.0, 3e4):
+        dd = (do.float() * mul).clamp(-6e4, 6e4).half()
+        got = fused.fused_attention_bwd(q, k, v, seg, lse, out, dd, scale, causal)
+        want = fused.fused_attention_bwd_reference(q, k, v, seg, lse, out, dd, scale, causal)
+        torch.cuda.synchronize()
+        for a, b in zip(got, want):
+            assert torch.equal(torch.isfinite(a), torch.isfinite(b))
+        if mul == 1.0:
+            assert all(bool(torch.isfinite(a).all()) for a in got)
+        overflowed |= not bool(torch.isfinite(got[0]).all())
+    assert overflowed
 
 
 # Flash attention (kernels #1-#3). Same tolerances as the fused kernels and

@@ -13,7 +13,14 @@ bf16 2**-6 — both round p, ds and the outputs to bf16 at the same points,
 so a value landing on the other side of a rounding boundary moves by one
 bf16 step (two allowed); dk/dv differ further by the GQA fold, which the
 JAX package sums per q head in bf16 and the port in f32 before one
-rounding.
+rounding. fp16 2**-9 — the same rounding points in fp16, whose step is
+2**-10 of a value below 2: two steps.
+
+The autograd Function in fp16 is held to JAX's ``fused_attention`` VJP in
+fp16, which off a TPU is the einsum path (scores, softmax and the value
+product in f32, one rounding of the output and of each gradient): the
+port rounds p and ds to fp16 as well, a difference of a few fp16 steps of
+the largest gradient, held to 2**-7.
 """
 
 import functools
@@ -31,7 +38,8 @@ from accelerate_tpu_torch.ops import fused_attention as tfa
 
 jfa = importlib.import_module("accelerate_tpu.ops.fused_attention")
 
-TOL = {"float32": 1e-5, "bfloat16": 2.0 ** -6}
+TOL = {"float32": 1e-5, "bfloat16": 2.0 ** -6, "float16": 2.0 ** -9}
+VJP_TOL = {"float32": 1e-5, "float16": 2.0 ** -7}
 CASES = {  # name: (H, Hkv, causal, padded)
     "padding": (4, 4, False, True),
     "causal": (4, 4, True, False),
@@ -100,24 +108,25 @@ def _torch(x, dtype):
     return torch.from_numpy(x).to(getattr(torch, dtype))
 
 
-def _assert_close(got, want, dtype, what):
+def _assert_close(got, want, dtype, what, tol=None):
     got = got.float().numpy() if isinstance(got, torch.Tensor) else np.asarray(got, np.float32)
     want = np.asarray(want, np.float32)
     assert got.shape == want.shape, what
     err = float(np.abs(got - want).max())
     scale = max(1.0, float(np.abs(want).max()))
-    assert err <= TOL[dtype] * scale, f"{what}: max abs err {err} > {TOL[dtype]} * {scale}"
+    tol = TOL[dtype] if tol is None else tol
+    assert err <= tol * scale, f"{what}: max abs err {err} > {tol} * {scale}"
 
 
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
 @pytest.mark.parametrize("D", [64, 128])
 @pytest.mark.parametrize("S", [128, 256])
 @pytest.mark.parametrize("case", list(CASES))
 def test_plain_versions_match_the_tpu_kernel_bodies(case, S, D, dtype):
     H, Hkv, causal, padded = CASES[case]
     q, k, v, do, seg = _inputs(S + D, 2, S, H, Hkv, D, padded)
-    if dtype == "bfloat16":  # both sides start from the same bf16 values
-        q, k, v, do = (np.array(jnp.asarray(x).astype(jnp.bfloat16).astype(jnp.float32))
+    if dtype != "float32":  # both sides start from the same 16-bit values
+        q, k, v, do = (np.array(jnp.asarray(x).astype(dtype).astype(jnp.float32))
                        for x in (q, k, v, do))
     scale = 1.0 / np.sqrt(D)
     want = _tpu_kernels(q, k, v, do, seg, scale, causal, getattr(jnp, dtype))
@@ -136,13 +145,19 @@ def test_plain_versions_match_the_tpu_kernel_bodies(case, S, D, dtype):
         _assert_close(got, ref, dtype, name)
 
 
-@pytest.mark.parametrize("S,D", [(128, 64), (256, 128)])
+@pytest.mark.parametrize("S,D,dtype", [
+    pytest.param(128, 64, "float32", id="128-64"),
+    pytest.param(256, 128, "float32", id="256-128"),
+    pytest.param(128, 64, "float16", id="128-64-float16"),
+    pytest.param(256, 128, "float16", id="256-128-float16"),
+])
 @pytest.mark.parametrize("case", list(CASES))
-def test_autograd_function_matches_jax_fused_attention_vjp(case, S, D):
-    """f32: the port's Function (forward, then backward from the saved
-    lse) against ``fused_attention`` and its VJP in JAX."""
+def test_autograd_function_matches_jax_fused_attention_vjp(case, S, D, dtype):
+    """The port's Function (forward, then backward from the saved lse)
+    against ``fused_attention`` and its VJP in JAX, in f32 and in fp16."""
     H, Hkv, causal, padded = CASES[case]
     q, k, v, do, seg = _inputs(7 + S, 2, S, H, Hkv, D, padded)
+    q, k, v, do = (np.array(jnp.asarray(x).astype(dtype)) for x in (q, k, v, do))
     jseg = None if seg is None else jnp.asarray(seg)
     out_j, vjp = jax.vjp(lambda a, b, c: jfa.fused_attention(a, b, c, causal=causal,
                                                              segment_ids=jseg),
@@ -156,9 +171,10 @@ def test_autograd_function_matches_jax_fused_attention_vjp(case, S, D):
     grads = torch.autograd.grad(out, ins, torch.from_numpy(do))
     # CPU tensors take the plain versions: no kernel launch is counted
     assert (tfa.fused_attention_fwd.launches, tfa.fused_attention_bwd.launches) == before
-    _assert_close(out.detach(), out_j, "float32", "out")
+    assert out.dtype == getattr(torch, dtype)
+    _assert_close(out.detach(), out_j, dtype, "out", VJP_TOL[dtype])
     for got, ref, name in zip(grads, grads_j, ("dq", "dk", "dv")):
-        _assert_close(got, ref, "float32", name)
+        _assert_close(got, ref, dtype, name, VJP_TOL[dtype])
 
 
 @pytest.mark.parametrize("impl", ["xla", "fused"])

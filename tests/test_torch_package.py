@@ -117,9 +117,9 @@ def _cuda_typed(*shapes_dtypes):
         return [torch.empty(s, dtype=d, device="cuda") for s, d in shapes_dtypes]
 
 
-def _fused_call(kernel):
+def _fused_call(kernel, dtype=torch.bfloat16):
     """A fused wrapper and CUDA arguments it accepts (BERT-like shapes)."""
-    q, k, v, out, do = _cuda_typed(*[((2, 128, 4, 64), torch.bfloat16)] * 5)
+    q, k, v, out, do = _cuda_typed(*[((2, 128, 4, 64), dtype)] * 5)
     seg, lse = _cuda_typed(((2, 128), torch.int32), ((2, 4, 128), torch.float32))
     if kernel == "fused_fwd":
         return fused.fused_attention_fwd, (q, k, v, seg, 0.125, False)
@@ -143,7 +143,8 @@ def _flash_call(kernel, D=64, block=128, dtype=torch.bfloat16):
 
 
 @pytest.mark.parametrize("kernel", ["decode", "prefill", "fused_fwd", "fused_bwd", "flash_fwd",
-                                    "flash_dq", "flash_dkdv"])
+                                    "flash_dq", "flash_dkdv", "fused_fwd_fp16",
+                                    "fused_bwd_fp16"])
 def test_wrappers_raise_on_cuda_tensors_without_a_kernel(kernel, monkeypatch, tmp_path):
     """No library and no compiler: the wrapper raises, its plain version is
     never called and its launch counter does not move."""
@@ -166,7 +167,8 @@ def test_wrappers_raise_on_cuda_tensors_without_a_kernel(kernel, monkeypatch, tm
     if kernel.startswith("fused"):
         kind = kernel.split("_")[1]
         monkeypatch.setattr(fused, f"fused_attention_{kind}_reference", plain)
-        wrapper, args = _fused_call(kernel)
+        wrapper, args = _fused_call(kernel, torch.float16 if kernel.endswith("fp16")
+                                    else torch.bfloat16)
         before = wrapper.launches
         with pytest.raises(RuntimeError, match="nvcc not found"):
             wrapper(*args)
@@ -212,9 +214,14 @@ def test_fused_wrappers_reject_what_the_kernels_do_not_take(q_shape, kv_shape, m
         fused.fused_attention_fwd(q, k, v, None, 0.125, False)
     with pytest.raises(ValueError, match="does not take"):
         fused.fused_attention(q, k, v)
-    q16, k16, v16 = _cuda_typed(*[((2, 128, 4, 64), torch.float16)] * 3)
+    # fp16 is taken (its kernels exist), but not mixed with bf16, nor f64
+    q16, k16, v16 = _cuda_typed(((2, 128, 4, 64), torch.float16),
+                                ((2, 128, 4, 64), torch.bfloat16), ((2, 128, 4, 64), torch.float16))
     with pytest.raises(TypeError, match="one dtype"):
         fused.fused_attention_fwd(q16, k16, v16, None, 0.125, False)
+    q64 = _cuda_typed(*[((2, 128, 4, 64), torch.float64)] * 3)
+    with pytest.raises(TypeError, match="one dtype"):
+        fused.fused_attention_fwd(*q64, None, 0.125, False)
 
 
 @pytest.mark.parametrize("kernel", ["flash_fwd", "flash_dq", "flash_dkdv"])

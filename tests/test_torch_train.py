@@ -238,14 +238,12 @@ def test_precision_policy_casts_floats_only():
 
 
 def test_unported_modes_raise():
-    with pytest.raises(NotImplementedError, match="fp16"):
-        Accelerator(mixed_precision="fp16", cpu=True)
+    """fp8 is not ported; fp16 and gradient accumulation are, and
+    ``tests/test_torch_grad_accum.py`` holds them to the JAX package."""
     with pytest.raises(NotImplementedError, match="fp8"):
         Accelerator(mixed_precision="fp8", cpu=True)
-    with pytest.raises(NotImplementedError, match="accumulation"):
-        Accelerator(gradient_accumulation_steps=2, cpu=True)
-    with pytest.raises(NotImplementedError, match="accumulation"):
-        AcceleratedOptimizer(adamw(LR), accumulation_steps=4)
+    with pytest.raises(ValueError, match="unsupported kwargs handler"):
+        Accelerator(cpu=True, kwargs_handlers=[object()])
 
 
 def test_one_process_state(monkeypatch):
@@ -258,5 +256,5 @@ def test_one_process_state(monkeypatch):
         Accelerator(mixed_precision="no", cpu=True)
     AcceleratorState._reset_state(reset_partial_state=True)
     monkeypatch.setenv("WORLD_SIZE", "2")
-    with pytest.raises(NotImplementedError, match="Queue A 3"):
+    with pytest.raises(NotImplementedError, match="Queue A 6"):
         Accelerator(cpu=True)
