@@ -12,7 +12,12 @@ Ported so far:
 - serving: the paged serving engine — the Llama decoder
   (``models.transformer``), the host-side block allocator and scheduler
   (``serving``), and two hand-written Hopper paged-attention kernels
-  (``ops.flash_attention`` over ``csrc/paged_*.cu``);
+  (``ops.flash_attention`` over ``csrc/paged_*.cu``); sampling from
+  ``jax.random``'s exact threefry streams (``utils.random``,
+  ``generation.sample_token_logits``), speculative decoding with a
+  truncated-layer self-draft (``draft_config``/``draft_params``), static
+  batching, the admission watermark, ``prefix_cache=False`` and resuming
+  from ``generated`` tokens;
 - training: BERT (``models.transformer``) through ``Accelerator.prepare``
   and ``prepare_train_loop`` (``accelerator``, ``optimizer``,
   ``data_loader``, ``state``), with the fused attention forward and
@@ -47,11 +52,14 @@ from .utils.dataclasses import (
     GradientAccumulationPlugin,
     GradScalerConfig,
 )
+from .generation import sample_token_logits
 from .models.transformer import (
     BertConfig,
     LlamaConfig,
     bert_forward,
     bert_loss,
+    draft_config,
+    draft_params,
     init_bert,
     init_llama,
     llama_forward,
@@ -80,6 +88,8 @@ __all__ = [
     "bert_loss",
     "constant_schedule",
     "cosine_decay_schedule",
+    "draft_config",
+    "draft_params",
     "flash_attention",
     "init_bert",
     "init_llama",
@@ -87,5 +97,6 @@ __all__ = [
     "llama_forward",
     "llama_loss",
     "paged_forward",
+    "sample_token_logits",
     "warmup_cosine_decay_schedule",
 ]

@@ -1,11 +1,11 @@
 """The pieces of ``accelerate_tpu.generation`` that the serving engine uses:
-the shared masked-attention core and the QKV projection with RoPE. Greedy
-selection is a plain ``torch.argmax`` (first index on ties, as
-``jnp.argmax``).
-
-Sampling (``sample_token_logits``) is not ported yet: JAX's threefry
-streams cannot be reproduced in PyTorch, so a sampled stream can only be
-held to the port's own non-speculative stream (see ROADMAP.md).
+the shared masked-attention core, the QKV projection with RoPE, and token
+selection. Greedy selection is a plain ``torch.argmax`` (first index on
+ties, as ``jnp.argmax``); :func:`sample_token_logits` samples from the
+threefry streams of :mod:`.utils.random`, which reproduce ``jax.random``'s
+bits exactly, so a sampled stream draws the JAX package's tokens from the
+same key (up to the last bit of ``log`` in the Gumbel noise: a near-tie of
+two perturbed logits can break the other way).
 """
 
 from __future__ import annotations
@@ -16,8 +16,9 @@ from typing import Optional
 import torch
 
 from .models.transformer import LlamaConfig, apply_rope
+from .utils.random import gumbel
 
-__all__ = ["_masked_attention", "_project_qkv"]
+__all__ = ["_masked_attention", "_project_qkv", "sample_token_logits"]
 
 
 def _masked_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
@@ -52,3 +53,35 @@ def _project_qkv(layer: dict, x: torch.Tensor, positions: torch.Tensor,
     k = apply_rope(k, cos, sin, positions=positions)
     return q, k, v
 
+
+def sample_token_logits(logits: torch.Tensor, keys: torch.Tensor, *, temperature: float = 1.0,
+                        top_k: int = 0, top_p: float = 1.0) -> torch.Tensor:
+    """One sampling step over ``logits [B, V]`` with one threefry key per
+    row (``keys [B, 2]``, :mod:`.utils.random`): temperature scaling, then
+    top-k truncation, then nucleus (top-p), then the Gumbel-max draw of
+    ``jax.random.categorical``, in the JAX package's order.
+    ``temperature == 0`` is greedy argmax. Returns int64 ``[B]``; no value
+    is read back to the host."""
+    if temperature == 0.0:
+        return torch.argmax(logits, dim=-1)
+    if temperature < 0.0:
+        raise ValueError(f"temperature must be >= 0, got {temperature}")
+    # a device tensor, not a Python scalar: CUDA divides by a host scalar
+    # through its reciprocal, which rounds differently from a division
+    logits = logits.float() / torch.tensor(temperature, dtype=torch.float32,
+                                           device=logits.device)
+    neg_inf = torch.tensor(float("-inf"), dtype=torch.float32, device=logits.device)
+    if top_k and top_k > 0:
+        k = min(top_k, logits.shape[-1])  # HF clamps an oversize top_k
+        kth = torch.topk(logits, k, dim=-1).values[..., -1:]
+        logits = torch.where(logits < kth, neg_inf, logits)
+    if top_p < 1.0:
+        sorted_logits = torch.sort(logits, dim=-1, descending=True).values
+        cum = torch.cumsum(torch.softmax(sorted_logits, dim=-1), dim=-1)
+        # the smallest prefix reaching mass >= top_p (always keeps a token);
+        # past the end, JAX's gather fills NaN and keeps every value, as the
+        # last (smallest) value does here
+        cutoff_idx = (cum < top_p).sum(dim=-1, keepdim=True).clamp(max=logits.shape[-1] - 1)
+        cutoff = torch.gather(sorted_logits, -1, cutoff_idx)
+        logits = torch.where(logits < cutoff, neg_inf, logits)
+    return torch.argmax(logits + gumbel(keys, logits.shape[-1]), dim=-1)

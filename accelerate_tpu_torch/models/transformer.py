@@ -15,7 +15,7 @@ raise ``NotImplementedError``, as do ``llama_forward``'s ``remat`` and
 from __future__ import annotations
 
 import math
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 from typing import Optional
 
 import numpy as np
@@ -29,6 +29,8 @@ __all__ = [
     "apply_rope",
     "bert_forward",
     "bert_loss",
+    "draft_config",
+    "draft_params",
     "init_bert",
     "init_llama",
     "layer_norm",
@@ -183,6 +185,28 @@ def init_llama(config: LlamaConfig, generator: Optional[torch.Generator] = None,
 def layer_params(params: dict, i: int) -> dict:
     """Layer ``i``'s slice of the stacked ``params["layers"]`` (views)."""
     return {name: {k: v[i] for k, v in entry.items()} for name, entry in params["layers"].items()}
+
+
+def draft_config(config: LlamaConfig, n_layers: int) -> LlamaConfig:
+    """The config of a truncated-layer self-draft: ``config`` with only its
+    first ``n_layers`` decoder layers, so the draft reads and writes the
+    same paged KV layout as the verifier's first ``n_layers`` layers."""
+    if not (0 < n_layers <= config.n_layers):
+        raise ValueError(
+            f"draft_layers must be in 1..{config.n_layers}, got {n_layers}"
+        )
+    return replace(config, n_layers=n_layers)
+
+
+def draft_params(params: dict, n_layers: int) -> dict:
+    """Self-draft params: the stacked layers sliced to views of their first
+    ``n_layers`` (``v[:n]``); embeddings, final norm and head are the
+    verifier's own tensors. Draft layer i *is* verifier layer i, so the KV
+    the verifier writes into the paged pool is valid draft KV."""
+    out = {k: v for k, v in params.items() if k != "layers"}
+    out["layers"] = {name: {k: v[:n_layers] for k, v in entry.items()}
+                     for name, entry in params["layers"].items()}
+    return out
 
 
 def llama_ffn(layer: dict, x: torch.Tensor, config: LlamaConfig) -> torch.Tensor:

@@ -5,14 +5,23 @@ One :class:`ServingEngine` owns the params and the paged block pool. Each
 :meth:`~ServingEngine.step` admits what fits and prefills it in chunks
 padded to the lattice's prefill buckets, then decodes one token for every
 live slot in one batched paged forward at the bucketed (slots, table width)
-shape, and completes and frees finished sequences. Selection is greedy
-(``temperature=0``); prefix caching is always on.
+shape, and completes and frees finished sequences.
+
+Selection is greedy at ``temperature=0``; otherwise each request samples
+from its own threefry stream (``prng_key(rng_seed)`` folded with the index
+of the token in ``generated``, :mod:`..utils.random`), which draws the JAX
+engine's tokens. ``spec_tokens=k`` with ``draft_layers=n`` turns on
+speculative decoding: the verifier's first n layers propose k tokens a step
+and one S=k+1 verify forward accepts the longest prefix that matches the
+verifier's own selections, so the stream is the non-speculative one.
+``continuous=False`` (static batching), ``admit_watermark_blocks``,
+``prefix_cache=False`` and resuming from ``generated`` tokens behave as in
+the reference.
 
 The port runs eagerly: the reference's jit/AOT machinery (``warmup``, the
 compile cache) has no counterpart, and the layer loop is a Python loop in
-place of ``lax.scan``. Sampling, speculative decoding, mesh placement,
-static batching, the admission watermark, resume-from-``generated``, chaos
-hooks, telemetry and the watchdog are not ported yet (see ROADMAP.md).
+place of ``lax.scan``. Mesh placement, chaos hooks, telemetry, tracing and
+the watchdog are not ported yet (see ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -23,9 +32,11 @@ from typing import Optional
 import numpy as np
 import torch
 
-from ..generation import _project_qkv
+from ..generation import _project_qkv, sample_token_logits
 from ..models.transformer import (
     LlamaConfig,
+    draft_config,
+    draft_params,
     layer_params,
     llama_ffn,
     lm_logits,
@@ -34,6 +45,7 @@ from ..models.transformer import (
 )
 from ..ops.flash_attention import paged_attention
 from ..utils.device import resolve_device
+from ..utils.random import fold_in, prng_key
 from .buckets import BucketLattice
 from .kv_pager import NULL_BLOCK, BlockAllocator, init_block_pool
 from .scheduler import Request, Scheduler
@@ -91,25 +103,43 @@ class ServingEngine:
 
     ``submit`` enqueues requests; each ``step`` admits what fits (prefill in
     bucketed chunks, skipping prefix-cached tokens), decodes one token for
-    every live slot, completes/frees finished sequences and backfills their
-    slots. Pool pressure preempts the youngest request, which later resumes
-    with identical output. ``device`` defaults to ``"cuda"``; the params
-    must already live there."""
+    every live slot (or, with ``spec_tokens > 0``, up to k+1 through a
+    self-draft and one verify forward), completes/frees finished sequences
+    and backfills their slots. Pool pressure preempts the youngest request,
+    which later resumes with identical output. Sampling knobs are
+    engine-level, as in the reference; ``temperature=0`` is greedy.
+    ``device`` defaults to ``"cuda"``; the params must already live there."""
 
     def __init__(self, params, config: LlamaConfig, *, num_blocks: int = 64,
                  block_size: int = 16, max_slots: int = 4,
                  max_prefill_len: Optional[int] = None,
                  max_blocks_per_seq: Optional[int] = None,
+                 temperature: float = 0.0, top_k: int = 0, top_p: float = 1.0,
                  cache_dtype: torch.dtype = torch.bfloat16,
-                 lattice: Optional[BucketLattice] = None, device=None):
+                 continuous: bool = True, admit_watermark_blocks: int = 0,
+                 lattice: Optional[BucketLattice] = None, prefix_cache: bool = True,
+                 spec_tokens: int = 0, draft_layers: Optional[int] = None, device=None):
         self.device = resolve_device(device)
         emb = params["embed_tokens"]["embedding"]
         if emb.device.type != self.device.type:
             raise ValueError(f"params live on {emb.device}, engine device is {self.device}")
+        if temperature < 0.0:
+            raise ValueError(f"temperature must be >= 0, got {temperature}")
+        self.spec_tokens = int(spec_tokens)
+        self.draft_layers = draft_layers
+        if self.spec_tokens < 0:
+            raise ValueError(f"spec_tokens must be >= 0, got {spec_tokens}")
+        if self.spec_tokens > 0 and draft_layers is None:
+            raise ValueError("spec_tokens > 0 requires draft_layers (the self-draft depth)")
         self.params = params
         self.config = config
         self.block_size = block_size
-        self.allocator = BlockAllocator(num_blocks, block_size)
+        self.max_slots = max_slots
+        self.temperature = temperature
+        self.top_k = top_k
+        self.top_p = top_p
+        self.prefix_cache = prefix_cache
+        self.allocator = BlockAllocator(num_blocks, block_size, prefix_caching=prefix_cache)
         if max_blocks_per_seq is None:
             max_blocks_per_seq = self.allocator.usable_blocks
         max_prefill_len = max_prefill_len or min(
@@ -125,20 +155,42 @@ class ServingEngine:
         )
         self.scheduler = Scheduler(
             self.allocator, max_slots,
+            continuous=continuous, admit_watermark_blocks=admit_watermark_blocks,
             max_seq_blocks=self.lattice.block_buckets[-1],
             max_seq_tokens=config.max_seq_len,
         )
         self.pool = init_block_pool(config, num_blocks, block_size, cache_dtype, self.device)
         self.rope = rope_tables(config, self.device)
+        if self.spec_tokens > 0:
+            # truncated-layer self-draft: its layer i is verifier layer i
+            # (views, no copy) and it runs over the first n layers of the
+            # shared pool, written in place, so it needs no pool of its own
+            self.draft_config = draft_config(config, int(draft_layers))
+            self.draft_params = draft_params(params, int(draft_layers))
 
         self.steps = 0
         self.decode_tokens = 0
         self.prefill_tokens = 0
-        #: paged forwards run: one per prefill chunk, one per decode batch
+        #: paged forwards run: one per prefill chunk, one per plain decode
+        #: batch; with speculation, k draft steps and one verify a step
         self.prefill_chunks = 0
         self.decode_steps = 0
+        self.draft_steps = 0
+        self.verify_steps = 0
         #: prompt tokens whose KV came from the prefix cache (prefill not done)
         self.prefix_cached_tokens = 0
+        #: re-prefilled tokens: after a preemption, and of a request resumed
+        #: from ``generated`` tokens another engine produced
+        self.preempt_prefill_tokens = 0
+        self.resume_prefill_tokens = 0
+        self.max_running = 0
+        self._occupancy_sum = 0.0
+        self._occupancy_steps = 0
+        #: speculative decoding: draft tokens proposed / accepted, and the
+        #: accepted-per-slot-step histogram (index = tokens accepted, 0..k)
+        self.draft_proposed_tokens = 0
+        self.draft_accepted_tokens = 0
+        self.spec_accept_hist = np.zeros(self.spec_tokens + 1, np.int64)
         #: host wall seconds in prefill and in decode, each ending in the
         #: device→host read of the selected tokens
         self.prefill_seconds = 0.0
@@ -149,19 +201,33 @@ class ServingEngine:
 
     # -- lifecycle -----------------------------------------------------------
 
-    def submit(self, prompt, max_new_tokens: int, *,
-               eos_token_id: Optional[int] = None) -> Request:
+    def submit(self, prompt, max_new_tokens: int, *, eos_token_id: Optional[int] = None,
+               rng_seed: int = 0, arrival_t: Optional[float] = None,
+               generated: Optional["list[int]"] = None) -> Request:
         """Enqueue one request and return its live :class:`Request` handle;
-        it finishes after ``max_new_tokens`` tokens or at ``eos_token_id``."""
+        it finishes after ``max_new_tokens`` tokens or at ``eos_token_id``.
+
+        ``generated`` seeds the request with tokens another engine already
+        produced: the prefill covers ``prompt + generated`` and sampling
+        continues at fold index ``len(generated)``, so the continuation is
+        the unbroken run's. ``max_new_tokens`` stays the total budget."""
         req = Request(prompt=prompt, max_new_tokens=max_new_tokens,
-                      eos_token_id=eos_token_id, arrival_t=time.monotonic())
+                      eos_token_id=eos_token_id, rng_seed=rng_seed,
+                      arrival_t=time.monotonic() if arrival_t is None else arrival_t)
+        if generated:
+            if len(generated) >= max_new_tokens:
+                raise ValueError(
+                    f"resume with {len(generated)} generated token(s) >= "
+                    f"max_new_tokens={max_new_tokens}: nothing left to decode"
+                )
+            req.generated = [int(t) for t in generated]
         self.scheduler.submit(req)
         return req
 
     def step(self, now: Optional[float] = None) -> "list[Request]":
-        """One engine iteration: admit + prefill, decode one token for every
-        live slot, complete finished sequences. Returns the requests that
-        left the engine this step (FINISHED, or REJECTED with ``error``)."""
+        """One engine iteration: admit + prefill, decode for every live
+        slot, complete finished sequences. Returns the requests that left
+        the engine this step (FINISHED, or REJECTED with ``error``)."""
         now = time.monotonic() if now is None else now
         finished: "list[Request]" = []
         admitted = self.scheduler.admissions()
@@ -177,19 +243,35 @@ class ServingEngine:
 
         running = self.scheduler.running()
         if running:
-            # reserve every live sequence's next KV slot first: a grow may
-            # preempt the youngest, and the batch is built from survivors
+            # reserve every live sequence's next KV slot(s) first: a grow may
+            # preempt the youngest, and the batch is built from survivors.
+            # Speculation reserves the verify's write span, up to k+1
+            # positions clamped to the request's remaining budget (so
+            # admission's worst case still covers it); a short accept's
+            # leftover reservation is reused next step.
             for req in list(running):
-                if req.slot is not None:
+                if req.slot is None:
+                    continue
+                if self.spec_tokens > 0:
+                    remaining = req.max_new_tokens - len(req.generated)
+                    target = (req.prefix_len - 1) + min(self.spec_tokens + 1, remaining)
+                    self.scheduler.grow(req, target - self.allocator.tokens(req.rid))
+                else:
                     self.scheduler.grow(req)
             running = self.scheduler.running()
         if running:
-            self._decode_batch(running)
+            if self.spec_tokens > 0:
+                self._spec_decode_batch(running)
+            else:
+                self._decode_batch(running)
             for req in running:
                 if req.done:
                     self.scheduler.complete(req, now)
                     finished.append(req)
         self.steps += 1
+        self.max_running = max(self.max_running, len(running))
+        self._occupancy_sum += len(running) / self.max_slots
+        self._occupancy_steps += 1
         return finished
 
     def run(self, max_steps: int = 100_000) -> "list[Request]":
@@ -203,11 +285,40 @@ class ServingEngine:
 
     # -- internals -----------------------------------------------------------
 
+    def _request_key(self, req: Request) -> "tuple[int, int]":
+        # cached: the key is a pure function of rng_seed
+        if req._key is None:
+            req._key = tuple(prng_key(req.rng_seed).tolist())
+        return req._key
+
+    def _key_rows(self, reqs: "list[Request]", rows: int) -> Optional[torch.Tensor]:
+        """Per-row ``(key word 0, key word 1, fold index)`` of ``reqs``,
+        padded to ``rows``, as one int64 device tensor; None when greedy
+        (no key is read)."""
+        if self.temperature == 0.0:
+            return None
+        out = np.zeros((rows, 3), np.int64)
+        for i, req in enumerate(reqs):
+            out[i, :2] = self._request_key(req)
+            out[i, 2] = len(req.generated)
+        return self._to_device(out)
+
+    def _select(self, logits: torch.Tensor, key_rows: Optional[torch.Tensor],
+                offset=0) -> torch.Tensor:
+        """Tokens ``[N]`` (on the device) from ``logits [N, V]``: argmax when
+        greedy, else a draw from each row's key folded with its fold index
+        plus ``offset``."""
+        if key_rows is None:
+            return torch.argmax(logits, dim=-1)
+        keys = fold_in(key_rows[:, :2], key_rows[:, 2] + offset)
+        return sample_token_logits(logits, keys, temperature=self.temperature,
+                                   top_k=self.top_k, top_p=self.top_p)
+
     def _prefill_request(self, req: Request, now: float) -> None:
         """Prefill the request's uncached prefix tail in chunks of at most
         the largest prefill bucket, each padded to its smallest covering
-        bucket; only the final chunk's selected token is kept. A pending
-        copy-on-write pair is applied to the pool first."""
+        bucket; the token is selected from the final chunk's last real row.
+        A pending copy-on-write pair is applied to the pool first."""
         t0 = time.perf_counter()
         prefix = req.output_ids()
         if req.cow_block is not None:
@@ -222,7 +333,11 @@ class ServingEngine:
         start = int(req.cached_tokens)
         self.prefix_cached_tokens += start
         self.prefill_tokens += int(prefix.size) - start
-        tok = None
+        if req.preemptions > 0:
+            self.preempt_prefill_tokens += int(prefix.size) - start
+        elif req.generated:
+            self.resume_prefill_tokens += int(prefix.size) - start
+        last = None
         while start < prefix.size:
             chunk = prefix[start : start + chunk_cap]
             Sb = self.lattice.prefill_bucket(chunk.size)
@@ -236,53 +351,149 @@ class ServingEngine:
                 self.params, self._to_device(ids), self.pool, table, positions,
                 self.config, self.block_size, rope=self.rope,
             )
-            tok = torch.argmax(logits[0, chunk.size - 1])
+            last = logits[0, chunk.size - 1 : chunk.size]
             start += chunk.size
             self.prefill_chunks += 1
-        req.generated.append(int(tok))
+        req.generated.append(int(self._select(last, self._key_rows([req], 1))[0]))
         if req.first_token_t is None:
             req.first_token_t = now
         self.prefill_seconds += time.perf_counter() - t0
 
-    def _decode_batch(self, running: "list[Request]") -> None:
-        t0 = time.perf_counter()
+    def _batch(self, running: "list[Request]"):
+        """The bucketed decode batch of ``running``: (rows, last tokens
+        [Bb], tables [Bb, W], positions [Bb]) on the host, padded rows on
+        the null block at position 0."""
         Bb = self.lattice.slot_bucket(len(running))
         W = self.lattice.block_bucket(
             max(self.allocator.num_seq_blocks(r.rid) for r in running)
         )
-        last = np.zeros((Bb, 1), np.int64)
+        last = np.zeros((Bb,), np.int64)
         tables = np.full((Bb, W), NULL_BLOCK, np.int32)
-        positions = np.zeros((Bb, 1), np.int64)
+        positions = np.zeros((Bb,), np.int64)
         for i, req in enumerate(running):
             last[i] = req.generated[-1]
             tables[i] = self.allocator.block_table(req.rid, pad_to=W)
             positions[i] = req.prefix_len - 1
+        return Bb, last, tables, positions
+
+    def _register_written(self, req: Request, before: int) -> None:
+        """Content-index the blocks this step filled: the KV written so far
+        covers ``prefix_len - 1`` tokens, ``before`` before the step."""
+        written = req.prefix_len - 1
+        if self.prefix_cache and written // self.block_size > before // self.block_size:
+            # registration is incremental: one call covers every boundary a
+            # multi-token accept crossed
+            self.allocator.register_full_blocks(req.rid, req.output_ids()[:-1])
+
+    def _decode_batch(self, running: "list[Request]") -> None:
+        t0 = time.perf_counter()
+        Bb, last, tables, positions = self._batch(running)
         logits, self.pool = paged_forward(
-            self.params, self._to_device(last), self.pool, self._to_device(tables),
-            self._to_device(positions), self.config, self.block_size, rope=self.rope,
+            self.params, self._to_device(last[:, None]), self.pool, self._to_device(tables),
+            self._to_device(positions[:, None]), self.config, self.block_size, rope=self.rope,
         )
-        toks = torch.argmax(logits[:, -1], dim=-1).cpu().numpy()
+        toks = self._select(logits[:, -1], self._key_rows(running, Bb)).cpu().numpy()
         for i, req in enumerate(running):
             req.generated.append(int(toks[i]))
-            # this decode wrote the previous token's KV: once the written
-            # count fills a block, that block becomes content-indexable
-            written = req.prefix_len - 1
-            if written > 0 and written % self.block_size == 0:
-                self.allocator.register_full_blocks(req.rid, req.output_ids()[:-1])
+            # this decode wrote the previous token's KV
+            self._register_written(req, req.prefix_len - 2)
         self.decode_tokens += len(running)
         self.decode_steps += 1
         self.decode_seconds += time.perf_counter() - t0
 
+    def _spec_decode_batch(self, running: "list[Request]") -> None:
+        """One speculative round for every live slot: k S=1 steps of the
+        self-draft over the first ``draft_layers`` layers of the shared pool
+        propose candidates (kept on the device), one S=k+1 verify forward
+        (the paged prefill kernel) writes their KV and selects, per (row,
+        column j), the token the non-speculative stream emits at fold index
+        ``len(generated) + j``; the host reads candidates and selections
+        once and accepts the longest candidate prefix that matches them.
+
+        Every request emits at least the verifier's own token (column 0), so
+        a 0 % accept rate degrades to one token a step. Rejected columns'
+        KV sits past the emitted prefix, masked by position from every read
+        until a later step overwrites it."""
+        t0 = time.perf_counter()
+        k = self.spec_tokens
+        Bb, last, tables, positions = self._batch(running)
+        # emit at most as many tokens as the grow phase reserved KV room for
+        rows = [self.allocator.tokens(r.rid) - (r.prefix_len - 1) for r in running]
+        key_rows = self._key_rows(running, Bb)
+        tables_d = self._to_device(tables)
+        pos_d = self._to_device(positions[:, None])
+        cand = torch.empty((Bb, k + 1), dtype=torch.int64, device=self.device)
+        cand[:, 0] = self._to_device(last)
+        for j in range(k):
+            logits, self.pool = paged_forward(
+                self.draft_params, cand[:, j : j + 1], self.pool, tables_d, pos_d + j,
+                self.draft_config, self.block_size, rope=self.rope,
+            )
+            cand[:, j + 1] = self._select(logits[:, -1], key_rows, j)
+        cols = torch.arange(k + 1, device=self.device)
+        logits, self.pool = paged_forward(
+            self.params, cand, self.pool, tables_d, pos_d + cols[None], self.config,
+            self.block_size, rope=self.rope,
+        )
+        sel = self._select(
+            logits.reshape(Bb * (k + 1), -1),
+            None if key_rows is None else key_rows.repeat_interleave(k + 1, dim=0),
+            cols.repeat(Bb),
+        ).reshape(Bb, k + 1)
+        cand, sel = torch.stack([cand, sel]).cpu().numpy()
+        emitted = 0
+        for i, req in enumerate(running):
+            r_i = min(rows[i], k + 1)
+            before = req.prefix_len - 1
+            n_acc = 0
+            for j in range(r_i):
+                tok = int(sel[i, j])
+                req.generated.append(tok)
+                emitted += 1
+                if req.done:
+                    break
+                if j + 1 < r_i and int(cand[i, j + 1]) == tok:
+                    n_acc += 1
+                    continue
+                break
+            self.draft_proposed_tokens += max(r_i - 1, 0)
+            self.draft_accepted_tokens += n_acc
+            self.spec_accept_hist[n_acc] += 1
+            self._register_written(req, before)
+        self.decode_tokens += emitted
+        self.draft_steps += k
+        self.verify_steps += 1
+        self.decode_seconds += time.perf_counter() - t0
+
     def stats(self) -> dict:
-        return {
+        out = {
             "steps": self.steps,
             "decode_tokens": self.decode_tokens,
             "prefill_tokens": self.prefill_tokens,
             "prefill_chunks": self.prefill_chunks,
             "decode_steps": self.decode_steps,
+            "draft_steps": self.draft_steps,
+            "verify_steps": self.verify_steps,
             "prefix_cached_tokens": self.prefix_cached_tokens,
+            "preempt_prefill_tokens": self.preempt_prefill_tokens,
+            "resume_prefill_tokens": self.resume_prefill_tokens,
             "preemptions": self.scheduler.preemption_count,
+            "max_running": self.max_running,
+            "mean_occupancy": round(self._occupancy_sum / max(self._occupancy_steps, 1), 6),
             "prefill_seconds": self.prefill_seconds,
             "decode_seconds": self.decode_seconds,
             **self.allocator.stats(),
         }
+        if self.spec_tokens > 0:
+            out.update(
+                spec_tokens=self.spec_tokens,
+                draft_layers=self.draft_layers,
+                draft_proposed_tokens=self.draft_proposed_tokens,
+                draft_accepted_tokens=self.draft_accepted_tokens,
+                draft_rejected_tokens=self.draft_proposed_tokens - self.draft_accepted_tokens,
+                spec_accept_rate=round(
+                    self.draft_accepted_tokens / self.draft_proposed_tokens, 6
+                ) if self.draft_proposed_tokens else 0.0,
+                spec_accept_hist=self.spec_accept_hist.tolist(),
+            )
+        return out

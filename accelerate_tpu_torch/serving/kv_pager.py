@@ -2,9 +2,10 @@
 
 One preallocated device pool ``{"k","v"}: [L, num_blocks, block_size, Hkv,
 D]`` is carved into fixed-size blocks; :class:`BlockAllocator` is the
-host-side bookkeeping (free list, per-sequence block tables, automatic
-prefix caching with copy-on-write), pure Python/numpy/hashlib and copied
-from the reference so that the two engines make identical decisions.
+host-side bookkeeping (free list, per-sequence block tables, and, with
+``prefix_caching=True``, automatic prefix caching with copy-on-write), pure
+Python/numpy/hashlib and copied from the reference so that the two engines
+make identical decisions.
 Physical block 0 is the **null block**: inactive batch slots and padded
 table entries point at it, so their writes never touch a live sequence.
 
@@ -110,19 +111,21 @@ class BlockAllocator:
 
     Free blocks live on a LIFO free list. Per-sequence state is a block
     table plus the token count; ``append`` grows the table only when the
-    count crosses a block boundary. Prefix caching is always on (the
-    reference's ``prefix_caching=False`` mode has no caller in the port):
-    blocks are reference counted and full blocks content-addressed, cached
-    blocks map into new tables, and zero-reference cached blocks park in an
-    LRU pool that is reclaimed before any exhaustion error."""
+    count crosses a block boundary. With ``prefix_caching=True`` blocks are
+    reference counted and full blocks content-addressed, cached blocks map
+    into new tables, and zero-reference cached blocks park in an LRU pool
+    that is reclaimed before any exhaustion error. ``prefix_caching=False``
+    (the reference's default) takes every legacy path: no hashing, no
+    sharing, every reference count exactly one."""
 
-    def __init__(self, num_blocks: int, block_size: int):
+    def __init__(self, num_blocks: int, block_size: int, *, prefix_caching: bool = False):
         if num_blocks < 2:
             raise ValueError("need >= 2 blocks (block 0 is the reserved null block)")
         if block_size < 1:
             raise ValueError(f"block_size must be >= 1, got {block_size}")
         self.num_blocks = num_blocks
         self.block_size = block_size
+        self.prefix_caching = prefix_caching
         # LIFO: lowest ids are handed out first at start, re-frees come back
         # on top. Block 0 is never on the list (reserved null block).
         self._free: "list[int]" = list(range(num_blocks - 1, 0, -1))
@@ -169,6 +172,9 @@ class BlockAllocator:
     def blocks_for(self, n_tokens: int) -> int:
         return max(1, -(-n_tokens // self.block_size))
 
+    def can_allocate(self, n_tokens: int) -> bool:
+        return self.blocks_for(n_tokens) <= self.available_blocks
+
     # -- prefix cache internals ----------------------------------------------
 
     def _take_block(self) -> int:
@@ -211,6 +217,8 @@ class BlockAllocator:
         token_ids = np.asarray(token_ids, np.int32).reshape(-1)
         n = int(token_ids.size)
         total = self.blocks_for(n)
+        if not self.prefix_caching:
+            return PrefixPlan((), (), 0, False, total)
         matched, hashes = self._match_chain(token_ids)
         pinned = sum(1 for b in matched if b in self._lru)
         if matched and len(matched) * self.block_size == n:
@@ -227,14 +235,36 @@ class BlockAllocator:
 
     # -- lifecycle -----------------------------------------------------------
 
+    def allocate(self, seq_id, n_tokens: int) -> "list[int]":
+        """Create a sequence holding ``n_tokens`` from fresh blocks only;
+        returns the block table. All-or-nothing on exhaustion."""
+        if seq_id in self._tables:
+            raise BlockAllocatorError(f"sequence {seq_id!r} already allocated")
+        need = self.blocks_for(n_tokens)
+        if need > self.available_blocks:
+            raise BlockPoolExhausted(
+                f"need {need} block(s) for {n_tokens} token(s), "
+                f"only {self.available_blocks} free"
+            )
+        table = [self._take_block() for _ in range(need)]
+        for blk in table:
+            self._ref[blk] = 1
+        self._tables[seq_id] = table
+        self._tokens[seq_id] = n_tokens
+        self._chain[seq_id] = []
+        return list(table)
+
     def allocate_with_prefix(self, seq_id, token_ids,
                              plan: "Optional[PrefixPlan]" = None) -> PrefixAllocation:
         """Create a sequence for ``token_ids``, mapping the longest cached
         block-aligned prefix into its table and taking fresh blocks only
         for the uncached tail. ``plan`` must be a fresh
-        :meth:`plan_prefix` of the same tokens."""
+        :meth:`plan_prefix` of the same tokens. With caching off this is
+        :meth:`allocate`."""
         token_ids = np.asarray(token_ids, np.int32).reshape(-1)
         n = int(token_ids.size)
+        if not self.prefix_caching:
+            return PrefixAllocation(self.allocate(seq_id, n), 0, None)
         if seq_id in self._tables:
             raise BlockAllocatorError(f"sequence {seq_id!r} already allocated")
         if plan is None:
@@ -282,7 +312,10 @@ class BlockAllocator:
 
     def register_full_blocks(self, seq_id, written_token_ids) -> int:
         """Content-index every full block of ``seq_id`` not yet registered
-        (incremental; first writer wins). Returns how many were indexed."""
+        (incremental; first writer wins; a no-op with caching off). Returns
+        how many were indexed."""
+        if not self.prefix_caching:
+            return 0
         if seq_id not in self._tables:
             raise BlockAllocatorError(
                 f"register on unknown/freed sequence {seq_id!r} (use-after-free?)"
@@ -356,6 +389,12 @@ class BlockAllocator:
         out[: len(table)] = table
         return out
 
+    def tokens(self, seq_id) -> int:
+        """Tokens the sequence holds room for (its reservation)."""
+        if seq_id not in self._tokens:
+            raise BlockAllocatorError(f"tokens of unknown/freed sequence {seq_id!r}")
+        return self._tokens[seq_id]
+
     def num_seq_blocks(self, seq_id) -> int:
         if seq_id not in self._tables:
             raise BlockAllocatorError(f"blocks of unknown/freed sequence {seq_id!r}")
@@ -368,7 +407,7 @@ class BlockAllocator:
         return sum(1 for c in self._ref.values() if c > 1)
 
     def stats(self) -> dict:
-        return {
+        out = {
             "block_size": self.block_size,
             "usable_blocks": self.usable_blocks,
             "free_blocks": self.free_blocks,
@@ -376,15 +415,19 @@ class BlockAllocator:
             "sequences": len(self._tables),
             "live_tokens": sum(self._tokens.values()),
             "occupancy": round(self.occupancy(), 6),
-            "cached_blocks": len(self._block_hash),
-            "reclaimable_blocks": self.reclaimable_blocks,
-            "shared_blocks": self.shared_blocks(),
-            "prefix_lookups": self.prefix_lookups,
-            "prefix_hits": self.prefix_hits,
-            "prefix_hit_tokens": self.prefix_hit_tokens,
-            "cow_copies": self.cow_copies,
-            "reclaimed_blocks": self.reclaimed_blocks,
         }
+        if self.prefix_caching:
+            out.update(
+                cached_blocks=len(self._block_hash),
+                reclaimable_blocks=self.reclaimable_blocks,
+                shared_blocks=self.shared_blocks(),
+                prefix_lookups=self.prefix_lookups,
+                prefix_hits=self.prefix_hits,
+                prefix_hit_tokens=self.prefix_hit_tokens,
+                cow_copies=self.cow_copies,
+                reclaimed_blocks=self.reclaimed_blocks,
+            )
+        return out
 
 
 def gather_blocks(pool: torch.Tensor, block_tables: torch.Tensor) -> torch.Tensor:

@@ -3,8 +3,8 @@
 preemption, completion), host-side and framework-free.
 
 - **admission** happens at step granularity: whenever a batch slot is free
-  and the pool can hold the prompt's uncached blocks, the next queued
-  request is admitted and prefilled;
+  and the pool can hold the prompt's uncached blocks plus the configured
+  watermark, the next queued request is admitted and prefilled;
 - **completion** frees a sequence's blocks at once; the slot is backfilled
   on the next step;
 - **preemption**: when a running sequence needs a block and none is free,
@@ -12,8 +12,11 @@ preemption, completion), host-side and framework-free.
   front with its prompt + generated tokens, so resume re-prefills the full
   prefix and continues with identical output.
 
-The reference's static-batching mode (``continuous=False``), admission
-watermark, admission gate and metrics calls are left out.
+``continuous=False`` is the static-batching baseline of the serving
+benchmark: admission only happens into an idle engine (gang admission), and
+finished sequences' slots are not backfilled until the whole batch drains.
+An ``admission_gate`` predicate can hold the queue head (and everything
+behind it). The reference's metrics calls are left out.
 """
 
 from __future__ import annotations
@@ -54,6 +57,7 @@ class Request:
     max_new_tokens: int
     rid: int = field(default_factory=lambda: next(_rid_counter))
     eos_token_id: Optional[int] = None
+    rng_seed: int = 0
     arrival_t: float = 0.0
 
     status: RequestStatus = RequestStatus.QUEUED
@@ -67,6 +71,8 @@ class Request:
     # prefix tokens already cached, and the pending copy-on-write pair
     cached_tokens: int = 0
     cow_block: "Optional[tuple[int, int]]" = None
+    # the engine's cached threefry key words of rng_seed
+    _key: "Optional[tuple[int, int]]" = field(default=None, repr=False, init=False)
 
     def __post_init__(self):
         self.prompt = np.asarray(self.prompt, np.int32).reshape(-1)
@@ -99,11 +105,20 @@ class Scheduler:
     """Admission queue + batch-slot table over one :class:`BlockAllocator`."""
 
     def __init__(self, allocator: BlockAllocator, max_slots: int, *,
-                 max_seq_blocks: Optional[int] = None, max_seq_tokens: Optional[int] = None):
+                 continuous: bool = True, admit_watermark_blocks: int = 0,
+                 max_seq_blocks: Optional[int] = None, max_seq_tokens: Optional[int] = None,
+                 admission_gate=None):
         if max_slots < 1:
             raise ValueError(f"max_slots must be >= 1, got {max_slots}")
         self.allocator = allocator
+        # optional predicate over the queue head: False holds it (and, FIFO,
+        # everything behind it) without popping it
+        self.admission_gate = admission_gate
         self.max_slots = max_slots
+        self.continuous = continuous
+        # admission keeps this many blocks free as decode headroom, so a
+        # fresh admission does not force a preemption at once
+        self.admit_watermark_blocks = admit_watermark_blocks
         # hard per-sequence caps, enforced at admission on the worst case
         # (prefix + max_new): the widest block table, and the RoPE table
         self.max_seq_blocks = (
@@ -117,6 +132,10 @@ class Scheduler:
         self.preemption_count = 0
         #: requests that can never run on this engine, rejected at admission
         self.rejected: "list[Request]" = []
+
+    @property
+    def queue_depth(self) -> int:
+        return len(self.queue)
 
     def running(self) -> "list[Request]":
         return [r for r in self.slots if r is not None]
@@ -137,13 +156,18 @@ class Scheduler:
 
     def admissions(self) -> "list[Request]":
         """Pop and place every request admissible now (the engine prefills
-        each, in this order)."""
+        each, in this order). Continuous mode admits whenever a slot and
+        blocks are free; static mode only gang-admits into an idle engine."""
+        if not self.continuous and self.running():
+            return []
         admitted = []
         while self.queue:
             slot = self._free_slot()
             if slot is None:
                 break
             req = self.queue[0]
+            if self.admission_gate is not None and not self.admission_gate(req):
+                break
             prefix_tokens = req.output_ids()
             # admission charges only uncached blocks, plus LRU-parked
             # matched blocks this mapping will pin
@@ -171,7 +195,7 @@ class Scheduler:
                 req.error = "rejected: " + reason
                 self.rejected.append(req)
                 continue
-            if need > self.allocator.available_blocks:
+            if need + self.admit_watermark_blocks > self.allocator.available_blocks:
                 break  # pool pressure: let running sequences drain first
             self.queue.popleft()
             alloc = self.allocator.allocate_with_prefix(req.rid, prefix_tokens, plan=plan)
@@ -184,12 +208,15 @@ class Scheduler:
             admitted.append(req)
         return admitted
 
-    def grow(self, request: Request) -> None:
-        """Reserve pool room for the request's next token, preempting other
+    def grow(self, request: Request, n_tokens: int = 1) -> None:
+        """Reserve pool room for the request's next ``n_tokens`` tokens
+        (speculative decoding grows by up to k+1 a step), preempting other
         sequences (LIFO) if the pool is dry."""
+        if n_tokens <= 0:
+            return
         while True:
             try:
-                self.allocator.append(request.rid, 1)
+                self.allocator.append(request.rid, n_tokens)
                 return
             except BlockPoolExhausted:
                 if not self._preempt_one(exclude=request):

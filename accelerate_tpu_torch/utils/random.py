@@ -1,0 +1,92 @@
+"""Counter-based random streams: the threefry-2x32 keys and bits that
+``jax.random`` draws from (``jax._src.prng``, ``jax._src.random``), so that
+the port samples the same tokens as the JAX package from the same seed.
+
+JAX's default, ``jax_threefry_partitionable=True``, makes every draw a pure
+function of a key and a flat counter:
+
+- ``PRNGKey(s)`` is ``[0, s mod 2**32]`` (32-bit seeds);
+- ``fold_in(key, d)`` is ``threefry2x32(key, (0, d))``;
+- ``bits(key, (..., n))`` is ``x0 ^ x1`` of ``threefry2x32(key, (0, i))``
+  over the flat counter ``i = 0 .. n-1``;
+- ``uniform`` puts the top 23 bits into the mantissa of a float in [1, 2)
+  and subtracts 1; ``gumbel`` (``mode="low"``) is ``-log(-log(u))`` with u
+  uniform in [tiny, 1).
+
+torch's uint32 support is partial on both devices, so a uint32 word here is
+an int64 tensor holding a value in [0, 2**32), masked after every add and
+shift. Every function is batched over rows: ``keys [B, 2]``, and a counter
+``arange(n)`` shared by every row. These are plain tensor ops: the JAX
+package draws its bits in XLA, not in a Pallas kernel.
+"""
+
+from __future__ import annotations
+
+import torch
+
+__all__ = ["fold_in", "gumbel", "prng_key", "random_bits", "threefry2x32", "uniform"]
+
+_MASK = 0xFFFFFFFF
+_ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
+_PARITY = 0x1BD11BDA
+_TINY = torch.finfo(torch.float32).tiny
+_ONE_BITS = 0x3F800000  # 1.0f
+
+
+def _rotl(x: torch.Tensor, r: int) -> torch.Tensor:
+    return ((x << r) | (x >> (32 - r))) & _MASK
+
+
+def threefry2x32(k0, k1, x0, x1):
+    """Threefry-2x32, 20 rounds: key words ``k0, k1`` and counter words
+    ``x0, x1`` (broadcastable int64 tensors of uint32 values) → the two
+    output words."""
+    ks = (k0, k1, k0 ^ k1 ^ _PARITY)
+    x0 = (x0 + ks[0]) & _MASK
+    x1 = (x1 + ks[1]) & _MASK
+    for i in range(5):
+        for r in _ROTATIONS[i % 2]:
+            x0 = (x0 + x1) & _MASK
+            x1 = _rotl(x1, r) ^ x0
+        # key injection after every 4 rounds
+        x0 = (x0 + ks[(i + 1) % 3]) & _MASK
+        x1 = (x1 + ks[(i + 2) % 3] + (i + 1)) & _MASK
+    return x0, x1
+
+
+def prng_key(seed: int, device=None) -> torch.Tensor:
+    """``jax.random.PRNGKey(seed)`` as an int64 tensor ``[2]`` on ``device``
+    (the CPU when omitted: a key is host data its caller batches)."""
+    return torch.tensor([0, int(seed) & _MASK], dtype=torch.int64, device=device)
+
+
+def fold_in(keys: torch.Tensor, data) -> torch.Tensor:
+    """``jax.random.fold_in`` per row: ``keys [B, 2]`` with ``data [B]`` (or
+    one int for every row) → ``[B, 2]``."""
+    data = torch.as_tensor(data, dtype=torch.int64, device=keys.device) & _MASK
+    y0, y1 = threefry2x32(keys[:, 0], keys[:, 1], torch.zeros_like(data), data)
+    return torch.stack([y0, y1], dim=-1)
+
+
+def random_bits(keys: torch.Tensor, n: int) -> torch.Tensor:
+    """``jax.random.bits(key, (1, n))`` per row (uint32 words in an int64
+    ``[B, n]``): the flat counter ``0 .. n-1`` through each row's key."""
+    count = torch.arange(n, dtype=torch.int64, device=keys.device)[None]
+    x0, x1 = threefry2x32(keys[:, :1], keys[:, 1:], torch.zeros_like(count), count)
+    return x0 ^ x1
+
+
+def uniform(keys: torch.Tensor, n: int, minval: float = 0.0, maxval: float = 1.0) -> torch.Tensor:
+    """``jax.random.uniform(key, (1, n), float32, minval, maxval)`` per row
+    → f32 ``[B, n]``."""
+    mantissa = (random_bits(keys, n) >> 9) | _ONE_BITS  # a float in [1, 2)
+    floats = mantissa.to(torch.int32).view(torch.float32) - 1.0
+    lo = torch.tensor(minval, dtype=torch.float32, device=keys.device)
+    hi = torch.tensor(maxval, dtype=torch.float32, device=keys.device)
+    return torch.maximum(lo, floats * (hi - lo) + lo)
+
+
+def gumbel(keys: torch.Tensor, n: int) -> torch.Tensor:
+    """``jax.random.gumbel(key, (1, n))`` (``mode="low"``) per row → f32
+    ``[B, n]``."""
+    return -torch.log(-torch.log(uniform(keys, n, _TINY, 1.0)))

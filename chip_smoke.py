@@ -29,6 +29,18 @@ csrc`` at first use) and no network. Phases, each of which fails the run:
 4. the cached path (chunked prefill + 16 decode steps through
    ``paged_forward`` and the kernels) against the plain full-sequence
    forward, logits compared in f32;
+   then ``benchmarks/serving/run.py``'s legs at their TPU configuration
+   (dim 1024, 8 layers, 16/8 heads, vocab 32000, random bf16 weights from
+   seed 0; 8 slots, 160 blocks of 16; the bench's seeded open-loop
+   workloads), each with its launch counts zeroed before and read after:
+   the speculative leg (``spec_tokens=3, draft_layers=2``) against the
+   plain one — tokens/s, per-token latency, steps, accept rate, every
+   divergence with its top-2 gap and the two legs' logit |delta|, held to
+   a bar, and an f32 run of 4 requests whose streams must match; the same
+   workload sampled (top-k, top-p), with and without speculation, each leg
+   run twice to the same tokens, and the sampler's launches and device ms;
+   continuous against static batching on 32 requests. Phase 2 also runs
+   the paged kernels at a draft step's and a verify step's shapes;
 5. training: BERT-base at full width (``attn_impl="fused"``, S=128, batch
    32, random f32 master weights from seed 0, synthetic MRPC) through
    ``Accelerator(mixed_precision="bf16").prepare`` and
@@ -150,6 +162,37 @@ LLAMA_LR, LLAMA_K, LLAMA_CALLS = 1e-4, 2, 2
 # kernels-vs-plain training check: the same width at 2 layers, a packed
 # batch of 2 rows x 2048 tokens, 3 f32 AdamW steps
 LLAMA_CHECK_LAYERS, LLAMA_CHECK_SEQ, LLAMA_CHECK_BATCH = 2, 2048, 2
+# The serving benchmark's TPU configuration (benchmarks/serving/run.py:
+# run_bench_spec_decode :751-757, run_bench_serving :818-826), full width
+# and depth: a 0.16 B-param Llama (bf16 params from seed 0), 8 slots, 160
+# blocks of 16; the speculative leg's self-draft is 2 of the 8 layers
+# proposing 3 tokens a step. Workloads: build_workload's arguments.
+SERVE_BENCH_KW = dict(vocab_size=32000, dim=1024, n_layers=8, n_heads=16, n_kv_heads=8,
+                      max_seq_len=512)
+SERVE_ENGINE_KW = dict(num_blocks=160, block_size=16, max_slots=8)
+SPEC_TOKENS, SPEC_DRAFT_LAYERS = 3, 2
+SPEC_WORKLOAD = (12, 0, (16, 96), (16, 64), 2.0)
+STATIC_WORKLOAD = (32, 0, (16, 96), (8, 64), 2.0)
+SAMPLING_LEGS = (dict(temperature=0.8, top_k=20), dict(temperature=0.8, top_p=0.9))
+SPEC_F32_REQUESTS = 4
+# Speculative vs plain leg, bf16: at a position whose prefix the two legs
+# share, each selected its token from a logit row of the same model on the
+# same tokens, the plain leg through S=1 GEMMs and the decode kernel, the
+# speculative one through the S=4 verify GEMMs and the prefill kernel. The
+# rows differ by rounding only: each bf16 op rounds at 2**-9 relative, a
+# difference that grows through 8 residual layers to a few parts in 10**3
+# of the hidden state, and the head's bf16 output rounds to steps of 2**-6
+# for logits between 2 and 4 — so a few hundredths at most. A wrong position, key or fold
+# index gives another row altogether, which differs by ~1 or more (the
+# logits' spread; the check against the plain row one position on must
+# exceed the bar, or the bar is too loose). Greedy ties closer than the
+# rounding can flip a token, after which the streams part: the first
+# divergence is printed with the plain row's top-2 gap.
+SPEC_LOGIT_BAR = 0.25
+# the same legs in f32 (params and cache): rows differ by f32 summation
+# order only (~1e-5), so the streams must match unless the top two logits
+# at a divergence lie closer than this
+SPEC_F32_TIE_GAP = 1e-4
 
 
 class SmokeFailure(RuntimeError):
@@ -264,20 +307,34 @@ DECODE_CASES = {
     "decode": (16, [1, 17, 100, 129, 200, 255, 256, -1]),
     "decode_long": (32, [37, 130, 256, 300, 364, 420, 480, 512]),  # up to max_seq_len
     "decode_b1": (32, [512]),  # a single request
+    # a draft step of the serving bench's model (16/8 heads): 8 slots, the
+    # widest table of its lattice (11 blocks), two padded slots
+    "draft": (11, [5, 33, 64, 97, 120, 163, -1, -1]),
 }
+# the speculative verify step of the same model: 8 slot rows of k+1 = 4
+# queries from their own positions (-1: a padded row on the null block,
+# positions 0-3) over an 11-entry table
+VERIFY_STARTS = [0, 15, 16, 47, 100, 159, -1, -1]
+# q heads, kv heads of a case (default: the Llama-1B class, 32/8)
+CASE_HEADS = {"draft": (16, 8), "verify": (16, 8)}
 # The paged kernel cases' seeds, by name (bf16 takes the seed, f32 the
 # next), so that adding a case leaves every other case's inputs as they were.
 KERNEL_CASE_SEEDS = {"decode": 0, "prefill128": 2, "prefill256": 4, "decode_long": 6,
-                     "decode_b1": 8}
+                     "decode_b1": 8, "draft": 10, "verify": 12}
 
 
 def _kernel_case(kind, dtype, dev, seed):
-    """Inputs at the serving path's shapes: the DECODE_CASES (H=32, Hkv=8,
-    D=64, bs=16) with ragged lengths; prefill B=1 at S=128 / S=256 against a
-    W=32 table whose earlier KV has landed."""
+    """Inputs at the serving path's shapes: the DECODE_CASES (D=64, bs=16)
+    with ragged lengths; prefill B=1 at S=128 / S=256 against a W=32 table
+    whose earlier KV has landed; the verify step's B=8, S=4, W=11."""
     rng = np.random.default_rng(seed)
-    H, Hkv, D, bs = 32, 8, 64, 16
-    if kind in DECODE_CASES:
+    (H, Hkv), D, bs = CASE_HEADS.get(kind, (32, 8)), 64, 16
+    if kind == "verify":
+        B, W, S = len(VERIFY_STARTS), 11, 4
+        starts = np.maximum(np.array(VERIFY_STARTS, np.int32), 0)
+        qpos = starts[:, None] + np.arange(S, dtype=np.int32)[None]
+        need = [0 if s < 0 else -(-(s + S) // bs) for s in VERIFY_STARTS]
+    elif kind in DECODE_CASES:
         W, spec = DECODE_CASES[kind]
         B, S = len(spec), 1
         lens = np.abs(np.array(spec, np.int32))
@@ -385,7 +442,7 @@ def phase_kernels(dev):
 
     sdpa = torch.nn.functional.scaled_dot_product_attention
     results = {}
-    for kind in (*DECODE_CASES, "prefill128", "prefill256"):
+    for kind in (*DECODE_CASES, "prefill128", "prefill256", "verify"):
         for dtype in (torch.bfloat16, torch.float32):
             seed = KERNEL_CASE_SEEDS[kind] + (dtype == torch.float32)
             case = _kernel_case(kind, dtype, dev, seed)
@@ -783,6 +840,365 @@ def phase_cached_vs_full(params_bf16, config, dev):
           f"{scale:.3f}); with bf16-rounded attention {rounded_err:.3e}")
     print(f"[cached] decode launches {fa.paged_attention_decode.launches}, prefill launches "
           f"{fa.paged_attention_prefill.launches} (cumulative, outside the main-path count)")
+
+
+def build_workload(n_requests, seed, prompt_lens, new_tokens, rate, vocab_size):
+    """``benchmarks/serving/run.py``'s seeded open-loop arrival schedule
+    (its ``shared_len=0`` case), copied: this script imports nothing of the
+    JAX package's tree. ``[(arrival_step, prompt, max_new)]`` with
+    exponential gaps of mean ``1 / rate`` engine steps."""
+    rng = np.random.default_rng(seed)
+    t = 0.0
+    workload = []
+    for _ in range(n_requests):
+        t += rng.exponential(1.0 / rate)
+        prompt = rng.integers(0, vocab_size, (int(rng.integers(*prompt_lens)),)).astype(np.int32)
+        workload.append((int(t), prompt, int(rng.integers(*new_tokens))))
+    return workload
+
+
+def _serve_drive(engine, workload):
+    """The bench's open-loop drive: submit each request at its arrival step
+    with ``rng_seed`` = its index, step while work is live, idle-tick
+    otherwise. Returns (requests in workload order, host wall s)."""
+    reqs, nxt, step = [], 0, 0
+    t0 = time.perf_counter()
+    while nxt < len(workload) or not engine.scheduler.idle():
+        while nxt < len(workload) and workload[nxt][0] <= step:
+            _, prompt, new = workload[nxt]
+            reqs.append(engine.submit(prompt, new, rng_seed=nxt))
+            nxt += 1
+        step += 1
+        if not engine.scheduler.idle():
+            engine.step()
+    torch.cuda.synchronize()
+    return reqs, time.perf_counter() - t0
+
+
+def _capture_selections(engine, store):
+    """Record in ``store[(rid, fold index)]`` the logit row each token was
+    selected from, as (logits, row) — a reference to the forward's output,
+    no copy. Draft selections are skipped; a verify column past the
+    accepted prefix is overwritten by the step that recomputes its index,
+    so the last record of an emitted token is the row it came from."""
+    state = {}
+
+    def wrap(name, kind):
+        inner = getattr(engine, name)
+
+        def run(arg, *rest):
+            state["kind"], state["reqs"] = kind, ([arg] if kind == "prefill" else arg)
+            return inner(arg, *rest)
+
+        setattr(engine, name, run)
+
+    wrap("_prefill_request", "prefill")
+    wrap("_decode_batch", "decode")
+    wrap("_spec_decode_batch", "spec")
+    select = engine._select
+
+    def _select(logits, key_rows, offset=0):
+        reqs, kind = state["reqs"], state["kind"]
+        if kind == "spec" and torch.is_tensor(offset):  # the verify: rows (i, j)
+            width = engine.spec_tokens + 1
+            for i, r in enumerate(reqs):
+                for j in range(width):
+                    store[(r.rid, len(r.generated) + j)] = (logits, i * width + j)
+        elif kind != "spec":
+            for i, r in enumerate(reqs):
+                store[(r.rid, len(r.generated))] = (logits, i)
+        return select(logits, key_rows, offset)
+
+    engine._select = _select
+
+
+def _serve_leg(params, config, workload, lattice, tag, capture=None, **engine_kw):
+    """One engine over ``workload``: every request must finish with its
+    full budget, and the counters read after the run (zeroed just before
+    it) must show every paged attention call of prefill, decode, draft and
+    verify went through the kernels. Returns (metrics, requests, engine)."""
+    from accelerate_tpu_torch.ops import flash_attention as fa
+    from accelerate_tpu_torch.serving import RequestStatus, ServingEngine
+
+    engine = ServingEngine(params, config, lattice=lattice, **SERVE_ENGINE_KW, **engine_kw)
+    if capture is not None:
+        _capture_selections(engine, capture)
+    fa.paged_attention_decode.launches = 0
+    fa.paged_attention_prefill.launches = 0
+    reqs, wall = _serve_drive(engine, workload)
+    launches = {"paged_attention_decode": fa.paged_attention_decode.launches,
+                "paged_attention_prefill": fa.paged_attention_prefill.launches}
+    st = engine.stats()
+    for r, (_, _, new) in zip(reqs, workload):
+        check(r.status is RequestStatus.FINISHED, f"{tag}: request {r.rid} ended {r.status}")
+        check(len(r.generated) == new, f"{tag}: request {r.rid} made {len(r.generated)} of {new}")
+        check(all(0 <= t < config.vocab_size for t in r.generated), f"{tag}: token outside vocab")
+    want_prefill = config.n_layers * (st["prefill_chunks"] + st["verify_steps"])
+    want_decode = (config.n_layers * st["decode_steps"]
+                   + (engine.draft_layers or 0) * st["draft_steps"])
+    check(launches["paged_attention_prefill"] == want_prefill > 0,
+          f"{tag}: prefill launches {launches} vs {want_prefill} = {config.n_layers} x "
+          f"({st['prefill_chunks']} chunks + {st['verify_steps']} verify steps)")
+    check(launches["paged_attention_decode"] == want_decode > 0,
+          f"{tag}: decode launches {launches} vs {want_decode}")
+    tokens = sum(len(r.generated) for r in reqs)
+    per_tok = [(r.finish_t - r.first_token_t) / (len(r.generated) - 1) * 1e3
+               for r in reqs if len(r.generated) > 1]
+    latency = [(r.finish_t - r.arrival_t) * 1e3 for r in reqs]
+    leg = dict(tokens=tokens, wall_s=wall, tokens_per_s=tokens / wall, steps=st["steps"],
+               p50_per_token_ms=float(np.percentile(per_tok, 50)),
+               p99_per_token_ms=float(np.percentile(per_tok, 99)),
+               p99_latency_ms=float(np.percentile(latency, 99)),
+               mean_occupancy=st["mean_occupancy"], preemptions=st["preemptions"],
+               launches=launches)
+    if engine.spec_tokens:
+        leg.update(accept_rate=st["spec_accept_rate"], accept_hist=st["spec_accept_hist"])
+    print(f"[{tag}] {len(reqs)} requests, {tokens} tokens in {wall:.3f} s: "
+          f"{leg['tokens_per_s']:.1f} tok/s, {st['steps']} steps, per-token p50 "
+          f"{leg['p50_per_token_ms']:.3f} ms p99 {leg['p99_per_token_ms']:.3f} ms, latency p99 "
+          f"{leg['p99_latency_ms']:.1f} ms, occupancy {st['mean_occupancy']:.3f}, "
+          f"{st['preemptions']} preemptions"
+          + (f", accept rate {st['spec_accept_rate']:.4f} hist {st['spec_accept_hist']}"
+             if engine.spec_tokens else "")
+          + f"; launches {launches} ({st['prefill_chunks']} chunks, {st['decode_steps']} "
+            f"decode, {st['draft_steps']} draft, {st['verify_steps']} verify steps)")
+    return leg, reqs, engine
+
+
+def _profile_serve_steps(params, config, lattice, tag, **engine_kw):
+    """Where a step's time goes: ``torch.profiler`` over 8 steps of 8 live
+    requests (64-token prompts, after the step that admits them); busy
+    share = the device's summed kernel and copy time over the host wall of
+    the same 8 steps run unprofiled."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from accelerate_tpu_torch.serving import ServingEngine
+
+    rng = np.random.default_rng(2)
+    prompts = [rng.integers(0, config.vocab_size, 64) for _ in range(8)]
+
+    def eight_steps(prof=None):
+        engine = ServingEngine(params, config, lattice=lattice, **SERVE_ENGINE_KW, **engine_kw)
+        for p in prompts:
+            engine.submit(p, 40)
+        engine.step()
+        torch.cuda.synchronize()
+        if prof is not None:
+            prof.start()
+        t0 = time.perf_counter()
+        for _ in range(8):
+            engine.step()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+        if prof is not None:
+            prof.stop()
+        return wall, engine.stats()["decode_tokens"]
+
+    wall, _ = eight_steps()
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    _, tokens = eight_steps(prof)
+    rows = _device_rows(prof)
+    if not rows:
+        print(f"[{tag}] the profiler recorded no device time: busy share not measured")
+        return
+    device = sum(r[1] for r in rows) / 1e3
+    print(f"[{tag}] 8 steps at 8 slots: wall {wall / 8:.3f} ms/step, device {device / 8:.3f} "
+          f"ms/step, busy share {device / wall:.3f}, {sum(r[2] for r in rows) / 8:.0f} device "
+          f"events a step, {tokens} tokens in the 9 steps")
+    for key, us, count in sorted(rows, key=lambda r: -r[1])[:6]:
+        print(f"[{tag}]   {us / 8e3:8.4f} ms/step  {count / 8:6.1f} calls/step  {key[:80]}")
+    # by entry name: paged_decode_kernel; paged_prefill_kernel (CUDA
+    # cores) and prefill_tc_kernel (tensor cores)
+    for name, kernel in (("paged decode #6", "paged_decode"), ("paged prefill #7", "prefill")):
+        hits = [r for r in rows if kernel in r[0]]
+        print(f"[{tag}]   {name}: {sum(r[1] for r in hits) / 8e3:.4f} ms/step in "
+              f"{sum(r[2] for r in hits) / 8:.0f} launches a step")
+
+
+def _first_divergence(a, b):
+    return next((i for i, (x, y) in enumerate(zip(a, b)) if x != y), None)
+
+
+def _row(cap, rid, idx):
+    logits, row = cap[(rid, idx)]
+    return logits[row].float()
+
+
+def _compare_legs(tag, spec_reqs, plain_reqs, spec_cap, plain_cap, bar=None, tie_gap=None):
+    """Per request: the first position where the legs' tokens part, the
+    plain row's top-2 gap there, and the largest |delta| between the legs'
+    logit rows at every position up to it (the same prefix on both sides).
+    Returns (matching requests, largest |delta|, the divergences)."""
+    match, worst, divergences = 0, 0.0, []
+    for i, (rs, rp) in enumerate(zip(spec_reqs, plain_reqs)):
+        d = _first_divergence(rs.generated, rp.generated)
+        last = len(rp.generated) - 1 if d is None else d
+        deltas = [float((_row(spec_cap, rs.rid, j) - _row(plain_cap, rp.rid, j)).abs().max())
+                  for j in range(last + 1)]
+        worst = max(worst, max(deltas))
+        if d is None:
+            match += 1
+            continue
+        top2 = torch.topk(_row(plain_cap, rp.rid, d), 2).values
+        gap = float(top2[0] - top2[1])
+        divergences.append((i, d, gap, deltas[-1]))
+        print(f"[{tag}] request {i} diverges at generated token {d} of {len(rp.generated)}: "
+              f"plain top-2 gap {gap:.4e}, max |delta| of the two legs' logits there "
+              f"{deltas[-1]:.4e} (largest before it {max(deltas[:-1], default=0.0):.4e})")
+        if tie_gap is not None:
+            check(gap < tie_gap, f"{tag}: request {i} diverges at {d} with top-2 gap {gap} "
+                                 f">= {tie_gap}: not a tie")
+    if bar is not None:
+        check(worst <= bar, f"{tag}: speculative vs plain logits differ by {worst} > {bar} at "
+                            f"a shared prefix: a wrong position, key or fold index")
+    return match, worst, divergences
+
+
+def _to_f32(params):
+    return {k: ({kk: {kkk: t.float() for kkk, t in vv.items()} for kk, vv in v.items()}
+                if k == "layers" else {kk: t.float() for kk, t in v.items()})
+            for k, v in params.items()}
+
+
+def _serve_lattice(workload_args, prefill_cap):
+    """The bench's lattice: 8 slots, tables to the longest request's blocks
+    plus one, prefill buckets to ``prefill_cap``."""
+    from accelerate_tpu_torch.serving import BucketLattice
+
+    bs = SERVE_ENGINE_KW["block_size"]
+    max_len = workload_args[2][1] + workload_args[3][1]
+    return BucketLattice.from_limits(SERVE_ENGINE_KW["max_slots"], -(-max_len // bs) + 1,
+                                     prefill_cap)
+
+
+def phase_spec_decode(params, config):
+    """``benchmarks/serving/run.py``'s speculative leg at its TPU
+    configuration: the same workload with ``spec_tokens=3, draft_layers=2``
+    and without, greedy, bf16; tokens/s, per-token latency, steps, the
+    accept rate, launch counts; then both legs again capturing each token's
+    logit row, to print every divergence and hold the rows to
+    SPEC_LOGIT_BAR; then both legs in f32 on the first 4 requests, whose
+    streams must match."""
+    workload = build_workload(*SPEC_WORKLOAD, config.vocab_size)
+    lattice = _serve_lattice(SPEC_WORKLOAD, SPEC_WORKLOAD[2][1])
+    spec_kw = dict(spec_tokens=SPEC_TOKENS, draft_layers=SPEC_DRAFT_LAYERS)
+    # one short run of each engine first: the first calls at new shapes
+    # pay one-time costs (library heuristics, allocator growth)
+    _serve_leg(params, config, workload[:2], lattice, "spec-warm", **spec_kw)
+    _serve_leg(params, config, workload[:2], lattice, "spec-off-warm")
+    spec, spec_reqs, _ = _serve_leg(params, config, workload, lattice, "spec", **spec_kw)
+    plain, plain_reqs, _ = _serve_leg(params, config, workload, lattice, "spec-off")
+    check(spec["accept_rate"] > 0, f"speculative leg accepted no draft token: {spec}")
+    print(f"[spec] tokens/s spec/plain {spec['tokens_per_s'] / plain['tokens_per_s']:.3f}, "
+          f"steps {spec['steps']} / {plain['steps']}, per-token p50 "
+          f"{spec['p50_per_token_ms'] / plain['p50_per_token_ms']:.3f}x")
+    _profile_serve_steps(params, config, lattice, "spec-profile", **spec_kw)
+    _profile_serve_steps(params, config, lattice, "spec-off-profile")
+    _profile_serve_steps(params, config, lattice, "sample-profile", **SAMPLING_LEGS[0])
+    caps = ({}, {})
+    _, spec_again, _ = _serve_leg(params, config, workload, lattice, "spec-capture",
+                                  capture=caps[0], **spec_kw)
+    _, plain_again, _ = _serve_leg(params, config, workload, lattice, "spec-off-capture",
+                                   capture=caps[1])
+    for a, b, tag in ((spec_reqs, spec_again, "spec"), (plain_reqs, plain_again, "spec-off")):
+        check(all(x.generated == y.generated for x, y in zip(a, b)),
+              f"{tag}: a second run of the same leg made other tokens")
+    match, worst, div = _compare_legs("spec-bf16", spec_again, plain_again, *caps,
+                                      bar=SPEC_LOGIT_BAR)
+    # negative control: the plain row one position on must miss the bar
+    r = plain_again[0]
+    control = float((_row(caps[1], r.rid, 1) - _row(caps[1], r.rid, 0)).abs().max())
+    check(control > SPEC_LOGIT_BAR, f"the next position's row is within the bar: {control}")
+    print(f"[spec-bf16] {match} of {len(workload)} requests match across the legs; largest "
+          f"|delta| of the legs' logits at a shared prefix {worst:.4e} (bar {SPEC_LOGIT_BAR}; "
+          f"the next position's row differs by {control:.3f})")
+    del caps, spec_again, plain_again
+    f32 = _to_f32(params)
+    caps = ({}, {})
+    _, s32, _ = _serve_leg(f32, config, workload[:SPEC_F32_REQUESTS], lattice, "spec-f32",
+                           capture=caps[0], cache_dtype=torch.float32, **spec_kw)
+    _, p32, _ = _serve_leg(f32, config, workload[:SPEC_F32_REQUESTS], lattice, "spec-off-f32",
+                           capture=caps[1], cache_dtype=torch.float32)
+    match32, worst32, _ = _compare_legs("spec-f32", s32, p32, *caps, tie_gap=SPEC_F32_TIE_GAP)
+    print(f"[spec-f32] {match32} of {SPEC_F32_REQUESTS} requests match; largest |delta| "
+          f"{worst32:.4e}")
+    return dict(spec=spec, plain=plain, match=match, divergences=len(div), worst_delta=worst,
+                f32_match=match32)
+
+
+def phase_sampling(params, config, dev):
+    """The same workload sampled (top-k, then top-p), with and without
+    ``spec_tokens=3``: each leg run twice, the second run must reproduce
+    the first's tokens (counter-based streams); the match count between
+    the speculative and plain legs; what the sampler adds to a decode step
+    in launches and device ms, at the decode and verify widths."""
+    from torch.profiler import ProfilerActivity, profile
+
+    workload = build_workload(*SPEC_WORKLOAD, config.vocab_size)
+    lattice = _serve_lattice(SPEC_WORKLOAD, SPEC_WORKLOAD[2][1])
+    out = {}
+    for sample in SAMPLING_LEGS:
+        name = "top_k" if "top_k" in sample else "top_p"
+        legs = {}
+        for spec in (False, True):
+            kw = dict(sample, **(dict(spec_tokens=SPEC_TOKENS, draft_layers=SPEC_DRAFT_LAYERS)
+                                 if spec else {}))
+            tag = f"sample-{name}" + ("-spec" if spec else "")
+            # the first run warms the sampler's ops; the second is the leg's
+            _, first, _ = _serve_leg(params, config, workload, lattice, tag + "-first", **kw)
+            leg, reqs, engine = _serve_leg(params, config, workload, lattice, tag, **kw)
+            check(all(a.generated == b.generated for a, b in zip(first, reqs)),
+                  f"{tag}: a second run of the same leg made other tokens")
+            legs[spec] = (leg, reqs)
+        match = sum(a.generated == b.generated for a, b in zip(legs[False][1], legs[True][1]))
+        # the sampler alone on the decode step's and the verify step's rows
+        cost = {}
+        rng = np.random.default_rng(0)
+        for rows in (SERVE_ENGINE_KW["max_slots"], SERVE_ENGINE_KW["max_slots"] * (SPEC_TOKENS + 1)):
+            logits = [torch.randn(rows, config.vocab_size, device=dev).to(torch.bfloat16)
+                      for _ in range(2)]
+            keys = torch.from_numpy(np.stack([rng.integers(0, 2**32, rows),
+                                              rng.integers(0, 2**32, rows),
+                                              rng.integers(0, 64, rows)], 1)).to(dev)
+            engine._select(logits[0], keys)
+            torch.cuda.synchronize()
+            prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+            prof.start()
+            engine._select(logits[0], keys)
+            torch.cuda.synchronize()
+            prof.stop()
+            device = _device_rows(prof)
+            # its launches outrun the device's launch queue behind a sleep:
+            # timed between two events, so host issue gaps count too
+            ms = time_ms(lambda i: engine._select(logits[i], keys), 2, 20, behind_sleep=False)
+            cost[rows] = (sum(r[2] for r in device), sum(r[1] for r in device) / 1e3, ms)
+        out[name] = dict(plain=legs[False][0], spec=legs[True][0], match=match, cost=cost)
+        print(f"[sample-{name}] tok/s plain {legs[False][0]['tokens_per_s']:.1f} spec "
+              f"{legs[True][0]['tokens_per_s']:.1f}; {match} of {len(workload)} requests match "
+              f"across the legs; the sampler: "
+              + ", ".join(f"{rows} rows {k} device launches, {dev_ms:.4f} ms of device time, "
+                          f"{ms:.4f} ms a call" for rows, (k, dev_ms, ms) in cost.items())
+              + " (greedy: 1 argmax launch)")
+    return out
+
+
+def phase_static(params, config):
+    """``run_bench_serving``'s continuous-vs-static leg at its TPU
+    configuration: 32 requests, greedy, ``continuous=True`` then
+    ``continuous=False`` (gang admission, no backfill)."""
+    workload = build_workload(*STATIC_WORKLOAD, config.vocab_size)
+    lattice = _serve_lattice(STATIC_WORKLOAD, STATIC_WORKLOAD[2][1] + STATIC_WORKLOAD[3][1])
+    _serve_leg(params, config, workload[:4], lattice, "static-warm")
+    cont, creqs, _ = _serve_leg(params, config, workload, lattice, "continuous")
+    static, sreqs, _ = _serve_leg(params, config, workload, lattice, "static", continuous=False)
+    check(static["steps"] > cont["steps"], f"static took no more steps: {static} vs {cont}")
+    match = sum(a.generated == b.generated for a, b in zip(creqs, sreqs))
+    print(f"[static] continuous/static tok/s {cont['tokens_per_s'] / static['tokens_per_s']:.3f} "
+          f"({cont['tokens_per_s']:.1f} / {static['tokens_per_s']:.1f}); occupancy "
+          f"{cont['mean_occupancy']:.3f} / {static['mean_occupancy']:.3f}; latency p99 "
+          f"{cont['p99_latency_ms']:.1f} / {static['p99_latency_ms']:.1f} ms; steps "
+          f"{cont['steps']} / {static['steps']}; {match} of {len(workload)} requests match")
+    return dict(continuous=cont, static=static, match=match)
 
 
 def _reset_states():
@@ -1523,6 +1939,13 @@ def main() -> int:
     phase_profile(params, config, dev)
     phase_cached_vs_full(params, config, dev)
     del params
+    serve_config = LlamaConfig(**SERVE_BENCH_KW)
+    serve_params = init_llama(serve_config, torch.Generator(device=dev).manual_seed(0),
+                              device=dev, dtype=torch.bfloat16)
+    spec_results = phase_spec_decode(serve_params, serve_config)
+    phase_sampling(serve_params, serve_config, dev)
+    phase_static(serve_params, serve_config)
+    del serve_params
     train_launches = phase_train(dev)
     phase_train_check(dev)
     phase_train_check_fp16(dev)
@@ -1534,15 +1957,19 @@ def main() -> int:
 
     keys =("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     records = []
-    for name, kind, source, replaces in (
-        ("paged_attention_decode", "decode", "accelerate_tpu_torch/csrc/paged_decode.cu",
+    for name, kind, spec_kind, source, replaces in (
+        ("paged_attention_decode", "decode", "draft", "accelerate_tpu_torch/csrc/paged_decode.cu",
          "accelerate_tpu/ops/flash_attention.py:619"),
-        ("paged_attention_prefill", "prefill256", "accelerate_tpu_torch/csrc/paged_prefill.cu",
+        ("paged_attention_prefill", "prefill256", "verify",
+         "accelerate_tpu_torch/csrc/paged_prefill.cu",
          "accelerate_tpu/ops/flash_attention.py:753"),
     ):
         rec = kernel_results[(kind, torch.bfloat16)]
+        spec_rec = kernel_results[(spec_kind, torch.bfloat16)]
         records.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
-                        "launches": launches[name], **{k: rec[k] for k in keys}})
+                        "launches": launches[name], **{k: rec[k] for k in keys},
+                        spec_kind: {k: spec_rec[k] for k in keys},
+                        "launches_spec_decode": spec_results["spec"]["launches"][name]})
     for name, kind, replaces in (
         ("fused_attention_fwd", "fwd", "accelerate_tpu/ops/fused_attention.py:90"),
         ("fused_attention_bwd", "bwd", "accelerate_tpu/ops/fused_attention.py:107"),

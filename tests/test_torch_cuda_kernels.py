@@ -207,6 +207,41 @@ def test_prefill_kernel_never_reads_past_the_walk(dev, q_dtype, kv_dtype, S, H, 
     ref = fa.paged_attention_prefill_plain(q, k, v, tables, qpos)
     assert float((out_poisoned.float() - ref.float()).abs().max()) <= ATOL[q_dtype]
 
+# The speculative verify step's shape: 8 slot rows of k+1 = 4 queries each
+# at their own positions, GQA 16/8 at D=64 over 16-token blocks and an
+# 11-entry table, two padded rows on the null block at positions 0-3.
+VERIFY_STARTS = [0, 15, 16, 47, 100, 159, 0, 0]  # rows 6 and 7: padded slots
+
+
+@pytest.mark.parametrize("q_dtype,kv_dtype", DTYPES)
+def test_prefill_kernel_at_the_verify_shape(dev, q_dtype, kv_dtype):
+    """B=8, S=4, H=16, Hkv=8, D=64, bs=16, W=11: the kernel against its
+    plain version, one launch; then every table entry past each row's last
+    attended block on a block of NaN (a rejected draft's stale KV sits past
+    the emitted prefix, masked by position only): the output unchanged."""
+    S, H, Hkv, D, bs, W = 4, 16, 8, 64, 16, 11
+    q, k, v, tables, qpos = _case(21, len(VERIFY_STARTS), S, H, Hkv, D, bs, W, VERIFY_STARTS,
+                                  dev, q_dtype, kv_dtype)
+    tables[6:] = 0  # padded rows: every entry the null block
+    before = fa.paged_attention_prefill.launches
+    out = fa.paged_attention_prefill(q, k, v, tables, qpos)
+    torch.cuda.synchronize()
+    assert fa.paged_attention_prefill.launches == before + 1
+    ref = fa.paged_attention_prefill_plain(q, k, v, tables, qpos)
+    assert torch.isfinite(out.float()).all()
+    assert float((out.float() - ref.float()).abs().max()) <= ATOL[q_dtype]
+    nan_block = k.shape[0]
+    k = torch.cat([k, torch.full_like(k[:1], float("nan"))])
+    v = torch.cat([v, torch.full_like(v[:1], float("nan"))])
+    poisoned = tables.clone()
+    for b, w in enumerate((qpos.max(dim=1).values // bs).tolist()):
+        poisoned[b, w + 1:] = nan_block
+    assert int((poisoned == nan_block).sum()) > 0
+    out_poisoned = fa.paged_attention_prefill(q, k, v, poisoned, qpos)
+    torch.cuda.synchronize()
+    assert torch.equal(out_poisoned, out)
+
+
 # Fused attention (kernels #4 and #5). f32: same arithmetic, another
 # summation order — outputs and lse within 1e-5, gradients within 1e-5 of
 # their largest magnitude (they sum over up to 1024 keys). bf16: both sides
