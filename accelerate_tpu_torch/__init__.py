@@ -34,7 +34,11 @@ Ported so far:
   scaling (``GradScalerConfig``; the fused attention kernels in fp16 too),
   the optax schedules and ``AcceleratedScheduler`` (``scheduler``),
   ``DummyOptim``/``DummyScheduler``, ``has_aux``, ``compute_grad_norm``,
-  ``accumulate``, ``no_sync``, ``gradient_fn`` and the eager clips.
+  ``accumulate``, ``no_sync``, ``gradient_fn`` and the eager clips;
+- ``llama_forward(remat=...)`` with JAX's policies (``torch.utils.
+  checkpoint`` per layer), ``optimizer.adafactor`` (optax's chain and
+  dtypes), ``chain(clip_by_global_norm(...), tx)``, and bf16 params
+  through ``prepare_train_loop``.
 """
 
 from .accelerator import Accelerator

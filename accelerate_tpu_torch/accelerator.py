@@ -20,9 +20,10 @@ a Python loop with no host sync inside it: accumulation boundaries are a
 host count, the loss scale, its growth count and the finite flag stay on
 the device, and the metrics stay there until the caller reads them.
 
-Not ported yet (see ROADMAP.md): ``mixed_precision="fp8"``, the mesh and
-its sharded placement, the fused ZeRO-1 update, optimizer offload,
-clipping inside the compiled step, trackers and checkpointing.
+Clipping inside the step is the optimizer's: ``chain(clip_by_global_norm(
+...), tx)`` (:mod:`.optimizer`). Not ported yet (see ROADMAP.md):
+``mixed_precision="fp8"``, the mesh and its sharded placement, the fused
+ZeRO-1 update, optimizer offload, trackers and checkpointing.
 """
 
 from __future__ import annotations
@@ -290,9 +291,14 @@ class Accelerator:
         fp16 = self.state.mixed_precision == PrecisionType.FP16
         torch_opt = optimizer.optimizer
         bound = optimizer.params
-        # the gradients as one flat tensor: one op each for the unscale, the
-        # finite check, the zeroing, the norm and the accumulation
-        flat_path = fp16 or compute_grad_norm or optimizer.accumulation_steps > 1
+        # autograd hands each gradient in its param's dtype; the JAX step casts
+        # them to the policy's param dtype before the update (f32 gradients
+        # for bf16 params under "bf16"), which the flat path does here
+        cast = policy.param_dtype is not None and any(p.dtype != policy.param_dtype
+                                                      for p in bound)
+        # the gradients as one flat tensor: one op each for the cast, the
+        # unscale, the finite check, the zeroing, the norm and the accumulation
+        flat_path = fp16 or compute_grad_norm or optimizer.accumulation_steps > 1 or cast
         if fp16:
             optimizer.init_loss_scale(self.grad_scaler_config, bound[0].device)
 
@@ -311,7 +317,7 @@ class Accelerator:
             metrics = {"loss": loss.detach()}
             flat = None
             if flat_path:
-                flat = optimizer.flat_grads()
+                flat = optimizer.flat_grads(policy.param_dtype)
                 if fp16:
                     flat = flat / optimizer.loss_scale
                     finite = torch.isfinite(flat).all()

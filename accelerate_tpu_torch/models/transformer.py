@@ -8,12 +8,13 @@ JAX initializer load unchanged through :mod:`.convert`. Matmuls are
 ``x @ kernel`` with ``kernel`` stored ``[in, out]``, as in the reference.
 
 Only the dense SwiGLU FFN is ported; MoE configs and ``dtype_recipe="fp8"``
-raise ``NotImplementedError``, as do ``llama_forward``'s ``remat`` and
-``attention_fn``.
+raise ``NotImplementedError``, as do ``llama_forward``'s ``attention_fn``
+and ``remat="offload_dots"``.
 """
 
 from __future__ import annotations
 
+import functools
 import math
 from dataclasses import dataclass, replace
 from typing import Optional
@@ -238,6 +239,45 @@ def segment_positions(segment_ids: torch.Tensor) -> torch.Tensor:
     return seq_idx - starts
 
 
+_MM_OPS = ("mm", "addmm")  # x @ W: products with no batch dims
+
+
+def _remat_context(remat):
+    """The ``context_fn`` of ``torch.utils.checkpoint`` for a ``remat`` name,
+    after JAX's ``_remat_policy``: ``True``/``"nothing"`` save nothing
+    (plain checkpointing); ``"dots"`` saves every matmul's output
+    (``checkpoint_dots``); ``"dots_no_batch"`` only those of ``x @ W`` with
+    no batch dims (``dots_with_no_batch_dims_saveable``), so the attention
+    products and kernels are recomputed. Everything else, the buffers a
+    ctypes-launched kernel writes into included, is recomputed: the
+    dispatcher never sees those kernels, so it may not hold their
+    ``aten.empty``."""
+    from torch.utils.checkpoint import (
+        CheckpointPolicy,
+        create_selective_checkpoint_contexts,
+        noop_context_fn,
+    )
+
+    if remat is True or remat == "nothing":
+        return noop_context_fn
+    if remat == "offload_dots":
+        raise NotImplementedError(
+            "remat='offload_dots' (matmul outputs saved to pinned host memory) is not ported "
+            "yet: it comes with the offload pieces of ROADMAP.md Queue A 4")
+    names = {"dots": (*_MM_OPS, "bmm"), "dots_no_batch": _MM_OPS}.get(remat)
+    if names is None:
+        raise ValueError(
+            f"remat must be bool, 'nothing', 'dots', 'dots_no_batch' or "
+            f"'offload_dots'; got {remat!r}")
+    saved = {getattr(torch.ops.aten, name).default for name in names}
+
+    def policy(ctx, op, *args, **kwargs):
+        return (CheckpointPolicy.MUST_SAVE if op in saved
+                else CheckpointPolicy.PREFER_RECOMPUTE)
+
+    return functools.partial(create_selective_checkpoint_contexts, policy)
+
+
 def llama_forward(params: dict, input_ids: torch.Tensor, config: LlamaConfig,
                   attention_impl: Optional[str] = None,
                   segment_ids: Optional[torch.Tensor] = None,
@@ -252,7 +292,15 @@ def llama_forward(params: dict, input_ids: torch.Tensor, config: LlamaConfig,
     packs documents into a row (``[B, S]``, 0 = padding): tokens attend only
     within their segment, causally, and RoPE positions restart per segment
     unless ``positions`` is given. ``attention_fn`` (context parallelism)
-    and ``remat`` are not ported and raise."""
+    is not ported and raises.
+
+    ``remat`` (JAX's knob) recomputes each decoder layer in the backward
+    (``torch.utils.checkpoint``, non-reentrant); the embedding and the head
+    stay outside, as JAX's layer ``scan`` leaves them. ``False`` saves
+    everything, ``True`` or ``"nothing"`` nothing inside a layer, ``"dots"``
+    every matmul output and ``"dots_no_batch"`` only the ``x @ W``
+    projections; ``"offload_dots"`` is not ported. A kernel in the layer
+    (flash attention) then runs its forward twice a step."""
     from ..generation import _project_qkv
     from ..ops.attention import dot_product_attention
 
@@ -260,8 +308,7 @@ def llama_forward(params: dict, input_ids: torch.Tensor, config: LlamaConfig,
     if attention_fn is not None:
         raise NotImplementedError("attention_fn (context/sequence parallelism) is not ported yet "
                                   "(see ROADMAP.md)")
-    if remat:
-        raise NotImplementedError("remat policies are not ported yet (see ROADMAP.md)")
+    context_fn = _remat_context(remat) if remat else None
     impl = config.attn_impl if attention_impl is None else attention_impl
     dev = input_ids.device
     cos, sin = (torch.from_numpy(t).to(dev) for t in
@@ -276,14 +323,22 @@ def llama_forward(params: dict, input_ids: torch.Tensor, config: LlamaConfig,
     # indexing each layer would scatter into a full-size zero tensor per layer
     layers = {name: {k: t.unbind(0) for k, t in entry.items()}
               for name, entry in params["layers"].items()}
-    for i in range(config.n_layers):
-        layer = {name: {k: t[i] for k, t in entry.items()} for name, entry in layers.items()}
+
+    def decoder_layer(h, layer):
         x = rms_norm(h, layer["attn_norm"]["scale"], config.norm_eps)
         q, k, v = _project_qkv(layer, x, positions, cos, sin, config)
         attn = dot_product_attention(q, k, v, causal=True, segment_ids=segment_ids, impl=impl)
         h = h + attn.reshape(B, S, -1) @ layer["wo"]["kernel"]
         x = rms_norm(h, layer["mlp_norm"]["scale"], config.norm_eps)
-        h = h + llama_ffn(layer, x, config)
+        return h + llama_ffn(layer, x, config)
+
+    for i in range(config.n_layers):
+        layer = {name: {k: t[i] for k, t in entry.items()} for name, entry in layers.items()}
+        if remat:
+            h = torch.utils.checkpoint.checkpoint(decoder_layer, h, layer, use_reentrant=False,
+                                                  context_fn=context_fn)
+        else:
+            h = decoder_layer(h, layer)
     return lm_logits(params, h, config)
 
 

@@ -22,6 +22,13 @@ device scalars (the JAX package extends its opt_state to ``(inner,
 scale, growth_count)``; here ``opt_state`` stays the torch optimizer's
 own state, and ``state_dict`` carries all of them).
 
+:func:`adafactor` is ``optax.adafactor``'s chain as one optimizer
+(:class:`Adafactor`): factored second moments, block-RMS clipping, the
+learning rate, the parameter-scale multiply, optional momentum and weight
+decay, each at optax's dtype. :func:`chain` puts gradient transforms such
+as :func:`clip_by_global_norm` before an optimizer factory, as
+``optax.chain(optax.clip_by_global_norm(...), tx)`` does.
+
 The schedules are the port's copies of optax's ``constant_schedule``,
 ``linear_schedule``, ``cosine_decay_schedule`` and
 ``warmup_cosine_decay_schedule``: ``step -> lr`` in f32 (numpy
@@ -31,16 +38,20 @@ at the count of inner updates taken before this one.
 
 from __future__ import annotations
 
-from dataclasses import dataclass, field
-from typing import Callable, Optional, Union
+from dataclasses import dataclass, field, replace
+from typing import Callable, Optional, Sequence, Union
 
 import numpy as np
 import torch
 
 __all__ = [
     "AcceleratedOptimizer",
+    "Adafactor",
     "OptimizerFactory",
+    "adafactor",
     "adamw",
+    "chain",
+    "clip_by_global_norm",
     "constant_schedule",
     "cosine_decay_schedule",
     "linear_schedule",
@@ -115,11 +126,14 @@ def param_leaves(params) -> list:
 @dataclass(frozen=True)
 class OptimizerFactory:
     """``torch.optim`` class and keyword arguments, bound to params later;
-    ``schedule`` (``step -> lr``) sets the lr before each update."""
+    ``schedule`` (``step -> lr``) sets the lr before each update;
+    ``transforms`` (``grads -> grads`` on the list of gradients, in order)
+    run on the gradients before each update."""
 
     cls: type
     kwargs: dict = field(default_factory=dict)
     schedule: Optional[Callable] = None
+    transforms: tuple = ()
 
     def __call__(self, params: list) -> torch.optim.Optimizer:
         return self.cls(params, **self.kwargs)
@@ -137,6 +151,189 @@ def adamw(learning_rate: Union[float, Callable], b1: float = 0.9, b2: float = 0.
                                                     weight_decay=weight_decay), schedule)
 
 
+def _scalar(x: float, dtype: torch.dtype) -> float:
+    """``x`` rounded to ``dtype`` (through f32), as JAX casts a Python scalar
+    to the dtype of the array it multiplies or adds."""
+    return torch.tensor(float(np.float32(x))).to(dtype).item()
+
+
+def _pow(x: torch.Tensor, exponent: float) -> torch.Tensor:
+    """``x ** exponent`` in f32, rounded to ``x``'s dtype once, as XLA
+    computes a bf16 power or root (torch's bf16 CPU kernels for these are
+    an ulp off in a few percent of elements)."""
+    return x.float().pow(exponent).to(x.dtype)
+
+
+def clip_by_global_norm(max_norm: float) -> Callable[[list], list]:
+    """``optax.clip_by_global_norm``: when the global L2 norm of the
+    gradients reaches ``max_norm``, every gradient becomes ``g / norm ·
+    max_norm``; below it they pass unchanged. Each leaf's sum of squares is
+    in its dtype, as optax's; the choice stays on the device."""
+
+    def clip(grads: list) -> list:
+        norm = _pow(sum(torch.sum(g * g, dtype=torch.float32).to(g.dtype) for g in grads), 0.5)
+        keep = norm < max_norm
+        return [torch.where(keep, g, g / norm.to(g.dtype) * _scalar(max_norm, g.dtype))
+                for g in grads]
+
+    return clip
+
+
+def chain(*stages) -> OptimizerFactory:
+    """``optax.chain`` for the port: gradient transforms (such as
+    :func:`clip_by_global_norm`) followed by one optimizer factory (such as
+    :func:`adamw` or :func:`adafactor`); the transforms run in order on the
+    gradients before each update."""
+    *transforms, factory = stages
+    if not isinstance(factory, OptimizerFactory) or any(
+            isinstance(t, OptimizerFactory) or not callable(t) for t in transforms):
+        raise ValueError("chain takes gradient transforms followed by one optimizer factory")
+    return replace(factory, transforms=(*transforms, *factory.transforms))
+
+
+def _factored_dims(shape: Sequence[int], factored: bool, min_dim_size_to_factor: int):
+    """optax's ``_factored_dims``: the two largest dims ``(d1, d0)`` by
+    ``np.argsort`` (so ties break as optax's do), or None when the second
+    largest is under ``min_dim_size_to_factor`` or the leaf has one dim."""
+    if not factored or len(shape) < 2:
+        return None
+    sorted_dims = np.argsort(shape)
+    if shape[sorted_dims[-2]] < min_dim_size_to_factor:
+        return None
+    return int(sorted_dims[-2]), int(sorted_dims[-1])
+
+
+class Adafactor(torch.optim.Optimizer):
+    """``optax.adafactor`` (optax 0.2.6, ``_src/alias.py:225``) as one
+    ``torch.optim.Optimizer``, optax's chain in its order on each leaf:
+
+    1. ``scale_by_factored_rms``: second moments with decay ``1 - (t+1)^-0.8``
+       (t = updates taken less ``decay_offset``), kept as a row and a column
+       mean over the two largest dims when both reach
+       ``min_dim_size_to_factor``, else whole; the update is ``g`` over
+       their square root;
+    2. ``clip_by_block_rms(clipping_threshold)``: the update divided by
+       ``max(1, rms / threshold)``, the RMS over the whole leaf;
+    3. ``scale_by_learning_rate``: times ``lr`` (None: skipped);
+    4. ``scale_by_param_block_rms``: times ``max(rms(param), 1e-3)``;
+    5. ``ema(momentum, debias=False)`` in ``dtype_momentum`` (None: skipped);
+    6. ``add_decayed_weights(weight_decay_rate)``: plus ``rate · param``,
+       after the learning rate, so not scaled by it (None: skipped);
+    7. ``scale(-1)``, then ``param + update`` cast to the param's dtype.
+
+    The block of steps 2 and 4 is the whole leaf: a stacked ``[L, ...]``
+    leaf takes one RMS over all its layers, as in the JAX package. The
+    second-moment state is in the param's dtype and each moving average
+    runs in f32 before it is cast back (optax's f32 decay promotes it);
+    every other step runs in the dtype optax's promotion gives, a Python
+    scalar taking the array's dtype. :meth:`step` reads ``grads`` when
+    given (the update may then see f32 gradients of bf16 params, as the
+    JAX package's precision policy hands them), else each ``.grad``; a
+    param without one steps on zeros, as JAX's gradient of an unused leaf.
+    """
+
+    takes_grads = True
+
+    def __init__(self, params, lr: Optional[float] = None, min_dim_size_to_factor: int = 128,
+                 decay_rate: float = 0.8, decay_offset: int = 0,
+                 multiply_by_parameter_scale: bool = True,
+                 clipping_threshold: Optional[float] = 1.0, momentum: Optional[float] = None,
+                 dtype_momentum: torch.dtype = torch.float32,
+                 weight_decay_rate: Optional[float] = None, eps: float = 1e-30,
+                 factored: bool = True):
+        super().__init__(params, dict(
+            lr=lr, min_dim_size_to_factor=min_dim_size_to_factor, decay_rate=decay_rate,
+            decay_offset=decay_offset, multiply_by_parameter_scale=multiply_by_parameter_scale,
+            clipping_threshold=clipping_threshold, momentum=momentum,
+            dtype_momentum=dtype_momentum, weight_decay_rate=weight_decay_rate, eps=eps,
+            factored=factored))
+
+    @torch.no_grad()
+    def step(self, closure=None, grads: Optional[list] = None):
+        loss = None
+        if closure is not None:
+            with torch.enable_grad():
+                loss = closure()
+        grads = None if grads is None else iter(grads)
+        for group in self.param_groups:
+            for p in group["params"]:
+                g = p.grad if grads is None else next(grads)
+                p.add_(self._update(p, torch.zeros_like(p) if g is None else g, group))
+        return loss
+
+    def _update(self, p: torch.Tensor, g: torch.Tensor, group: dict) -> torch.Tensor:
+        f32, dtype = torch.float32, p.dtype
+        state = self.state[p]
+        dims = _factored_dims(p.shape, group["factored"], group["min_dim_size_to_factor"])
+        if not state:
+            state["step"] = 0
+            if dims is not None:
+                d1, d0 = dims
+                state["v_row"] = torch.zeros(np.delete(p.shape, d0).tolist(), dtype=dtype,
+                                             device=p.device)
+                state["v_col"] = torch.zeros(np.delete(p.shape, d1).tolist(), dtype=dtype,
+                                             device=p.device)
+            else:
+                state["v"] = torch.zeros_like(p)
+            if group["momentum"] is not None:
+                state["ema"] = torch.zeros_like(p, dtype=group["dtype_momentum"])
+        t = np.float32(state["step"] - group["decay_offset"] + 1)
+        decay = np.float32(1) - t ** np.float32(-group["decay_rate"])
+        keep, take = float(decay), float(np.float32(1) - decay)
+
+        def average(v, x):  # f32, then back to the state's dtype
+            return (keep * v.float() + take * x.float()).to(dtype)
+
+        grad_sqr = g * g + _scalar(group["eps"], g.dtype)
+        if dims is not None:
+            d1, d0 = dims
+            state["v_row"] = v_row = average(
+                state["v_row"], grad_sqr.mean(d0, dtype=f32).to(grad_sqr.dtype))
+            state["v_col"] = v_col = average(
+                state["v_col"], grad_sqr.mean(d1, dtype=f32).to(grad_sqr.dtype))
+            row_col_mean = v_row.mean(d1 - 1 if d1 > d0 else d1, keepdim=True,
+                                      dtype=f32).to(dtype)
+            u = g * _pow(v_row / row_col_mean, -0.5).unsqueeze(d0) * _pow(v_col, -0.5).unsqueeze(d1)
+        else:
+            state["v"] = v = average(state["v"], grad_sqr)
+            u = g * _pow(v, -0.5)
+        state["step"] += 1
+        if group["clipping_threshold"] is not None:
+            rms = _pow(torch.mean(u * u, dtype=f32).to(u.dtype), 0.5)
+            u = u / torch.clamp_min(rms / _scalar(group["clipping_threshold"], u.dtype), 1.0)
+        if group["lr"] is not None:
+            u = u * _scalar(group["lr"], u.dtype)
+        if group["multiply_by_parameter_scale"]:
+            rms = _pow(torch.mean(p * p, dtype=f32).to(dtype), 0.5)
+            u = u * torch.clamp_min(rms, _scalar(1e-3, dtype))
+        if group["momentum"] is not None:
+            m = group["momentum"]
+            u = u * _scalar(1 - m, u.dtype) + m * state["ema"]
+            state["ema"] = u.to(group["dtype_momentum"])
+        if group["weight_decay_rate"] is not None:
+            u = u + p * _scalar(group["weight_decay_rate"], dtype)
+        return u.neg()
+
+
+def adafactor(learning_rate: Union[None, float, Callable] = None,
+              min_dim_size_to_factor: int = 128, decay_rate: float = 0.8,
+              decay_offset: int = 0, multiply_by_parameter_scale: bool = True,
+              clipping_threshold: Optional[float] = 1.0, momentum: Optional[float] = None,
+              dtype_momentum: torch.dtype = torch.float32,
+              weight_decay_rate: Optional[float] = None, eps: float = 1e-30,
+              factored: bool = True) -> OptimizerFactory:
+    """:class:`Adafactor` with ``optax.adafactor``'s signature and defaults
+    (``weight_decay_mask`` is not ported). A callable ``learning_rate`` is a
+    schedule, read at the count of updates taken."""
+    schedule = learning_rate if callable(learning_rate) else None
+    lr = float(schedule(0)) if schedule is not None else learning_rate
+    return OptimizerFactory(Adafactor, dict(
+        lr=lr, min_dim_size_to_factor=min_dim_size_to_factor, decay_rate=decay_rate,
+        decay_offset=decay_offset, multiply_by_parameter_scale=multiply_by_parameter_scale,
+        clipping_threshold=clipping_threshold, momentum=momentum, dtype_momentum=dtype_momentum,
+        weight_decay_rate=weight_decay_rate, eps=eps, factored=factored), schedule)
+
+
 class AcceleratedOptimizer:
     """Wraps a ``torch.optim.Optimizer``, or a factory that makes one from
     the param list (:func:`adamw`); :meth:`init` binds the factory. With
@@ -151,6 +348,7 @@ class AcceleratedOptimizer:
         self.optimizer = optimizer if isinstance(optimizer, torch.optim.Optimizer) else None
         self.accumulation_steps = accumulation_steps
         self.schedule = getattr(optimizer, "schedule", None)
+        self.transforms = getattr(optimizer, "transforms", ())
         self.mini_step = 0  # micro-steps into the current window
         self.gradient_step = 0  # inner updates taken
         self.acc_grads: Optional[torch.Tensor] = None  # flat running mean of the window
@@ -176,24 +374,40 @@ class AcceleratedOptimizer:
         return [p for group in self.optimizer.param_groups for p in group["params"]]
 
     # ------------------------------------------------------------ updates --
-    def flat_grads(self) -> torch.Tensor:
-        """The params' ``.grad`` (zeros where a param has none, as JAX's
-        gradient of an unused leaf) concatenated into one flat tensor."""
-        return torch.cat([(p.grad if p.grad is not None else torch.zeros_like(p)).reshape(-1)
-                          for p in self.params])
+    def _grads(self) -> list:
+        """The params' ``.grad``, zeros where a param has none (as JAX's
+        gradient of an unused leaf)."""
+        return [p.grad if p.grad is not None else torch.zeros_like(p) for p in self.params]
 
-    def _set_grads(self, flat: torch.Tensor) -> None:
-        offset = 0
-        for p in self.params:
-            p.grad = flat[offset:offset + p.numel()].view_as(p).to(p.dtype)
-            offset += p.numel()
+    def flat_grads(self, dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+        """:meth:`_grads` concatenated into one flat tensor, cast to
+        ``dtype`` when given."""
+        return torch.cat([g.reshape(-1).to(dtype or g.dtype) for g in self._grads()])
 
-    def _inner_step(self) -> None:
+    def _split(self, flat: torch.Tensor) -> list:
+        """Views of ``flat`` shaped as the params, in ``flat``'s dtype."""
+        sizes = [p.numel() for p in self.params]
+        return [g.view_as(p) for g, p in zip(flat.split(sizes), self.params)]
+
+    def _inner_step(self, grads: Optional[list] = None) -> None:
+        """One update from ``grads`` (one per param) or, when ``None``, from
+        the params' ``.grad``. An optimizer that ``takes_grads`` gets them
+        in their own dtype; any other reads them from ``.grad``, in the
+        param's dtype."""
         if self.schedule is not None:  # optax reads the count before its increment
             lr = float(self.schedule(self.gradient_step))
             for group in self.optimizer.param_groups:
                 group["lr"] = lr
-        self.optimizer.step()
+        if self.transforms:
+            grads = self._grads() if grads is None else grads
+            for transform in self.transforms:
+                grads = transform(grads)
+        if getattr(self.optimizer, "takes_grads", False):
+            self.optimizer.step(grads=grads)
+        else:
+            for p, g in zip(self.params, grads or ()):
+                p.grad = g.to(p.dtype)
+            self.optimizer.step()
         self.gradient_step += 1
 
     def micro_step(self, flat: Optional[torch.Tensor] = None) -> None:
@@ -201,9 +415,7 @@ class AcceleratedOptimizer:
         layout), or on the params' ``.grad`` when ``None``."""
         k = self.accumulation_steps
         if k == 1:
-            if flat is not None:
-                self._set_grads(flat)
-            self._inner_step()
+            self._inner_step(None if flat is None else self._split(flat))
             return
         if flat is None:
             flat = self.flat_grads()
@@ -212,8 +424,7 @@ class AcceleratedOptimizer:
         acc = self.acc_grads
         acc.add_((flat - acc) / (self.mini_step + 1))
         if self.mini_step == k - 1:
-            self._set_grads(acc)
-            self._inner_step()
+            self._inner_step(self._split(acc))
             self.optimizer.zero_grad(set_to_none=True)  # no .grad may alias the buffer
             acc.zero_()
         self.mini_step = (self.mini_step + 1) % k

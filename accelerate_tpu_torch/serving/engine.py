@@ -174,6 +174,7 @@ class ServingEngine:
         #: paged forwards run: one per prefill chunk, one per plain decode
         #: batch; with speculation, k draft steps and one verify a step
         self.prefill_chunks = 0
+        self.prefill_calls = 0
         self.decode_steps = 0
         self.draft_steps = 0
         self.verify_steps = 0
@@ -357,6 +358,7 @@ class ServingEngine:
         req.generated.append(int(self._select(last, self._key_rows([req], 1))[0]))
         if req.first_token_t is None:
             req.first_token_t = now
+        self.prefill_calls += 1
         self.prefill_seconds += time.perf_counter() - t0
 
     def _batch(self, running: "list[Request]"):
@@ -470,6 +472,7 @@ class ServingEngine:
             "steps": self.steps,
             "decode_tokens": self.decode_tokens,
             "prefill_tokens": self.prefill_tokens,
+            "prefill_calls": self.prefill_calls,
             "prefill_chunks": self.prefill_chunks,
             "decode_steps": self.decode_steps,
             "draft_steps": self.draft_steps,
@@ -495,5 +498,12 @@ class ServingEngine:
                     self.draft_accepted_tokens / self.draft_proposed_tokens, 6
                 ) if self.draft_proposed_tokens else 0.0,
                 spec_accept_hist=self.spec_accept_hist.tolist(),
+            )
+        if self.prefix_cache:
+            # hit rate over prompt tokens: cached / (cached + prefilled)
+            total = self.prefix_cached_tokens + self.prefill_tokens
+            out.update(
+                prefill_tokens_saved=self.prefix_cached_tokens,
+                prefix_hit_rate=round(self.prefix_cached_tokens / total, 6) if total else 0.0,
             )
         return out

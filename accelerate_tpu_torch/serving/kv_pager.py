@@ -400,8 +400,21 @@ class BlockAllocator:
             raise BlockAllocatorError(f"blocks of unknown/freed sequence {seq_id!r}")
         return len(self._tables[seq_id])
 
+    def live_sequences(self) -> list:
+        return list(self._tables)
+
     def occupancy(self) -> float:
         return self.used_blocks / self.usable_blocks
+
+    def fragmentation(self) -> float:
+        """Fraction of allocated slots holding no token (the unwritten tails
+        of last blocks); 0.0 when nothing is allocated. Shared blocks can
+        push the logical token count past the physical slots: clamped at 0."""
+        allocated_slots = self.used_blocks * self.block_size
+        if not allocated_slots:
+            return 0.0
+        live_tokens = sum(self._tokens.values())
+        return max(0.0, (allocated_slots - live_tokens) / allocated_slots)
 
     def shared_blocks(self) -> int:
         return sum(1 for c in self._ref.values() if c > 1)
@@ -415,6 +428,7 @@ class BlockAllocator:
             "sequences": len(self._tables),
             "live_tokens": sum(self._tokens.values()),
             "occupancy": round(self.occupancy(), 6),
+            "fragmentation": round(self.fragmentation(), 6),
         }
         if self.prefix_caching:
             out.update(

@@ -56,7 +56,20 @@ csrc`` at first use) and no network. Phases, each of which fails the run:
    follow the scaler's rule on every micro-step; the fused kernels' fp16
    rows and an fp16 overflow that must leave the same elements non-finite
    in the kernel and in the plain version;
-6. the card's name and power limit, one JSON line of kernel records, and
+6. the flash kernels (#1-#3) against their plain versions at the
+   long-context shapes and at ``bench.py`` config #4's attention (B=8,
+   S=512, 20/20 heads); the long-context Llama (dim 1024, 16 layers,
+   S=8192) in two legs, f32 masters with AdamW and the JAX bench's bf16
+   params with ``adafactor`` and remat ``"dots_no_batch"``; then config #4
+   itself at full width and depth (860.1 M params, vocab 50257, dim 1280,
+   36 layers, 20 heads, batch 8 x 512, bf16 params, ``adafactor(1e-4)``,
+   remat ``"dots_no_batch"``; the forward kernel runs twice a layer, once
+   more in the recompute), timed, counted and profiled, with a few steps at
+   remat ``False``, ``True`` and ``"dots_no_batch"`` whose peak memory must
+   be ordered ``True < "dots_no_batch" < False``; 3 f32 steps at its width
+   and 2 layers, remat against none and kernels against plain attention;
+   the adafactor update on the card against the CPU;
+7. the card's name and power limit, one JSON line of kernel records, and
    a last line ``{"ok": true, "device": {...}}``.
 
 Without a CUDA device, or without the package beside it, it exits non-zero
@@ -153,6 +166,7 @@ FLASH_CASES = {  # name: (B, S, H, Hkv, D, window, packed); all causal
     "packed": (4, 2048, 16, 8, 64, None, True),
     "window": (2, 4096, 16, 8, 64, 1024, False),
     "gqa_d128": (2, 2048, 8, 2, 128, None, False),
+    "lm774m": (8, 512, 20, 20, 64, None, False),  # config #4's attention
 }
 # The long-context Llama of the JAX package's run_bench_longcontext
 # (bench.py:936-938) at full width and depth, batch 1 x S=8192.
@@ -162,6 +176,28 @@ LLAMA_LR, LLAMA_K, LLAMA_CALLS = 1e-4, 2, 2
 # kernels-vs-plain training check: the same width at 2 layers, a packed
 # batch of 2 rows x 2048 tokens, 3 f32 AdamW steps
 LLAMA_CHECK_LAYERS, LLAMA_CHECK_SEQ, LLAMA_CHECK_BATCH = 2, 2048, 2
+# bench.py's config #4 (run_bench_fsdp_lm, bench.py:405-473) at full width
+# and depth: a 774M-class Llama (860.1 M params; FFN 3584), bf16 params,
+# adafactor(1e-4), remat "dots_no_batch" (the first rung of the bench's
+# ladder), batch 8 x 512 of default_rng(0) ids, K steps a call. attn_impl=
+# "flash" is what JAX's "auto" picks on a TPU at this shape (S=512 >= the
+# bf16 causal crossover 384); the port's "auto" is the einsum path.
+LM774M_KW = dict(vocab_size=50257, dim=1280, n_layers=36, n_heads=20, n_kv_heads=20,
+                 max_seq_len=512, attn_impl="flash")
+LM774M_BATCH, LM774M_LR, LM774M_K, LM774M_CALLS = 8, 1e-4, 2, 2
+LM774M_REMATS = (False, True, "dots_no_batch")
+# check at a cut depth: 2 layers, 2 rows x 512, 3 f32 steps. Remat only
+# recomputes what no remat computed once, with the same kernels on the same
+# inputs, so the two runs may differ only where a kernel's summation order
+# is not fixed: 1e-6 relative. The adafactor update on the card against the
+# CPU (see _adafactor_device_check): f32 within 1e-5 of the leaf's largest
+# update; bf16 each element within 8 bf16 ulps, each leaf within 1e-3
+# relative L2 and bitwise in at least 99 % of its elements (measured on an
+# H100: 5.0e-7; 4.4 ulps, 1.0e-4 and 99.99 %).
+LM774M_CHECK_LAYERS, LM774M_CHECK_BATCH = 2, 2
+REMAT_RTOL = 1e-6
+ADAFACTOR_F32_RTOL, ADAFACTOR_BF16_ULPS, ADAFACTOR_BF16_RTOL = 1e-5, 8.0, 1e-3
+ADAFACTOR_BF16_SAME = 0.99
 # The serving benchmark's TPU configuration (benchmarks/serving/run.py:
 # run_bench_spec_decode :751-757, run_bench_serving :818-826), full width
 # and depth: a 0.16 B-param Llama (bf16 params from seed 0), 8 slots, 160
@@ -1334,15 +1370,8 @@ def _train_run(dev, precision, plain):
     from accelerate_tpu_torch.ops import fused_attention as fa
     from accelerate_tpu_torch.utils.operations import stack_batches
 
-    def named(tree, prefix=""):
-        for key, v in tree.items():
-            if isinstance(v, dict):
-                yield from named(v, f"{prefix}{key}/")
-            else:
-                yield f"{prefix}{key}", v.detach()
-
     config, params, opt, batches, loop = _train_setup(dev, precision, 3)
-    init = {name: t.clone() for name, t in named(params)}
+    init = {name: t.clone() for name, t in _named(params)}
     kernels = (fa.fused_attention_fwd, fa.fused_attention_bwd)
     before = [k.launches for k in kernels]
     if plain:
@@ -1357,7 +1386,7 @@ def _train_run(dev, precision, plain):
     want = [0, 0] if plain else [3 * config.n_layers] * 2
     check(launched == want, f"{precision} check ({'plain' if plain else 'kernels'}): fused "
                             f"launches {launched}, want {want}")
-    upd = {name: (t - init[name]).float() for name, t in named(params)}
+    upd = {name: (t - init[name]).float() for name, t in _named(params)}
     return m["loss"].cpu(), upd, {k: v.cpu() for k, v in m.items()}
 
 
@@ -1773,36 +1802,39 @@ def phase_flash_kernels(dev):
 FLASH_KERNELS = ("flash_attention_fwd", "flash_attention_dq", "flash_attention_dkdv")
 
 
-def _llama_setup(dev, precision, config, lr):
-    """``config`` through ``Accelerator.prepare``: random f32 master
-    weights from seed 0, ``adamw(lr)``. Returns the prepared params,
-    optimizer and loop."""
+def _llama_setup(dev, precision, config, factory, dtype=torch.float32, remat=False):
+    """``config`` through ``Accelerator.prepare``: random weights from seed 0
+    in ``dtype`` (f32 masters, or bf16 params as the JAX benches keep
+    them), the optimizer ``factory``. Returns the prepared params,
+    optimizer and loop (``llama_loss`` at ``remat``)."""
     from accelerate_tpu_torch import Accelerator, init_llama, llama_loss
-    from accelerate_tpu_torch.optimizer import adamw
 
     _reset_states()
     acc = Accelerator(mixed_precision=precision, rng_seed=0)
-    params = init_llama(config, torch.Generator(device=dev).manual_seed(0), device=dev)
-    params, opt = acc.prepare(params, adamw(lr))
-    loop = acc.prepare_train_loop(lambda p, b: llama_loss(p, b, config), opt)
+    params = init_llama(config, torch.Generator(device=dev).manual_seed(0), device=dev,
+                        dtype=dtype)
+    params, opt = acc.prepare(params, factory)
+    loop = acc.prepare_train_loop(lambda p, b: llama_loss(p, b, config, remat=remat), opt)
     return params, opt, loop
 
 
-def phase_llama_train(dev):
-    """The Llama training main path at full width and depth in bf16: one
-    warm call of the K-step loop, then LLAMA_CALLS timed calls with the
-    flash counters zeroed before and read after (16 launches of each kernel
-    a step); then ``torch.profiler`` over one step."""
-    from accelerate_tpu_torch import LlamaConfig
+def _n_params(params) -> int:
+    return sum(t.numel() for v in params.values() for e in v.values()
+               for t in (e.values() if isinstance(e, dict) else [e]))
+
+
+def _lm_leg(dev, tag, config, batches, precision, factory, dtype, remat, calls, what,
+            profile=True):
+    """One Llama training leg: ``_llama_setup``, one warm call of the
+    K-step loop, then ``calls`` timed calls with the flash counters zeroed
+    before and read after and the peak memory reset; then, with
+    ``profile``, ``torch.profiler`` over one step. Under remat each layer's
+    flash forward runs twice a step (forward and recompute), dq and dk/dv
+    once. Returns the launches and the leg's numbers."""
     from accelerate_tpu_torch.ops import flash_attention as fa
 
-    config = LlamaConfig(**LLAMA_KW)
-    S = config.max_seq_len
-    ids = np.random.default_rng(0).integers(0, config.vocab_size, (LLAMA_K, 1, S))
-    batches = {"input_ids": torch.from_numpy(ids.astype(np.int32)).to(dev)}
-    params, opt, loop = _llama_setup(dev, "bf16", config, LLAMA_LR)
-    n_params = sum(t.numel() for v in params.values() for e in v.values()
-                   for t in (e.values() if isinstance(e, dict) else [e]))
+    K, B, S = batches["input_ids"].shape
+    params, opt, loop = _llama_setup(dev, precision, config, factory, dtype, remat)
     state = opt.opt_state
     params, state, m = loop(params, state, batches)
     losses = [m["loss"]]
@@ -1811,29 +1843,230 @@ def phase_llama_train(dev):
     for kern in FLASH_KERNELS:
         getattr(fa, kern).launches = 0
     t0 = time.perf_counter()
-    for _ in range(LLAMA_CALLS):
+    for _ in range(calls):
         params, state, m = loop(params, state, batches)
         losses.append(m["loss"])
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {kern: getattr(fa, kern).launches for kern in FLASH_KERNELS}
     peak = torch.cuda.max_memory_allocated()
-    steps = LLAMA_CALLS * LLAMA_K
+    steps = calls * K
     losses = torch.cat(losses).cpu()
-    check(bool(torch.isfinite(losses).all()), f"non-finite Llama loss: {losses.tolist()}")
-    for name, count in launches.items():
-        check(count == config.n_layers * steps,
-              f"{name}: {count} launches in {steps} steps, want {config.n_layers} a step")
-    print(f"[llama] {n_params / 1e6:.1f} M params, dim {config.dim}, {config.n_layers} layers, "
-          f"{config.n_heads}/{config.n_kv_heads} heads, ffn {config.hidden_dim}; bf16 compute / "
-          f"f32 masters, batch 1 x seq {S}, attn_impl=flash, adamw({LLAMA_LR:g}), no remat")
-    print(f"[llama] {steps} timed steps in {wall:.3f} s: {wall / steps * 1e3:.1f} ms/step, "
-          f"{steps * S / wall:.1f} tokens/s; peak memory {peak / 2**30:.2f} GiB")
-    print(f"[llama] loss over {len(losses)} steps: " + " ".join(f"{x:.4f}" for x in losses.tolist()))
-    print(f"[llama] launches on the main path ({steps} steps): {launches}")
-    one = {"input_ids": batches["input_ids"][:1]}
-    _profile_step(loop, params, state, one, "llama-profile", 2)
+    check(bool(torch.isfinite(losses).all()), f"[{tag}] non-finite loss: {losses.tolist()}")
+    fwd_a_step = config.n_layers * (2 if remat else 1)
+    want = {"flash_attention_fwd": fwd_a_step * steps,
+            "flash_attention_dq": config.n_layers * steps,
+            "flash_attention_dkdv": config.n_layers * steps}
+    check(launches == want, f"[{tag}] launches in {steps} steps {launches}, want {want} "
+                            f"({fwd_a_step} forwards a step at remat={remat!r})")
+    ms = wall / steps * 1e3
+    print(f"[{tag}] {_n_params(params) / 1e6:.1f} M params, dim {config.dim}, "
+          f"{config.n_layers} layers, {config.n_heads}/{config.n_kv_heads} heads, ffn "
+          f"{config.hidden_dim}, vocab {config.vocab_size}; {what}, batch {B} x seq {S}, "
+          f"attn_impl=flash, remat={remat!r}")
+    print(f"[{tag}] {steps} timed steps in {wall:.3f} s: {ms:.1f} ms/step, "
+          f"{steps * B * S / wall:.1f} tokens/s; peak memory {peak / 2**30:.2f} GiB")
+    print(f"[{tag}] loss over {len(losses)} steps: "
+          + " ".join(f"{x:.4f}" for x in losses.tolist()))
+    print(f"[{tag}] launches on the main path ({steps} steps): {launches}")
+    if profile:
+        one = {"input_ids": batches["input_ids"][:1]}
+        _profile_step(loop, params, state, one, f"{tag}-profile", 2)
+    del params, opt, loop, state
+    torch.cuda.empty_cache()
+    return launches, {"ms": ms, "peak": peak}
+
+
+def phase_llama_train(dev):
+    """The long-context Llama at full width and depth, two legs: f32
+    masters with bf16 compute and ``adamw``, no remat; then the JAX
+    bench's own configuration: bf16 params, ``adafactor(1e-4)``, remat
+    ``"dots_no_batch"``. Each leg's timed calls read the flash counters: 16
+    launches of dq and dk/dv a step, and of the forward 16 or, under
+    remat, 32."""
+    from accelerate_tpu_torch import LlamaConfig
+    from accelerate_tpu_torch.optimizer import adafactor, adamw
+
+    config = LlamaConfig(**LLAMA_KW)
+    S = config.max_seq_len
+    ids = np.random.default_rng(0).integers(0, config.vocab_size, (LLAMA_K, 1, S))
+    batches = {"input_ids": torch.from_numpy(ids.astype(np.int32)).to(dev)}
+    launches, masters = _lm_leg(dev, "llama", config, batches, "bf16", adamw(LLAMA_LR),
+                                torch.float32, False, LLAMA_CALLS,
+                                f"bf16 compute / f32 masters, adamw({LLAMA_LR:g})")
+    _, jax_leg = _lm_leg(dev, "llama-jaxcfg", config, batches, "no", adafactor(LLAMA_LR),
+                         torch.bfloat16, "dots_no_batch", LLAMA_CALLS,
+                         f"bf16 params, adafactor({LLAMA_LR:g})")
+    print(f"[llama] step: f32 masters + adamw, no remat {masters['ms']:.1f} ms "
+          f"({masters['peak'] / 2**30:.2f} GiB); bf16 params + adafactor + remat "
+          f"'dots_no_batch' (the JAX bench's) {jax_leg['ms']:.1f} ms "
+          f"({jax_leg['peak'] / 2**30:.2f} GiB)")
     return launches
+
+
+def phase_lm774m(dev):
+    """``bench.py``'s config #4 at full width and depth through
+    ``prepare_train_loop``: bf16 params from seed 0, ``Accelerator(
+    mixed_precision="no")`` (the bench's raw-jit semantics), ``adafactor(
+    1e-4)``, flash attention, remat ``"dots_no_batch"``, batch 8 x 512 of
+    ``default_rng(0)`` ids; timed, counted and profiled. Then a few steps
+    at each of remat ``False``, ``True`` and ``"dots_no_batch"``: peak
+    memory must order ``True < "dots_no_batch" < False``, which shows that
+    the policies save different sets on the card."""
+    from accelerate_tpu_torch import LlamaConfig
+    from accelerate_tpu_torch.optimizer import adafactor
+
+    config = LlamaConfig(**LM774M_KW)
+    ids = np.random.default_rng(0).integers(0, config.vocab_size,
+                                            (LM774M_K, LM774M_BATCH, config.max_seq_len))
+    batches = {"input_ids": torch.from_numpy(ids.astype(np.int32)).to(dev)}
+    what = f"bf16 params, adafactor({LM774M_LR:g}), mixed_precision='no'"
+    launches, _ = _lm_leg(dev, "lm774m", config, batches, "no", adafactor(LM774M_LR),
+                          torch.bfloat16, "dots_no_batch", LM774M_CALLS, what)
+    ladder = {}
+    for remat in LM774M_REMATS:
+        _, ladder[remat] = _lm_leg(dev, f"lm774m-remat-{remat}", config, batches, "no",
+                                   adafactor(LM774M_LR), torch.bfloat16, remat, 1, what,
+                                   profile=False)
+    print("[lm774m] remat ladder: " + "; ".join(
+        f"{r!r} {v['ms']:.1f} ms/step, peak {v['peak'] / 2**30:.2f} GiB"
+        for r, v in ladder.items()))
+    peaks = [ladder[r]["peak"] for r in (True, "dots_no_batch", False)]
+    check(peaks[0] < peaks[1] < peaks[2],
+          f"peak memory not ordered True < 'dots_no_batch' < False: {peaks}")
+    return launches
+
+
+def _named(tree, prefix=""):
+    for key, v in tree.items():
+        if isinstance(v, dict):
+            yield from _named(v, f"{prefix}{key}/")
+        else:
+            yield f"{prefix}{key}", v.detach()
+
+
+def _adafactor_device_check(dev, config):
+    """The adafactor update on the card against the same update on the
+    CPU: the leaves of ``config`` (a cut depth of config #4) in f32 and in
+    bf16, seeded params and gradients, 3 steps, each step's update (the
+    chain's output before it is added) compared. f32: within
+    ADAFACTOR_F32_RTOL of the leaf's largest update element (another
+    summation order in the means, another ``pow``). bf16: both sides round
+    every op to bf16 at the same points, but a mean summed in another order
+    can round its scalar or row statistic one bf16 ulp apart, and that ulp
+    passes through up to five roundings of the update (the two factors,
+    their product, the clip and the param scale); each element within
+    ADAFACTOR_BF16_ULPS ulps (2**-8 of its magnitude each), each leaf
+    within ADAFACTOR_BF16_RTOL relative L2 and bitwise in at least
+    ADAFACTOR_BF16_SAME of its elements."""
+    from accelerate_tpu_torch import init_llama
+    from accelerate_tpu_torch.optimizer import Adafactor
+
+    for dtype in (torch.float32, torch.bfloat16):
+        sides = {"cpu": dict(_named(init_llama(config, torch.Generator().manual_seed(3),
+                                               device="cpu", dtype=dtype)))}
+        sides["gpu"] = {k: v.to(dev, copy=True) for k, v in sides["cpu"].items()}
+        opts = {d: Adafactor(list(ps.values()), lr=LM774M_LR) for d, ps in sides.items()}
+        rng = np.random.default_rng(4)
+        worst = {"rel": 0.0, "l2": 0.0, "ulps": 0.0, "same": 1.0}
+        for _ in range(3):
+            for k, p in sides["cpu"].items():
+                g = torch.from_numpy(rng.standard_normal(p.shape, np.float32)).to(dtype)
+                u = {}
+                for d, ps in sides.items():
+                    opt = opts[d]
+                    u[d] = opt._update(ps[k], g.to(ps[k].device), opt.param_groups[0])
+                    ps[k].add_(u[d])
+                a, b = u["gpu"].cpu().float(), u["cpu"].float()
+                diff = (a - b).abs()
+                worst["rel"] = max(worst["rel"], float(diff.max() / b.abs().max()))
+                worst["l2"] = max(worst["l2"], float(torch.linalg.vector_norm(a - b)
+                                                    / torch.linalg.vector_norm(b)))
+                worst["ulps"] = max(worst["ulps"], float(
+                    (diff / (2.0 ** -8 * b.abs()).clamp_min(1e-30)).max()))
+                worst["same"] = min(worst["same"], float((a == b).float().mean()))
+        print(f"[lm774m-check] adafactor on the card vs the CPU, {len(sides['cpu'])} leaves of "
+              f"{config.n_layers} layers at config #4's width, 3 steps, {dtype}: largest "
+              f"update difference {worst['rel']:.3e} of the leaf's largest, {worst['ulps']:.2f} "
+              f"bf16 ulps of its own element, {worst['l2']:.3e} relative L2; smallest bitwise "
+              f"share of a leaf {worst['same']:.5f}")
+        if dtype == torch.float32:
+            check(worst["rel"] <= ADAFACTOR_F32_RTOL, f"adafactor f32 card vs CPU: {worst}")
+        else:
+            check(worst["ulps"] <= ADAFACTOR_BF16_ULPS and worst["l2"] <= ADAFACTOR_BF16_RTOL
+                  and worst["same"] >= ADAFACTOR_BF16_SAME,
+                  f"adafactor bf16 card vs CPU: {worst}")
+
+
+def phase_lm774m_check(dev):
+    """Config #4's width at LM774M_CHECK_LAYERS layers, 3 f32 steps with
+    ``adafactor``: remat ``"dots_no_batch"`` against no remat, both
+    through the kernels (losses and each leaf's 3-step update within
+    REMAT_RTOL, and whether they are bitwise equal); then the kernels
+    against their plain versions at remat ``"dots_no_batch"``, as
+    ``phase_llama_train_check``; then the adafactor update on the card
+    against the CPU."""
+    from accelerate_tpu_torch import LlamaConfig
+    from accelerate_tpu_torch.ops import flash_attention as fa
+    from accelerate_tpu_torch.optimizer import adafactor
+
+    config = LlamaConfig(**{**LM774M_KW, "n_layers": LM774M_CHECK_LAYERS})
+    ids = np.random.default_rng(1).integers(0, config.vocab_size,
+                                            (3, LM774M_CHECK_BATCH, config.max_seq_len))
+    batches = {"input_ids": torch.from_numpy(ids.astype(np.int32)).to(dev)}
+
+    def run(remat, plain):
+        params, opt, loop = _llama_setup(dev, "no", config, adafactor(LM774M_LR),
+                                         remat=remat)
+        init = {name: t.clone() for name, t in _named(params)}
+        kernels = [getattr(fa, kern) for kern in FLASH_KERNELS]
+        before = [kern.launches for kern in kernels]
+        if plain:
+            for kern in FLASH_KERNELS:
+                setattr(fa, kern, getattr(fa, f"{kern}_reference"))
+        try:
+            params, _, m = loop(params, opt.opt_state, batches)
+            torch.cuda.synchronize()
+        finally:
+            for kern, fn in zip(FLASH_KERNELS, kernels):
+                setattr(fa, kern, fn)
+        launched = [kern.launches - b for kern, b in zip(kernels, before)]
+        L = 3 * config.n_layers
+        want = [0] * 3 if plain else [L * (2 if remat else 1), L, L]
+        check(launched == want, f"lm774m f32 check (remat={remat!r}, "
+                                f"{'plain' if plain else 'kernels'}): flash launches "
+                                f"{launched}, want {want}")
+        return m["loss"].cpu(), {name: t - init[name] for name, t in _named(params)}
+
+    r_loss, r_upd = run("dots_no_batch", plain=False)
+    n_loss, n_upd = run(False, plain=False)
+    check(bool(torch.isfinite(r_loss).all() and torch.isfinite(n_loss).all()),
+          "non-finite lm774m f32 loss")
+    loss_err = float(((r_loss - n_loss).abs() / n_loss.abs()).max())
+    upd_err = {name: float(torch.linalg.vector_norm(a - n_upd[name])
+                           / torch.linalg.vector_norm(n_upd[name])) for name, a in r_upd.items()}
+    worst = max(upd_err, key=upd_err.get)
+    bitwise = torch.equal(r_loss, n_loss) and all(torch.equal(a, n_upd[k])
+                                                  for k, a in r_upd.items())
+    print(f"[lm774m-check] {LM774M_CHECK_LAYERS} layers at config #4's width, batch "
+          f"{LM774M_CHECK_BATCH} x {config.max_seq_len}, f32, adafactor, 3 steps, remat "
+          f"'dots_no_batch' vs none: losses {' '.join(f'{x:.6f}' for x in r_loss.tolist())}; "
+          f"max rel err loss {loss_err:.3e}, largest update rel L2 err {upd_err[worst]:.3e} "
+          f"({worst}; tol {REMAT_RTOL:.0e}); bitwise equal: {bitwise}")
+    check(loss_err <= REMAT_RTOL and upd_err[worst] <= REMAT_RTOL,
+          f"remat 'dots_no_batch' vs none: loss {loss_err}, {worst} {upd_err[worst]}")
+    p_loss, p_upd = run("dots_no_batch", plain=True)
+    loss_err = float(((r_loss - p_loss).abs() / p_loss.abs()).max())
+    upd_err = {name: float(torch.linalg.vector_norm(a - p_upd[name])
+                           / torch.linalg.vector_norm(p_upd[name])) for name, a in r_upd.items()}
+    worst = max(upd_err, key=upd_err.get)
+    print(f"[lm774m-check] remat 'dots_no_batch', kernels vs plain attention: max rel err loss "
+          f"{loss_err:.3e} (tol {TRAIN_RTOL:.0e}); largest update rel L2 err "
+          f"{upd_err[worst]:.3e} ({worst}; tol {TRAIN_UPDATE_RTOL:.0e})")
+    check(loss_err <= TRAIN_RTOL, f"lm774m f32 losses: kernels vs plain rel err {loss_err}")
+    check(upd_err[worst] <= TRAIN_UPDATE_RTOL,
+          f"lm774m f32 3-step update of {worst}: kernels vs plain rel L2 err {upd_err[worst]}")
+    _adafactor_device_check(dev, config)
 
 
 def phase_llama_train_check(dev):
@@ -1843,6 +2076,7 @@ def phase_llama_train_check(dev):
     update compared."""
     from accelerate_tpu_torch import LlamaConfig
     from accelerate_tpu_torch.ops import flash_attention as fa
+    from accelerate_tpu_torch.optimizer import adamw
 
     config = LlamaConfig(**{**LLAMA_KW, "n_layers": LLAMA_CHECK_LAYERS,
                             "max_seq_len": LLAMA_CHECK_SEQ})
@@ -1853,16 +2087,9 @@ def phase_llama_train_check(dev):
     batches = {"input_ids": torch.from_numpy(ids.astype(np.int32)).to(dev),
                "segment_ids": torch.from_numpy(seg).to(dev)}
 
-    def named(tree, prefix=""):
-        for key, v in tree.items():
-            if isinstance(v, dict):
-                yield from named(v, f"{prefix}{key}/")
-            else:
-                yield f"{prefix}{key}", v.detach()
-
     def run(plain):
-        params, opt, loop = _llama_setup(dev, "no", config, LLAMA_LR)
-        init = {name: t.clone() for name, t in named(params)}
+        params, opt, loop = _llama_setup(dev, "no", config, adamw(LLAMA_LR))
+        init = {name: t.clone() for name, t in _named(params)}
         kernels = [getattr(fa, kern) for kern in FLASH_KERNELS]
         before = [kern.launches for kern in kernels]
         if plain:
@@ -1878,7 +2105,7 @@ def phase_llama_train_check(dev):
         want = [0] * 3 if plain else [3 * config.n_layers] * 3
         check(launched == want, f"Llama f32 check ({'plain' if plain else 'kernels'}): flash "
                                 f"launches {launched}, want {want}")
-        return m["loss"].cpu(), {name: t - init[name] for name, t in named(params)}
+        return m["loss"].cpu(), {name: t - init[name] for name, t in _named(params)}
 
     k_loss, k_upd = run(plain=False)
     p_loss, p_upd = run(plain=True)
@@ -1954,6 +2181,8 @@ def main() -> int:
     flash_results = phase_flash_kernels(dev)
     llama_launches = phase_llama_train(dev)
     phase_llama_train_check(dev)
+    lm_launches = phase_lm774m(dev)
+    phase_lm774m_check(dev)
 
     keys =("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     records = []
@@ -1988,10 +2217,13 @@ def main() -> int:
         ("flash_attention_dkdv", "dkdv", "flash_dkdv", 281),
     ):
         rec = flash_results[("llama_long", kind, torch.bfloat16)]
+        lm_rec = flash_results[("lm774m", kind, torch.bfloat16)]
         records.append({"name": name, "route": "cuda",
                         "source": f"accelerate_tpu_torch/csrc/{source}.cu",
                         "replaces": f"accelerate_tpu/ops/flash_attention.py:{line}",
-                        "launches": llama_launches[name], **{k: rec[k] for k in keys}})
+                        "launches": llama_launches[name], **{k: rec[k] for k in keys},
+                        "lm774m": {k: lm_rec[k] for k in keys},
+                        "launches_lm774m": lm_launches[name]})
     print(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(card)
     print(json.dumps({"kernels": records}))

@@ -507,6 +507,47 @@ def test_flash_kernels_long_sequence(dev, dtype):
     _check_flash_kernels(q, k, v, seg, do, True, None, 128, 128)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernels_at_the_lm774m_shape(dev, dtype):
+    """``bench.py`` config #4's attention: B=8, S=512, 20 q heads over 20
+    kv heads (GQA group 1), D=64, causal."""
+    q, k, v, seg, do = _flash_case(11, 8, 512, 20, 20, 64, False, dev, dtype)
+    _check_flash_kernels(q, k, v, seg, do, True, None, 128, 128)
+
+
+@pytest.mark.parametrize("remat", [True, "dots", "dots_no_batch"])
+def test_remat_through_the_flash_kernels(dev, remat):
+    """``llama_loss`` under remat through the kernels, f32, 2 layers: the
+    forward kernel runs twice a layer (the recompute), dq and dk/dv once,
+    and the gradients equal no remat's within 1e-6 of each leaf's largest
+    (the recompute repeats the same kernels on the same inputs; only the
+    embedding's backward adds repeated rows in a nondeterministic order)."""
+    from accelerate_tpu_torch.models import transformer as tt
+    from accelerate_tpu_torch.optimizer import param_leaves
+
+    config = tt.LlamaConfig(vocab_size=512, dim=256, n_layers=2, n_heads=4, n_kv_heads=2,
+                            max_seq_len=256, attn_impl="flash")
+    ids = torch.from_numpy(np.random.default_rng(12).integers(0, 512, (2, 256))).to(dev)
+    kernels = (fa.flash_attention_fwd, fa.flash_attention_dq, fa.flash_attention_dkdv)
+
+    def grads(r):
+        params = tt.init_llama(config, torch.Generator(device=dev).manual_seed(0), device=dev)
+        leaves = param_leaves(params)
+        for t in leaves:
+            t.requires_grad_(True)
+        before = [kern.launches for kern in kernels]
+        tt.llama_loss(params, {"input_ids": ids}, config, remat=r).backward()
+        torch.cuda.synchronize()
+        return [t.grad for t in leaves], [kern.launches - b for kern, b in zip(kernels, before)]
+
+    base, base_launches = grads(False)
+    got, launches = grads(remat)
+    L = config.n_layers
+    assert base_launches == [L, L, L] and launches == [2 * L, L, L]
+    for a, b in zip(got, base):
+        assert float((a - b).abs().max()) <= 1e-6 * float(b.abs().max())
+
+
 @pytest.mark.parametrize("D", [64, 128])
 @pytest.mark.parametrize("kernel", ["flash_dq", "flash_dkdv", "fused_bwd"])
 def test_backward_kernels_are_deterministic(dev, kernel, D):

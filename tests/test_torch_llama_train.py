@@ -245,8 +245,6 @@ def test_pack_sequences_and_unpack_match_jax():
 def test_unported_forward_options_raise(params):
     tp = params_from_numpy(params[1], device="cpu")
     ids = torch.from_numpy(_ids(8, rows=1, seq=16))
-    with pytest.raises(NotImplementedError, match="remat"):
-        tt.llama_forward(tp, ids, TCFG, remat="dots_no_batch")
     with pytest.raises(NotImplementedError, match="attention_fn"):
         tt.llama_forward(tp, ids, TCFG, attention_fn=lambda *a, **k: None)
     with pytest.raises(NotImplementedError, match="MoE"):

@@ -461,3 +461,42 @@ def test_resume_from_generated_continues_the_unbroken_run(params, sample):
     for engine in (je, te):
         with pytest.raises(ValueError, match="nothing left to decode"):
             engine.submit(prompt, 5, generated=[1, 2, 3, 4, 5])
+
+
+@pytest.mark.parametrize("spec", [{}, dict(spec_tokens=3, draft_layers=1)], ids=["plain", "spec"])
+@pytest.mark.parametrize("prefix_cache", [True, False], ids=["prefix_on", "prefix_off"])
+def test_stats_carry_every_jax_key_with_its_value(params, prefix_cache, spec):
+    """The whole ``stats()`` dict against the JAX engine's: every JAX key
+    but the ``*_compiles`` counts of its compile cache is in the port's,
+    with an equal value, after the first step and at the end. Three greedy
+    prompts share their first 16 tokens (two full blocks of 8), 6 new
+    tokens each; with the prefix cache on, JAX counts 3 prefill calls, 32
+    tokens saved, a hit rate of 0.561404 and no fragmentation."""
+    rng = np.random.default_rng(0)
+    shared = rng.integers(0, VOCAB, 16)
+    prompts = [np.concatenate([shared, rng.integers(0, VOCAB, n)]).astype(np.int32)
+               for n in (2, 3, 4)]
+    buckets = dict(slot_buckets=(2, 4), block_buckets=(4,), prefill_buckets=(32,))
+    je, te = _engines(params, buckets, num_blocks=33, block_size=8, max_slots=4,
+                      prefix_cache=prefix_cache, **spec)
+    jr = [je.submit(p, 6) for p in prompts]
+    tr = [te.submit(p, 6) for p in prompts]
+
+    def same_stats():
+        want, got = je.stats(), te.stats()
+        keys = [k for k in want if not k.endswith("_compiles")]
+        assert [k for k in keys if k not in got] == []
+        assert {k: got[k] for k in keys} == {k: want[k] for k in keys}
+        return want
+
+    je.step()
+    te.step()
+    same_stats()
+    je.run()
+    te.run()
+    _same_outputs(jr, tr)
+    final = same_stats()
+    assert te.allocator.live_sequences() == je.allocator.live_sequences() == []
+    assert final["prefill_calls"] == 3 and final["fragmentation"] == 0.0
+    if prefix_cache:
+        assert (final["prefill_tokens_saved"], final["prefix_hit_rate"]) == (32, 0.561404)
