@@ -38,7 +38,14 @@ Ported so far:
 - ``llama_forward(remat=...)`` with JAX's policies (``torch.utils.
   checkpoint`` per layer), ``optimizer.adafactor`` (optax's chain and
   dtypes), ``chain(clip_by_global_norm(...), tx)``, and bf16 params
-  through ``prepare_train_loop``.
+  through ``prepare_train_loop``;
+- generation and big-model inference: KV-cache ``greedy_generate``,
+  ``sample_generate`` (JAX's one-key-per-step streams), ``beam_generate``
+  and the offloaded ``generate_dispatched`` (``generation``); device maps,
+  CPU and disk offload with pinned host memory and one-ahead prefetch on a
+  side stream, ``load_checkpoint_and_dispatch`` from ``.npz`` or
+  ``.safetensors`` (``big_modeling``, ``hooks``, ``utils.modeling``,
+  ``utils.offload``); ``llama_forward(remat="offload_dots")``.
 """
 
 from .accelerator import Accelerator
@@ -56,7 +63,27 @@ from .utils.dataclasses import (
     GradientAccumulationPlugin,
     GradScalerConfig,
 )
-from .generation import sample_token_logits
+from .big_modeling import (
+    DispatchedParams,
+    UserCpuOffloadHook,
+    cpu_offload,
+    cpu_offload_with_hook,
+    disk_offload,
+    dispatch_model,
+    dispatch_params,
+    init_empty_weights,
+    init_on_device,
+    load_checkpoint_and_dispatch,
+)
+from .generation import (
+    beam_generate,
+    generate_dispatched,
+    greedy_generate,
+    init_kv_cache,
+    sample_generate,
+    sample_token_logits,
+    unstack_layer_params,
+)
 from .models.transformer import (
     BertConfig,
     LlamaConfig,
@@ -73,6 +100,15 @@ from .serving.buckets import BucketLattice
 from .serving.engine import ServingEngine, paged_forward
 from .serving.scheduler import Request, RequestStatus
 from .ops.flash_attention import flash_attention  # after serving: the two import each other
+from .utils.modeling import (
+    abstract_params,
+    compute_module_sizes,
+    find_tied_parameters,
+    get_balanced_memory,
+    get_max_memory,
+    infer_auto_device_map,
+    load_checkpoint_in_params,
+)
 
 __all__ = [
     "AcceleratedScheduler",
@@ -80,6 +116,7 @@ __all__ = [
     "BertConfig",
     "BucketLattice",
     "DataLoader",
+    "DispatchedParams",
     "DummyOptim",
     "DummyScheduler",
     "GradScalerConfig",
@@ -88,19 +125,41 @@ __all__ = [
     "Request",
     "RequestStatus",
     "ServingEngine",
+    "UserCpuOffloadHook",
+    "abstract_params",
+    "beam_generate",
     "bert_forward",
     "bert_loss",
+    "compute_module_sizes",
     "constant_schedule",
     "cosine_decay_schedule",
+    "cpu_offload",
+    "cpu_offload_with_hook",
+    "disk_offload",
+    "dispatch_model",
+    "dispatch_params",
     "draft_config",
     "draft_params",
+    "find_tied_parameters",
     "flash_attention",
+    "generate_dispatched",
+    "get_balanced_memory",
+    "get_max_memory",
+    "greedy_generate",
+    "infer_auto_device_map",
     "init_bert",
+    "init_empty_weights",
+    "init_kv_cache",
     "init_llama",
+    "init_on_device",
     "linear_schedule",
     "llama_forward",
     "llama_loss",
+    "load_checkpoint_and_dispatch",
+    "load_checkpoint_in_params",
     "paged_forward",
+    "sample_generate",
     "sample_token_logits",
+    "unstack_layer_params",
     "warmup_cosine_decay_schedule",
 ]

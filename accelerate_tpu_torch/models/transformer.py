@@ -8,12 +8,12 @@ JAX initializer load unchanged through :mod:`.convert`. Matmuls are
 ``x @ kernel`` with ``kernel`` stored ``[in, out]``, as in the reference.
 
 Only the dense SwiGLU FFN is ported; MoE configs and ``dtype_recipe="fp8"``
-raise ``NotImplementedError``, as do ``llama_forward``'s ``attention_fn``
-and ``remat="offload_dots"``.
+raise ``NotImplementedError``, as does ``llama_forward``'s ``attention_fn``.
 """
 
 from __future__ import annotations
 
+import collections
 import functools
 import math
 from dataclasses import dataclass, replace
@@ -21,6 +21,7 @@ from typing import Optional
 
 import numpy as np
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
 from ..utils.device import resolve_device
 
@@ -242,16 +243,67 @@ def segment_positions(segment_ids: torch.Tensor) -> torch.Tensor:
 _MM_OPS = ("mm", "addmm")  # x @ W: products with no batch dims
 
 
+class _HostSaveMode(TorchDispatchMode):
+    """The forward side of ``remat="offload_dots"``: runs every op and
+    copies the output of each op in ``saved`` to host memory (pinned when
+    it lives on a CUDA device: the copy is queued on the current stream
+    and the host buffer is read back only after it), appended to
+    ``store[op]`` in call order."""
+
+    def __init__(self, saved, store):
+        super().__init__()
+        self.saved, self.store = saved, store
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        if func in self.saved:
+            host = torch.empty(out.shape, dtype=out.dtype, device="cpu",
+                               pin_memory=out.is_cuda)
+            host.copy_(out.detach(), non_blocking=True)
+            self.store[func].append((host, out.device))
+        return out
+
+
+class _HostRestoreMode(TorchDispatchMode):
+    """The recompute side: an op in ``saved`` is not run again; its output
+    is the next host copy from ``store[op]``, copied back to the device the
+    forward ran on (on that device's current stream, so it is there before
+    the recomputed layer reads it). Every other op is recomputed."""
+
+    def __init__(self, saved, store):
+        super().__init__()
+        self.saved, self.store = saved, store
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if func in self.saved:
+            host, device = self.store[func].pop(0)
+            return host.to(device, non_blocking=True)
+        return func(*args, **(kwargs or {}))
+
+
+def _offload_dots_context(saved):
+    """``context_fn`` of ``remat="offload_dots"``: a fresh store per
+    checkpointed call, filled by the forward and drained by the recompute.
+    ``create_selective_checkpoint_contexts`` keeps its ``MUST_SAVE`` outputs
+    in a cache of its own, which an outer ``saved_tensors_hooks`` pair
+    cannot see, so the move to the host happens where the saved outputs
+    are taken and handed back."""
+    store = collections.defaultdict(list)
+    return _HostSaveMode(saved, store), _HostRestoreMode(saved, store)
+
+
 def _remat_context(remat):
     """The ``context_fn`` of ``torch.utils.checkpoint`` for a ``remat`` name,
     after JAX's ``_remat_policy``: ``True``/``"nothing"`` save nothing
     (plain checkpointing); ``"dots"`` saves every matmul's output
     (``checkpoint_dots``); ``"dots_no_batch"`` only those of ``x @ W`` with
     no batch dims (``dots_with_no_batch_dims_saveable``), so the attention
-    products and kernels are recomputed. Everything else, the buffers a
-    ctypes-launched kernel writes into included, is recomputed: the
-    dispatcher never sees those kernels, so it may not hold their
-    ``aten.empty``."""
+    products and kernels are recomputed; ``"offload_dots"`` the same set as
+    ``"dots_no_batch"`` held in pinned host memory between the forward and
+    the backward (``offload_dot_with_no_batch_dims("device",
+    "pinned_host")``). Everything else, the buffers a ctypes-launched
+    kernel writes into included, is recomputed: the dispatcher never sees
+    those kernels, so it may not hold their ``aten.empty``."""
     from torch.utils.checkpoint import (
         CheckpointPolicy,
         create_selective_checkpoint_contexts,
@@ -260,16 +312,15 @@ def _remat_context(remat):
 
     if remat is True or remat == "nothing":
         return noop_context_fn
-    if remat == "offload_dots":
-        raise NotImplementedError(
-            "remat='offload_dots' (matmul outputs saved to pinned host memory) is not ported "
-            "yet: it comes with the offload pieces of ROADMAP.md Queue A 4")
-    names = {"dots": (*_MM_OPS, "bmm"), "dots_no_batch": _MM_OPS}.get(remat)
+    names = {"dots": (*_MM_OPS, "bmm"), "dots_no_batch": _MM_OPS,
+             "offload_dots": _MM_OPS}.get(remat)
     if names is None:
         raise ValueError(
             f"remat must be bool, 'nothing', 'dots', 'dots_no_batch' or "
             f"'offload_dots'; got {remat!r}")
     saved = {getattr(torch.ops.aten, name).default for name in names}
+    if remat == "offload_dots":
+        return functools.partial(_offload_dots_context, saved)
 
     def policy(ctx, op, *args, **kwargs):
         return (CheckpointPolicy.MUST_SAVE if op in saved
@@ -298,9 +349,10 @@ def llama_forward(params: dict, input_ids: torch.Tensor, config: LlamaConfig,
     (``torch.utils.checkpoint``, non-reentrant); the embedding and the head
     stay outside, as JAX's layer ``scan`` leaves them. ``False`` saves
     everything, ``True`` or ``"nothing"`` nothing inside a layer, ``"dots"``
-    every matmul output and ``"dots_no_batch"`` only the ``x @ W``
-    projections; ``"offload_dots"`` is not ported. A kernel in the layer
-    (flash attention) then runs its forward twice a step."""
+    every matmul output, ``"dots_no_batch"`` only the ``x @ W``
+    projections and ``"offload_dots"`` those projections in pinned host
+    memory. A kernel in the layer (flash attention) then runs its forward
+    twice a step."""
     from ..generation import _project_qkv
     from ..ops.attention import dot_product_attention
 

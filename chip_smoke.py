@@ -29,6 +29,22 @@ csrc`` at first use) and no network. Phases, each of which fails the run:
 4. the cached path (chunked prefill + 16 decode steps through
    ``paged_forward`` and the kernels) against the plain full-sequence
    forward, logits compared in f32;
+   then ``bench.py``'s config #5 on the same model: ``greedy_generate`` at
+   batch 8 x 128 prompt tokens, 64 new, with warm-up (prefill seconds,
+   decode tokens/s, seconds/token, the HBM roofline fraction, a profiled
+   decode step), every greedy token held to an f32 forward of the same
+   weights (the argmax, or a printed near-tie within a bar) and the
+   cached forward in f32 to its logits, two decode-cache faults planted
+   in the path failing both checks,
+   ``sample_generate`` twice from one key to the same tokens, and
+   ``beam_generate`` at 4 beams (finite) and 1 (equal to greedy); then its
+   offload legs: ``cpu_offload`` (pinning timed apart) and
+   ``generate_dispatched`` for 16 tokens, bit for bit greedy's tokens,
+   with the bytes a token moves against one pinned copy timed alone and
+   the copy time that runs beside the layers' kernels in a profile;
+   ``disk_offload`` and ``load_checkpoint_and_dispatch`` from an ``.npz``
+   of the same weights (layers on the card, on the host and two on disk),
+   4 tokens each, the same tokens;
    then ``benchmarks/serving/run.py``'s legs at their TPU configuration
    (dim 1024, 8 layers, 16/8 heads, vocab 32000, random bf16 weights from
    seed 0; 8 slots, 160 blocks of 16; the bench's seeded open-loop
@@ -65,9 +81,13 @@ csrc`` at first use) and no network. Phases, each of which fails the run:
    36 layers, 20 heads, batch 8 x 512, bf16 params, ``adafactor(1e-4)``,
    remat ``"dots_no_batch"``; the forward kernel runs twice a layer, once
    more in the recompute), timed, counted and profiled, with a few steps at
-   remat ``False``, ``True`` and ``"dots_no_batch"`` whose peak memory must
-   be ordered ``True < "dots_no_batch" < False``; 3 f32 steps at its width
-   and 2 layers, remat against none and kernels against plain attention;
+   remat ``False``, ``True``, ``"dots_no_batch"`` and ``"offload_dots"``
+   whose peak memory must be ordered ``True < "dots_no_batch" < False``,
+   with ``"offload_dots"`` (the same saved set in pinned host memory) below
+   ``"dots_no_batch"``, and the bytes ``"offload_dots"`` sends to the host
+   and takes back in one step; 3 f32 steps at its width and 2 layers, remat
+   (``"dots_no_batch"`` and ``"offload_dots"``) against none and kernels
+   against plain attention;
    the adafactor update on the card against the CPU;
 7. the card's name and power limit, one JSON line of kernel records, and
    a last line ``{"ok": true, "device": {...}}``.
@@ -78,6 +98,7 @@ and prints no result.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import math
@@ -185,7 +206,7 @@ LLAMA_CHECK_LAYERS, LLAMA_CHECK_SEQ, LLAMA_CHECK_BATCH = 2, 2048, 2
 LM774M_KW = dict(vocab_size=50257, dim=1280, n_layers=36, n_heads=20, n_kv_heads=20,
                  max_seq_len=512, attn_impl="flash")
 LM774M_BATCH, LM774M_LR, LM774M_K, LM774M_CALLS = 8, 1e-4, 2, 2
-LM774M_REMATS = (False, True, "dots_no_batch")
+LM774M_REMATS = (False, True, "dots_no_batch", "offload_dots")
 # check at a cut depth: 2 layers, 2 rows x 512, 3 f32 steps. Remat only
 # recomputes what no remat computed once, with the same kernels on the same
 # inputs, so the two runs may differ only where a kernel's summation order
@@ -1237,6 +1258,416 @@ def phase_static(params, config):
     return dict(continuous=cont, static=static, match=match)
 
 
+# bench.py's config #5 (run_bench_inference, bench.py:554-630): the Llama-1B
+# class model of CONFIG_KW (bf16 params from seed 0), batch 8 x 128 prompt
+# tokens of default_rng(0), 64 new tokens, greedy with warm-up; then its
+# CPU-offload leg, 16 tokens through generate_dispatched (the beam search
+# runs 16 tokens too), and the disk legs 4.
+GEN_BATCH, GEN_PROMPT, GEN_NEW, GEN_SHORT_NEW, GEN_DISK_NEW = 8, 128, 64, 16, 4
+GEN_SAMPLE = dict(temperature=0.8, top_k=50, top_p=0.9)
+GEN_SAMPLE_NEW, GEN_BEAMS = 32, 4
+# Greedy bf16 tokens against an f32 forward of the same (upcast) weights
+# over the generated rows: each token must be the f32 argmax, or its f32
+# logit within this of the f32 maximum. Each bf16 op rounds at 2**-9
+# relative, which grows through 16 residual layers to a few parts in 10**3
+# of the hidden state, and the head's bf16 output rounds in steps of 2**-6
+# to 2**-7 at these logits, so the two paths' logits differ by a few
+# hundredths. Two decode-cache faults planted in the generation path
+# (GEN_FAULTS) must miss it, and are printed beside it in every run.
+GEN_F32_BAR = 0.25
+# The generation path's cached forward in f32 (prefill, then one step per
+# token, f32 cache) against the f32 full forward over the greedy rows is
+# held to LOGIT_ATOL; each planted fault must miss it.
+GEN_FAULTS = ("late", "lost")
+# load_checkpoint_and_dispatch leg: stage names a layer may not be split
+# across, and how many layers the budgets put on the device and the host
+GEN_NO_SPLIT = [r"^layer_\d+$"]
+GEN_LAYERS_ON_DEVICE, GEN_LAYERS_ON_CPU = 8, 6
+
+
+def _profile_decode_step(params, config, dev, prompt):
+    """``torch.profiler`` over one greedy decode step of the resident path
+    (``_forward_cached`` at batch 8, position 128, and its argmax), after
+    the same step unprofiled for its host wall: device ms, device events
+    and busy share."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from accelerate_tpu_torch import generation as gen
+
+    B, S = prompt.shape
+    rope = gen._rope(config, dev)
+    layers = [gen.layer_params(params, i) for i in range(config.n_layers)]
+    cache = gen.init_kv_cache(config, B, S + 2, torch.bfloat16, dev)
+    with torch.no_grad():
+        tok = torch.argmax(gen._forward_cached(params, prompt, cache, 0, config, rope,
+                                               layers)[:, -1], dim=-1)
+
+        def one_step():
+            return torch.argmax(gen._forward_cached(params, tok[:, None], cache, S, config, rope,
+                                                    layers)[:, -1], dim=-1)
+
+        one_step()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        one_step()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+        prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+        prof.start()
+        one_step()
+        torch.cuda.synchronize()
+        prof.stop()
+    rows = _device_rows(prof)
+    if not rows:
+        print("[generate] the profiler recorded no device time: busy share not measured")
+        return
+    device_us = sum(r[1] for r in rows)
+    print(f"[generate] profile of one decode step (batch {B}, position {S}): wall "
+          f"{wall_us / 1e3:.3f} ms unprofiled, device {device_us / 1e3:.3f} ms in "
+          f"{sum(r[2] for r in rows)} device events, busy share {device_us / wall_us:.3f}")
+    for key, us, count in sorted(rows, key=lambda r: -r[1])[:6]:
+        print(f"[generate]   {us / 1e3:8.4f} ms  {count:5d} calls  {key[:90]}")
+
+
+def _f32_logits(f32, config, tokens, n_prompt, dev):
+    """The f32 full forward (``llama_forward``, einsum attention) over the
+    rows ``tokens [B, T]``: logits ``[B, T - n_prompt, V]``, row t the one
+    that predicts token ``n_prompt + t``."""
+    from accelerate_tpu_torch.models.transformer import llama_forward
+
+    ids = torch.from_numpy(tokens.astype(np.int64)).to(dev)
+    with torch.no_grad():
+        return llama_forward(f32, ids[:, :-1], config, attention_impl="xla")[:, n_prompt - 1:]
+
+
+def _token_gaps(logits, tokens, n_prompt):
+    """How far each generated token's logit lies below the maximum of its
+    row of ``logits`` (0 where it is the argmax), ``[B, T - n_prompt]``."""
+    chosen = torch.from_numpy(tokens[:, n_prompt:].astype(np.int64)).to(logits.device)
+    return (logits.max(dim=-1).values - logits.gather(-1, chosen[..., None])[..., 0]).cpu()
+
+
+def _generate_logits(f32, config, tokens, n_prompt, dev):
+    """The same logits through the generation path's cached forward
+    (``_forward_cached``): the prompt prefilled at once, then one step per
+    token, against an f32 cache."""
+    from accelerate_tpu_torch import generation as gen
+
+    ids = torch.from_numpy(tokens.astype(np.int64)).to(dev)
+    B, T = ids.shape
+    cache = gen.init_kv_cache(config, B, T, torch.float32, dev)
+    rope = gen._rope(config, dev)
+    with torch.no_grad():
+        out = [gen._forward_cached(f32, ids[:, :n_prompt], cache, 0, config, rope)[:, -1:]]
+        for t in range(n_prompt, T - 1):
+            out.append(gen._forward_cached(f32, ids[:, t:t + 1], cache, t, config, rope))
+    return torch.cat(out, dim=1)
+
+
+@contextlib.contextmanager
+def _planted_fault(fault):
+    """A decode-cache fault planted in the generation path, for the checks'
+    negative control: ``"late"`` writes each decode step's k/v one slot
+    late (the step then attends a slot no step wrote, and loses the
+    prompt's first token); ``"lost"`` keeps no decode step's k/v (each
+    step sees the prompt and itself)."""
+    from accelerate_tpu_torch import generation as gen
+
+    real = gen._layer_step
+
+    def step(layer, h, k_cache, v_cache, start, cos, sin, config):
+        if h.shape[1] == 1:
+            if fault == "late":
+                k_cache, v_cache = k_cache[:, 1:], v_cache[:, 1:]
+            else:
+                k_cache, v_cache = k_cache.clone(), v_cache.clone()
+        return real(layer, h, k_cache, v_cache, start, cos, sin, config)
+
+    gen._layer_step = step
+    try:
+        yield
+    finally:
+        gen._layer_step = real
+
+
+def _f32_greedy_check(params, config, tokens, n_prompt, dev, prompt):
+    """Every greedy token against the f32 full forward of the same weights
+    on the generated rows: the f32 argmax, or a near-tie within
+    GEN_F32_BAR, each printed. Then the generation path's cached forward
+    in f32 against the same logits, within LOGIT_ATOL. Then each planted
+    fault through both, each of which it must fail: its greedy tokens'
+    largest gap against GEN_F32_BAR, its cached logits' error against
+    LOGIT_ATOL."""
+    from accelerate_tpu_torch import greedy_generate
+
+    f32 = _to_f32(params)
+    logits = _f32_logits(f32, config, tokens, n_prompt, dev)
+    gap = _token_gaps(logits, tokens, n_prompt)
+    near = [(int(r), int(t), float(gap[r, t])) for r, t in torch.nonzero(gap > 0).tolist()]
+    for r, t, g in near:
+        print(f"[generate]   near-tie: row {r} token {t}: bf16 chose {int(tokens[r, n_prompt + t])}"
+              f", f32 argmax {int(logits[r, t].argmax())}, f32 logit gap {g:.4f}")
+    worst = float(gap.max())
+    print(f"[generate] greedy bf16 tokens vs the f32 forward over the {tokens.shape[0]} generated "
+          f"rows ({config.n_layers} layers): {gap.numel() - len(near)} of {gap.numel()} are the "
+          f"f32 argmax; largest gap {worst:.4f} (bar {GEN_F32_BAR})")
+    check(worst <= GEN_F32_BAR, f"a greedy token's f32 logit is {worst} below the f32 maximum")
+    err = float((_generate_logits(f32, config, tokens, n_prompt, dev) - logits).abs().max())
+    print(f"[generate] cached forward in f32 vs the f32 full forward over the greedy rows: max abs "
+          f"logit err {err:.3e} (tol {LOGIT_ATOL:.0e}, max |logit| {float(logits.abs().max()):.3f})")
+    check(err <= LOGIT_ATOL, f"generation's cached forward vs full forward: {err} > {LOGIT_ATOL}")
+    for fault in GEN_FAULTS:
+        with _planted_fault(fault):
+            bad_err = float((_generate_logits(f32, config, tokens, n_prompt, dev) - logits)
+                            .abs().max())
+            bad = greedy_generate(params, prompt, config, max_new_tokens=GEN_SHORT_NEW)
+        bad_gap = _token_gaps(_f32_logits(f32, config, bad, n_prompt, dev), bad, n_prompt)
+        print(f"[generate] planted fault {fault!r}: greedy tokens' largest f32 gap "
+              f"{float(bad_gap.max()):.4f} ({int((bad_gap > 0).sum())} of {bad_gap.numel()} not "
+              f"the f32 argmax; bar {GEN_F32_BAR}); cached f32 logits err {bad_err:.3e} (tol "
+              f"{LOGIT_ATOL:.0e})")
+        check(bad_err > LOGIT_ATOL and float(bad_gap.max()) > GEN_F32_BAR,
+              f"planted fault {fault!r} within a bar ({LOGIT_ATOL}, {GEN_F32_BAR}): too loose")
+    del f32
+
+
+def phase_generate(params, config, dev, load_s):
+    """``bench.py``'s config #5 on the card: ``greedy_generate`` at batch 8
+    x 128 prompt tokens, 64 new, bf16, with warm-up and stats; the HBM
+    roofline fraction as ``bench.py:603-606`` computes it; a profiled decode
+    step; the f32 check; ``sample_generate`` twice from one key;
+    ``beam_generate`` at 4 beams (finite) and at 1 (equal to greedy).
+    Returns the prompt and the greedy tokens at GEN_SHORT_NEW and
+    GEN_DISK_NEW new tokens, for the offload legs."""
+    from accelerate_tpu_torch import beam_generate, greedy_generate, sample_generate
+    from accelerate_tpu_torch.utils.random import prng_key
+
+    t_phase = time.perf_counter()
+    prompt = np.random.default_rng(0).integers(0, config.vocab_size,
+                                               (GEN_BATCH, GEN_PROMPT)).astype(np.int32)
+    n_params = _n_params(params)
+    tokens, stats = greedy_generate(params, prompt, config, max_new_tokens=GEN_NEW,
+                                    return_stats=True, warmup=True)
+    check(tokens.shape == (GEN_BATCH, GEN_PROMPT + GEN_NEW)
+          and (tokens[:, GEN_PROMPT:] >= 0).all()
+          and (tokens[:, GEN_PROMPT:] < config.vocab_size).all(), "bad greedy tokens")
+    tps = stats["decode_tokens_per_sec"]
+    hbm_frac = (tps / GEN_BATCH) * (2.0 * n_params) / HBM_BYTES_PER_S
+    print(f"[generate] config #5: {n_params / 1e9:.4f} B params (bf16), batch {GEN_BATCH} x "
+          f"{GEN_PROMPT} prompt tokens, {GEN_NEW} new; load_seconds {load_s:.3f} (init from "
+          f"seed 0 on the card)")
+    print(f"[generate] prefill_seconds {stats['prefill_seconds']:.4f}, decode_tokens_per_sec "
+          f"{tps:.1f}, seconds_per_token {stats['seconds_per_token']:.5f}; HBM roofline fraction "
+          f"{hbm_frac:.4f} ((tok/s / {GEN_BATCH}) x 2N bytes over {HBM_BYTES_PER_S / 1e12:.2f} "
+          f"TB/s, the H100 SXM data sheet's HBM3 rate)")
+    _profile_decode_step(params, config, dev, torch.from_numpy(prompt.astype(np.int64)).to(dev))
+    _f32_greedy_check(params, config, tokens, GEN_PROMPT, dev, prompt)
+
+    draws = [sample_generate(params, prompt, config, max_new_tokens=GEN_SAMPLE_NEW,
+                             rng_key=prng_key(0), **GEN_SAMPLE) for _ in range(2)]
+    check(np.array_equal(draws[0], draws[1]), "sample_generate from one key gave two streams")
+    check(not np.array_equal(draws[0], tokens[:, :GEN_PROMPT + GEN_SAMPLE_NEW]),
+          "sampled tokens equal the greedy ones")
+    print(f"[generate] sample_generate {GEN_SAMPLE}, {GEN_SAMPLE_NEW} tokens, twice from "
+          f"prng_key(0): the same tokens; "
+          f"{int((draws[0][:, GEN_PROMPT:] != tokens[:, GEN_PROMPT:GEN_PROMPT + GEN_SAMPLE_NEW]).sum())}"
+          f" of {GEN_BATCH * GEN_SAMPLE_NEW} differ from greedy")
+
+    # a cache sized for 16 new tokens: the comparisons below are bitwise, and
+    # the attention's reductions run over the cache's length
+    greedy16 = greedy_generate(params, prompt, config, max_new_tokens=GEN_SHORT_NEW)
+    t0 = time.perf_counter()
+    beams, scores = beam_generate(params, prompt, config, num_beams=GEN_BEAMS,
+                                  max_new_tokens=GEN_SHORT_NEW, return_scores=True)
+    torch.cuda.synchronize()
+    beam_s = time.perf_counter() - t0
+    check(bool(np.isfinite(scores).all()) and beams.shape == greedy16.shape,
+          f"beam search: scores {scores}")
+    one = beam_generate(params, prompt, config, num_beams=1, max_new_tokens=GEN_SHORT_NEW)
+    check(np.array_equal(one, greedy16), "beam_generate(num_beams=1) differs from greedy")
+    print(f"[generate] beam_generate {GEN_BEAMS} beams x {GEN_SHORT_NEW} tokens in {beam_s:.3f} s: "
+          f"scores {' '.join(f'{s:.4f}' for s in scores.tolist())}; "
+          f"{int((beams != greedy16).sum())} tokens differ from greedy; 1 beam equals greedy")
+    greedy4 = greedy_generate(params, prompt, config, max_new_tokens=GEN_DISK_NEW)
+    print(f"[generate] phase seconds {time.perf_counter() - t_phase:.1f}")
+    return prompt, greedy16, greedy4
+
+
+def _copy_overlap(prof):
+    """(host→device copy µs, of it µs overlapping a kernel on another
+    stream, kernel µs) from a profiler's device events, or None when the
+    profiler gives no device events with streams."""
+    copies, kernels = [], []
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        span = (e.time_range.start, e.time_range.end, getattr(e, "device_resource_id", None))
+        if "Memcpy HtoD" in e.name:
+            copies.append(span)
+        elif "Memcpy" not in e.name and "Memset" not in e.name:
+            kernels.append(span)
+    if not copies or not kernels:
+        return None
+    kernels.sort()
+    copy_us = sum(b - a for a, b, _ in copies)
+    kernel_us = sum(b - a for a, b, _ in kernels)
+    beside = 0.0
+    for a, b, stream in copies:
+        # the union of kernel intervals on other streams, clipped to [a, b]
+        cur_a = cur_b = None
+        for ka, kb, ks in kernels:
+            if ks == stream or kb <= a or ka >= b:
+                continue
+            ka, kb = max(ka, a), min(kb, b)
+            if cur_b is None or ka > cur_b:
+                if cur_b is not None:
+                    beside += cur_b - cur_a
+                cur_a, cur_b = ka, kb
+            else:
+                cur_b = max(cur_b, kb)
+        if cur_b is not None:
+            beside += cur_b - cur_a
+    return copy_us, beside, kernel_us
+
+
+def _stage_bytes(stages, names):
+    return sum(t.numel() * t.element_size() for n in names for _, t in _named(stages[n]))
+
+
+def phase_offload(params, config, dev, prompt, greedy16, greedy4):
+    """The CPU-offload leg of ``bench.py:609-628``: ``cpu_offload(
+    unstack_layer_params(params))`` (pinning timed apart) and
+    ``generate_dispatched`` for 16 tokens with warm-up, which must give
+    ``greedy_generate``'s tokens bit for bit; the host-to-device bytes a
+    token and the rate they reach against one large pinned copy timed
+    alone; a profile of a prefill and one decode step for the copy time
+    that runs beside the layers' kernels. Then ``disk_offload`` (4
+    tokens) and ``load_checkpoint_and_dispatch`` from an ``.npz`` of the
+    same weights under budgets that put layers on the card, on the host
+    and two on disk (4 tokens): the same tokens."""
+    import tempfile
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from accelerate_tpu_torch import (abstract_params, compute_module_sizes, cpu_offload,
+                                      disk_offload, generate_dispatched, init_llama,
+                                      load_checkpoint_and_dispatch, unstack_layer_params)
+    from accelerate_tpu_torch.utils.modeling import named_parameters
+
+    t_phase = time.perf_counter()
+    stages = unstack_layer_params(params, config)
+    layer_names = [n for n in stages if n.startswith("layer_")]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    dp = cpu_offload(stages)
+    pin_s = time.perf_counter() - t0
+    pinned = all(t.is_pinned() for t in dp._host.values())
+    check(pinned, "cpu_offload left a host leaf in pageable memory")
+    out, stats = generate_dispatched(dp, prompt, config, max_new_tokens=GEN_SHORT_NEW,
+                                     return_stats=True, warmup=True)
+    check(np.array_equal(out, greedy16),
+          f"generate_dispatched (cpu offload) differs from greedy_generate in "
+          f"{int((out != greedy16).sum())} tokens")
+    per_token = _stage_bytes(stages, layer_names)
+    once = _stage_bytes(stages, [n for n in stages if n not in layer_names])
+    spt = stats["seconds_per_token"]
+    # the bound: one pinned copy of the same bytes, timed alone
+    big = torch.empty(per_token // 2, dtype=torch.bfloat16, pin_memory=True)
+    copy_ms = []
+    for _ in range(3):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        on_dev = big.to(dev, non_blocking=True)
+        ev[1].record()
+        torch.cuda.synchronize()
+        copy_ms.append(ev[0].elapsed_time(ev[1]))
+        del on_dev
+    del big
+    best_copy = min(copy_ms)
+    print(f"[offload] cpu_offload of {len(stages)} stages: {pin_s:.3f} s pinning "
+          f"{(per_token + once) / 1e9:.3f} GB (outside seconds_per_token)")
+    print(f"[offload] generate_dispatched {GEN_SHORT_NEW} tokens: prefill_seconds "
+          f"{stats['prefill_seconds']:.4f}, seconds_per_token {spt:.5f}, decode_tokens_per_sec "
+          f"{stats['decode_tokens_per_sec']:.2f}; tokens equal greedy_generate's bit for bit")
+    print(f"[offload] host-to-device {per_token / 1e9:.4f} GB a token (the {len(layer_names)} "
+          f"layers; embedding, final norm and head, {once / 1e9:.4f} GB, stay after the first): "
+          f"{per_token / spt / 1e9:.2f} GB/s; one pinned copy of the same bytes alone "
+          f"{best_copy:.3f} ms ({per_token / best_copy / 1e6:.2f} GB/s, best of "
+          f"{' '.join(f'{m:.3f}' for m in copy_ms)} ms): the leg runs at "
+          f"{best_copy / 1e3 / spt:.3f} of that bound")
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    prof.start()
+    generate_dispatched(dp, prompt, config, max_new_tokens=2)
+    torch.cuda.synchronize()
+    prof.stop()
+    overlap = _copy_overlap(prof)
+    if overlap is None:
+        print("[offload] the profiler gave no host-to-device copies with kernels: overlap "
+              "not measured")
+    else:
+        copy_us, beside, kernel_us = overlap
+        print(f"[offload] profile of a prefill and one decode step: host-to-device copies "
+              f"{copy_us / 1e3:.3f} ms on the side stream, kernels {kernel_us / 1e3:.3f} ms; "
+              f"{beside / 1e3:.3f} ms of copy run beside a kernel on the compute stream "
+              f"({beside / max(copy_us, 1e-9):.3f} of the copy time, "
+              f"{beside / max(kernel_us, 1e-9):.3f} of the kernel time)")
+    del dp
+
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        dp = disk_offload(stages, os.path.join(tmp, "disk"))
+        write_s = time.perf_counter() - t0
+        out, stats = generate_dispatched(dp, prompt, config, max_new_tokens=GEN_DISK_NEW,
+                                         return_stats=True)
+        check(np.array_equal(out, greedy4), "disk_offload tokens differ from greedy_generate's")
+        print(f"[offload] disk_offload: {write_s:.3f} s writing the memmaps; "
+              f"generate_dispatched {GEN_DISK_NEW} tokens, seconds_per_token "
+              f"{stats['seconds_per_token']:.5f}; tokens equal greedy_generate's")
+        del dp
+        import shutil
+
+        shutil.rmtree(os.path.join(tmp, "disk"))
+
+        ckpt = os.path.join(tmp, "model.npz")
+        t0 = time.perf_counter()
+        np.savez(ckpt, **{k: v.float().cpu().numpy() for k, v in named_parameters(stages).items()})
+        save_s = time.perf_counter() - t0
+        abstract = abstract_params(lambda: unstack_layer_params(
+            init_llama(config, device="cpu", dtype=torch.bfloat16), config))
+        sizes = compute_module_sizes(abstract)
+        layer = sizes[layer_names[0]]
+        reserve = max(sizes["lm_head"] if "lm_head" in sizes else 0, layer)
+        max_memory = {0: sizes["embed_tokens"] + GEN_LAYERS_ON_DEVICE * layer + reserve,
+                      "cpu": GEN_LAYERS_ON_CPU * layer + reserve}
+        t0 = time.perf_counter()
+        dp = load_checkpoint_and_dispatch(abstract, ckpt, device_map="auto",
+                                          max_memory=max_memory,
+                                          no_split_module_patterns=GEN_NO_SPLIT,
+                                          offload_folder=os.path.join(tmp, "offload"),
+                                          dtype=torch.bfloat16)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        where = {}
+        for name, target in dp.device_map.items():
+            where.setdefault(str(target), []).append(name)
+        on_disk = [n for n in where.get("disk", []) if n.startswith("layer_")]
+        print(f"[offload] load_checkpoint_and_dispatch from a {os.path.getsize(ckpt) / 1e9:.2f} "
+              f"GB .npz (f32, written in {save_s:.2f} s) to bf16: {load_s:.3f} s; max_memory "
+              f"{max_memory}; map: " + "; ".join(f"{k}: {', '.join(v)}" for k, v in where.items()))
+        check(len(on_disk) == 2 and any(n.startswith("layer_") for n in where.get("cpu", []))
+              and any(n.startswith("layer_") for n in where.get("0", [])),
+              f"the inferred map does not put layers on the card, the host and two on disk: "
+              f"{dict(dp.device_map)}")
+        out, stats = generate_dispatched(dp, prompt, config, max_new_tokens=GEN_DISK_NEW,
+                                         return_stats=True)
+        check(np.array_equal(out, greedy4),
+              "load_checkpoint_and_dispatch tokens differ from greedy_generate's")
+        print(f"[offload] its generate_dispatched {GEN_DISK_NEW} tokens: seconds_per_token "
+              f"{stats['seconds_per_token']:.5f}; tokens equal greedy_generate's")
+        del dp
+    print(f"[offload] phase seconds {time.perf_counter() - t_phase:.1f}")
+
+
 def _reset_states():
     from accelerate_tpu_torch.state import AcceleratorState, GradientState
 
@@ -1904,6 +2335,53 @@ def phase_llama_train(dev):
     return launches
 
 
+def _offload_dots_traffic(dev, config, batch):
+    """The host traffic of ``remat="offload_dots"`` in one forward and
+    backward of ``config`` on ``batch``: the stores of the save mode are
+    read through a wrapped ``_HostSaveMode.__init__``, summed after the
+    forward (every saved product is on the host then) and after the
+    backward (the products the recompute never took back: the backward
+    reads no layer's last product, w2's)."""
+    from accelerate_tpu_torch import init_llama, llama_loss
+    from accelerate_tpu_torch.models import transformer as tt
+    from accelerate_tpu_torch.optimizer import param_leaves
+
+    stores = []
+    real_init = tt._HostSaveMode.__init__
+
+    def spy(self, saved, store):
+        stores.append(store)
+        real_init(self, saved, store)
+
+    def held():
+        entries = [host for store in stores for e in store.values() for host, _ in e]
+        return len(entries), sum(h.numel() * h.element_size() for h in entries)
+
+    params = init_llama(config, torch.Generator(device=dev).manual_seed(0), device=dev,
+                        dtype=torch.bfloat16)
+    leaves = param_leaves(params)
+    for t in leaves:
+        t.requires_grad_(True)
+    tt._HostSaveMode.__init__ = spy
+    try:
+        loss = llama_loss(params, batch, config, remat="offload_dots")
+        torch.cuda.synchronize()
+        n_sent, sent = held()
+        torch.autograd.grad(loss, leaves)
+        torch.cuda.synchronize()
+        n_unread, unread = held()
+    finally:
+        tt._HostSaveMode.__init__ = real_init
+    B, S = batch["input_ids"].shape
+    print(f"[lm774m] offload_dots host traffic, one step at batch {B} x {S}: {n_sent} products, "
+          f"{sent / 1e9:.4f} GB to the host; {n_sent - n_unread} back ({(sent - unread) / 1e9:.4f}"
+          f" GB); {n_unread} never read back ({unread / 1e9:.4f} GB, "
+          f"{unread / n_unread / 1e6:.3f} MB each)")
+    check(n_unread == config.n_layers, f"{n_unread} products unread, want one a layer (w2's)")
+    del params, leaves, loss
+    torch.cuda.empty_cache()
+
+
 def phase_lm774m(dev):
     """``bench.py``'s config #4 at full width and depth through
     ``prepare_train_loop``: bf16 params from seed 0, ``Accelerator(
@@ -1923,18 +2401,25 @@ def phase_lm774m(dev):
     what = f"bf16 params, adafactor({LM774M_LR:g}), mixed_precision='no'"
     launches, _ = _lm_leg(dev, "lm774m", config, batches, "no", adafactor(LM774M_LR),
                           torch.bfloat16, "dots_no_batch", LM774M_CALLS, what)
-    ladder = {}
+    ladder, ladder_launches = {}, {}
     for remat in LM774M_REMATS:
-        _, ladder[remat] = _lm_leg(dev, f"lm774m-remat-{remat}", config, batches, "no",
-                                   adafactor(LM774M_LR), torch.bfloat16, remat, 1, what,
-                                   profile=False)
+        t0 = time.perf_counter()
+        ladder_launches[remat], ladder[remat] = _lm_leg(
+            dev, f"lm774m-remat-{remat}", config, batches, "no", adafactor(LM774M_LR),
+            torch.bfloat16, remat, 1, what, profile=False)
+        ladder[remat]["seconds"] = time.perf_counter() - t0
     print("[lm774m] remat ladder: " + "; ".join(
-        f"{r!r} {v['ms']:.1f} ms/step, peak {v['peak'] / 2**30:.2f} GiB"
+        f"{r!r} {v['ms']:.1f} ms/step, peak {v['peak'] / 2**30:.2f} GiB ({v['seconds']:.1f} s)"
         for r, v in ladder.items()))
     peaks = [ladder[r]["peak"] for r in (True, "dots_no_batch", False)]
     check(peaks[0] < peaks[1] < peaks[2],
           f"peak memory not ordered True < 'dots_no_batch' < False: {peaks}")
-    return launches
+    # the same saved set held in pinned host memory: below "dots_no_batch"
+    check(ladder["offload_dots"]["peak"] < ladder["dots_no_batch"]["peak"],
+          f"remat 'offload_dots' peaks at {ladder['offload_dots']['peak']}, not below "
+          f"'dots_no_batch' ({ladder['dots_no_batch']['peak']})")
+    _offload_dots_traffic(dev, config, {"input_ids": batches["input_ids"][0]})
+    return launches, ladder_launches["offload_dots"]
 
 
 def _named(tree, prefix=""):
@@ -2055,6 +2540,18 @@ def phase_lm774m_check(dev):
           f"({worst}; tol {REMAT_RTOL:.0e}); bitwise equal: {bitwise}")
     check(loss_err <= REMAT_RTOL and upd_err[worst] <= REMAT_RTOL,
           f"remat 'dots_no_batch' vs none: loss {loss_err}, {worst} {upd_err[worst]}")
+    o_loss, o_upd = run("offload_dots", plain=False)
+    loss_err = float(((o_loss - n_loss).abs() / n_loss.abs()).max())
+    upd_err = {name: float(torch.linalg.vector_norm(a - n_upd[name])
+                           / torch.linalg.vector_norm(n_upd[name])) for name, a in o_upd.items()}
+    worst = max(upd_err, key=upd_err.get)
+    bitwise = torch.equal(o_loss, r_loss) and all(torch.equal(a, r_upd[k])
+                                                  for k, a in o_upd.items())
+    print(f"[lm774m-check] remat 'offload_dots' vs none: max rel err loss {loss_err:.3e}, "
+          f"largest update rel L2 err {upd_err[worst]:.3e} ({worst}; tol {REMAT_RTOL:.0e}); "
+          f"bitwise equal to 'dots_no_batch': {bitwise}")
+    check(loss_err <= REMAT_RTOL and upd_err[worst] <= REMAT_RTOL,
+          f"remat 'offload_dots' vs none: loss {loss_err}, {worst} {upd_err[worst]}")
     p_loss, p_upd = run("dots_no_batch", plain=True)
     loss_err = float(((r_loss - p_loss).abs() / p_loss.abs()).max())
     upd_err = {name: float(torch.linalg.vector_norm(a - p_upd[name])
@@ -2156,8 +2653,12 @@ def main() -> int:
     fused_results = phase_fused_kernels(dev)
 
     config = LlamaConfig(**CONFIG_KW)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
     params = init_llama(config, torch.Generator(device=dev).manual_seed(0), device=dev,
                         dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
     n_params = sum(t.numel() for v in params.values() for e in v.values()
                    for t in (e.values() if isinstance(e, dict) else [e]))
     print(f"[model] {n_params / 1e9:.3f} B params in bf16, head_dim {config.head_dim}, "
@@ -2165,6 +2666,8 @@ def main() -> int:
     launches = phase_engine(params, config, dev)
     phase_profile(params, config, dev)
     phase_cached_vs_full(params, config, dev)
+    prompt, greedy16, greedy4 = phase_generate(params, config, dev, load_s)
+    phase_offload(params, config, dev, prompt, greedy16, greedy4)
     del params
     serve_config = LlamaConfig(**SERVE_BENCH_KW)
     serve_params = init_llama(serve_config, torch.Generator(device=dev).manual_seed(0),
@@ -2181,7 +2684,7 @@ def main() -> int:
     flash_results = phase_flash_kernels(dev)
     llama_launches = phase_llama_train(dev)
     phase_llama_train_check(dev)
-    lm_launches = phase_lm774m(dev)
+    lm_launches, offload_dots_launches = phase_lm774m(dev)
     phase_lm774m_check(dev)
 
     keys =("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
@@ -2223,7 +2726,8 @@ def main() -> int:
                         "replaces": f"accelerate_tpu/ops/flash_attention.py:{line}",
                         "launches": llama_launches[name], **{k: rec[k] for k in keys},
                         "lm774m": {k: lm_rec[k] for k in keys},
-                        "launches_lm774m": lm_launches[name]})
+                        "launches_lm774m": lm_launches[name],
+                        "launches_lm774m_offload_dots": offload_dots_launches[name]})
     print(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(card)
     print(json.dumps({"kernels": records}))

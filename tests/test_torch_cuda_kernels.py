@@ -1,6 +1,10 @@
 """The CUDA kernels (paged attention, fused attention forward and backward,
 flash attention forward, dq and dk/dv) against their plain PyTorch
-versions, on the card (marker ``cuda``; skipped where no GPU is present).
+versions, on the card (marker ``cuda``; skipped where no GPU is present);
+and two card-only properties of the offload paths: offloaded greedy
+decoding (pinned host memory, copies on a side stream) gives the resident
+path's tokens bit for bit, and ``remat="offload_dots"`` keeps its saved
+projections in pinned host memory.
 
 This file imports no JAX, so on a machine with a GPU and no JAX it runs
 alone: ``python -m pytest --noconftest -p no:cacheprovider -m cuda
@@ -515,7 +519,7 @@ def test_flash_kernels_at_the_lm774m_shape(dev, dtype):
     _check_flash_kernels(q, k, v, seg, do, True, None, 128, 128)
 
 
-@pytest.mark.parametrize("remat", [True, "dots", "dots_no_batch"])
+@pytest.mark.parametrize("remat", [True, "dots", "dots_no_batch", "offload_dots"])
 def test_remat_through_the_flash_kernels(dev, remat):
     """``llama_loss`` under remat through the kernels, f32, 2 layers: the
     forward kernel runs twice a layer (the recompute), dq and dk/dv once,
@@ -621,3 +625,80 @@ def test_flash_kernels_skip_poisoned_blocks(dev):
     assert torch.equal(out[:, 256:], out_bad[:, 256:])
     assert torch.isfinite(out_bad[:, 256:].float()).all()
     assert torch.equal(dq[:, 256:], dq_bad[:, 256:])
+
+
+def _small_llama(dev, **kw):
+    from accelerate_tpu_torch.models import transformer as tt
+
+    config = tt.LlamaConfig(vocab_size=1024, dim=256, n_layers=4, n_heads=4, n_kv_heads=2,
+                            max_seq_len=256, **kw)
+    return config, tt.init_llama(config, torch.Generator(device=dev).manual_seed(0), device=dev,
+                                 dtype=torch.bfloat16)
+
+
+def test_offloaded_greedy_equals_resident_bitwise(dev, tmp_path):
+    """bf16, 4 layers: ``generate_dispatched`` over ``cpu_offload`` (host
+    leaves pinned, each layer copied on the side stream while the previous
+    one computes) and over ``disk_offload`` gives ``greedy_generate``'s
+    tokens bit for bit: the same ops in the same order on the same values."""
+    from accelerate_tpu_torch import (cpu_offload, disk_offload, generate_dispatched,
+                                      greedy_generate, unstack_layer_params)
+
+    config, params = _small_llama(dev)
+    prompt = np.random.default_rng(13).integers(0, config.vocab_size, (4, 24)).astype(np.int32)
+    want = greedy_generate(params, prompt, config, max_new_tokens=12)
+    stages = unstack_layer_params(params, config)
+    dp = cpu_offload(stages)
+    assert dp.execution_device.type == "cuda" and all(t.is_pinned() for t in dp._host.values())
+    np.testing.assert_array_equal(generate_dispatched(dp, prompt, config, max_new_tokens=12), want)
+    assert dp._paged_cache.keys() <= {"embed_tokens/embedding", "final_norm/scale",
+                                      "lm_head/kernel"}
+    dp = disk_offload(stages, str(tmp_path))
+    np.testing.assert_array_equal(generate_dispatched(dp, prompt, config, max_new_tokens=12), want)
+
+
+def test_offload_dots_saves_to_pinned_host_memory(dev, monkeypatch):
+    """f32, flash attention, 4 layers: between the forward and the backward
+    every saved projection of ``remat="offload_dots"`` sits in pinned host
+    memory (its device of origin recorded as the card); the flash forward
+    runs twice a layer, dq and dk/dv once; the gradients equal
+    ``"dots_no_batch"``'s within 1e-6 of each leaf's largest (as in
+    ``test_remat_through_the_flash_kernels``)."""
+    from accelerate_tpu_torch.models import transformer as tt
+    from accelerate_tpu_torch.optimizer import param_leaves
+
+    config, _ = _small_llama(dev, attn_impl="flash")
+    ids = torch.from_numpy(np.random.default_rng(14).integers(0, 1024, (2, 256))).to(dev)
+    stores = []
+    real_init = tt._HostSaveMode.__init__
+
+    def spy(self, saved, store):
+        stores.append(store)
+        real_init(self, saved, store)
+
+    monkeypatch.setattr(tt._HostSaveMode, "__init__", spy)
+    kernels = (fa.flash_attention_fwd, fa.flash_attention_dq, fa.flash_attention_dkdv)
+
+    def grads(remat):
+        params = tt.init_llama(config, torch.Generator(device=dev).manual_seed(0), device=dev)
+        leaves = param_leaves(params)
+        for t in leaves:
+            t.requires_grad_(True)
+        before = [kern.launches for kern in kernels]
+        loss = tt.llama_loss(params, {"input_ids": ids}, config, remat=remat)
+        if remat == "offload_dots":
+            held = [(host, d) for store in stores for entries in store.values()
+                    for host, d in entries]
+            assert len(stores) == config.n_layers and len(held) == 7 * config.n_layers
+            assert all(host.device.type == "cpu" and host.is_pinned() and d.type == "cuda"
+                       for host, d in held)
+        loss.backward()
+        torch.cuda.synchronize()
+        return [t.grad for t in leaves], [kern.launches - b for kern, b in zip(kernels, before)]
+
+    base, _ = grads("dots_no_batch")
+    got, launches = grads("offload_dots")
+    L = config.n_layers
+    assert launches == [2 * L, L, L]
+    for a, b in zip(got, base):
+        assert float((a - b).abs().max()) <= 1e-6 * float(b.abs().max())

@@ -13,7 +13,11 @@ through ``prepare_train_loop``, against the JAX package on the CPU at
   thread-dependent order, so even two no-remat runs differ in its last
   bit on several);
 - what each policy recomputes, counted at the dispatcher during backward;
-- the ``"offload_dots"`` and unknown-name errors;
+- ``"offload_dots"``: gradients bitwise equal to ``"dots_no_batch"``'s, the
+  same dispatcher counts, and the saved projections held in host memory
+  (not in the checkpoint's own cache) between the forward and the
+  backward;
+- the unknown-name error;
 - 3 steps of ``prepare_train_loop`` with bf16 params and ``adafactor``
   against the JAX ``Accelerator``, under ``mixed_precision`` "no" and
   "bf16", within the envelope written at that test.
@@ -42,7 +46,7 @@ from accelerate_tpu_torch.utils.operations import stack_batches
 JCFG = jt.LlamaConfig.tiny()
 TCFG = tt.LlamaConfig.tiny()
 B, S = 2, 128
-POLICIES = [True, "nothing", "dots", "dots_no_batch"]
+POLICIES = [True, "nothing", "dots", "dots_no_batch", "offload_dots"]
 
 
 @pytest.fixture(scope="module")
@@ -142,8 +146,8 @@ def test_policies_recompute_what_jax_recomputes(params):
     attention products (``aten.bmm``). The w2 product's output feeds only
     the residual sum, which no backward reads, so a recompute stops before
     it: ``True``/``"nothing"`` recompute the other 6 products and both
-    attention products of every layer, ``"dots_no_batch"`` only the
-    attention products, ``"dots"`` nothing."""
+    attention products of every layer, ``"dots_no_batch"`` and
+    ``"offload_dots"`` only the attention products, ``"dots"`` nothing."""
     tp = params_from_numpy(params[1], device="cpu")
     for t in param_leaves(tp):
         t.requires_grad_(True)
@@ -160,7 +164,7 @@ def test_policies_recompute_what_jax_recomputes(params):
     L = TCFG.n_layers
     assert counts[False][0] == {"mm": 7 * L + 1, "bmm": 2 * L}  # + the head
     for remat, want in {True: (6, 2), "nothing": (6, 2), "dots_no_batch": (0, 2),
-                        "dots": (0, 0)}.items():
+                        "offload_dots": (0, 2), "dots": (0, 0)}.items():
         fwd, bwd = counts[remat]
         assert fwd == counts[False][0], remat
         recomputed = (bwd["mm"] - counts[False][1]["mm"], bwd["bmm"] - counts[False][1]["bmm"])
@@ -170,13 +174,51 @@ def test_policies_recompute_what_jax_recomputes(params):
 def test_remat_errors(params):
     tp = params_from_numpy(params[1], device="cpu")
     ids = torch.from_numpy(_ids(8, rows=1, seq=16))
-    with pytest.raises(NotImplementedError, match="offload_dots.*Queue A 4"):
-        tt.llama_forward(tp, ids, TCFG, remat="offload_dots")
     with pytest.raises(ValueError) as port_err:
         tt.llama_forward(tp, ids, TCFG, remat="everything")
     with pytest.raises(ValueError) as jax_err:
         jt._remat_policy("everything")
     assert str(port_err.value) == str(jax_err.value)
+
+
+def test_offload_dots_equals_dots_no_batch_bitwise(params, one_thread):
+    """The same saved set in another place: the gradients of
+    ``"offload_dots"`` equal ``"dots_no_batch"``'s bit for bit."""
+    batch = {"input_ids": _ids(5)}
+    loss, grads = _port_grads(params[1], batch, attention_impl="xla", remat="offload_dots")
+    base_loss, base = _port_grads(params[1], batch, attention_impl="xla", remat="dots_no_batch")
+    assert torch.equal(loss, base_loss)
+    assert all(torch.equal(g, b) for g, b in zip(grads, base))
+
+
+def test_offload_dots_holds_the_projections_on_the_host(params, monkeypatch):
+    """Between the forward and the backward each checkpointed layer's store
+    holds its 7 weight products (q, k, v, o, w1, w3, w2: ``aten.mm``) as
+    CPU tensors of the products' shapes; the recompute takes back all but
+    w2's, whose output no backward reads."""
+    stores = []
+    real_init = tt._HostSaveMode.__init__
+
+    def spy(self, saved, store):
+        stores.append(store)
+        real_init(self, saved, store)
+
+    monkeypatch.setattr(tt._HostSaveMode, "__init__", spy)
+    tp = params_from_numpy(params[1], device="cpu")
+    for t in param_leaves(tp):
+        t.requires_grad_(True)
+    ids = torch.from_numpy(_ids(6))
+    loss = tt.llama_loss(tp, {"input_ids": ids}, TCFG, attention_impl="xla", remat="offload_dots")
+    L, D, Dkv, F = TCFG.n_layers, TCFG.dim, TCFG.n_kv_heads * TCFG.head_dim, TCFG.hidden_dim
+    assert len(stores) == L
+    mm = torch.ops.aten.mm.default
+    for store in stores:
+        assert set(store) == {mm}
+        shapes = [tuple(host.shape) for host, _ in store[mm]]
+        assert shapes == [(B * S, n) for n in (D, Dkv, Dkv, D, F, F, D)]
+        assert all(host.device.type == "cpu" and dev.type == "cpu" for host, dev in store[mm])
+    loss.backward()
+    assert [len(store[mm]) for store in stores] == [1] * L
 
 
 LOOP_LR = 1e-2
