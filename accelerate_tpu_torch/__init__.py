@@ -45,7 +45,12 @@ Ported so far:
   CPU and disk offload with pinned host memory and one-ahead prefetch on a
   side stream, ``load_checkpoint_and_dispatch`` from ``.npz`` or
   ``.safetensors`` (``big_modeling``, ``hooks``, ``utils.modeling``,
-  ``utils.offload``); ``llama_forward(remat="offload_dots")``.
+  ``utils.offload``); ``llama_forward(remat="offload_dots")``;
+- the rest of the model zoo: ResNet (``models.resnet``, NHWC at the API,
+  cuDNN convolutions in channels-last memory) with ``optimizer.sgd``, T5
+  (``models.t5``) with ``optimizer.adam``, and the MoE FFN
+  (``parallel.moe``) in every Llama path: training, generation and the
+  serving engine. Param trees may hold lists, as JAX pytrees do.
 """
 
 from .accelerator import Accelerator
@@ -96,6 +101,17 @@ from .models.transformer import (
     llama_forward,
     llama_loss,
 )
+from .models.resnet import ResNetConfig, init_resnet, resnet_forward, resnet_loss
+from .models.t5 import (
+    T5Config,
+    init_t5,
+    t5_decode,
+    t5_encode,
+    t5_forward,
+    t5_greedy_generate,
+    t5_loss,
+)
+from .parallel.moe import init_moe_ffn, moe_ffn
 from .serving.buckets import BucketLattice
 from .serving.engine import ServingEngine, paged_forward
 from .serving.scheduler import Request, RequestStatus
@@ -124,7 +140,9 @@ __all__ = [
     "LlamaConfig",
     "Request",
     "RequestStatus",
+    "ResNetConfig",
     "ServingEngine",
+    "T5Config",
     "UserCpuOffloadHook",
     "abstract_params",
     "beam_generate",
@@ -151,15 +169,26 @@ __all__ = [
     "init_empty_weights",
     "init_kv_cache",
     "init_llama",
+    "init_moe_ffn",
     "init_on_device",
+    "init_resnet",
+    "init_t5",
     "linear_schedule",
     "llama_forward",
     "llama_loss",
     "load_checkpoint_and_dispatch",
     "load_checkpoint_in_params",
+    "moe_ffn",
     "paged_forward",
+    "resnet_forward",
+    "resnet_loss",
     "sample_generate",
     "sample_token_logits",
+    "t5_decode",
+    "t5_encode",
+    "t5_forward",
+    "t5_greedy_generate",
+    "t5_loss",
     "unstack_layer_params",
     "warmup_cosine_decay_schedule",
 ]

@@ -60,21 +60,34 @@ def set_seed(seed: int) -> None:
     torch.manual_seed(seed)
 
 
+def _children(node) -> list:
+    """The children of a dict, list or tuple node (else none)."""
+    if isinstance(node, dict):
+        return list(node.values())
+    return list(node) if isinstance(node, (list, tuple)) else []
+
+
 def _is_param_tree(obj) -> bool:
-    """A nested dict with a tensor or array leaf."""
-    return isinstance(obj, dict) and any(
-        _is_param_tree(v) or isinstance(v, (torch.Tensor, np.ndarray)) for v in obj.values())
+    """A nested dict (with dict, list or tuple nodes below it) holding a
+    tensor or array leaf."""
+
+    def has_leaf(node):
+        return isinstance(node, (torch.Tensor, np.ndarray)) or any(
+            has_leaf(v) for v in _children(node))
+
+    return isinstance(obj, dict) and has_leaf(obj)
 
 
 def _step_slice(tree, k: int):
-    if isinstance(tree, dict):
-        return type(tree)((key, _step_slice(v, k)) for key, v in tree.items())
-    return tree[k]
+    return _tree_map(lambda x: x[k], tree)
 
 
 def _leading_dim(tree) -> int:
-    while isinstance(tree, dict):
-        tree = next(iter(tree.values()))
+    while isinstance(tree, (dict, list, tuple)):
+        children = _children(tree)
+        if not children:
+            raise ValueError("the batches hold no leaf to read the micro-step count from")
+        tree = children[0]
     return tree.shape[0]
 
 
@@ -222,18 +235,16 @@ class Accelerator:
 
     def prepare_model(self, params: dict) -> dict:
         """Fresh leaf tensors on the device (copies: the caller's tensors or
-        arrays are never updated), floating ones with ``requires_grad``. The
-        dtypes are kept: f32 params are the masters of mixed precision."""
+        arrays are never updated), floating ones with ``requires_grad``, in
+        the same tree of dicts, lists and tuples. The dtypes are kept: f32
+        params are the masters of mixed precision."""
 
         def place(x):
             t = x.detach() if isinstance(x, torch.Tensor) else torch.from_numpy(np.array(x))
             t = t.to(self.device if self.device_placement else t.device, copy=True)
             return t.requires_grad_(True) if t.is_floating_point() else t
 
-        def walk(tree):
-            return {k: walk(v) if isinstance(v, dict) else place(v) for k, v in tree.items()}
-
-        return walk(params)
+        return _tree_map(place, params)
 
     def prepare_optimizer(self, optimizer) -> AcceleratedOptimizer:
         if not isinstance(optimizer, AcceleratedOptimizer):

@@ -150,7 +150,19 @@ def _layer_step(layer: dict, h: torch.Tensor, k_cache: torch.Tensor, v_cache: to
     attn = _cached_attention(q, k_cache, v_cache, positions)
     h = h + attn.reshape(B, S, -1) @ layer["wo"]["kernel"]
     x = rms_norm(h, layer["mlp_norm"]["scale"], config.norm_eps)
-    return h + llama_ffn(layer, x, config)
+    y, _ = llama_ffn(layer, x, config, capacity_factor=decode_capacity(config, S))
+    return h + y
+
+
+def decode_capacity(config: LlamaConfig, S: int) -> Optional[float]:
+    """The MoE capacity factor of a cached step over ``S`` tokens, as the
+    JAX package sets it: a decode step (``S == 1``) routes only its B new
+    tokens as one small group, where the training factor would drop tokens
+    the full forward keeps, so the factor is floored at ``E / top_k``
+    (every token fits); a prefill keeps the config's factor (None)."""
+    if config.moe_experts > 0 and S == 1:
+        return max(config.moe_capacity_factor, config.moe_experts / config.moe_top_k)
+    return None
 
 
 def _forward_cached(params: dict, ids: torch.Tensor, cache: dict, start_pos: int,

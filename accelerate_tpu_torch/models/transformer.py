@@ -7,8 +7,11 @@ tensors are stacked on a leading layer axis (``params["layers"]["wq"]
 JAX initializer load unchanged through :mod:`.convert`. Matmuls are
 ``x @ kernel`` with ``kernel`` stored ``[in, out]``, as in the reference.
 
-Only the dense SwiGLU FFN is ported; MoE configs and ``dtype_recipe="fp8"``
-raise ``NotImplementedError``, as does ``llama_forward``'s ``attention_fn``.
+``moe_experts > 0`` swaps each layer's dense SwiGLU FFN for the MoE FFN
+of :mod:`..parallel.moe` (``params["layers"]["moe"]``, stacked ``[L,
+...]``), as in the JAX package. ``dtype_recipe="fp8"`` (ROADMAP.md Queue A
+item 8) and ``llama_forward``'s ``attention_fn`` raise
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -23,7 +26,9 @@ import numpy as np
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 
+from ..parallel import moe
 from ..utils.device import resolve_device
+from ..utils.operations import _tree_map
 
 __all__ = [
     "BertConfig",
@@ -94,8 +99,9 @@ class LlamaConfig:
     ``attn_impl`` picks :func:`llama_forward`'s attention implementation
     (``"auto"`` is the einsum path, ``"flash"`` the blocked kernels);
     ``unroll_layers`` selects JAX-only machinery and is carried for parity
-    and ignored; ``moe_experts > 0`` and ``dtype_recipe="fp8"`` are not
-    ported yet and raise at init."""
+    and ignored; ``moe_experts > 0`` gives every layer a top-``moe_top_k``
+    MoE FFN; ``dtype_recipe="fp8"`` is not ported yet and raises at
+    init."""
 
     vocab_size: int = 32000
     dim: int = 2048
@@ -132,11 +138,10 @@ class LlamaConfig:
 
 def _check_supported(config) -> None:
     """Raise on the Llama/BERT config options that are not ported yet."""
-    if getattr(config, "moe_experts", 0) > 0:
-        raise NotImplementedError("MoE layers are not ported yet (see ROADMAP.md)")
     if config.dtype_recipe is not None:
         raise NotImplementedError(
-            f"dtype_recipe={config.dtype_recipe!r} is not ported yet (see ROADMAP.md)"
+            f"dtype_recipe={config.dtype_recipe!r} is not ported yet: it comes with ROADMAP.md "
+            "Queue A item 8"
         )
 
 
@@ -144,9 +149,12 @@ def init_llama(config: LlamaConfig, generator: Optional[torch.Generator] = None,
                device=None, dtype: torch.dtype = torch.float32) -> dict:
     """Stacked-layer params with the JAX ``init_llama`` layout and scales:
     projections ``N(0, 1/in_dim)``, embedding and head ``N(0, 0.02^2)``, norm
-    scales one. Draws come from ``generator`` (a fresh one seeded 0 on the
-    target device when omitted), so they differ from JAX's threefry draws —
-    parity tests load JAX-made weights through :mod:`.convert` instead."""
+    scales one; with ``moe_experts > 0`` the layers hold ``moe.{router, wi,
+    wo}`` (:func:`~..parallel.moe.init_moe_ffn`'s scales) in place of
+    ``w1``/``w3``/``w2``. Draws come from ``generator`` (a fresh one seeded
+    0 on the target device when omitted), so they differ from JAX's
+    threefry draws — parity tests load JAX-made weights through
+    :mod:`.convert` instead."""
     _check_supported(config)
     dev = resolve_device(device)
     if generator is None:
@@ -164,6 +172,14 @@ def init_llama(config: LlamaConfig, generator: Optional[torch.Generator] = None,
     def ones(*shape):
         return torch.ones(*shape, device=dev, dtype=dtype)
 
+    if config.moe_experts > 0:
+        E = config.moe_experts
+        ffn = {"moe": {"router": {"kernel": dense(L, D, E)},
+                       "wi": {"kernel": dense(L, E, D, Hd, scale=1.0 / math.sqrt(D))},
+                       "wo": {"kernel": dense(L, E, Hd, D)}}}
+    else:
+        ffn = {"w1": {"kernel": dense(L, D, Hd)}, "w3": {"kernel": dense(L, D, Hd)},
+               "w2": {"kernel": dense(L, Hd, D)}}
     params = {
         "embed_tokens": {"embedding": dense(config.vocab_size, D, scale=0.02)},
         "layers": {
@@ -173,9 +189,7 @@ def init_llama(config: LlamaConfig, generator: Optional[torch.Generator] = None,
             "wv": {"kernel": dense(L, D, Dkv)},
             "wo": {"kernel": dense(L, Dq, D)},
             "mlp_norm": {"scale": ones(L, D)},
-            "w1": {"kernel": dense(L, D, Hd)},
-            "w3": {"kernel": dense(L, D, Hd)},
-            "w2": {"kernel": dense(L, Hd, D)},
+            **ffn,
         },
         "final_norm": {"scale": ones(D)},
     }
@@ -186,7 +200,22 @@ def init_llama(config: LlamaConfig, generator: Optional[torch.Generator] = None,
 
 def layer_params(params: dict, i: int) -> dict:
     """Layer ``i``'s slice of the stacked ``params["layers"]`` (views)."""
-    return {name: {k: v[i] for k, v in entry.items()} for name, entry in params["layers"].items()}
+    return _tree_map(lambda v: v[i], params["layers"])
+
+
+def _layer_trees(layers: dict, n_layers: int) -> list:
+    """The ``n_layers`` per-layer trees of a stacked layer tree, made with
+    one ``unbind`` per stacked leaf: its backward is a single stack, where
+    indexing each layer would scatter into a full-size zero tensor per
+    layer."""
+
+    def split(node):
+        if isinstance(node, dict):
+            parts = {k: split(v) for k, v in node.items()}
+            return [{k: part[i] for k, part in parts.items()} for i in range(n_layers)]
+        return node.unbind(0)
+
+    return split(layers)
 
 
 def draft_config(config: LlamaConfig, n_layers: int) -> LlamaConfig:
@@ -206,18 +235,25 @@ def draft_params(params: dict, n_layers: int) -> dict:
     verifier's own tensors. Draft layer i *is* verifier layer i, so the KV
     the verifier writes into the paged pool is valid draft KV."""
     out = {k: v for k, v in params.items() if k != "layers"}
-    out["layers"] = {name: {k: v[:n_layers] for k, v in entry.items()}
-                     for name, entry in params["layers"].items()}
+    out["layers"] = _tree_map(lambda v: v[:n_layers], params["layers"])
     return out
 
 
-def llama_ffn(layer: dict, x: torch.Tensor, config: LlamaConfig) -> torch.Tensor:
-    """Dense SwiGLU FFN of one layer (``layer`` from :func:`layer_params`)."""
+def llama_ffn(layer: dict, x: torch.Tensor, config: LlamaConfig,
+              capacity_factor: Optional[float] = None):
+    """The FFN block of one layer (``layer`` from :func:`layer_params`),
+    shared by the training forward and both cached decode paths:
+    ``(y, aux)``. Dense SwiGLU gives ``aux = 0.0`` (a float: no device
+    work); MoE gives :func:`~..parallel.moe.moe_ffn`'s f32 aux tensor.
+    ``capacity_factor`` overrides the config's (decode floors it)."""
     if config.moe_experts > 0:
-        raise NotImplementedError("MoE layers are not ported yet (see ROADMAP.md)")
+        return moe.moe_ffn(
+            layer["moe"], x, top_k=config.moe_top_k,
+            capacity_factor=(config.moe_capacity_factor if capacity_factor is None
+                             else capacity_factor))
     gate = torch.nn.functional.silu(x @ layer["w1"]["kernel"])
     up = x @ layer["w3"]["kernel"]
-    return (gate * up) @ layer["w2"]["kernel"]
+    return (gate * up) @ layer["w2"]["kernel"], 0.0
 
 
 def lm_logits(params: dict, h: torch.Tensor, config: LlamaConfig) -> torch.Tensor:
@@ -333,8 +369,10 @@ def llama_forward(params: dict, input_ids: torch.Tensor, config: LlamaConfig,
                   attention_impl: Optional[str] = None,
                   segment_ids: Optional[torch.Tensor] = None,
                   positions: Optional[torch.Tensor] = None,
-                  attention_fn=None, remat=False) -> torch.Tensor:
-    """Full-sequence causal forward: logits ``[B, S, vocab]``, no cache.
+                  attention_fn=None, remat=False, with_aux: bool = False):
+    """Full-sequence causal forward: logits ``[B, S, vocab]``, no cache;
+    with ``with_aux`` ``(logits, aux)``, ``aux`` the mean over layers of the
+    MoE load-balance loss (an f32 zero for dense configs).
 
     ``attention_impl`` (default ``config.attn_impl``) picks the
     :func:`~accelerate_tpu_torch.ops.attention.dot_product_attention`
@@ -352,7 +390,10 @@ def llama_forward(params: dict, input_ids: torch.Tensor, config: LlamaConfig,
     every matmul output, ``"dots_no_batch"`` only the ``x @ W``
     projections and ``"offload_dots"`` those projections in pinned host
     memory. A kernel in the layer (flash attention) then runs its forward
-    twice a step."""
+    twice a step. The MoE expert products are batched (``bmm``), so
+    ``"dots"`` saves them and ``"dots_no_batch"`` recomputes them, as
+    JAX's policies treat their batched einsums; the router's product has
+    no batch dims and is saved by both."""
     from ..generation import _project_qkv
     from ..ops.attention import dot_product_attention
 
@@ -371,10 +412,6 @@ def llama_forward(params: dict, input_ids: torch.Tensor, config: LlamaConfig,
                      else torch.arange(S, device=dev)[None].expand(B, S))
     positions = positions.long()
     h = params["embed_tokens"]["embedding"][input_ids.long()]
-    # one unbind per stacked leaf: its backward is a single stack, where
-    # indexing each layer would scatter into a full-size zero tensor per layer
-    layers = {name: {k: t.unbind(0) for k, t in entry.items()}
-              for name, entry in params["layers"].items()}
 
     def decoder_layer(h, layer):
         x = rms_norm(h, layer["attn_norm"]["scale"], config.norm_eps)
@@ -382,16 +419,24 @@ def llama_forward(params: dict, input_ids: torch.Tensor, config: LlamaConfig,
         attn = dot_product_attention(q, k, v, causal=True, segment_ids=segment_ids, impl=impl)
         h = h + attn.reshape(B, S, -1) @ layer["wo"]["kernel"]
         x = rms_norm(h, layer["mlp_norm"]["scale"], config.norm_eps)
-        return h + llama_ffn(layer, x, config)
+        y, aux = llama_ffn(layer, x, config)
+        return h + y, aux
 
-    for i in range(config.n_layers):
-        layer = {name: {k: t[i] for k, t in entry.items()} for name, entry in layers.items()}
+    auxes = []
+    for layer in _layer_trees(params["layers"], config.n_layers):
         if remat:
-            h = torch.utils.checkpoint.checkpoint(decoder_layer, h, layer, use_reentrant=False,
-                                                  context_fn=context_fn)
+            h, aux = torch.utils.checkpoint.checkpoint(decoder_layer, h, layer,
+                                                       use_reentrant=False,
+                                                       context_fn=context_fn)
         else:
-            h = decoder_layer(h, layer)
-    return lm_logits(params, h, config)
+            h, aux = decoder_layer(h, layer)
+        auxes.append(aux)
+    logits = lm_logits(params, h, config)
+    if not with_aux:
+        return logits
+    if config.moe_experts > 0:
+        return logits, torch.stack(auxes).mean()
+    return logits, torch.zeros((), dtype=torch.float32, device=dev)
 
 
 def llama_loss(params: dict, batch: dict, config: LlamaConfig, **fwd_kwargs) -> torch.Tensor:
@@ -399,9 +444,8 @@ def llama_loss(params: dict, batch: dict, config: LlamaConfig, **fwd_kwargs) -> 
     ``batch``: ``input_ids [B, S]``, optional ``segment_ids`` (or the
     forward kwarg of that name) and ``loss_mask`` ``[B, S]``. Targets come
     from rolling the ids left by one; the last position, segment
-    boundaries, padding (id 0) and masked positions do not count."""
-    if config.moe_experts > 0:
-        raise NotImplementedError("MoE layers are not ported yet (see ROADMAP.md)")
+    boundaries, padding (id 0) and masked positions do not count. MoE
+    configs add ``moe_aux_weight`` times the forward's aux loss."""
     ids = batch["input_ids"].long()
     seq_len = ids.shape[1]
     segment_ids = batch.get("segment_ids")
@@ -409,7 +453,10 @@ def llama_loss(params: dict, batch: dict, config: LlamaConfig, **fwd_kwargs) -> 
         segment_ids = fwd_kwargs.get("segment_ids")
     elif "segment_ids" not in fwd_kwargs:
         fwd_kwargs = {**fwd_kwargs, "segment_ids": segment_ids}
-    logits = llama_forward(params, ids, config, **fwd_kwargs)
+    moe = config.moe_experts > 0
+    logits = llama_forward(params, ids, config, with_aux=moe, **fwd_kwargs)
+    if moe:
+        logits, moe_aux = logits
     targets = torch.roll(ids, -1, dims=1)
     logp = torch.log_softmax(logits.float(), dim=-1)
     nll = -logp.gather(-1, targets[..., None])[..., 0]  # [B, S]
@@ -421,7 +468,8 @@ def llama_loss(params: dict, batch: dict, config: LlamaConfig, **fwd_kwargs) -> 
     mask = batch.get("loss_mask")
     if mask is not None:
         valid = valid * torch.roll(mask, -1, dims=1).float()
-    return (nll * valid).sum() / valid.sum().clamp(min=1.0)
+    loss = (nll * valid).sum() / valid.sum().clamp(min=1.0)
+    return loss + config.moe_aux_weight * moe_aux if moe else loss
 
 
 @dataclass(frozen=True)

@@ -22,10 +22,12 @@ device scalars (the JAX package extends its opt_state to ``(inner,
 scale, growth_count)``; here ``opt_state`` stays the torch optimizer's
 own state, and ``state_dict`` carries all of them).
 
-:func:`adafactor` is ``optax.adafactor``'s chain as one optimizer
-(:class:`Adafactor`): factored second moments, block-RMS clipping, the
-learning rate, the parameter-scale multiply, optional momentum and weight
-decay, each at optax's dtype. :func:`chain` puts gradient transforms such
+:func:`adam` is :func:`adamw` with no weight decay, as ``optax.adam``;
+:func:`sgd` is ``optax.sgd``'s chain as one optimizer (:class:`SGD`), with
+optax's roundings. :func:`adafactor` is ``optax.adafactor``'s chain as one
+optimizer (:class:`Adafactor`): factored second moments, block-RMS
+clipping, the learning rate, the parameter-scale multiply, optional
+momentum and weight decay, each at optax's dtype. :func:`chain` puts gradient transforms such
 as :func:`clip_by_global_norm` before an optimizer factory, as
 ``optax.chain(optax.clip_by_global_norm(...), tx)`` does.
 
@@ -48,7 +50,9 @@ __all__ = [
     "AcceleratedOptimizer",
     "Adafactor",
     "OptimizerFactory",
+    "SGD",
     "adafactor",
+    "adam",
     "adamw",
     "chain",
     "clip_by_global_norm",
@@ -56,6 +60,7 @@ __all__ = [
     "cosine_decay_schedule",
     "linear_schedule",
     "param_leaves",
+    "sgd",
     "warmup_cosine_decay_schedule",
 ]
 
@@ -117,9 +122,14 @@ def warmup_cosine_decay_schedule(init_value: float, peak_value: float, warmup_st
 
 
 def param_leaves(params) -> list:
-    """The tensor leaves of a nested param dict, in insertion order."""
+    """The tensor leaves of a nested param dict/list/tuple: dict keys in
+    insertion order, list and tuple items by index. (``jax.tree_util``
+    sorts dict keys; the leaves are the same, and the order of a list's
+    items is the same.)"""
     if isinstance(params, dict):
         return [t for v in params.values() for t in param_leaves(v)]
+    if isinstance(params, (list, tuple)):
+        return [t for v in params for t in param_leaves(v)]
     return [params] if isinstance(params, torch.Tensor) else []
 
 
@@ -332,6 +342,72 @@ def adafactor(learning_rate: Union[None, float, Callable] = None,
         decay_offset=decay_offset, multiply_by_parameter_scale=multiply_by_parameter_scale,
         clipping_threshold=clipping_threshold, momentum=momentum, dtype_momentum=dtype_momentum,
         weight_decay_rate=weight_decay_rate, eps=eps, factored=factored), schedule)
+
+
+class SGD(torch.optim.Optimizer):
+    """``optax.sgd`` (optax 0.2.6, ``_src/alias.py``) as one
+    ``torch.optim.Optimizer``, optax's chain on each leaf:
+
+    1. ``trace(momentum, nesterov)`` when ``momentum`` is not None: the
+       buffer ``mu = g + momentum · mu`` (zeros in the param's dtype at the
+       start; the sum takes the dtype of ``g`` and ``mu`` promoted, and is
+       kept so, as optax keeps it with ``accumulator_dtype=None``); the
+       update is ``mu``, or ``g + momentum · mu`` with ``nesterov``;
+    2. ``scale_by_learning_rate``: times ``-lr``;
+    3. ``apply_updates``: ``param + update`` cast to the param's dtype.
+
+    Each step rounds where optax's does (a Python scalar takes the array's
+    dtype first), so a bf16 step rounds the update to bf16 before it is
+    added: ``torch.optim.SGD``'s fused ``p.add_(buf, alpha=-lr)`` rounds
+    once and is not optax's step in bf16. :meth:`step` reads ``grads`` when
+    given, else each ``.grad``; a param without one steps on zeros."""
+
+    takes_grads = True
+
+    def __init__(self, params, lr: float, momentum: Optional[float] = None,
+                 nesterov: bool = False):
+        super().__init__(params, dict(lr=lr, momentum=momentum, nesterov=nesterov))
+
+    @torch.no_grad()
+    def step(self, closure=None, grads: Optional[list] = None):
+        loss = None
+        if closure is not None:
+            with torch.enable_grad():
+                loss = closure()
+        grads = None if grads is None else iter(grads)
+        for group in self.param_groups:
+            for p in group["params"]:
+                g = p.grad if grads is None else next(grads)
+                g = torch.zeros_like(p) if g is None else g
+                m = group["momentum"]
+                if m is not None:
+                    state = self.state[p]
+                    mu = state.get("trace")
+                    if mu is None:
+                        mu = torch.zeros_like(p)
+                    mu = g + mu * _scalar(m, mu.dtype)
+                    state["trace"] = mu
+                    g = g + mu * _scalar(m, mu.dtype) if group["nesterov"] else mu
+                # the sum in the promoted dtype, rounded once to the param's
+                p.add_(g * _scalar(-group["lr"], g.dtype))
+        return loss
+
+
+def sgd(learning_rate: Union[float, Callable], momentum: Optional[float] = None,
+        nesterov: bool = False) -> OptimizerFactory:
+    """:class:`SGD` with ``optax.sgd``'s signature and defaults. A callable
+    ``learning_rate`` is a schedule, read at the count of updates taken."""
+    schedule = learning_rate if callable(learning_rate) else None
+    lr = float(schedule(0)) if schedule is not None else learning_rate
+    return OptimizerFactory(SGD, dict(lr=lr, momentum=momentum, nesterov=nesterov), schedule)
+
+
+def adam(learning_rate: Union[float, Callable], b1: float = 0.9, b2: float = 0.999,
+         eps: float = 1e-8) -> OptimizerFactory:
+    """``optax.adam``: :func:`adamw` with no weight decay (the update
+    ``p ← p − lr·m̂ / (√v̂ + eps)`` is the same; held to ``optax.adam`` in
+    ``tests/test_torch_t5.py``)."""
+    return adamw(learning_rate, b1=b1, b2=b2, eps=eps, weight_decay=0.0)
 
 
 class AcceleratedOptimizer:

@@ -32,7 +32,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from ..generation import _project_qkv, sample_token_logits
+from ..generation import _project_qkv, decode_capacity, sample_token_logits
 from ..models.transformer import (
     LlamaConfig,
     draft_config,
@@ -80,7 +80,11 @@ def _paged_layer_step(layer, h, k_pool, v_pool, block_tables, positions, cos, si
     attn = paged_attention(q, k_pool, v_pool, block_tables, positions)
     h = h + attn.reshape(B, S, -1) @ layer["wo"]["kernel"]
     x = rms_norm(h, layer["mlp_norm"]["scale"], config.norm_eps)
-    return h + llama_ffn(layer, x, config)
+    # MoE: every row of the [B, S] call, padding included, is routed and
+    # competes for capacity, as in the JAX engine; S == 1 steps (decode,
+    # drafts) get the decode floor, a prefill chunk or verify step does not
+    y, _ = llama_ffn(layer, x, config, capacity_factor=decode_capacity(config, S))
+    return h + y
 
 
 def paged_forward(params, ids, pool, block_tables, positions, config: LlamaConfig,

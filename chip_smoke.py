@@ -89,7 +89,20 @@ csrc`` at first use) and no network. Phases, each of which fails the run:
    (``"dots_no_batch"`` and ``"offload_dots"``) against none and kernels
    against plain attention;
    the adafactor update on the card against the CPU;
-7. the card's name and power limit, one JSON line of kernel records, and
+7. the rest of the model zoo: ``bench.py``'s config #2 (ResNet-50, 1000
+   classes, batch 64 x 192^2, bf16 params, ``sgd(0.1, momentum=0.9)``, 20
+   timed steps through the Accelerator, a profiled step), the loss falling
+   on its fixed batch, and one f32 step on the card against the CPU with
+   TF32 off and with cuDNN's TF32 on; T5-small (batch 32 x 512 / 128
+   tokens, ``adam``, bf16 mixed precision, K=4 loop steps, greedy decoding
+   of 32 tokens, every bf16 token held to the f32 logits of its row, f32
+   logits card vs CPU); the config #5 model with 8 experts, top-2: an f32
+   forward card vs CPU at 2 layers, greedy generation (bf16 tokens held to
+   the f32 cached path), the engine's requests through #6/#7 (launches
+   counted, f32 streams repeatable) and 2 training steps in config #4's
+   recipe through #1-#3 (launches counted), with the share of prefill
+   token-choices dropped by capacity;
+8. the card's name and power limit, one JSON line of kernel records, and
    a last line ``{"ok": true, "device": {...}}``.
 
 Without a CUDA device, or without the package beside it, it exits non-zero
@@ -188,6 +201,7 @@ FLASH_CASES = {  # name: (B, S, H, Hkv, D, window, packed); all causal
     "window": (2, 4096, 16, 8, 64, 1024, False),
     "gqa_d128": (2, 2048, 8, 2, 128, None, False),
     "lm774m": (8, 512, 20, 20, 64, None, False),  # config #4's attention
+    "moe_train": (4, 512, 32, 8, 64, None, False),  # phase_moe's training leg
 }
 # The long-context Llama of the JAX package's run_bench_longcontext
 # (bench.py:936-938) at full width and depth, batch 1 x S=8192.
@@ -713,7 +727,20 @@ def _fp16_overflow_check(dev):
                 check(counts[0][0] > 0, f"fp16 overflow {name}: dO x {mul:g} did not overflow ds")
 
 
-def phase_engine(params, config, dev):
+def _engine_prompts(config):
+    """phase_engine's request set: 8 prompts of 128 tokens, two sharing a
+    64-token prefix, and one of 300 (two chunks: 256 + 44); 64 new each."""
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, config.vocab_size, 128) for _ in range(8)]
+    prompts[1][:64] = prompts[0][:64]
+    prompts.append(rng.integers(0, config.vocab_size, 300))
+    return prompts
+
+
+ENGINE_NEW = 64
+
+
+def phase_engine(params, config, dev, tag="engine"):
     from accelerate_tpu_torch.ops import flash_attention as fa
     from accelerate_tpu_torch.serving import RequestStatus, ServingEngine
 
@@ -722,12 +749,8 @@ def phase_engine(params, config, dev):
     warm.run()
     del warm
 
-    rng = np.random.default_rng(0)
-    prompts = [rng.integers(0, config.vocab_size, 128) for _ in range(8)]
-    prompts[1][:64] = prompts[0][:64]  # a shared 64-token prefix
-    prompts.append(rng.integers(0, config.vocab_size, 300))  # two chunks: 256 + 44
     engine = ServingEngine(params, config, **ENGINE_KW)
-    reqs = [engine.submit(p, 64) for p in prompts]
+    reqs = [engine.submit(p, ENGINE_NEW) for p in _engine_prompts(config)]
     fa.paged_attention_decode.launches = 0
     fa.paged_attention_prefill.launches = 0
     t0 = time.perf_counter()
@@ -738,22 +761,22 @@ def phase_engine(params, config, dev):
                 "paged_attention_prefill": fa.paged_attention_prefill.launches}
     stats = engine.stats()
     for r in reqs:
-        check(r.status is RequestStatus.FINISHED, f"request {r.rid} ended {r.status}")
-        check(len(r.generated) == 64, f"request {r.rid} made {len(r.generated)} tokens")
+        check(r.status is RequestStatus.FINISHED, f"[{tag}] request {r.rid} ended {r.status}")
+        check(len(r.generated) == ENGINE_NEW, f"request {r.rid} made {len(r.generated)} tokens")
         check(all(0 <= t < config.vocab_size for t in r.generated), "token outside the vocab")
     check(stats["prefix_cached_tokens"] >= 64, f"no prefix hit: {stats}")
     check(launches["paged_attention_prefill"] == config.n_layers * stats["prefill_chunks"] > 0,
           f"prefill launches {launches} vs {stats['prefill_chunks']} chunks")
     check(launches["paged_attention_decode"] == config.n_layers * stats["decode_steps"] > 0,
           f"decode launches {launches} vs {stats['decode_steps']} steps")
-    print(f"[engine] {len(reqs)} requests finished in {wall:.3f} s wall; "
+    print(f"[{tag}] {len(reqs)} requests finished in {wall:.3f} s wall; "
           f"{stats['prefill_chunks']} prefill chunks, {stats['decode_steps']} decode steps, "
           f"{stats['prefix_cached_tokens']} prefix-cached tokens")
-    print(f"[engine] prefill {stats['prefill_tokens'] / stats['prefill_seconds']:.1f} tok/s "
+    print(f"[{tag}] prefill {stats['prefill_tokens'] / stats['prefill_seconds']:.1f} tok/s "
           f"({stats['prefill_tokens']} tokens in {stats['prefill_seconds']:.3f} s); decode "
           f"{stats['decode_tokens'] / stats['decode_seconds']:.1f} tok/s "
           f"({stats['decode_tokens']} tokens in {stats['decode_seconds']:.3f} s)")
-    print(f"[engine] launches on the main path: {launches}")
+    print(f"[{tag}] launches on the main path: {launches}")
     return launches
 
 
@@ -1112,9 +1135,15 @@ def _compare_legs(tag, spec_reqs, plain_reqs, spec_cap, plain_cap, bar=None, tie
 
 
 def _to_f32(params):
-    return {k: ({kk: {kkk: t.float() for kkk, t in vv.items()} for kk, vv in v.items()}
-                if k == "layers" else {kk: t.float() for kk, t in v.items()})
-            for k, v in params.items()}
+    return _tree_to(params, torch.float32)
+
+
+def _tree_to(tree, *to):
+    """Every tensor of a param tree (dicts at any depth), detached and
+    moved or cast by ``Tensor.to(*to)``."""
+    from accelerate_tpu_torch.utils.operations import _tree_map
+
+    return _tree_map(lambda t: t.detach().to(*to), tree)
 
 
 def _serve_lattice(workload_args, prefill_cap):
@@ -2130,7 +2159,7 @@ def _poison_check(dev):
 
 def phase_flash_kernels(dev):
     """Kernels #1-#3 against their plain versions (out, lse; dq; dk, dv) at
-    the four FLASH_CASES, with kernel, plain, bound and SDPA times. The
+    each of FLASH_CASES, with kernel, plain, bound and SDPA times. The
     yardstick for #1 is one ``scaled_dot_product_attention`` call (causal,
     with the band or the segment mask as a boolean mask where there is
     one, ``enable_gqa``); for #2 and #3, ``torch.autograd.grad`` through
@@ -2250,8 +2279,9 @@ def _llama_setup(dev, precision, config, factory, dtype=torch.float32, remat=Fal
 
 
 def _n_params(params) -> int:
-    return sum(t.numel() for v in params.values() for e in v.values()
-               for t in (e.values() if isinstance(e, dict) else [e]))
+    from accelerate_tpu_torch.optimizer import param_leaves
+
+    return sum(t.numel() for t in param_leaves(params))
 
 
 def _lm_leg(dev, tag, config, batches, precision, factory, dtype, remat, calls, what,
@@ -2624,6 +2654,533 @@ def phase_llama_train_check(dev):
           f"Llama f32 3-step update of {worst}: kernels vs plain rel L2 err {upd_err[worst]}")
 
 
+# bench.py's config #2 (run_bench_resnet, bench.py:338-402) as written:
+# ResNet-50, 1000 classes, 192 x 192, batch 64, bf16 params, sgd(0.1,
+# momentum=0.9), one fixed batch of default_rng(0) pixels and labels; 1
+# warm-up and 20 timed steps through Accelerator.prepare and
+# prepare_train_step (examples/cv_example.py's entry). At this learning
+# rate the loss on one fixed batch first climbs and then falls, in the JAX
+# package as in the port (tests/test_torch_resnet.py::
+# test_fixed_batch_loss_climbs_then_falls): the check is that it falls
+# below half its peak within the 20 steps.
+RESNET_BATCH, RESNET_SIDE, RESNET_STEPS = 64, 192, 20
+# One f32 step on the card against the same step on the CPU, on the first
+# RESNET_CHECK_ROWS rows of the batch, each held to the same step in f64 on
+# the CPU: each leaf's update (-0.1 x its gradient; momentum starts at 0)
+# in relative L2 norm. A random ResNet-50's f32 gradients are themselves
+# ill-conditioned: the CPU's f32 step lies up to ~7e-3 from the f64 step on
+# a leaf (GroupNorm scales and early convs). The card's f32 step (TF32 off,
+# this script's setting) must lie within RESNET_F32_SLACK times the CPU's
+# largest f32 distance; with cuDNN's TF32 on (PyTorch's default for
+# convolutions: inputs rounded to a 10-bit mantissa, 2**-11 relative) it
+# must miss that bar, or the check could not see the precision.
+RESNET_CHECK_ROWS, RESNET_F32_SLACK = 8, 3.0
+# T5-small's published widths (T5Config.small(): vocab 32128, d_model 512,
+# 6+6 layers, 8 heads, d_ff 2048, 32 buckets, max distance 128) on
+# examples/seq2seq_example.py's recipe at batch 32 x 512 source / 128
+# target tokens of default_rng(0), adam(1e-4), bf16 mixed precision, K=4
+# steps a prepare_train_loop call; then t5_greedy_generate of 32 tokens at
+# batch 32.
+T5_BATCH, T5_SRC, T5_TGT, T5_K, T5_LR, T5_GEN_NEW = 32, 512, 128, 4, 1e-4, 32
+# f32 logits on the card against the port on the CPU (2 rows, TF32 off):
+# another order of f32 sums through 12 layers, logits of magnitude ~5.
+T5_LOGIT_ATOL = 1e-3
+# The greedy leg runs t5-small's widths with an untied head (an lm_head,
+# as T5 v1.1 keeps it; weights from seed 1): at random weights the tied
+# head maps a decoder state back onto its own input's embedding, so greedy
+# repeats the start token and a token check sees nothing. At least
+# T5_MIN_DISTINCT of the generated tokens must be distinct. Each greedy
+# token is held to the logits of the same params over the finished rows in
+# one decoder call (t5_decode, the teacher-forced path), which the greedy
+# loop's re-run of each prefix must reproduce: in f32 every token is the
+# argmax or within T5_LOGIT_ATOL of it (another order of f32 sums); in
+# bf16 at least T5_BF16_SAME of them are the argmax (the two paths' GEMMs
+# have other row counts, so a sum may round another way, and T5's
+# unscaled attention, logits of std ~8 at this init, carries a one-ulp
+# change far). bf16 against f32 is printed and held to no bar: on this
+# random model the unscaled attention makes them different functions (the
+# leg prints how far their logits part). Two faults planted in the greedy
+# loop (T5_FAULTS, see _t5_fault) must miss both bars.
+T5_MIN_DISTINCT, T5_BF16_SAME = 0.25, 0.9
+T5_FAULTS = ("stale", "no-encoder")
+# The config #5 model (CONFIG_KW) with 8 experts, top-2 (Mixtral-8x7B's
+# routing: num_local_experts 8, num_experts_per_tok 2) and JAX's default
+# capacity factor 1.25: 3.25 B params, 6.5 GB in bf16. Legs: greedy at
+# batch 8 x 128 + 64 tokens; phase_engine's requests through the engine; 2
+# training steps (after one warm-up) in config #4's recipe (bf16 params,
+# adafactor(1e-4), remat "dots_no_batch", flash) at batch 4 x 512. Bytes:
+# params 6.5 GB, gradients 6.5 GB, adafactor's factored moments < 0.1 GB,
+# the saved projections and layer inputs ~0.5 GB, one layer's recomputed
+# experts and the f32 logits ~1 GB: about 15 GB, so no depth is cut.
+MOE_KW = dict(CONFIG_KW, moe_experts=8, moe_top_k=2, moe_capacity_factor=1.25)
+MOE_TRAIN_BATCH, MOE_TRAIN_SEQ, MOE_TRAIN_CALLS, MOE_LR = 4, 512, 2, 1e-4
+# f32 forward on the card against the CPU at the model's width, cut to its
+# first MOE_CHECK_LAYERS layers (2 rows x 64 tokens, TF32 off): another
+# order of f32 sums, and the same routing unless two router probabilities
+# lie within that noise.
+MOE_CHECK_LAYERS, MOE_CHECK_ATOL = 2, 1e-3
+# Greedy bf16 tokens against the f32 cached path on the same rows: a
+# token is the f32 argmax, or a near-tie within GEN_F32_BAR, or sits
+# where bf16 rounding moved a router decision (a second and a third
+# expert within the rounding of the hidden state swap places, and that
+# token's FFN output changes by O(1)); at most MOE_F32_MISS of the
+# tokens may be neither. Each planted cache fault (GEN_FAULTS) must miss
+# that bar, and a tighter one in f32: the cached forward against the full
+# forward within LOGIT_ATOL, both at a capacity factor of E / top_k (no
+# token dropped, so routing is the same in both).
+MOE_F32_MISS = 0.05
+MOE_ENGINE_F32_REQUESTS, MOE_ENGINE_F32_NEW = 3, 16
+
+
+def _card_step(params, batch, dev, loss_fn, factory):
+    """One step of ``loss_fn`` through ``Accelerator.prepare_train_step``
+    on ``dev`` from ``params`` (copied there): ``(loss, {leaf: update})``."""
+    from accelerate_tpu_torch import Accelerator
+    from accelerate_tpu_torch.utils.modeling import named_parameters
+
+    _reset_states()
+    acc = Accelerator(device=dev)
+    start = {k: v.detach().to(dev, copy=True) for k, v in named_parameters(params).items()}
+    p, opt = acc.prepare(params, factory)
+    step = acc.prepare_train_step(loss_fn, opt)
+    _, _, m = step(p, opt.opt_state, {k: v.to(dev) for k, v in batch.items()})
+    upd = {k: (v.detach() - start[k]).cpu() for k, v in named_parameters(p).items()}
+    return float(m["loss"]), upd
+
+
+def _update_errs(got, want):
+    """Relative L2 error of each leaf's update, and the worst leaf."""
+    errs = {k: float((got[k] - want[k]).norm() / want[k].norm().clamp_min(1e-30))
+            for k in want}
+    return errs, max(errs, key=errs.get)
+
+
+def phase_resnet(dev):
+    """``bench.py``'s config #2 on the card through the Accelerator; then
+    the f32 step against the CPU. Returns the leg's numbers."""
+    from accelerate_tpu_torch import Accelerator, ResNetConfig, init_resnet, resnet_loss
+    from accelerate_tpu_torch.optimizer import param_leaves, sgd
+
+    t_phase = time.perf_counter()
+    config = ResNetConfig.resnet50(num_classes=1000)
+    rng = np.random.default_rng(0)
+    pixels = rng.normal(size=(RESNET_BATCH, RESNET_SIDE, RESNET_SIDE, 3)).astype(np.float32)
+    labels = rng.integers(0, config.num_classes, (RESNET_BATCH,))
+    batch = {"pixels": torch.from_numpy(pixels).to(dev, torch.bfloat16),
+             "labels": torch.from_numpy(labels).to(dev)}
+    _reset_states()
+    acc = Accelerator(rng_seed=0)
+    params = init_resnet(config, torch.Generator(device=dev).manual_seed(0), device=dev,
+                         dtype=torch.bfloat16)
+    n_params = sum(t.numel() for t in param_leaves(params))
+    params, opt = acc.prepare(params, sgd(0.1, momentum=0.9))
+    step = acc.prepare_train_step(lambda p, b: resnet_loss(p, b, config), opt)
+    state = opt.opt_state
+    params, state, m = step(params, state, batch)
+    losses = [m["loss"]]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    for _ in range(RESNET_STEPS):
+        params, state, m = step(params, state, batch)
+        losses.append(m["loss"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    losses = torch.stack(losses).float().cpu()
+    check(bool(torch.isfinite(losses).all()), f"[resnet] non-finite loss: {losses.tolist()}")
+    peak_loss = float(losses.max())
+    check(float(losses[-1]) < 0.5 * peak_loss,
+          f"[resnet] the loss did not turn down within {RESNET_STEPS} steps on one batch: "
+          f"{losses.tolist()}")
+    ms = wall / RESNET_STEPS * 1e3
+    print(f"[resnet] config #2: ResNet-50 ({n_params / 1e6:.3f} M params, bf16, GroupNorm "
+          f"{config.groups}), {config.num_classes} classes, batch {RESNET_BATCH} x "
+          f"{RESNET_SIDE}^2, sgd(0.1, momentum=0.9), channels-last convolutions (cuDNN)")
+    print(f"[resnet] {RESNET_STEPS} timed steps in {wall:.3f} s: {ms:.2f} ms/step, "
+          f"{RESNET_STEPS * RESNET_BATCH / wall:.1f} images/s; peak memory "
+          f"{peak / 2**30:.2f} GiB")
+    print("[resnet] loss over the warm-up and timed steps: "
+          + " ".join(f"{x:.4f}" for x in losses.tolist()))
+    _profile_step(lambda p, s, b: step(p, s, b), params, state, batch, "resnet-profile", 3)
+    del params, opt, state, step
+    torch.cuda.empty_cache()
+
+    # one f32 step on the card (TF32 off, then cuDNN's TF32 on) and on the
+    # CPU, each against the CPU's f64 step
+    f32 = init_resnet(config, torch.Generator(device=dev).manual_seed(1), device=dev)
+    rows = {"pixels": torch.from_numpy(pixels[:RESNET_CHECK_ROWS]),
+            "labels": torch.from_numpy(labels[:RESNET_CHECK_ROWS])}
+
+    def loss_fn(p, b):
+        return resnet_loss(p, b, config)
+
+    def one_step(params, device, dtype=torch.float32):
+        batch = {"pixels": rows["pixels"].to(dtype), "labels": rows["labels"]}
+        return _card_step(_tree_to(params, dtype), batch, device, loss_fn,
+                          sgd(0.1, momentum=0.9))
+
+    cpu = torch.device("cpu")
+    t0 = time.perf_counter()
+    ref_loss, ref = one_step(f32, cpu, torch.float64)
+    cpu_loss, cpu_upd = one_step(f32, cpu)
+    cpu_s = time.perf_counter() - t0
+    card_loss, card_upd = one_step(f32, dev)
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        tf32_loss, tf32_upd = one_step(f32, dev)
+    finally:
+        torch.backends.cudnn.allow_tf32 = False
+    (cpu_errs, cpu_w), (errs, worst), (tf32_errs, tf32_w) = (
+        _update_errs({k: v.double() for k, v in u.items()}, ref)
+        for u in (cpu_upd, card_upd, tf32_upd))
+    bar = RESNET_F32_SLACK * cpu_errs[cpu_w]
+    print(f"[resnet-check] one step, {RESNET_CHECK_ROWS} rows, each against the CPU's f64 step "
+          f"(loss {ref_loss:.6f}; {cpu_s:.1f} s on the CPU): worst leaf update rel L2 err CPU "
+          f"f32 {cpu_errs[cpu_w]:.3e} ({cpu_w}), card f32 {errs[worst]:.3e} ({worst}; bar "
+          f"{bar:.3e}, TF32 off), card with cuDNN TF32 {tf32_errs[tf32_w]:.3e} ({tf32_w}; must "
+          f"exceed the bar); losses {cpu_loss:.6f} / {card_loss:.6f} / {tf32_loss:.6f}")
+    check(errs[worst] <= bar, f"[resnet-check] card f32 update of {worst}: {errs[worst]} > {bar}")
+    check(tf32_errs[tf32_w] > bar,
+          f"[resnet-check] the TF32 step is within the f32 bar ({tf32_errs[tf32_w]} <= {bar})")
+    del f32
+    torch.cuda.empty_cache()
+    print(f"[resnet] phase seconds {time.perf_counter() - t_phase:.1f}")
+    return {"ms": ms, "images_per_s": RESNET_STEPS * RESNET_BATCH / wall, "peak": peak}
+
+
+def phase_t5(dev):
+    """T5-small on ``examples/seq2seq_example.py``'s recipe: K-step
+    ``prepare_train_loop`` calls in bf16 mixed precision with ``adam``,
+    then greedy decoding at the same widths with an untied head, each
+    greedy token held to one decoder call over its rows (see
+    T5_MIN_DISTINCT), beside two planted faults; f32 logits on the card
+    against the CPU."""
+    from accelerate_tpu_torch import (
+        Accelerator,
+        T5Config,
+        init_t5,
+        t5_decode,
+        t5_encode,
+        t5_forward,
+        t5_greedy_generate,
+        t5_loss,
+    )
+    from accelerate_tpu_torch.optimizer import adam, param_leaves
+    from accelerate_tpu_torch.utils.operations import stack_batches
+
+    t_phase = time.perf_counter()
+    config = T5Config.small()
+    rng = np.random.default_rng(0)
+    V = config.vocab_size
+
+    def batch():
+        tgt = rng.integers(2, V, (T5_BATCH, T5_TGT))
+        dec_in = np.concatenate([np.zeros((T5_BATCH, 1), np.int64), tgt[:, :-1]], axis=1)
+        return {"input_ids": torch.from_numpy(rng.integers(2, V, (T5_BATCH, T5_SRC))),
+                "decoder_input_ids": torch.from_numpy(dec_in),
+                "labels": torch.from_numpy(tgt)}
+
+    batches = {k: v.to(dev) for k, v in stack_batches([batch() for _ in range(T5_K)]).items()}
+    _reset_states()
+    acc = Accelerator(mixed_precision="bf16", rng_seed=0)
+    params = init_t5(config, torch.Generator(device=dev).manual_seed(0), device=dev)
+    n_params = sum(t.numel() for t in param_leaves(params))
+    params, opt = acc.prepare(params, adam(T5_LR))
+    loop = acc.prepare_train_loop(lambda p, b: t5_loss(p, b, config), opt)
+    state = opt.opt_state
+    params, state, m = loop(params, state, batches)
+    losses = [m["loss"]]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params, state, m = loop(params, state, batches)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    losses.append(m["loss"])
+    peak = torch.cuda.max_memory_allocated()
+    losses = torch.cat(losses).cpu()
+    check(bool(torch.isfinite(losses).all()), f"[t5] non-finite loss: {losses.tolist()}")
+    ms = wall / T5_K * 1e3
+    print(f"[t5] T5Config.small(): {n_params / 1e6:.2f} M params (f32 masters, bf16 compute), "
+          f"batch {T5_BATCH} x {T5_SRC} source / {T5_TGT} target tokens, adam({T5_LR:g})")
+    print(f"[t5] {T5_K} timed steps in {wall:.3f} s: {ms:.2f} ms/step, "
+          f"{T5_K * T5_BATCH / wall:.1f} samples/s; peak memory {peak / 2**30:.2f} GiB")
+    print("[t5] loss over 2 calls: " + " ".join(f"{x:.4f}" for x in losses.tolist()))
+    one = {k: v[:1] for k, v in batches.items()}
+    _profile_step(loop, params, state, one, "t5-profile", 2)
+
+    src = batches["input_ids"][0]
+    gen_config = dataclasses.replace(config, tie_word_embeddings=False)
+    gen32 = init_t5(gen_config, torch.Generator(device=dev).manual_seed(1), device=dev)
+    gen16 = _tree_to(gen32, torch.bfloat16)
+    t5_greedy_generate(gen16, src[:, :16], gen_config, max_new_tokens=2)  # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ids = t5_greedy_generate(gen16, src, gen_config, max_new_tokens=T5_GEN_NEW)
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t0
+    check(ids.shape == (T5_BATCH, 1 + T5_GEN_NEW) and bool((ids >= 0).all())
+          and bool((ids < V).all()), f"[t5] bad greedy ids {ids.shape}")
+    print(f"[t5] t5_greedy_generate bf16 (untied head), batch {T5_BATCH} x {T5_SRC} source, "
+          f"{T5_GEN_NEW} new tokens in {gen_s:.3f} s: {T5_BATCH * T5_GEN_NEW / gen_s:.1f} tokens/s")
+
+    def logits_of(p, rows):
+        with torch.no_grad():
+            return t5_decode(p, rows[:, :-1], t5_encode(p, src, gen_config), gen_config).float()
+
+    def held(ids16, ids32):
+        """bf16 tokens' argmax share, f32 tokens' largest gap, the smaller
+        distinct share of the two streams."""
+        share = float((_t5_gaps(logits_of(gen16, ids16), ids16) == 0).float().mean())
+        worst = float(_t5_gaps(logits_of(gen32, ids32), ids32).max())
+        distinct = min(len(torch.unique(x[:, 1:])) for x in (ids16, ids32)) / ids16[:, 1:].numel()
+        return share, worst, distinct
+
+    ids32 = t5_greedy_generate(gen32, src, gen_config, max_new_tokens=T5_GEN_NEW)
+    same, worst, distinct = held(ids, ids32)
+    print(f"[t5] greedy tokens vs one decoder call over their rows: bf16 {same:.4f} the argmax "
+          f"(bar {T5_BF16_SAME}), f32 largest gap {worst:.3e} (bar {T5_LOGIT_ATOL:.0e}); distinct "
+          f"share {distinct:.4f} (bar {T5_MIN_DISTINCT})")
+    check(distinct >= T5_MIN_DISTINCT, f"[t5] greedy streams of {distinct} distinct tokens")
+    check(worst <= T5_LOGIT_ATOL, f"[t5] an f32 greedy token's logit is {worst} below the maximum")
+    check(same >= T5_BF16_SAME, f"[t5] only {same} of bf16 greedy tokens are the argmax")
+    l16, l32 = logits_of(gen16, ids), logits_of(gen32, ids)
+    gap = _t5_gaps(l32, ids)
+    print(f"[t5] bf16 greedy tokens under the f32 logits of their rows (no bar): "
+          f"{float((gap == 0).float().mean()):.4f} the f32 argmax, largest gap "
+          f"{float(gap.max()):.4f}; bf16 and f32 logits part by up to "
+          f"{float((l16 - l32).abs().max()):.4f} (max |logit| {float(l32.abs().max()):.3f}); "
+          f"{int((ids == ids32).all(-1).sum())} of {T5_BATCH} rows the same stream in both")
+    del l16, l32
+    for fault in T5_FAULTS:
+        with _t5_fault(fault):
+            bad = [t5_greedy_generate(p, src, gen_config, max_new_tokens=T5_GEN_NEW)
+                   for p in (gen16, gen32)]
+        b_same, b_worst, b_distinct = held(*bad)
+        print(f"[t5] planted fault {fault!r}: bf16 {b_same:.4f} the argmax (bar {T5_BF16_SAME}), "
+              f"f32 largest gap {b_worst:.4f} (bar {T5_LOGIT_ATOL:.0e}); distinct share "
+              f"{b_distinct:.4f}")
+        check(b_same < T5_BF16_SAME and b_worst > T5_LOGIT_ATOL,
+              f"[t5] planted fault {fault!r} within a bar: too loose")
+    del gen16, gen32
+    f32 = _tree_to(params, dev)
+    rows = {k: v[0, :2] for k, v in batches.items()}
+    cpu = torch.device("cpu")
+    with torch.no_grad():
+        card = t5_forward(f32, rows, config).cpu()
+        host = t5_forward(_tree_to(f32, cpu), {k: v.cpu() for k, v in rows.items()}, config)
+    err = float((card - host).abs().max())
+    print(f"[t5-check] f32 logits, 2 rows, card vs CPU: max abs err {err:.3e} (tol "
+          f"{T5_LOGIT_ATOL:.0e}, max |logit| {float(host.abs().max()):.3f})")
+    check(err <= T5_LOGIT_ATOL, f"[t5-check] f32 logits card vs CPU: {err}")
+    del params, opt, loop, state, f32
+    torch.cuda.empty_cache()
+    print(f"[t5] phase seconds {time.perf_counter() - t_phase:.1f}")
+    return {"ms": ms, "samples_per_s": T5_K * T5_BATCH / wall,
+            "tokens_per_s": T5_BATCH * T5_GEN_NEW / gen_s}
+
+
+def _t5_gaps(logits, ids):
+    """How far each greedy token of ``ids [B, 1 + T]`` lies below the
+    maximum of its row of ``logits [B, T, V]`` (0 where it is the argmax)."""
+    chosen = ids[:, 1:]
+    return (logits.max(-1).values - logits.gather(-1, chosen[..., None])[..., 0]).cpu()
+
+
+@contextlib.contextmanager
+def _t5_fault(fault):
+    """A fault planted in ``t5_greedy_generate``'s loop, for the greedy
+    checks' negative control: ``"stale"`` takes each step's token from the
+    row before the last (an off-by-one: the prediction for the position
+    just written); ``"no-encoder"`` decodes against a zeroed encoder
+    output."""
+    from accelerate_tpu_torch.models import t5
+
+    real = t5.t5_decode
+
+    def decode(params, ids, enc_out, config, enc_mask=None):
+        if fault == "stale":
+            out = real(params, ids, enc_out, config, enc_mask)
+            return out[:, :-1] if ids.shape[1] > 1 else out
+        return real(params, ids, torch.zeros_like(enc_out), config, enc_mask)
+
+    t5.t5_decode = decode
+    try:
+        yield
+    finally:
+        t5.t5_decode = real
+
+
+@contextlib.contextmanager
+def _count_drops(store):
+    """Count the routed and dropped token-choices of every MoE call over
+    more than one token position (prefill chunks, full forwards) into
+    ``store`` (device tensors), by routing each call's input once more."""
+    from accelerate_tpu_torch.parallel import moe
+
+    real = moe.moe_ffn
+
+    def counted(params, x, **kw):
+        if x.shape[1] > 1:
+            r = moe.route(params["router"]["kernel"], x, kw["top_k"], kw["capacity_factor"])
+            store["routed"] = store.get("routed", 0) + r.keep.numel()
+            store["dropped"] = store.get("dropped", 0) + (~r.keep).sum()
+        return real(params, x, **kw)
+
+    moe.moe_ffn = counted
+    try:
+        yield store
+    finally:
+        moe.moe_ffn = real
+
+
+def _drop_share(store) -> float:
+    return float(store["dropped"]) / max(int(store["routed"]), 1)
+
+
+def phase_moe(dev):
+    """The config #5 model with 8 experts, top-2: greedy generation, the
+    serving engine and 2 training steps, each with its checks. Returns the
+    launches of the engine leg (#6/#7) and of the training leg (#1-#3)."""
+    from accelerate_tpu_torch import (
+        LlamaConfig,
+        ServingEngine,
+        draft_config,
+        draft_params,
+        greedy_generate,
+        init_llama,
+        llama_forward,
+    )
+    from accelerate_tpu_torch.optimizer import adafactor
+
+    t_phase = time.perf_counter()
+    config = LlamaConfig(**MOE_KW)
+    params = init_llama(config, torch.Generator(device=dev).manual_seed(0), device=dev,
+                        dtype=torch.bfloat16)
+    n_params = _n_params(params)
+    print(f"[moe] config #5 model with {config.moe_experts} experts, top-{config.moe_top_k}, "
+          f"capacity factor {config.moe_capacity_factor}: {n_params / 1e9:.3f} B params "
+          f"({2 * n_params / 1e9:.2f} GB in bf16), ffn {config.hidden_dim} an expert")
+
+    # f32 forward at the model's width, first layers, card vs CPU
+    cut = draft_config(config, MOE_CHECK_LAYERS)
+    f32_cut = _to_f32(draft_params(params, MOE_CHECK_LAYERS))
+    ids = torch.from_numpy(np.random.default_rng(1).integers(0, config.vocab_size, (2, 64)))
+    with torch.no_grad():
+        card = llama_forward(f32_cut, ids.to(dev), cut, attention_impl="xla").cpu()
+        host = llama_forward(_tree_to(f32_cut, torch.device("cpu")), ids, cut,
+                             attention_impl="xla")
+    err = float((card - host).abs().max())
+    print(f"[moe-check] f32 forward, {MOE_CHECK_LAYERS} layers at full width, 2 x 64 tokens, card "
+          f"vs CPU: max abs logit err {err:.3e} (tol {MOE_CHECK_ATOL:.0e}, max |logit| "
+          f"{float(host.abs().max()):.3f})")
+    check(err <= MOE_CHECK_ATOL, f"[moe-check] f32 forward card vs CPU: {err}")
+    del f32_cut
+
+    # leg 1: greedy generation at config #5's shapes
+    prompt = np.random.default_rng(0).integers(0, config.vocab_size,
+                                               (GEN_BATCH, GEN_PROMPT)).astype(np.int32)
+    tokens, stats = greedy_generate(params, prompt, config, max_new_tokens=GEN_NEW,
+                                    return_stats=True, warmup=True)
+    check(tokens.shape == (GEN_BATCH, GEN_PROMPT + GEN_NEW)
+          and (tokens[:, GEN_PROMPT:] < config.vocab_size).all(), "[moe] bad greedy tokens")
+    drops = {}
+    with _count_drops(drops):
+        greedy_generate(params, prompt, config, max_new_tokens=1)
+    print(f"[moe-generate] batch {GEN_BATCH} x {GEN_PROMPT} prompt tokens, {GEN_NEW} new: "
+          f"prefill_seconds {stats['prefill_seconds']:.4f}, decode_tokens_per_sec "
+          f"{stats['decode_tokens_per_sec']:.1f}, seconds_per_token "
+          f"{stats['seconds_per_token']:.5f}; prefill token-choices dropped by capacity "
+          f"{_drop_share(drops):.4f} ({int(drops['dropped'])} of {int(drops['routed'])})")
+    f32 = _to_f32(params)
+    logits = _generate_logits(f32, config, tokens, GEN_PROMPT, dev)
+    gap = _token_gaps(logits, tokens, GEN_PROMPT)
+    near = [(int(r), int(t), float(gap[r, t])) for r, t in torch.nonzero(gap > 0).tolist()]
+    for r, t, g in near[:12]:
+        print(f"[moe-generate]   not the f32 argmax: row {r} token {t}: bf16 chose "
+              f"{int(tokens[r, GEN_PROMPT + t])}, f32 argmax {int(logits[r, t].argmax())}, f32 "
+              f"logit gap {g:.4f}")
+    miss = float((gap > GEN_F32_BAR).float().mean())
+    print(f"[moe-generate] greedy bf16 tokens vs the f32 cached path on their rows: "
+          f"{gap.numel() - len(near)} of {gap.numel()} are the f32 argmax, "
+          f"{int((gap > GEN_F32_BAR).sum())} lie more than {GEN_F32_BAR} below it (share "
+          f"{miss:.4f}, bar {MOE_F32_MISS}); largest gap {float(gap.max()):.4f}")
+    check(miss <= MOE_F32_MISS, f"[moe-generate] {miss} of greedy tokens off the f32 argmax")
+    # the cached path in f32 against the full forward, both at a factor
+    # that drops no token (E / top_k), over the first GEN_SHORT_NEW rows
+    nodrop = dataclasses.replace(config,
+                                 moe_capacity_factor=config.moe_experts / config.moe_top_k)
+    rows = tokens[:, :GEN_PROMPT + GEN_SHORT_NEW]
+    full = _f32_logits(f32, nodrop, rows, GEN_PROMPT, dev)
+    err = float((_generate_logits(f32, nodrop, rows, GEN_PROMPT, dev) - full).abs().max())
+    print(f"[moe-generate] cached forward in f32 vs the f32 full forward, capacity factor "
+          f"{nodrop.moe_capacity_factor:g} (no drops), {rows.shape[0]} x {rows.shape[1]} tokens: "
+          f"max abs logit err {err:.3e} (tol {LOGIT_ATOL:.0e}, max |logit| "
+          f"{float(full.abs().max()):.3f})")
+    check(err <= LOGIT_ATOL, f"[moe-generate] cached vs full forward: {err} > {LOGIT_ATOL}")
+    for fault in GEN_FAULTS:
+        with _planted_fault(fault):
+            bad_err = float((_generate_logits(f32, nodrop, rows, GEN_PROMPT, dev) - full)
+                            .abs().max())
+            bad = greedy_generate(params, prompt, config, max_new_tokens=GEN_SHORT_NEW)
+        bad_gap = _token_gaps(_generate_logits(f32, config, bad, GEN_PROMPT, dev), bad, GEN_PROMPT)
+        bad_miss = float((bad_gap > GEN_F32_BAR).float().mean())
+        print(f"[moe-generate] planted fault {fault!r}: cached f32 logits err {bad_err:.3e} (tol "
+              f"{LOGIT_ATOL:.0e}); {int((bad_gap > GEN_F32_BAR).sum())} of {bad_gap.numel()} "
+              f"greedy tokens more than {GEN_F32_BAR} below the f32 argmax (share "
+              f"{bad_miss:.4f}, token bar {MOE_F32_MISS}); largest gap {float(bad_gap.max()):.4f}")
+        check(bad_err > LOGIT_ATOL and bad_miss > MOE_F32_MISS,
+              f"[moe-generate] planted fault {fault!r} within a bar ({bad_err} <= {LOGIT_ATOL} "
+              f"or {bad_miss} <= {MOE_F32_MISS}): too loose")
+    del f32, logits, full
+    torch.cuda.empty_cache()
+
+    # leg 2: phase_engine's requests through the serving engine (#6, #7);
+    # then the same requests once more, untimed, with the drops counted
+    engine_launches = phase_engine(params, config, dev, tag="moe-engine")
+    prompts = _engine_prompts(config)
+    engine = ServingEngine(params, config, **ENGINE_KW)
+    for p in prompts:
+        engine.submit(p, ENGINE_NEW)
+    drops = {}
+    with _count_drops(drops):
+        engine.run()
+    print(f"[moe-engine] prefill token-choices dropped by capacity {_drop_share(drops):.4f} "
+          f"({int(drops['dropped'])} of {int(drops['routed'])}, padded rows of a chunk routed "
+          f"with it)")
+    f32 = _to_f32(params)
+    streams = []
+    for _ in range(2):
+        eng = ServingEngine(f32, config, cache_dtype=torch.float32, **ENGINE_KW)
+        rs = [eng.submit(p, MOE_ENGINE_F32_NEW) for p in prompts[:MOE_ENGINE_F32_REQUESTS]]
+        eng.run()
+        streams.append([r.output_ids().tolist() for r in rs])
+    check(streams[0] == streams[1], "[moe-engine] two f32 engine runs gave different streams")
+    print(f"[moe-engine] f32 params and cache, {MOE_ENGINE_F32_REQUESTS} requests x "
+          f"{MOE_ENGINE_F32_NEW} tokens, run twice: the same streams")
+    del f32, engine
+    torch.cuda.empty_cache()
+
+    # leg 3: training in config #4's recipe (#1-#3), at the attention shape
+    # phase_flash_kernels held them to their plain versions
+    train_cfg = dataclasses.replace(config, max_seq_len=MOE_TRAIN_SEQ, attn_impl="flash")
+    check(FLASH_CASES["moe_train"] == (MOE_TRAIN_BATCH, MOE_TRAIN_SEQ, config.n_heads,
+                                       config.n_kv_heads, config.head_dim, None, False),
+          "FLASH_CASES['moe_train'] is not the training leg's shape")
+    tids = np.random.default_rng(0).integers(0, config.vocab_size,
+                                             (1, MOE_TRAIN_BATCH, MOE_TRAIN_SEQ))
+    del params
+    torch.cuda.empty_cache()
+    train_launches, leg = _lm_leg(
+        dev, "moe-train", train_cfg, {"input_ids": torch.from_numpy(tids.astype(np.int32)).to(dev)},
+        "no", adafactor(MOE_LR), torch.bfloat16, "dots_no_batch", MOE_TRAIN_CALLS,
+        f"bf16 params, adafactor({MOE_LR:g}), {config.moe_experts} experts top-"
+        f"{config.moe_top_k}")
+    print(f"[moe] phase seconds {time.perf_counter() - t_phase:.1f}")
+    return engine_launches, train_launches, leg
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -2686,6 +3243,9 @@ def main() -> int:
     phase_llama_train_check(dev)
     lm_launches, offload_dots_launches = phase_lm774m(dev)
     phase_lm774m_check(dev)
+    phase_resnet(dev)
+    phase_t5(dev)
+    moe_engine_launches, moe_train_launches, _ = phase_moe(dev)
 
     keys =("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     records = []
@@ -2701,7 +3261,8 @@ def main() -> int:
         records.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
                         "launches": launches[name], **{k: rec[k] for k in keys},
                         spec_kind: {k: spec_rec[k] for k in keys},
-                        "launches_spec_decode": spec_results["spec"]["launches"][name]})
+                        "launches_spec_decode": spec_results["spec"]["launches"][name],
+                        "launches_moe_engine": moe_engine_launches[name]})
     for name, kind, replaces in (
         ("fused_attention_fwd", "fwd", "accelerate_tpu/ops/fused_attention.py:90"),
         ("fused_attention_bwd", "bwd", "accelerate_tpu/ops/fused_attention.py:107"),
@@ -2721,13 +3282,16 @@ def main() -> int:
     ):
         rec = flash_results[("llama_long", kind, torch.bfloat16)]
         lm_rec = flash_results[("lm774m", kind, torch.bfloat16)]
+        moe_rec = flash_results[("moe_train", kind, torch.bfloat16)]
         records.append({"name": name, "route": "cuda",
                         "source": f"accelerate_tpu_torch/csrc/{source}.cu",
                         "replaces": f"accelerate_tpu/ops/flash_attention.py:{line}",
                         "launches": llama_launches[name], **{k: rec[k] for k in keys},
                         "lm774m": {k: lm_rec[k] for k in keys},
+                        "moe_train": {k: moe_rec[k] for k in keys},
                         "launches_lm774m": lm_launches[name],
-                        "launches_lm774m_offload_dots": offload_dots_launches[name]})
+                        "launches_lm774m_offload_dots": offload_dots_launches[name],
+                        "launches_moe_train": moe_train_launches[name]})
     print(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(card)
     print(json.dumps({"kernels": records}))

@@ -18,7 +18,8 @@ crossed through ``models.convert.params_from_numpy``, f32 params and cache.
 - ``generate_dispatched`` over CPU offload, disk offload and a mixed map
   equals JAX's ``generate_dispatched`` over the same map and the port's
   own ``greedy_generate``, including an early exit at eos;
-- ``return_stats`` has JAX's keys; ``mesh=`` and MoE configs raise.
+- ``return_stats`` has JAX's keys; ``mesh=`` raises; an MoE config
+  generates JAX's greedy tokens (more in ``tests/test_torch_moe.py``).
 """
 
 import itertools
@@ -270,9 +271,14 @@ def test_mesh_and_moe_raise(params, prompt):
         tg.generation_shardings(object(), B, TCFG)
     with pytest.raises(NotImplementedError, match="Queue A item 6"):
         tg.serving_shardings(object(), TCFG)
+    # MoE configs generate (the decode capacity floor), JAX's tokens
+    jmoe = jt.LlamaConfig(**{**JCFG.__dict__, "moe_experts": 4})
     moe = tt.LlamaConfig(**{**TCFG.__dict__, "moe_experts": 4})
-    with pytest.raises(NotImplementedError, match="MoE"):
-        tg.greedy_generate(tp, prompt, moe, max_new_tokens=2, **CPU)
+    jp = jt.init_llama(jmoe, jax.random.PRNGKey(1))
+    tp = params_from_numpy(jax.tree_util.tree_map(np.asarray, jp), device="cpu")
+    want = jg.greedy_generate(jp, prompt, jmoe, max_new_tokens=4, cache_dtype=jnp.float32)
+    got = tg.greedy_generate(tp, prompt, moe, max_new_tokens=4, cache_dtype=torch.float32, **CPU)
+    np.testing.assert_array_equal(got, np.asarray(want))
 
 
 def test_init_kv_cache_layout_and_device_rule(params, prompt, monkeypatch):

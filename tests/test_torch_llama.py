@@ -95,9 +95,10 @@ def test_llama_ffn(params):
     jp, tp = params
     jl, tl = _layer(jp, tp, 0)
     x = _rng(6).standard_normal((2, 3, JCFG.dim)).astype(np.float32)
-    ref, _ = jt.llama_ffn(jl, jnp.asarray(x), JCFG)
-    ours = tt.llama_ffn(tl, torch.from_numpy(x), TCFG)
+    ref, ref_aux = jt.llama_ffn(jl, jnp.asarray(x), JCFG)
+    ours, aux = tt.llama_ffn(tl, torch.from_numpy(x), TCFG)  # (y, aux), as JAX's
     np.testing.assert_allclose(_np(ours), _np(ref), atol=1e-5, rtol=1e-5)
+    assert float(aux) == float(ref_aux) == 0.0
 
 
 def test_masked_attention_core():
@@ -150,9 +151,20 @@ def test_init_llama_layout_matches_jax():
 
 
 def test_unported_features_raise():
-    with pytest.raises(NotImplementedError, match="MoE"):
-        tt.init_llama(tt.LlamaConfig(dim=64, n_layers=1, n_heads=2, n_kv_heads=1, moe_experts=4),
-                      device="cpu")
+    # MoE is ported: the init's tree is JAX's, and the forward equals JAX's
+    jmoe = jt.LlamaConfig(vocab_size=64, dim=64, n_layers=1, n_heads=2, n_kv_heads=1,
+                          moe_experts=4)
+    moe = tt.LlamaConfig(vocab_size=64, dim=64, n_layers=1, n_heads=2, n_kv_heads=1,
+                         moe_experts=4)
+    tp = tt.init_llama(moe, torch.Generator().manual_seed(0), device="cpu")
+    jp = jt.init_llama(jmoe, jax.random.PRNGKey(0))
+    assert jax.tree_util.tree_map(lambda x: tuple(x.shape), jp) == jax.tree_util.tree_map(
+        lambda x: tuple(x.shape), tp)
+    ids = np.random.default_rng(0).integers(0, 64, (2, 8)).astype(np.int32)
+    want = np.asarray(jt.llama_forward(jp, jnp.asarray(ids), jmoe))
+    got = tt.llama_forward(params_from_numpy(jax.tree_util.tree_map(np.asarray, jp),
+                                             device="cpu"), torch.from_numpy(ids), moe)
+    np.testing.assert_allclose(got.numpy(), want, atol=1e-5, rtol=1e-5)
     with pytest.raises(NotImplementedError, match="fp8"):
         tt.init_llama(tt.LlamaConfig(dim=64, n_layers=1, n_heads=2, n_kv_heads=1,
                                      dtype_recipe="fp8"), device="cpu")

@@ -247,5 +247,10 @@ def test_unported_forward_options_raise(params):
     ids = torch.from_numpy(_ids(8, rows=1, seq=16))
     with pytest.raises(NotImplementedError, match="attention_fn"):
         tt.llama_forward(tp, ids, TCFG, attention_fn=lambda *a, **k: None)
-    with pytest.raises(NotImplementedError, match="MoE"):
-        tt.llama_loss(tp, {"input_ids": ids}, dataclasses.replace(TCFG, moe_experts=2))
+    # MoE is ported: the loss adds the aux term, as JAX's does
+    jmoe, moe = (dataclasses.replace(c, moe_experts=2) for c in (JCFG, TCFG))
+    jp = jt.init_llama(jmoe, jax.random.PRNGKey(0))
+    want = jt.llama_loss(jp, {"input_ids": jnp.asarray(ids.numpy())}, jmoe)
+    got = tt.llama_loss(params_from_numpy(jax.tree_util.tree_map(np.asarray, jp),
+                                          device="cpu"), {"input_ids": ids}, moe)
+    np.testing.assert_allclose(float(got), float(want), rtol=1e-5)
