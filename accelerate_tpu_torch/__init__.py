@@ -50,7 +50,15 @@ Ported so far:
   cuDNN convolutions in channels-last memory) with ``optimizer.sgd``, T5
   (``models.t5``) with ``optimizer.adam``, and the MoE FFN
   (``parallel.moe``) in every Llama path: training, generation and the
-  serving engine. Param trees may hold lists, as JAX pytrees do.
+  serving engine. Param trees may hold lists, as JAX pytrees do;
+- more than one process: one process per device in a ``torch.distributed``
+  group (``state``; torchrun's or the JAX package's launcher environment),
+  ``ParallelismConfig`` and its mesh (``parallelism_config``), the
+  collectives (``utils.operations``), the sharding plan and sharded Llama
+  training under DP, FSDP, TP and fused ZeRO-1 (``parallel.sharding``,
+  ``parallel.weight_update``, ``Accelerator(parallelism_config=...)``,
+  ``llama_loss(mesh=...)``), data loading across processes
+  (``data_loader``), and the multi-process test launcher (``test_utils``).
 """
 
 from .accelerator import Accelerator
@@ -61,8 +69,12 @@ from .optimizer import (
     linear_schedule,
     warmup_cosine_decay_schedule,
 )
+from .parallelism_config import ParallelismConfig
 from .scheduler import AcceleratedScheduler
+from .state import AcceleratorState, GradientState, PartialState
 from .utils.dataclasses import (
+    DeepSpeedPlugin,
+    DistributedType,
     DummyOptim,
     DummyScheduler,
     GradientAccumulationPlugin,
@@ -129,15 +141,21 @@ from .utils.modeling import (
 __all__ = [
     "AcceleratedScheduler",
     "Accelerator",
+    "AcceleratorState",
     "BertConfig",
     "BucketLattice",
     "DataLoader",
+    "DeepSpeedPlugin",
     "DispatchedParams",
+    "DistributedType",
     "DummyOptim",
     "DummyScheduler",
     "GradScalerConfig",
     "GradientAccumulationPlugin",
+    "GradientState",
     "LlamaConfig",
+    "ParallelismConfig",
+    "PartialState",
     "Request",
     "RequestStatus",
     "ResNetConfig",

@@ -1,5 +1,4 @@
-"""The training entry point: the port of ``accelerate_tpu.accelerator`` for
-one process on one device.
+"""The training entry point: the port of ``accelerate_tpu.accelerator``.
 
 ``Accelerator.prepare`` places params, binds optimizers (``DummyOptim`` /
 ``DummyScheduler`` included), wraps schedulers and data loaders;
@@ -21,9 +20,29 @@ host count, the loss scale, its growth count and the finite flag stay on
 the device, and the metrics stay there until the caller reads them.
 
 Clipping inside the step is the optimizer's: ``chain(clip_by_global_norm(
-...), tx)`` (:mod:`.optimizer`). Not ported yet (see ROADMAP.md):
-``mixed_precision="fp8"``, the mesh and its sharded placement, the fused
-ZeRO-1 update, optimizer offload, trackers and checkpointing.
+...), tx)`` (:mod:`.optimizer`).
+
+Under a mesh (``parallelism_config=``; one process per device, see
+:mod:`.state`), ``prepare_model`` places each rank's block of every param
+through one :func:`~.parallel.sharding.make_sharding_plan` call,
+``prepare_optimizer`` binds the optimizer to those blocks (or, with
+``DeepSpeedPlugin(zero_stage=1)`` on a pure data-parallel mesh, to this
+rank's chunks of the fused ZeRO-1 buckets), and ``prepare_data_loader``
+gives each rank its data-parallel row's batches. The same step then
+gathers the params, runs ``loss_fn`` on the rank's rows, sums the gradients
+over the batch ranks and divides by their count (the mean over the global
+batch when every rank's loss is the mean over its rows; ``llama_loss(mesh=)``
+makes that exact with masks too), and reports the loss averaged over the
+batch ranks. A plan whose axes all have size 1 runs the plain step. The
+whole param tree is gathered before the forward, so ``dp_shard`` (FSDP)
+cuts the memory that params, gradients and optimizer state hold between
+steps but not the peak within a step: every rank holds the full params
+through its backward. Not ported yet (see ROADMAP.md): a per-layer gather,
+ZeRO-1 other than the fused update (it raises), ``mixed_precision="fp8"``,
+fp16 loss scaling, a shape-dependent optimizer (adafactor, a global-norm
+clip) on sharded params and ``gradient_fn`` under a mesh of more than one
+rank, cp, sp, pp and ep axes, optimizer offload, trackers and
+checkpointing.
 """
 
 from __future__ import annotations
@@ -38,7 +57,7 @@ import numpy as np
 import torch
 
 from .data_loader import DataLoader, DataLoaderShard, prepare_data_loader
-from .optimizer import AcceleratedOptimizer, OptimizerFactory, param_leaves
+from .optimizer import AcceleratedOptimizer, Adafactor, OptimizerFactory, param_leaves
 from .scheduler import AcceleratedScheduler
 from .state import AcceleratorState, GradientState
 from .utils.dataclasses import (
@@ -48,6 +67,17 @@ from .utils.dataclasses import (
     GradScalerConfig,
     PrecisionType,
 )
+from .parallel.sharding import (
+    GRAD_SUM_AXES,
+    ShardingRules,
+    all_reduce_axes,
+    make_sharding_plan,
+    shard_index,
+)
+from .parallelism_config import ParallelismConfig
+from .state import PartialState
+from .utils import operations as ops
+from .utils.dataclasses import DeepSpeedPlugin
 from .utils.operations import _tree_map, stack_batches
 
 __all__ = ["Accelerator", "set_seed"]
@@ -78,6 +108,14 @@ def _is_param_tree(obj) -> bool:
     return isinstance(obj, dict) and has_leaf(obj)
 
 
+def _leaves_of(tree) -> list:
+    """The leaves of a spec tree (dicts, lists and tuples; a spec is a
+    leaf), in tree order."""
+    from .parallel.sharding import _leaves
+
+    return _leaves(tree)
+
+
 def _step_slice(tree, k: int):
     return _tree_map(lambda x: x[k], tree)
 
@@ -96,9 +134,16 @@ def _detach(tree):
 
 
 class Accelerator:
-    """One process on one device: the CUDA device unless ``cpu=True`` or
-    ``device="cpu"``; without a GPU and without either, construction
-    raises."""
+    """One process per device: the CUDA device of this process unless
+    ``cpu=True`` or ``device="cpu"``; without a GPU and without either,
+    construction raises. ``parallelism_config`` lays the processes out on
+    the mesh (pure data parallelism over all of them by default);
+    ``deepspeed_plugin=DeepSpeedPlugin(zero_stage=1)`` shards the optimizer
+    state over ``dp_replicate`` through the fused ZeRO-1 update (on a pure
+    data-parallel mesh of floating params; ``prepare`` raises elsewhere);
+    ``shard_rules`` (such as :func:`~.parallel.sharding.llama_tp_rules`)
+    are the TP table. ``dp_shard`` does not cut the peak memory within a
+    step (see the module docstring)."""
 
     def __init__(self, mixed_precision: Optional[str] = None, rng_seed: Optional[int] = None,
                  cpu: bool = False, device_placement: bool = True,
@@ -106,7 +151,10 @@ class Accelerator:
                  gradient_accumulation_plugin: Optional[GradientAccumulationPlugin] = None,
                  grad_scaler_config: Optional[GradScalerConfig] = None,
                  step_scheduler_with_optimizer: bool = True,
-                 kwargs_handlers: Optional[Sequence] = None):
+                 kwargs_handlers: Optional[Sequence] = None,
+                 parallelism_config: Optional[ParallelismConfig] = None,
+                 deepspeed_plugin: Optional[DeepSpeedPlugin] = None,
+                 shard_rules: Optional[ShardingRules] = None):
         precision = PrecisionType(str(mixed_precision if mixed_precision is not None
                                       else os.environ.get("ACCELERATE_MIXED_PRECISION", "no")))
         if precision == PrecisionType.FP8:
@@ -123,7 +171,16 @@ class Accelerator:
             if grad_scaler_config is not None:
                 raise ValueError("grad_scaler_config given both directly and as a handler")
             grad_scaler_config = handler
-        self.state = AcceleratorState(mixed_precision=precision.value, cpu=cpu, device=device)
+        if deepspeed_plugin is not None and parallelism_config is None:
+            parallelism_config = deepspeed_plugin.to_parallelism_config(
+                PartialState(cpu=cpu, device=device).num_devices)
+        self.deepspeed_plugin = deepspeed_plugin
+        self._zero1_axis = ("dp_replicate" if getattr(deepspeed_plugin, "zero_stage", None) == 1
+                            else None)
+        self.shard_rules = shard_rules
+        self._sharding_plan = None
+        self.state = AcceleratorState(mixed_precision=precision.value, cpu=cpu, device=device,
+                                      parallelism_config=parallelism_config)
         self.gradient_state = GradientState(gradient_accumulation_plugin)
         self.grad_scaler_config = grad_scaler_config or GradScalerConfig()
         self.step_scheduler_with_optimizer = step_scheduler_with_optimizer
@@ -162,11 +219,103 @@ class Accelerator:
     def is_main_process(self) -> bool:
         return self.state.is_main_process
 
+    @property
+    def partial_state(self) -> PartialState:
+        return self.state._partial
+
+    @property
+    def mesh(self):
+        return self.state.mesh
+
+    @property
+    def parallelism_config(self) -> ParallelismConfig:
+        return self.state.parallelism_config
+
+    @property
+    def distributed_type(self):
+        return self.partial_state.distributed_type
+
+    @property
+    def local_process_index(self) -> int:
+        return self.partial_state.local_process_index
+
+    @property
+    def is_local_main_process(self) -> bool:
+        return self.partial_state.is_local_main_process
+
+    @property
+    def is_last_process(self) -> bool:
+        return self.partial_state.is_last_process
+
+    @property
+    def use_distributed(self) -> bool:
+        return self.partial_state.use_distributed
+
+    @property
+    def sharding_plan(self):
+        """The :class:`~.parallel.sharding.ShardingPlan` of the params
+        prepared last."""
+        return self._sharding_plan
+
+    @property
+    def param_specs(self):
+        return None if self._sharding_plan is None else self._sharding_plan.param_specs
+
+    # -------------------------------------------------------- process control --
     def wait_for_everyone(self) -> None:
-        self.state.wait_for_everyone()
+        self.partial_state.wait_for_everyone()
 
     def print(self, *args, **kwargs) -> None:
-        self.state.print(*args, **kwargs)
+        self.partial_state.print(*args, **kwargs)
+
+    def on_main_process(self, function):
+        return self.partial_state.on_main_process(function)
+
+    def on_local_main_process(self, function):
+        return self.partial_state.on_local_main_process(function)
+
+    def on_last_process(self, function):
+        return self.partial_state.on_last_process(function)
+
+    def on_process(self, function=None, process_index=None):
+        return self.partial_state.on_process(function, process_index)
+
+    @contextlib.contextmanager
+    def main_process_first(self):
+        with self.partial_state.main_process_first():
+            yield
+
+    @contextlib.contextmanager
+    def local_main_process_first(self):
+        with self.partial_state.local_main_process_first():
+            yield
+
+    def split_between_processes(self, inputs, apply_padding: bool = False):
+        return self.partial_state.split_between_processes(inputs, apply_padding=apply_padding)
+
+    # ------------------------------------------------------------- gathering --
+    def gather(self, tree):
+        return ops.gather(tree)
+
+    def gather_for_metrics(self, data, use_gather_object: bool = False):
+        """:func:`~.utils.operations.gather`, then the rows ``even_batches``
+        (or the dispatcher's padding) repeated in the last global batch
+        dropped, as the prepared loader's ``remainder`` says."""
+        if use_gather_object:
+            return ops.gather_object(data)
+        gathered = ops.gather(data)
+        remainder = self.gradient_state.remainder
+        if self.gradient_state.end_of_dataloader and remainder > 0:
+            gathered = ops.recursively_apply(
+                lambda x: x[:remainder] if getattr(x, "ndim", 0) >= 1 else x, gathered)
+        return gathered
+
+    def reduce(self, tree, reduction: str = "mean", scale: float = 1.0):
+        return ops.reduce(tree, reduction=reduction, scale=scale)
+
+    def pad_across_processes(self, tree, dim: int = 0, pad_index: int = 0,
+                             pad_first: bool = False):
+        return ops.pad_across_processes(tree, dim=dim, pad_index=pad_index, pad_first=pad_first)
 
     # --------------------------------------------------------------- prepare --
     def prepare(self, *args):
@@ -230,20 +379,42 @@ class Accelerator:
         if params_seen is not None:
             for opt in self._optimizers:
                 if opt.optimizer is None:
-                    opt.init(params_seen)
+                    opt.init(params_seen, plan=self._sharding_plan)
         return results[0] if len(results) == 1 else tuple(results)
 
-    def prepare_model(self, params: dict) -> dict:
+    def prepare_model(self, params: dict, shard_rules: Optional[ShardingRules] = None,
+                      specs=None) -> dict:
         """Fresh leaf tensors on the device (copies: the caller's tensors or
         arrays are never updated), floating ones with ``requires_grad``, in
         the same tree of dicts, lists and tuples. The dtypes are kept: f32
-        params are the masters of mixed precision."""
+        params are the masters of mixed precision. Every spec decision comes
+        from one :func:`~.parallel.sharding.make_sharding_plan` call (kept as
+        :attr:`sharding_plan`); under a mesh each leaf is this rank's block
+        of the param, and every rank must pass the same params."""
+        plan = make_sharding_plan(params, self.mesh, self.parallelism_config,
+                                  rules=shard_rules or self.shard_rules,
+                                  zero1_axis=self._zero1_axis, param_specs=specs)
+        if plan.distributed:
+            plan.check_supported()
+        if self._zero1_axis is not None and self.mesh.shape[self._zero1_axis] > 1 \
+                and not plan.fused_zero1:
+            # the JAX package shards the optimizer state by annotation here
+            raise NotImplementedError(
+                f"ZeRO-1 over {self._zero1_axis} runs only as the fused update: every param "
+                "floating and replicated (a pure data-parallel mesh) and ACCELERATE_ZERO1_FUSED "
+                "not 0; sharding the optimizer state otherwise is not ported yet (ROADMAP.md "
+                "Queue A item 6, second half)")
+        specs = iter(_leaves_of(plan.param_specs))
 
         def place(x):
             t = x.detach() if isinstance(x, torch.Tensor) else torch.from_numpy(np.array(x))
-            t = t.to(self.device if self.device_placement else t.device, copy=True)
+            spec = next(specs)
+            if plan.distributed:
+                t = t[shard_index(spec, tuple(t.shape), self.mesh)]
+            t = t.to(self.device if self.device_placement else t.device, copy=True).contiguous()
             return t.requires_grad_(True) if t.is_floating_point() else t
 
+        self._sharding_plan = plan
         return _tree_map(place, params)
 
     def prepare_optimizer(self, optimizer) -> AcceleratedOptimizer:
@@ -284,7 +455,10 @@ class Accelerator:
         return scheduler
 
     def prepare_data_loader(self, dataloader) -> DataLoaderShard:
-        return prepare_data_loader(dataloader, self.device)
+        """This rank's batches on its device: the loader resharded over the
+        mesh's data-parallel rows (:func:`~.data_loader.prepare_data_loader`)."""
+        return prepare_data_loader(dataloader, self.device, mesh=self.mesh,
+                                   device_placement=self.device_placement)
 
     # ------------------------------------------------------------ train step --
     def _resolve_optimizer(self, optimizer) -> AcceleratedOptimizer:
@@ -300,18 +474,60 @@ class Accelerator:
                           has_aux: bool, compute_grad_norm: bool) -> Callable:
         policy = self.state.mixed_precision_policy
         fp16 = self.state.mixed_precision == PrecisionType.FP16
+        plan = optimizer.plan
+        # a plan that communicates (see the module docstring); otherwise the plain step
+        meshed = plan is not None and plan.distributed
+        if meshed:
+            plan.check_supported()
+            if fp16:
+                raise NotImplementedError("fp16 loss scaling under a mesh of more than one rank "
+                                          "is not ported yet (ROADMAP.md Queue A item 6, second "
+                                          "half)")
+            if plan.sharded and (optimizer.transforms
+                                 or isinstance(optimizer.optimizer, Adafactor)):
+                raise NotImplementedError(
+                    "an optimizer whose update reads a whole param (adafactor, a global-norm "
+                    "clip) on params split over the mesh is not ported yet (ROADMAP.md Queue A "
+                    "item 6, second half)")
         torch_opt = optimizer.optimizer
-        bound = optimizer.params
+        zero1 = optimizer.zero1
+        bound = optimizer.model_params
+        # the batch ranks the gradients are summed over, and the axes the
+        # fused ZeRO-1 update sums over before its reduce-scatter
+        n = plan.batch_ranks if meshed else 1
+        other_axes = () if zero1 is None else tuple(
+            a for a in GRAD_SUM_AXES if a != plan.zero1_axis and plan.mesh.shape[a] > 1)
         # autograd hands each gradient in its param's dtype; the JAX step casts
         # them to the policy's param dtype before the update (f32 gradients
         # for bf16 params under "bf16"), which the flat path does here
         cast = policy.param_dtype is not None and any(p.dtype != policy.param_dtype
                                                       for p in bound)
         # the gradients as one flat tensor: one op each for the cast, the
-        # unscale, the finite check, the zeroing, the norm and the accumulation
-        flat_path = fp16 or compute_grad_norm or optimizer.accumulation_steps > 1 or cast
+        # sum over the batch ranks, the unscale, the finite check, the
+        # zeroing, the norm and the accumulation
+        flat_path = (meshed or fp16 or compute_grad_norm or optimizer.accumulation_steps > 1
+                     or cast)
         if fp16:
             optimizer.init_loss_scale(self.grad_scaler_config, bound[0].device)
+
+        def flat_grads():
+            if not meshed:
+                return optimizer.flat_grads(policy.param_dtype)
+            grads = [(p.grad if p.grad is not None else torch.zeros_like(p))
+                     .to(policy.param_dtype or p.dtype) for p in bound]
+            if zero1 is not None:
+                return zero1.reduce_scatter(grads, other_axes) / n
+            return torch.cat([g.reshape(-1) for g in plan.reduce_grads(grads)]) / n
+
+        def sum_of_squares(flat):
+            if zero1 is not None:  # each rank holds its chunks of the summed gradients
+                return all_reduce_axes(torch.sum(flat.float() ** 2), plan.mesh,
+                                       (plan.zero1_axis,))
+            if meshed:
+                return plan.global_sumsq(optimizer._split(flat))
+            # torch.sum's cascade keeps f32 at the JAX package's precision;
+            # the CPU's f32 vector_norm drifts by ~1e-4 at a million elements
+            return torch.sum(flat * flat)
 
         def train_step(params, opt_state, batch):
             if opt_state is not optimizer.opt_state:
@@ -321,14 +537,18 @@ class Accelerator:
             if len(leaves) != len(bound) or any(a is not b for a, b in zip(leaves, bound)):
                 raise ValueError("params are not the tensors the optimizer was prepared with")
             torch_opt.zero_grad(set_to_none=True)
-            out = loss_fn(policy.cast_to_compute(params), policy.cast_to_compute(batch))
+            if zero1 is not None:  # the optimizer owns the chunks, not the params
+                for p in bound:
+                    p.grad = None
+            full = plan.gather_params(params) if meshed else params
+            out = loss_fn(policy.cast_to_compute(full), policy.cast_to_compute(batch))
             loss, aux = out if has_aux else (out, None)
             loss = loss.float()
             (loss * optimizer.loss_scale if fp16 else loss).backward()
-            metrics = {"loss": loss.detach()}
+            metrics = {"loss": plan.mean_over_batch(loss.detach()) if meshed else loss.detach()}
             flat = None
             if flat_path:
-                flat = optimizer.flat_grads(policy.param_dtype)
+                flat = flat_grads()
                 if fp16:
                     flat = flat / optimizer.loss_scale
                     finite = torch.isfinite(flat).all()
@@ -336,7 +556,7 @@ class Accelerator:
                     flat = torch.where(finite, flat, 0.0)
                     metrics["grads_finite"] = finite
                 if compute_grad_norm:
-                    metrics["grad_norm"] = torch.linalg.vector_norm(flat)
+                    metrics["grad_norm"] = torch.sqrt(sum_of_squares(flat))
             optimizer.micro_step(flat)
             if fp16:
                 metrics["loss_scale"] = optimizer.update_loss_scale(finite)
@@ -382,10 +602,13 @@ class Accelerator:
         """``eval_step(params, batch)``: ``eval_fn`` on the compute-dtype
         casts, without autograd."""
         policy = self.state.mixed_precision_policy
+        plan = self._sharding_plan
+        gather = plan.gather_params_no_grad if plan is not None and plan.distributed else None
 
         def eval_step(params, batch):
             with torch.no_grad():
-                return eval_fn(policy.cast_to_compute(params), policy.cast_to_compute(batch))
+                full = params if gather is None else gather(params)
+                return eval_fn(policy.cast_to_compute(full), policy.cast_to_compute(batch))
 
         return eval_step
 
@@ -397,6 +620,9 @@ class Accelerator:
         ``params`` in the param dtype. Params are not updated and their
         ``.grad`` is not touched."""
         policy = self.state.mixed_precision_policy
+        if self._sharding_plan is not None and self._sharding_plan.distributed:
+            raise NotImplementedError("gradient_fn under a mesh of more than one rank is not "
+                                      "ported yet (ROADMAP.md Queue A item 6, second half)")
 
         def value_and_grad(params, batch):
             def leaf(x):

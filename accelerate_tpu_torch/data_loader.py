@@ -1,29 +1,47 @@
-"""Reproducible data loading: the port of ``accelerate_tpu.data_loader`` for
-one process on one device.
+"""Reproducible data loading across processes: the port of
+``accelerate_tpu.data_loader``.
 
 The samplers are the JAX package's index math, written again for this
 package: a shuffled epoch is ``numpy.random.default_rng(seed +
 epoch).permutation``, so the batch order is identical to the JAX
 package's. ``DataLoader`` collates map-style samples into numpy batches
-(``np.stack``); :func:`prepare_data_loader` wraps it so that it yields
-batches of tensors on the accelerator's device, topping up a short last
-batch from the epoch's first samples (the JAX package's ``even_batches``)
-so every step has the same shapes.
+(``np.stack``).
+
+:func:`prepare_data_loader` shards the loader over the mesh's
+data-parallel rows (``dp_replicate × dp_shard``; ranks that differ only
+in ``tp`` or ``ep`` read the same rows). The JAX package gives each host a
+block of rows for each of its devices and assembles a global array; the
+port runs one process per device, so each process reads the rows of its
+own data-parallel row (:class:`BatchSamplerShard`, with ``split_batches``
+and ``even_batches``) and that block is the rank's ``Shard(0)`` of the
+global batch (:class:`GlobalBatchAssembler`), on the rank's device.
+:class:`DataLoaderDispatcher` reads on rank 0 only and broadcasts: the
+first batch of a structure as an object, every later one as one raw byte
+tensor, a short final batch padded to the signature's rows and trimmed by
+``gather_for_metrics``. Skip and resume, stateful and prefetching loaders
+and the native collate are not ported yet (ROADMAP.md Queue A item 6,
+second half).
 """
 
 from __future__ import annotations
 
 import math
-from typing import Any, Callable, Iterator, Optional
+from typing import Any, Callable, Iterable, Iterator, Optional
 
 import numpy as np
+import torch
 
-from .utils.operations import send_to_device
+from .utils import operations
+from .utils.operations import find_batch_size, recursively_apply, send_to_device
 
 __all__ = [
     "BatchSampler",
+    "BatchSamplerShard",
     "DataLoader",
+    "DataLoaderDispatcher",
     "DataLoaderShard",
+    "GlobalBatchAssembler",
+    "IterableDatasetShard",
     "SeedableRandomSampler",
     "SequentialSampler",
     "default_collate",
@@ -91,6 +109,161 @@ class BatchSampler:
             yield batch
 
 
+class BatchSamplerShard:
+    """The batches (or batch slices) of shard ``shard_index`` of
+    ``num_shards``. Without ``split_batches`` shard ``i`` takes batches
+    ``i, i+n, …``; with ``even_batches`` the last round is completed from
+    the epoch's first batches (and a short batch topped up from its first
+    samples) so every shard yields as many equal batches. With
+    ``split_batches`` every shard takes ``1/n`` of each batch."""
+
+    def __init__(self, batch_sampler, num_shards: int, shard_index: int,
+                 split_batches: bool = False, even_batches: bool = True):
+        if split_batches and getattr(batch_sampler, "batch_size", None) is not None:
+            if batch_sampler.batch_size % num_shards != 0:
+                raise ValueError(
+                    f"split_batches=True requires batch_size ({batch_sampler.batch_size}) "
+                    f"divisible by num_shards ({num_shards})")
+        self.batch_sampler = batch_sampler
+        self.num_shards = num_shards
+        self.shard_index = shard_index
+        self.split_batches = split_batches
+        self.even_batches = even_batches
+        self.batch_size = getattr(batch_sampler, "batch_size", None)
+        self.drop_last = getattr(batch_sampler, "drop_last", False)
+
+    def set_epoch(self, epoch: int) -> None:
+        if hasattr(self.batch_sampler, "set_epoch"):
+            self.batch_sampler.set_epoch(epoch)
+
+    def _tail_size(self) -> Optional[int]:
+        sampler = getattr(self.batch_sampler, "sampler", None)
+        if sampler is None or self.batch_size is None:
+            return None
+        try:
+            n = len(sampler)
+        except TypeError:
+            return None
+        return n % self.batch_size
+
+    def __len__(self) -> int:
+        length = len(self.batch_sampler)
+        if self.split_batches:
+            if self.even_batches or self.drop_last:
+                return length
+            tail = self._tail_size()
+            if tail is None or tail == 0 or self.batch_size is None:
+                return length
+            size = self.batch_size // self.num_shards
+            return length - 1 + int(tail > size * self.shard_index)
+        if self.drop_last:
+            return length // self.num_shards
+        if self.even_batches:
+            return math.ceil(length / self.num_shards)
+        return length // self.num_shards + int(self.shard_index < length % self.num_shards)
+
+    def __iter__(self) -> Iterator[list]:
+        if self.split_batches:
+            yield from self._iter_with_split()
+        else:
+            yield from self._iter_with_no_split()
+
+    def _iter_with_split(self) -> Iterator[list]:
+        first_batch = None
+        size = None
+        for batch in self.batch_sampler:
+            if first_batch is None:
+                first_batch = batch
+                size = (self.batch_size // self.num_shards if self.batch_size
+                        else len(batch) // self.num_shards)
+            chunk = batch[self.shard_index * size:(self.shard_index + 1) * size]
+            if len(chunk) < size:
+                if not self.even_batches:
+                    if chunk:
+                        yield chunk
+                    continue
+                while len(chunk) < size and first_batch:
+                    chunk = (chunk + first_batch)[:size]
+            if chunk:
+                yield chunk
+
+    def _iter_with_no_split(self) -> Iterator[list]:
+        initial_batches: list = []
+        window: list = []
+        full_size: Optional[int] = None
+        for batch in self.batch_sampler:
+            if full_size is None:
+                full_size = len(batch)
+            if len(initial_batches) < self.num_shards:
+                initial_batches.append(batch)
+            if len(batch) < full_size:
+                if self.drop_last:
+                    break
+                if self.even_batches:
+                    pool = [i for b in initial_batches for i in b]
+                    batch = (batch + pool * math.ceil(full_size / len(pool)))[:full_size]
+            window.append(batch)
+            if len(window) == self.num_shards:
+                yield window[self.shard_index]
+                window = []
+        if not window or self.drop_last:
+            return
+        if not self.even_batches:
+            if self.shard_index < len(window):
+                yield window[self.shard_index]
+            return
+        pool = [i for b in initial_batches for i in b]
+        i = 0
+        while len(window) < self.num_shards:
+            recycled = initial_batches[i % len(initial_batches)]
+            if full_size and len(recycled) < full_size and pool:
+                recycled = (recycled + pool * math.ceil(full_size / len(pool)))[:full_size]
+            window.append(recycled[:full_size] if full_size else recycled)
+            i += 1
+        yield window[self.shard_index]
+
+
+class IterableDatasetShard:
+    """Round-robin sharding of an iterable dataset: of every
+    ``batch_size * num_shards`` items, shard ``i`` takes the ``i``-th run of
+    ``batch_size``; a short tail is dropped (``drop_last``), completed from
+    the first window (``even_batches``) or cut."""
+
+    def __init__(self, dataset: Iterable, batch_size: int, num_shards: int, shard_index: int,
+                 drop_last: bool = False, even_batches: bool = True):
+        self.dataset = dataset
+        self.batch_size = batch_size
+        self.num_shards = num_shards
+        self.shard_index = shard_index
+        self.drop_last = drop_last
+        self.even_batches = even_batches
+
+    def set_epoch(self, epoch: int) -> None:
+        if hasattr(self.dataset, "set_epoch"):
+            self.dataset.set_epoch(epoch)
+
+    def __iter__(self):
+        real_batch_size = self.batch_size * self.num_shards
+        start = self.shard_index * self.batch_size
+        first_window: Optional[list] = None
+        window: list = []
+        for item in self.dataset:
+            window.append(item)
+            if len(window) == real_batch_size:
+                if first_window is None:
+                    first_window = list(window)
+                yield from window[start:start + self.batch_size]
+                window = []
+        if not window or self.drop_last:
+            return
+        if first_window is None:
+            first_window = list(window)
+        if self.even_batches:
+            while len(window) < real_batch_size:
+                window += first_window[:real_batch_size - len(window)]
+        yield from window[start:start + self.batch_size]
+
+
 def default_collate(samples: list) -> Any:
     """Stack a list of samples (dicts, tuples, arrays, scalars) into a batch
     with ``np.stack``."""
@@ -136,62 +309,350 @@ class DataLoader:
 _END = object()  # no batch left
 
 
+class GlobalBatchAssembler:
+    """The batch layout over the mesh: dim 0 split over ``(dp_replicate,
+    dp_shard)``, replicated over ``tp`` and ``ep``. Each process holds the
+    rows of its own data-parallel row, the rank's ``Shard(0)`` of the global
+    batch. A sequence split over ``cp`` or ``sp`` is not ported yet
+    (ROADMAP.md Queue A item 11)."""
+
+    def __init__(self, mesh, device=None):
+        self.mesh = mesh
+        self.device = device
+        sizes = dict(mesh.shape)
+        if sizes.get("cp", 1) > 1 or sizes.get("sp", 1) > 1:
+            raise NotImplementedError("a batch split over cp or sp is not ported yet "
+                                      "(ROADMAP.md Queue A item 11)")
+        self._dp_size = sizes.get("dp_replicate", 1) * sizes.get("dp_shard", 1)
+
+    @property
+    def dp_size(self) -> int:
+        return self._dp_size
+
+    def _dp_row(self, coords: dict) -> int:
+        return coords.get("dp_replicate", 0) * self.mesh.shape.get("dp_shard", 1) + coords.get(
+            "dp_shard", 0)
+
+    def local_dp_rows(self) -> list:
+        """The data-parallel rows this process reads: its own."""
+        return [self._dp_row(self.mesh.coords)]
+
+    def to_global(self, local_block):
+        """The rank's block (its rows) as tensors on the device: the
+        ``Shard(0)`` of the global batch this rank holds."""
+        return send_to_device(local_block, self.device)
+
+    def local_block(self, global_batch):
+        """This rank's rows of a whole global batch (every rank passes the
+        same one)."""
+        row = self.local_dp_rows()[0]
+
+        def take(x):
+            if getattr(x, "ndim", 0) == 0:
+                return x
+            if x.shape[0] % self._dp_size:
+                raise ValueError(f"a global batch of {x.shape[0]} rows does not split over "
+                                 f"{self._dp_size} data-parallel rows")
+            per_row = x.shape[0] // self._dp_size
+            return x[row * per_row:(row + 1) * per_row]
+
+        return recursively_apply(take, global_batch)
+
+
+def _to_numpy_batch(batch):
+    def conv(x):
+        return x.detach().cpu().numpy() if isinstance(x, torch.Tensor) else x
+
+    return recursively_apply(conv, batch, test_type=lambda x: isinstance(x, torch.Tensor))
+
+
 class DataLoaderShard:
-    """A prepared :class:`DataLoader`: batches of tensors on ``device``.
-    One process on one device reads the loader as it is, a short last batch
-    included: the JAX package's ``prepare_data_loader`` wraps the sampler in
-    ``BatchSamplerShard`` (whose ``even_batches`` top-up pads that batch)
-    only when its data axis has more than one shard.
+    """A prepared loader: this process's batches, as tensors on ``device``.
 
     While it is iterated it is the :class:`~accelerate_tpu_torch.state.
     GradientState`'s active loader; it reads one batch ahead so that
-    ``end_of_dataloader`` is already true while the last batch is in use
-    (``remainder``: the last batch's rows when the dataset's length is not
-    a multiple of the batch size), as the JAX package's loader does."""
+    ``end_of_dataloader`` is already true while the last batch is in use,
+    and ``remainder`` is then the real rows of the last global batch (the
+    dataset's length modulo the global batch size) so that
+    ``gather_for_metrics`` can drop the rows ``even_batches`` repeated."""
 
-    def __init__(self, dataloader: DataLoader, device):
+    def __init__(self, dataloader, device=None, assembler: Optional[GlobalBatchAssembler] = None,
+                 total_dataset_length: Optional[int] = None,
+                 global_batch_size: Optional[int] = None):
         from .state import GradientState
 
         self.base_dataloader = dataloader
         self.device = device
+        self.assembler = assembler
         self.gradient_state = GradientState()
         self.end_of_dataloader = False
         self.remainder = -1
+        if total_dataset_length is None:
+            dataset = getattr(dataloader, "dataset", None)
+            if dataset is not None and hasattr(dataset, "__len__"):
+                total_dataset_length = len(dataset)
+        self.total_dataset_length = total_dataset_length
+        if global_batch_size is None:
+            global_batch_size = getattr(dataloader, "batch_size", None)
+        self.global_batch_size = global_batch_size
+
+    @property
+    def batch_size(self):
+        return getattr(self.base_dataloader, "batch_size", None)
+
+    @property
+    def dataset(self):
+        return getattr(self.base_dataloader, "dataset", None)
 
     def set_epoch(self, epoch: int) -> None:
-        self.base_dataloader.set_epoch(epoch)
+        if hasattr(self.base_dataloader, "set_epoch"):
+            self.base_dataloader.set_epoch(epoch)
 
     def __len__(self) -> int:
         return len(self.base_dataloader)
 
-    def _final_remainder(self) -> int:
-        dataset = getattr(self.base_dataloader, "dataset", None)
-        batch_size = getattr(self.base_dataloader, "batch_size", None)
-        if dataset is None or not batch_size or not hasattr(dataset, "__len__"):
+    def _iter_base(self):
+        return iter(self.base_dataloader)
+
+    def _fetch_batch(self, base_iter):
+        return next(base_iter, _END)
+
+    def _final_remainder(self, batch) -> int:
+        if self.total_dataset_length is None or not self.global_batch_size:
             return -1
-        return len(dataset) % batch_size
+        return self.total_dataset_length % self.global_batch_size
+
+    def _process(self, batch):
+        if self.assembler is not None:
+            return self.assembler.to_global(batch)
+        return send_to_device(batch, self.device)
 
     def __iter__(self):
         self.gradient_state._add_dataloader(self)
         self.end_of_dataloader = False
         self.remainder = -1
         try:
-            it = iter(self.base_dataloader)
-            current = next(it, _END)
+            it = self._iter_base()
+            current = self._fetch_batch(it)
             while current is not _END:
-                nxt = next(it, _END)
+                nxt = self._fetch_batch(it)
                 if nxt is _END:
                     self.end_of_dataloader = True
-                    self.remainder = self._final_remainder()
-                yield send_to_device(current, self.device)
+                    self.remainder = self._final_remainder(current)
+                yield self._process(current)
                 current = nxt
         finally:
             self.gradient_state._remove_dataloader(self)
 
 
-def prepare_data_loader(dataloader: DataLoader, device) -> DataLoaderShard:
-    """Wrap ``dataloader`` so that it yields batches of tensors on
-    ``device`` (one process, one device: no sharding)."""
+def _flatten(tree):
+    """``(leaves, structure)``: the leaves of nested dicts, lists and
+    tuples in order, and the tree with each leaf replaced by its index."""
+    leaves: list = []
+
+    def walk(node):
+        if isinstance(node, dict):
+            return type(node)((k, walk(v)) for k, v in node.items())
+        if isinstance(node, (list, tuple)):
+            return type(node)(walk(v) for v in node)
+        leaves.append(node)
+        return len(leaves) - 1
+
+    return leaves, walk(tree)
+
+
+def _unflatten(structure, leaves):
+    if isinstance(structure, dict):
+        return type(structure)((k, _unflatten(v, leaves)) for k, v in structure.items())
+    if isinstance(structure, (list, tuple)):
+        return type(structure)(_unflatten(v, leaves) for v in structure)
+    return leaves[structure]
+
+
+class DataLoaderDispatcher(DataLoaderShard):
+    """Only process 0 reads the base loader; the others receive each global
+    batch and keep their rows. The first batch of a structure goes over the
+    object channel and every rank derives its signature (structure, shapes,
+    dtypes, rows) from it; later batches go as a 3-int header and one raw
+    byte tensor. A short final batch is padded to the signature's rows by
+    repeating its last row, and the header carries the real rows, so
+    ``remainder`` lets ``gather_for_metrics`` drop the copies. A batch with
+    object leaves (strings) always takes the object channel. One process:
+    the plain :class:`DataLoaderShard`."""
+
+    _H_END, _H_DATA, _H_NEW_SIG, _H_OBJECT = 0, 1, 2, 3
+
+    def __init__(self, *args, **kwargs):
+        super().__init__(*args, **kwargs)
+        self._sigs: list = []
+        self._sig_keys: dict = {}
+        self._last_real = None
+        self._last_full = None
+
+    def _iter_base(self):
+        from .state import PartialState
+
+        self._fetched_rows = 0
+        return iter(self.base_dataloader) if PartialState().is_main_process else iter(())
+
+    @staticmethod
+    def _leaf_meta(leaf, bs):
+        batched = leaf.ndim > 0 and leaf.shape[:1] == (bs,)
+        return (leaf.shape[1:] if batched else leaf.shape, leaf.dtype.str, batched)
+
+    def _register_sig(self, batch) -> None:
+        leaves, structure = _flatten(batch)
+        leaves = [np.asarray(x) for x in leaves]
+        bs = find_batch_size(batch) or 0
+        metas = [self._leaf_meta(x, bs) for x in leaves]
+        shapes = [((bs,) + m[0] if m[2] else m[0]) for m in metas]
+        dtypes = [np.dtype(m[1]) for m in metas]
+        sizes = [int(np.prod(s, dtype=np.int64)) * d.itemsize for s, d in zip(shapes, dtypes)]
+        offsets = np.concatenate([[0], np.cumsum(sizes)]).astype(np.int64)
+        self._sigs.append({"structure": structure, "shapes": shapes, "dtypes": dtypes,
+                           "offsets": offsets, "nbytes": int(offsets[-1]), "bs": bs})
+        self._sig_keys[(repr(structure), tuple(metas))] = len(self._sigs) - 1
+
+    @staticmethod
+    def _pad_rows(leaf, real_bs: int, target_bs: int):
+        if leaf.ndim == 0 or leaf.shape[0] != real_bs or real_bs == target_bs:
+            return leaf
+        return np.concatenate([leaf, np.repeat(leaf[-1:], target_bs - real_bs, axis=0)], axis=0)
+
+    def _bcast_tensor(self, t: torch.Tensor) -> torch.Tensor:
+        import torch.distributed as dist
+
+        dist.broadcast(t, src=0)
+        operations.record_collective("broadcast", t.numel() * t.element_size())
+        return t
+
+    def _fetch_batch(self, base_iter):
+        from .state import PartialState
+
+        state = PartialState()
+        if state.num_processes == 1:
+            batch = next(base_iter, _END)
+            return batch if batch is _END else _to_numpy_batch(batch)
+        dev = state.device
+
+        def header(vals):
+            return [int(v) for v in self._bcast_tensor(
+                torch.tensor(vals, dtype=torch.int64, device=dev)).tolist()]
+
+        def objects(batch, kind, real_bs):
+            header([kind, 0, real_bs])
+            operations.broadcast_object_list([batch])
+            self._last_real = self._last_full = real_bs
+            return batch
+
+        if state.is_main_process:
+            batch = next(base_iter, _END)
+            if batch is _END:
+                header([self._H_END, 0, 0])
+                return _END
+            batch = _to_numpy_batch(batch)
+            leaves, structure = _flatten(batch)
+            leaves = [np.asarray(x) for x in leaves]
+            real_bs = find_batch_size(batch) or 0
+            if any(x.dtype.hasobject for x in leaves):
+                return objects(batch, self._H_OBJECT, real_bs)
+            key = (repr(structure), tuple(self._leaf_meta(x, real_bs) for x in leaves))
+            sig_id = self._sig_keys.get(key)
+            rows_before = self._fetched_rows
+            self._fetched_rows = rows_before + real_bs
+            is_final = (self.total_dataset_length is not None
+                        and rows_before + real_bs >= self.total_dataset_length)
+            if sig_id is not None and real_bs < self._sigs[sig_id]["bs"] and not is_final:
+                return objects(batch, self._H_OBJECT, real_bs)
+            if sig_id is None or real_bs > self._sigs[sig_id]["bs"]:
+                header([self._H_NEW_SIG, 0, real_bs])
+                operations.broadcast_object_list([batch])
+                self._register_sig(batch)
+                self._last_real = self._last_full = real_bs
+                return batch
+            sig = self._sigs[sig_id]
+            if real_bs < sig["bs"]:
+                leaves = [self._pad_rows(x, real_bs, sig["bs"]) for x in leaves]
+            header([self._H_DATA, sig_id, real_bs])
+            payload = np.frombuffer(b"".join(np.ascontiguousarray(x).tobytes() for x in leaves),
+                                    np.uint8)
+            self._bcast_tensor(torch.from_numpy(payload.copy()).to(dev))
+            self._last_real, self._last_full = real_bs, sig["bs"]
+            return _unflatten(structure, leaves)
+
+        kind, sig_id, real_bs = header([0, 0, 0])
+        if kind == self._H_END:
+            return _END
+        if kind in (self._H_NEW_SIG, self._H_OBJECT):
+            batch = operations.broadcast_object_list([None])[0]
+            if kind == self._H_NEW_SIG:
+                self._register_sig(batch)
+            self._last_real = real_bs
+            self._last_full = find_batch_size(batch) or 0
+            return batch
+        sig = self._sigs[sig_id]
+        buf = self._bcast_tensor(torch.empty(sig["nbytes"], dtype=torch.uint8, device=dev))
+        payload = bytearray(buf.cpu().numpy().tobytes())  # writable: torch wraps it later
+        leaves = [np.frombuffer(payload, dtype=sig["dtypes"][i],
+                                count=int(np.prod(sig["shapes"][i], dtype=np.int64)),
+                                offset=int(sig["offsets"][i])).reshape(sig["shapes"][i])
+                  for i in range(len(sig["shapes"]))]
+        self._last_real, self._last_full = real_bs, sig["bs"]
+        return _unflatten(sig["structure"], leaves)
+
+    def _final_remainder(self, batch) -> int:
+        if self.total_dataset_length is not None:
+            bs = find_batch_size(batch) or 0
+            return self.total_dataset_length % bs if bs else -1
+        if self._last_real is not None and self._last_full and self._last_real < self._last_full:
+            return self._last_real
+        return -1
+
+    def _process(self, batch):
+        from .state import PartialState
+
+        if PartialState().num_processes > 1 and self.assembler is not None:
+            batch = self.assembler.local_block(batch)
+        return super()._process(batch)
+
+
+def prepare_data_loader(dataloader, device=None, state=None, mesh=None,
+                        device_placement: bool = True, split_batches: bool = False,
+                        even_batches: bool = True,
+                        dispatch_batches: Optional[bool] = None) -> DataLoaderShard:
+    """Wrap ``dataloader`` for the mesh (the :class:`~.state.
+    AcceleratorState`'s by default): a :class:`DataLoader` is resharded so
+    this process reads its data-parallel row's batches (``batch_size``
+    rows a row, or ``1/n`` of each batch with ``split_batches``); with
+    ``dispatch_batches`` rank 0 reads and broadcasts each global batch.
+    Another iterable of batches is taken as this process's already. With
+    ``device_placement=False`` the batches stay numpy."""
     if isinstance(dataloader, DataLoaderShard):
         return dataloader
-    return DataLoaderShard(dataloader, device)
+    from .state import AcceleratorState, PartialState
+
+    if mesh is None and (state is not None or AcceleratorState._shared_state.get("_initialized")):
+        mesh = (state or AcceleratorState()).mesh
+    if device is None:
+        device = PartialState().device
+    assembler = None
+    if mesh is not None:
+        assembler = GlobalBatchAssembler(mesh, device=device if device_placement else None)
+    dp_size = assembler.dp_size if assembler else 1
+    cls = DataLoaderDispatcher if dispatch_batches else DataLoaderShard
+    place = device if device_placement else None
+    if isinstance(dataloader, DataLoader):
+        total_len = len(dataloader.dataset) if hasattr(dataloader.dataset, "__len__") else None
+        if dp_size > 1 and not dispatch_batches:
+            shard = BatchSamplerShard(dataloader.batch_sampler, dp_size,
+                                      assembler.local_dp_rows()[0], split_batches=split_batches,
+                                      even_batches=even_batches)
+            new_dl = DataLoader(dataloader.dataset, batch_sampler=shard,
+                                collate_fn=dataloader.collate_fn)
+            bs = dataloader.batch_size
+            global_bs = None if bs is None else (bs if split_batches else bs * dp_size)
+            return cls(new_dl, place, assembler=assembler if device_placement else None,
+                       total_dataset_length=total_len, global_batch_size=global_bs)
+        return cls(dataloader, place, assembler=assembler if device_placement else None,
+                   total_dataset_length=total_len)
+    return cls(dataloader, place, assembler=assembler if device_placement else None)

@@ -40,7 +40,7 @@ import torch.nn.functional as F
 
 from ..utils.device import resolve_device
 
-__all__ = ["ResNetConfig", "init_resnet", "resnet_forward", "resnet_loss"]
+__all__ = ["ResNetConfig", "init_resnet", "resnet_forward", "resnet_loss", "resnet_shard_rules"]
 
 
 @dataclass(frozen=True)
@@ -185,3 +185,14 @@ def resnet_loss(params: dict, batch: dict, config: ResNetConfig) -> torch.Tensor
     logp = torch.log_softmax(logits.float(), dim=-1)
     labels = torch.as_tensor(batch["labels"], device=logits.device).long()
     return -logp.gather(-1, labels[:, None]).mean()
+
+
+def resnet_shard_rules():
+    """The JAX package's FSDP/TP rules: conv kernels (HWIO) shard the
+    output-channel dim over ``tp``, the classifier its classes."""
+    from ..parallel.sharding import ShardingRules
+
+    return ShardingRules([
+        (r".*conv.*/kernel", (None, None, None, "tp")),
+        (r".*fc/kernel", (None, "tp")),
+    ])

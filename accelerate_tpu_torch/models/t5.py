@@ -41,6 +41,7 @@ __all__ = [
     "t5_forward",
     "t5_greedy_generate",
     "t5_loss",
+    "t5_shard_rules",
 ]
 
 
@@ -248,16 +249,21 @@ def t5_forward(params: dict, batch: dict, config: T5Config) -> torch.Tensor:
     return t5_decode(params, batch["decoder_input_ids"], enc_out, config, enc_mask)
 
 
-def t5_loss(params: dict, batch: dict, config: T5Config) -> torch.Tensor:
+def t5_loss(params: dict, batch: dict, config: T5Config, mesh=None) -> torch.Tensor:
     """Seq2seq cross entropy over ``labels [B, St]`` (``-100`` ignored),
-    log-softmax in f32, divided by ``max(valid count, 1)``."""
+    log-softmax in f32, divided by ``max(valid count, 1)``. With ``mesh``
+    the rows are one rank's and the count is the global batch's
+    (:func:`~..parallel.sharding.global_mean`), as the JAX package's loss
+    over its global batch counts it."""
     logits = t5_forward(params, batch, config)
     labels = batch["labels"].long()
     valid = (labels != -100).float()
     safe = torch.where(labels == -100, 0, labels)
     logp = torch.log_softmax(logits.float(), dim=-1)
     nll = -logp.gather(-1, safe[..., None])[..., 0]
-    return (nll * valid).sum() / valid.sum().clamp(min=1.0)
+    from ..parallel.sharding import global_mean
+
+    return global_mean((nll * valid).sum(), valid.sum(), mesh)
 
 
 @torch.no_grad()
@@ -290,3 +296,20 @@ def t5_greedy_generate(params: dict, input_ids, config: T5Config, max_new_tokens
             finished = finished | (nxt == eos_token_id)
         ids[:, i + 1] = nxt
     return ids
+
+
+def t5_shard_rules():
+    """The JAX package's TP rules for the stacked layout (dim 0 is the
+    layer stack)."""
+    from ..parallel.sharding import PartitionSpec as P
+    from ..parallel.sharding import ShardingRules
+
+    return ShardingRules([
+        (r"(attn|self_attn|cross_attn)/(wq|wk|wv)/kernel", P(None, None, "tp")),
+        (r"(attn|self_attn|cross_attn)/wo/kernel", P(None, "tp", None)),
+        (r"layers/wi/kernel", P(None, None, "tp")),
+        (r"layers/wo/kernel", P(None, "tp", None)),
+        (r"shared_embedding/embedding", P("tp", None)),
+        (r"lm_head/kernel", P(None, "tp")),
+        (r"(norm|rel_pos)", P()),
+    ])

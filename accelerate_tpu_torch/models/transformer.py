@@ -365,11 +365,47 @@ def _remat_context(remat):
     return functools.partial(create_selective_checkpoint_contexts, policy)
 
 
+def _activation_spec(mesh, *logical):
+    """The JAX package's activation spec from logical dim names: each entry
+    ``None``, an axis or a tuple of axes, with axes of size 1 (or absent
+    from the mesh) dropped."""
+    from ..parallel.sharding import PartitionSpec
+
+    def present(axis):
+        if axis is None:
+            return None
+        if isinstance(axis, (tuple, list)):
+            kept = tuple(a for a in axis if mesh.shape.get(a, 1) > 1)
+            return kept if kept else None
+        return axis if mesh.shape.get(axis, 1) > 1 else None
+
+    return PartitionSpec(*(present(ax) for ax in logical))
+
+
+def _constrain(x: torch.Tensor, mesh, *logical) -> torch.Tensor:
+    """Where the JAX package pins an activation's sharding, the port holds
+    the rank's block already: the rows of its batch axes, every other dim
+    whole (a ``tp`` split of the vocab is computed whole on every ``tp``
+    rank, the same values). A split of any other dim than the rows over
+    the batch axes raises, so a layout this forward does not compute cannot
+    pass unnoticed."""
+    if mesh is None:
+        return x
+    spec = _activation_spec(mesh, *logical)
+    for d, axes in enumerate(spec):
+        if axes is None or (d == 0 and set(axes if isinstance(axes, tuple) else (axes,))
+                            <= {"dp_replicate", "dp_shard"}) or axes == "tp":
+            continue
+        raise NotImplementedError(f"an activation split over {axes} on dim {d} is not ported "
+                                  "yet (ROADMAP.md Queue A item 11: ring attention)")
+    return x
+
+
 def llama_forward(params: dict, input_ids: torch.Tensor, config: LlamaConfig,
                   attention_impl: Optional[str] = None,
                   segment_ids: Optional[torch.Tensor] = None,
                   positions: Optional[torch.Tensor] = None,
-                  attention_fn=None, remat=False, with_aux: bool = False):
+                  attention_fn=None, remat=False, with_aux: bool = False, mesh=None):
     """Full-sequence causal forward: logits ``[B, S, vocab]``, no cache;
     with ``with_aux`` ``(logits, aux)``, ``aux`` the mean over layers of the
     MoE load-balance loss (an f32 zero for dense configs).
@@ -393,7 +429,15 @@ def llama_forward(params: dict, input_ids: torch.Tensor, config: LlamaConfig,
     twice a step. The MoE expert products are batched (``bmm``), so
     ``"dots"`` saves them and ``"dots_no_batch"`` recomputes them, as
     JAX's policies treat their batched einsums; the router's product has
-    no batch dims and is saved by both."""
+    no batch dims and is saved by both.
+
+    ``mesh`` (a :class:`~accelerate_tpu_torch.parallelism_config.Mesh`)
+    says the forward runs on one rank of it: ``input_ids`` are the rank's
+    rows, split over ``(dp_replicate, dp_shard)`` as the JAX package's
+    activation constraints split them, and ``params`` are full (the
+    sharded train step gathers them). Every rank of a ``tp`` group computes
+    the same rows with all heads. A sequence split over ``cp`` or ``sp``
+    and the MoE FFN over a mesh of more than one rank raise."""
     from ..generation import _project_qkv
     from ..ops.attention import dot_product_attention
 
@@ -401,6 +445,11 @@ def llama_forward(params: dict, input_ids: torch.Tensor, config: LlamaConfig,
     if attention_fn is not None:
         raise NotImplementedError("attention_fn (context/sequence parallelism) is not ported yet "
                                   "(see ROADMAP.md)")
+    if mesh is not None and config.moe_experts > 0 and any(
+            size > 1 for size in mesh.shape.values()):
+        raise NotImplementedError("the MoE FFN over a mesh of more than one rank (expert "
+                                  "parallelism) is not ported yet (ROADMAP.md Queue A item 6, "
+                                  "second half)")
     context_fn = _remat_context(remat) if remat else None
     impl = config.attn_impl if attention_impl is None else attention_impl
     dev = input_ids.device
@@ -411,7 +460,11 @@ def llama_forward(params: dict, input_ids: torch.Tensor, config: LlamaConfig,
         positions = (segment_positions(segment_ids) if segment_ids is not None
                      else torch.arange(S, device=dev)[None].expand(B, S))
     positions = positions.long()
+    batch_axes = ("dp_replicate", "dp_shard")
+    # the table is whole here: the step gathered it (the JAX package gathers
+    # its FSDP dim on use and keeps vocab over tp, the same values)
     h = params["embed_tokens"]["embedding"][input_ids.long()]
+    h = _constrain(h, mesh, batch_axes, "cp", None)
 
     def decoder_layer(h, layer):
         x = rms_norm(h, layer["attn_norm"]["scale"], config.norm_eps)
@@ -431,7 +484,7 @@ def llama_forward(params: dict, input_ids: torch.Tensor, config: LlamaConfig,
         else:
             h, aux = decoder_layer(h, layer)
         auxes.append(aux)
-    logits = lm_logits(params, h, config)
+    logits = _constrain(lm_logits(params, h, config), mesh, batch_axes, "cp", "tp")
     if not with_aux:
         return logits
     if config.moe_experts > 0:
@@ -445,7 +498,14 @@ def llama_loss(params: dict, batch: dict, config: LlamaConfig, **fwd_kwargs) -> 
     forward kwarg of that name) and ``loss_mask`` ``[B, S]``. Targets come
     from rolling the ids left by one; the last position, segment
     boundaries, padding (id 0) and masked positions do not count. MoE
-    configs add ``moe_aux_weight`` times the forward's aux loss."""
+    configs add ``moe_aux_weight`` times the forward's aux loss.
+
+    With ``mesh`` (a forward kwarg) the rows are one rank's: the count of
+    positions that count is summed over the batch ranks, and the value is
+    ``n · (this rank's sum) / (global count)`` for ``n`` batch ranks, so
+    that its mean over the ranks (what the sharded train step reports, and
+    the mean of whose gradients it takes) is the JAX package's loss over the
+    global batch, masks and packing included."""
     ids = batch["input_ids"].long()
     seq_len = ids.shape[1]
     segment_ids = batch.get("segment_ids")
@@ -468,7 +528,9 @@ def llama_loss(params: dict, batch: dict, config: LlamaConfig, **fwd_kwargs) -> 
     mask = batch.get("loss_mask")
     if mask is not None:
         valid = valid * torch.roll(mask, -1, dims=1).float()
-    loss = (nll * valid).sum() / valid.sum().clamp(min=1.0)
+    from ..parallel.sharding import global_mean
+
+    loss = global_mean((nll * valid).sum(), valid.sum(), fwd_kwargs.get("mesh"))
     return loss + config.moe_aux_weight * moe_aux if moe else loss
 
 

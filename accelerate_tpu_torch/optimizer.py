@@ -61,6 +61,7 @@ __all__ = [
     "linear_schedule",
     "param_leaves",
     "sgd",
+    "state_bytes",
     "warmup_cosine_decay_schedule",
 ]
 
@@ -410,6 +411,13 @@ def adam(learning_rate: Union[float, Callable], b1: float = 0.9, b2: float = 0.9
     return adamw(learning_rate, b1=b1, b2=b2, eps=eps, weight_decay=0.0)
 
 
+def state_bytes(optimizer: torch.optim.Optimizer) -> int:
+    """Bytes of a torch optimizer's array state (scalars such as the step
+    counts left out)."""
+    return sum(v.numel() * v.element_size() for s in optimizer.state.values()
+               for v in s.values() if isinstance(v, torch.Tensor) and v.dim() > 0)
+
+
 class AcceleratedOptimizer:
     """Wraps a ``torch.optim.Optimizer``, or a factory that makes one from
     the param list (:func:`adamw`); :meth:`init` binds the factory. With
@@ -431,12 +439,25 @@ class AcceleratedOptimizer:
         self.scaler_config = None  # fp16: the GradScalerConfig of the loss scale below
         self.loss_scale: Optional[torch.Tensor] = None  # fp16: f32 scalar on the device
         self.growth_count: Optional[torch.Tensor] = None  # fp16: int32 scalar on the device
+        self.plan = None  # the ShardingPlan of the params it was bound to under a mesh
+        self.zero1 = None  # FusedZero1Update when the fused ZeRO-1 path is on
 
-    def init(self, params):
+    def init(self, params, plan=None):
         """Bind to ``params`` (a nested dict of tensors): a factory becomes
-        an optimizer over its leaves. Returns :attr:`opt_state`."""
+        an optimizer over its leaves. Under a ``plan`` with fused ZeRO-1
+        (:mod:`.parallel.weight_update`) it is made over this rank's chunks
+        of the param buckets instead, and every update ends with their
+        all-gather into the params. Returns :attr:`opt_state`."""
         if self.optimizer is None:
-            self.optimizer = self.base_optimizer(param_leaves(params))
+            self.plan = plan
+            leaves = param_leaves(params)
+            if plan is not None and plan.fused_zero1:
+                from .parallel.weight_update import init_bucketed_opt_state
+
+                self.optimizer, self.zero1 = init_bucketed_opt_state(
+                    self.base_optimizer, leaves, plan.zero1, plan.mesh)
+                return self.opt_state
+            self.optimizer = self.base_optimizer(leaves)
         return self.opt_state
 
     @property
@@ -447,7 +468,20 @@ class AcceleratedOptimizer:
 
     @property
     def params(self) -> list:
+        """The tensors the torch optimizer updates: the param leaves, or
+        this rank's bucket chunks under fused ZeRO-1."""
         return [p for group in self.optimizer.param_groups for p in group["params"]]
+
+    @property
+    def model_params(self) -> list:
+        """The param leaves it was bound to (this rank's blocks under a
+        sharded plan)."""
+        return self.zero1.params if self.zero1 is not None else self.params
+
+    def state_bytes(self) -> int:
+        """Bytes of this rank's optimizer array state (scalars such as the
+        step counts left out)."""
+        return state_bytes(self.optimizer)
 
     # ------------------------------------------------------------ updates --
     def _grads(self) -> list:
@@ -484,6 +518,8 @@ class AcceleratedOptimizer:
             for p, g in zip(self.params, grads or ()):
                 p.grad = g.to(p.dtype)
             self.optimizer.step()
+        if self.zero1 is not None:
+            self.zero1.all_gather()
         self.gradient_step += 1
 
     def micro_step(self, flat: Optional[torch.Tensor] = None) -> None:

@@ -1,0 +1,598 @@
+"""The sharding decision surface, and the collectives of a sharded train
+step: the port of ``accelerate_tpu.parallel.sharding``.
+
+Spec inference is the JAX package's, line for line: ``rules`` (a TP table
+such as :func:`llama_tp_rules`) claim dims first, FSDP puts ``(dp_shard,
+cp)`` on the largest free dim of every param of at least
+``min_fsdp_size`` elements, and :func:`canonicalize_spec` drops size-1 axes
+and trailing ``None`` dims. It reads only the mesh's axis sizes, so it
+runs without a process group. :class:`PartitionSpec` is a tuple with one
+entry per dim (``None``, an axis name, or a tuple of names, major first),
+as ``jax.sharding.PartitionSpec`` iterates.
+
+A spec becomes one placement per mesh axis (:func:`placements`: ``Shard
+(d)`` on every axis that shards dim ``d``, ``Replicate()`` elsewhere), and
+each rank holds its block of every param as a plain tensor
+(:func:`local_shard`), the block ``jax.sharding.NamedSharding.
+devices_indices_map`` gives the device at the same mesh coordinates. An
+uneven placement raises, as ``jax.device_put`` does.
+
+Compute runs on plain tensors: :meth:`ShardingPlan.gather_params`
+all-gathers every sharded param to its full value (minor axis first)
+through an autograd function whose backward hands each rank its block of
+the gradient: a reduce-scatter over the batch axes (``dp_replicate``,
+``dp_shard``) that shard the dim, a local slice over the others (``tp``:
+the activations are replicated there, so every ``tp`` rank already holds
+the same gradient). :meth:`ShardingPlan.reduce_grads` then sums over the
+batch axes that do not shard the param, one all-reduce per group of
+params. The flash kernels therefore see local tensors of the rank's rows
+with all heads. The whole param tree is gathered before the forward, so
+FSDP saves memory between steps (params, gradients and optimizer state
+stay sharded) but not within one; a per-layer gather is ROADMAP.md Queue A
+item 6's second half, with the optimizer-state host offload.
+"""
+
+from __future__ import annotations
+
+import re
+from dataclasses import dataclass
+from typing import Any, Optional, Sequence
+
+import numpy as np
+import torch
+
+from ..parallelism_config import ParallelismConfig, axis_sizes
+from ..utils.operations import record_collective
+
+__all__ = [
+    "FSDP_AXES",
+    "GRAD_SUM_AXES",
+    "PartitionSpec",
+    "ShardingPlan",
+    "ShardingRules",
+    "canonicalize_spec",
+    "infer_param_specs",
+    "llama_tp_rules",
+    "local_shard",
+    "make_sharding_plan",
+    "placements",
+    "replicate",
+    "shard_index",
+    "shard_like_params",
+    "shard_params",
+    "tree_specs_like",
+    "zero1_state_specs",
+]
+
+FSDP_AXES = ("dp_shard", "cp")
+# the axes the batch rows are split over: a gradient is summed over these
+GRAD_SUM_AXES = ("dp_replicate", "dp_shard")
+
+
+class PartitionSpec(tuple):
+    """One entry per dim: ``None``, a mesh axis, or a tuple of axes (major
+    first). Compares equal to any tuple of the same entries."""
+
+    def __new__(cls, *dims):
+        return super().__new__(cls, dims)
+
+    def __repr__(self) -> str:
+        return "PartitionSpec(" + ", ".join(repr(d) for d in self) + ")"
+
+
+P = PartitionSpec
+
+
+def _dim_axes(entry) -> tuple:
+    if entry is None:
+        return ()
+    return tuple(entry) if isinstance(entry, (tuple, list)) else (entry,)
+
+
+def _spec_axes(spec) -> tuple:
+    return tuple(a for d in spec for a in _dim_axes(d))
+
+
+def _map_with_path(fn, tree, path: str = ""):
+    """``fn(path, leaf)`` over a tree of dicts, lists and tuples; the path
+    is the keys and indices joined by ``/``, as the JAX package spells a
+    ``jax.tree_util`` key path."""
+    join = (lambda k: f"{path}/{k}") if path else str
+    if isinstance(tree, dict):
+        return type(tree)((k, _map_with_path(fn, v, join(k))) for k, v in tree.items())
+    if isinstance(tree, (list, tuple)) and not isinstance(tree, PartitionSpec):
+        return type(tree)(_map_with_path(fn, v, join(i)) for i, v in enumerate(tree))
+    return fn(path, tree)
+
+
+def _map(fn, *trees):
+    first = trees[0]
+    if isinstance(first, dict):
+        return type(first)((k, _map(fn, *(t[k] for t in trees))) for k in first)
+    if isinstance(first, (list, tuple)) and not isinstance(first, PartitionSpec):
+        return type(first)(_map(fn, *leaves) for leaves in zip(*trees))
+    return fn(*trees)
+
+
+def _leaves(tree) -> list:
+    if isinstance(tree, dict):
+        return [x for v in tree.values() for x in _leaves(v)]
+    if isinstance(tree, (list, tuple)) and not isinstance(tree, PartitionSpec):
+        return [x for v in tree for x in _leaves(v)]
+    return [tree]
+
+
+def canonicalize_spec(spec, axis_sizes: Optional[dict] = None) -> PartitionSpec:
+    """Size-1 mesh axes dropped (sharding over them is replication), a
+    one-axis tuple as its axis, trailing ``None`` dims trimmed. Unknown
+    axes are kept, so that placing the param raises."""
+    dims = []
+    for d in (list(spec) if spec is not None else []):
+        axes = _dim_axes(d)
+        if axis_sizes is not None:
+            axes = tuple(a for a in axes if axis_sizes.get(a, 2) > 1)
+        if not axes:
+            dims.append(None)
+        elif len(axes) == 1:
+            dims.append(axes[0])
+        else:
+            dims.append(axes)
+    while dims and dims[-1] is None:
+        dims.pop()
+    return PartitionSpec(*dims)
+
+
+class ShardingRules:
+    """Ordered ``(pattern, spec)`` table over ``/``-joined param paths;
+    the first pattern that matches wins."""
+
+    def __init__(self, rules: Sequence = ()):
+        self.rules = [(re.compile(pat), spec) for pat, spec in rules]
+
+    def match(self, path: str):
+        for pat, spec in self.rules:
+            if pat.search(path):
+                return spec
+        return None
+
+    def __add__(self, other: "ShardingRules") -> "ShardingRules":
+        merged = ShardingRules()
+        merged.rules = list(self.rules) + list(other.rules)
+        return merged
+
+
+def _merge_fsdp_into_spec(spec, shape, fsdp_axes: tuple, fsdp_size: int, sizes: dict):
+    """Add the FSDP axes to a (possibly TP) spec: on dim 0 when it is free
+    and divides, else on the largest free dim that divides; with no free
+    dim, composed into dim 0's axes when the joint size divides; else the
+    param stays replicated over them."""
+    dims = list(spec) if spec is not None else []
+    while len(dims) < len(shape):
+        dims.append(None)
+    candidates = [i for i, d in enumerate(dims)
+                  if d is None and shape[i] >= 2 and shape[i] % fsdp_size == 0]
+    if not candidates:
+        if dims and dims[0] is not None:
+            existing = _dim_axes(dims[0])
+            existing_size = int(np.prod([sizes.get(a, 1) for a in existing]))
+            if shape[0] % (fsdp_size * existing_size) == 0:
+                dims[0] = tuple(fsdp_axes) + existing
+        return canonicalize_spec(dims, sizes)
+    target = 0 if 0 in candidates else max(candidates, key=lambda i: shape[i])
+    dims[target] = tuple(fsdp_axes) if len(fsdp_axes) > 1 else fsdp_axes[0]
+    return canonicalize_spec(dims, sizes)
+
+
+def infer_param_specs(params, mesh, parallelism_config: Optional[ParallelismConfig] = None,
+                      rules: Optional[ShardingRules] = None, min_fsdp_size: int = 2 ** 10):
+    """The canonical :class:`PartitionSpec` tree of ``params`` on ``mesh``
+    (a :class:`~..parallelism_config.Mesh` or ``{axis: size}``)."""
+    sizes = axis_sizes(mesh)
+    pc = parallelism_config
+    fsdp_on = pc is not None and pc.fsdp_enabled
+    fsdp_axes = tuple(a for a in FSDP_AXES if sizes.get(a, 1) > 1)
+    fsdp_size = int(np.prod([sizes[a] for a in fsdp_axes])) if fsdp_axes else 1
+
+    def spec(path, value):
+        shape = tuple(np.shape(value))
+        base = rules.match(path) if rules is not None else None
+        if fsdp_on and fsdp_size > 1 and int(np.prod(shape or (1,))) >= min_fsdp_size:
+            return _merge_fsdp_into_spec(base, shape, fsdp_axes, fsdp_size, sizes)
+        return canonicalize_spec(base, sizes)
+
+    return _map_with_path(spec, params)
+
+
+def shard_index(spec, shape, mesh, coords: Optional[dict] = None) -> tuple:
+    """The block of a ``shape`` param under ``spec`` that the rank at mesh
+    ``coords`` (this rank's by default) holds, as a tuple of slices. Raises
+    on an uneven placement."""
+    sizes = axis_sizes(mesh)
+    coords = mesh.coords if coords is None else coords
+    index = []
+    for d, n in enumerate(shape):
+        axes = _dim_axes(spec[d]) if d < len(spec) else ()
+        unknown = [a for a in axes if a not in sizes]
+        if unknown:
+            raise ValueError(f"spec {spec} names axes {unknown} the mesh does not have")
+        parts = int(np.prod([sizes[a] for a in axes])) if axes else 1
+        if n % parts:
+            raise ValueError(f"a param of shape {tuple(shape)} cannot take {spec}: dim {d} "
+                             f"({n}) is not divisible by {parts}")
+        block = 0
+        for a in axes:
+            block = block * sizes[a] + coords[a]
+        size = n // parts
+        index.append(slice(block * size, (block + 1) * size))
+    return tuple(index)
+
+
+def local_shard(x, spec, mesh, coords: Optional[dict] = None):
+    """This rank's block of ``x`` under ``spec`` (a view)."""
+    return x[shard_index(spec, tuple(x.shape), mesh, coords)]
+
+
+def placements(spec, mesh) -> list:
+    """The DTensor placements of ``spec``: per mesh axis, ``Shard(d)`` when
+    that axis shards dim ``d``, else ``Replicate()``. DTensor splits a dim
+    sharded by several axes in mesh order, so their order in the spec must
+    be the mesh's (as every canonical spec's is)."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    out = {a: Replicate() for a in axis_sizes(mesh)}
+    order = list(out)
+    for d, entry in enumerate(spec):
+        axes = _dim_axes(entry)
+        if [order.index(a) for a in axes] != sorted(order.index(a) for a in axes):
+            raise ValueError(f"spec {spec} shards dim {d} over {axes}, not in mesh order")
+        for a in axes:
+            out[a] = Shard(d)
+    return list(out.values())
+
+
+def _place(x, spec, mesh, device=None):
+    t = x.detach() if isinstance(x, torch.Tensor) else torch.from_numpy(np.array(x))
+    t = local_shard(t, spec, mesh).contiguous()
+    return t.to(device if device is not None else t.device, copy=True)
+
+
+def shard_params(params, mesh, specs=None, parallelism_config=None, rules=None, device=None):
+    """``(local params, specs)``: each rank's block of every param, a
+    fresh tensor on ``device`` (the param's own by default)."""
+    if specs is None:
+        specs = infer_param_specs(params, mesh, parallelism_config, rules)
+    return _map(lambda x, s: _place(x, s, mesh, device), params, specs), specs
+
+
+def _same_structure(a, b) -> bool:
+    if isinstance(a, dict) and isinstance(b, dict):
+        return list(a) == list(b) and all(_same_structure(a[k], b[k]) for k in a)
+    if isinstance(a, (list, tuple)) and isinstance(b, (list, tuple)):
+        return (type(a) is type(b) and len(a) == len(b)
+                and all(_same_structure(x, y) for x, y in zip(a, b)))
+    return not isinstance(a, (dict, list, tuple)) and not isinstance(b, (dict, list, tuple))
+
+
+def tree_specs_like(tree, params, param_specs):
+    """A spec tree for ``tree`` (an optimizer state, say): every subtree
+    shaped as ``params`` takes ``param_specs``; every other leaf is
+    replicated."""
+    if tree is None:
+        return None
+    if _same_structure(tree, params):
+        return param_specs
+    if isinstance(tree, dict):
+        return type(tree)((k, tree_specs_like(v, params, param_specs)) for k, v in tree.items())
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(tree_specs_like(v, params, param_specs) for v in tree)
+    return PartitionSpec()
+
+
+def zero1_state_specs(state, specs, mesh, axis: str = "dp_replicate"):
+    """Annotation-mode ZeRO-1: a replicated state leaf whose dim 0 divides
+    the ``axis`` size is sharded on dim 0 over it; leaves FSDP or TP
+    already shard, scalars and leaves that do not divide are kept."""
+    size = axis_sizes(mesh).get(axis, 1)
+    if size <= 1:
+        return specs
+
+    def maybe(leaf, spec):
+        if any(d is not None for d in spec):
+            return spec
+        shape = tuple(getattr(leaf, "shape", ()))
+        if len(shape) >= 1 and shape[0] > 0 and shape[0] % size == 0:
+            return PartitionSpec(axis)
+        return spec
+
+    return _map(maybe, state, specs)
+
+
+def shard_like_params(tree, mesh, params, param_specs, zero1_axis: Optional[str] = None):
+    """Each rank's block of ``tree`` under :func:`tree_specs_like` (and
+    :func:`zero1_state_specs` over ``zero1_axis``)."""
+    specs = tree_specs_like(tree, params, param_specs)
+    if zero1_axis is not None:
+        specs = zero1_state_specs(tree, specs, mesh, axis=zero1_axis)
+    return _map(lambda x, s: _place(x, s, mesh), tree, specs)
+
+
+def replicate(tree, mesh):
+    """Every rank takes rank 0's value of each leaf (under a process
+    group); the tree unchanged without one."""
+    from ..utils.operations import broadcast
+
+    return broadcast(_map(lambda x: x.detach().clone() if isinstance(x, torch.Tensor) else x,
+                          tree))
+
+
+# ---------------------------------------------------------------------------
+# Collectives of a sharded step (plain tensors; one process per device)
+
+
+def _dist():
+    import torch.distributed as dist
+
+    return dist
+
+
+def _all_gather_dim(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    dist = _dist()
+    n = dist.get_world_size(group)
+    xt = x.movedim(dim, 0).contiguous()
+    out = xt.new_empty((n * xt.shape[0],) + tuple(xt.shape[1:]))
+    dist.all_gather_into_tensor(out, xt, group=group)
+    record_collective("step:all_gather", out.numel() * out.element_size())
+    return out.movedim(0, dim)
+
+
+def _reduce_scatter_dim(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    dist = _dist()
+    n = dist.get_world_size(group)
+    xt = x.movedim(dim, 0).contiguous()
+    out = xt.new_empty((xt.shape[0] // n,) + tuple(xt.shape[1:]))
+    dist.reduce_scatter_tensor(out, xt, group=group)
+    record_collective("step:reduce_scatter", xt.numel() * xt.element_size())
+    return out.movedim(0, dim)
+
+
+def global_mean(total: torch.Tensor, count: torch.Tensor, mesh) -> torch.Tensor:
+    """A masked mean over the global batch as one rank's share: ``n ·
+    total / (count summed over the n batch ranks)``, whose mean over the
+    batch ranks (what a sharded step reports, and the mean of whose
+    gradients it takes) is the sum of the totals over the sum of the
+    counts. Without a mesh, ``total / max(count, 1)``."""
+    ranks = 1
+    if mesh is not None:
+        sizes = axis_sizes(mesh)
+        ranks = int(np.prod([sizes.get(a, 1) for a in GRAD_SUM_AXES]))
+        if ranks > 1:
+            count = all_reduce_axes(count.detach().clone(), mesh, GRAD_SUM_AXES)
+    return total * ranks / count.clamp(min=1.0)
+
+
+def all_reduce_axes(x: torch.Tensor, mesh, axes) -> torch.Tensor:
+    """``x`` summed in place over the mesh ``axes`` (one all-reduce per
+    axis of size > 1), and returned."""
+    for a in axes:
+        group = mesh.group(a)
+        if group is not None:
+            _dist().all_reduce(x, group=group)
+            record_collective("step:all_reduce", x.numel() * x.element_size())
+    return x
+
+
+@dataclass(frozen=True)
+class _Layout:
+    """How one param is split: ``(dim, axes)`` for every sharded dim."""
+
+    mesh: Any
+    dims: tuple  # ((dim, (axis, ...)), ...)
+
+    def gather(self, local: torch.Tensor) -> torch.Tensor:
+        x = local
+        for d, axes in self.dims:
+            for a in reversed(axes):  # minor axis first
+                x = _all_gather_dim(x, d, self.mesh.group(a))
+        return x
+
+    def scatter_grad(self, grad: torch.Tensor) -> torch.Tensor:
+        """This rank's block of ``grad`` (a full-shape gradient of its own
+        rows), summed over the batch axes that shard it."""
+        x = grad
+        for d, axes in self.dims:
+            for a in axes:  # major axis first: each narrows to its block
+                if a in GRAD_SUM_AXES:
+                    x = _reduce_scatter_dim(x, d, self.mesh.group(a))
+                else:
+                    size = x.shape[d] // self.mesh.shape[a]
+                    x = x.narrow(d, self.mesh.coords[a] * size, size)
+        return x.contiguous()
+
+
+class _GatherParam(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, local, layout):
+        ctx.layout = layout
+        return layout.gather(local)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return ctx.layout.scatter_grad(grad), None
+
+
+@dataclass
+class ShardingPlan:
+    """One resolved sharding decision for a prepared model: the param
+    specs (the gradients share them), the ZeRO-1 axis asked for, and the
+    fused ZeRO-1 bucket plan when that path is on."""
+
+    mesh: Any
+    parallelism_config: Optional[ParallelismConfig]
+    rules: Optional[ShardingRules]
+    param_specs: Any
+    zero1_axis: Optional[str] = None
+    zero1: Optional[Any] = None  # Zero1BucketPlan when the fused path is on
+
+    @property
+    def grad_specs(self):
+        return self.param_specs
+
+    @property
+    def fused_zero1(self) -> bool:
+        return self.zero1 is not None
+
+    @property
+    def batch_ranks(self) -> int:
+        """How many data-parallel ranks split the global batch."""
+        sizes = axis_sizes(self.mesh)
+        return int(np.prod([sizes.get(a, 1) for a in GRAD_SUM_AXES]))
+
+    @property
+    def sharded(self) -> bool:
+        """True when some param is split over a mesh axis."""
+        return any(len(s) for s in _leaves(self.param_specs))
+
+    @property
+    def distributed(self) -> bool:
+        """True when a step needs a collective: a sharded param, more than
+        one batch rank, or fused ZeRO-1. A plan on a mesh of size-1 axes is
+        not: its step is the plain step."""
+        return self.sharded or self.batch_ranks > 1 or self.fused_zero1
+
+    def check_supported(self) -> None:
+        """Raise for a mesh the port's sharded step does not run yet."""
+        sizes = axis_sizes(self.mesh)
+        for axis, item in (("cp", "11 (ring attention)"), ("sp", "11 (ring attention)"),
+                           ("pp", "11 (pipelines)"), ("ep", "6, second half (expert parallelism)")):
+            if sizes.get(axis, 1) > 1:
+                raise NotImplementedError(
+                    f"a {axis} axis of size {sizes[axis]} is not ported yet (ROADMAP.md "
+                    f"Queue A item {item})")
+
+    def layouts(self):
+        """The :class:`_Layout` tree of the params (``None`` for a param
+        that is not split)."""
+        def layout(spec):
+            dims = tuple((d, _dim_axes(e)) for d, e in enumerate(spec) if e is not None)
+            return _Layout(self.mesh, dims) if dims else None
+
+        return _map(layout, self.param_specs)
+
+    def place_params(self, params, device=None):
+        """Each rank's block of every param, on ``device``."""
+        placed, _ = shard_params(params, self.mesh, specs=self.param_specs, device=device)
+        return placed
+
+    def gather_params(self, params):
+        """The full value of every param, through an autograd function whose
+        backward leaves each sharded param's block of the gradient
+        (see the module docstring)."""
+        return _map(lambda x, lay: x if lay is None else _GatherParam.apply(x, lay),
+                    params, self.layouts())
+
+    def gather_params_no_grad(self, params):
+        with torch.no_grad():
+            return _map(lambda x, lay: x if lay is None else lay.gather(x),
+                        params, self.layouts())
+
+    def reduce_grads(self, grads: list) -> list:
+        """``grads`` (one per param leaf, in tree order, after the backward)
+        summed over the batch axes that do not shard each param: one
+        all-reduce per group of params with the same axes and dtype."""
+        specs = _leaves(self.param_specs)
+        sizes = axis_sizes(self.mesh)
+        groups: dict = {}
+        for i, (g, spec) in enumerate(zip(grads, specs)):
+            rest = tuple(a for a in GRAD_SUM_AXES
+                         if sizes.get(a, 1) > 1 and a not in _spec_axes(spec))
+            if rest:
+                groups.setdefault((rest, g.dtype), []).append(i)
+        out = list(grads)
+        for (rest, _), idx in groups.items():
+            flat = torch.cat([grads[i].reshape(-1) for i in idx])
+            all_reduce_axes(flat, self.mesh, rest)
+            for i, part in zip(idx, flat.split([grads[i].numel() for i in idx])):
+                out[i] = part.view_as(grads[i])
+        return out
+
+    def mean_over_batch(self, x: torch.Tensor) -> torch.Tensor:
+        """``x`` averaged over the batch ranks (a copy)."""
+        n = self.batch_ranks
+        if n == 1:
+            return x
+        return all_reduce_axes(x.detach().clone(), self.mesh, GRAD_SUM_AXES) / n
+
+    def global_sumsq(self, grads: list) -> torch.Tensor:
+        """The sum of squares of the full gradients from the ranks' blocks:
+        each block's sum, summed over the axes that split its param."""
+        specs = _leaves(self.param_specs)
+        groups: dict = {}
+        for g, spec in zip(grads, specs):
+            axes = tuple(a for a in axis_sizes(self.mesh) if a in _spec_axes(spec))
+            groups.setdefault(axes, []).append(torch.sum(g.float() * g.float()))
+        total = None
+        for axes, parts in groups.items():
+            s = all_reduce_axes(torch.stack(parts).sum(), self.mesh, axes)
+            total = s if total is None else total + s
+        return total
+
+    def zero1_collective_bytes(self) -> Optional[dict]:
+        """Bytes the fused update moves a step (None when it is off)."""
+        if not self.fused_zero1:
+            return None
+        n = self.zero1.collective_bytes
+        return {"reduce_scatter": n, "all_gather": n}
+
+
+def make_sharding_plan(params, mesh, parallelism_config: Optional[ParallelismConfig] = None,
+                       rules: Optional[ShardingRules] = None, zero1_axis: Optional[str] = None,
+                       zero1_fused: Optional[bool] = None,
+                       zero1_bucket_bytes: Optional[int] = None, min_fsdp_size: int = 2 ** 10,
+                       param_specs=None) -> ShardingPlan:
+    """The one spec decision for a model. Fused ZeRO-1 is on when
+    ``zero1_axis`` names an axis of size > 1, every param is floating and
+    every param is replicated (pure data parallelism); ``zero1_fused=False``
+    or ``ACCELERATE_ZERO1_FUSED=0`` turns it off."""
+    sizes = axis_sizes(mesh)
+    if param_specs is None:
+        param_specs = infer_param_specs(params, mesh, parallelism_config, rules,
+                                        min_fsdp_size=min_fsdp_size)
+    else:
+        param_specs = _map(lambda s: None if s is None else canonicalize_spec(s, sizes),
+                           param_specs)
+    plan = ShardingPlan(mesh=mesh, parallelism_config=parallelism_config, rules=rules,
+                        param_specs=param_specs, zero1_axis=zero1_axis)
+    if zero1_axis is None or sizes.get(zero1_axis, 1) <= 1:
+        return plan
+    if zero1_fused is None:
+        from ..utils.environment import parse_flag_from_env
+
+        zero1_fused = parse_flag_from_env("ACCELERATE_ZERO1_FUSED", default=True)
+    if not zero1_fused:
+        return plan
+    if plan.sharded:
+        return plan  # composite mesh: the JAX package's annotation path (not ported)
+    from .weight_update import build_bucket_plan
+
+    try:
+        plan.zero1 = build_bucket_plan(params, zero1_axis, sizes[zero1_axis],
+                                       bucket_bytes=zero1_bucket_bytes)
+    except ValueError:
+        plan.zero1 = None
+    return plan
+
+
+def llama_tp_rules() -> ShardingRules:
+    """Megatron-style rules for ``[in, out]`` kernels: column-parallel
+    QKV and up, row-parallel out and down, vocab-parallel embedding and
+    head. On the stacked ``[L, in, out]`` tree they land one dim to the
+    left (ROADMAP.md Queue C records what each shards), as in the JAX
+    package."""
+    return ShardingRules([
+        (r"(wq|wk|wv|q_proj|k_proj|v_proj|qkv)/kernel", P(None, "tp")),
+        (r"(wo|o_proj|out_proj)/kernel", P("tp", None)),
+        (r"(w1|gate_proj|up_proj|w3|fc1)/kernel", P(None, "tp")),
+        (r"(w2|down_proj|fc2)/kernel", P("tp", None)),
+        (r"(embed_tokens|wte|embedding)/(embedding|kernel)", P("tp", None)),
+        (r"lm_head/kernel", P(None, "tp")),
+    ])

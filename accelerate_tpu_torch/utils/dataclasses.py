@@ -18,6 +18,8 @@ from typing import Callable, Optional, Union
 import torch
 
 __all__ = [
+    "DeepSpeedPlugin",
+    "DistributedType",
     "DummyOptim",
     "DummyScheduler",
     "GradScalerConfig",
@@ -25,6 +27,19 @@ __all__ = [
     "MixedPrecisionPolicy",
     "PrecisionType",
 ]
+
+
+class DistributedType(str, Enum):
+    """How this process takes part in a run (the JAX package's values; see
+    :mod:`..state` for how the port's one process per device maps onto
+    them)."""
+
+    NO = "NO"
+    SPMD = "SPMD"
+    MULTI_HOST = "MULTI_HOST"
+
+    def __str__(self) -> str:
+        return self.value
 
 
 class PrecisionType(str, Enum):
@@ -166,3 +181,26 @@ class DummyScheduler:
         self.warmup_num_steps = warmup_num_steps
         self.lr_scheduler_callable = lr_scheduler_callable
         self.kwargs = kwargs
+
+
+@dataclass
+class DeepSpeedPlugin:
+    """The ZeRO stage of the JAX package's ``DeepSpeedPlugin``, the only
+    field of it the port reads: stage 1 keeps the params replicated and
+    shards the optimizer state over ``dp_replicate`` (the fused ZeRO-1
+    update of :mod:`..parallel.weight_update`, on a pure data-parallel mesh
+    of floating params; the ``Accelerator`` raises on any other); stages 2
+    and 3 are FSDP over ``dp_shard``; stage 0 is plain replication."""
+
+    zero_stage: int = 2
+
+    def __post_init__(self):
+        if not 0 <= self.zero_stage <= 3:
+            raise ValueError(f"zero_stage must be 0-3, got {self.zero_stage}")
+
+    def to_parallelism_config(self, num_devices: int):
+        from ..parallelism_config import ParallelismConfig
+
+        if self.zero_stage in (0, 1):
+            return ParallelismConfig(dp_replicate_size=num_devices)
+        return ParallelismConfig(dp_shard_size=-1)

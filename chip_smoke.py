@@ -102,7 +102,18 @@ csrc`` at first use) and no network. Phases, each of which fails the run:
    counted, f32 streams repeatable) and 2 training steps in config #4's
    recipe through #1-#3 (launches counted), with the share of prefill
    token-choices dropped by capacity;
-8. the card's name and power limit, one JSON line of kernel records, and
+8. more than one process: ``PartialState`` from a torchrun-style
+   environment joins an NCCL group of one and every collective of
+   ``utils.operations`` runs on CUDA tensors against its one-process
+   answer; config #4 at full width and depth through
+   ``Accelerator(parallelism_config=ParallelismConfig(dp_shard_size=1))``
+   and ``prepare_train_step``, its losses held to ``phase_lm774m``'s and
+   its flash launches counted; then the script starts itself twice
+   (``--mesh-2rank-child``): two processes share the card over ``gloo``
+   and train the long-context widths at 4 layers and S=2048 under
+   dp_shard 2, tp 2 and fused ZeRO-1, each leg held to a one-process run,
+   with flash #1-#3 launched on each rank;
+9. the card's name and power limit, one JSON line of kernel records, and
    a last line ``{"ok": true, "device": {...}}``.
 
 Without a CUDA device, or without the package beside it, it exits non-zero
@@ -202,6 +213,10 @@ FLASH_CASES = {  # name: (B, S, H, Hkv, D, window, packed); all causal
     "gqa_d128": (2, 2048, 8, 2, 128, None, False),
     "lm774m": (8, 512, 20, 20, 64, None, False),  # config #4's attention
     "moe_train": (4, 512, 32, 8, 64, None, False),  # phase_moe's training leg
+    # phase_mesh_2rank's legs (f32): the one-process run and a tp 2 rank
+    # take the global batch of 2, a dp_shard 2 or dp_replicate 2 rank 1 row
+    "mesh_2rank": (2, 2048, 16, 8, 64, None, False),
+    "mesh_2rank_b1": (1, 2048, 16, 8, 64, None, False),
 }
 # The long-context Llama of the JAX package's run_bench_longcontext
 # (bench.py:936-938) at full width and depth, batch 1 x S=8192.
@@ -264,6 +279,36 @@ SPEC_LOGIT_BAR = 0.25
 # order only (~1e-5), so the streams must match unless the top two logits
 # at a divergence lie closer than this
 SPEC_F32_TIE_GAP = 1e-4
+# More than one process (ROADMAP.md Queue A item 6). phase_fsdp_lm runs
+# config #4 through a mesh of the running process group (one card: world
+# size 1, every axis of size 1, so the plain step) and must give
+# phase_lm774m's losses: the same kernels on the same inputs, which may
+# differ only where a kernel's summation order is not fixed (1e-6).
+FSDP_LM_RTOL = 1e-6
+# phase_mesh_2rank: two processes on the one card over gloo (NCCL refuses
+# two ranks on one GPU), at the long-context widths (bench.py:936-938;
+# vocab 32000, which tp=2 splits, unlike config #4's 50257) cut to 4 layers
+# and S=2048, global batch 2, f32 masters, adamw, flash; 3 steps a leg
+# against a one-process run of the same steps: losses and each step's
+# global gradient norm within 1e-5 relative (f32, the gradient sums and the
+# batch rows' GEMMs in another order), each leaf's 3-step update within
+# TRAIN_UPDATE_RTOL relative L2 (AdamW turns the rounding noise of
+# near-zero gradient elements into parts of lr). AdamW's normalised step
+# hides a gradient off by a constant factor from the losses and the
+# updates; the norm sees it. Two planted faults, each on a copy of one leg,
+# must fail at least one bar: the tp-split params' gradients summed over
+# tp (2x), and the summed gradients not divided by the batch ranks (2x).
+MESH_2RANK_KW = dict(LLAMA_KW, n_layers=4, max_seq_len=2048)
+MESH_2RANK_BATCH, MESH_2RANK_STEPS, MESH_2RANK_LR = 2, 3, 1e-4
+MESH_2RANK_LEGS = (  # (name, ParallelismConfig kwargs, fused ZeRO-1, llama_tp_rules)
+    ("dp_shard2", {"dp_shard_size": 2}, False, False),
+    ("tp2", {"tp_size": 2}, False, True),
+    ("dp_replicate2_zero1", {"dp_replicate_size": 2}, True, False),
+)
+MESH_2RANK_FAULTS = (("tp2_summed_over_tp", "tp2"), ("dp_shard2_not_divided", "dp_shard2"))
+MESH_2RANK_LOSS_RTOL = MESH_2RANK_NORM_RTOL = 1e-5
+MESH_2RANK_TIMEOUT_S = 600
+MESH_OPS_GATHER_MB = 64
 
 
 class SmokeFailure(RuntimeError):
@@ -2335,7 +2380,7 @@ def _lm_leg(dev, tag, config, batches, precision, factory, dtype, remat, calls, 
         _profile_step(loop, params, state, one, f"{tag}-profile", 2)
     del params, opt, loop, state
     torch.cuda.empty_cache()
-    return launches, {"ms": ms, "peak": peak}
+    return launches, {"ms": ms, "peak": peak, "losses": losses}
 
 
 def phase_llama_train(dev):
@@ -2429,8 +2474,8 @@ def phase_lm774m(dev):
                                             (LM774M_K, LM774M_BATCH, config.max_seq_len))
     batches = {"input_ids": torch.from_numpy(ids.astype(np.int32)).to(dev)}
     what = f"bf16 params, adafactor({LM774M_LR:g}), mixed_precision='no'"
-    launches, _ = _lm_leg(dev, "lm774m", config, batches, "no", adafactor(LM774M_LR),
-                          torch.bfloat16, "dots_no_batch", LM774M_CALLS, what)
+    launches, lm_ref = _lm_leg(dev, "lm774m", config, batches, "no", adafactor(LM774M_LR),
+                               torch.bfloat16, "dots_no_batch", LM774M_CALLS, what)
     ladder, ladder_launches = {}, {}
     for remat in LM774M_REMATS:
         t0 = time.perf_counter()
@@ -2449,7 +2494,7 @@ def phase_lm774m(dev):
           f"remat 'offload_dots' peaks at {ladder['offload_dots']['peak']}, not below "
           f"'dots_no_batch' ({ladder['dots_no_batch']['peak']})")
     _offload_dots_traffic(dev, config, {"input_ids": batches["input_ids"][0]})
-    return launches, ladder_launches["offload_dots"]
+    return launches, ladder_launches["offload_dots"], lm_ref
 
 
 def _named(tree, prefix=""):
@@ -3181,12 +3226,453 @@ def phase_moe(dev):
     return engine_launches, train_launches, leg
 
 
+# ------------------------------------------------------- more than one process --
+def phase_mesh_ops(dev):
+    """The port's ``PartialState`` from a torchrun-style environment (``RANK``,
+    ``WORLD_SIZE=1``, ``LOCAL_RANK``, ``MASTER_ADDR``/``MASTER_PORT`` on a
+    free localhost port) joins an NCCL process group of one; every
+    collective of ``utils.operations`` runs on CUDA tensors through it and
+    is checked against its one-process answer; the fused ZeRO-1 update's
+    self check and a 64 MiB gather are timed. The group stays up for
+    ``phase_fsdp_lm``."""
+    import socket
+
+    from accelerate_tpu_torch.parallel import weight_update
+    from accelerate_tpu_torch.state import PartialState
+    from accelerate_tpu_torch.utils import operations as ops
+
+    _reset_states()
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    env = {"RANK": "0", "WORLD_SIZE": "1", "LOCAL_RANK": "0", "MASTER_ADDR": "localhost",
+           "MASTER_PORT": str(port)}
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        t0 = time.perf_counter()
+        state = PartialState()
+        join_s = time.perf_counter() - t0
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    check(state.backend == "nccl" and state.num_processes == 1
+          and state.device == torch.device("cuda", 0),
+          f"PartialState from the torchrun environment: {state!r}")
+    print(f"[mesh-ops] {state!r}: joined in {join_s:.2f} s")
+    ops.reset_comm_counters()
+    gen = torch.Generator(device=dev).manual_seed(0)
+    x = torch.randn(8, 16, device=dev, generator=gen)
+    tree = {"x": x, "ids": torch.arange(5, device=dev, dtype=torch.int32), "flag": x > 0,
+            "scalar": x.sum()}
+
+    def same(a, b):
+        return all(ta.device.type == "cuda" and torch.equal(ta.reshape(tb.shape), tb)
+                   for ta, tb in zip(_leaves(a), _leaves(b)))
+
+    results = {
+        "gather": same(ops.gather(tree), tree),
+        "gather_object": ops.gather_object(("rank", 0)) == [("rank", 0)],
+        "broadcast": same(ops.broadcast(tree), tree),
+        "broadcast_object_list": ops.broadcast_object_list([{"a": 1}]) == [{"a": 1}],
+        "reduce_sum": same(ops.reduce(x, "sum"), x),
+        "reduce_mean": same(ops.reduce(x, "mean"), x),
+        "reduce_scale": same(ops.reduce(x, "sum", scale=2.0), 2 * x),
+        "pad_across_processes": same(ops.pad_across_processes(x, dim=0), x),
+        "pad_input_tensors": same(ops.pad_input_tensors(x[:7], 7, 2),
+                                  torch.cat([x[:7], x[6:7]])),
+        "slice_tensors": same(ops.slice_tensors(tree["x"], slice(0, 3)), x[:3]),
+        "concatenate": same(ops.concatenate([{"x": x}, {"x": x}]), {"x": torch.cat([x, x])}),
+        "find_batch_size": ops.find_batch_size(tree) == 8,
+        "ignorant_find_batch_size": ops.ignorant_find_batch_size([{}]) is None,
+        "gather_across_data_parallel_groups": same(
+            ops.gather_across_data_parallel_groups(x), x),
+        "avg_losses_across_data_parallel_group": same(
+            ops.avg_losses_across_data_parallel_group([x.sum(), x.mean()]),
+            torch.stack([x.sum(), x.mean()])),
+        "data_structure": [tuple(t.shape) for t in _leaves(ops.initialize_tensors(
+            ops.get_data_structure(tree)))] == [tuple(t.shape) for t in _leaves(tree)],
+    }
+    bad = [k for k, ok in results.items() if not ok]
+    check(not bad, f"collectives on the NCCL group of one disagree with one process: {bad}")
+    zero1 = weight_update.self_check(device="cuda")
+    check(zero1["parity_max_abs_delta"] <= 1e-6,
+          f"fused ZeRO-1 self check: {zero1}")
+    big = torch.randn(MESH_OPS_GATHER_MB * 2 ** 18, device=dev, generator=gen)
+    gather_ms = time_ms(lambda i: ops.gather(big), 1, 10, behind_sleep=False)
+    counters = ops.get_comm_counters()
+    print(f"[mesh-ops] {len(results)} collectives and helpers on CUDA tensors agree with one "
+          f"process; fused ZeRO-1 self check {zero1}")
+    print(f"[mesh-ops] gather of {MESH_OPS_GATHER_MB} MiB through NCCL at world size 1: "
+          f"{gather_ms:.3f} ms; counters {counters}")
+    return {"gather_ms": gather_ms}
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        return [x for v in tree.values() for x in _leaves(v)]
+    if isinstance(tree, (list, tuple)):
+        return [x for v in tree for x in _leaves(v)]
+    return [tree]
+
+
+def phase_fsdp_lm(dev, lm_ref):
+    """Config #4 at full width and depth through ``Accelerator(
+    parallelism_config=ParallelismConfig(dp_shard_size=world))`` on the
+    process group of ``phase_mesh_ops``, ``prepare`` and
+    ``prepare_train_step`` with ``llama_loss(mesh=...)``: the K-step calls
+    of ``phase_lm774m`` as single steps (one warm call, then timed ones),
+    whose losses must be its losses; ms/step beside its, flash launches
+    counted. A world of one leaves every axis at size 1, so the plan must
+    be the plain step. The process group is closed after it."""
+    from accelerate_tpu_torch import Accelerator, LlamaConfig, init_llama, llama_loss
+    from accelerate_tpu_torch.ops import flash_attention as fa
+    from accelerate_tpu_torch.optimizer import adafactor
+    from accelerate_tpu_torch.parallelism_config import ParallelismConfig
+    from accelerate_tpu_torch.state import AcceleratorState, GradientState, PartialState
+
+    world = PartialState().num_processes
+    AcceleratorState._reset_state()
+    GradientState._reset_state()
+    config = LlamaConfig(**LM774M_KW)
+    ids = np.random.default_rng(0).integers(0, config.vocab_size,
+                                            (LM774M_K, LM774M_BATCH, config.max_seq_len))
+    batches = torch.from_numpy(ids.astype(np.int32)).to(dev)
+    acc = Accelerator(mixed_precision="no", rng_seed=0,
+                      parallelism_config=ParallelismConfig(dp_shard_size=world))
+    params = init_llama(config, torch.Generator(device=dev).manual_seed(0), device=dev,
+                        dtype=torch.bfloat16)
+    params, opt = acc.prepare(params, adafactor(LM774M_LR))
+    check(not acc.sharding_plan.distributed,
+          f"a mesh of one process must run the plain step: {acc.mesh}")
+    step = acc.prepare_train_step(
+        lambda p, b: llama_loss(p, b, config, remat="dots_no_batch", mesh=acc.mesh), opt)
+    state, losses = opt.opt_state, []
+
+    def call():
+        nonlocal params, state
+        for k in range(LM774M_K):
+            params, state, m = step(params, state, {"input_ids": batches[k]})
+            losses.append(m["loss"])
+
+    call()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for kern in FLASH_KERNELS:
+        getattr(fa, kern).launches = 0
+    t0 = time.perf_counter()
+    for _ in range(LM774M_CALLS):
+        call()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {kern: getattr(fa, kern).launches for kern in FLASH_KERNELS}
+    steps = LM774M_CALLS * LM774M_K
+    want = {"flash_attention_fwd": 2 * config.n_layers * steps,
+            "flash_attention_dq": config.n_layers * steps,
+            "flash_attention_dkdv": config.n_layers * steps}
+    check(launches == want, f"[fsdp-lm] launches in {steps} steps {launches}, want {want}")
+    got = torch.stack(losses).float().cpu()
+    ref = lm_ref["losses"].float()
+    check(got.shape == ref.shape, f"[fsdp-lm] {got.shape[0]} losses, phase_lm774m {ref.shape[0]}")
+    err = float(((got - ref).abs() / ref.abs()).max())
+    ms = wall / steps * 1e3
+    peak = torch.cuda.max_memory_allocated()
+    print(f"[fsdp-lm] config #4 through ParallelismConfig(dp_shard_size={world}) on the NCCL "
+          f"group: {acc.parallelism_config.describe(world)}; {steps} timed steps "
+          f"{ms:.1f} ms/step (phase_lm774m's loop {lm_ref['ms']:.1f} ms/step), peak "
+          f"{peak / 2**30:.2f} GiB; launches {launches}")
+    print(f"[fsdp-lm] losses " + " ".join(f"{v:.4f}" for v in got.tolist())
+          + f"; max rel err against phase_lm774m {err:.3e} (envelope {FSDP_LM_RTOL:g})")
+    check(err <= FSDP_LM_RTOL, f"[fsdp-lm] losses differ from phase_lm774m's by {err}")
+    del params, opt, step, state
+    torch.cuda.empty_cache()
+    PartialState().destroy_process_group()
+    _reset_states()
+    return launches, {"ms": ms, "peak": peak, "err": err}
+
+
+@contextlib.contextmanager
+def _mesh_fault(fault):
+    """A fault planted in the sharded step, for the two-process bars'
+    negative control: ``"tp2_summed_over_tp"`` sums the gradient of every
+    param split over ``tp`` over ``tp`` too (the ranks there hold the same
+    gradient, so it comes out ``tp`` times too large);
+    ``"dp_shard2_not_divided"`` builds the step as if one rank held the
+    batch, so the gradients summed over the batch ranks are not divided by
+    their count (the loss the step reports is still averaged)."""
+    from accelerate_tpu_torch.parallel import sharding
+
+    if fault is None:
+        yield
+        return
+    if fault == "tp2_summed_over_tp":
+        owner, name = sharding._Layout, "scatter_grad"
+        real = owner.scatter_grad
+
+        def patched(self, grad):
+            out = real(self, grad)
+            return out * self.mesh.shape["tp"] if any("tp" in axes for _, axes in self.dims) \
+                else out
+    else:
+        owner, name = sharding.ShardingPlan, "batch_ranks"
+        real = owner.batch_ranks
+        patched = property(lambda self: 1)
+    setattr(owner, name, patched)
+    try:
+        yield
+    finally:
+        setattr(owner, name, real)
+
+
+def _mesh_2rank_leg(dev, config, pc_kwargs, zero1, tp_rules, ref_updates=None,
+                    updates: bool = True, fault=None):
+    """``MESH_2RANK_STEPS`` f32 AdamW steps of ``config`` through a mesh of
+    the running processes (or of none): the losses, global gradient norms,
+    flash launches, peak memory, optimizer-state bytes, the bytes the
+    step's collectives moved, the gather's ms, and with ``updates`` each
+    leaf's 3-step update (or, given ``ref_updates``, its relative L2 error
+    against them). ``fault`` plants one of :func:`_mesh_fault`'s: in the
+    step's build for ``"dp_shard2_not_divided"``, in its run for the
+    other."""
+    from accelerate_tpu_torch import Accelerator, LlamaConfig, init_llama, llama_loss
+    from accelerate_tpu_torch.data_loader import GlobalBatchAssembler
+    from accelerate_tpu_torch.ops import flash_attention as fa
+    from accelerate_tpu_torch.optimizer import adamw
+    from accelerate_tpu_torch.parallel.sharding import _map_with_path, llama_tp_rules
+    from accelerate_tpu_torch.parallelism_config import ParallelismConfig
+    from accelerate_tpu_torch.state import AcceleratorState, GradientState
+    from accelerate_tpu_torch.utils import operations as ops
+    from accelerate_tpu_torch.utils.dataclasses import DeepSpeedPlugin
+
+    AcceleratorState._reset_state()
+    GradientState._reset_state()
+    acc = Accelerator(mixed_precision="no", rng_seed=0, device=dev,
+                      parallelism_config=ParallelismConfig(**pc_kwargs),
+                      deepspeed_plugin=DeepSpeedPlugin(zero_stage=1) if zero1 else None,
+                      shard_rules=llama_tp_rules() if tp_rules else None)
+    init = init_llama(config, torch.Generator(device=dev).manual_seed(0), device=dev)
+    params, opt = acc.prepare(init, adamw(MESH_2RANK_LR))
+    plan = acc.sharding_plan
+    with _mesh_fault(fault if fault == "dp_shard2_not_divided" else None):
+        step = acc.prepare_train_step(lambda p, b: llama_loss(p, b, config, mesh=acc.mesh), opt,
+                                      compute_grad_norm=True)
+    ids = np.random.default_rng(0).integers(
+        0, config.vocab_size, (MESH_2RANK_STEPS, MESH_2RANK_BATCH, config.max_seq_len))
+    assembler = GlobalBatchAssembler(acc.mesh, device=dev)
+    state, losses, norms = opt.opt_state, [], []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_comm_counters()
+    for kern in FLASH_KERNELS:
+        getattr(fa, kern).launches = 0
+    t0 = time.perf_counter()
+    with _mesh_fault(fault if fault == "tp2_summed_over_tp" else None):
+        for k in range(MESH_2RANK_STEPS):
+            batch = assembler.to_global(
+                assembler.local_block({"input_ids": ids[k].astype(np.int32)}))
+            params, state, m = step(params, state, batch)
+            losses.append(m["loss"])
+            norms.append(m["grad_norm"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {kern: getattr(fa, kern).launches for kern in FLASH_KERNELS}
+    comm = {op: c["bytes"] for op, c in ops.get_comm_counters().items()}
+    peak = torch.cuda.max_memory_allocated()
+    t0 = time.perf_counter()
+    full = plan.gather_params_no_grad(params) if plan.distributed else params
+    torch.cuda.synchronize()
+    gather_ms = (time.perf_counter() - t0) * 1e3
+    out = {"losses": [float(v) for v in losses], "grad_norms": [float(v) for v in norms],
+           "launches": launches, "peak": peak,
+           "opt_state_bytes": opt.state_bytes(), "comm_bytes": comm,
+           "ms": wall / MESH_2RANK_STEPS * 1e3, "gather_ms": gather_ms,
+           "fused_zero1": opt.zero1 is not None,
+           "sharded": plan.sharded}
+    if updates:
+        final, start = {}, {}
+        _map_with_path(lambda path, a: final.__setitem__(path, a), full)
+        _map_with_path(lambda path, a: start.__setitem__(path, a), init)
+        upd = {k: final[k].detach().float() - start[k].float() for k in final}
+        if ref_updates is None:
+            out["updates"] = {k: v.cpu() for k, v in upd.items()}
+        else:
+            out["update_err"] = {k: float(torch.linalg.vector_norm(v - ref_updates[k].to(dev))
+                                          / torch.linalg.vector_norm(ref_updates[k].to(dev)))
+                                 for k, v in upd.items()}
+    del params, opt, step, state, full, init
+    torch.cuda.empty_cache()
+    return out
+
+
+def mesh_2rank_child(tmp: str) -> int:
+    """One of ``phase_mesh_2rank``'s two processes (``chip_smoke.py
+    --mesh-2rank-child <dir>``): joins the gloo group of two on ``cuda:0``
+    through the ``FileStore`` in ``dir``, runs every leg, and writes its
+    numbers to ``dir/rank<i>.json``."""
+    from accelerate_tpu_torch import LlamaConfig
+    from accelerate_tpu_torch.state import PartialState
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    state = PartialState(device="cuda:0", backend="gloo")
+    config = LlamaConfig(**MESH_2RANK_KW)
+    ref = torch.load(os.path.join(tmp, "ref_updates.pt")) if state.is_main_process else None
+    report = {}
+    for name, pc_kwargs, zero1, tp_rules in MESH_2RANK_LEGS:
+        report[name] = _mesh_2rank_leg(state.device, config, pc_kwargs, zero1, tp_rules, ref,
+                                       updates=state.is_main_process)
+    legs = {leg[0]: leg[1:] for leg in MESH_2RANK_LEGS}
+    report["faults"] = {fault: _mesh_2rank_leg(state.device, config, *legs[leg], ref,
+                                               updates=state.is_main_process, fault=fault)
+                        for fault, leg in MESH_2RANK_FAULTS}
+    with open(os.path.join(tmp, f"rank{state.process_index}.json"), "w") as f:
+        json.dump(report, f)
+    state.wait_for_everyone()
+    state.destroy_process_group()
+    return 0
+
+
+def phase_mesh_2rank(dev):
+    """Two processes on the one card over gloo: each of ``MESH_2RANK_LEGS``
+    (dp_shard 2; tp 2 with ``llama_tp_rules``; dp_replicate 2 with fused
+    ZeRO-1) runs 3 steps, held to a one-process run of the same steps
+    here (losses, gradient norms, updates); flash #1-#3 must launch on
+    each rank, at the shapes ``FLASH_CASES`` held them to their plain
+    versions; the fused ZeRO-1 leg must hold half the AdamW moments on
+    each rank; each of ``MESH_2RANK_FAULTS`` must fail a bar. Per-rank
+    peak memory, optimizer-state bytes, collective bytes and the gather's
+    ms are printed. Returns each leg's launches per rank."""
+    import tempfile
+
+    from accelerate_tpu_torch import LlamaConfig
+
+    config = LlamaConfig(**MESH_2RANK_KW)
+    # phase_flash_kernels held #1-#3 to their plain versions at each rank's shape
+    for case, rows in (("mesh_2rank", MESH_2RANK_BATCH),
+                       ("mesh_2rank_b1", MESH_2RANK_BATCH // 2)):
+        check(FLASH_CASES[case] == (rows, config.max_seq_len, config.n_heads, config.n_kv_heads,
+                                    config.head_dim, None, False),
+              f"FLASH_CASES[{case!r}] is not a rank's attention shape in the two-process legs")
+    _reset_states()
+    t0 = time.perf_counter()
+    ref = _mesh_2rank_leg(dev, config, {}, False, False)
+    ref_s = time.perf_counter() - t0
+    print(f"[mesh-2rank] one-process reference: {config.n_layers} layers, dim {config.dim}, "
+          f"{config.n_heads}/{config.n_kv_heads} heads, vocab {config.vocab_size}, batch "
+          f"{MESH_2RANK_BATCH} x {config.max_seq_len}, f32 adamw({MESH_2RANK_LR:g}): losses "
+          + " ".join(f"{v:.5f}" for v in ref["losses"])
+          + f"; {ref['ms']:.1f} ms/step, peak {ref['peak'] / 2**30:.2f} GiB, optimizer state "
+          f"{ref['opt_state_bytes'] / 2**20:.1f} MiB ({ref_s:.1f} s)")
+    _reset_states()
+    with tempfile.TemporaryDirectory(prefix="mesh_2rank_") as tmp:
+        torch.save(ref.pop("updates"), os.path.join(tmp, "ref_updates.pt"))
+        procs = []
+        try:
+            for i in range(2):
+                env = {k: v for k, v in os.environ.items()
+                       if k not in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR",
+                                    "MASTER_PORT")}
+                env.update({"ACCELERATE_COORDINATOR_ADDRESS": f"file://{tmp}/store",
+                            "ACCELERATE_NUM_PROCESSES": "2", "ACCELERATE_PROCESS_ID": str(i),
+                            "ACCELERATE_LOCAL_PROCESS_INDEX": "0",
+                            "ACCELERATE_INITIALIZATION_TIMEOUT": "300"})
+                procs.append(subprocess.Popen(
+                    [sys.executable, os.path.abspath(__file__), "--mesh-2rank-child", tmp],
+                    env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+            deadline = time.monotonic() + MESH_2RANK_TIMEOUT_S
+            failed = []
+            for i, proc in enumerate(procs):
+                try:
+                    out, _ = proc.communicate(timeout=max(deadline - time.monotonic(), 1.0))
+                except subprocess.TimeoutExpired:
+                    raise SmokeFailure(f"[mesh-2rank] process {i} still running after "
+                                       f"{MESH_2RANK_TIMEOUT_S} s")
+                if proc.returncode != 0:
+                    failed.append(f"--- process {i} exited {proc.returncode}:\n{out[-4000:]}")
+            check(not failed, "[mesh-2rank] " + "\n".join(failed))
+        finally:
+            for proc in procs:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+        ranks = []
+        for i in range(2):
+            with open(os.path.join(tmp, f"rank{i}.json")) as f:
+                ranks.append(json.load(f))
+    want = {"flash_attention_fwd": config.n_layers * MESH_2RANK_STEPS,
+            "flash_attention_dq": config.n_layers * MESH_2RANK_STEPS,
+            "flash_attention_dkdv": config.n_layers * MESH_2RANK_STEPS}
+    launches = {}
+    for name, _, zero1, _ in MESH_2RANK_LEGS:
+        legs = [r[name] for r in ranks]
+        launches[name] = [leg["launches"] for leg in legs]
+        loss_err = norm_err = 0.0
+        for i, leg in enumerate(legs):
+            check(leg["launches"] == want, f"[mesh-2rank] {name} rank {i} launches "
+                                           f"{leg['launches']}, want {want}")
+            rank_loss_err, rank_norm_err, _, _ = _mesh_2rank_errs(leg, ref)
+            check(rank_loss_err <= MESH_2RANK_LOSS_RTOL,
+                  f"[mesh-2rank] {name} rank {i} losses {leg['losses']} vs one process "
+                  f"{ref['losses']}: rel err {rank_loss_err}")
+            check(rank_norm_err <= MESH_2RANK_NORM_RTOL,
+                  f"[mesh-2rank] {name} rank {i} gradient norms {leg['grad_norms']} vs one "
+                  f"process {ref['grad_norms']}: rel err {rank_norm_err}")
+            loss_err, norm_err = max(loss_err, rank_loss_err), max(norm_err, rank_norm_err)
+        _, _, worst, upd_err = _mesh_2rank_errs(legs[0], ref)
+        check(upd_err <= TRAIN_UPDATE_RTOL, f"[mesh-2rank] {name}: 3-step update of {worst} "
+                                            f"rel L2 err {upd_err} against one process")
+        check(legs[0]["fused_zero1"] == zero1, f"[mesh-2rank] {name}: fused ZeRO-1 "
+                                                f"{legs[0]['fused_zero1']}, want {zero1}")
+        if zero1:
+            check(all(2 * leg["opt_state_bytes"] == ref["opt_state_bytes"] for leg in legs),
+                  f"[mesh-2rank] {name}: optimizer state per rank "
+                  f"{[leg['opt_state_bytes'] for leg in legs]}, not half of "
+                  f"{ref['opt_state_bytes']}")
+        print(f"[mesh-2rank] {name}: losses " + " ".join(f"{v:.5f}" for v in legs[0]["losses"])
+              + f" (max rel err {loss_err:.3e}, bar {MESH_2RANK_LOSS_RTOL:g}); gradient norms "
+              + " ".join(f"{v:.5f}" for v in legs[0]["grad_norms"])
+              + f" (max rel err {norm_err:.3e}, bar {MESH_2RANK_NORM_RTOL:g}); worst 3-step "
+              f"update {worst} rel L2 {upd_err:.3e} (bar {TRAIN_UPDATE_RTOL:g}); " + "; ".join(
+                  f"rank {i}: {leg['ms']:.1f} ms/step, peak {leg['peak'] / 2**30:.2f} GiB, "
+                  f"optimizer state {leg['opt_state_bytes'] / 2**20:.1f} MiB, collectives "
+                  f"{leg['comm_bytes']} B, gather {leg['gather_ms']:.1f} ms, launches "
+                  f"{leg['launches']}" for i, leg in enumerate(legs)))
+    for fault, leg_name in MESH_2RANK_FAULTS:
+        loss_err, norm_err, worst, upd_err = _mesh_2rank_errs(ranks[0]["faults"][fault], ref)
+        caught = [bar for bar, err, tol in (("loss", loss_err, MESH_2RANK_LOSS_RTOL),
+                                            ("gradient norm", norm_err, MESH_2RANK_NORM_RTOL),
+                                            ("update", upd_err, TRAIN_UPDATE_RTOL)) if err > tol]
+        print(f"[mesh-2rank] planted fault {fault} on {leg_name}: losses rel err {loss_err:.3e}, "
+              f"gradient norms {norm_err:.3e}, worst update {worst} {upd_err:.3e}; caught by "
+              f"{caught or 'no bar'}")
+        check(bool(caught), f"[mesh-2rank] the planted fault {fault} passes every bar")
+    return launches
+
+
+def _mesh_2rank_errs(leg, ref):
+    """A two-process leg against the one-process run: the largest relative
+    error of its losses and of its gradient norms, and its worst leaf's
+    3-step update error (with the leaf's path)."""
+    loss_err = max(abs(a - b) / abs(b) for a, b in zip(leg["losses"], ref["losses"]))
+    norm_err = max(abs(a - b) / abs(b) for a, b in zip(leg["grad_norms"], ref["grad_norms"]))
+    worst, upd_err = None, None
+    if "update_err" in leg:
+        worst = max(leg["update_err"], key=leg["update_err"].get)
+        upd_err = leg["update_err"][worst]
+    return loss_err, norm_err, worst, upd_err
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 2
     here = os.path.dirname(os.path.abspath(__file__))
     sys.path.insert(0, here)
+    if sys.argv[1:2] == ["--mesh-2rank-child"]:
+        return mesh_2rank_child(sys.argv[2])
     import accelerate_tpu_torch
     from accelerate_tpu_torch import LlamaConfig, init_llama
     from accelerate_tpu_torch.utils.device import gpu_info
@@ -3241,11 +3727,14 @@ def main() -> int:
     flash_results = phase_flash_kernels(dev)
     llama_launches = phase_llama_train(dev)
     phase_llama_train_check(dev)
-    lm_launches, offload_dots_launches = phase_lm774m(dev)
+    lm_launches, offload_dots_launches, lm_ref = phase_lm774m(dev)
     phase_lm774m_check(dev)
     phase_resnet(dev)
     phase_t5(dev)
     moe_engine_launches, moe_train_launches, _ = phase_moe(dev)
+    phase_mesh_ops(dev)
+    fsdp_launches, _ = phase_fsdp_lm(dev, lm_ref)
+    mesh_launches = phase_mesh_2rank(dev)
 
     keys =("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     records = []
@@ -3283,15 +3772,22 @@ def main() -> int:
         rec = flash_results[("llama_long", kind, torch.bfloat16)]
         lm_rec = flash_results[("lm774m", kind, torch.bfloat16)]
         moe_rec = flash_results[("moe_train", kind, torch.bfloat16)]
+        mesh_recs = {case: flash_results[(case, kind, torch.float32)]
+                     for case in ("mesh_2rank", "mesh_2rank_b1")}
         records.append({"name": name, "route": "cuda",
                         "source": f"accelerate_tpu_torch/csrc/{source}.cu",
                         "replaces": f"accelerate_tpu/ops/flash_attention.py:{line}",
                         "launches": llama_launches[name], **{k: rec[k] for k in keys},
                         "lm774m": {k: lm_rec[k] for k in keys},
                         "moe_train": {k: moe_rec[k] for k in keys},
+                        **{f"{case}_f32": {k: r[k] for k in keys}
+                           for case, r in mesh_recs.items()},
                         "launches_lm774m": lm_launches[name],
                         "launches_lm774m_offload_dots": offload_dots_launches[name],
-                        "launches_moe_train": moe_train_launches[name]})
+                        "launches_moe_train": moe_train_launches[name],
+                        "launches_fsdp_lm": fsdp_launches[name],
+                        "launches_mesh_2rank": {leg: [r[name] for r in per_rank]
+                                                for leg, per_rank in mesh_launches.items()}})
     print(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(card)
     print(json.dumps({"kernels": records}))

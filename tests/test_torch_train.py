@@ -25,6 +25,8 @@ differences into the sign of small steps: losses within 2e-3 relative
 a wrong gradient moves updates by O(1).
 """
 
+import time
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -255,6 +257,13 @@ def test_one_process_state(monkeypatch):
     with pytest.raises(ValueError, match="conflicting"):
         Accelerator(mixed_precision="no", cpu=True)
     AcceleratorState._reset_state(reset_partial_state=True)
+    # two processes asked for with no rendezvous address: a clear error at
+    # once, not a wait on a store nobody serves
     monkeypatch.setenv("WORLD_SIZE", "2")
-    with pytest.raises(NotImplementedError, match="Queue A 6"):
+    for var in ("MASTER_ADDR", "MASTER_PORT", "ACCELERATE_COORDINATOR_ADDRESS",
+                "ACCELERATE_NUM_PROCESSES"):
+        monkeypatch.delenv(var, raising=False)
+    start = time.monotonic()
+    with pytest.raises(RuntimeError, match="no rendezvous address"):
         Accelerator(cpu=True)
+    assert time.monotonic() - start < 5.0
