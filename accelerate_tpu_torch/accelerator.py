@@ -34,15 +34,16 @@ over the batch ranks and divides by their count (the mean over the global
 batch when every rank's loss is the mean over its rows; ``llama_loss(mesh=)``
 makes that exact with masks too), and reports the loss averaged over the
 batch ranks. A plan whose axes all have size 1 runs the plain step. The
-whole param tree is gathered before the forward, so ``dp_shard`` (FSDP)
-cuts the memory that params, gradients and optimizer state hold between
-steps but not the peak within a step: every rank holds the full params
-through its backward. Not ported yet (see ROADMAP.md): a per-layer gather,
-ZeRO-1 other than the fused update (it raises), ``mixed_precision="fp8"``,
-fp16 loss scaling, a shape-dependent optimizer (adafactor, a global-norm
-clip) on sharded params and ``gradient_fn`` under a mesh of more than one
-rank, cp, sp, pp and ep axes, optimizer offload, trackers and
-checkpointing.
+stacked layers are gathered one at a time inside the forward
+(:class:`~.parallel.sharding.LayerStack`), so ``dp_shard`` (FSDP) cuts the
+peak within a step as well as what params, gradients and optimizer state
+hold between steps. ZeRO-1 where the fused update cannot run shards the
+optimizer state by annotation (:class:`~.optimizer.AnnotatedZero1`);
+adafactor and a global-norm clip read whole params on split blocks; under
+fp16 every rank takes the same finite decision; ``gradient_fn`` gives each
+rank its blocks of the global gradient. Not ported yet (see ROADMAP.md):
+``mixed_precision="fp8"``, adafactor under ZeRO-1, cp, sp and pp axes,
+optimizer offload, trackers and checkpointing.
 """
 
 from __future__ import annotations
@@ -57,7 +58,7 @@ import numpy as np
 import torch
 
 from .data_loader import DataLoader, DataLoaderShard, prepare_data_loader
-from .optimizer import AcceleratedOptimizer, Adafactor, OptimizerFactory, param_leaves
+from .optimizer import AcceleratedOptimizer, OptimizerFactory, param_leaves
 from .scheduler import AcceleratedScheduler
 from .state import AcceleratorState, GradientState
 from .utils.dataclasses import (
@@ -140,10 +141,9 @@ class Accelerator:
     the mesh (pure data parallelism over all of them by default);
     ``deepspeed_plugin=DeepSpeedPlugin(zero_stage=1)`` shards the optimizer
     state over ``dp_replicate`` through the fused ZeRO-1 update (on a pure
-    data-parallel mesh of floating params; ``prepare`` raises elsewhere);
+    data-parallel mesh of floating params, by annotation elsewhere);
     ``shard_rules`` (such as :func:`~.parallel.sharding.llama_tp_rules`)
-    are the TP table. ``dp_shard`` does not cut the peak memory within a
-    step (see the module docstring)."""
+    are the TP table."""
 
     def __init__(self, mixed_precision: Optional[str] = None, rng_seed: Optional[int] = None,
                  cpu: bool = False, device_placement: bool = True,
@@ -396,14 +396,6 @@ class Accelerator:
                                   zero1_axis=self._zero1_axis, param_specs=specs)
         if plan.distributed:
             plan.check_supported()
-        if self._zero1_axis is not None and self.mesh.shape[self._zero1_axis] > 1 \
-                and not plan.fused_zero1:
-            # the JAX package shards the optimizer state by annotation here
-            raise NotImplementedError(
-                f"ZeRO-1 over {self._zero1_axis} runs only as the fused update: every param "
-                "floating and replicated (a pure data-parallel mesh) and ACCELERATE_ZERO1_FUSED "
-                "not 0; sharding the optimizer state otherwise is not ported yet (ROADMAP.md "
-                "Queue A item 6, second half)")
         specs = iter(_leaves_of(plan.param_specs))
 
         def place(x):
@@ -479,16 +471,6 @@ class Accelerator:
         meshed = plan is not None and plan.distributed
         if meshed:
             plan.check_supported()
-            if fp16:
-                raise NotImplementedError("fp16 loss scaling under a mesh of more than one rank "
-                                          "is not ported yet (ROADMAP.md Queue A item 6, second "
-                                          "half)")
-            if plan.sharded and (optimizer.transforms
-                                 or isinstance(optimizer.optimizer, Adafactor)):
-                raise NotImplementedError(
-                    "an optimizer whose update reads a whole param (adafactor, a global-norm "
-                    "clip) on params split over the mesh is not ported yet (ROADMAP.md Queue A "
-                    "item 6, second half)")
         torch_opt = optimizer.optimizer
         zero1 = optimizer.zero1
         bound = optimizer.model_params
@@ -537,10 +519,9 @@ class Accelerator:
             if len(leaves) != len(bound) or any(a is not b for a, b in zip(leaves, bound)):
                 raise ValueError("params are not the tensors the optimizer was prepared with")
             torch_opt.zero_grad(set_to_none=True)
-            if zero1 is not None:  # the optimizer owns the chunks, not the params
-                for p in bound:
-                    p.grad = None
-            full = plan.gather_params(params) if meshed else params
+            for p in bound:  # under ZeRO-1 the optimizer owns chunks or rows, not the params
+                p.grad = None
+            full = plan.gather_params(params, policy.compute_dtype) if meshed else params
             out = loss_fn(policy.cast_to_compute(full), policy.cast_to_compute(batch))
             loss, aux = out if has_aux else (out, None)
             loss = loss.float()
@@ -552,6 +533,9 @@ class Accelerator:
                 if fp16:
                     flat = flat / optimizer.loss_scale
                     finite = torch.isfinite(flat).all()
+                    if meshed:  # one decision for every rank, as JAX's one global isfinite
+                        finite = all_reduce_axes(finite.float(), plan.mesh, tuple(plan.mesh.shape),
+                                                 op="min") > 0
                     # an overflow feeds zeros: the update still runs, as in the JAX package
                     flat = torch.where(finite, flat, 0.0)
                     metrics["grads_finite"] = finite
@@ -618,11 +602,13 @@ class Accelerator:
         policy applied, as the JAX package's ``jax.value_and_grad``: ``value``
         is the loss (``(loss, aux)`` with ``has_aux``), ``grads`` a tree like
         ``params`` in the param dtype. Params are not updated and their
-        ``.grad`` is not touched."""
+        ``.grad`` is not touched. Under a mesh ``value`` is the loss over the
+        global batch (the mean of the ranks' losses) and ``grads`` this
+        rank's blocks of its gradient (summed over the batch ranks and
+        divided by their count, as in the train step)."""
         policy = self.state.mixed_precision_policy
-        if self._sharding_plan is not None and self._sharding_plan.distributed:
-            raise NotImplementedError("gradient_fn under a mesh of more than one rank is not "
-                                      "ported yet (ROADMAP.md Queue A item 6, second half)")
+        plan = self._sharding_plan
+        meshed = plan is not None and plan.distributed
 
         def value_and_grad(params, batch):
             def leaf(x):
@@ -630,6 +616,8 @@ class Accelerator:
                     return x if x.requires_grad else x.detach().requires_grad_(True)
                 return x
 
+            if meshed:
+                return meshed_value_and_grad(params, batch)
             params = _tree_map(leaf, params)
             out = loss_fn(policy.cast_to_compute(params), policy.cast_to_compute(batch))
             loss = out[0] if has_aux else out
@@ -643,6 +631,26 @@ class Accelerator:
                 return torch.zeros_like(x) if g is None else g
 
             return _detach(out), _tree_map(grad, params)
+
+        def meshed_value_and_grad(params, batch):
+            # fresh leaves on the rank's blocks: the backward fills their .grad
+            # (the per-layer gather writes there), never the params'
+            params = _tree_map(lambda x: x.detach().requires_grad_(True)
+                               if isinstance(x, torch.Tensor) and x.is_floating_point() else x,
+                               params)
+            full = plan.gather_params(params, policy.compute_dtype)
+            out = loss_fn(policy.cast_to_compute(full), policy.cast_to_compute(batch))
+            loss, aux = out if has_aux else (out, None)
+            loss.float().backward()
+            leaves = param_leaves(params)
+            diff = [t for t in leaves if t.is_floating_point()]
+            summed = plan.reduce_grads([t.grad if t.grad is not None else torch.zeros_like(t)
+                                        for t in diff])
+            grads = iter([g / plan.batch_ranks for g in summed])
+            value = plan.mean_over_batch(loss.detach().float())
+            tree = _tree_map(lambda x: next(grads) if isinstance(x, torch.Tensor)
+                             and x.is_floating_point() else None, params)
+            return ((value, _detach(aux)) if has_aux else value), tree
 
         return value_and_grad
 

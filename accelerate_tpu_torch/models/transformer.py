@@ -17,6 +17,7 @@ item 8) and ``llama_forward``'s ``attention_fn`` raise
 from __future__ import annotations
 
 import collections
+import contextlib
 import functools
 import math
 from dataclasses import dataclass, replace
@@ -27,6 +28,7 @@ import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 
 from ..parallel import moe
+from ..parallel.sharding import LayerStack
 from ..utils.device import resolve_device
 from ..utils.operations import _tree_map
 
@@ -239,16 +241,18 @@ def draft_params(params: dict, n_layers: int) -> dict:
     return out
 
 
-def llama_ffn(layer: dict, x: torch.Tensor, config: LlamaConfig,
+def llama_ffn(layer: dict, x: torch.Tensor, config: LlamaConfig, mesh=None,
               capacity_factor: Optional[float] = None):
     """The FFN block of one layer (``layer`` from :func:`layer_params`),
     shared by the training forward and both cached decode paths:
     ``(y, aux)``. Dense SwiGLU gives ``aux = 0.0`` (a float: no device
     work); MoE gives :func:`~..parallel.moe.moe_ffn`'s f32 aux tensor.
-    ``capacity_factor`` overrides the config's (decode floors it)."""
+    ``capacity_factor`` overrides the config's (decode floors it); ``mesh``
+    routes the MoE FFN over the rank's rows of the global batch and its
+    ``ep`` experts."""
     if config.moe_experts > 0:
         return moe.moe_ffn(
-            layer["moe"], x, top_k=config.moe_top_k,
+            layer["moe"], x, top_k=config.moe_top_k, mesh=mesh,
             capacity_factor=(config.moe_capacity_factor if capacity_factor is None
                              else capacity_factor))
     gate = torch.nn.functional.silu(x @ layer["w1"]["kernel"])
@@ -365,6 +369,14 @@ def _remat_context(remat):
     return functools.partial(create_selective_checkpoint_contexts, policy)
 
 
+def _layer_at(decoder_layer, layer_at, i: int, h: torch.Tensor):
+    """Layer ``i`` on ``h``, its params fetched inside (a
+    :class:`~..parallel.sharding.LayerStack` gathers them there, so a
+    checkpoint around this gathers them again in its recompute instead of
+    keeping them)."""
+    return decoder_layer(h, layer_at(i))
+
+
 def _activation_spec(mesh, *logical):
     """The JAX package's activation spec from logical dim names: each entry
     ``None``, an axis or a tuple of axes, with axes of size 1 (or absent
@@ -434,10 +446,12 @@ def llama_forward(params: dict, input_ids: torch.Tensor, config: LlamaConfig,
     ``mesh`` (a :class:`~accelerate_tpu_torch.parallelism_config.Mesh`)
     says the forward runs on one rank of it: ``input_ids`` are the rank's
     rows, split over ``(dp_replicate, dp_shard)`` as the JAX package's
-    activation constraints split them, and ``params`` are full (the
-    sharded train step gathers them). Every rank of a ``tp`` group computes
-    the same rows with all heads. A sequence split over ``cp`` or ``sp``
-    and the MoE FFN over a mesh of more than one rank raise."""
+    activation constraints split them, and ``params`` are full, or their
+    ``layers`` a :class:`~..parallel.sharding.LayerStack` that the loop
+    gathers one layer at a time (the sharded train step hands it so).
+    Every rank of a ``tp`` group computes the same rows with all heads; the
+    MoE FFN routes over the global batch and computes the rank's ``ep``
+    experts. A sequence split over ``cp`` or ``sp`` raises."""
     from ..generation import _project_qkv
     from ..ops.attention import dot_product_attention
 
@@ -445,11 +459,6 @@ def llama_forward(params: dict, input_ids: torch.Tensor, config: LlamaConfig,
     if attention_fn is not None:
         raise NotImplementedError("attention_fn (context/sequence parallelism) is not ported yet "
                                   "(see ROADMAP.md)")
-    if mesh is not None and config.moe_experts > 0 and any(
-            size > 1 for size in mesh.shape.values()):
-        raise NotImplementedError("the MoE FFN over a mesh of more than one rank (expert "
-                                  "parallelism) is not ported yet (ROADMAP.md Queue A item 6, "
-                                  "second half)")
     context_fn = _remat_context(remat) if remat else None
     impl = config.attn_impl if attention_impl is None else attention_impl
     dev = input_ids.device
@@ -472,18 +481,29 @@ def llama_forward(params: dict, input_ids: torch.Tensor, config: LlamaConfig,
         attn = dot_product_attention(q, k, v, causal=True, segment_ids=segment_ids, impl=impl)
         h = h + attn.reshape(B, S, -1) @ layer["wo"]["kernel"]
         x = rms_norm(h, layer["mlp_norm"]["scale"], config.norm_eps)
-        y, aux = llama_ffn(layer, x, config)
+        y, aux = llama_ffn(layer, x, config, mesh=mesh)
         return h + y, aux
 
     auxes = []
-    for layer in _layer_trees(params["layers"], config.n_layers):
-        if remat:
-            h, aux = torch.utils.checkpoint.checkpoint(decoder_layer, h, layer,
-                                                       use_reentrant=False,
-                                                       context_fn=context_fn)
-        else:
-            h, aux = decoder_layer(h, layer)
-        auxes.append(aux)
+    stack = params["layers"]
+    # a sharded step's layers come as a LayerStack, gathered one at a time:
+    # layer i+1's gather is in flight while layer i computes, and the
+    # gathered params are gathered again in the backward (by the recompute
+    # with remat, else through the stack's saved-tensor hooks)
+    sharded = isinstance(stack, LayerStack)
+    layer_at = stack.layer if sharded else _layer_trees(stack, config.n_layers).__getitem__
+    hooks = stack.saved_tensors_hooks() if sharded and not remat else contextlib.nullcontext()
+    with hooks:
+        for i in range(config.n_layers):
+            if sharded:
+                stack.prefetch(i + 1)
+            run = functools.partial(_layer_at, decoder_layer, layer_at, i)
+            if remat:
+                h, aux = torch.utils.checkpoint.checkpoint(run, h, use_reentrant=False,
+                                                           context_fn=context_fn)
+            else:
+                h, aux = run(h)
+            auxes.append(aux)
     logits = _constrain(lm_logits(params, h, config), mesh, batch_axes, "cp", "tp")
     if not with_aux:
         return logits

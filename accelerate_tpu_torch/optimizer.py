@@ -49,6 +49,7 @@ import torch
 __all__ = [
     "AcceleratedOptimizer",
     "Adafactor",
+    "AnnotatedZero1",
     "OptimizerFactory",
     "SGD",
     "adafactor",
@@ -138,7 +139,9 @@ def param_leaves(params) -> list:
 class OptimizerFactory:
     """``torch.optim`` class and keyword arguments, bound to params later;
     ``schedule`` (``step -> lr``) sets the lr before each update;
-    ``transforms`` (``grads -> grads`` on the list of gradients, in order)
+    ``transforms`` (``(grads, leaf_sumsq) -> grads`` on the list of
+    gradients, in order; ``leaf_sumsq(grads)`` gives each gradient's
+    whole-param sum of squares, across ranks when the params are split)
     run on the gradients before each update."""
 
     cls: type
@@ -175,14 +178,21 @@ def _pow(x: torch.Tensor, exponent: float) -> torch.Tensor:
     return x.float().pow(exponent).to(x.dtype)
 
 
+def _local_leaf_sumsq(grads: list) -> list:
+    """Each gradient's sum of squares (f32), of the tensors as they are."""
+    return [torch.sum(g * g, dtype=torch.float32) for g in grads]
+
+
 def clip_by_global_norm(max_norm: float) -> Callable[[list], list]:
     """``optax.clip_by_global_norm``: when the global L2 norm of the
     gradients reaches ``max_norm``, every gradient becomes ``g / norm ·
     max_norm``; below it they pass unchanged. Each leaf's sum of squares is
-    in its dtype, as optax's; the choice stays on the device."""
+    in its dtype, as optax's; the choice stays on the device. Bound to split
+    params, each leaf's sum is that of the whole param (``leaf_sumsq``: the
+    blocks' sums added over the axes that split it, once a block)."""
 
-    def clip(grads: list) -> list:
-        norm = _pow(sum(torch.sum(g * g, dtype=torch.float32).to(g.dtype) for g in grads), 0.5)
+    def clip(grads: list, leaf_sumsq: Callable = _local_leaf_sumsq) -> list:
+        norm = _pow(sum(s.to(g.dtype) for s, g in zip(leaf_sumsq(grads), grads)), 0.5)
         keep = norm < max_norm
         return [torch.where(keep, g, g / norm.to(g.dtype) * _scalar(max_norm, g.dtype))
                 for g in grads]
@@ -241,6 +251,13 @@ class Adafactor(torch.optim.Optimizer):
     given (the update may then see f32 gradients of bf16 params, as the
     JAX package's precision policy hands them), else each ``.grad``; a
     param without one steps on zeros, as JAX's gradient of an unused leaf.
+
+    Bound to blocks of params split over a mesh (:meth:`shard`), every
+    statistic is the whole param's: the factored dims come from its global
+    shape, each row or column mean and each RMS is the blocks' sum
+    all-reduced over the axes that split the reduced dims, over the global
+    count, and ``v_row``/``v_col`` are split as the param's spec implies
+    (its spec without the reduced dim).
     """
 
     takes_grads = True
@@ -258,6 +275,14 @@ class Adafactor(torch.optim.Optimizer):
             clipping_threshold=clipping_threshold, momentum=momentum,
             dtype_momentum=dtype_momentum, weight_decay_rate=weight_decay_rate, eps=eps,
             factored=factored))
+        self.split: dict = {}  # param -> _Split of a param split over a mesh
+
+    def shard(self, params: list, shapes: list, dim_axes: list, mesh) -> None:
+        """Read ``params`` (blocks) as parts of params of global ``shapes``,
+        dim ``d`` of each split over the mesh axes ``dim_axes[i][d]``."""
+        for p, shape, axes in zip(params, shapes, dim_axes):
+            if any(axes):
+                self.split[p] = _Split(tuple(shape), tuple(axes), mesh)
 
     @torch.no_grad()
     def step(self, closure=None, grads: Optional[list] = None):
@@ -275,7 +300,9 @@ class Adafactor(torch.optim.Optimizer):
     def _update(self, p: torch.Tensor, g: torch.Tensor, group: dict) -> torch.Tensor:
         f32, dtype = torch.float32, p.dtype
         state = self.state[p]
-        dims = _factored_dims(p.shape, group["factored"], group["min_dim_size_to_factor"])
+        split = self.split.get(p)
+        shape = p.shape if split is None else split.shape
+        dims = _factored_dims(shape, group["factored"], group["min_dim_size_to_factor"])
         if not state:
             state["step"] = 0
             if dims is not None:
@@ -295,27 +322,37 @@ class Adafactor(torch.optim.Optimizer):
         def average(v, x):  # f32, then back to the state's dtype
             return (keep * v.float() + take * x.float()).to(dtype)
 
+        def mean(x, dim, param_dim, keepdim=False):  # over the whole param's dim
+            if split is None or not split.axes[param_dim]:
+                return x.mean(dim, keepdim=keepdim, dtype=f32)
+            return split.sum(x.sum(dim, keepdim=keepdim, dtype=f32),
+                             split.axes[param_dim]) / shape[param_dim]
+
+        def mean_all(x):  # over the whole param
+            if split is None:
+                return torch.mean(x, dtype=f32)
+            return split.sum(torch.sum(x, dtype=f32), split.all_axes) / split.numel
+
         grad_sqr = g * g + _scalar(group["eps"], g.dtype)
         if dims is not None:
             d1, d0 = dims
             state["v_row"] = v_row = average(
-                state["v_row"], grad_sqr.mean(d0, dtype=f32).to(grad_sqr.dtype))
+                state["v_row"], mean(grad_sqr, d0, d0).to(grad_sqr.dtype))
             state["v_col"] = v_col = average(
-                state["v_col"], grad_sqr.mean(d1, dtype=f32).to(grad_sqr.dtype))
-            row_col_mean = v_row.mean(d1 - 1 if d1 > d0 else d1, keepdim=True,
-                                      dtype=f32).to(dtype)
+                state["v_col"], mean(grad_sqr, d1, d1).to(grad_sqr.dtype))
+            row_col_mean = mean(v_row, d1 - 1 if d1 > d0 else d1, d1, keepdim=True).to(dtype)
             u = g * _pow(v_row / row_col_mean, -0.5).unsqueeze(d0) * _pow(v_col, -0.5).unsqueeze(d1)
         else:
             state["v"] = v = average(state["v"], grad_sqr)
             u = g * _pow(v, -0.5)
         state["step"] += 1
         if group["clipping_threshold"] is not None:
-            rms = _pow(torch.mean(u * u, dtype=f32).to(u.dtype), 0.5)
+            rms = _pow(mean_all(u * u).to(u.dtype), 0.5)
             u = u / torch.clamp_min(rms / _scalar(group["clipping_threshold"], u.dtype), 1.0)
         if group["lr"] is not None:
             u = u * _scalar(group["lr"], u.dtype)
         if group["multiply_by_parameter_scale"]:
-            rms = _pow(torch.mean(p * p, dtype=f32).to(dtype), 0.5)
+            rms = _pow(mean_all(p * p).to(dtype), 0.5)
             u = u * torch.clamp_min(rms, _scalar(1e-3, dtype))
         if group["momentum"] is not None:
             m = group["momentum"]
@@ -324,6 +361,30 @@ class Adafactor(torch.optim.Optimizer):
         if group["weight_decay_rate"] is not None:
             u = u + p * _scalar(group["weight_decay_rate"], dtype)
         return u.neg()
+
+
+@dataclass(frozen=True)
+class _Split:
+    """A param split over a mesh: its global shape and the axes that split
+    each dim."""
+
+    shape: tuple
+    axes: tuple  # per dim: the mesh axes that split it
+    mesh: object
+
+    @property
+    def all_axes(self) -> tuple:
+        return tuple(a for axes in self.axes for a in axes)
+
+    @property
+    def numel(self) -> int:
+        return int(np.prod(self.shape))
+
+    def sum(self, x: torch.Tensor, axes) -> torch.Tensor:
+        """``x`` (a block's partial sum) summed over the mesh ``axes``."""
+        from .parallel.sharding import all_reduce_axes
+
+        return all_reduce_axes(x.contiguous(), self.mesh, axes)
 
 
 def adafactor(learning_rate: Union[None, float, Callable] = None,
@@ -418,6 +479,57 @@ def state_bytes(optimizer: torch.optim.Optimizer) -> int:
                for v in s.values() if isinstance(v, torch.Tensor) and v.dim() > 0)
 
 
+class AnnotatedZero1:
+    """ZeRO-1 by annotation, the JAX package's ``zero1_state_specs``: a
+    floating param that no mesh axis splits, and whose dim 0 divides by the
+    ``axis`` size, has its optimizer state split over ``axis`` on dim 0.
+    This rank's optimizer owns rows ``[r·n, (r+1)·n)`` of such a param (a
+    copy, :attr:`owned`) and updates them from those rows of the summed
+    gradient; :meth:`all_gather` then writes every rank's rows back into
+    the params, one all-gather a dtype. Other params are updated whole, as
+    without ZeRO-1."""
+
+    def __init__(self, params: list, specs: list, mesh, axis: str):
+        self.params, self.mesh, self.axis = params, mesh, axis
+        size, me = mesh.shape[axis], mesh.coords[axis]
+        self.rows, self.owned = [], []
+        for p, spec in zip(params, specs):
+            rows = None
+            if (p.is_floating_point() and not any(d is not None for d in spec) and p.dim() >= 1
+                    and p.shape[0] > 0 and p.shape[0] % size == 0):
+                n = p.shape[0] // size
+                rows = slice(me * n, (me + 1) * n)
+            self.rows.append(rows)
+            self.owned.append(p if rows is None else p.detach()[rows].clone())
+
+    def owned_grads(self, grads: list) -> list:
+        """The gradients of :attr:`owned`: this rank's rows where split."""
+        return [g if rows is None else g[rows] for g, rows in zip(grads, self.rows)]
+
+    @torch.no_grad()
+    def all_gather(self) -> None:
+        import torch.distributed as dist
+
+        from .utils.operations import record_collective
+
+        size, group = self.mesh.shape[self.axis], self.mesh.group(self.axis)
+        by_dtype: dict = {}
+        for i, rows in enumerate(self.rows):
+            if rows is not None:
+                by_dtype.setdefault(self.owned[i].dtype, []).append(i)
+        for idx in by_dtype.values():
+            mine = torch.cat([self.owned[i].reshape(-1) for i in idx])
+            full = mine.new_empty(size * mine.numel())
+            dist.all_gather_into_tensor(full, mine, group=group)
+            record_collective("step:all_gather", full.numel() * full.element_size())
+            full = full.view(size, -1)
+            offset = 0
+            for i in idx:
+                n = self.owned[i].numel()
+                self.params[i].detach().view(size, n).copy_(full[:, offset:offset + n])
+                offset += n
+
+
 class AcceleratedOptimizer:
     """Wraps a ``torch.optim.Optimizer``, or a factory that makes one from
     the param list (:func:`adamw`); :meth:`init` binds the factory. With
@@ -441,23 +553,42 @@ class AcceleratedOptimizer:
         self.growth_count: Optional[torch.Tensor] = None  # fp16: int32 scalar on the device
         self.plan = None  # the ShardingPlan of the params it was bound to under a mesh
         self.zero1 = None  # FusedZero1Update when the fused ZeRO-1 path is on
+        self.zero1_rows: Optional[AnnotatedZero1] = None  # ZeRO-1 by annotation
 
     def init(self, params, plan=None):
         """Bind to ``params`` (a nested dict of tensors): a factory becomes
         an optimizer over its leaves. Under a ``plan`` with fused ZeRO-1
         (:mod:`.parallel.weight_update`) it is made over this rank's chunks
         of the param buckets instead, and every update ends with their
-        all-gather into the params. Returns :attr:`opt_state`."""
+        all-gather into the params; with ZeRO-1 on another mesh (or the
+        fused path off) over :class:`AnnotatedZero1`'s rows. On split params
+        an :class:`Adafactor` reads whole params (:meth:`Adafactor.shard`).
+        Returns :attr:`opt_state`."""
         if self.optimizer is None:
             self.plan = plan
             leaves = param_leaves(params)
+            zero1 = (plan is not None and plan.zero1_axis is not None
+                     and plan.mesh.shape.get(plan.zero1_axis, 1) > 1)
+            if zero1 and getattr(self.base_optimizer, "cls", None) is Adafactor:
+                raise NotImplementedError(
+                    "adafactor under ZeRO-1 (its factored state is not param-shaped) is not "
+                    "ported yet (ROADMAP.md Queue A item 6)")
             if plan is not None and plan.fused_zero1:
                 from .parallel.weight_update import init_bucketed_opt_state
 
                 self.optimizer, self.zero1 = init_bucketed_opt_state(
                     self.base_optimizer, leaves, plan.zero1, plan.mesh)
                 return self.opt_state
+            if zero1:
+                from .parallel.sharding import _leaves
+
+                self.zero1_rows = AnnotatedZero1(leaves, _leaves(plan.param_specs), plan.mesh,
+                                                 plan.zero1_axis)
+                self.optimizer = self.base_optimizer(self.zero1_rows.owned)
+                return self.opt_state
             self.optimizer = self.base_optimizer(leaves)
+            if plan is not None and plan.sharded and isinstance(self.optimizer, Adafactor):
+                self.optimizer.shard(leaves, *plan.leaf_splits(leaves), plan.mesh)
         return self.opt_state
 
     @property
@@ -468,15 +599,26 @@ class AcceleratedOptimizer:
 
     @property
     def params(self) -> list:
-        """The tensors the torch optimizer updates: the param leaves, or
-        this rank's bucket chunks under fused ZeRO-1."""
+        """The tensors the torch optimizer updates: the param leaves, this
+        rank's bucket chunks under fused ZeRO-1, or its rows under ZeRO-1 by
+        annotation."""
         return [p for group in self.optimizer.param_groups for p in group["params"]]
 
     @property
     def model_params(self) -> list:
         """The param leaves it was bound to (this rank's blocks under a
         sharded plan)."""
-        return self.zero1.params if self.zero1 is not None else self.params
+        if self.zero1 is not None:
+            return self.zero1.params
+        if self.zero1_rows is not None:
+            return self.zero1_rows.params
+        return self.params
+
+    @property
+    def _grad_layout(self) -> list:
+        """The tensors a flat gradient is laid out as: the chunks under fused
+        ZeRO-1, else the param leaves."""
+        return self.params if self.zero1 is not None else self.model_params
 
     def state_bytes(self) -> int:
         """Bytes of this rank's optimizer array state (scalars such as the
@@ -485,9 +627,9 @@ class AcceleratedOptimizer:
 
     # ------------------------------------------------------------ updates --
     def _grads(self) -> list:
-        """The params' ``.grad``, zeros where a param has none (as JAX's
-        gradient of an unused leaf)."""
-        return [p.grad if p.grad is not None else torch.zeros_like(p) for p in self.params]
+        """The ``.grad`` of the tensors a flat gradient is laid out as,
+        zeros where one has none (as JAX's gradient of an unused leaf)."""
+        return [p.grad if p.grad is not None else torch.zeros_like(p) for p in self._grad_layout]
 
     def flat_grads(self, dtype: Optional[torch.dtype] = None) -> torch.Tensor:
         """:meth:`_grads` concatenated into one flat tensor, cast to
@@ -495,9 +637,16 @@ class AcceleratedOptimizer:
         return torch.cat([g.reshape(-1).to(dtype or g.dtype) for g in self._grads()])
 
     def _split(self, flat: torch.Tensor) -> list:
-        """Views of ``flat`` shaped as the params, in ``flat``'s dtype."""
-        sizes = [p.numel() for p in self.params]
-        return [g.view_as(p) for g, p in zip(flat.split(sizes), self.params)]
+        """Views of ``flat`` shaped as :attr:`_grad_layout`, in ``flat``'s
+        dtype."""
+        layout = self._grad_layout
+        return [g.view_as(p) for g, p in zip(flat.split([p.numel() for p in layout]), layout)]
+
+    def _leaf_sumsq(self, grads: list) -> list:
+        """Each gradient's whole-param sum of squares (f32)."""
+        if self.plan is not None and self.plan.sharded and self.zero1 is None:
+            return self.plan.leaf_sumsq(grads)
+        return _local_leaf_sumsq(grads)
 
     def _inner_step(self, grads: Optional[list] = None) -> None:
         """One update from ``grads`` (one per param) or, when ``None``, from
@@ -508,18 +657,23 @@ class AcceleratedOptimizer:
             lr = float(self.schedule(self.gradient_step))
             for group in self.optimizer.param_groups:
                 group["lr"] = lr
-        if self.transforms:
+        if self.transforms or self.zero1_rows is not None:
             grads = self._grads() if grads is None else grads
-            for transform in self.transforms:
-                grads = transform(grads)
+        for transform in self.transforms:
+            grads = transform(grads, self._leaf_sumsq)
+        if self.zero1_rows is not None:
+            grads = self.zero1_rows.owned_grads(grads)
         if getattr(self.optimizer, "takes_grads", False):
             self.optimizer.step(grads=grads)
         else:
             for p, g in zip(self.params, grads or ()):
-                p.grad = g.to(p.dtype)
+                if p.is_floating_point():  # a non-floating leaf has no gradient
+                    p.grad = g.to(p.dtype)
             self.optimizer.step()
         if self.zero1 is not None:
             self.zero1.all_gather()
+        if self.zero1_rows is not None:
+            self.zero1_rows.all_gather()
         self.gradient_step += 1
 
     def micro_step(self, flat: Optional[torch.Tensor] = None) -> None:
@@ -551,7 +705,7 @@ class AcceleratedOptimizer:
         flat = None
         if grads is not None:
             flat = torch.cat([g.reshape(-1).to(p.dtype)
-                              for p, g in zip(self.params, param_leaves(grads))])
+                              for p, g in zip(self._grad_layout, param_leaves(grads))])
         self.micro_step(flat)
         return params
 

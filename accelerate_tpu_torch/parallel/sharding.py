@@ -23,23 +23,37 @@ through an autograd function whose backward hands each rank its block of
 the gradient: a reduce-scatter over the batch axes (``dp_replicate``,
 ``dp_shard``) that shard the dim, a local slice over the others (``tp``:
 the activations are replicated there, so every ``tp`` rank already holds
-the same gradient). :meth:`ShardingPlan.reduce_grads` then sums over the
-batch axes that do not shard the param, one all-reduce per group of
-params. The flash kernels therefore see local tensors of the rank's rows
-with all heads. The whole param tree is gathered before the forward, so
-FSDP saves memory between steps (params, gradients and optimizer state
-stay sharded) but not within one; a per-layer gather is ROADMAP.md Queue A
-item 6's second half, with the optimizer-state host offload.
+the same gradient, and ``ep``, whose MoE FFN hands every rank the whole
+expert gradient).
+:meth:`ShardingPlan.reduce_grads` then sums over the batch axes that do not
+shard the param, one all-reduce per group of params. The flash kernels
+therefore see local tensors of the rank's rows with all heads.
+
+The stacked ``layers`` subtree is not gathered whole: it reaches the loss
+as a :class:`LayerStack`, which ``llama_forward`` reads one layer at a
+time. Layer ``i``'s params are gathered when the forward reaches it (layer
+``i+1``'s gather is issued asynchronously while layer ``i`` computes), and
+its gradient is reduced to the ranks that hold it as soon as that layer's
+backward ends, written straight into the rank's block of ``.grad``. Where
+FSDP splits the layer axis (dim 0 of ``[L, ...]``), the ranks hold whole
+layers: gathering layer ``i`` is a broadcast from the rank that owns it and
+its gradient is summed to that owner. The gathered copy is dropped after
+the layer's forward: the backward gathers it again (through
+``saved_tensors_hooks`` without remat, through the recompute with it), so
+at most two layers' gathered params are alive at any point of a step.
 """
 
 from __future__ import annotations
 
 import re
-from dataclasses import dataclass
+import weakref
+from collections.abc import Mapping
+from dataclasses import dataclass, field
 from typing import Any, Optional, Sequence
 
 import numpy as np
 import torch
+from torch.utils._python_dispatch import _disable_current_modes
 
 from ..parallelism_config import ParallelismConfig, axis_sizes
 from ..utils.operations import record_collective
@@ -47,6 +61,7 @@ from ..utils.operations import record_collective
 __all__ = [
     "FSDP_AXES",
     "GRAD_SUM_AXES",
+    "LayerStack",
     "PartitionSpec",
     "ShardingPlan",
     "ShardingRules",
@@ -345,6 +360,19 @@ def _all_gather_dim(x: torch.Tensor, dim: int, group) -> torch.Tensor:
     return out.movedim(0, dim)
 
 
+def _gather_dim(x: torch.Tensor, dim: int, group, dst: int) -> Optional[torch.Tensor]:
+    """The ranks' ``x`` concatenated along ``dim`` on the rank at
+    coordinate ``dst`` of ``group``; None on the others."""
+    dist = _dist()
+    n = dist.get_world_size(group)
+    xt = x.movedim(dim, 0).contiguous()
+    mine = dist.get_rank(group) == dst
+    parts = [torch.empty_like(xt) for _ in range(n)] if mine else None
+    dist.gather(xt, parts, group=group, group_dst=dst)
+    record_collective("step:gather", n * xt.numel() * xt.element_size())
+    return torch.cat(parts).movedim(0, dim) if mine else None
+
+
 def _reduce_scatter_dim(x: torch.Tensor, dim: int, group) -> torch.Tensor:
     dist = _dist()
     n = dist.get_world_size(group)
@@ -370,13 +398,17 @@ def global_mean(total: torch.Tensor, count: torch.Tensor, mesh) -> torch.Tensor:
     return total * ranks / count.clamp(min=1.0)
 
 
-def all_reduce_axes(x: torch.Tensor, mesh, axes) -> torch.Tensor:
-    """``x`` summed in place over the mesh ``axes`` (one all-reduce per
-    axis of size > 1), and returned."""
+def all_reduce_axes(x: torch.Tensor, mesh, axes, op: str = "sum") -> torch.Tensor:
+    """``x`` reduced in place (``op``: ``"sum"``, ``"min"`` or ``"max"``)
+    over the mesh ``axes`` (one all-reduce per axis of size > 1), and
+    returned."""
+    dist = _dist()
+    reduce_op = {"sum": dist.ReduceOp.SUM, "min": dist.ReduceOp.MIN,
+                 "max": dist.ReduceOp.MAX}[op]
     for a in axes:
         group = mesh.group(a)
         if group is not None:
-            _dist().all_reduce(x, group=group)
+            dist.all_reduce(x, op=reduce_op, group=group)
             record_collective("step:all_reduce", x.numel() * x.element_size())
     return x
 
@@ -420,6 +452,274 @@ class _GatherParam(torch.autograd.Function):
         return ctx.layout.scatter_grad(grad), None
 
 
+def _broadcast(x: torch.Tensor, src: int, group, async_op: bool = False):
+    """``x`` from the rank at coordinate ``src`` of ``group`` to the rest."""
+    work = _dist().broadcast(x, group=group, group_src=src, async_op=async_op)
+    record_collective("layer:broadcast", x.numel() * x.element_size())
+    return work
+
+
+class _Pending:
+    """One layer group's gather: the buffer the owner broadcasts, the works
+    in flight and the broadcast stages still to run."""
+
+    def __init__(self, flat, works, stages, pieces=None):
+        self.flat, self.works, self.stages, self.pieces = flat, works, stages, pieces
+
+
+class _LayerGroup:
+    """The stacked leaves of one layout and dtype, gathered and reduced
+    together: one collective a stage for all of them on the layer axis."""
+
+    def __init__(self, mesh, dims, leaves):
+        self.mesh, self.leaves = mesh, leaves
+        self.axes0 = next((axes for d, axes in dims if d == 0), ())
+        self.rest = tuple((d - 1, axes) for d, axes in dims if d > 0)
+        self.parts = int(np.prod([mesh.shape[a] for a in self.axes0])) if self.axes0 else 1
+        self.n_layers = leaves[0].shape[0] * self.parts
+        self.shapes = [tuple(t.shape[1:]) for t in leaves]
+        self.numels = [int(np.prod(s)) for s in self.shapes]
+
+    def slot(self, i: int):
+        """``(row, mine, owner)``: layer ``i``'s row in its owner's block,
+        whether this rank holds it, and the owner's coordinate on each axis
+        that splits the layer axis."""
+        if not self.axes0:
+            return i, True, {}
+        b, row = divmod(i, self.n_layers // self.parts)
+        owner = {}
+        for a in reversed(self.axes0):
+            b, owner[a] = divmod(b, self.mesh.shape[a])
+        return row, all(self.mesh.coords[a] == c for a, c in owner.items()), owner
+
+    def start(self, i: int, async_op: bool) -> _Pending:
+        """Issue layer ``i``'s broadcast from its owner (its first stage
+        asynchronously with ``async_op``)."""
+        row, mine, owner = self.slot(i)
+        if not self.axes0:
+            return _Pending(None, [], [], pieces=[t[i] for t in self.leaves])
+        first = self.leaves[0]
+        if mine:
+            flat = torch.cat([t[row].reshape(-1) for t in self.leaves])
+        else:
+            flat = first.new_empty(sum(self.numels))
+        stages = [(a, owner[a]) for a in reversed(self.axes0)]  # minor axis first
+        works = []
+        if async_op:
+            a, src = stages.pop(0)
+            works.append(_broadcast(flat, src, self.mesh.group(a), async_op=True))
+        return _Pending(flat, works, stages)
+
+    def finish(self, pending: _Pending) -> list:
+        """The full per-layer tensors of a started gather, in the param
+        dtype."""
+        if pending.pieces is None:
+            for work in pending.works:
+                work.wait()
+            for a, src in pending.stages:
+                _broadcast(pending.flat, src, self.mesh.group(a))
+            pieces = [p.view(s) for p, s in zip(pending.flat.split(self.numels), self.shapes)]
+        else:
+            pieces = pending.pieces
+        for d, axes in self.rest:
+            for a in reversed(axes):  # minor axis first
+                pieces = [_all_gather_dim(p, d, self.mesh.group(a)) for p in pieces]
+        return pieces
+
+    def reduce(self, i: int, grads: list) -> None:
+        """Add layer ``i``'s gradient (full per-layer tensors of this rank's
+        rows) to the rank's block of each leaf's ``.grad``: the other dims as
+        :meth:`_Layout.scatter_grad` does, then reduced to the owner over the
+        layer axis's batch axes (every rank of any other axis holds the same
+        gradient, and only the owner keeps it)."""
+        for d, axes in self.rest:
+            for a in axes:  # major axis first: each narrows to its block
+                if a in GRAD_SUM_AXES:
+                    grads = [_reduce_scatter_dim(g, d, self.mesh.group(a)) for g in grads]
+                else:
+                    n, c = self.mesh.shape[a], self.mesh.coords[a]
+                    grads = [g.narrow(d, c * (g.shape[d] // n), g.shape[d] // n) for g in grads]
+        row, _, owner = self.slot(i)
+        if self.axes0:
+            flat = torch.cat([g.reshape(-1) for g in grads])
+            for a in self.axes0:
+                if a in GRAD_SUM_AXES:
+                    _dist().reduce(flat, group=self.mesh.group(a), group_dst=owner[a])
+                    record_collective("layer:reduce", flat.numel() * flat.element_size())
+                if self.mesh.coords[a] != owner[a]:
+                    # the rank's groups on the axes still to reduce share
+                    # this coordinate: none of them reaches the owner
+                    return
+            grads = [g.view(s) for g, s in zip(flat.split([g.numel() for g in grads]), [
+                g.shape for g in grads])]
+        for t, g in zip(self.leaves, grads):
+            if t.grad is None:
+                t.grad = torch.zeros_like(t)
+            t.grad[row].add_(g)
+
+
+class _SavedLayerTensor:
+    """What a layer's gathered param leaves in the autograd graph in place
+    of itself: where to gather it again, and the view that was saved."""
+
+    def __init__(self, key, x):
+        self.key = key
+        self.view = (tuple(x.shape), x.stride(), x.storage_offset())
+
+
+class _GatherLayer(torch.autograd.Function):
+    """One layer group's gathered params; the backward reduces their
+    gradient into the ranks' blocks and returns none to autograd."""
+
+    @staticmethod
+    def forward(ctx, stack, i, g, *leaves):
+        ctx.stack, ctx.i, ctx.g = stack, i, g
+        return tuple(stack._gather(i, g))
+
+    @staticmethod
+    def backward(ctx, *grads):
+        ctx.stack._reduce(ctx.i, ctx.g, grads)
+        return (None, None, None) + (None,) * len(ctx.stack.groups[ctx.g].leaves)
+
+
+class LayerStack(Mapping):
+    """The stacked ``layers`` subtree of a sharded step, gathered one layer
+    at a time (see the module docstring): :meth:`layer` gives layer ``i``'s
+    params, whole and cast to ``dtype``, :meth:`prefetch` starts a layer's
+    gather ahead, and :meth:`saved_tensors_hooks` keeps the gathered params
+    out of the autograd graph of a forward without remat. Read as a mapping
+    (any model other than ``llama_forward``), an entry is gathered whole,
+    as the rest of the tree is. A gathered layer param whose layer axis is
+    split carries ``layer_grad_owner``: the coordinate, on each axis that
+    splits it, of the rank that keeps its gradient (an op that computes
+    part of the gradient on each rank of such an axis, as the MoE FFN's
+    experts under ``ep``, may send its part there alone).
+
+    ``stats`` (the plan's ``layer_stats``) counts, for the step, the most
+    layers whose gathered params were alive at once (``max_live_layers``)
+    and the gathers (``gathers``: forward, prefetched, and again in the
+    backward)."""
+
+    def __init__(self, mesh, local, layouts, dtype=None, stats: Optional[dict] = None):
+        self.local, self.layouts, self.dtype = local, layouts, dtype
+        self.stats = stats if stats is not None else {}
+        self.stats.update(max_live_layers=0, gathers=0)
+        paths: list = []
+        _map_with_path(lambda path, x: paths.append(path), local)
+        by_key: dict = {}
+        for path, x, lay in zip(paths, _leaves(local), _leaves(layouts)):
+            dims = lay.dims if lay is not None else ()
+            by_key.setdefault((dims, x.dtype), []).append((path, x))
+        self.groups, self._where = [], {}
+        for (dims, _), members in by_key.items():
+            for k, (path, _) in enumerate(members):
+                self._where[path] = (len(self.groups), k)
+            self.groups.append(_LayerGroup(mesh, dims, [x for _, x in members]))
+        self._paths = paths
+        self.n_layers = self.groups[0].n_layers
+        self._pending: dict = {}  # (i, g) -> _Pending
+        self._cache: dict = {}  # (i, g) -> outputs gathered again in the backward
+        self._registry: dict = {}  # storage address -> (i, g, k) of a live output
+        self._live: dict = {}  # layer -> live gathered tensors
+
+    # -- the mapping (a model that reads the stack whole) --
+    def __getitem__(self, key):
+        full = _map(lambda x, lay: x if lay is None else _GatherParam.apply(x, lay),
+                    self.local[key], self.layouts[key])
+        return _map(lambda x: x.to(self.dtype) if self.dtype is not None else x, full)
+
+    def __iter__(self):
+        return iter(self.local)
+
+    def __len__(self) -> int:
+        return len(self.local)
+
+    # -- one layer at a time --
+    def _track(self, t: torch.Tensor, i: int) -> None:
+        self._live[i] = self._live.get(i, 0) + 1
+        live = sum(1 for n in self._live.values() if n > 0)
+        self.stats["max_live_layers"] = max(self.stats["max_live_layers"], live)
+        weakref.finalize(t, self._untrack, i)
+
+    def _untrack(self, i: int) -> None:
+        self._live[i] -= 1
+
+    def prefetch(self, i: int) -> None:
+        """Start layer ``i``'s gather (a no-op past the last layer)."""
+        if i >= self.n_layers:
+            return
+        for g, group in enumerate(self.groups):
+            if (i, g) not in self._pending and group.axes0:
+                pending = group.start(i, async_op=True)
+                self._track(pending.flat, i)
+                self._pending[(i, g)] = pending
+
+    def _gather(self, i: int, g: int) -> list:
+        # out of sight of any dispatch mode (a selective checkpoint's cache
+        # matches the recompute's ops to the forward's, and the forward may
+        # have started this gather before its region)
+        with _disable_current_modes():
+            return self._gather_unseen(i, g)
+
+    def _gather_unseen(self, i: int, g: int) -> list:
+        group = self.groups[g]
+        pending = self._pending.pop((i, g), None) or group.start(i, async_op=False)
+        self.stats["gathers"] += 1
+        outs = []
+        for k, piece in enumerate(group.finish(pending)):
+            out = piece.to(self.dtype) if self.dtype is not None else piece
+            if out._base is not None:  # each output owns its storage: pack finds it there
+                out = out.clone(memory_format=torch.contiguous_format)
+            if group.axes0:
+                out.layer_grad_owner = group.slot(i)[2]
+            self._registry[out.untyped_storage().data_ptr()] = (i, g, k)
+            weakref.finalize(out, self._registry.pop, out.untyped_storage().data_ptr(), None)
+            self._track(out, i)
+            outs.append(out)
+        return outs
+
+    def _reduce(self, i: int, g: int, grads) -> None:
+        self._cache.pop((i, g), None)
+        group = self.groups[g]
+        grads = [torch.zeros(s, dtype=t.dtype, device=t.device) if gr is None
+                 else gr.to(t.dtype) for gr, s, t in zip(grads, group.shapes, group.leaves)]
+        group.reduce(i, grads)
+
+    def layer(self, i: int) -> dict:
+        """Layer ``i``'s params (the tree of one layer), gathered: an
+        autograd op whose backward reduces their gradient."""
+        flat = {}
+        for g, group in enumerate(self.groups):
+            for k, out in enumerate(_GatherLayer.apply(self, i, g, *group.leaves)):
+                flat[(g, k)] = out
+        it = iter(self._paths)
+        return _map(lambda _: flat[self._where[next(it)]], self.local)
+
+    # -- the gathered params out of the graph of a forward without remat --
+    def _pack(self, x):
+        if isinstance(x, torch.Tensor) and x.layout == torch.strided:
+            key = self._registry.get(x.untyped_storage().data_ptr())
+            if key is not None:
+                return _SavedLayerTensor(key, x)
+        return x
+
+    def _unpack(self, x):
+        if not isinstance(x, _SavedLayerTensor):
+            return x
+        i, g, k = x.key
+        outs = self._cache.get((i, g))
+        if outs is None:
+            with torch.no_grad():
+                outs = self._cache[(i, g)] = self._gather(i, g)
+        return outs[k].as_strided(*x.view)
+
+    def saved_tensors_hooks(self):
+        """A context in which autograd saves, in place of a gathered layer
+        param, a handle that gathers it again in the backward (once a
+        layer, dropped when that layer's gradient is reduced)."""
+        return torch.autograd.graph.saved_tensors_hooks(self._pack, self._unpack)
+
+
 @dataclass
 class ShardingPlan:
     """One resolved sharding decision for a prepared model: the param
@@ -432,6 +732,8 @@ class ShardingPlan:
     param_specs: Any
     zero1_axis: Optional[str] = None
     zero1: Optional[Any] = None  # Zero1BucketPlan when the fused path is on
+    # the last step's per-layer gather counts (see LayerStack)
+    layer_stats: dict = field(default_factory=dict)
 
     @property
     def grad_specs(self):
@@ -463,7 +765,7 @@ class ShardingPlan:
         """Raise for a mesh the port's sharded step does not run yet."""
         sizes = axis_sizes(self.mesh)
         for axis, item in (("cp", "11 (ring attention)"), ("sp", "11 (ring attention)"),
-                           ("pp", "11 (pipelines)"), ("ep", "6, second half (expert parallelism)")):
+                           ("pp", "11 (pipelines)")):
             if sizes.get(axis, 1) > 1:
                 raise NotImplementedError(
                     f"a {axis} axis of size {sizes[axis]} is not ported yet (ROADMAP.md "
@@ -483,12 +785,23 @@ class ShardingPlan:
         placed, _ = shard_params(params, self.mesh, specs=self.param_specs, device=device)
         return placed
 
-    def gather_params(self, params):
+    def gather_params(self, params, dtype: Optional[torch.dtype] = None):
         """The full value of every param, through an autograd function whose
-        backward leaves each sharded param's block of the gradient
-        (see the module docstring)."""
-        return _map(lambda x, lay: x if lay is None else _GatherParam.apply(x, lay),
-                    params, self.layouts())
+        backward leaves each sharded param's block of the gradient; a
+        stacked ``layers`` subtree with a split leaf comes as a
+        :class:`LayerStack` of ``dtype`` (see the module docstring)."""
+        layouts = self.layouts()
+        stack = None
+        if (isinstance(params, dict) and isinstance(params.get("layers"), dict)
+                and any(lay is not None for lay in _leaves(layouts["layers"]))):
+            stack = LayerStack(self.mesh, params["layers"], layouts["layers"], dtype,
+                               stats=self.layer_stats)
+        full = _map(lambda x, lay: x if lay is None else _GatherParam.apply(x, lay),
+                    {k: v for k, v in params.items() if k != "layers"} if stack else params,
+                    {k: v for k, v in layouts.items() if k != "layers"} if stack else layouts)
+        if stack is None:
+            return full
+        return {k: stack if k == "layers" else full[k] for k in params}
 
     def gather_params_no_grad(self, params):
         with torch.no_grad():
@@ -522,19 +835,45 @@ class ShardingPlan:
             return x
         return all_reduce_axes(x.detach().clone(), self.mesh, GRAD_SUM_AXES) / n
 
-    def global_sumsq(self, grads: list) -> torch.Tensor:
-        """The sum of squares of the full gradients from the ranks' blocks:
-        each block's sum, summed over the axes that split its param."""
+    def split_axes(self, spec) -> tuple:
+        """The mesh axes (of size > 1) that split a param of ``spec``, in
+        mesh order."""
+        return tuple(a for a in axis_sizes(self.mesh) if a in _spec_axes(spec)
+                     and self.mesh.shape[a] > 1)
+
+    def leaf_splits(self, leaves: list) -> tuple:
+        """``(shapes, dim_axes)`` of param blocks ``leaves`` (tree order):
+        each param's global shape and, per dim, the mesh axes (of size > 1)
+        that split it."""
+        shapes, dim_axes = [], []
+        for x, spec in zip(leaves, _leaves(self.param_specs)):
+            axes = tuple(tuple(a for a in _dim_axes(spec[d]) if self.mesh.shape[a] > 1)
+                         if d < len(spec) else () for d in range(x.dim()))
+            dim_axes.append(axes)
+            shapes.append(tuple(n * int(np.prod([self.mesh.shape[a] for a in ax]))
+                                for n, ax in zip(x.shape, axes)))
+        return shapes, dim_axes
+
+    def leaf_sumsq(self, grads: list) -> list:
+        """Each full gradient's sum of squares (f32) from the ranks' blocks:
+        each block's sum, summed over the axes that split its param (one
+        all-reduce per group of leaves split alike)."""
         specs = _leaves(self.param_specs)
+        out = [torch.sum(g.float() * g.float()) for g in grads]
         groups: dict = {}
-        for g, spec in zip(grads, specs):
-            axes = tuple(a for a in axis_sizes(self.mesh) if a in _spec_axes(spec))
-            groups.setdefault(axes, []).append(torch.sum(g.float() * g.float()))
-        total = None
-        for axes, parts in groups.items():
-            s = all_reduce_axes(torch.stack(parts).sum(), self.mesh, axes)
-            total = s if total is None else total + s
-        return total
+        for i, spec in enumerate(specs):
+            axes = self.split_axes(spec)
+            if axes:
+                groups.setdefault(axes, []).append(i)
+        for axes, idx in groups.items():
+            summed = all_reduce_axes(torch.stack([out[i] for i in idx]), self.mesh, axes)
+            for i, s in zip(idx, summed.unbind()):
+                out[i] = s
+        return out
+
+    def global_sumsq(self, grads: list) -> torch.Tensor:
+        """The sum of squares of the full gradients from the ranks' blocks."""
+        return torch.stack(self.leaf_sumsq(grads)).sum()
 
     def zero1_collective_bytes(self) -> Optional[dict]:
         """Bytes the fused update moves a step (None when it is off)."""

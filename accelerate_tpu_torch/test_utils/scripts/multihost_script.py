@@ -2,10 +2,13 @@
 ``accelerate_tpu.test_utils.scripts.multihost_script``, with its
 ``topology``, ``ops``, ``dataloader``, ``dispatcher``,
 ``dispatcher_ragged`` and ``training`` scenarios and their assertions, and
-two of the port's own, ``mesh_train`` (a few Llama training steps on each
-of several meshes) and ``zoo_train`` (ResNet and T5 under data
-parallelism and FSDP), whose losses, gradient norms, final params and
-optimizer-state bytes they write for the caller to compare.
+three of the port's own, ``mesh_train`` (a few Llama training steps on
+each of several meshes and with each option of a sharded step: adafactor,
+a global-norm clip, fp16, ZeRO-1 by annotation, every remat policy,
+``gradient_fn``), ``mesh_moe`` (the MoE Llama under dp_shard, ep and both)
+and ``zoo_train`` (ResNet and T5 under data parallelism and FSDP), whose
+losses, gradient norms, final params and optimizer-state bytes they write
+for the caller to compare.
 
 Run N copies under the launcher protocol (see :func:`~accelerate_tpu_torch.
 test_utils.testing.execute_multiprocess`)::
@@ -19,6 +22,7 @@ Each process uses one CPU thread and imports no JAX.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import os
@@ -260,86 +264,214 @@ MESH_LEGS = (
     ("dp_replicate4_zero1", {"dp_replicate_size": 4}, True, False),
 )
 MESH_STEPS, MESH_LR = 5, 1e-3
+# the legs of the options a sharded step takes, at 4 ranks and 3 steps:
+# (name, ParallelismConfig kwargs, llama_tp_rules, leg options)
+OPTION_STEPS = 3
+FP16_SCALER = dict(init_scale=2.0 ** 40, growth_factor=2.0 ** 30, backoff_factor=2.0 ** -30,
+                   growth_interval=2)
+OPTION_LEGS = (
+    ("adafactor_dp_shard2_tp2", {"dp_shard_size": 2, "tp_size": 2}, True,
+     {"factory": "adafactor"}),
+    ("clip_adafactor_dp_shard2_tp2", {"dp_shard_size": 2, "tp_size": 2}, True,
+     {"factory": "clip_adafactor"}),
+    ("adafactor_dp_shard4", {"dp_shard_size": 4}, False, {"factory": "adafactor"}),
+    ("clip_adafactor_dp_shard4", {"dp_shard_size": 4}, False, {"factory": "clip_adafactor"}),
+    ("fp16_dp_shard4", {"dp_shard_size": 4}, False,
+     {"precision": "fp16", "scaler": FP16_SCALER}),
+    # ZeRO-1 where the fused update cannot run: by annotation
+    ("zero1_dp_replicate2_tp2", {"dp_replicate_size": 2, "tp_size": 2}, True, {"zero1": True}),
+    ("zero1_fused_off", {"dp_replicate_size": 4}, False,
+     {"zero1": True, "env": {"ACCELERATE_ZERO1_FUSED": "0"}}),
+    ("zero1_int_leaf", {"dp_replicate_size": 4}, False, {"zero1": True, "int_leaf": True}),
+)
+# one step at each remat policy (the live gathered layers counted) under
+# dp_shard 4 (each rank holds one whole layer: a gather is a broadcast) and
+# dp_shard 2 x tp 2 with llama_tp_rules (tp on the layer axis of wo and w2)
+REMAT_LEGS = tuple((f"{mesh}_{remat}", pc, tp, {"remat": remat, "steps": 1})
+                   for mesh, pc, tp in (("dp_shard4", {"dp_shard_size": 4}, False),
+                                        ("dp_shard2_tp2", {"dp_shard_size": 2, "tp_size": 2}, True))
+                   for remat in (False, True, "dots_no_batch"))
+
+
+def _factory(name: str):
+    from accelerate_tpu_torch.optimizer import adafactor, adamw, chain, clip_by_global_norm
+
+    if name == "adamw":
+        return adamw(MESH_LR)
+    if name == "adafactor":
+        return adafactor(MESH_LR)
+    if name == "clip_adafactor":
+        return chain(clip_by_global_norm(1.0), adafactor(MESH_LR))
+    raise ValueError(name)
 
 
 def mesh_train_leg(params_np: dict, batches: dict, pc_kwargs: dict, zero1: bool,
-                   tp_rules: bool, device="cpu") -> dict:
-    """``MESH_STEPS`` AdamW steps of Llama at tiny widths (f32, plain attention) on
-    one mesh, one step for each ``[K, ...]`` slice of ``batches`` (global
-    ``input_ids`` and ``loss_mask``): the losses and gradient norms, the
-    full final params (numpy, ``/``-joined paths) and this rank's optimizer
-    array-state bytes."""
+                   tp_rules: bool, device="cpu", factory: str = "adamw",
+                   precision: str = "no", scaler: dict = None, remat=False,
+                   steps: int = None, env: dict = None, int_leaf: bool = False,
+                   moe: bool = False, moe_rules: bool = True) -> dict:
+    """``steps`` (all of ``batches`` by default) training steps of Llama at
+    tiny widths (f32 params, plain attention) on one mesh, one step for each
+    ``[K, ...]`` slice of ``batches`` (global ``input_ids`` and
+    ``loss_mask``): the losses and gradient norms (under fp16 the loss scale
+    and finite flag too), the full final params (numpy, ``/``-joined paths),
+    this rank's optimizer array-state bytes and the step's per-layer gather
+    counts. ``moe`` takes the MoE Llama of the params given with
+    ``moe_shard_rules`` (whole experts on every rank without ``moe_rules``)
+    and the first step's routed and dropped token-choices of this rank's
+    rows; ``int_leaf`` adds an int32 leaf."""
     from accelerate_tpu_torch import Accelerator
     from accelerate_tpu_torch.data_loader import GlobalBatchAssembler
     from accelerate_tpu_torch.models import transformer as tt
-    from accelerate_tpu_torch.optimizer import adamw
-    from accelerate_tpu_torch.parallel.sharding import _map_with_path, llama_tp_rules
+    from accelerate_tpu_torch.parallel import moe as tmoe
+    from accelerate_tpu_torch.parallel.sharding import ShardingRules, _map_with_path, llama_tp_rules
     from accelerate_tpu_torch.parallelism_config import ParallelismConfig
     from accelerate_tpu_torch.state import AcceleratorState, GradientState
-    from accelerate_tpu_torch.utils.dataclasses import DeepSpeedPlugin
+    from accelerate_tpu_torch.utils.dataclasses import DeepSpeedPlugin, GradScalerConfig
+    from accelerate_tpu_torch.utils.environment import patch_environment
+    from accelerate_tpu_torch.utils.operations import _tree_map
 
     AcceleratorState._reset_state()
     GradientState._reset_state()
-    # tiny widths at the depth of the params given
-    cfg = dataclasses.replace(tt.LlamaConfig.tiny(),
-                              n_layers=int(params_np["layers"]["wq"]["kernel"].shape[0]))
-    acc = Accelerator(device=device, parallelism_config=ParallelismConfig(**pc_kwargs),
-                      deepspeed_plugin=DeepSpeedPlugin(zero_stage=1) if zero1 else None,
-                      shard_rules=llama_tp_rules() if tp_rules else None)
-    params, opt = acc.prepare(params_np, adamw(MESH_LR))
-    step = acc.prepare_train_step(lambda p, b: tt.llama_loss(p, b, cfg, mesh=acc.mesh),
-                                  compute_grad_norm=True)
+    cfg = _llama_config(params_np)
+    rules = llama_tp_rules() if tp_rules else None
+    if moe and moe_rules:
+        rules = tmoe.moe_shard_rules() + (rules or ShardingRules())
+    if int_leaf:
+        params_np = dict(params_np, step={"count": np.zeros(4, np.int32)})
+    with patch_environment(**(env or {})):
+        acc = Accelerator(device=device, mixed_precision=precision,
+                          parallelism_config=ParallelismConfig(**pc_kwargs),
+                          deepspeed_plugin=DeepSpeedPlugin(zero_stage=1) if zero1 else None,
+                          shard_rules=rules,
+                          grad_scaler_config=GradScalerConfig(**scaler) if scaler else None)
+        params, opt = acc.prepare(params_np, _factory(factory))
+    step = acc.prepare_train_step(
+        lambda p, b: tt.llama_loss(p, b, cfg, mesh=acc.mesh, remat=remat),
+        compute_grad_norm=True)
     assembler = GlobalBatchAssembler(acc.mesh, device=acc.device)
-    losses, norms = [], []
-    for k in range(batches["input_ids"].shape[0]):
+    out = {"losses": [], "grad_norms": [], "loss_scale": [], "grads_finite": []}
+    n_steps = batches["input_ids"].shape[0] if steps is None else steps
+    for k in range(n_steps):
         batch = assembler.to_global(assembler.local_block({n: b[k] for n, b in batches.items()}))
-        params, _, metrics = step(params, opt.opt_state, batch)
-        losses.append(float(metrics["loss"]))
-        norms.append(float(metrics["grad_norm"]))
+        drops = {} if moe and k == 0 else None
+        with _count_drops(drops):
+            params, _, metrics = step(params, opt.opt_state, batch)
+        if drops is not None:
+            out["drops"] = {key: int(v) for key, v in drops.items()}
+        out["losses"].append(float(metrics["loss"]))
+        out["grad_norms"].append(float(metrics["grad_norm"]))
+        if precision == "fp16":
+            out["loss_scale"].append(float(metrics["loss_scale"]))
+            out["grads_finite"].append(bool(metrics["grads_finite"]))
     full = acc.sharding_plan.gather_params_no_grad(params)
     flat = {}
     _map_with_path(lambda path, x: flat.__setitem__(path, x.detach().cpu().numpy()), full)
-    return {"losses": losses, "grad_norms": norms, "params": flat,
-            "opt_state_bytes": opt.state_bytes(),
-            "fused_zero1": opt.zero1 is not None}
+    out.update(params=flat, opt_state_bytes=opt.state_bytes(), fused_zero1=opt.zero1 is not None,
+               zero1_rows=opt.zero1_rows is not None,
+               layer_stats=dict(acc.sharding_plan.layer_stats))
+    if moe:  # the first forward's aux loss, at the initial (whole) params
+        with torch.no_grad():
+            _, aux = tt.llama_forward(
+                _tree_map(lambda x: torch.from_numpy(np.asarray(x)), params_np),
+                assembler.to_global(assembler.local_block(
+                    {"input_ids": batches["input_ids"][0]}))["input_ids"],
+                cfg, mesh=acc.mesh, with_aux=True)
+        out["aux"] = float(aux)
+    return out
 
 
-# ZeRO-1 where the fused update cannot run, at 4 ranks: (name,
-# ParallelismConfig kwargs, llama_tp_rules, environment, an int32 leaf added)
-ZERO1_REFUSALS = (
-    ("dp_replicate2_tp2", {"dp_replicate_size": 2, "tp_size": 2}, True, {}, False),
-    ("fused_off", {"dp_replicate_size": 4}, False, {"ACCELERATE_ZERO1_FUSED": "0"}, False),
-    ("int_leaf", {"dp_replicate_size": 4}, False, {}, True),
-)
+@contextlib.contextmanager
+def _count_drops(store):
+    """Count into ``store`` the token-choices every MoE call routes and
+    drops by capacity (this rank's rows), from the routing each call
+    computes; nothing with ``store=None``."""
+    from accelerate_tpu_torch.parallel import moe
+
+    if store is None:
+        yield
+        return
+    real = moe.route
+
+    def route(*args, **kwargs):
+        r = real(*args, **kwargs)
+        store["routed"] = store.get("routed", 0) + r.keep.numel()
+        store["dropped"] = store.get("dropped", 0) + int((~r.keep).sum())
+        return r
+
+    moe.route = route
+    try:
+        yield
+    finally:
+        moe.route = real
 
 
-def zero1_refusals(params_np: dict, device="cpu") -> dict:
-    """What ``Accelerator(deepspeed_plugin=DeepSpeedPlugin(zero_stage=1))``
-    and ``prepare(params, adamw(...))`` do in each of ``ZERO1_REFUSALS``:
-    the name of the exception raised, or ``None`` when it returned."""
+def _llama_config(params_np: dict):
+    """Tiny widths at the depth of the params given (with their experts)."""
+    from accelerate_tpu_torch.models import transformer as tt
+
+    layers = params_np["layers"]
+    n_layers = int(layers["wq"]["kernel"].shape[0])
+    moe = layers.get("moe")
+    experts = dict(moe_experts=int(moe["router"]["kernel"].shape[-1])) if moe else {}
+    return dataclasses.replace(tt.LlamaConfig.tiny(), n_layers=n_layers, **experts)
+
+
+def gradient_fn_leg(params_np: dict, batch: dict, pc_kwargs: dict, tp_rules: bool,
+                    device="cpu") -> dict:
+    """``Accelerator.gradient_fn`` of the tiny Llama's loss on one global
+    batch: the value and this rank's block of every gradient (``/``-joined
+    paths)."""
     from accelerate_tpu_torch import Accelerator
-    from accelerate_tpu_torch.optimizer import adamw
-    from accelerate_tpu_torch.parallel.sharding import llama_tp_rules
+    from accelerate_tpu_torch.data_loader import GlobalBatchAssembler
+    from accelerate_tpu_torch.models import transformer as tt
+    from accelerate_tpu_torch.optimizer import param_leaves
+    from accelerate_tpu_torch.parallel.sharding import _map_with_path, llama_tp_rules
     from accelerate_tpu_torch.parallelism_config import ParallelismConfig
     from accelerate_tpu_torch.state import AcceleratorState, GradientState
-    from accelerate_tpu_torch.utils.dataclasses import DeepSpeedPlugin
-    from accelerate_tpu_torch.utils.environment import patch_environment
 
-    out = {}
-    for name, pc_kwargs, tp_rules, env, int_leaf in ZERO1_REFUSALS:
-        AcceleratorState._reset_state()
-        GradientState._reset_state()
-        params = dict(params_np, step={"count": np.zeros(4, np.int32)}) if int_leaf else params_np
-        with patch_environment(**env):
-            try:
-                acc = Accelerator(device=device, parallelism_config=ParallelismConfig(**pc_kwargs),
-                                  deepspeed_plugin=DeepSpeedPlugin(zero_stage=1),
-                                  shard_rules=llama_tp_rules() if tp_rules else None)
-                acc.prepare(params, adamw(MESH_LR))
-                out[name] = None
-            except NotImplementedError as e:
-                out[name] = f"{type(e).__name__}: {e}"
-    return out
+    AcceleratorState._reset_state()
+    GradientState._reset_state()
+    cfg = _llama_config(params_np)
+    acc = Accelerator(device=device, parallelism_config=ParallelismConfig(**pc_kwargs),
+                      shard_rules=llama_tp_rules() if tp_rules else None)
+    params = acc.prepare_model(params_np)
+    assembler = GlobalBatchAssembler(acc.mesh, device=acc.device)
+    value, grads = acc.gradient_fn(lambda p, b: tt.llama_loss(p, b, cfg, mesh=acc.mesh))(
+        params, assembler.to_global(assembler.local_block(batch)))
+    flat = {}
+    _map_with_path(lambda path, x: flat.__setitem__(path, x.detach().cpu().numpy()), grads)
+    untouched = all(p.grad is None for p in param_leaves(params))
+    return {"value": float(value), "grads": flat, "coords": dict(acc.mesh.coords),
+            "params_grad_untouched": untouched}
+
+
+def fp16_local_overflow_leg(params_np: dict, batches: dict, device="cpu") -> dict:
+    """fp16 under dp_shard 4 with a non-finite value planted in one rank's
+    block of one gradient at the second step (rank 1, the first split
+    leaf): every rank must take the same decision. Each rank's finite flags
+    and loss scales."""
+    from accelerate_tpu_torch.parallel import sharding
+
+    real = sharding.ShardingPlan.reduce_grads
+    calls = {"n": 0}
+
+    def planted(self, grads):
+        out = real(self, grads)
+        calls["n"] += 1
+        if calls["n"] == 2 and self.mesh.rank == 1:
+            split = next(i for i, s in enumerate(sharding._leaves(self.param_specs)) if len(s))
+            out[split] = out[split].clone()
+            out[split].view(-1)[0] = float("inf")
+        return out
+
+    sharding.ShardingPlan.reduce_grads = planted
+    try:
+        leg = mesh_train_leg(params_np, batches, {"dp_shard_size": 4}, False, False, device,
+                             precision="fp16", scaler=dict(init_scale=2.0 ** 4))
+    finally:
+        sharding.ShardingPlan.reduce_grads = real
+    return {"grads_finite": leg["grads_finite"], "loss_scale": leg["loss_scale"]}
 
 
 # (model, mesh name, ParallelismConfig kwargs) of the zoo_train legs at 2 ranks
@@ -408,35 +540,112 @@ def check_zoo_train(accelerator, tmpdir: str):
     accelerator.wait_for_everyone()
 
 
-def check_mesh_train(accelerator, tmpdir: str):
-    """The ``MESH_LEGS`` on the params and batches the caller wrote to
-    ``tmpdir`` (``llama_params.npz``, ``llama_batches.npz``); the main
-    process writes ``mesh_<leg>.npz`` and ``mesh_train.json``."""
+def _read_tree(path: str) -> dict:
+    with np.load(path) as f:
+        flat = {k: f[k] for k in f.files}
+    tree: dict = {}
+    for key, value in flat.items():
+        node = tree
+        *parents, leaf = key.split("/")
+        for part in parents:
+            node = node.setdefault(part, {})
+        node[leaf] = value
+    return tree
+
+
+def _run_legs(accelerator, tmpdir: str, params_np: dict, batches: dict, legs, report: dict,
+              prefix: str = "mesh") -> None:
+    """Each of ``legs`` (``(name, ParallelismConfig kwargs, llama_tp_rules,
+    options)``): its numbers into ``report`` (per-rank state bytes, finite
+    flags, loss scales and gather counts gathered to every rank) and, from
+    the main process, its final params into ``<prefix>_<name>.npz``; the
+    collectives each rank ran, by op (``comm``)."""
     from accelerate_tpu_torch.utils import operations as ops
 
-    with np.load(os.path.join(tmpdir, "llama_params.npz")) as f:
-        flat = {k: f[k] for k in f.files}
-    params_np: dict = {}
-    for path, value in flat.items():
-        node = params_np
-        *parents, leaf = path.split("/")
-        for key in parents:
-            node = node.setdefault(key, {})
-        node[leaf] = value
+    for name, pc_kwargs, tp_rules, options in legs:
+        options = dict(options)
+        zero1 = options.pop("zero1", False)
+        ops.reset_comm_counters()
+        out = mesh_train_leg(params_np, batches, pc_kwargs, zero1, tp_rules, **options)
+        comm = sorted(ops.get_comm_counters())
+        report[name] = {"losses": out["losses"], "grad_norms": out["grad_norms"],
+                        "fused_zero1": out["fused_zero1"], "zero1_rows": out["zero1_rows"],
+                        "comm": ops.gather_object(comm),
+                        **{key: ops.gather_object(out[key])
+                           for key in ("opt_state_bytes", "loss_scale", "grads_finite",
+                                       "layer_stats")}}
+        for key in ("aux", "drops"):
+            if key in out:
+                report[name][key] = ops.gather_object(out[key])
+        if accelerator.is_main_process:
+            np.savez(os.path.join(tmpdir, f"{prefix}_{name}.npz"), **out["params"])
+
+
+def check_mesh_train(accelerator, tmpdir: str):
+    """The ``MESH_LEGS``, ``OPTION_LEGS`` and ``REMAT_LEGS``, ``gradient_fn``
+    under dp_shard 2 x tp 2 and the planted one-rank overflow, on the
+    params and batches the caller wrote to ``tmpdir`` (``llama_params.npz``,
+    ``llama_batches.npz``); the main process writes ``mesh_<leg>.npz``,
+    ``grads_rank<i>.npz`` and ``mesh_train.json``."""
+    from accelerate_tpu_torch.utils import operations as ops
+
+    params_np = _read_tree(os.path.join(tmpdir, "llama_params.npz"))
     with np.load(os.path.join(tmpdir, "llama_batches.npz")) as f:
         batches = {k: f[k] for k in f.files}
     report = {}
-    for name, pc_kwargs, zero1, tp_rules in MESH_LEGS:
-        out = mesh_train_leg(params_np, batches, pc_kwargs, zero1, tp_rules)
-        state_bytes = ops.gather_object(out["opt_state_bytes"])
-        report[name] = {"losses": out["losses"], "grad_norms": out["grad_norms"],
-                        "opt_state_bytes": state_bytes,
-                        "fused_zero1": out["fused_zero1"]}
-        if accelerator.is_main_process:
-            np.savez(os.path.join(tmpdir, f"mesh_{name}.npz"), **out["params"])
-    report["zero1_refusals"] = zero1_refusals(params_np)
+    _run_legs(accelerator, tmpdir, params_np, batches,
+              [(name, pc, tp, {"zero1": zero1}) for name, pc, zero1, tp in MESH_LEGS], report)
+    _run_legs(accelerator, tmpdir, params_np, {n: b[:OPTION_STEPS] for n, b in batches.items()},
+              OPTION_LEGS + REMAT_LEGS, report)
+    grad = gradient_fn_leg(params_np, {n: b[0] for n, b in batches.items()},
+                           {"dp_shard_size": 2, "tp_size": 2}, True)
+    np.savez(os.path.join(tmpdir, f"grads_rank{accelerator.process_index}.npz"), **grad["grads"])
+    report["gradient_fn"] = ops.gather_object({k: grad[k] for k in (
+        "value", "coords", "params_grad_untouched")})
+    report["fp16_local_overflow"] = ops.gather_object(
+        fp16_local_overflow_leg(params_np, {n: b[:OPTION_STEPS] for n, b in batches.items()}))
     if accelerator.is_main_process:
         with open(os.path.join(tmpdir, "mesh_train.json"), "w") as f:
+            json.dump(report, f)
+    accelerator.wait_for_everyone()
+
+
+# the MoE Llama's legs at 4 ranks (tp 2 with no tp rules fills a mesh that
+# needs only 2: its ranks compute the same rows alike), with moe_shard_rules
+MOE_LEGS = (
+    ("dp_shard2", {"dp_shard_size": 2, "tp_size": 2}, False, {"moe": True}),
+    ("ep2", {"ep_size": 2, "tp_size": 2}, False, {"moe": True}),
+    ("ep2_dp_shard2", {"ep_size": 2, "dp_shard_size": 2}, False, {"moe": True}),
+    ("ep2_whole_experts", {"ep_size": 2, "tp_size": 2}, False,
+     {"moe": True, "moe_rules": False}),
+)
+
+
+def check_mesh_moe(accelerator, tmpdir: str):
+    """The ``MOE_LEGS`` on ``moe_params.npz`` and ``moe_batches.npz``; the
+    main process writes ``moe_<leg>.npz`` and ``mesh_moe.json``. Also
+    checks that the loader gives every rank of an ``ep`` group the same
+    rows."""
+    from accelerate_tpu_torch import DataLoader
+    from accelerate_tpu_torch.parallelism_config import ParallelismConfig
+    from accelerate_tpu_torch.state import AcceleratorState, GradientState
+    from accelerate_tpu_torch.utils import operations as ops
+
+    params_np = _read_tree(os.path.join(tmpdir, "moe_params.npz"))
+    with np.load(os.path.join(tmpdir, "moe_batches.npz")) as f:
+        batches = {k: f[k] for k in f.files}
+    report = {}
+    _run_legs(accelerator, tmpdir, params_np, batches, MOE_LEGS, report, prefix="moe")
+    AcceleratorState._reset_state()
+    GradientState._reset_state()
+    from accelerate_tpu_torch import Accelerator
+
+    acc = Accelerator(cpu=True, parallelism_config=ParallelismConfig(ep_size=2, dp_shard_size=2))
+    loader = acc.prepare_data_loader(DataLoader(_row_dataset(16), batch_size=2))
+    rows = [b["idx"].tolist() for b in loader]
+    report["loader_rows"] = ops.gather_object({"coords": dict(acc.mesh.coords), "rows": rows})
+    if accelerator.is_main_process:
+        with open(os.path.join(tmpdir, "mesh_moe.json"), "w") as f:
             json.dump(report, f)
     accelerator.wait_for_everyone()
 
@@ -469,6 +678,8 @@ def main():
             check_training(accelerator, args.tmpdir)
         elif scenario == "mesh_train":
             check_mesh_train(accelerator, args.tmpdir)
+        elif scenario == "mesh_moe":
+            check_mesh_moe(accelerator, args.tmpdir)
         elif scenario == "zoo_train":
             check_zoo_train(accelerator, args.tmpdir)
         else:

@@ -111,8 +111,14 @@ csrc`` at first use) and no network. Phases, each of which fails the run:
    its flash launches counted; then the script starts itself twice
    (``--mesh-2rank-child``): two processes share the card over ``gloo``
    and train the long-context widths at 4 layers and S=2048 under
-   dp_shard 2, tp 2 and fused ZeRO-1, each leg held to a one-process run,
-   with flash #1-#3 launched on each rank;
+   dp_shard 2, tp 2, fused ZeRO-1, ZeRO-1 by annotation and dp_shard 2 in
+   fp16, each leg held to a one-process run, with flash #1-#3 launched on
+   each rank (the fp16 leg: plain attention, the kernels take bf16 and
+   f32); config #4 at full width and depth under dp_shard 2, its layers
+   gathered one at a time, held to a one-process run with its peak memory
+   a rank under 0.75 of phase_lm774m's, two planted faults failing a bar;
+   phase_moe's model and training under ep 2 (``moe_shard_rules``), held
+   to phase_moe's steps with equal drops and half the expert bytes a rank;
 9. the card's name and power limit, one JSON line of kernel records, and
    a last line ``{"ok": true, "device": {...}}``.
 
@@ -212,6 +218,7 @@ FLASH_CASES = {  # name: (B, S, H, Hkv, D, window, packed); all causal
     "window": (2, 4096, 16, 8, 64, 1024, False),
     "gqa_d128": (2, 2048, 8, 2, 128, None, False),
     "lm774m": (8, 512, 20, 20, 64, None, False),  # config #4's attention
+    "lm774m_rank": (4, 512, 20, 20, 64, None, False),  # a rank's at dp_shard 2
     "moe_train": (4, 512, 32, 8, 64, None, False),  # phase_moe's training leg
     # phase_mesh_2rank's legs (f32): the one-process run and a tp 2 rank
     # take the global batch of 2, a dp_shard 2 or dp_replicate 2 rank 1 row
@@ -300,15 +307,75 @@ FSDP_LM_RTOL = 1e-6
 # tp (2x), and the summed gradients not divided by the batch ranks (2x).
 MESH_2RANK_KW = dict(LLAMA_KW, n_layers=4, max_seq_len=2048)
 MESH_2RANK_BATCH, MESH_2RANK_STEPS, MESH_2RANK_LR = 2, 3, 1e-4
-MESH_2RANK_LEGS = (  # (name, ParallelismConfig kwargs, fused ZeRO-1, llama_tp_rules)
-    ("dp_shard2", {"dp_shard_size": 2}, False, False),
-    ("tp2", {"tp_size": 2}, False, True),
-    ("dp_replicate2_zero1", {"dp_replicate_size": 2}, True, False),
+MESH_2RANK_LEGS = (  # (name, ParallelismConfig kwargs, ZeRO-1, llama_tp_rules, options)
+    ("dp_shard2", {"dp_shard_size": 2}, False, False, {}),
+    ("tp2", {"tp_size": 2}, False, True, {}),
+    ("dp_replicate2_zero1", {"dp_replicate_size": 2}, True, False, {}),
+    # ZeRO-1 by annotation (the fused update turned off): each rank owns half
+    # the rows of every param's AdamW moments
+    ("dp_replicate2_zero1_annotated", {"dp_replicate_size": 2}, True, False,
+     {"env": {"ACCELERATE_ZERO1_FUSED": "0"}}),
+    # fp16 loss scaling (held to a one-process fp16 run): a first step that
+    # overflows, then growth every 2 finite steps
+    ("dp_shard2_fp16", {"dp_shard_size": 2}, False, False, {"fp16": True}),
 )
 MESH_2RANK_FAULTS = (("tp2_summed_over_tp", "tp2"), ("dp_shard2_not_divided", "dp_shard2"))
 MESH_2RANK_LOSS_RTOL = MESH_2RANK_NORM_RTOL = 1e-5
+# The fp16 leg: the flash kernels take bf16 and f32, so it runs the plain
+# (einsum) attention, with no kernel; the scaler's scale 2**40 overflows
+# fp16 by orders of magnitude and 2**10 lies far inside it, so the
+# loss-scale and finite-flag sequences are decisions that must equal the
+# one-process run's; the losses and updates are held to it at the fp16
+# bars of phase_train_check_fp16 (TRAIN_FP16_RTOL, TRAIN_FP16_UPDATE_RTOL):
+# one rank's GEMMs over one row round apart from one process's over two.
+MESH_2RANK_FP16_SCALER = dict(init_scale=2.0 ** 40, growth_factor=2.0 ** 30,
+                              backoff_factor=2.0 ** -30, growth_interval=2)
 MESH_2RANK_TIMEOUT_S = 600
 MESH_OPS_GATHER_MB = 64
+# phase_mesh_lm774m: config #4 (LM774M_KW, its recipe: bf16 params,
+# adafactor(1e-4), remat "dots_no_batch", flash) at full width and depth
+# under ParallelismConfig(dp_shard_size=2): two processes on the one card
+# over gloo, 4 rows a rank of the global batch of 8, 3 steps, the stacked
+# layers gathered one at a time (FSDP splits the 36-layer axis: each rank
+# holds 18 whole layers, and a gather is a broadcast from the owner). Held
+# to a one-process run of the same steps (whose losses must be
+# phase_lm774m's, FSDP_LM_RTOL). Bars, bf16, set from a CPU run of these
+# legs at cut widths (6 layers, dim 256, vocab 1003, S=128, batch 8) before
+# the first run on the card: the losses differed by 3.5e-5 relative at
+# most (each rank's bf16 GEMMs over its rows, the gradients summed in bf16
+# over the ranks): bar 1e-3. The one-process step reports its gradient
+# norm from a bf16 sum (a bf16 value, 2**-8 apart), the sharded step from
+# f32 sums: 3.4e-3 apart; bar 8e-3 (two bf16 steps). Each layer's gradient
+# norm in the first step (this rank's whole layers, divided by the 2
+# batch ranks the step sums over) against one process's: bf16 gradients
+# summed in another order, bar 2e-2. On an H100 the sound leg measured
+# 3.2e-5, 3.4e-3 and 2.7e-4. Two planted faults must fail
+# a bar: layer 0's gradient not summed over dp_shard, and layer i computed
+# with layer i+1's prefetched params (layer 0 then has no gradient). Expected peak a rank under 0.75 of phase_lm774m's at remat
+# "dots_no_batch" (8.10 GiB in PRs 11-14).
+MESH_LM_STEPS = 3
+MESH_LM_LOSS_RTOL, MESH_LM_NORM_RTOL, MESH_LM_LAYER_NORM_RTOL = 1e-3, 8e-3, 2e-2
+MESH_LM_PEAK_SHARE = 0.75
+MESH_LM_FAULTS = ("layer_grads_not_summed", "next_layer_params")
+# phase_moe_ep: phase_moe's model (MOE_KW) and training recipe (4 x 512,
+# bf16 params, adafactor, remat "dots_no_batch", flash) under
+# ParallelismConfig(ep_size=2) with moe_shard_rules: 2 steps held to
+# phase_moe's one-process steps. The ranks of the ep group route the same
+# rows alike and each computes 4 of the 8 experts; the combine sums over
+# ep. Bars, bf16: losses within 1e-5 relative (the expert GEMMs are the
+# same products, and a bf16 sum over ep of one rank's term and the other's
+# zero is exact: an H100 measured 0.0 at both steps; the whole change of
+# the loss over the 2 steps is 9.4e-4 relative, so a step that updates
+# nothing or takes a wrong gradient misses the bar); each step's gradient
+# norm within MESH_LM_NORM_RTOL (the one-process step reports a bf16 sum,
+# the sharded step f32 sums, as in phase_mesh_lm774m); the first forward's
+# aux loss within 1e-5 relative of one process's and its dropped
+# token-choices equal (the router runs the same f32 product on the same
+# rows). The planted fault (the expert input's gradient not summed over
+# ep: each rank's tokens see only its own experts' part) must fail a bar.
+MOE_EP_STEPS = 2
+MOE_EP_LOSS_RTOL, MOE_EP_AUX_RTOL = 1e-5, 1e-5
+MOE_EP_FAULTS = ("expert_input_grad_not_summed",)
 
 
 class SmokeFailure(RuntimeError):
@@ -3061,23 +3128,24 @@ def _t5_fault(fault):
 def _count_drops(store):
     """Count the routed and dropped token-choices of every MoE call over
     more than one token position (prefill chunks, full forwards) into
-    ``store`` (device tensors), by routing each call's input once more."""
+    ``store`` (device tensors; under a mesh, this rank's rows), from the
+    routing each call computes."""
     from accelerate_tpu_torch.parallel import moe
 
-    real = moe.moe_ffn
+    real = moe.route
 
-    def counted(params, x, **kw):
+    def route(router_kernel, x, *args, **kwargs):
+        r = real(router_kernel, x, *args, **kwargs)
         if x.shape[1] > 1:
-            r = moe.route(params["router"]["kernel"], x, kw["top_k"], kw["capacity_factor"])
             store["routed"] = store.get("routed", 0) + r.keep.numel()
             store["dropped"] = store.get("dropped", 0) + (~r.keep).sum()
-        return real(params, x, **kw)
+        return r
 
-    moe.moe_ffn = counted
+    moe.route = route
     try:
         yield store
     finally:
-        moe.moe_ffn = real
+        moe.route = real
 
 
 def _drop_share(store) -> float:
@@ -3398,8 +3466,9 @@ def phase_fsdp_lm(dev, lm_ref):
 def _mesh_fault(fault):
     """A fault planted in the sharded step, for the two-process bars'
     negative control: ``"tp2_summed_over_tp"`` sums the gradient of every
-    param split over ``tp`` over ``tp`` too (the ranks there hold the same
-    gradient, so it comes out ``tp`` times too large);
+    param gathered whole and split over ``tp`` (the embedding, the head)
+    over ``tp`` too (the ranks there hold the same gradient, so it comes out
+    ``tp`` times too large);
     ``"dp_shard2_not_divided"`` builds the step as if one rank held the
     batch, so the gradients summed over the batch ranks are not divided by
     their count (the loss the step reports is still averaged)."""
@@ -3427,7 +3496,7 @@ def _mesh_fault(fault):
         setattr(owner, name, real)
 
 
-def _mesh_2rank_leg(dev, config, pc_kwargs, zero1, tp_rules, ref_updates=None,
+def _mesh_2rank_leg(dev, config, pc_kwargs, zero1, tp_rules, options=None, ref_updates=None,
                     updates: bool = True, fault=None):
     """``MESH_2RANK_STEPS`` f32 AdamW steps of ``config`` through a mesh of
     the running processes (or of none): the losses, global gradient norms,
@@ -3436,7 +3505,9 @@ def _mesh_2rank_leg(dev, config, pc_kwargs, zero1, tp_rules, ref_updates=None,
     leaf's 3-step update (or, given ``ref_updates``, its relative L2 error
     against them). ``fault`` plants one of :func:`_mesh_fault`'s: in the
     step's build for ``"dp_shard2_not_divided"``, in its run for the
-    other."""
+    other. ``options``: ``env`` (set around ``prepare``) and ``fp16``
+    (mixed precision with ``MESH_2RANK_FP16_SCALER``, plain attention; the
+    loss scales and finite flags are returned)."""
     from accelerate_tpu_torch import Accelerator, LlamaConfig, init_llama, llama_loss
     from accelerate_tpu_torch.data_loader import GlobalBatchAssembler
     from accelerate_tpu_torch.ops import flash_attention as fa
@@ -3447,22 +3518,32 @@ def _mesh_2rank_leg(dev, config, pc_kwargs, zero1, tp_rules, ref_updates=None,
     from accelerate_tpu_torch.utils import operations as ops
     from accelerate_tpu_torch.utils.dataclasses import DeepSpeedPlugin
 
+    from accelerate_tpu_torch.utils.dataclasses import GradScalerConfig
+    from accelerate_tpu_torch.utils.environment import patch_environment
+
+    options = options or {}
+    fp16 = options.get("fp16", False)
     AcceleratorState._reset_state()
     GradientState._reset_state()
-    acc = Accelerator(mixed_precision="no", rng_seed=0, device=dev,
-                      parallelism_config=ParallelismConfig(**pc_kwargs),
-                      deepspeed_plugin=DeepSpeedPlugin(zero_stage=1) if zero1 else None,
-                      shard_rules=llama_tp_rules() if tp_rules else None)
-    init = init_llama(config, torch.Generator(device=dev).manual_seed(0), device=dev)
-    params, opt = acc.prepare(init, adamw(MESH_2RANK_LR))
+    with patch_environment(**options.get("env", {})):
+        acc = Accelerator(mixed_precision="fp16" if fp16 else "no", rng_seed=0, device=dev,
+                          parallelism_config=ParallelismConfig(**pc_kwargs),
+                          deepspeed_plugin=DeepSpeedPlugin(zero_stage=1) if zero1 else None,
+                          shard_rules=llama_tp_rules() if tp_rules else None,
+                          grad_scaler_config=GradScalerConfig(**MESH_2RANK_FP16_SCALER)
+                          if fp16 else None)
+        init = init_llama(config, torch.Generator(device=dev).manual_seed(0), device=dev)
+        params, opt = acc.prepare(init, adamw(MESH_2RANK_LR))
     plan = acc.sharding_plan
+    impl = "xla" if fp16 else None  # the flash kernels take bf16 and f32
     with _mesh_fault(fault if fault == "dp_shard2_not_divided" else None):
-        step = acc.prepare_train_step(lambda p, b: llama_loss(p, b, config, mesh=acc.mesh), opt,
-                                      compute_grad_norm=True)
+        step = acc.prepare_train_step(
+            lambda p, b: llama_loss(p, b, config, mesh=acc.mesh, attention_impl=impl), opt,
+            compute_grad_norm=True)
     ids = np.random.default_rng(0).integers(
         0, config.vocab_size, (MESH_2RANK_STEPS, MESH_2RANK_BATCH, config.max_seq_len))
     assembler = GlobalBatchAssembler(acc.mesh, device=dev)
-    state, losses, norms = opt.opt_state, [], []
+    state, losses, norms, scales, finite = opt.opt_state, [], [], [], []
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     ops.reset_comm_counters()
@@ -3476,6 +3557,9 @@ def _mesh_2rank_leg(dev, config, pc_kwargs, zero1, tp_rules, ref_updates=None,
             params, state, m = step(params, state, batch)
             losses.append(m["loss"])
             norms.append(m["grad_norm"])
+            if fp16:
+                scales.append(m["loss_scale"])
+                finite.append(m["grads_finite"])
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {kern: getattr(fa, kern).launches for kern in FLASH_KERNELS}
@@ -3489,8 +3573,10 @@ def _mesh_2rank_leg(dev, config, pc_kwargs, zero1, tp_rules, ref_updates=None,
            "launches": launches, "peak": peak,
            "opt_state_bytes": opt.state_bytes(), "comm_bytes": comm,
            "ms": wall / MESH_2RANK_STEPS * 1e3, "gather_ms": gather_ms,
-           "fused_zero1": opt.zero1 is not None,
-           "sharded": plan.sharded}
+           "fused_zero1": opt.zero1 is not None, "zero1_rows": opt.zero1_rows is not None,
+           "sharded": plan.sharded, "loss_scale": [float(v) for v in scales],
+           "grads_finite": [bool(v) for v in finite],
+           "max_live_layers": plan.layer_stats.get("max_live_layers")}
     if updates:
         final, start = {}, {}
         _map_with_path(lambda path, a: final.__setitem__(path, a), full)
@@ -3513,21 +3599,35 @@ def mesh_2rank_child(tmp: str) -> int:
     through the ``FileStore`` in ``dir``, runs every leg, and writes its
     numbers to ``dir/rank<i>.json``."""
     from accelerate_tpu_torch import LlamaConfig
+
+    state = _join_two(tmp)
+    config = LlamaConfig(**MESH_2RANK_KW)
+    refs = {}
+    if state.is_main_process:
+        refs = {kind: torch.load(os.path.join(tmp, f"ref_updates_{kind}.pt"))
+                for kind in ("f32", "fp16")}
+    report = {}
+    for name, pc_kwargs, zero1, tp_rules, options in MESH_2RANK_LEGS:
+        ref = refs.get("fp16" if options.get("fp16") else "f32")
+        report[name] = _mesh_2rank_leg(state.device, config, pc_kwargs, zero1, tp_rules, options,
+                                       ref, updates=state.is_main_process)
+    legs = {leg[0]: leg[1:] for leg in MESH_2RANK_LEGS}
+    report["faults"] = {fault: _mesh_2rank_leg(state.device, config, *legs[leg], refs.get("f32"),
+                                               updates=state.is_main_process, fault=fault)
+                        for fault, leg in MESH_2RANK_FAULTS}
+    return _leave_two(state, tmp, report)
+
+
+def _join_two(tmp: str):
+    """A child of :func:`_run_two`: the gloo group of two on ``cuda:0``."""
     from accelerate_tpu_torch.state import PartialState
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    state = PartialState(device="cuda:0", backend="gloo")
-    config = LlamaConfig(**MESH_2RANK_KW)
-    ref = torch.load(os.path.join(tmp, "ref_updates.pt")) if state.is_main_process else None
-    report = {}
-    for name, pc_kwargs, zero1, tp_rules in MESH_2RANK_LEGS:
-        report[name] = _mesh_2rank_leg(state.device, config, pc_kwargs, zero1, tp_rules, ref,
-                                       updates=state.is_main_process)
-    legs = {leg[0]: leg[1:] for leg in MESH_2RANK_LEGS}
-    report["faults"] = {fault: _mesh_2rank_leg(state.device, config, *legs[leg], ref,
-                                               updates=state.is_main_process, fault=fault)
-                        for fault, leg in MESH_2RANK_FAULTS}
+    return PartialState(device="cuda:0", backend="gloo")
+
+
+def _leave_two(state, tmp: str, report: dict) -> int:
     with open(os.path.join(tmp, f"rank{state.process_index}.json"), "w") as f:
         json.dump(report, f)
     state.wait_for_everyone()
@@ -3535,16 +3635,58 @@ def mesh_2rank_child(tmp: str) -> int:
     return 0
 
 
+def _run_two(flag: str, tmp: str, tag: str, timeout_s: float) -> list:
+    """Start this script twice (``flag tmp``) as the two ranks of a gloo
+    group on the one card, wait for both (killing them past ``timeout_s``)
+    and return each rank's ``rank<i>.json``."""
+    procs = []
+    try:
+        for i in range(2):
+            env = {k: v for k, v in os.environ.items()
+                   if k not in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR",
+                                "MASTER_PORT")}
+            env.update({"ACCELERATE_COORDINATOR_ADDRESS": f"file://{tmp}/store",
+                        "ACCELERATE_NUM_PROCESSES": "2", "ACCELERATE_PROCESS_ID": str(i),
+                        "ACCELERATE_LOCAL_PROCESS_INDEX": "0",
+                        "ACCELERATE_INITIALIZATION_TIMEOUT": "300"})
+            procs.append(subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), flag, tmp],
+                env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+        deadline = time.monotonic() + timeout_s
+        failed = []
+        for i, proc in enumerate(procs):
+            try:
+                out, _ = proc.communicate(timeout=max(deadline - time.monotonic(), 1.0))
+            except subprocess.TimeoutExpired:
+                raise SmokeFailure(f"[{tag}] process {i} still running after {timeout_s} s")
+            if proc.returncode != 0:
+                failed.append(f"--- process {i} exited {proc.returncode}:\n{out[-4000:]}")
+        check(not failed, f"[{tag}] " + "\n".join(failed))
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    ranks = []
+    for i in range(2):
+        with open(os.path.join(tmp, f"rank{i}.json")) as f:
+            ranks.append(json.load(f))
+    return ranks
+
+
 def phase_mesh_2rank(dev):
     """Two processes on the one card over gloo: each of ``MESH_2RANK_LEGS``
     (dp_shard 2; tp 2 with ``llama_tp_rules``; dp_replicate 2 with fused
-    ZeRO-1) runs 3 steps, held to a one-process run of the same steps
-    here (losses, gradient norms, updates); flash #1-#3 must launch on
-    each rank, at the shapes ``FLASH_CASES`` held them to their plain
-    versions; the fused ZeRO-1 leg must hold half the AdamW moments on
-    each rank; each of ``MESH_2RANK_FAULTS`` must fail a bar. Per-rank
-    peak memory, optimizer-state bytes, collective bytes and the gather's
-    ms are printed. Returns each leg's launches per rank."""
+    ZeRO-1, and with ZeRO-1 by annotation; dp_shard 2 under fp16) runs 3
+    steps, held to a one-process run of the same steps here (losses,
+    gradient norms, updates; the fp16 leg to a one-process fp16 run, with
+    its loss-scale and finite-flag sequences equal); flash #1-#3 must launch
+    on each rank of every leg but the fp16 one, at the shapes
+    ``FLASH_CASES`` held them to their plain versions; each ZeRO-1 leg must
+    hold half the AdamW moments on each rank; each of
+    ``MESH_2RANK_FAULTS`` must fail a bar. Per-rank peak memory,
+    optimizer-state bytes, collective bytes and the gather's ms are
+    printed. Returns each leg's launches per rank."""
     import tempfile
 
     from accelerate_tpu_torch import LlamaConfig
@@ -3558,89 +3700,81 @@ def phase_mesh_2rank(dev):
               f"FLASH_CASES[{case!r}] is not a rank's attention shape in the two-process legs")
     _reset_states()
     t0 = time.perf_counter()
-    ref = _mesh_2rank_leg(dev, config, {}, False, False)
+    refs = {"f32": _mesh_2rank_leg(dev, config, {}, False, False)}
+    refs["fp16"] = _mesh_2rank_leg(dev, config, {}, False, False, {"fp16": True})
     ref_s = time.perf_counter() - t0
-    print(f"[mesh-2rank] one-process reference: {config.n_layers} layers, dim {config.dim}, "
-          f"{config.n_heads}/{config.n_kv_heads} heads, vocab {config.vocab_size}, batch "
-          f"{MESH_2RANK_BATCH} x {config.max_seq_len}, f32 adamw({MESH_2RANK_LR:g}): losses "
-          + " ".join(f"{v:.5f}" for v in ref["losses"])
-          + f"; {ref['ms']:.1f} ms/step, peak {ref['peak'] / 2**30:.2f} GiB, optimizer state "
-          f"{ref['opt_state_bytes'] / 2**20:.1f} MiB ({ref_s:.1f} s)")
+    for kind, ref in refs.items():
+        print(f"[mesh-2rank] one-process reference ({kind}): {config.n_layers} layers, dim "
+              f"{config.dim}, {config.n_heads}/{config.n_kv_heads} heads, vocab "
+              f"{config.vocab_size}, batch {MESH_2RANK_BATCH} x {config.max_seq_len}, adamw("
+              f"{MESH_2RANK_LR:g}): losses " + " ".join(f"{v:.5f}" for v in ref["losses"])
+              + f"; {ref['ms']:.1f} ms/step, peak {ref['peak'] / 2**30:.2f} GiB, optimizer "
+              f"state {ref['opt_state_bytes'] / 2**20:.1f} MiB"
+              + (f"; loss scale {ref['loss_scale']}, finite {ref['grads_finite']}"
+                 if kind == "fp16" else ""))
+    print(f"[mesh-2rank] references {ref_s:.1f} s")
+    check(refs["fp16"]["grads_finite"][0] is False and all(refs["fp16"]["grads_finite"][1:]),
+          f"[mesh-2rank] the fp16 reference's scaler did not overflow once and only on its first "
+          f"step: {refs['fp16']['grads_finite']}")
     _reset_states()
     with tempfile.TemporaryDirectory(prefix="mesh_2rank_") as tmp:
-        torch.save(ref.pop("updates"), os.path.join(tmp, "ref_updates.pt"))
-        procs = []
-        try:
-            for i in range(2):
-                env = {k: v for k, v in os.environ.items()
-                       if k not in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR",
-                                    "MASTER_PORT")}
-                env.update({"ACCELERATE_COORDINATOR_ADDRESS": f"file://{tmp}/store",
-                            "ACCELERATE_NUM_PROCESSES": "2", "ACCELERATE_PROCESS_ID": str(i),
-                            "ACCELERATE_LOCAL_PROCESS_INDEX": "0",
-                            "ACCELERATE_INITIALIZATION_TIMEOUT": "300"})
-                procs.append(subprocess.Popen(
-                    [sys.executable, os.path.abspath(__file__), "--mesh-2rank-child", tmp],
-                    env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
-            deadline = time.monotonic() + MESH_2RANK_TIMEOUT_S
-            failed = []
-            for i, proc in enumerate(procs):
-                try:
-                    out, _ = proc.communicate(timeout=max(deadline - time.monotonic(), 1.0))
-                except subprocess.TimeoutExpired:
-                    raise SmokeFailure(f"[mesh-2rank] process {i} still running after "
-                                       f"{MESH_2RANK_TIMEOUT_S} s")
-                if proc.returncode != 0:
-                    failed.append(f"--- process {i} exited {proc.returncode}:\n{out[-4000:]}")
-            check(not failed, "[mesh-2rank] " + "\n".join(failed))
-        finally:
-            for proc in procs:
-                if proc.poll() is None:
-                    proc.kill()
-                    proc.wait()
-        ranks = []
-        for i in range(2):
-            with open(os.path.join(tmp, f"rank{i}.json")) as f:
-                ranks.append(json.load(f))
+        for kind, ref in refs.items():
+            torch.save(ref.pop("updates"), os.path.join(tmp, f"ref_updates_{kind}.pt"))
+        ranks = _run_two("--mesh-2rank-child", tmp, "mesh-2rank", MESH_2RANK_TIMEOUT_S)
     want = {"flash_attention_fwd": config.n_layers * MESH_2RANK_STEPS,
             "flash_attention_dq": config.n_layers * MESH_2RANK_STEPS,
             "flash_attention_dkdv": config.n_layers * MESH_2RANK_STEPS}
     launches = {}
-    for name, _, zero1, _ in MESH_2RANK_LEGS:
+    for name, _, zero1, _, options in MESH_2RANK_LEGS:
+        fp16 = options.get("fp16", False)
+        ref = refs["fp16" if fp16 else "f32"]
+        loss_tol = TRAIN_FP16_RTOL if fp16 else MESH_2RANK_LOSS_RTOL
+        norm_tol = TRAIN_FP16_RTOL if fp16 else MESH_2RANK_NORM_RTOL
+        upd_tol = TRAIN_FP16_UPDATE_RTOL if fp16 else TRAIN_UPDATE_RTOL
         legs = [r[name] for r in ranks]
         launches[name] = [leg["launches"] for leg in legs]
         loss_err = norm_err = 0.0
         for i, leg in enumerate(legs):
-            check(leg["launches"] == want, f"[mesh-2rank] {name} rank {i} launches "
-                                           f"{leg['launches']}, want {want}")
+            leg_want = {k: 0 for k in want} if fp16 else want
+            check(leg["launches"] == leg_want, f"[mesh-2rank] {name} rank {i} launches "
+                                               f"{leg['launches']}, want {leg_want}")
             rank_loss_err, rank_norm_err, _, _ = _mesh_2rank_errs(leg, ref)
-            check(rank_loss_err <= MESH_2RANK_LOSS_RTOL,
+            check(rank_loss_err <= loss_tol,
                   f"[mesh-2rank] {name} rank {i} losses {leg['losses']} vs one process "
                   f"{ref['losses']}: rel err {rank_loss_err}")
-            check(rank_norm_err <= MESH_2RANK_NORM_RTOL,
+            check(rank_norm_err <= norm_tol,
                   f"[mesh-2rank] {name} rank {i} gradient norms {leg['grad_norms']} vs one "
                   f"process {ref['grad_norms']}: rel err {rank_norm_err}")
+            check(leg["loss_scale"] == ref["loss_scale"]
+                  and leg["grads_finite"] == ref["grads_finite"],
+                  f"[mesh-2rank] {name} rank {i}: loss scales {leg['loss_scale']} and finite "
+                  f"flags {leg['grads_finite']}, one process {ref['loss_scale']} and "
+                  f"{ref['grads_finite']}")
             loss_err, norm_err = max(loss_err, rank_loss_err), max(norm_err, rank_norm_err)
         _, _, worst, upd_err = _mesh_2rank_errs(legs[0], ref)
-        check(upd_err <= TRAIN_UPDATE_RTOL, f"[mesh-2rank] {name}: 3-step update of {worst} "
-                                            f"rel L2 err {upd_err} against one process")
-        check(legs[0]["fused_zero1"] == zero1, f"[mesh-2rank] {name}: fused ZeRO-1 "
-                                                f"{legs[0]['fused_zero1']}, want {zero1}")
+        check(upd_err <= upd_tol, f"[mesh-2rank] {name}: 3-step update of {worst} "
+                                  f"rel L2 err {upd_err} against one process")
+        check(legs[0]["fused_zero1"] == (zero1 and "env" not in options),
+              f"[mesh-2rank] {name}: fused ZeRO-1 {legs[0]['fused_zero1']}")
         if zero1:
             check(all(2 * leg["opt_state_bytes"] == ref["opt_state_bytes"] for leg in legs),
                   f"[mesh-2rank] {name}: optimizer state per rank "
                   f"{[leg['opt_state_bytes'] for leg in legs]}, not half of "
                   f"{ref['opt_state_bytes']}")
         print(f"[mesh-2rank] {name}: losses " + " ".join(f"{v:.5f}" for v in legs[0]["losses"])
-              + f" (max rel err {loss_err:.3e}, bar {MESH_2RANK_LOSS_RTOL:g}); gradient norms "
+              + f" (max rel err {loss_err:.3e}, bar {loss_tol:g}); gradient norms "
               + " ".join(f"{v:.5f}" for v in legs[0]["grad_norms"])
-              + f" (max rel err {norm_err:.3e}, bar {MESH_2RANK_NORM_RTOL:g}); worst 3-step "
-              f"update {worst} rel L2 {upd_err:.3e} (bar {TRAIN_UPDATE_RTOL:g}); " + "; ".join(
+              + f" (max rel err {norm_err:.3e}, bar {norm_tol:g}); worst 3-step "
+              f"update {worst} rel L2 {upd_err:.3e} (bar {upd_tol:g})"
+              + (f"; loss scales {legs[0]['loss_scale']}, finite {legs[0]['grads_finite']} "
+                 "(equal on both ranks and to one process)" if fp16 else "") + "; " + "; ".join(
                   f"rank {i}: {leg['ms']:.1f} ms/step, peak {leg['peak'] / 2**30:.2f} GiB, "
                   f"optimizer state {leg['opt_state_bytes'] / 2**20:.1f} MiB, collectives "
-                  f"{leg['comm_bytes']} B, gather {leg['gather_ms']:.1f} ms, launches "
-                  f"{leg['launches']}" for i, leg in enumerate(legs)))
+                  f"{leg['comm_bytes']} B, gather {leg['gather_ms']:.1f} ms, live gathered "
+                  f"layers at most {leg['max_live_layers']}, launches {leg['launches']}"
+                  for i, leg in enumerate(legs)))
     for fault, leg_name in MESH_2RANK_FAULTS:
+        ref = refs["f32"]
         loss_err, norm_err, worst, upd_err = _mesh_2rank_errs(ranks[0]["faults"][fault], ref)
         caught = [bar for bar, err, tol in (("loss", loss_err, MESH_2RANK_LOSS_RTOL),
                                             ("gradient norm", norm_err, MESH_2RANK_NORM_RTOL),
@@ -3656,13 +3790,463 @@ def _mesh_2rank_errs(leg, ref):
     """A two-process leg against the one-process run: the largest relative
     error of its losses and of its gradient norms, and its worst leaf's
     3-step update error (with the leaf's path)."""
-    loss_err = max(abs(a - b) / abs(b) for a, b in zip(leg["losses"], ref["losses"]))
-    norm_err = max(abs(a - b) / abs(b) for a, b in zip(leg["grad_norms"], ref["grad_norms"]))
+    def rel(a, b):  # an fp16 step that overflowed reports a norm of 0 on both sides
+        return abs(a - b) / abs(b) if b else abs(a)
+
+    loss_err = max(rel(a, b) for a, b in zip(leg["losses"], ref["losses"]))
+    norm_err = max(rel(a, b) for a, b in zip(leg["grad_norms"], ref["grad_norms"]))
     worst, upd_err = None, None
     if "update_err" in leg:
         worst = max(leg["update_err"], key=leg["update_err"].get)
         upd_err = leg["update_err"][worst]
     return loss_err, norm_err, worst, upd_err
+
+
+@contextlib.contextmanager
+def _mesh_lm_fault(fault):
+    """A fault planted in the per-layer gather, for phase_mesh_lm774m's
+    negative control: ``"layer_grads_not_summed"`` leaves layer 0's
+    gradient unsummed over the batch axes (its owner keeps its own rows'
+    part);
+    ``"next_layer_params"`` computes layer i with layer i+1's gathered
+    params (the last layer with its own)."""
+    from accelerate_tpu_torch.parallel import sharding
+
+    if fault is None:
+        yield
+        return
+    if fault == "layer_grads_not_summed":
+        owner, name = sharding._LayerGroup, "reduce"
+        real = owner.reduce
+
+        def patched(self, i, grads):
+            if i:
+                return real(self, i, grads)
+            axes, sharding.GRAD_SUM_AXES = sharding.GRAD_SUM_AXES, ()
+            try:
+                return real(self, i, grads)
+            finally:
+                sharding.GRAD_SUM_AXES = axes
+    else:
+        owner, name = sharding.LayerStack, "layer"
+        real = owner.layer
+
+        def patched(self, i):
+            return real(self, min(i + 1, self.n_layers - 1))
+    setattr(owner, name, patched)
+    try:
+        yield
+    finally:
+        setattr(owner, name, real)
+
+
+def _layer_norms(params, ranks: int) -> list:
+    """The gradient norm of each whole layer this rank holds (its block of
+    the stacked layers, in order), from the params' ``.grad`` after a step,
+    divided by the ``ranks`` the sharded step sums the batch over (its
+    gradient is their sum)."""
+    from accelerate_tpu_torch.optimizer import param_leaves
+
+    leaves = param_leaves(params["layers"])
+    rows = leaves[0].shape[0]
+    check(all(t.grad is not None and t.shape[0] == rows for t in leaves),
+          "a stacked layer leaf is not split like the others over the layer axis")
+    return [math.sqrt(sum(float(t.grad[j].float().pow(2).sum()) for t in leaves)) / ranks
+            for j in range(rows)]
+
+
+def _mesh_lm_leg(dev, pc_kwargs, fault=None, steps=MESH_LM_STEPS):
+    """``steps`` steps of config #4 in its recipe through a mesh of
+    the running processes (or none): losses, gradient norms, each held
+    layer's gradient norm in the first step, flash launches, ms/step (the
+    steps after the first), peak memory, the per-layer gather's counts,
+    collective bytes a step and the whole tree's gather ms."""
+    from accelerate_tpu_torch import Accelerator, LlamaConfig, init_llama, llama_loss
+    from accelerate_tpu_torch.data_loader import GlobalBatchAssembler
+    from accelerate_tpu_torch.ops import flash_attention as fa
+    from accelerate_tpu_torch.optimizer import adafactor
+    from accelerate_tpu_torch.parallelism_config import ParallelismConfig
+    from accelerate_tpu_torch.state import AcceleratorState, GradientState
+    from accelerate_tpu_torch.utils import operations as ops
+
+    AcceleratorState._reset_state()
+    GradientState._reset_state()
+    config = LlamaConfig(**LM774M_KW)
+    acc = Accelerator(mixed_precision="no", rng_seed=0, device=dev,
+                      parallelism_config=ParallelismConfig(**pc_kwargs))
+    init = init_llama(config, torch.Generator(device=dev).manual_seed(0), device=dev,
+                      dtype=torch.bfloat16)
+    params, opt = acc.prepare(init, adafactor(LM774M_LR))
+    del init
+    torch.cuda.empty_cache()
+    plan = acc.sharding_plan
+    step = acc.prepare_train_step(
+        lambda p, b: llama_loss(p, b, config, remat="dots_no_batch", mesh=acc.mesh), opt,
+        compute_grad_norm=True)
+    ids = np.random.default_rng(0).integers(0, config.vocab_size,
+                                            (LM774M_K, LM774M_BATCH, config.max_seq_len))
+    assembler = GlobalBatchAssembler(acc.mesh, device=dev)
+    state, losses, norms, walls, layer_norms = opt.opt_state, [], [], [], []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_comm_counters()
+    for kern in FLASH_KERNELS:
+        getattr(fa, kern).launches = 0
+    live = []
+    with _mesh_lm_fault(fault):
+        for k in range(steps):
+            batch = assembler.to_global(assembler.local_block(
+                {"input_ids": ids[k % LM774M_K].astype(np.int32)}))
+            t0 = time.perf_counter()
+            params, state, m = step(params, state, batch)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+            losses.append(float(m["loss"]))
+            norms.append(float(m["grad_norm"]))
+            live.append(plan.layer_stats.get("max_live_layers"))
+            if k == 0:
+                layer_norms = _layer_norms(params, plan.batch_ranks)
+    launches = {kern: getattr(fa, kern).launches for kern in FLASH_KERNELS}
+    comm = {op: c["bytes"] / steps for op, c in ops.get_comm_counters().items()}
+    peak = torch.cuda.max_memory_allocated()
+    t0 = time.perf_counter()
+    full = plan.gather_params_no_grad(params) if plan.distributed else params
+    torch.cuda.synchronize()
+    gather_ms = (time.perf_counter() - t0) * 1e3
+    coords = acc.mesh.coords
+    rows = config.n_layers // acc.mesh.shape["dp_shard"]
+    offset = coords["dp_shard"] * rows if plan.distributed else 0
+    out = {"losses": losses, "grad_norms": norms, "launches": launches, "peak": peak,
+           "ms": 1e3 * sum(walls[1:]) / max(len(walls) - 1, 1), "first_ms": 1e3 * walls[0],
+           "max_live_layers": max(v for v in live if v is not None) if any(live) else None,
+           "gathers": plan.layer_stats.get("gathers"), "comm_bytes": comm,
+           "gather_ms": gather_ms,
+           "layer_norms": {str(offset + j): v for j, v in enumerate(layer_norms)},
+           "local_param_bytes": sum(t.numel() * t.element_size()
+                                    for t in opt.model_params)}
+    del params, opt, step, state, full
+    torch.cuda.empty_cache()
+    return out
+
+
+def mesh_lm_child(tmp: str) -> int:
+    """One of ``phase_mesh_lm774m``'s two processes: the sound leg under
+    dp_shard 2, then each planted fault on a copy, one step (the first
+    step's gradient norms show both)."""
+    state = _join_two(tmp)
+    report = {"dp_shard2": _mesh_lm_leg(state.device, {"dp_shard_size": 2})}
+    report["faults"] = {fault: _mesh_lm_leg(state.device, {"dp_shard_size": 2}, fault, steps=1)
+                        for fault in MESH_LM_FAULTS}
+    return _leave_two(state, tmp, report)
+
+
+def _lm_errs(leg, ref):
+    loss_err = max(abs(a - b) / abs(b) for a, b in zip(leg["losses"], ref["losses"]))
+    norm_err = max(abs(a - b) / abs(b) for a, b in zip(leg["grad_norms"], ref["grad_norms"]))
+    layer_err = max(abs(v - ref["layer_norms"][k]) / ref["layer_norms"][k]
+                    for k, v in leg["layer_norms"].items())
+    return loss_err, norm_err, layer_err
+
+
+def phase_mesh_lm774m(dev, lm_ref):
+    """Config #4 at full width and depth under dp_shard 2 (two processes on
+    the one card over gloo), held to a one-process run of the same 3 steps
+    (whose losses must be ``phase_lm774m``'s): the bars of ``MESH_LM_*``;
+    each rank's peak memory under ``MESH_LM_PEAK_SHARE`` of
+    ``phase_lm774m``'s; at most 2 layers' gathered params alive; #1-#3
+    launched 72/36/36 times a step on each rank; each planted fault failing
+    a bar. Returns the launches of each rank."""
+    import tempfile
+
+    from accelerate_tpu_torch import LlamaConfig
+
+    config = LlamaConfig(**LM774M_KW)
+    rows = LM774M_BATCH // 2
+    check(FLASH_CASES["lm774m_rank"] == (rows, config.max_seq_len, config.n_heads,
+                                         config.n_kv_heads, config.head_dim, None, False),
+          "FLASH_CASES['lm774m_rank'] is not a dp_shard 2 rank's attention shape")
+    _reset_states()
+    ref = _mesh_lm_leg(dev, {})
+    err = max(abs(a - float(b)) / abs(float(b)) for a, b in zip(ref["losses"],
+                                                                lm_ref["losses"].tolist()))
+    print(f"[mesh-lm774m] one-process reference: {MESH_LM_STEPS} steps of prepare_train_step, "
+          f"losses " + " ".join(f"{v:.5f}" for v in ref["losses"]) + ", gradient norms "
+          + " ".join(f"{v:.5f}" for v in ref["grad_norms"]) + f"; {ref['ms']:.1f} ms/step "
+          f"(first {ref['first_ms']:.1f}), peak {ref['peak'] / 2**30:.2f} GiB; against "
+          f"phase_lm774m's first {MESH_LM_STEPS} losses: max rel err {err:.3e} (bar "
+          f"{FSDP_LM_RTOL:g})")
+    check(err <= FSDP_LM_RTOL, f"[mesh-lm774m] the one-process steps' losses differ from "
+                               f"phase_lm774m's by {err}")
+    _reset_states()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="mesh_lm_") as tmp:
+        ranks = _run_two("--mesh-lm-child", tmp, "mesh-lm774m", MESH_2RANK_TIMEOUT_S)
+    want = {"flash_attention_fwd": 2 * config.n_layers * MESH_LM_STEPS,
+            "flash_attention_dq": config.n_layers * MESH_LM_STEPS,
+            "flash_attention_dkdv": config.n_layers * MESH_LM_STEPS}
+    limit = MESH_LM_PEAK_SHARE * lm_ref["peak"]
+    for i, r in enumerate(ranks):
+        leg = r["dp_shard2"]
+        loss_err, norm_err, layer_err = _lm_errs(leg, ref)
+        print(f"[mesh-lm774m] dp_shard 2 rank {i}: losses "
+              + " ".join(f"{v:.5f}" for v in leg["losses"]) + f" (max rel err {loss_err:.3e}, "
+              f"bar {MESH_LM_LOSS_RTOL:g}); gradient norms "
+              + " ".join(f"{v:.5f}" for v in leg["grad_norms"]) + f" (max rel err "
+              f"{norm_err:.3e}, bar {MESH_LM_NORM_RTOL:g}); its {len(leg['layer_norms'])} layers' "
+              f"first-step gradient norms max rel err {layer_err:.3e} (bar "
+              f"{MESH_LM_LAYER_NORM_RTOL:g}); {leg['ms']:.1f} ms/step (first "
+              f"{leg['first_ms']:.1f}), peak {leg['peak'] / 2**30:.2f} GiB ("
+              f"{leg['peak'] / lm_ref['peak']:.3f} of phase_lm774m's {lm_ref['peak'] / 2**30:.2f}, "
+              f"bar {MESH_LM_PEAK_SHARE}), params held {leg['local_param_bytes'] / 2**30:.3f} GiB; "
+              f"live gathered layers at most {leg['max_live_layers']}, {leg['gathers']} layer "
+              f"gathers in the last step; bytes a step {leg['comm_bytes']}; whole-tree gather "
+              f"{leg['gather_ms']:.1f} ms; launches {leg['launches']}")
+        check(leg["launches"] == want, f"[mesh-lm774m] rank {i} launches {leg['launches']}, "
+                                       f"want {want}")
+        check(loss_err <= MESH_LM_LOSS_RTOL, f"[mesh-lm774m] rank {i} loss rel err {loss_err}")
+        check(norm_err <= MESH_LM_NORM_RTOL, f"[mesh-lm774m] rank {i} norm rel err {norm_err}")
+        check(layer_err <= MESH_LM_LAYER_NORM_RTOL,
+              f"[mesh-lm774m] rank {i} layer gradient norm rel err {layer_err}")
+        check(leg["max_live_layers"] is not None and leg["max_live_layers"] <= 2,
+              f"[mesh-lm774m] rank {i}: {leg['max_live_layers']} layers' gathered params alive")
+        check(leg["peak"] < limit, f"[mesh-lm774m] rank {i} peak {leg['peak']} not below "
+                                   f"{MESH_LM_PEAK_SHARE} x phase_lm774m's {lm_ref['peak']}")
+    for fault in MESH_LM_FAULTS:
+        loss_err, norm_err, layer_err = (max(e) for e in zip(*(
+            _lm_errs(r["faults"][fault], ref) for r in ranks)))
+        caught = [bar for bar, e, tol in (("loss", loss_err, MESH_LM_LOSS_RTOL),
+                                          ("gradient norm", norm_err, MESH_LM_NORM_RTOL),
+                                          ("layer gradient norm", layer_err,
+                                           MESH_LM_LAYER_NORM_RTOL)) if e > tol]
+        print(f"[mesh-lm774m] planted fault {fault}: losses rel err {loss_err:.3e}, gradient "
+              f"norms {norm_err:.3e}, layer gradient norms {layer_err:.3e}; caught by "
+              f"{caught or 'no bar'}")
+        check(bool(caught), f"[mesh-lm774m] the planted fault {fault} passes every bar")
+    return [r["dp_shard2"]["launches"] for r in ranks]
+
+
+@contextlib.contextmanager
+def _moe_ep_fault(fault):
+    """A fault planted in the MoE FFN under ep, for phase_moe_ep's negative
+    control: ``"expert_input_grad_not_summed"`` passes the gradient of the
+    expert input (the ``[n, D]`` token rows) back unsummed over ep, so each
+    rank's rows get only its own experts' part of it."""
+    from accelerate_tpu_torch.parallel import moe
+
+    if fault is None:
+        yield
+        return
+    real = moe._SumGradOverAxis
+    dim = MOE_KW["dim"]
+
+    class Unsummed:
+        @staticmethod
+        def apply(x, mesh, axis):
+            return x if x.shape[-1] == dim else real.apply(x, mesh, axis)
+
+    moe._SumGradOverAxis = Unsummed
+    try:
+        yield
+    finally:
+        moe._SumGradOverAxis = real
+
+
+def _expert_grad_collective_ms(acc, config) -> dict:
+    """ms a step of the expert weights' gradient collective that the ep
+    leg's backward runs (a gather over ep of each layer's ``wi`` and ``wo``
+    blocks to the rank that keeps the layer), and of an all-gather of the
+    same blocks (every rank keeping all of it), timed alone on tensors of
+    the same shapes."""
+    import torch.distributed as dist
+
+    from accelerate_tpu_torch.parallel.sharding import _all_gather_dim
+
+    group, ep = acc.mesh.group("ep"), acc.mesh.shape["ep"]
+    e_loc = config.moe_experts // ep
+    blocks = [torch.zeros((e_loc, config.dim, config.hidden_dim), device=acc.device,
+                          dtype=torch.bfloat16),
+              torch.zeros((e_loc, config.hidden_dim, config.dim), device=acc.device,
+                          dtype=torch.bfloat16)]
+    out = {}
+    for name in ("all_gather", "gather"):
+        dist.barrier(group=group)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(config.n_layers):
+            for blk in blocks:
+                if name == "all_gather":
+                    _all_gather_dim(blk, 0, group)
+                else:
+                    keep = [torch.empty_like(blk) for _ in range(ep)] if (
+                        acc.mesh.coords["ep"] == 0) else None
+                    dist.gather(blk, keep, group=group, group_dst=0)
+        torch.cuda.synchronize()
+        out[name] = (time.perf_counter() - t0) * 1e3
+    out["bytes"] = config.n_layers * sum(b.numel() * b.element_size() for b in blocks) * ep
+    return out
+
+
+def _moe_ep_leg(dev, pc_kwargs, rules: bool, fault=None, steps=MOE_EP_STEPS):
+    """``steps`` steps of phase_moe's training recipe through a mesh of the
+    running processes (``moe_shard_rules`` with ``rules``), after the first
+    forward's aux loss and drops at the initial params: losses, gradient
+    norms, aux, routed and dropped token-choices, flash launches, ms/step,
+    peak, the bytes of this rank's expert weights and of all its params."""
+    from accelerate_tpu_torch import Accelerator, LlamaConfig, init_llama, llama_forward, llama_loss
+    from accelerate_tpu_torch.data_loader import GlobalBatchAssembler
+    from accelerate_tpu_torch.ops import flash_attention as fa
+    from accelerate_tpu_torch.optimizer import adafactor
+    from accelerate_tpu_torch.parallel import moe
+    from accelerate_tpu_torch.parallel.sharding import _map_with_path
+    from accelerate_tpu_torch.parallelism_config import ParallelismConfig
+    from accelerate_tpu_torch.state import AcceleratorState, GradientState
+    from accelerate_tpu_torch.utils import operations as ops
+
+    AcceleratorState._reset_state()
+    GradientState._reset_state()
+    config = dataclasses.replace(LlamaConfig(**MOE_KW), max_seq_len=MOE_TRAIN_SEQ,
+                                 attn_impl="flash")
+    acc = Accelerator(mixed_precision="no", rng_seed=0, device=dev,
+                      parallelism_config=ParallelismConfig(**pc_kwargs),
+                      shard_rules=moe.moe_shard_rules() if rules else None)
+    init = init_llama(config, torch.Generator(device=dev).manual_seed(0), device=dev,
+                      dtype=torch.bfloat16)
+    params, opt = acc.prepare(init, adafactor(MOE_LR))
+    del init
+    torch.cuda.empty_cache()
+    plan = acc.sharding_plan
+    tids = np.random.default_rng(0).integers(0, config.vocab_size,
+                                             (MOE_TRAIN_BATCH, MOE_TRAIN_SEQ)).astype(np.int32)
+    assembler = GlobalBatchAssembler(acc.mesh, device=dev)
+    batch = assembler.to_global(assembler.local_block({"input_ids": tids}))
+    drops = {}
+    with torch.no_grad(), _count_drops(drops):
+        full = plan.gather_params_no_grad(params) if plan.distributed else params
+        _, aux = llama_forward(full, batch["input_ids"], config, mesh=acc.mesh, with_aux=True)
+        del full
+    drops = {k: int(v) for k, v in drops.items()}
+    step = acc.prepare_train_step(
+        lambda p, b: llama_loss(p, b, config, remat="dots_no_batch", mesh=acc.mesh), opt,
+        compute_grad_norm=True)
+    state, losses, norms, walls = opt.opt_state, [], [], []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_comm_counters()
+    for kern in FLASH_KERNELS:
+        getattr(fa, kern).launches = 0
+    with _moe_ep_fault(fault):
+        for _ in range(steps):
+            t0 = time.perf_counter()
+            params, state, m = step(params, state, batch)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+            losses.append(float(m["loss"]))
+            norms.append(float(m["grad_norm"]))
+    named = {}
+    _map_with_path(lambda path, t: named.__setitem__(path, t), params)
+    expert = sum(t.numel() * t.element_size() for k, t in named.items()
+                 if k.startswith("layers/moe/w"))
+    out = {"losses": losses, "grad_norms": norms, "aux": float(aux), "drops": drops,
+           "launches": {kern: getattr(fa, kern).launches for kern in FLASH_KERNELS},
+           "ms": 1e3 * sum(walls) / len(walls), "walls": walls,
+           "peak": torch.cuda.max_memory_allocated(), "expert_bytes": expert,
+           "param_bytes": sum(t.numel() * t.element_size() for t in named.values()),
+           "max_live_layers": plan.layer_stats.get("max_live_layers"),
+           "comm_bytes": {op: c["bytes"] / steps
+                          for op, c in ops.get_comm_counters().items()}}
+    if plan.distributed and fault is None:
+        out["expert_grad_ms"] = _expert_grad_collective_ms(acc, config)
+    del params, opt, step, state
+    torch.cuda.empty_cache()
+    return out
+
+
+def moe_ep_child(tmp: str) -> int:
+    """One of ``phase_moe_ep``'s two processes: the sound leg under ep 2,
+    then each planted fault."""
+    state = _join_two(tmp)
+    report = {"ep2": _moe_ep_leg(state.device, {"ep_size": 2}, True)}
+    report["faults"] = {fault: _moe_ep_leg(state.device, {"ep_size": 2}, True, fault)
+                        for fault in MOE_EP_FAULTS}
+    return _leave_two(state, tmp, report)
+
+
+def phase_moe_ep(dev, moe_leg):
+    """phase_moe's model and training recipe under ``ParallelismConfig(
+    ep_size=2)`` with ``moe_shard_rules`` (two processes on the one card
+    over gloo), held to phase_moe's one-process steps: losses, the first
+    forward's aux loss and dropped token-choices (against a one-process
+    forward here), gradient norms, half the expert bytes a rank (4 of the
+    8 experts' worth), #1-#3 launched on each rank, the planted fault
+    failing a bar. Returns each rank's launches."""
+    import tempfile
+
+    from accelerate_tpu_torch import LlamaConfig
+
+    config = LlamaConfig(**MOE_KW)
+    _reset_states()
+    ref = _moe_ep_leg(dev, {}, False)
+    err = max(abs(a - float(b)) / abs(float(b)) for a, b in zip(
+        ref["losses"], moe_leg["losses"].tolist()[:MOE_EP_STEPS]))
+    print(f"[moe-ep] one process: losses " + " ".join(f"{v:.5f}" for v in ref["losses"])
+          + f" (phase_moe's loop: max rel err {err:.3e}, bar {FSDP_LM_RTOL:g}), gradient "
+          f"norms " + " ".join(f"{v:.5f}" for v in ref["grad_norms"]) + ", aux "
+          f"{ref['aux']:.6f}, drops {ref['drops']}; {ref['ms']:.1f} ms/step, peak "
+          f"{ref['peak'] / 2**30:.2f} GiB, expert weights {ref['expert_bytes'] / 2**30:.3f} GiB")
+    check(err <= FSDP_LM_RTOL, f"[moe-ep] one-process steps differ from phase_moe's by {err}")
+    _reset_states()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="moe_ep_") as tmp:
+        ranks = _run_two("--moe-ep-child", tmp, "moe-ep", MESH_2RANK_TIMEOUT_S)
+    want = {"flash_attention_fwd": 2 * config.n_layers * MOE_EP_STEPS,
+            "flash_attention_dq": config.n_layers * MOE_EP_STEPS,
+            "flash_attention_dkdv": config.n_layers * MOE_EP_STEPS}
+    for i, r in enumerate(ranks):
+        leg = r["ep2"]
+        loss_err, norm_err = _moe_ep_errs(leg, ref)
+        aux_err = abs(leg["aux"] - ref["aux"]) / abs(ref["aux"])
+        coll = leg["expert_grad_ms"]
+        print(f"[moe-ep] ep 2 rank {i}: losses " + " ".join(f"{v:.5f}" for v in leg["losses"])
+              + f" (max rel err {loss_err:.3e}, bar {MOE_EP_LOSS_RTOL:g}); gradient norms "
+              + " ".join(f"{v:.5f}" for v in leg["grad_norms"]) + f" (max rel err "
+              f"{norm_err:.3e}, bar {MESH_LM_NORM_RTOL:g}); aux "
+              f"{leg['aux']:.6f} (rel err {aux_err:.3e}, bar {MOE_EP_AUX_RTOL:g}); drops "
+              f"{leg['drops']} (one process {ref['drops']}); expert weights held "
+              f"{leg['expert_bytes'] / 2**30:.3f} GiB of {ref['expert_bytes'] / 2**30:.3f}, all "
+              f"params {leg['param_bytes'] / 2**30:.3f} GiB; {leg['ms']:.1f} ms/step (steps "
+              + " ".join(f"{1e3 * w:.1f}" for w in leg["walls"]) + f" ms), peak "
+              f"{leg['peak'] / 2**30:.2f} GiB; live gathered layers at most "
+              f"{leg['max_live_layers']}; bytes a step {leg['comm_bytes']}; the expert "
+              f"weights' gradient gather over ep to its owner, timed alone: {coll['gather']:.1f} "
+              f"ms a step ({coll['bytes'] / 1e9:.3f} GB gathered), an all-gather of the same "
+              f"blocks {coll['all_gather']:.1f} ms; launches {leg['launches']}")
+        check(leg["launches"] == want, f"[moe-ep] rank {i} launches {leg['launches']}, want {want}")
+        check(loss_err <= MOE_EP_LOSS_RTOL, f"[moe-ep] rank {i} loss rel err {loss_err}")
+        check(norm_err <= MESH_LM_NORM_RTOL, f"[moe-ep] rank {i} norm rel err {norm_err}")
+        check(aux_err <= MOE_EP_AUX_RTOL, f"[moe-ep] rank {i} aux rel err {aux_err}")
+        check(leg["drops"] == ref["drops"], f"[moe-ep] rank {i} drops {leg['drops']}, one "
+                                            f"process {ref['drops']}")
+        check(2 * leg["expert_bytes"] == ref["expert_bytes"],
+              f"[moe-ep] rank {i} holds {leg['expert_bytes']} B of expert weights, not half of "
+              f"{ref['expert_bytes']}")
+        check(leg["max_live_layers"] is not None and leg["max_live_layers"] <= 2,
+              f"[moe-ep] rank {i}: {leg['max_live_layers']} layers' gathered params alive")
+    for fault in MOE_EP_FAULTS:
+        loss_err, norm_err = (max(e) for e in zip(*(
+            _moe_ep_errs(r["faults"][fault], ref) for r in ranks)))
+        caught = [bar for bar, e, tol in (("loss", loss_err, MOE_EP_LOSS_RTOL),
+                                          ("gradient norm", norm_err, MESH_LM_NORM_RTOL))
+                  if e > tol]
+        print(f"[moe-ep] planted fault {fault}: losses rel err {loss_err:.3e}, gradient norms "
+              f"{norm_err:.3e}; caught by {caught or 'no bar'}")
+        check(bool(caught), f"[moe-ep] the planted fault {fault} passes every bar")
+    return [r["ep2"]["launches"] for r in ranks]
+
+
+def _moe_ep_errs(leg, ref):
+    loss_err = max(abs(a - b) / abs(b) for a, b in zip(leg["losses"], ref["losses"]))
+    norm_err = max(abs(a - b) / abs(b) for a, b in zip(leg["grad_norms"], ref["grad_norms"]))
+    return loss_err, norm_err
 
 
 def main() -> int:
@@ -3671,8 +4255,10 @@ def main() -> int:
         return 2
     here = os.path.dirname(os.path.abspath(__file__))
     sys.path.insert(0, here)
-    if sys.argv[1:2] == ["--mesh-2rank-child"]:
-        return mesh_2rank_child(sys.argv[2])
+    children = {"--mesh-2rank-child": mesh_2rank_child, "--mesh-lm-child": mesh_lm_child,
+                "--moe-ep-child": moe_ep_child}
+    if sys.argv[1:2] and sys.argv[1] in children:
+        return children[sys.argv[1]](sys.argv[2])
     import accelerate_tpu_torch
     from accelerate_tpu_torch import LlamaConfig, init_llama
     from accelerate_tpu_torch.utils.device import gpu_info
@@ -3731,10 +4317,12 @@ def main() -> int:
     phase_lm774m_check(dev)
     phase_resnet(dev)
     phase_t5(dev)
-    moe_engine_launches, moe_train_launches, _ = phase_moe(dev)
+    moe_engine_launches, moe_train_launches, moe_leg = phase_moe(dev)
     phase_mesh_ops(dev)
     fsdp_launches, _ = phase_fsdp_lm(dev, lm_ref)
     mesh_launches = phase_mesh_2rank(dev)
+    mesh_lm_launches = phase_mesh_lm774m(dev, lm_ref)
+    moe_ep_launches = phase_moe_ep(dev, moe_leg)
 
     keys =("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     records = []
@@ -3771,6 +4359,7 @@ def main() -> int:
     ):
         rec = flash_results[("llama_long", kind, torch.bfloat16)]
         lm_rec = flash_results[("lm774m", kind, torch.bfloat16)]
+        rank_rec = flash_results[("lm774m_rank", kind, torch.bfloat16)]
         moe_rec = flash_results[("moe_train", kind, torch.bfloat16)]
         mesh_recs = {case: flash_results[(case, kind, torch.float32)]
                      for case in ("mesh_2rank", "mesh_2rank_b1")}
@@ -3779,6 +4368,7 @@ def main() -> int:
                         "replaces": f"accelerate_tpu/ops/flash_attention.py:{line}",
                         "launches": llama_launches[name], **{k: rec[k] for k in keys},
                         "lm774m": {k: lm_rec[k] for k in keys},
+                        "lm774m_rank": {k: rank_rec[k] for k in keys},
                         "moe_train": {k: moe_rec[k] for k in keys},
                         **{f"{case}_f32": {k: r[k] for k in keys}
                            for case, r in mesh_recs.items()},
@@ -3787,7 +4377,9 @@ def main() -> int:
                         "launches_moe_train": moe_train_launches[name],
                         "launches_fsdp_lm": fsdp_launches[name],
                         "launches_mesh_2rank": {leg: [r[name] for r in per_rank]
-                                                for leg, per_rank in mesh_launches.items()}})
+                                                for leg, per_rank in mesh_launches.items()},
+                        "launches_mesh_lm774m": [r[name] for r in mesh_lm_launches],
+                        "launches_moe_ep": [r[name] for r in moe_ep_launches]})
     print(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(card)
     print(json.dumps({"kernels": records}))

@@ -4,37 +4,68 @@ run.
 
 One launch of 4 ``gloo`` processes (:mod:`accelerate_tpu_torch.test_utils.
 scripts.multihost_script`, scenario ``mesh_train``) runs Llama at tiny
-widths and 4 layers (f32, plain attention, global batch 8 × 64,
-``adamw(1e-3)``, 5 steps, a random ``loss_mask`` so that the ranks' rows
-count different numbers of positions) on four meshes: (dp_replicate 2, dp_shard 2), (dp_shard 2, tp 2) and (tp 4) with
-``llama_tp_rules`` on the two with ``tp``, and (dp_replicate 4) with fused
-ZeRO-1. The JAX package runs the same steps through its ``Accelerator``
-with the same ``ParallelismConfig``, rules and ``DeepSpeedPlugin
-(zero_stage=1)``; the port's one-process run is the plain step on the whole
-batch. Params come from the JAX initializer, token ids from a seeded
-numpy generator. The depth is 4, not tiny's 2, because ``llama_tp_rules``
-put ``tp`` on dim 0 of the stacked tree, the layer axis, and the JAX
-package refuses to split 2 layers 4 ways.
+widths and 4 layers (f32, plain attention, global batch 8 × 64, a random
+``loss_mask`` so that the ranks' rows count different numbers of
+positions) on many meshes; the JAX package runs the same steps through its
+``Accelerator`` with the same ``ParallelismConfig``, rules, optimizer and
+``DeepSpeedPlugin(zero_stage=1)``; the port's one-process run is the plain
+step on the whole batch. Params come from the JAX initializer, token ids
+from a seeded numpy generator. The depth is 4, not tiny's 2, because
+``llama_tp_rules`` put ``tp`` on dim 0 of the stacked tree, the layer
+axis, and the JAX package refuses to split 2 layers 4 ways. Every step
+gathers the stacked layers one at a time (``LayerStack``).
+
+- ``adamw(1e-3)``, 5 steps, on (dp_replicate 2, dp_shard 2), (dp_shard 2,
+  tp 2) and (tp 4) with ``llama_tp_rules`` on the two with ``tp``, and
+  (dp_replicate 4) with fused ZeRO-1, which holds a quarter of the AdamW
+  moments on each rank.
+- 3 steps each: ``adafactor(1e-3)`` and ``chain(clip_by_global_norm(1.0),
+  adafactor(1e-3))`` (the gradient norm is about 1.75, so the clip acts)
+  under (dp_shard 2, tp 2) with ``llama_tp_rules`` and under dp_shard 4
+  (the JAX package cannot place adafactor's factored state on split params
+  — its ``tree_specs_like`` hands the moments' ``(1,)`` placeholders the
+  params' specs — so its run of the same global function is on
+  dp_replicate 4);
+  fp16 under dp_shard 4 with a scaler whose first step overflows (a scale
+  of 2**40; backoff 2**-30, growth 2**30 every 2 finite steps, so every
+  decision is clear-cut); ZeRO-1 where the fused update cannot run —
+  (dp_replicate 2, tp 2), ``ACCELERATE_ZERO1_FUSED=0``, and a non-floating
+  leaf — which shards the optimizer state by annotation, as JAX's
+  ``zero1_state_specs`` says.
+- one step at each remat policy (``False``, ``True``, ``"dots_no_batch"``)
+  under dp_shard 4 (each rank holds one whole layer: a gather is a
+  broadcast) and (dp_shard 2, tp 2): at most 2 layers' gathered params
+  alive at once on every rank, through forward, backward and recompute.
+- ``gradient_fn`` under (dp_shard 2, tp 2): each rank's blocks of JAX's
+  ``jax.value_and_grad`` of the global loss.
+- fp16 under dp_shard 4 with an infinity planted in one rank's block of
+  one gradient: every rank takes the same decision.
 
 Tolerances, f32 on every side with the sums in another order: losses and
 the global gradient norms (which a gradient summed over the wrong axes
 moves, where AdamW's normalised step hides it) within 1e-5 relative of
-both references; final params within 1e-5 relative
-in L2 per leaf of the port's one-process run, and within 2e-5 of the JAX
-package's run on the same mesh. AdamW's g / (|g| + eps) turns the rounding
-noise of near-zero gradient elements into parts of lr, so each of two
-correct runs sits about 1e-5 from a common reference, in opposite
-directions: measured on ``layers/wk/kernel``, the JAX package's tp 4 run is
-6.7e-6 from its own one-device run, and the port's one-process run 5.7e-6
-from that same JAX run. The fused ZeRO-1 leg holds a quarter of the AdamW
-moments on each rank. The same launch asks for ZeRO-1 where the fused
-update cannot run, which must raise.
+both references; final params within 1e-5 relative in L2 per leaf of the
+port's one-process run, and within 2e-5 of the JAX package's run on the
+same mesh. AdamW's g / (|g| + eps) turns the rounding noise of near-zero
+gradient elements into parts of lr, so each of two correct runs sits about
+1e-5 from a common reference, in opposite directions: measured on
+``layers/wk/kernel``, the JAX package's tp 4 run is 6.7e-6 from its own
+one-device run, and the port's one-process run 5.7e-6 from that same JAX
+run. Adafactor divides by the root of its second moments as AdamW does:
+the same bars. ``gradient_fn``'s blocks within 1e-5 of the largest
+magnitude of JAX's gradient leaf (f32 sums in another order). fp16: the
+frameworks round matmul outputs at different places, so losses within
+2e-3 relative and params within 2e-2 relative L2 (the bars of
+``tests/test_torch_grad_accum.py`` for fp16, whose docstring gives the
+measurements), while the loss-scale and finite-flag sequences are
+decisions and must equal JAX's exactly.
 """
 
 import dataclasses
 import json
 
 import jax
+import jax.numpy as jnp
 import numpy as np
 import optax
 import pytest
@@ -47,12 +78,18 @@ from accelerate_tpu.state import AcceleratorState as JAcceleratorState
 from accelerate_tpu.state import GradientState as JGradientState
 from accelerate_tpu.state import PartialState as JPartialState
 from accelerate_tpu.utils.dataclasses import DeepSpeedPlugin as JDeepSpeedPlugin
+from accelerate_tpu.utils.dataclasses import GradScalerConfig as JGradScalerConfig
+from accelerate_tpu_torch.parallel.sharding import infer_param_specs, llama_tp_rules, local_shard
+from accelerate_tpu_torch.parallelism_config import ParallelismConfig
+from accelerate_tpu_torch.utils.environment import patch_environment
 from accelerate_tpu_torch.state import AcceleratorState, GradientState
 from accelerate_tpu_torch.test_utils.scripts import multihost_script as ms
 from accelerate_tpu_torch.test_utils.testing import execute_multiprocess
 
 SCRIPT = ["-m", "accelerate_tpu_torch.test_utils.scripts.multihost_script"]
 LEGS = {name: (pc, zero1, tp) for name, pc, zero1, tp in ms.MESH_LEGS}
+OPTIONS = {name: (pc, tp, opts) for name, pc, tp, opts in ms.OPTION_LEGS}
+REMATS = {name: (pc, tp, opts) for name, pc, tp, opts in ms.REMAT_LEGS}
 B, S = 8, 64
 CFG = dataclasses.replace(jt.LlamaConfig.tiny(), n_layers=4)
 
@@ -84,15 +121,18 @@ def run(tmp_path_factory):
                "loss_mask": (rng.random((ms.MESH_STEPS, B, S)) < 0.7).astype(np.int32)}
     np.savez(tmp / "llama_batches.npz", **batches)
     outs = execute_multiprocess(SCRIPT + ["--scenario", "mesh_train", "--tmpdir", str(tmp)],
-                                num_processes=4, timeout=120)
+                                num_processes=4, timeout=300)
     for out in outs:
         assert "ALL OK" in out, out[-2000:]
     with open(tmp / "mesh_train.json") as f:
         report = json.load(f)
     legs = {}
-    for name in LEGS:
+    for name in [*LEGS, *OPTIONS, *REMATS]:
         with np.load(tmp / f"mesh_{name}.npz") as f:
             legs[name] = {k: f[k] for k in f.files}
+    for i in range(4):
+        with np.load(tmp / f"grads_rank{i}.npz") as f:
+            legs[f"grads_rank{i}"] = {k: f[k] for k in f.files}
     return jparams, batches, report, legs
 
 
@@ -108,26 +148,48 @@ def world1(run):
         GradientState._reset_state()
 
 
-def _jax_leg(jparams, batches, pc_kwargs, zero1, tp):
+def _jax_optimizer(factory: str):
+    if factory == "adamw":
+        return optax.adamw(ms.MESH_LR)
+    if factory == "adafactor":
+        return optax.adafactor(ms.MESH_LR)
+    return optax.chain(optax.clip_by_global_norm(1.0), optax.adafactor(ms.MESH_LR))
+
+
+def _jax_leg(jparams, batches, pc_kwargs, zero1, tp, factory="adamw", precision="no",
+             scaler=None, steps=None, env=None):
     _reset_jax()
     # host copies: the JAX step donates the params it is given
     jparams = jax.tree_util.tree_map(np.array, jparams)
     try:
-        acc = JAccelerator(parallelism_config=JParallelismConfig(**pc_kwargs),
-                           deepspeed_plugin=JDeepSpeedPlugin(zero_stage=1) if zero1 else None,
-                           shard_rules=j_llama_tp_rules() if tp else None)
-        cfg = CFG
-        params, opt = acc.prepare(jparams, optax.adamw(ms.MESH_LR))
-        step = acc.prepare_train_step(lambda p, b: jt.llama_loss(p, b, cfg, mesh=acc.mesh),
-                                      compute_grad_norm=True)
-        state, losses, norms = opt.opt_state, [], []
-        for k in range(batches["input_ids"].shape[0]):
-            params, state, metrics = step(params, state, {n: b[k] for n, b in batches.items()})
-            losses.append(float(metrics["loss"]))
-            norms.append(float(metrics["grad_norm"]))
-        return losses, norms, _flat(params)
+        with patch_environment(**(env or {})):
+            return _jax_steps(jparams, batches, pc_kwargs, zero1, tp, factory, precision, scaler,
+                              steps)
     finally:
         _reset_jax()
+
+
+def _jax_steps(jparams, batches, pc_kwargs, zero1, tp, factory, precision, scaler, steps):
+    acc = JAccelerator(parallelism_config=JParallelismConfig(**pc_kwargs),
+                       mixed_precision=precision,
+                       deepspeed_plugin=JDeepSpeedPlugin(zero_stage=1) if zero1 else None,
+                       shard_rules=j_llama_tp_rules() if tp else None,
+                       grad_scaler_config=JGradScalerConfig(**scaler) if scaler else None)
+    cfg = CFG
+    params, opt = acc.prepare(jparams, _jax_optimizer(factory))
+    step = acc.prepare_train_step(lambda p, b: jt.llama_loss(p, b, cfg, mesh=acc.mesh),
+                                  compute_grad_norm=True)
+    state, out = opt.opt_state, {"losses": [], "grad_norms": [], "loss_scale": [],
+                                 "grads_finite": []}
+    for k in range(batches["input_ids"].shape[0] if steps is None else steps):
+        params, state, metrics = step(params, state, {n: b[k] for n, b in batches.items()})
+        out["losses"].append(float(metrics["loss"]))
+        out["grad_norms"].append(float(metrics["grad_norm"]))
+        if precision == "fp16":
+            out["loss_scale"].append(float(metrics["loss_scale"]))
+            out["grads_finite"].append(bool(metrics["grads_finite"]))
+    out["params"] = _flat(params)
+    return out
 
 
 def _rel_l2(a, b) -> float:
@@ -138,7 +200,8 @@ def _rel_l2(a, b) -> float:
 def test_mesh_leg_matches_jax_and_one_process(run, world1, leg):
     jparams, batches, report, legs = run
     pc, zero1, tp = LEGS[leg]
-    j_losses, j_norms, j_params = _jax_leg(jparams, batches, pc, zero1, tp)
+    jax_leg = _jax_leg(jparams, batches, pc, zero1, tp)
+    j_losses, j_norms, j_params = jax_leg["losses"], jax_leg["grad_norms"], jax_leg["params"]
     losses = report[leg]["losses"]
     assert report[leg]["fused_zero1"] == zero1
     np.testing.assert_allclose(losses, j_losses, rtol=1e-5)
@@ -154,15 +217,155 @@ def test_mesh_leg_matches_jax_and_one_process(run, world1, leg):
         assert _rel_l2(got, j_params[path]) <= 2e-5, (path, _rel_l2(got, j_params[path]))
 
 
-@pytest.mark.parametrize("case", [c[0] for c in ms.ZERO1_REFUSALS])
-def test_zero1_without_the_fused_path_raises(run, case):
+def _hold(got: dict, want: dict, loss_rtol: float, param_rtol: float, norm_rtol=None):
+    np.testing.assert_allclose(got["losses"], want["losses"], rtol=loss_rtol)
+    np.testing.assert_allclose(got["grad_norms"], want["grad_norms"],
+                               rtol=loss_rtol if norm_rtol is None else norm_rtol)
+    assert sorted(got["params"]) == sorted(want["params"])
+    for path, value in got["params"].items():
+        assert value.shape == want["params"][path].shape, path
+        err = _rel_l2(value, want["params"][path])
+        assert err <= param_rtol, (path, err)
+
+
+def _option_leg(run, name, adafactor_refs):
+    jparams, batches, report, legs = run
+    pc, tp, opts = OPTIONS[name]
+    steps = {n: b[:ms.OPTION_STEPS] for n, b in batches.items()}
+    factory = opts.get("factory", "adamw")
+    if "adafactor" in factory:
+        # the JAX package cannot place adafactor's state on split params (its
+        # tree_specs_like hands the factored moments' placeholders the
+        # params' specs): the same global function on dp_replicate 4, run
+        # once for both meshes
+        if factory not in adafactor_refs:
+            adafactor_refs[factory] = _jax_leg(jparams, steps, {"dp_replicate_size": 4}, False,
+                                               False, factory=factory)
+        return {**report[name], "params": legs[name]}, adafactor_refs[factory]
+    jax_leg = _jax_leg(jparams, steps, pc, opts.get("zero1", False), tp, factory=factory,
+                       precision=opts.get("precision", "no"), scaler=opts.get("scaler"))
+    return {**report[name], "params": legs[name]}, jax_leg
+
+
+@pytest.fixture(scope="module")
+def adafactor_refs():
+    """The JAX adafactor runs, by factory, shared by the legs of both meshes."""
+    return {}
+
+
+ZERO1_CASES = {"dp_replicate2_tp2": "zero1_dp_replicate2_tp2", "fused_off": "zero1_fused_off",
+               "int_leaf": "zero1_int_leaf"}
+
+
+@pytest.mark.parametrize("case", list(ZERO1_CASES))
+def test_zero1_without_the_fused_path_raises(run, world1, case):
     """ZeRO-1 on a composite mesh, with ``ACCELERATE_ZERO1_FUSED=0`` or
-    with a non-floating leaf: the JAX package shards the optimizer state by
-    annotation there, which the port has not ported, so ``prepare`` raises
-    rather than keep the whole state on every rank."""
-    got = run[2]["zero1_refusals"][case]
-    assert got is not None and got.startswith("NotImplementedError"), got
-    assert "Queue A item 6" in got
+    with a non-floating leaf, where the fused update cannot run. These
+    raised until the annotation path was ported; the name is kept, and the
+    case now runs: the optimizer state is sharded by annotation (each rank
+    owns dim-0 rows of the moments of every param no other axis splits,
+    updates them and all-gathers them), held to the JAX package's
+    annotation run and to one process. The JAX package refuses to step
+    with an int leaf (``jax.grad`` takes no integer input), so that case is
+    held to its run without the leaf, whose float leaves are the same
+    function; the port keeps no state for the int leaf, which has no
+    gradient. Per-rank state bytes: AdamW's two moments of each rank's
+    block, halved again over ``dp_replicate`` where JAX's
+    ``zero1_state_specs`` splits a leaf."""
+    jparams, batches, report, legs = run
+    name = ZERO1_CASES[case]
+    pc, tp, opts = OPTIONS[name]
+    leg = report[name]
+    assert leg["zero1_rows"] and not leg["fused_zero1"]
+    steps = {n: b[:ms.OPTION_STEPS] for n, b in batches.items()}
+    jax_leg = _jax_leg(jparams, steps, pc, True, tp, env=opts.get("env"))
+    got = {**leg, "params": {k: v for k, v in legs[name].items() if k != "step/count"}}
+    _hold(got, jax_leg, 1e-5, 2e-5)
+    if opts.get("int_leaf"):
+        np.testing.assert_array_equal(legs[name]["step/count"], np.zeros(4, np.int32))
+    np.testing.assert_allclose(leg["losses"], world1["losses"][:ms.OPTION_STEPS], rtol=1e-5)
+    sizes = {"dp_replicate": pc.get("dp_replicate_size", 1), "tp": pc.get("tp_size", 1)}
+    specs = infer_param_specs(jparams, sizes, None, llama_tp_rules() if tp else None)
+    want = 0
+    for x, spec in zip(jax.tree_util.tree_leaves(jparams), jax.tree_util.tree_leaves(
+            specs, is_leaf=lambda t: isinstance(t, tuple))):
+        n = int(np.prod(np.shape(local_shard(np.asarray(x), spec, sizes,
+                                             {"dp_replicate": 0, "tp": 0}))))
+        if not any(d is not None for d in spec) and x.shape[0] % sizes["dp_replicate"] == 0:
+            n //= sizes["dp_replicate"]
+        want += 2 * n * 4
+    assert leg["opt_state_bytes"] == [want] * 4, (leg["opt_state_bytes"], want)
+    assert want < world1["opt_state_bytes"]
+
+
+@pytest.mark.parametrize("leg", [n for n in OPTIONS if not n.startswith("zero1")])
+def test_option_leg_matches_jax(run, world1, adafactor_refs, leg):
+    """adafactor, a global-norm clip before it, and fp16 on split params."""
+    got, jax_leg = _option_leg(run, leg, adafactor_refs)
+    if OPTIONS[leg][2].get("precision") == "fp16":
+        for rank_scales, rank_finite in zip(got["loss_scale"], got["grads_finite"]):
+            assert rank_scales == jax_leg["loss_scale"]
+            assert rank_finite == jax_leg["grads_finite"]
+        assert jax_leg["grads_finite"][0] is False and all(jax_leg["grads_finite"][1:])
+        _hold(got, jax_leg, 2e-3, 2e-2, norm_rtol=2e-2)
+        return
+    _hold(got, jax_leg, 1e-5, 2e-5)
+    if "clip" in leg:  # the clip acted
+        plain = run[2][leg.replace("clip_", "")]
+        assert min(got["grad_norms"]) > 1.0
+        assert plain["losses"][-1] != got["losses"][-1]
+
+
+@pytest.mark.parametrize("leg", list(REMATS))
+def test_live_gathered_layers_stay_within_two(run, world1, leg):
+    """Through the forward (with the next layer's gather in flight), the
+    backward and the recompute, no rank holds more than two layers'
+    gathered params at once; every layer was gathered at least twice (the
+    forward, and the backward or the recompute), and the step's numbers
+    are the one-process step's."""
+    _, _, report, legs = run
+    got = report[leg]
+    n_layers = CFG.n_layers
+    for stats in got["layer_stats"]:
+        assert 1 <= stats["max_live_layers"] <= 2, stats
+        assert stats["gathers"] >= 2 * n_layers, stats
+    np.testing.assert_allclose(got["losses"], world1["losses"][:1], rtol=1e-5)
+    np.testing.assert_allclose(got["grad_norms"], world1["grad_norms"][:1], rtol=1e-5)
+
+
+def test_gradient_fn_gives_each_rank_its_blocks_of_jax_gradient(run):
+    jparams, batches, report, legs = run
+    batch = {n: jnp.asarray(b[0]) for n, b in batches.items()}
+    value, grads = jax.jit(jax.value_and_grad(lambda p: jt.llama_loss(p, batch, CFG)))(jparams)
+    want = _flat(grads)
+    sizes = {"dp_shard": 2, "tp": 2}
+    specs = _flat_specs(infer_param_specs(
+        jax.tree_util.tree_map(np.asarray, jparams), sizes,
+        ParallelismConfig(dp_shard_size=2, tp_size=2), llama_tp_rules()))
+    for i, rank in enumerate(report["gradient_fn"]):
+        assert rank["params_grad_untouched"]
+        np.testing.assert_allclose(rank["value"], float(value), rtol=1e-5)
+        got = legs[f"grads_rank{i}"]
+        assert sorted(got) == sorted(want)
+        for path, g in got.items():
+            block = local_shard(want[path], specs[path], sizes, rank["coords"])
+            assert g.shape == block.shape, path
+            np.testing.assert_allclose(g, block, rtol=0, atol=1e-5 * np.abs(want[path]).max(),
+                                       err_msg=path)
+
+
+def _flat_specs(specs) -> dict:
+    from accelerate_tpu_torch.parallel.sharding import _map_with_path
+
+    out = {}
+    _map_with_path(lambda path, s: out.__setitem__(path, s), specs)
+    return out
+
+
+def test_fp16_overflow_on_one_rank_is_every_ranks_decision(run):
+    got = run[2]["fp16_local_overflow"]
+    assert [r["grads_finite"] for r in got] == [[True, False, True]] * 4
+    assert len({tuple(r["loss_scale"]) for r in got}) == 1
 
 
 def test_fused_zero1_holds_a_quarter_of_the_optimizer_state(run, world1):

@@ -25,8 +25,10 @@ with params from the JAX initializers (``init_moe_ffn`` /
 - each remat policy's gradients equal the no-remat ones bitwise (one
   thread); ``"dots"`` alone saves the batched expert products, and every
   named policy saves the router's product, as JAX's policies do;
-- ``mesh=`` and ``moe_shard_rules`` raise naming Queue A item 6; the
-  device rule of ``init_moe_ffn``.
+- ``moe_shard_rules`` is the JAX package's table, and ``mesh=`` on a mesh
+  of one rank is the plain function (the meshed function over 4 processes
+  is held to JAX in ``tests/test_torch_mesh_moe.py``); the device rule of
+  ``init_moe_ffn``.
 """
 
 import dataclasses
@@ -153,9 +155,10 @@ def test_routing_keeps_the_tokens_jax_dispatches(ffn_params):
         jnp.einsum = real_einsum
     r = tm.route(torch.from_numpy(npp["router"]["kernel"]), torch.from_numpy(x), 2, 0.75, 8)
     mine = np.zeros_like(captured["dispatch"])
-    for gi, n, k in np.ndindex(*r.idx.shape):
-        if r.keep[gi, n, k]:
-            mine[gi, n, int(r.idx[gi, n, k]), int(r.pos[gi, n, k])] = 1.0
+    for t, k in np.ndindex(*r.idx.shape):
+        if r.keep[t, k]:
+            gi, n = divmod(t, r.g)
+            mine[gi, n, int(r.idx[t, k]), int(r.pos[t, k])] = 1.0
     assert (~r.keep).any()
     np.testing.assert_array_equal(mine, captured["dispatch"])
 
@@ -288,12 +291,20 @@ def test_remat_policies_equal_no_remat(params, remat, one_thread):
 
 
 def test_mesh_raises_and_device_rule(ffn_params, monkeypatch):
-    _, npp = ffn_params
+    """(The name is from when ``mesh=`` and ``moe_shard_rules`` raised; they
+    are ported now and held to the JAX package here.)"""
+    from accelerate_tpu_torch.parallelism_config import ParallelismConfig
+
+    jp, npp = ffn_params
     tp = params_from_numpy(npp, **CPU)
-    with pytest.raises(NotImplementedError, match="Queue A item 6"):
-        tm.moe_ffn(tp, torch.zeros(1, 4, D), mesh=object())
-    with pytest.raises(NotImplementedError, match="Queue A item 6"):
-        tm.moe_shard_rules()
+    x = np.random.default_rng(3).normal(size=(2, 12, D)).astype(np.float32)
+    jy, jaux = jm.moe_ffn(jp, jnp.asarray(x), top_k=2, capacity_factor=0.75, group_size=8)
+    ty, taux = tm.moe_ffn(tp, torch.from_numpy(x), top_k=2, capacity_factor=0.75, group_size=8,
+                          mesh=ParallelismConfig().build_mesh(1))
+    np.testing.assert_allclose(ty.numpy(), np.asarray(jy), atol=1e-6, rtol=0)
+    np.testing.assert_allclose(float(taux), float(jaux), rtol=1e-6)
+    rules = [(pat.pattern, tuple(spec)) for pat, spec in tm.moe_shard_rules().rules]
+    assert rules == [(pat.pattern, tuple(spec)) for pat, spec in jm.moe_shard_rules().rules]
     with pytest.raises(NotImplementedError, match="Queue A item 8"):
         tt.init_llama(dataclasses.replace(TCFG, dtype_recipe="fp8"), **CPU)
     got = tm.init_moe_ffn(torch.Generator().manual_seed(0), D, F, E, **CPU)
