@@ -62,7 +62,7 @@ Ported so far:
 """
 
 from .accelerator import Accelerator
-from .data_loader import DataLoader
+from .data_loader import DataLoader, skip_first_batches
 from .optimizer import (
     constant_schedule,
     cosine_decay_schedule,
@@ -73,6 +73,7 @@ from .parallelism_config import ParallelismConfig
 from .scheduler import AcceleratedScheduler
 from .state import AcceleratorState, GradientState, PartialState
 from .utils.dataclasses import (
+    DataLoaderConfiguration,
     DeepSpeedPlugin,
     DistributedType,
     DummyOptim,
@@ -95,10 +96,12 @@ from .big_modeling import (
 from .generation import (
     beam_generate,
     generate_dispatched,
+    generation_shardings,
     greedy_generate,
     init_kv_cache,
     sample_generate,
     sample_token_logits,
+    serving_shardings,
     unstack_layer_params,
 )
 from .models.transformer import (
@@ -106,12 +109,14 @@ from .models.transformer import (
     LlamaConfig,
     bert_forward,
     bert_loss,
+    bert_shard_rules,
     draft_config,
     draft_params,
     init_bert,
     init_llama,
     llama_forward,
     llama_loss,
+    llama_shard_rules,
 )
 from .models.resnet import ResNetConfig, init_resnet, resnet_forward, resnet_loss
 from .models.t5 import (
@@ -145,6 +150,7 @@ __all__ = [
     "BertConfig",
     "BucketLattice",
     "DataLoader",
+    "DataLoaderConfiguration",
     "DeepSpeedPlugin",
     "DispatchedParams",
     "DistributedType",
@@ -166,6 +172,7 @@ __all__ = [
     "beam_generate",
     "bert_forward",
     "bert_loss",
+    "bert_shard_rules",
     "compute_module_sizes",
     "constant_schedule",
     "cosine_decay_schedule",
@@ -179,6 +186,7 @@ __all__ = [
     "find_tied_parameters",
     "flash_attention",
     "generate_dispatched",
+    "generation_shardings",
     "get_balanced_memory",
     "get_max_memory",
     "greedy_generate",
@@ -194,6 +202,7 @@ __all__ = [
     "linear_schedule",
     "llama_forward",
     "llama_loss",
+    "llama_shard_rules",
     "load_checkpoint_and_dispatch",
     "load_checkpoint_in_params",
     "moe_ffn",
@@ -202,6 +211,8 @@ __all__ = [
     "resnet_loss",
     "sample_generate",
     "sample_token_logits",
+    "serving_shardings",
+    "skip_first_batches",
     "t5_decode",
     "t5_encode",
     "t5_forward",

@@ -28,7 +28,9 @@ through one :func:`~.parallel.sharding.make_sharding_plan` call,
 ``prepare_optimizer`` binds the optimizer to those blocks (or, with
 ``DeepSpeedPlugin(zero_stage=1)`` on a pure data-parallel mesh, to this
 rank's chunks of the fused ZeRO-1 buckets), and ``prepare_data_loader``
-gives each rank its data-parallel row's batches. The same step then
+gives each rank its data-parallel row's batches (as
+``dataloader_config`` says: prefetch depth, seeding, dispatch, stateful
+loaders; ``rng_types`` are synchronized each epoch). The same step then
 gathers the params, runs ``loss_fn`` on the rank's rows, sums the gradients
 over the batch ranks and divides by their count (the mean over the global
 batch when every rank's loss is the mean over its rows; ``llama_loss(mesh=)``
@@ -57,11 +59,12 @@ from typing import Callable, Optional, Sequence
 import numpy as np
 import torch
 
-from .data_loader import DataLoader, DataLoaderShard, prepare_data_loader
+from .data_loader import DataLoader, DataLoaderShard, prepare_data_loader, skip_first_batches
 from .optimizer import AcceleratedOptimizer, OptimizerFactory, param_leaves
 from .scheduler import AcceleratedScheduler
 from .state import AcceleratorState, GradientState
 from .utils.dataclasses import (
+    DataLoaderConfiguration,
     DummyOptim,
     DummyScheduler,
     GradientAccumulationPlugin,
@@ -142,8 +145,12 @@ class Accelerator:
     ``deepspeed_plugin=DeepSpeedPlugin(zero_stage=1)`` shards the optimizer
     state over ``dp_replicate`` through the fused ZeRO-1 update (on a pure
     data-parallel mesh of floating params, by annotation elsewhere);
-    ``shard_rules`` (such as :func:`~.parallel.sharding.llama_tp_rules`)
-    are the TP table."""
+    ``shard_rules`` (such as :func:`~.models.transformer.llama_shard_rules`)
+    are the TP table, which ``prepare(..., shard_rules=)`` overrides;
+    ``dataloader_config`` (:class:`~.utils.dataclasses.
+    DataLoaderConfiguration`) and ``rng_types`` (``["numpy"]`` by default,
+    synchronized from rank 0 at each epoch under more than one process)
+    set how loaders are prepared."""
 
     def __init__(self, mixed_precision: Optional[str] = None, rng_seed: Optional[int] = None,
                  cpu: bool = False, device_placement: bool = True,
@@ -154,7 +161,9 @@ class Accelerator:
                  kwargs_handlers: Optional[Sequence] = None,
                  parallelism_config: Optional[ParallelismConfig] = None,
                  deepspeed_plugin: Optional[DeepSpeedPlugin] = None,
-                 shard_rules: Optional[ShardingRules] = None):
+                 shard_rules: Optional[ShardingRules] = None,
+                 dataloader_config: Optional[DataLoaderConfiguration] = None,
+                 rng_types: Optional[Sequence[str]] = None):
         precision = PrecisionType(str(mixed_precision if mixed_precision is not None
                                       else os.environ.get("ACCELERATE_MIXED_PRECISION", "no")))
         if precision == PrecisionType.FP8:
@@ -178,6 +187,8 @@ class Accelerator:
         self._zero1_axis = ("dp_replicate" if getattr(deepspeed_plugin, "zero_stage", None) == 1
                             else None)
         self.shard_rules = shard_rules
+        self.dataloader_config = dataloader_config or DataLoaderConfiguration()
+        self.rng_types = list(rng_types) if rng_types is not None else ["numpy"]
         self._sharding_plan = None
         self.state = AcceleratorState(mixed_precision=precision.value, cpu=cpu, device=device,
                                       parallelism_config=parallelism_config)
@@ -318,9 +329,10 @@ class Accelerator:
         return ops.pad_across_processes(tree, dim=dim, pad_index=pad_index, pad_first=pad_first)
 
     # --------------------------------------------------------------- prepare --
-    def prepare(self, *args):
+    def prepare(self, *args, shard_rules: Optional[ShardingRules] = None):
         """Prepare each argument by type: a param dict is placed on the
-        device (:meth:`prepare_model`), an optimizer or a factory such as
+        device (:meth:`prepare_model`, with ``shard_rules`` when given, else
+        the ``Accelerator``'s), an optimizer or a factory such as
         :func:`~accelerate_tpu_torch.optimizer.adamw` becomes an
         :class:`AcceleratedOptimizer` over those params, a :class:`DataLoader`
         yields batches on the device, a ``torch`` lr scheduler becomes an
@@ -334,7 +346,7 @@ class Accelerator:
         placed = set()
         for i, obj in enumerate(args):  # params first: the optimizers bind to them
             if _is_param_tree(obj):
-                results[i] = params_seen = self.prepare_model(obj)
+                results[i] = params_seen = self.prepare_model(obj, shard_rules=shard_rules)
                 placed.add(i)
         dummy_scheds = [o for o in args if isinstance(o, DummyScheduler)]
         dummy_optims = [o for o in args if isinstance(o, DummyOptim)]
@@ -359,7 +371,7 @@ class Accelerator:
                                   "DummyOptim's learning rate; it keeps its constant lr",
                                   stacklevel=2)
                 results[i] = self.prepare_optimizer(obj.to_adamw(learning_rate=schedule_fn))
-            elif isinstance(obj, (DataLoader, DataLoaderShard)):
+            elif isinstance(obj, (DataLoader, DataLoaderShard, torch.utils.data.DataLoader)):
                 results[i] = self.prepare_data_loader(obj)
             elif isinstance(obj, (AcceleratedOptimizer, torch.optim.Optimizer, OptimizerFactory)):
                 results[i] = self.prepare_optimizer(obj)
@@ -448,9 +460,46 @@ class Accelerator:
 
     def prepare_data_loader(self, dataloader) -> DataLoaderShard:
         """This rank's batches on its device: the loader resharded over the
-        mesh's data-parallel rows (:func:`~.data_loader.prepare_data_loader`)."""
-        return prepare_data_loader(dataloader, self.device, mesh=self.mesh,
-                                   device_placement=self.device_placement)
+        mesh's data-parallel rows (:func:`~.data_loader.prepare_data_loader`)
+        as :attr:`dataloader_config` says. With ``use_stateful_dataloader``
+        a plain torch loader is rebuilt as torchdata's
+        ``StatefulDataLoader``; without torchdata that raises ``ImportError``
+        (``TypeError`` for a loader that cannot be rebuilt), as in the JAX
+        package."""
+        if isinstance(dataloader, DataLoaderShard):
+            return dataloader
+        cfg = self.dataloader_config
+        if cfg.use_stateful_dataloader and not isinstance(dataloader, DataLoader) and not (
+                hasattr(dataloader, "state_dict") and hasattr(dataloader, "load_state_dict")):
+            from .data_loader import as_stateful_dataloader, stateful_dataloader_available
+
+            rebuilt = as_stateful_dataloader(dataloader)
+            if rebuilt is None:
+                if stateful_dataloader_available():
+                    raise TypeError(
+                        "use_stateful_dataloader=True: "
+                        f"{type(dataloader).__name__} cannot be rebuilt as a torchdata "
+                        "StatefulDataLoader (only plain torch DataLoaders are rebuildable). "
+                        "Pass a StatefulDataLoader directly, or use the native DataLoader "
+                        "(stateful out of the box).")
+                raise ImportError(
+                    "use_stateful_dataloader=True but this loader has no "
+                    "state_dict/load_state_dict and torchdata>=0.8.0 is not installed to "
+                    "rebuild it. Install torchdata>=0.8.0, or use the native DataLoader "
+                    "(stateful out of the box).")
+            dataloader = rebuilt
+        return prepare_data_loader(
+            dataloader, self.device, mesh=self.mesh, device_placement=self.device_placement,
+            split_batches=cfg.split_batches, even_batches=cfg.even_batches,
+            dispatch_batches=cfg.dispatch_batches,
+            rng_types=self.rng_types if self.num_processes > 1 else None,
+            data_seed=cfg.data_seed, use_seedable_sampler=cfg.use_seedable_sampler,
+            prefetch_depth=cfg.prefetch_depth, non_blocking=cfg.non_blocking)
+
+    def skip_first_batches(self, dataloader, num_batches: int = 0):
+        """The loader resuming ``num_batches`` into its next epoch
+        (:func:`~.data_loader.skip_first_batches`)."""
+        return skip_first_batches(dataloader, num_batches)
 
     # ------------------------------------------------------------ train step --
     def _resolve_optimizer(self, optimizer) -> AcceleratedOptimizer:

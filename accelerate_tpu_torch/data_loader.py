@@ -18,15 +18,33 @@ global batch (:class:`GlobalBatchAssembler`), on the rank's device.
 :class:`DataLoaderDispatcher` reads on rank 0 only and broadcasts: the
 first batch of a structure as an object, every later one as one raw byte
 tensor, a short final batch padded to the signature's rows and trimmed by
-``gather_for_metrics``. Skip and resume, stateful and prefetching loaders
-and the native collate are not ported yet (ROADMAP.md Queue A item 6,
-second half).
+``gather_for_metrics``. A ``torch.utils.data.DataLoader`` is treated as the
+JAX package treats it: a plain map-style one is rebuilt as this module's
+loader (its ``RandomSampler`` as a :class:`SeedableRandomSampler` of
+``data_seed``) and resharded, a stateful one is kept (and dispatched from
+rank 0 under data parallelism), and one with a custom sampler or an
+iterable dataset is iterated as it is.
+
+A prepared loader resumes (``state_dict``/``load_state_dict``,
+:func:`skip_first_batches`, :class:`SkipDataLoader`), keeps the state of a
+stateful inner loader, synchronizes the host generators named in
+``rng_types`` at the start of each epoch, and reads ``prefetch_depth``
+batches ahead (2 by default) on a producer thread; on a CUDA device that
+thread copies each batch on the loader's side stream (a leaf of
+``_PIN_MIN_BYTES`` or more from pinned memory), and the batch is made
+ready (an event) when it is yielded. ``prefetch_depth=0`` is
+the synchronous path. The JAX package's native C++ collate for large
+leaves is not ported: ``np.stack`` gives the same bytes (ROADMAP.md Queue
+A item 6).
 """
 
 from __future__ import annotations
 
 import math
-from typing import Any, Callable, Iterable, Iterator, Optional
+import queue as _queue
+import threading
+import warnings
+from typing import Any, Callable, Iterable, Iterator, Optional, Sequence
 
 import numpy as np
 import torch
@@ -38,15 +56,43 @@ __all__ = [
     "BatchSampler",
     "BatchSamplerShard",
     "DataLoader",
+    "DataLoaderAdapter",
     "DataLoaderDispatcher",
     "DataLoaderShard",
+    "DataLoaderStateMixin",
     "GlobalBatchAssembler",
     "IterableDatasetShard",
     "SeedableRandomSampler",
     "SequentialSampler",
+    "SkipBatchSampler",
+    "SkipDataLoader",
+    "as_stateful_dataloader",
     "default_collate",
+    "get_sampler",
     "prepare_data_loader",
+    "skip_first_batches",
+    "stateful_dataloader_available",
 ]
+
+
+# a leaf this large goes to the card from pinned memory; a smaller one is
+# copied from pageable memory, which CUDA stages at once (pinning it
+# would add an allocation and a host copy and hide nothing)
+_PIN_MIN_BYTES = 1 << 20
+
+
+def _pop_next(q: "_queue.Queue", thread: threading.Thread):
+    """The producer's next item; raises if the producer died without one."""
+    while True:
+        try:
+            return q.get(timeout=1.0)
+        except _queue.Empty:
+            if not thread.is_alive():
+                try:  # its last item may have landed just after the timeout
+                    return q.get_nowait()
+                except _queue.Empty:
+                    raise RuntimeError(
+                        "prefetch producer thread died without a final item") from None
 
 
 class SeedableRandomSampler:
@@ -66,6 +112,13 @@ class SeedableRandomSampler:
     def __iter__(self) -> Iterator[int]:
         rng = np.random.default_rng(self.seed + self.epoch)
         yield from rng.permutation(self.data_source_len).tolist()
+
+    def state_dict(self) -> dict:
+        return {"seed": self.seed, "epoch": self.epoch}
+
+    def load_state_dict(self, state: dict) -> None:
+        self.seed = state["seed"]
+        self.epoch = state["epoch"]
 
 
 class SequentialSampler:
@@ -374,19 +427,40 @@ class DataLoaderShard:
     ``end_of_dataloader`` is already true while the last batch is in use,
     and ``remainder`` is then the real rows of the last global batch (the
     dataset's length modulo the global batch size) so that
-    ``gather_for_metrics`` can drop the rows ``even_batches`` repeated."""
+    ``gather_for_metrics`` can drop the rows ``even_batches`` repeated.
+
+    ``rng_types`` are synchronized from rank 0 at the start of each epoch;
+    ``skip_batches`` skips the first batches of the next epoch only (a
+    resume). ``state_dict`` is ``batches_seen``, ``iteration`` and the state
+    of the innermost stateful sampler, or, when the wrapped loader keeps
+    state of its own (``state_dict``/``load_state_dict``), that loader's
+    state as it was after the batch last yielded, tagged with
+    ``_iterator_finished``. With ``prefetch_depth > 0`` a producer thread
+    fetches, processes and (on CUDA, on the loader's side stream) copies
+    up to that many batches ahead; each item carries the snapshot
+    taken after its fetch, and the flags are applied when it is yielded, so
+    the batches, flags and states are those of ``prefetch_depth=0``."""
 
     def __init__(self, dataloader, device=None, assembler: Optional[GlobalBatchAssembler] = None,
                  total_dataset_length: Optional[int] = None,
-                 global_batch_size: Optional[int] = None):
+                 global_batch_size: Optional[int] = None,
+                 rng_types: Optional[Sequence[str]] = None, synchronized_generator=None,
+                 skip_batches: int = 0, prefetch_depth: int = 2, non_blocking: bool = True):
         from .state import GradientState
 
         self.base_dataloader = dataloader
         self.device = device
         self.assembler = assembler
+        self.rng_types = rng_types
+        self.synchronized_generator = synchronized_generator
+        self.skip_batches = skip_batches
+        self.prefetch_depth = max(0, int(prefetch_depth))
+        self.non_blocking = non_blocking
         self.gradient_state = GradientState()
         self.end_of_dataloader = False
         self.remainder = -1
+        self.iteration = 0  # the epoch counter
+        self._batches_seen = 0
         if total_dataset_length is None:
             dataset = getattr(dataloader, "dataset", None)
             if dataset is not None and hasattr(dataset, "__len__"):
@@ -395,6 +469,13 @@ class DataLoaderShard:
         if global_batch_size is None:
             global_batch_size = getattr(dataloader, "batch_size", None)
         self.global_batch_size = global_batch_size
+        # a wrapped loader with state of its own keeps it: state_dict serves a
+        # snapshot taken at the right yield, load_state_dict hands it inward
+        self._stateful_inner = (hasattr(dataloader, "state_dict")
+                                and hasattr(dataloader, "load_state_dict"))
+        self._inner_snapshot: Optional[dict] = None
+        self._inner_finished = False
+        self._side_stream = None  # made on the first CUDA epoch, kept for the next
 
     @property
     def batch_size(self):
@@ -405,44 +486,243 @@ class DataLoaderShard:
         return getattr(self.base_dataloader, "dataset", None)
 
     def set_epoch(self, epoch: int) -> None:
+        self.iteration = epoch
         if hasattr(self.base_dataloader, "set_epoch"):
             self.base_dataloader.set_epoch(epoch)
 
     def __len__(self) -> int:
-        return len(self.base_dataloader)
+        return len(self.base_dataloader) - self.skip_batches
 
+    # -- resume --
+    def _find_stateful_sampler(self):
+        """The innermost object of the sampler chain with a ``state_dict``."""
+        seen = set()
+        node = getattr(self.base_dataloader, "batch_sampler", None)
+        while node is not None and id(node) not in seen:
+            seen.add(id(node))
+            if hasattr(node, "state_dict"):
+                return node
+            node = next((getattr(node, a) for a in ("sampler", "batch_sampler")
+                         if getattr(node, a, None) is not None), None)
+        return None
+
+    def state_dict(self) -> dict:
+        if self._stateful_inner and self._snapshots_inner():
+            snap = self._inner_snapshot
+            if snap is None:  # not iterated yet: the inner loader's fresh state
+                snap = self.base_dataloader.state_dict()
+            state = dict(snap)
+            state["_iterator_finished"] = self._inner_finished or self.end_of_dataloader
+            return state
+        state = {"batches_seen": self._batches_seen, "iteration": self.iteration}
+        sampler = self._find_stateful_sampler()
+        if sampler is not None:
+            state["sampler"] = sampler.state_dict()
+        return state
+
+    def load_state_dict(self, state: dict) -> None:
+        if self._stateful_inner and self._snapshots_inner():
+            self._inner_finished = bool(state.get("_iterator_finished", False))
+            self.end_of_dataloader = False
+            # handed through whole: ``_iterator_finished`` is the inner
+            # loader's own field (it starts the next epoch afresh)
+            self.base_dataloader.load_state_dict(dict(state))
+            snap = dict(state)
+            snap.pop("_iterator_finished", None)  # tagged again when served
+            self._inner_snapshot = snap
+            return
+        self.skip_batches = state.get("batches_seen", 0)
+        self.iteration = state.get("iteration", 0)
+        sampler = self._find_stateful_sampler()
+        if sampler is not None and "sampler" in state:
+            sampler.load_state_dict(state["sampler"])
+
+    def _sync_rng(self) -> None:
+        if self.rng_types:
+            from .utils.random import synchronize_rng_states
+
+            synchronize_rng_states(self.rng_types, self.synchronized_generator)
+
+    # -- iteration hooks (the dispatcher overrides them) --
     def _iter_base(self):
         return iter(self.base_dataloader)
 
     def _fetch_batch(self, base_iter):
         return next(base_iter, _END)
 
+    def _snapshots_inner(self) -> bool:
+        """Whether this process may read the inner loader's state."""
+        return self._stateful_inner
+
+    def _effective_prefetch_depth(self) -> int:
+        return self.prefetch_depth
+
     def _final_remainder(self, batch) -> int:
-        if self.total_dataset_length is None or not self.global_batch_size:
+        if self.total_dataset_length is None:
             return -1
-        return self.total_dataset_length % self.global_batch_size
+        global_bs = self.global_batch_size
+        if not global_bs:
+            rows = self.assembler.dp_size if self.assembler is not None else 1
+            global_bs = (find_batch_size(batch) or 0) * rows
+        return self.total_dataset_length % global_bs if global_bs else -1
+
+    def _target_device(self):
+        if self.assembler is not None:
+            return self.assembler.device
+        return self.device
 
     def _process(self, batch):
         if self.assembler is not None:
             return self.assembler.to_global(batch)
         return send_to_device(batch, self.device)
 
+    def _stage(self, batch, stream):
+        """``(batch on the device, event)``: on a CUDA side ``stream`` the
+        arrays are copied there (pinned first from ``_PIN_MIN_BYTES``), and
+        the event follows the copies; elsewhere :meth:`_process` and no
+        event."""
+        if stream is None:
+            return self._process(batch), None
+        from .hooks import _queue_copies
+
+        dev = self._target_device()
+
+        def put(x):
+            if isinstance(x, torch.Tensor):
+                t = x
+            else:
+                arr = np.asarray(x)
+                if arr.dtype.kind not in "biuf":
+                    return x
+                t = torch.from_numpy(np.ascontiguousarray(arr))
+            if t.device.type == "cpu" and t.nbytes >= _PIN_MIN_BYTES:
+                t = t.pin_memory()
+            return t.to(dev, non_blocking=self.non_blocking)
+
+        return _queue_copies(lambda: operations._tree_map(put, batch), stream)
+
+    @staticmethod
+    def _make_ready(placed, event, device):
+        if event is None:
+            return placed
+        from .hooks import _ready
+
+        leaves, _ = _flatten(placed)
+        _ready({i: t for i, t in enumerate(leaves) if isinstance(t, torch.Tensor)}, event,
+               device)
+        return placed
+
     def __iter__(self):
+        self._sync_rng()
         self.gradient_state._add_dataloader(self)
         self.end_of_dataloader = False
         self.remainder = -1
+        self._inner_finished = False
         try:
-            it = self._iter_base()
-            current = self._fetch_batch(it)
-            while current is not _END:
-                nxt = self._fetch_batch(it)
+            if self._effective_prefetch_depth() > 0:
+                yield from self._iter_async()
+            else:
+                yield from self._iter_sync()
+        finally:
+            self.gradient_state._remove_dataloader(self)
+            self.iteration += 1
+            self.skip_batches = 0  # a resume skips in its first epoch only
+            if self.end_of_dataloader:
+                # a state saved after a finished epoch resumes at the next
+                # epoch's first batch
+                self._batches_seen = 0
+
+    def _iter_sync(self):
+        base_iter = self._iter_base()
+        snapshots = self._snapshots_inner()
+        current = self._fetch_batch(base_iter)
+        n = 0
+        while current is not _END:
+            if snapshots:  # after `current` was read, before `nxt` is
+                self._inner_snapshot = self.base_dataloader.state_dict()
+            nxt = self._fetch_batch(base_iter)
+            if n >= self.skip_batches:
                 if nxt is _END:
                     self.end_of_dataloader = True
                     self.remainder = self._final_remainder(current)
+                self._batches_seen = n + 1
                 yield self._process(current)
-                current = nxt
+            current = nxt
+            n += 1
+
+    def _iter_async(self):
+        depth = self._effective_prefetch_depth()
+        q: _queue.Queue = _queue.Queue(maxsize=depth)
+        stop = threading.Event()
+        skip = self.skip_batches
+        snapshots = self._snapshots_inner()
+        dev = self._target_device()
+        dev = torch.device(dev) if dev is not None else None
+        stream = None
+        if dev is not None and dev.type == "cuda":
+            if self._side_stream is None or self._side_stream.device != dev:
+                self._side_stream = torch.cuda.Stream(dev)
+            stream = self._side_stream
+
+        def put(item) -> bool:
+            while not stop.is_set():
+                try:
+                    q.put(item, timeout=0.05)
+                    return True
+                except _queue.Full:
+                    continue
+            return False
+
+        def snap():
+            return self.base_dataloader.state_dict() if snapshots else None
+
+        def produce():
+            try:
+                base_iter = self._iter_base()
+                current = self._fetch_batch(base_iter)
+                current_snap = snap() if current is not _END else None
+                n = 0
+                while current is not _END and not stop.is_set():
+                    nxt = self._fetch_batch(base_iter)
+                    nxt_snap = snap() if nxt is not _END else None
+                    if n >= skip:
+                        last = nxt is _END
+                        rem = self._final_remainder(current) if last else None
+                        staged = self._stage(current, stream)
+                        if not put(("batch", (n, staged, current_snap, last, rem))):
+                            return
+                    current, current_snap = nxt, nxt_snap
+                    n += 1
+                if not stop.is_set():
+                    put(("end", None))
+            except BaseException as exc:  # raised again on the consumer's thread
+                put(("exc", exc))
+
+        thread = threading.Thread(target=produce, name="accelerate-prefetch", daemon=True)
+        thread.start()
+        try:
+            while True:
+                kind, payload = _pop_next(q, thread)
+                if kind == "end":
+                    return
+                if kind == "exc":
+                    raise payload
+                n, (placed, event), current_snap, last, rem = payload
+                if snapshots and current_snap is not None:
+                    self._inner_snapshot = current_snap
+                if last:
+                    self.end_of_dataloader = True
+                    self.remainder = rem
+                self._batches_seen = n + 1
+                yield self._make_ready(placed, event, dev)
         finally:
-            self.gradient_state._remove_dataloader(self)
+            stop.set()
+            while True:  # unblock a producer waiting on a full queue
+                try:
+                    q.get_nowait()
+                except _queue.Empty:
+                    break
+            thread.join(timeout=5.0)
 
 
 def _flatten(tree):
@@ -494,6 +774,23 @@ class DataLoaderDispatcher(DataLoaderShard):
 
         self._fetched_rows = 0
         return iter(self.base_dataloader) if PartialState().is_main_process else iter(())
+
+    def _snapshots_inner(self) -> bool:
+        # the other ranks never iterate the base loader: only rank 0 holds
+        # its position
+        from .state import PartialState
+
+        return self._stateful_inner and PartialState().is_main_process
+
+    def _effective_prefetch_depth(self) -> int:
+        # each batch is a collective: issued from a producer thread while the
+        # caller runs collectives of its own, the ranks could order them
+        # differently, so the dispatcher reads synchronously across processes
+        from .state import PartialState
+
+        if PartialState().num_processes > 1:
+            return 0
+        return super()._effective_prefetch_depth()
 
     @staticmethod
     def _leaf_meta(leaf, bs):
@@ -616,17 +913,195 @@ class DataLoaderDispatcher(DataLoaderShard):
         return super()._process(batch)
 
 
+
+
+# ---------------------------------------------------------------------------
+# Skip and resume
+
+
+class SkipBatchSampler:
+    """The batches of ``batch_sampler`` after its first ``skip_batches``."""
+
+    def __init__(self, batch_sampler, skip_batches: int = 0):
+        self.batch_sampler = batch_sampler
+        self.skip_batches = skip_batches
+        self.batch_size = getattr(batch_sampler, "batch_size", None)
+
+    def set_epoch(self, epoch: int) -> None:
+        if hasattr(self.batch_sampler, "set_epoch"):
+            self.batch_sampler.set_epoch(epoch)
+
+    def __len__(self) -> int:
+        return len(self.batch_sampler) - self.skip_batches
+
+    def __iter__(self):
+        for i, batch in enumerate(self.batch_sampler):
+            if i >= self.skip_batches:
+                yield batch
+
+
+def skip_first_batches(dataloader, num_batches: int = 0):
+    """The loader resuming ``num_batches`` into its next epoch (one shot): a
+    prepared loader is set to skip them, anything else is wrapped."""
+    if isinstance(dataloader, DataLoaderShard):
+        dataloader.skip_batches = num_batches
+        if isinstance(dataloader, SkipDataLoader):
+            # the resume wins over the every-epoch skip for one epoch
+            dataloader._resume_pending = True
+        return dataloader
+    return DataLoaderShard(dataloader, skip_batches=num_batches)
+
+
+class SkipDataLoader(DataLoaderShard):
+    """Skips its first ``skip_batches`` batches in every epoch. A resume
+    (``load_state_dict``, :func:`skip_first_batches`) takes precedence for
+    its one epoch (the larger of the two skips), then the every-epoch skip
+    applies again."""
+
+    def __init__(self, dataloader, skip_batches: int = 0, **kwargs):
+        super().__init__(dataloader, skip_batches=skip_batches, **kwargs)
+        self._persistent_skip = skip_batches
+        self._resume_pending = False
+
+    def load_state_dict(self, state: dict) -> None:
+        super().load_state_dict(state)
+        self._resume_pending = True
+
+    def _effective_skip(self) -> int:
+        if self._resume_pending:
+            return max(self.skip_batches, self._persistent_skip)
+        return self._persistent_skip
+
+    def __len__(self) -> int:
+        return len(self.base_dataloader) - self._effective_skip()
+
+    def __iter__(self):
+        self.skip_batches = self._effective_skip()
+        self._resume_pending = False
+        yield from super().__iter__()
+
+
+# ---------------------------------------------------------------------------
+# Stateful torch loaders
+
+
+def _stateful_dataloader_cls():
+    """torchdata's ``StatefulDataLoader`` when torchdata >= 0.8.0 imports,
+    else None."""
+    try:
+        import torchdata
+        from torchdata.stateful_dataloader import StatefulDataLoader
+    except ImportError:
+        return None
+    try:
+        major, minor = (int(p) for p in getattr(torchdata, "__version__", "0.0").split(".")[:2])
+    except ValueError:
+        return None
+    return StatefulDataLoader if (major, minor) >= (0, 8) else None
+
+
+def stateful_dataloader_available() -> bool:
+    return _stateful_dataloader_cls() is not None
+
+
+def as_stateful_dataloader(dataloader):
+    """A plain ``torch.utils.data.DataLoader`` rebuilt as torchdata's
+    ``StatefulDataLoader`` over the same dataset, sampler and collate; None
+    when torchdata >= 0.8.0 is absent or ``dataloader`` is not a torch
+    loader (the caller decides which error that is)."""
+    StatefulDataLoader = _stateful_dataloader_cls()
+    if StatefulDataLoader is None:
+        return None
+    import torch.utils.data as tud
+
+    if not isinstance(dataloader, tud.DataLoader):
+        return None
+    if type(dataloader) is not tud.DataLoader:
+        warnings.warn(f"rebuilding {type(dataloader).__name__} as a StatefulDataLoader keeps its "
+                      "dataset, sampler and collate but drops any overridden loader behavior",
+                      stacklevel=3)
+    common = dict(num_workers=dataloader.num_workers, collate_fn=dataloader.collate_fn,
+                  pin_memory=dataloader.pin_memory, timeout=dataloader.timeout,
+                  worker_init_fn=dataloader.worker_init_fn,
+                  generator=getattr(dataloader, "generator", None),
+                  persistent_workers=getattr(dataloader, "persistent_workers", False),
+                  multiprocessing_context=getattr(dataloader, "multiprocessing_context", None))
+    if dataloader.num_workers > 0 and getattr(dataloader, "prefetch_factor", None) is not None:
+        common["prefetch_factor"] = dataloader.prefetch_factor
+    if getattr(dataloader, "pin_memory_device", ""):
+        common["pin_memory_device"] = dataloader.pin_memory_device
+    if dataloader.batch_size is None and dataloader.batch_sampler is not None:
+        return StatefulDataLoader(dataloader.dataset, batch_sampler=dataloader.batch_sampler,
+                                  **common)
+    if isinstance(dataloader.dataset, tud.IterableDataset):
+        return StatefulDataLoader(
+            dataloader.dataset, batch_size=dataloader.batch_size,
+            drop_last=dataloader.drop_last if dataloader.batch_size is not None else False,
+            **common)
+    if dataloader.batch_size is None:
+        return StatefulDataLoader(dataloader.dataset, batch_size=None,
+                                  sampler=dataloader.sampler, **common)
+    return StatefulDataLoader(dataloader.dataset, batch_size=dataloader.batch_size,
+                              sampler=dataloader.sampler, drop_last=dataloader.drop_last,
+                              **common)
+
+
+# the reference's base-class names: every prepared loader is a
+# DataLoaderShard with the same surface
+DataLoaderStateMixin = DataLoaderShard
+DataLoaderAdapter = DataLoaderShard
+
+
+def get_sampler(dataloader):
+    """The innermost stateful sampler behind a prepared loader, else the
+    innermost sampler of the loader's chain."""
+    if isinstance(dataloader, DataLoaderShard):
+        inner = dataloader._find_stateful_sampler()
+        if inner is not None:
+            return inner
+    base = getattr(dataloader, "base_dataloader", dataloader)
+    sampler = getattr(base, "batch_sampler", None)
+    if sampler is None:
+        sampler = getattr(base, "sampler", None)
+    seen = set()
+    while sampler is not None and id(sampler) not in seen:
+        seen.add(id(sampler))
+        child = getattr(sampler, "sampler", None)
+        if child is None:
+            break
+        sampler = child
+    return sampler
+
+
+# ---------------------------------------------------------------------------
+# The entry point
+
+
+def _torch_collate_to_numpy(collate_fn):
+    def collate(samples):
+        return _to_numpy_batch(collate_fn(samples))
+
+    return collate
+
+
 def prepare_data_loader(dataloader, device=None, state=None, mesh=None,
                         device_placement: bool = True, split_batches: bool = False,
                         even_batches: bool = True,
-                        dispatch_batches: Optional[bool] = None) -> DataLoaderShard:
+                        dispatch_batches: Optional[bool] = None,
+                        rng_types: Optional[Sequence[str]] = None,
+                        data_seed: Optional[int] = None, use_seedable_sampler: bool = True,
+                        prefetch_depth: int = 2, non_blocking: bool = True) -> DataLoaderShard:
     """Wrap ``dataloader`` for the mesh (the :class:`~.state.
     AcceleratorState`'s by default): a :class:`DataLoader` is resharded so
     this process reads its data-parallel row's batches (``batch_size``
     rows a row, or ``1/n`` of each batch with ``split_batches``); with
-    ``dispatch_batches`` rank 0 reads and broadcasts each global batch.
-    Another iterable of batches is taken as this process's already. With
-    ``device_placement=False`` the batches stay numpy."""
+    ``dispatch_batches`` rank 0 reads and broadcasts each global batch. A
+    ``torch.utils.data.DataLoader`` is handled as the JAX package handles
+    it (see the module docstring; a shuffled one is rebuilt with
+    ``SeedableRandomSampler(seed=data_seed or 0)`` whatever
+    ``use_seedable_sampler`` says, as there). Another iterable of batches
+    is taken as this process's already. With ``device_placement=False``
+    the batches stay numpy."""
     if isinstance(dataloader, DataLoaderShard):
         return dataloader
     from .state import AcceleratorState, PartialState
@@ -641,6 +1116,8 @@ def prepare_data_loader(dataloader, device=None, state=None, mesh=None,
     dp_size = assembler.dp_size if assembler else 1
     cls = DataLoaderDispatcher if dispatch_batches else DataLoaderShard
     place = device if device_placement else None
+    common = dict(assembler=assembler if device_placement else None, rng_types=rng_types,
+                  prefetch_depth=prefetch_depth, non_blocking=non_blocking)
     if isinstance(dataloader, DataLoader):
         total_len = len(dataloader.dataset) if hasattr(dataloader.dataset, "__len__") else None
         if dp_size > 1 and not dispatch_batches:
@@ -651,8 +1128,47 @@ def prepare_data_loader(dataloader, device=None, state=None, mesh=None,
                                 collate_fn=dataloader.collate_fn)
             bs = dataloader.batch_size
             global_bs = None if bs is None else (bs if split_batches else bs * dp_size)
-            return cls(new_dl, place, assembler=assembler if device_placement else None,
-                       total_dataset_length=total_len, global_batch_size=global_bs)
-        return cls(dataloader, place, assembler=assembler if device_placement else None,
-                   total_dataset_length=total_len)
-    return cls(dataloader, place, assembler=assembler if device_placement else None)
+            return cls(new_dl, place, total_dataset_length=total_len, global_batch_size=global_bs,
+                       **common)
+        return cls(dataloader, place, total_dataset_length=total_len, **common)
+    import torch.utils.data as tud
+
+    if isinstance(dataloader, tud.DataLoader):
+        if hasattr(dataloader, "state_dict") and hasattr(dataloader, "load_state_dict"):
+            # a stateful loader keeps its state machinery; every rank reading
+            # it would repeat its rows on each data-parallel row, so under
+            # data parallelism rank 0 reads and broadcasts
+            if dp_size > 1 and not dispatch_batches:
+                if dispatch_batches is False:
+                    raise ValueError(
+                        "a stateful torch DataLoader cannot be resharded (its state machinery "
+                        "would be orphaned) and iterating it on every rank would silently "
+                        "duplicate data across dp replicas. Drop dispatch_batches=False (the "
+                        "dispatcher route is the default for stateful loaders) or use the "
+                        "native DataLoader.")
+                warnings.warn("stateful torch DataLoader under data parallelism: routing through "
+                              "DataLoaderDispatcher (process 0 reads and broadcasts) so ranks do "
+                              "not duplicate data; each yielded batch is treated as the GLOBAL "
+                              "batch", stacklevel=2)
+                cls = DataLoaderDispatcher
+            return cls(dataloader, place, **common)
+        dataset = dataloader.dataset
+        sampler = getattr(dataloader, "sampler", None)
+        custom_sampler = sampler is not None and not isinstance(
+            sampler, (tud.RandomSampler, tud.SequentialSampler))
+        if (dataloader.batch_size is None or custom_sampler
+                or not (hasattr(dataset, "__len__") and hasattr(dataset, "__getitem__"))):
+            warnings.warn("torch DataLoader with a custom sampler/batch_sampler or iterable "
+                          "dataset cannot be resharded; iterating it as-is. Each yielded batch "
+                          "is treated as the per-host block.", stacklevel=2)
+            return cls(dataloader, place, **common)
+        rebuilt = DataLoader(dataset, batch_size=dataloader.batch_size,
+                             shuffle=isinstance(sampler, tud.RandomSampler), seed=data_seed or 0,
+                             drop_last=getattr(dataloader, "drop_last", False),
+                             collate_fn=_torch_collate_to_numpy(dataloader.collate_fn))
+        return prepare_data_loader(rebuilt, device=device, state=state, mesh=mesh,
+                                   device_placement=device_placement,
+                                   split_batches=split_batches, even_batches=even_batches,
+                                   dispatch_batches=dispatch_batches, rng_types=rng_types,
+                                   prefetch_depth=prefetch_depth, non_blocking=non_blocking)
+    return cls(dataloader, place, **common)

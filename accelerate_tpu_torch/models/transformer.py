@@ -38,6 +38,7 @@ __all__ = [
     "apply_rope",
     "bert_forward",
     "bert_loss",
+    "bert_shard_rules",
     "draft_config",
     "draft_params",
     "init_bert",
@@ -46,6 +47,7 @@ __all__ = [
     "llama_ffn",
     "llama_forward",
     "llama_loss",
+    "llama_shard_rules",
     "rms_norm",
     "rope_frequencies",
     "segment_positions",
@@ -218,6 +220,31 @@ def _layer_trees(layers: dict, n_layers: int) -> list:
         return node.unbind(0)
 
     return split(layers)
+
+
+def llama_shard_rules():
+    """The JAX package's TP rules for the stacked layout: dim 0 is the
+    layer axis, so ``tp`` splits the out dim (dim 2) of the column-parallel
+    ``wq``/``wk``/``wv``/``w1``/``w3`` and the in dim (dim 1) of the
+    row-parallel ``wo``/``w2``; the MoE experts go over ``ep`` and their
+    matmul dims over ``tp``; the embedding and head are vocab-parallel;
+    norms, the router and fp8 metadata stay whole. (``parallel.sharding.
+    llama_tp_rules``, written for ``[in, out]`` kernels, lands one dim to
+    the left on this tree.)"""
+    from ..parallel.sharding import PartitionSpec as P
+    from ..parallel.sharding import ShardingRules
+
+    return ShardingRules([
+        (r"fp8_meta", P()),
+        (r"layers/(wq|wk|wv|w1|w3)/kernel", P(None, None, "tp")),  # column-parallel
+        (r"layers/(wo|w2)/kernel", P(None, "tp", None)),  # row-parallel
+        (r"layers/moe/router/kernel", P()),
+        (r"layers/moe/wi/kernel", P(None, "ep", None, "tp")),
+        (r"layers/moe/wo/kernel", P(None, "ep", "tp", None)),
+        (r"embed_tokens/embedding", P("tp", None)),  # vocab-parallel
+        (r"lm_head/kernel", P(None, "tp")),
+        (r"norm", P()),
+    ])
 
 
 def draft_config(config: LlamaConfig, n_layers: int) -> LlamaConfig:
@@ -688,3 +715,20 @@ def bert_loss(params: dict, batch: dict, config: BertConfig, **kwargs) -> torch.
     logits = bert_forward(params, batch, config, **kwargs)
     logp = torch.log_softmax(logits.float(), dim=-1)
     return -logp.gather(-1, batch["labels"].long()[:, None]).mean()
+
+
+def bert_shard_rules():
+    """The JAX package's TP rules for BERT's stacked layers: ``tp`` splits
+    the out dim of ``wq``/``wk``/``wv``/``fc1`` and the in dim of
+    ``wo``/``fc2``, and the word embedding's vocab; norms, biases, the
+    pooler, the classifier and fp8 metadata stay whole."""
+    from ..parallel.sharding import PartitionSpec as P
+    from ..parallel.sharding import ShardingRules
+
+    return ShardingRules([
+        (r"fp8_meta", P()),
+        (r"layers/(wq|wk|wv|fc1)/kernel", P(None, None, "tp")),
+        (r"layers/(wo|fc2)/kernel", P(None, "tp", None)),
+        (r"embeddings/word/embedding", P("tp", None)),
+        (r"(norm|bias|pooler|classifier)", P()),
+    ])

@@ -572,7 +572,7 @@ class AcceleratedOptimizer:
             if zero1 and getattr(self.base_optimizer, "cls", None) is Adafactor:
                 raise NotImplementedError(
                     "adafactor under ZeRO-1 (its factored state is not param-shaped) is not "
-                    "ported yet (ROADMAP.md Queue A item 6)")
+                    "ported yet (ROADMAP.md Queue A item 6, step 6)")
             if plan is not None and plan.fused_zero1:
                 from .parallel.weight_update import init_bucketed_opt_state
 

@@ -123,20 +123,30 @@ def _batch_rank(mesh, axes) -> tuple:
     return index, count
 
 
+def _batch_axes(mesh, batch_axes) -> tuple:
+    """The axes that split the batch: ``batch_axes`` when given, else every
+    data axis of size > 1."""
+    from .sharding import GRAD_SUM_AXES
+
+    if mesh is None:
+        return ()
+    axes = GRAD_SUM_AXES if batch_axes is None else batch_axes
+    return tuple(a for a in axes if mesh.shape.get(a, 1) > 1)
+
+
 def route(router_kernel: torch.Tensor, x: torch.Tensor, top_k: int, capacity_factor: float,
-          group_size: int = 4096, mesh=None) -> Routing:
+          group_size: int = 4096, mesh=None, batch_axes=None) -> Routing:
     """The routing of :func:`moe_ffn` for ``x [B, S, D]``: the whole batch,
     or under ``mesh`` one rank's rows of a global batch split over
-    ``(dp_replicate, dp_shard)``. The groups are those of the global token
-    order; each token's slot counts, per expert, the tokens of the lower
-    ranks in its group (one all-gather of the per-group counts over the
-    batch ranks)."""
-    from .sharding import GRAD_SUM_AXES, _all_gather_dim
+    ``batch_axes`` (``(dp_replicate, dp_shard)`` by default). The groups are
+    those of the global token order; each token's slot counts, per expert,
+    the tokens of the lower ranks in its group (one all-gather of the
+    per-group counts over the batch ranks)."""
+    from .sharding import _all_gather_dim
 
     B, S, D = x.shape
     E = router_kernel.shape[-1]
-    batch_axes = () if mesh is None else tuple(
-        a for a in GRAD_SUM_AXES if mesh.shape.get(a, 1) > 1)
+    batch_axes = _batch_axes(mesh, batch_axes)
     b, nb = _batch_rank(mesh, batch_axes)
     n = B * S
     N = n * nb  # tokens of the global batch, this call's at [b·n, (b+1)·n)
@@ -182,12 +192,14 @@ def route(router_kernel: torch.Tensor, x: torch.Tensor, top_k: int, capacity_fac
 
 def moe_ffn(params: dict, x: torch.Tensor, *, top_k: int = 2, capacity_factor: float = 1.25,
             mesh=None, ep_axis: str = "ep", activation=None,
-            group_size: int = 4096) -> "tuple[torch.Tensor, torch.Tensor]":
+            group_size: int = 4096, batch_axes=None) -> "tuple[torch.Tensor, torch.Tensor]":
     """Mixture-of-experts FFN on ``x [B, S, D]`` → ``(y [B, S, D], aux)``,
     ``aux`` the f32 load-balance loss (add it, scaled ~1e-2, to the
     training loss). ``activation`` defaults to tanh-approximated GELU.
     Under ``mesh`` (one rank of a sharded step) ``x`` is the rank's rows
-    and ``params`` are whole (see the module docstring)."""
+    of the batch split over ``batch_axes`` (the data axes by default) and
+    ``params`` are whole, or (a sharded decode) hold the rank's ``E/ep``
+    experts already (see the module docstring)."""
     if activation is None:
         def activation(t):
             return F.gelu(t, approximate="tanh")
@@ -195,11 +207,12 @@ def moe_ffn(params: dict, x: torch.Tensor, *, top_k: int = 2, capacity_factor: f
     n = B * S
     if mesh is not None and not any(size > 1 for size in mesh.shape.values()):
         mesh = None
-    r = route(params["router"]["kernel"], x, top_k, capacity_factor, group_size, mesh)
+    r = route(params["router"]["kernel"], x, top_k, capacity_factor, group_size, mesh,
+              batch_axes)
     y = _experts(params, x.reshape(n, D), r.idx, r.gates, r.pos, r.keep, r.group - r.first_group,
                  r.groups, r.capacity, activation, mesh, ep_axis)
     return (y.reshape(B, S, D).to(x.dtype),
-            _aux(r.idx[:, 0], r.probs, n * r.batch_ranks, mesh))
+            _aux(r.idx[:, 0], r.probs, n * r.batch_ranks, mesh, batch_axes))
 
 
 def _experts(params, x_rows, idx, gates, pos, keep, group, groups: int, C: int, activation,
@@ -215,15 +228,18 @@ def _experts(params, x_rows, idx, gates, pos, keep, group, groups: int, C: int, 
     top_k = idx.shape[1]
     wi, wo = params["wi"]["kernel"], params["wo"]["kernel"]
     ep = 1 if mesh is None else mesh.shape.get(ep_axis, 1)
-    if wi.shape[0] % ep:
-        raise ValueError(f"{wi.shape[0]} experts do not split over {ep_axis}={ep}")
-    e_loc = wi.shape[0] // ep
+    n_experts = params["router"]["kernel"].shape[-1]
+    presliced = ep > 1 and wi.shape[0] * ep == n_experts  # the rank's experts only
+    if n_experts % ep:
+        raise ValueError(f"{n_experts} experts do not split over {ep_axis}={ep}")
+    e_loc = n_experts // ep
     e0 = 0 if ep == 1 else mesh.coords[ep_axis] * e_loc
     if ep > 1:  # the rest of these inputs' gradient comes from the other experts' ranks
         keep = keep & (idx >= e0) & (idx < e0 + e_loc)
         x_rows = _SumGradOverAxis.apply(x_rows, mesh, ep_axis)
         gates = _SumGradOverAxis.apply(gates, mesh, ep_axis)
-        wi, wo = (_ExpertSlice.apply(w, mesh, ep_axis) for w in (wi, wo))
+        if not presliced:
+            wi, wo = (_ExpertSlice.apply(w, mesh, ep_axis) for w in (wi, wo))
     # slot of each (token, choice) in the flat [E * groups * C] expert input;
     # a dropped one points at a spare row past the end
     spare = e_loc * groups * C
@@ -245,7 +261,7 @@ def _experts(params, x_rows, idx, gates, pos, keep, group, groups: int, C: int, 
     return _SumOverAxis.apply(y, mesh, ep_axis) if ep > 1 else y
 
 
-def _aux(first_choice, probs, N: int, mesh) -> torch.Tensor:
+def _aux(first_choice, probs, N: int, mesh, batch_axes=None) -> torch.Tensor:
     """GShard's load-balance loss over the ``N`` tokens of the global batch,
     from this rank's first choices and router probs: every rank's value is
     the global one, and its gradient ``nb`` times its rows' share for ``nb``
@@ -254,9 +270,9 @@ def _aux(first_choice, probs, N: int, mesh) -> torch.Tensor:
     first = F.one_hot(first_choice, E).float()
     if mesh is None:
         return E * torch.sum(first.mean(dim=0) * probs.mean(dim=0))
-    from .sharding import GRAD_SUM_AXES, all_reduce_axes
+    from .sharding import all_reduce_axes
 
-    batch_axes = tuple(a for a in GRAD_SUM_AXES if mesh.shape.get(a, 1) > 1)
+    batch_axes = _batch_axes(mesh, batch_axes)
     nb = N // first.shape[0]
     prob_sum = probs.sum(0)
     sums = torch.stack([first.sum(0), prob_sum.detach()])

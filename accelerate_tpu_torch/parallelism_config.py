@@ -46,7 +46,7 @@ DP_CP_AXES = ("dp_replicate", "dp_shard", "cp")
 BATCH_AXES = ("dp_replicate", "dp_shard", "cp", "sp")
 
 _MULTI_SLICE = ("a multi-slice (DCN) mesh is not ported yet: GPUs have no slice index "
-                "(ROADMAP.md Queue A item 6, second half)")
+                "(ROADMAP.md Queue A item 6, step 8)")
 
 
 class Mesh:

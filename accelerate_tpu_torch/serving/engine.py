@@ -18,10 +18,20 @@ verifier's own selections, so the stream is the non-speculative one.
 ``prefix_cache=False`` and resuming from ``generated`` tokens behave as in
 the reference.
 
+``mesh=`` serves on one rank of a process group, as the reference's engine
+serves over its devices: every rank builds the engine with its blocks of
+the params (``parallel.sharding.shard_params`` with ``llama_shard_rules``)
+and runs the same scheduler and allocator on the same requests; its pool is
+its block under :func:`~..generation.serving_shardings`, ``[L, num_blocks,
+block_size, Hkv/tp, D]``, and every paged forward is the Megatron layer of
+:class:`~..generation.MeshDecode` with the paged kernels on the rank's
+heads. The selected tokens are rank 0's on every rank, so the schedulers
+never part.
+
 The port runs eagerly: the reference's jit/AOT machinery (``warmup``, the
 compile cache) has no counterpart, and the layer loop is a Python loop in
-place of ``lax.scan``. Mesh placement, chaos hooks, telemetry, tracing and
-the watchdog are not ported yet (see ROADMAP.md).
+place of ``lax.scan``. Chaos hooks, telemetry, tracing and the watchdog
+are not ported yet (see ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -32,7 +42,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from ..generation import _project_qkv, decode_capacity, sample_token_logits
+from ..generation import MeshDecode, _project_qkv, decode_capacity, sample_token_logits
 from ..models.transformer import (
     LlamaConfig,
     draft_config,
@@ -58,11 +68,20 @@ def rope_tables(config: LlamaConfig, device) -> "tuple[torch.Tensor, torch.Tenso
     return torch.from_numpy(cos).to(device), torch.from_numpy(sin).to(device)
 
 
+def _write_kv(k_pool, v_pool, phys, off, k, v) -> None:
+    """This step's K/V into the layer's pools (the rank's heads under a
+    mesh), in place (``index_put_``), where the reference's functional
+    ``.at[].set`` returns a new pool."""
+    k_pool.index_put_((phys, off), k.to(k_pool.dtype))
+    v_pool.index_put_((phys, off), v.to(v_pool.dtype))
+
+
 def _paged_layer_step(layer, h, k_pool, v_pool, block_tables, positions, cos, sin,
-                      config: LlamaConfig, block_size: int):
+                      config: LlamaConfig, block_size: int, mesh: Optional[MeshDecode] = None):
     """One decoder layer over per-row ``positions [B, S]``: write this
     step's K/V into the layer's pools at ``(block_tables[b, pos //
-    block_size], pos % block_size)``, then attend through the tables."""
+    block_size], pos % block_size)``, then attend through the tables.
+    Under ``mesh`` the rank's heads, with the sums over ``tp``."""
     B, S, _ = h.shape
     x = rms_norm(h, layer["attn_norm"]["scale"], config.norm_eps)
     q, k, v = _project_qkv(layer, x, positions, cos, sin, config)
@@ -73,13 +92,13 @@ def _paged_layer_step(layer, h, k_pool, v_pool, block_tables, positions, cos, si
     # to the null block — a pad write may never land in a live block
     phys = torch.where(logical < W, phys, NULL_BLOCK)
     off = positions % block_size
-    # the pool is written in place (index_put_), where the reference's
-    # functional .at[].set returns a new pool
-    k_pool.index_put_((phys, off), k.to(k_pool.dtype))
-    v_pool.index_put_((phys, off), v.to(v_pool.dtype))
+    _write_kv(k_pool, v_pool, phys, off, k, v)
     attn = paged_attention(q, k_pool, v_pool, block_tables, positions)
-    h = h + attn.reshape(B, S, -1) @ layer["wo"]["kernel"]
+    out = attn.reshape(B, S, -1) @ layer["wo"]["kernel"]
+    h = h + (out if mesh is None else mesh.attn_out(out))
     x = rms_norm(h, layer["mlp_norm"]["scale"], config.norm_eps)
+    if mesh is not None:
+        return h + mesh.ffn(layer, x, S)
     # MoE: every row of the [B, S] call, padding included, is routed and
     # competes for capacity, as in the JAX engine; S == 1 steps (decode,
     # drafts) get the decode floor, a prefill chunk or verify step does not
@@ -88,11 +107,19 @@ def _paged_layer_step(layer, h, k_pool, v_pool, block_tables, positions, cos, si
 
 
 def paged_forward(params, ids, pool, block_tables, positions, config: LlamaConfig,
-                  block_size: int, rope=None):
+                  block_size: int, rope=None, mesh: Optional[MeshDecode] = None):
     """Forward ``ids [B, S]`` at per-row ``positions [B, S]`` against the
     paged pool, writing their KV into it in place. Returns ``(logits [B, S,
-    vocab], pool)``; ``rope`` is an optional precomputed ``(cos, sin)``."""
+    vocab], pool)``; ``rope`` is an optional precomputed ``(cos, sin)``.
+    ``mesh`` (a :class:`~..generation.MeshDecode` over ``params``): one
+    rank's forward, with the whole logits on every rank."""
     cos, sin = rope if rope is not None else rope_tables(config, ids.device)
+    if mesh is not None:
+        h = mesh.embed(ids)
+        for i in range(config.n_layers):
+            h = _paged_layer_step(mesh.layer(i), h, pool["k"][i], pool["v"][i], block_tables,
+                                  positions, cos, sin, config, block_size, mesh)
+        return mesh.logits(h), pool
     h = params["embed_tokens"]["embedding"][ids]
     for i in range(config.n_layers):
         h = _paged_layer_step(
@@ -112,7 +139,10 @@ class ServingEngine:
     and backfills their slots. Pool pressure preempts the youngest request,
     which later resumes with identical output. Sampling knobs are
     engine-level, as in the reference; ``temperature=0`` is greedy.
-    ``device`` defaults to ``"cuda"``; the params must already live there."""
+    ``device`` defaults to ``"cuda"``; the params must already live there.
+    ``mesh``: this rank's engine of a sharded one (the module docstring);
+    ``param_specs`` name the params' placement when it is not
+    ``llama_shard_rules``'."""
 
     def __init__(self, params, config: LlamaConfig, *, num_blocks: int = 64,
                  block_size: int = 16, max_slots: int = 4,
@@ -122,7 +152,8 @@ class ServingEngine:
                  cache_dtype: torch.dtype = torch.bfloat16,
                  continuous: bool = True, admit_watermark_blocks: int = 0,
                  lattice: Optional[BucketLattice] = None, prefix_cache: bool = True,
-                 spec_tokens: int = 0, draft_layers: Optional[int] = None, device=None):
+                 spec_tokens: int = 0, draft_layers: Optional[int] = None, device=None,
+                 mesh=None, param_specs=None):
         self.device = resolve_device(device)
         emb = params["embed_tokens"]["embedding"]
         if emb.device.type != self.device.type:
@@ -163,7 +194,12 @@ class ServingEngine:
             max_seq_blocks=self.lattice.block_buckets[-1],
             max_seq_tokens=config.max_seq_len,
         )
-        self.pool = init_block_pool(config, num_blocks, block_size, cache_dtype, self.device)
+        self.mesh = mesh
+        self._md = self._draft_md = None
+        if mesh is not None:
+            self._md = MeshDecode(params, config, mesh, param_specs)
+        self.pool = init_block_pool(config, num_blocks, block_size, cache_dtype, self.device,
+                                    mesh=mesh)
         self.rope = rope_tables(config, self.device)
         if self.spec_tokens > 0:
             # truncated-layer self-draft: its layer i is verifier layer i
@@ -171,6 +207,9 @@ class ServingEngine:
             # shared pool, written in place, so it needs no pool of its own
             self.draft_config = draft_config(config, int(draft_layers))
             self.draft_params = draft_params(params, int(draft_layers))
+            if mesh is not None:
+                self._draft_md = MeshDecode(self.draft_params, self.draft_config, mesh,
+                                            self._md.specs)
 
         self.steps = 0
         self.decode_tokens = 0
@@ -314,10 +353,12 @@ class ServingEngine:
         greedy, else a draw from each row's key folded with its fold index
         plus ``offset``."""
         if key_rows is None:
-            return torch.argmax(logits, dim=-1)
-        keys = fold_in(key_rows[:, :2], key_rows[:, 2] + offset)
-        return sample_token_logits(logits, keys, temperature=self.temperature,
-                                   top_k=self.top_k, top_p=self.top_p)
+            tok = torch.argmax(logits, dim=-1)
+        else:
+            keys = fold_in(key_rows[:, :2], key_rows[:, 2] + offset)
+            tok = sample_token_logits(logits, keys, temperature=self.temperature,
+                                      top_k=self.top_k, top_p=self.top_p)
+        return tok if self._md is None else self._md.agree(tok)
 
     def _prefill_request(self, req: Request, now: float) -> None:
         """Prefill the request's uncached prefix tail in chunks of at most
@@ -354,7 +395,7 @@ class ServingEngine:
             positions = start + torch.arange(Sb, device=self.device)[None]
             logits, self.pool = paged_forward(
                 self.params, self._to_device(ids), self.pool, table, positions,
-                self.config, self.block_size, rope=self.rope,
+                self.config, self.block_size, rope=self.rope, mesh=self._md,
             )
             last = logits[0, chunk.size - 1 : chunk.size]
             start += chunk.size
@@ -397,6 +438,7 @@ class ServingEngine:
         logits, self.pool = paged_forward(
             self.params, self._to_device(last[:, None]), self.pool, self._to_device(tables),
             self._to_device(positions[:, None]), self.config, self.block_size, rope=self.rope,
+            mesh=self._md,
         )
         toks = self._select(logits[:, -1], self._key_rows(running, Bb)).cpu().numpy()
         for i, req in enumerate(running):
@@ -433,13 +475,13 @@ class ServingEngine:
         for j in range(k):
             logits, self.pool = paged_forward(
                 self.draft_params, cand[:, j : j + 1], self.pool, tables_d, pos_d + j,
-                self.draft_config, self.block_size, rope=self.rope,
+                self.draft_config, self.block_size, rope=self.rope, mesh=self._draft_md,
             )
             cand[:, j + 1] = self._select(logits[:, -1], key_rows, j)
         cols = torch.arange(k + 1, device=self.device)
         logits, self.pool = paged_forward(
             self.params, cand, self.pool, tables_d, pos_d + cols[None], self.config,
-            self.block_size, rope=self.rope,
+            self.block_size, rope=self.rope, mesh=self._md,
         )
         sel = self._select(
             logits.reshape(Bb * (k + 1), -1),

@@ -57,11 +57,19 @@ class BlockPoolExhausted(RuntimeError):
 
 
 def init_block_pool(config: LlamaConfig, num_blocks: int, block_size: int,
-                    dtype: torch.dtype = torch.bfloat16, device=None) -> dict:
+                    dtype: torch.dtype = torch.bfloat16, device=None, mesh=None) -> dict:
     """Device pool ``{"k","v"}: [L, num_blocks, block_size, Hkv, D]``
     (``num_blocks`` INCLUDES the reserved null block 0), zero-filled, on
-    ``device`` (``None``: the CUDA device, raising without one)."""
+    ``device`` (``None``: the CUDA device, raising without one). Under
+    ``mesh`` (one rank of a sharded engine) the rank's block of it under
+    ``generation.serving_shardings``: its ``Hkv/tp`` heads."""
     shape = (config.n_layers, num_blocks, block_size, config.n_kv_heads, config.head_dim)
+    if mesh is not None:
+        from ..generation import serving_shardings
+        from ..parallel.sharding import shard_index
+
+        shape = tuple(s.stop - s.start for s in shard_index(
+            serving_shardings(mesh, config), shape, mesh))
     device = resolve_device(device)
     return {
         "k": torch.zeros(shape, dtype=dtype, device=device),

@@ -2,8 +2,8 @@
 ``accelerate_tpu.test_utils.scripts.multihost_script``, with its
 ``topology``, ``ops``, ``dataloader``, ``dispatcher``,
 ``dispatcher_ragged`` and ``training`` scenarios and their assertions, and
-three of the port's own, ``mesh_train`` (a few Llama training steps on
-each of several meshes and with each option of a sharded step: adafactor,
+the port's own: ``rng_sync`` (a loader's ``rng_types``), ``mesh_train`` (a
+few Llama training steps on each of several meshes and with each option of a sharded step: adafactor,
 a global-norm clip, fp16, ZeRO-1 by annotation, every remat policy,
 ``gradient_fn``), ``mesh_moe`` (the MoE Llama under dp_shard, ep and both)
 and ``zoo_train`` (ResNet and T5 under data parallelism and FSDP), whose
@@ -109,6 +109,47 @@ def check_dataloader(accelerator):
         assert np.allclose(x0, idx.astype(np.float32)), (x0, idx)
         seen.extend(idx.tolist())
     assert sorted(seen) == list(range(n_rows)), sorted(seen)
+    accelerator.wait_for_everyone()
+
+
+def check_rng_sync(accelerator):
+    """``rng_types``: each rank seeds its host streams differently; a loader
+    prepared with ``rng_types`` gives every rank rank 0's python, numpy,
+    torch and generator states at the start of each epoch, so the draws
+    after it agree; the JAX package's ``jax`` stream raises."""
+    import random
+
+    from accelerate_tpu_torch import DataLoader
+    from accelerate_tpu_torch.data_loader import prepare_data_loader
+    from accelerate_tpu_torch.utils import operations as ops
+    from accelerate_tpu_torch.utils.random import synchronize_rng_state
+
+    me = accelerator.process_index
+    gen = torch.Generator().manual_seed(100 + me)
+    loader = prepare_data_loader(DataLoader(_row_dataset(8), batch_size=2),
+                                 torch.device("cpu"), mesh=accelerator.mesh,
+                                 rng_types=["python", "numpy", "torch", "generator"],
+                                 prefetch_depth=2)
+    loader.synchronized_generator = gen
+    for epoch in range(2):
+        random.seed(10 + me)
+        np.random.seed(20 + me)
+        torch.manual_seed(30 + me)
+        gen.manual_seed(40 + me)
+        assert len(set(ops.gather_object(float(np.random.rand())))) == accelerator.num_processes
+        batches = [b["idx"].tolist() for b in loader]
+        assert batches, batches
+        draws = (random.random(), float(np.random.rand()), float(torch.rand(())),
+                 float(torch.rand((), generator=gen)))
+        every = ops.gather_object(draws)
+        # the draw before the epoch differed; the sync made these equal
+        assert all(d == every[0] for d in every), (epoch, every)
+    try:
+        synchronize_rng_state("jax")
+    except ValueError as err:
+        assert "'jax'" in str(err), err
+    else:
+        raise AssertionError("the jax stream did not raise")
     accelerator.wait_for_everyone()
 
 
@@ -309,7 +350,8 @@ def mesh_train_leg(params_np: dict, batches: dict, pc_kwargs: dict, zero1: bool,
                    tp_rules: bool, device="cpu", factory: str = "adamw",
                    precision: str = "no", scaler: dict = None, remat=False,
                    steps: int = None, env: dict = None, int_leaf: bool = False,
-                   moe: bool = False, moe_rules: bool = True) -> dict:
+                   moe: bool = False, moe_rules: bool = True,
+                   prepare_rules: str = None) -> dict:
     """``steps`` (all of ``batches`` by default) training steps of Llama at
     tiny widths (f32 params, plain attention) on one mesh, one step for each
     ``[K, ...]`` slice of ``batches`` (global ``input_ids`` and
@@ -319,7 +361,8 @@ def mesh_train_leg(params_np: dict, batches: dict, pc_kwargs: dict, zero1: bool,
     counts. ``moe`` takes the MoE Llama of the params given with
     ``moe_shard_rules`` (whole experts on every rank without ``moe_rules``)
     and the first step's routed and dropped token-choices of this rank's
-    rows; ``int_leaf`` adds an int32 leaf."""
+    rows; ``int_leaf`` adds an int32 leaf; ``prepare_rules="llama"`` passes
+    ``llama_shard_rules()`` to ``prepare(..., shard_rules=)``."""
     from accelerate_tpu_torch import Accelerator
     from accelerate_tpu_torch.data_loader import GlobalBatchAssembler
     from accelerate_tpu_torch.models import transformer as tt
@@ -345,7 +388,8 @@ def mesh_train_leg(params_np: dict, batches: dict, pc_kwargs: dict, zero1: bool,
                           deepspeed_plugin=DeepSpeedPlugin(zero_stage=1) if zero1 else None,
                           shard_rules=rules,
                           grad_scaler_config=GradScalerConfig(**scaler) if scaler else None)
-        params, opt = acc.prepare(params_np, _factory(factory))
+        params, opt = acc.prepare(params_np, _factory(factory), shard_rules=(
+            tt.llama_shard_rules() if prepare_rules == "llama" else None))
     step = acc.prepare_train_step(
         lambda p, b: tt.llama_loss(p, b, cfg, mesh=acc.mesh, remat=remat),
         compute_grad_norm=True)
@@ -650,6 +694,210 @@ def check_mesh_moe(accelerator, tmpdir: str):
     accelerator.wait_for_everyone()
 
 
+# the sharded decode and serving legs at 4 ranks: (name, ParallelismConfig kwargs)
+DECODE_MESHES = {"dp_shard2_tp2": {"dp_shard_size": 2, "tp_size": 2}, "tp4": {"tp_size": 4},
+                 "ep2_tp2": {"ep_size": 2, "tp_size": 2},
+                 # tp 2 for the engine, whose every rank serves every request
+                 "dp_replicate2_tp2": {"dp_replicate_size": 2, "tp_size": 2}}
+DECODE_ENGINE_KW = dict(num_blocks=33, block_size=8, max_slots=4)
+DECODE_NEW = 6
+
+
+def _decode_acc(pc_kwargs: dict, device="cpu"):
+    from accelerate_tpu_torch import Accelerator
+    from accelerate_tpu_torch.parallelism_config import ParallelismConfig
+    from accelerate_tpu_torch.state import AcceleratorState, GradientState
+
+    AcceleratorState._reset_state()
+    GradientState._reset_state()
+    return Accelerator(device=device, parallelism_config=ParallelismConfig(**pc_kwargs))
+
+
+def _torch_tree(tree):
+    from accelerate_tpu_torch.utils.operations import _tree_map
+
+    return _tree_map(lambda x: torch.from_numpy(np.array(x)), tree)
+
+
+def decode_engine_run(params, config, prompts, mesh=None, device="cpu", engine_kw=None,
+                      cache_dtype=torch.float32):
+    """The engine over ``prompts`` (``(prompt, max_new_tokens)``, each
+    submitted with a step between): each request's ``output_ids()``, the
+    ``stats()`` without the two timings, and this rank's pool bytes."""
+    from accelerate_tpu_torch.serving.buckets import BucketLattice
+    from accelerate_tpu_torch.serving.engine import ServingEngine
+
+    kw = dict(DECODE_ENGINE_KW, lattice=BucketLattice(slot_buckets=(2, 4), block_buckets=(8,),
+                                                      prefill_buckets=(16, 32)))
+    kw.update(engine_kw or {})
+    engine = ServingEngine(params, config, cache_dtype=cache_dtype, device=device, mesh=mesh,
+                           **kw)
+    reqs = []
+    for i, (prompt, new) in enumerate(prompts):
+        reqs.append(engine.submit(np.asarray(prompt), new, rng_seed=i))
+        engine.step()
+    engine.run()
+    stats = {k: v for k, v in engine.stats().items() if not k.endswith("_seconds")}
+    pool = sum(t.numel() * t.element_size() for t in engine.pool.values())
+    return {"outputs": [r.output_ids().tolist() for r in reqs], "stats": stats,
+            "pool_bytes": int(pool)}
+
+
+def _pool_on_the_other_ranks_heads(mesh):
+    """A planted fault: each rank of ``mesh`` writes the K/V of the next
+    ``tp`` rank's heads into its pool."""
+    from accelerate_tpu_torch.parallel.sharding import _all_gather_dim
+    from accelerate_tpu_torch.parallelism_config import axis_sizes
+    from accelerate_tpu_torch.serving import engine as engine_mod
+
+    real = engine_mod._write_kv
+    tp = axis_sizes(mesh).get("tp", 1)
+    other = (mesh.coords.get("tp", 0) + 1) % tp
+
+    def swapped(k_pool, v_pool, phys, off, k, v):
+        n = k.shape[2]
+        k, v = (_all_gather_dim(t.contiguous(), 2, mesh.group("tp")).narrow(2, other * n, n)
+                for t in (k, v))
+        real(k_pool, v_pool, phys, off, k, v)
+
+    return engine_mod, "_write_kv", swapped
+
+
+@contextlib.contextmanager
+def _planted(target, name, value):
+    real = getattr(target, name)
+    setattr(target, name, value)
+    try:
+        yield
+    finally:
+        setattr(target, name, real)
+
+
+def check_mesh_decode(accelerator, tmpdir: str):
+    """Sharded decode and serving on the inputs the caller pickled to
+    ``tmpdir/decode_inputs.pkl`` (params, prompts, configs): greedy, beam,
+    eos and sampled decode under (dp_shard 2, tp 2), greedy from the
+    ``Accelerator``'s FSDP placement there, greedy under tp 4 (heads that
+    do not divide), MoE greedy under (ep 2, tp 2), the engine under
+    (dp_replicate 2, tp 2) and (dp_shard 2, tp 2), a planted fault for each
+    of the two paths, and the Llama and BERT training steps under
+    (dp_shard 2, tp 2) through ``prepare(..., shard_rules=)``. The main
+    process pickles the results to ``decode_results.pkl``."""
+    import pickle
+
+    from accelerate_tpu_torch.generation import (
+        MeshDecode,
+        beam_generate,
+        greedy_generate,
+        sample_generate,
+    )
+    from accelerate_tpu_torch.models.transformer import LlamaConfig, llama_shard_rules
+    from accelerate_tpu_torch.parallel.sharding import shard_params
+    from accelerate_tpu_torch.utils import operations as ops
+    from accelerate_tpu_torch.utils.random import prng_key
+
+    with open(os.path.join(tmpdir, "decode_inputs.pkl"), "rb") as f:
+        inp = pickle.load(f)  # written by the caller of this script
+    res = {}
+    cfg = LlamaConfig(**inp["config"])
+    params = _torch_tree(inp["params"])
+    prompt = inp["prompt"]
+    kw = dict(cache_dtype=torch.float32, device="cpu")
+
+    acc = _decode_acc(DECODE_MESHES["dp_shard2_tp2"])
+    sharded, specs = shard_params(params, acc.mesh, rules=llama_shard_rules())
+    kw["mesh"] = acc.mesh
+    res["greedy"] = greedy_generate(sharded, prompt, cfg, max_new_tokens=DECODE_NEW, **kw)
+    res["beam"], res["beam_scores"] = beam_generate(sharded, prompt, cfg, num_beams=2,
+                                                    max_new_tokens=5, return_scores=True, **kw)
+    res["eos"] = greedy_generate(sharded, prompt, cfg, max_new_tokens=DECODE_NEW,
+                                 eos_token_id=5, **kw)
+    res["sampled"] = sample_generate(sharded, prompt, cfg, max_new_tokens=DECODE_NEW,
+                                     temperature=0.7, top_k=8, rng_key=prng_key(7), **kw)
+    res["param_bytes"] = ops.gather_object(MeshDecode(sharded, cfg, acc.mesh).block_bytes())
+    res["coords"] = ops.gather_object(dict(acc.mesh.coords))
+    with _planted(MeshDecode, "attn_out", lambda self, x: x):  # no sum over tp after wo
+        res["fault_no_wo_sum"] = greedy_generate(sharded, prompt, cfg,
+                                                 max_new_tokens=DECODE_NEW, **kw)
+    prepared = acc.prepare_model(inp["params"], shard_rules=llama_shard_rules())
+    res["greedy_fsdp"] = greedy_generate(prepared, prompt, cfg, max_new_tokens=DECODE_NEW,
+                                         param_specs=acc.param_specs, **kw)
+    res["fsdp_layer_specs"] = str(acc.param_specs["layers"]["wq"]["kernel"])
+
+    acc = _decode_acc(DECODE_MESHES["tp4"])
+    sharded, _ = shard_params(params, acc.mesh, rules=llama_shard_rules())
+    res["greedy_tp4"] = greedy_generate(sharded, prompt, cfg, max_new_tokens=DECODE_NEW,
+                                        **dict(kw, mesh=acc.mesh))
+    md = MeshDecode(sharded, cfg, acc.mesh)
+    res["tp4_cache_heads"] = (md.attn_tp, md.kv_heads)
+
+    moe_cfg = LlamaConfig(**inp["moe_config"])
+    acc = _decode_acc(DECODE_MESHES["ep2_tp2"])
+    moe_sharded, _ = shard_params(_torch_tree(inp["moe_params"]), acc.mesh,
+                                  rules=llama_shard_rules())
+    res["moe_greedy"] = greedy_generate(moe_sharded, inp["moe_prompt"], moe_cfg,
+                                        max_new_tokens=5, **dict(kw, mesh=acc.mesh))
+    res["moe_wi_block"] = list(moe_sharded["layers"]["moe"]["wi"]["kernel"].shape)
+
+    eng_cfg = LlamaConfig(**inp["engine_config"])
+    eng_params = _torch_tree(inp["engine_params"])
+    for name in ("dp_replicate2_tp2", "dp_shard2_tp2"):
+        acc = _decode_acc(DECODE_MESHES[name])
+        eng_sharded, _ = shard_params(eng_params, acc.mesh, rules=llama_shard_rules())
+        run = decode_engine_run(eng_sharded, eng_cfg, inp["engine_prompts"], mesh=acc.mesh)
+        run["pool_bytes"] = ops.gather_object(run["pool_bytes"])
+        res[f"engine_{name}"] = run
+    with _planted(*_pool_on_the_other_ranks_heads(acc.mesh)):
+        res["fault_pool_heads"] = decode_engine_run(eng_sharded, eng_cfg, inp["engine_prompts"],
+                                                    mesh=acc.mesh)["outputs"]
+
+    # training through prepare(..., shard_rules=): Llama, then BERT
+    report = {}
+    _run_legs(accelerator, tmpdir, inp["llama_params"], inp["llama_batches"],
+              [("llama_shard_rules", DECODE_MESHES["dp_shard2_tp2"], False,
+                {"prepare_rules": "llama"})], report, prefix="shard")
+    res["llama_shard_rules"] = report["llama_shard_rules"]
+    bert = bert_shard_leg(inp["bert_params"], inp["bert_batches"],
+                          DECODE_MESHES["dp_shard2_tp2"])
+    res["bert_shard_rules"] = {k: v for k, v in bert.items() if k != "params"}
+    if accelerator.is_main_process:
+        res["bert_params"] = bert["params"]
+        with np.load(os.path.join(tmpdir, "shard_llama_shard_rules.npz")) as f:
+            res["llama_params"] = {k: f[k] for k in f.files}
+        with open(os.path.join(tmpdir, "decode_results.pkl"), "wb") as f:
+            pickle.dump(res, f)
+    accelerator.wait_for_everyone()
+
+
+def bert_shard_leg(params_np: dict, batches: dict, pc_kwargs: dict, device="cpu") -> dict:
+    """``adamw(1e-3)`` steps of tiny BERT prepared with
+    ``prepare(..., shard_rules=bert_shard_rules())`` on one mesh: losses,
+    gradient norms, full final params (``/``-joined paths) and the specs of
+    the split kernels."""
+    from accelerate_tpu_torch.data_loader import GlobalBatchAssembler
+    from accelerate_tpu_torch.models import transformer as tt
+    from accelerate_tpu_torch.optimizer import adamw
+    from accelerate_tpu_torch.parallel.sharding import _map_with_path
+
+    acc = _decode_acc(pc_kwargs, device)
+    cfg = tt.BertConfig.tiny()
+    params, opt = acc.prepare(params_np, adamw(MESH_LR), shard_rules=tt.bert_shard_rules())
+    step = acc.prepare_train_step(lambda p, b: tt.bert_loss(p, b, cfg),
+                                  compute_grad_norm=True)
+    assembler = GlobalBatchAssembler(acc.mesh, device=acc.device)
+    losses, norms = [], []
+    for k in range(batches["labels"].shape[0]):
+        batch = assembler.to_global(assembler.local_block({n: b[k] for n, b in batches.items()}))
+        params, _, metrics = step(params, opt.opt_state, batch)
+        losses.append(float(metrics["loss"]))
+        norms.append(float(metrics["grad_norm"]))
+    flat = {}
+    _map_with_path(lambda path, x: flat.__setitem__(path, x.detach().cpu().numpy()),
+                   acc.sharding_plan.gather_params_no_grad(params))
+    specs = {name: str(acc.param_specs["layers"][name]["kernel"]) for name in ("wq", "wo")}
+    return {"losses": losses, "grad_norms": norms, "params": flat, "specs": specs}
+
+
 def main():
     parser = argparse.ArgumentParser()
     parser.add_argument("--scenario", default="all")
@@ -672,6 +920,8 @@ def main():
             check_dataloader(accelerator)
         elif scenario == "dispatcher":
             check_dispatcher(accelerator)
+        elif scenario == "rng_sync":
+            check_rng_sync(accelerator)
         elif scenario == "dispatcher_ragged":
             check_dispatcher_ragged(accelerator)
         elif scenario == "training":
@@ -682,6 +932,8 @@ def main():
             check_mesh_moe(accelerator, args.tmpdir)
         elif scenario == "zoo_train":
             check_zoo_train(accelerator, args.tmpdir)
+        elif scenario == "mesh_decode":
+            check_mesh_decode(accelerator, args.tmpdir)
         else:
             raise ValueError(f"unknown scenario {scenario}")
         print(f"[proc {accelerator.process_index}] scenario {scenario}: OK", flush=True)

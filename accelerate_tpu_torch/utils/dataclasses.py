@@ -18,6 +18,7 @@ from typing import Callable, Optional, Union
 import torch
 
 __all__ = [
+    "DataLoaderConfiguration",
     "DeepSpeedPlugin",
     "DistributedType",
     "DummyOptim",
@@ -26,6 +27,7 @@ __all__ = [
     "GradientAccumulationPlugin",
     "MixedPrecisionPolicy",
     "PrecisionType",
+    "RNGType",
 ]
 
 
@@ -52,6 +54,42 @@ class PrecisionType(str, Enum):
 
     def __str__(self) -> str:
         return self.value
+
+
+class RNGType(str, Enum):
+    """The host random streams a prepared loader synchronizes (the JAX
+    package's names; its ``jax`` stream is the global key, which the port
+    does not keep)."""
+
+    JAX = "jax"
+    NUMPY = "numpy"
+    PYTHON = "python"
+    TORCH = "torch"
+    GENERATOR = "generator"
+
+    def __str__(self) -> str:
+        return self.value
+
+
+@dataclass
+class DataLoaderConfiguration:
+    """How :meth:`~..accelerator.Accelerator.prepare_data_loader` prepares a
+    loader (the JAX package's fields): ``dispatch_batches`` reads on rank 0
+    and broadcasts, ``even_batches`` wraps the last round around,
+    ``data_seed`` seeds the shuffle of a rebuilt torch loader,
+    ``use_stateful_dataloader`` asks for a loader with state of its own,
+    ``prefetch_depth`` is how many batches the producer thread reads ahead
+    (0: synchronous) and ``non_blocking`` makes its device copies
+    asynchronous."""
+
+    split_batches: bool = False
+    dispatch_batches: Optional[bool] = None
+    even_batches: bool = True
+    use_seedable_sampler: bool = True
+    non_blocking: bool = True
+    use_stateful_dataloader: bool = False
+    data_seed: Optional[int] = None
+    prefetch_depth: int = 2
 
 
 def _map_floats(tree, fn):

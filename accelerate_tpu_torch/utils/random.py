@@ -22,9 +22,14 @@ package draws its bits in XLA, not in a Pallas kernel.
 
 from __future__ import annotations
 
+import random
+from typing import Iterable
+
+import numpy as np
 import torch
 
-__all__ = ["fold_in", "gumbel", "prng_key", "random_bits", "threefry2x32", "uniform"]
+__all__ = ["fold_in", "gumbel", "prng_key", "random_bits", "synchronize_rng_state",
+           "synchronize_rng_states", "threefry2x32", "uniform"]
 
 _MASK = 0xFFFFFFFF
 _ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
@@ -90,3 +95,35 @@ def gumbel(keys: torch.Tensor, n: int) -> torch.Tensor:
     """``jax.random.gumbel(key, (1, n))`` (``mode="low"``) per row → f32
     ``[B, n]``."""
     return -torch.log(-torch.log(uniform(keys, n, _TINY, 1.0)))
+
+
+def synchronize_rng_state(rng_type=None, generator=None) -> None:
+    """Every process takes rank 0's state of one host stream (``numpy`` by
+    default; ``python``, ``torch`` or ``generator``, the given
+    ``torch.Generator``). The JAX package's ``jax`` stream is its global
+    key, which the port does not keep: it raises."""
+    import torch.distributed as dist
+
+    from .dataclasses import RNGType
+    from .operations import broadcast_object_list
+
+    rng_type = RNGType(str(rng_type)) if rng_type is not None else RNGType.NUMPY
+    if rng_type == RNGType.JAX:
+        raise ValueError("rng_types: the 'jax' stream is the JAX package's global key, which "
+                         "the port does not keep (its keys are explicit, utils.random.prng_key)")
+    if not (dist.is_available() and dist.is_initialized()) or dist.get_world_size() == 1:
+        return
+    if rng_type == RNGType.PYTHON:
+        random.setstate(broadcast_object_list([random.getstate()])[0])
+    elif rng_type == RNGType.NUMPY:
+        np.random.set_state(broadcast_object_list([np.random.get_state()])[0])
+    elif rng_type == RNGType.TORCH:
+        torch.set_rng_state(broadcast_object_list([torch.get_rng_state()])[0])
+    elif rng_type == RNGType.GENERATOR and generator is not None:
+        generator.set_state(broadcast_object_list([generator.get_state()])[0])
+
+
+def synchronize_rng_states(rng_types: Iterable, generator=None) -> None:
+    """:func:`synchronize_rng_state` for each of ``rng_types``."""
+    for rng_type in rng_types:
+        synchronize_rng_state(rng_type, generator=generator)

@@ -56,9 +56,12 @@ csrc`` at first use) and no network. Phases, each of which fails the run:
    workload sampled (top-k, top-p), with and without speculation, each leg
    run twice to the same tokens, and the sampler's launches and device ms;
    continuous against static batching on 32 requests. Phase 2 also runs
-   the paged kernels at a draft step's and a verify step's shapes;
+   the paged kernels at a draft step's and a verify step's shapes, and at
+   a tp 2 rank's heads of config #5 (16 q over 4 kv heads);
 5. training: BERT-base at full width (``attn_impl="fused"``, S=128, batch
-   32, random f32 master weights from seed 0, synthetic MRPC) through
+   32, random f32 master weights from seed 0, synthetic MRPC; the loader
+   through ``prepare`` at its default ``prefetch_depth`` 2, its batches
+   held bitwise to the synchronous loader's) through
    ``Accelerator(mixed_precision="bf16").prepare`` and
    ``prepare_train_loop`` (K=10 steps a call): one warm call, then timed
    calls with the fused-kernel counters zeroed before and read after (12
@@ -111,14 +114,25 @@ csrc`` at first use) and no network. Phases, each of which fails the run:
    its flash launches counted; then the script starts itself twice
    (``--mesh-2rank-child``): two processes share the card over ``gloo``
    and train the long-context widths at 4 layers and S=2048 under
-   dp_shard 2, tp 2, fused ZeRO-1, ZeRO-1 by annotation and dp_shard 2 in
-   fp16, each leg held to a one-process run, with flash #1-#3 launched on
-   each rank (the fp16 leg: plain attention, the kernels take bf16 and
-   f32); config #4 at full width and depth under dp_shard 2, its layers
-   gathered one at a time, held to a one-process run with its peak memory
-   a rank under 0.75 of phase_lm774m's, two planted faults failing a bar;
-   phase_moe's model and training under ep 2 (``moe_shard_rules``), held
-   to phase_moe's steps with equal drops and half the expert bytes a rank;
+   dp_shard 2, tp 2, fused ZeRO-1, ZeRO-1 by annotation, dp_shard 2 in
+   fp16 and tp 2 through ``prepare(..., shard_rules=llama_shard_rules())``,
+   each leg held to a one-process run, with flash #1-#3 launched on each
+   rank (the fp16 leg: plain attention, the kernels take bf16 and f32),
+   and BERT-base in phase_train's recipe under tp 2 through
+   ``bert_shard_rules()``, held to one process with #4/#5 on each rank;
+   config #4 at full width, 12 of its 36 layers (``MESH_LM_LAYERS``),
+   under dp_shard 2, its layers gathered one at a time, held to a
+   one-process run at the same depth with its peak memory a rank under
+   0.75 of that run's, two planted faults failing a bar; phase_moe's model
+   at 4 of its 16 layers (``MOE_EP_LAYERS``) and its training recipe under
+   ep 2 (``moe_shard_rules``), held to a one-process run at that depth with
+   equal drops and half the expert bytes a rank, and its greedy decode at
+   all 16 layers under ep 2 equal to phase_moe's tokens;
+   then config #5 at full width and depth decoded under tp 2
+   (``--mesh-decode-child``, ``llama_shard_rules``): f32 greedy 8 x 128 +
+   64 and the engine's requests (f32 and bf16, #6/#7 on each rank's 16/4
+   heads) held to one-process runs at near-ties, with per-rank bytes, ms a
+   decode step, the collectives' bytes and a planted fault;
 9. the card's name and power limit, one JSON line of kernel records, and
    a last line ``{"ok": true, "device": {...}}``.
 
@@ -318,6 +332,9 @@ MESH_2RANK_LEGS = (  # (name, ParallelismConfig kwargs, ZeRO-1, llama_tp_rules, 
     # fp16 loss scaling (held to a one-process fp16 run): a first step that
     # overflows, then growth every 2 finite steps
     ("dp_shard2_fp16", {"dp_shard_size": 2}, False, False, {"fp16": True}),
+    # the models' own rules through prepare(..., shard_rules=llama_shard_rules()):
+    # tp splits the heads' and the ffn's out or in dims, gathered per layer
+    ("tp2_llama_shard_rules", {"tp_size": 2}, False, False, {"prepare_rules": True}),
 )
 MESH_2RANK_FAULTS = (("tp2_summed_over_tp", "tp2"), ("dp_shard2_not_divided", "dp_shard2"))
 MESH_2RANK_LOSS_RTOL = MESH_2RANK_NORM_RTOL = 1e-5
@@ -333,13 +350,13 @@ MESH_2RANK_FP16_SCALER = dict(init_scale=2.0 ** 40, growth_factor=2.0 ** 30,
 MESH_2RANK_TIMEOUT_S = 600
 MESH_OPS_GATHER_MB = 64
 # phase_mesh_lm774m: config #4 (LM774M_KW, its recipe: bf16 params,
-# adafactor(1e-4), remat "dots_no_batch", flash) at full width and depth
+# adafactor(1e-4), remat "dots_no_batch", flash) at full width, its depth
+# cut to MESH_LM_LAYERS of 36 to keep the script's time (see MOE_EP_LAYERS),
 # under ParallelismConfig(dp_shard_size=2): two processes on the one card
-# over gloo, 4 rows a rank of the global batch of 8, 3 steps, the stacked
-# layers gathered one at a time (FSDP splits the 36-layer axis: each rank
-# holds 18 whole layers, and a gather is a broadcast from the owner). Held
-# to a one-process run of the same steps (whose losses must be
-# phase_lm774m's, FSDP_LM_RTOL). Bars, bf16, set from a CPU run of these
+# over gloo, 4 rows a rank of the global batch of 8, 3 steps, the
+# stacked layers gathered one at a time (FSDP splits the layer axis: each
+# rank holds half the layers, and a gather is a broadcast from the owner).
+# Held to a one-process run of the same steps at the same depth. Bars, bf16, set from a CPU run of these
 # legs at cut widths (6 layers, dim 256, vocab 1003, S=128, batch 8) before
 # the first run on the card: the losses differed by 3.5e-5 relative at
 # most (each rank's bf16 GEMMs over its rows, the gradients summed in bf16
@@ -351,8 +368,10 @@ MESH_OPS_GATHER_MB = 64
 # summed in another order, bar 2e-2. On an H100 the sound leg measured
 # 3.2e-5, 3.4e-3 and 2.7e-4. Two planted faults must fail
 # a bar: layer 0's gradient not summed over dp_shard, and layer i computed
-# with layer i+1's prefetched params (layer 0 then has no gradient). Expected peak a rank under 0.75 of phase_lm774m's at remat
-# "dots_no_batch" (8.10 GiB in PRs 11-14).
+# with layer i+1's prefetched params (layer 0 then has no gradient). Peak
+# a rank under 0.75 of the one-process run's (at 36 layers it measured
+# 0.535 of phase_lm774m's 8.10 GiB).
+MESH_LM_LAYERS = 12
 MESH_LM_STEPS = 3
 MESH_LM_LOSS_RTOL, MESH_LM_NORM_RTOL, MESH_LM_LAYER_NORM_RTOL = 1e-3, 8e-3, 2e-2
 MESH_LM_PEAK_SHARE = 0.75
@@ -373,9 +392,42 @@ MESH_LM_FAULTS = ("layer_grads_not_summed", "next_layer_params")
 # token-choices equal (the router runs the same f32 product on the same
 # rows). The planted fault (the expert input's gradient not summed over
 # ep: each rank's tokens see only its own experts' part) must fail a bar.
+# The training legs run MOE_EP_LAYERS of the model's 16 layers, to keep the
+# script's time (at all 16 the one-process steps equalled phase_moe's loop
+# bitwise); the greedy leg below runs all 16. The margin of the two cuts:
+# the script is to finish in half its 1200 s limit where it can, and the
+# same code has taken up to 1.30 times as long on one host as on another
+# (624.4 and 810.0 s on an H100 80GB HBM3 at 700 W); uncut, it took 921 s,
+# which a slow host would take to ~1200 s. The cuts took ~100 s off
+# (phase_mesh_lm774m 65.9 -> 33-35 s, phase_moe_ep 113.3 -> 39-49 s), and
+# the cut script took 625.5-721.7 s: ~810-940 s on the slowest host seen.
+MOE_EP_LAYERS = 4
 MOE_EP_STEPS = 2
 MOE_EP_LOSS_RTOL, MOE_EP_AUX_RTOL = 1e-5, 1e-5
 MOE_EP_FAULTS = ("expert_input_grad_not_summed",)
+# ... and in the same launch, phase_moe's greedy decode (8 x 128 prompt
+# tokens, GEN_SHORT_NEW new, bf16) under ep 2 with llama_shard_rules (each
+# rank computes its 4 experts; the combine sums over ep): tokens equal to
+# phase_moe's one-process greedy of the same length (the expert products
+# are the same products, and the sum of one rank's term and the other's
+# zero is exact).
+# phase_mesh_decode: config #5 (CONFIG_KW) at full width and depth under
+# ParallelismConfig(tp_size=2), two processes on the one card over gloo,
+# params placed by shard_params(rules=llama_shard_rules()) (each rank its
+# 16 of 32 q heads and 4 of 8 kv heads, half of every ffn product and
+# half the vocab). Greedy 8 x 128 + 64 in f32, held to a one-process f32
+# run: the f32 sums part in order only (each wo/w2 product is two partial
+# sums added), so a token may differ only at a near-tie: every sharded
+# token lies within MESH_DECODE_TIE of the one-process f32 argmax over the
+# sharded run's own rows, and the tokens equal to one process are counted.
+# The engine's 9 requests of _engine_prompts, in bf16 and in f32: the f32
+# streams held to the one-process f32 engine by the same rule; #6 and #7
+# must launch on each rank (16 q over 4 kv heads); a rank holds half the
+# pool and at most MESH_DECODE_PARAM_SHARE of the params. The planted
+# fault (no sum over tp after wo) must fail the token bar.
+MESH_DECODE_TIE = 1e-3
+MESH_DECODE_PARAM_SHARE = 0.55
+MESH_DECODE_FAULT_NEW = 8
 
 
 class SmokeFailure(RuntimeError):
@@ -493,17 +545,19 @@ DECODE_CASES = {
     # a draft step of the serving bench's model (16/8 heads): 8 slots, the
     # widest table of its lattice (11 blocks), two padded slots
     "draft": (11, [5, 33, 64, 97, 120, 163, -1, -1]),
+    # a decode step of config #5 on one rank under tp 2 (16 q over 4 kv heads)
+    "decode_tp": (16, [1, 17, 100, 129, 200, 255, 256, -1]),
 }
 # the speculative verify step of the same model: 8 slot rows of k+1 = 4
 # queries from their own positions (-1: a padded row on the null block,
 # positions 0-3) over an 11-entry table
 VERIFY_STARTS = [0, 15, 16, 47, 100, 159, -1, -1]
 # q heads, kv heads of a case (default: the Llama-1B class, 32/8)
-CASE_HEADS = {"draft": (16, 8), "verify": (16, 8)}
+CASE_HEADS = {"draft": (16, 8), "verify": (16, 8), "decode_tp": (16, 4), "prefill_tp": (16, 4)}
 # The paged kernel cases' seeds, by name (bf16 takes the seed, f32 the
 # next), so that adding a case leaves every other case's inputs as they were.
 KERNEL_CASE_SEEDS = {"decode": 0, "prefill128": 2, "prefill256": 4, "decode_long": 6,
-                     "decode_b1": 8, "draft": 10, "verify": 12}
+                     "decode_b1": 8, "draft": 10, "verify": 12, "decode_tp": 14, "prefill_tp": 16}
 
 
 def _kernel_case(kind, dtype, dev, seed):
@@ -526,7 +580,8 @@ def _kernel_case(kind, dtype, dev, seed):
         qpos = (lens - 1)[:, None]
     else:
         B, W = 1, 32
-        S, start = {"prefill128": (128, 160), "prefill256": (256, 200)}[kind]
+        S, start = {"prefill128": (128, 160), "prefill256": (256, 200),
+                    "prefill_tp": (128, 160)}[kind]
         qpos = (start + np.arange(S, dtype=np.int32))[None]
         need = [-(-(start + S) // bs)]
     nb = sum(need) + 1
@@ -625,7 +680,7 @@ def phase_kernels(dev):
 
     sdpa = torch.nn.functional.scaled_dot_product_attention
     results = {}
-    for kind in (*DECODE_CASES, "prefill128", "prefill256", "verify"):
+    for kind in (*DECODE_CASES, "prefill128", "prefill256", "verify", "prefill_tp"):
         for dtype in (torch.bfloat16, torch.float32):
             seed = KERNEL_CASE_SEEDS[kind] + (dtype == torch.float32)
             case = _kernel_case(kind, dtype, dev, seed)
@@ -1835,13 +1890,80 @@ def _train_setup(dev, precision, n_batches):
     return config, params, opt, list(dl), loop
 
 
+LOADER_BATCHES = 16
+
+
+def _loader_depths(dev):
+    """phase_train's loader through ``Accelerator.prepare`` at the default
+    ``prefetch_depth`` (2: a producer thread, copies on the loader's side
+    stream) and at 0 (synchronous): the batches must be bitwise equal. Two
+    timings of each depth, on the host clock: the loader alone (each batch
+    consumed by a sum on the device) and phase_train's BERT step fed from
+    the loader, one step a batch, the depths taken in turn twice."""
+    from accelerate_tpu_torch import Accelerator, DataLoader, DataLoaderConfiguration
+    from accelerate_tpu_torch.data_loader import prepare_data_loader
+    from accelerate_tpu_torch.utils.operations import stack_batches
+    from accelerate_tpu_torch.utils.synthetic import DictDataset, make_synthetic_mrpc
+
+    data = make_synthetic_mrpc(TRAIN_BATCH * LOADER_BATCHES, TRAIN_SEQ, 30522, seed=0)
+    runs = {}
+    for depth in (2, 0):
+        _reset_states()
+        acc = Accelerator(mixed_precision="bf16", dataloader_config=DataLoaderConfiguration(
+            prefetch_depth=depth))
+        dl = acc.prepare(DataLoader(DictDataset(data), batch_size=TRAIN_BATCH))
+        check(dl.prefetch_depth == depth, f"[train-loader] prefetch_depth {dl.prefetch_depth}")
+        for _ in range(2):  # the second epoch is the timed one
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            batches = []
+            for b in dl:
+                torch.stack([t.float().sum() for t in b.values()]).sum().item()
+                batches.append(b)
+            wall = time.perf_counter() - t0
+        runs[depth] = (batches, 1e3 * wall / len(batches))
+    same = all(b2.keys() == b0.keys() and all(torch.equal(b2[k], b0[k]) for k in b0)
+               for b2, b0 in zip(runs[2][0], runs[0][0])) and len(runs[2][0]) == len(runs[0][0])
+    print(f"[train-loader] {LOADER_BATCHES} batches of {TRAIN_BATCH} x {TRAIN_SEQ} through "
+          f"prepare: prefetch_depth 2 {runs[2][1]:.3f} ms a batch on the host, prefetch_depth 0 "
+          f"{runs[0][1]:.3f} ms; batches bitwise equal: {same}")
+    check(same, "[train-loader] prefetch_depth 2 and 0 gave different batches")
+
+    # the same loader feeding the step: what the thread costs or hides there
+    _, params, opt, _, loop = _train_setup(dev, "bf16", 1)
+    state = opt.opt_state
+    loaders = {depth: prepare_data_loader(DataLoader(DictDataset(data), batch_size=TRAIN_BATCH),
+                                          prefetch_depth=depth) for depth in (2, 0)}
+    step_ms = {2: [], 0: []}
+    for rep in range(3):  # the first round warms both
+        for depth, dl in loaders.items():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            n = 0
+            for b in dl:
+                params, state, m = loop(params, state, stack_batches([b]))
+                n += 1
+            torch.cuda.synchronize()
+            if rep:
+                step_ms[depth].append(1e3 * (time.perf_counter() - t0) / n)
+    check(bool(torch.isfinite(m["loss"]).all()), "[train-loader] non-finite loss in the step loop")
+    print(f"[train-loader] BERT step fed from the loader, {LOADER_BATCHES} steps an epoch, depths "
+          f"in turn: prefetch_depth 2 " + " ".join(f"{x:.3f}" for x in step_ms[2])
+          + " ms a step, prefetch_depth 0 " + " ".join(f"{x:.3f}" for x in step_ms[0])
+          + f" ms; depth 2 / depth 0 {sum(step_ms[2]) / sum(step_ms[0]):.4f}")
+    _reset_states()
+
+
 def phase_train(dev):
     """The training main path in bf16: one warm call of the K-step loop,
     then TRAIN_CALLS timed calls with the fused counters zeroed before and
-    read after; then ``torch.profiler`` over one step."""
+    read after; then ``torch.profiler`` over one step. The loader comes
+    through ``prepare`` at its default ``prefetch_depth``, held first to
+    the synchronous loader (:func:`_loader_depths`)."""
     from accelerate_tpu_torch.ops import fused_attention as fa
     from accelerate_tpu_torch.utils.operations import stack_batches
 
+    _loader_depths(dev)
     config, params, opt, batches, loop = _train_setup(dev, "bf16", 4)
     n_params = sum(t.numel() for v in params.values() for e in v.values()
                    for t in (e.values() if isinstance(e, dict) else [e]))
@@ -1962,9 +2084,10 @@ def _train_run(dev, precision, plain):
     return m["loss"].cpu(), upd, {k: v.cpu() for k, v in m.items()}
 
 
-def _compare_runs(tag, k_loss, k_upd, p_loss, p_upd, loss_tol, upd_tol, bias_tol):
-    """Per-step losses and each leaf's 3-step update, kernels vs plain; the
-    key bias (zero gradient) within ``bias_tol``."""
+def _compare_runs(tag, k_loss, k_upd, p_loss, p_upd, loss_tol, upd_tol, bias_tol,
+                  what="kernels vs plain attention"):
+    """Per-step losses and each leaf's 3-step update, ``what`` (kernels vs
+    plain by default); the key bias (zero gradient) within ``bias_tol``."""
     check(bool(torch.isfinite(k_loss).all() and torch.isfinite(p_loss).all()),
           f"{tag}: non-finite loss")
     loss_err = float(((k_loss - p_loss).abs() / p_loss.abs()).max())
@@ -1974,7 +2097,7 @@ def _compare_runs(tag, k_loss, k_upd, p_loss, p_upd, loss_tol, upd_tol, bias_tol
                for name, a in k_upd.items() if name != zero_grad}
     worst = max(upd_err, key=upd_err.get)
     bias_err = float((k_upd[zero_grad] - p_upd[zero_grad]).abs().max())
-    print(f"[{tag}] 3 steps, kernels vs plain attention: losses "
+    print(f"[{tag}] 3 steps, {what}: losses "
           f"{' '.join(f'{x:.6f}' for x in k_loss.tolist())} vs "
           f"{' '.join(f'{x:.6f}' for x in p_loss.tolist())}; max rel err loss {loss_err:.3e} "
           f"(tol {loss_tol:.0e}); updates: largest rel L2 err {upd_err[worst]:.3e} ({worst}; "
@@ -1983,11 +2106,11 @@ def _compare_runs(tag, k_loss, k_upd, p_loss, p_upd, loss_tol, upd_tol, bias_tol
     for name in sorted(upd_err, key=upd_err.get, reverse=True)[:4]:
         print(f"[{tag}]   {name}: update rel L2 err {upd_err[name]:.3e}, update max "
               f"{float(p_upd[name].abs().max()):.3e}")
-    check(loss_err <= loss_tol, f"{tag} losses: kernels vs plain rel err {loss_err} > {loss_tol}")
+    check(loss_err <= loss_tol, f"{tag} losses: {what} rel err {loss_err} > {loss_tol}")
     check(upd_err[worst] <= upd_tol,
-          f"{tag} 3-step update of {worst}: kernels vs plain rel L2 err {upd_err[worst]} > "
+          f"{tag} 3-step update of {worst}: {what} rel L2 err {upd_err[worst]} > "
           f"{upd_tol}")
-    check(bias_err <= bias_tol, f"{zero_grad}: kernels vs plain {bias_err} > {bias_tol}")
+    check(bias_err <= bias_tol, f"{zero_grad}: {what} {bias_err} > {bias_tol}")
 
 
 def phase_train_check_fp16(dev):
@@ -3198,6 +3321,8 @@ def phase_moe(dev):
                                     return_stats=True, warmup=True)
     check(tokens.shape == (GEN_BATCH, GEN_PROMPT + GEN_NEW)
           and (tokens[:, GEN_PROMPT:] < config.vocab_size).all(), "[moe] bad greedy tokens")
+    # the same decode at GEN_SHORT_NEW new tokens: phase_moe_ep's reference
+    short = greedy_generate(params, prompt, config, max_new_tokens=GEN_SHORT_NEW)
     drops = {}
     with _count_drops(drops):
         greedy_generate(params, prompt, config, max_new_tokens=1)
@@ -3290,6 +3415,7 @@ def phase_moe(dev):
         "no", adafactor(MOE_LR), torch.bfloat16, "dots_no_batch", MOE_TRAIN_CALLS,
         f"bf16 params, adafactor({MOE_LR:g}), {config.moe_experts} experts top-"
         f"{config.moe_top_k}")
+    leg["greedy_short"] = short
     print(f"[moe] phase seconds {time.perf_counter() - t_phase:.1f}")
     return engine_launches, train_launches, leg
 
@@ -3507,8 +3633,10 @@ def _mesh_2rank_leg(dev, config, pc_kwargs, zero1, tp_rules, options=None, ref_u
     step's build for ``"dp_shard2_not_divided"``, in its run for the
     other. ``options``: ``env`` (set around ``prepare``) and ``fp16``
     (mixed precision with ``MESH_2RANK_FP16_SCALER``, plain attention; the
-    loss scales and finite flags are returned)."""
+    loss scales and finite flags are returned), ``prepare_rules`` (pass
+    ``llama_shard_rules()`` to ``prepare``)."""
     from accelerate_tpu_torch import Accelerator, LlamaConfig, init_llama, llama_loss
+    from accelerate_tpu_torch import llama_shard_rules
     from accelerate_tpu_torch.data_loader import GlobalBatchAssembler
     from accelerate_tpu_torch.ops import flash_attention as fa
     from accelerate_tpu_torch.optimizer import adamw
@@ -3533,7 +3661,8 @@ def _mesh_2rank_leg(dev, config, pc_kwargs, zero1, tp_rules, options=None, ref_u
                           grad_scaler_config=GradScalerConfig(**MESH_2RANK_FP16_SCALER)
                           if fp16 else None)
         init = init_llama(config, torch.Generator(device=dev).manual_seed(0), device=dev)
-        params, opt = acc.prepare(init, adamw(MESH_2RANK_LR))
+        params, opt = acc.prepare(init, adamw(MESH_2RANK_LR), shard_rules=(
+            llama_shard_rules() if options.get("prepare_rules") else None))
     plan = acc.sharding_plan
     impl = "xla" if fp16 else None  # the flash kernels take bf16 and f32
     with _mesh_fault(fault if fault == "dp_shard2_not_divided" else None):
@@ -3593,6 +3722,55 @@ def _mesh_2rank_leg(dev, config, pc_kwargs, zero1, tp_rules, options=None, ref_u
     return out
 
 
+def _bert_tp_leg(dev, pc_kwargs=None):
+    """phase_train's recipe (BERT-base, S=128, fused attention, bf16 compute
+    over f32 masters, adamw(TRAIN_LR), batch 32 from the prepared loader)
+    for 3 steps, through a mesh of the running processes with
+    ``prepare(..., shard_rules=bert_shard_rules())`` when ``pc_kwargs`` is
+    given: the losses, each leaf's 3-step update (whole params) and the
+    fused launches."""
+    from accelerate_tpu_torch import (
+        Accelerator,
+        BertConfig,
+        DataLoader,
+        bert_loss,
+        bert_shard_rules,
+        init_bert,
+    )
+    from accelerate_tpu_torch.ops import fused_attention as fa
+    from accelerate_tpu_torch.optimizer import adamw
+    from accelerate_tpu_torch.parallelism_config import ParallelismConfig
+    from accelerate_tpu_torch.state import AcceleratorState, GradientState
+    from accelerate_tpu_torch.utils.operations import stack_batches
+    from accelerate_tpu_torch.utils.synthetic import DictDataset, make_synthetic_mrpc
+
+    AcceleratorState._reset_state()
+    GradientState._reset_state()
+    config = dataclasses.replace(BertConfig.base(), max_seq_len=TRAIN_SEQ, attn_impl="fused")
+    acc = Accelerator(mixed_precision="bf16", rng_seed=0, device=dev,
+                      parallelism_config=ParallelismConfig(**(pc_kwargs or {})))
+    data = make_synthetic_mrpc(TRAIN_BATCH * 3, TRAIN_SEQ, config.vocab_size, seed=0)
+    init = init_bert(config, torch.Generator(device=dev).manual_seed(0), device=dev)
+    params, opt, dl = acc.prepare(init, adamw(TRAIN_LR),
+                                  DataLoader(DictDataset(data), batch_size=TRAIN_BATCH),
+                                  shard_rules=bert_shard_rules() if pc_kwargs else None)
+    loop = acc.prepare_train_loop(lambda p, b: bert_loss(p, b, config), opt)
+    kernels = (fa.fused_attention_fwd, fa.fused_attention_bwd)
+    for k in kernels:
+        k.launches = 0
+    params, _, m = loop(params, opt.opt_state, stack_batches(list(dl)))
+    torch.cuda.synchronize()
+    full = acc.sharding_plan.gather_params_no_grad(params)
+    start = dict(_named(init))
+    upd = {name: (t.detach() - start[name]).float().cpu() for name, t in _named(full)}
+    out = {"losses": m["loss"].float().cpu(), "updates": upd,
+           "launches": {k.__name__: k.launches for k in kernels},
+           "sharded": acc.sharding_plan.sharded}
+    del params, opt, loop, full, init
+    torch.cuda.empty_cache()
+    return out
+
+
 def mesh_2rank_child(tmp: str) -> int:
     """One of ``phase_mesh_2rank``'s two processes (``chip_smoke.py
     --mesh-2rank-child <dir>``): joins the gloo group of two on ``cuda:0``
@@ -3615,6 +3793,11 @@ def mesh_2rank_child(tmp: str) -> int:
     report["faults"] = {fault: _mesh_2rank_leg(state.device, config, *legs[leg], refs.get("f32"),
                                                updates=state.is_main_process, fault=fault)
                         for fault, leg in MESH_2RANK_FAULTS}
+    bert = _bert_tp_leg(state.device, {"tp_size": 2})
+    if state.is_main_process:
+        torch.save({"losses": bert["losses"], "updates": bert["updates"]},
+                   os.path.join(tmp, "bert_tp2.pt"))
+    report["bert_tp2"] = {"launches": bert["launches"], "sharded": bert["sharded"]}
     return _leave_two(state, tmp, report)
 
 
@@ -3686,7 +3869,9 @@ def phase_mesh_2rank(dev):
     hold half the AdamW moments on each rank; each of
     ``MESH_2RANK_FAULTS`` must fail a bar. Per-rank peak memory,
     optimizer-state bytes, collective bytes and the gather's ms are
-    printed. Returns each leg's launches per rank."""
+    printed. Also BERT-base in phase_train's recipe under tp 2
+    (:func:`_bert_tp_leg`), held to one process with #4/#5 on each rank.
+    Returns each Llama leg's launches per rank, and the BERT leg's."""
     import tempfile
 
     from accelerate_tpu_torch import LlamaConfig
@@ -3717,10 +3902,25 @@ def phase_mesh_2rank(dev):
           f"[mesh-2rank] the fp16 reference's scaler did not overflow once and only on its first "
           f"step: {refs['fp16']['grads_finite']}")
     _reset_states()
+    bert_ref = _bert_tp_leg(dev)
+    _reset_states()
     with tempfile.TemporaryDirectory(prefix="mesh_2rank_") as tmp:
         for kind, ref in refs.items():
             torch.save(ref.pop("updates"), os.path.join(tmp, f"ref_updates_{kind}.pt"))
         ranks = _run_two("--mesh-2rank-child", tmp, "mesh-2rank", MESH_2RANK_TIMEOUT_S)
+        bert = torch.load(os.path.join(tmp, "bert_tp2.pt"))
+    bert_want = {"fused_attention_fwd": 3 * 12, "fused_attention_bwd": 3 * 12}
+    for i, r in enumerate(ranks):
+        check(r["bert_tp2"]["sharded"], f"[mesh-2rank] BERT tp 2 rank {i}: no param split")
+        check(r["bert_tp2"]["launches"] == bert_want,
+              f"[mesh-2rank] BERT tp 2 rank {i} fused launches {r['bert_tp2']['launches']}, "
+              f"want {bert_want}")
+    print(f"[mesh-2rank] BERT-base under tp 2 through prepare(..., shard_rules="
+          f"bert_shard_rules()), phase_train's recipe, 3 steps: launches on each rank "
+          f"{[r['bert_tp2']['launches'] for r in ranks]}")
+    _compare_runs("mesh-2rank-bert", bert["losses"], bert["updates"], bert_ref["losses"],
+                  bert_ref["updates"], TRAIN_RTOL, TRAIN_UPDATE_RTOL, 3 * TRAIN_LR,
+                  what="tp 2 vs one process")
     want = {"flash_attention_fwd": config.n_layers * MESH_2RANK_STEPS,
             "flash_attention_dq": config.n_layers * MESH_2RANK_STEPS,
             "flash_attention_dkdv": config.n_layers * MESH_2RANK_STEPS}
@@ -3783,7 +3983,7 @@ def phase_mesh_2rank(dev):
               f"gradient norms {norm_err:.3e}, worst update {worst} {upd_err:.3e}; caught by "
               f"{caught or 'no bar'}")
         check(bool(caught), f"[mesh-2rank] the planted fault {fault} passes every bar")
-    return launches
+    return launches, [r["bert_tp2"]["launches"] for r in ranks]
 
 
 def _mesh_2rank_errs(leg, ref):
@@ -3871,7 +4071,7 @@ def _mesh_lm_leg(dev, pc_kwargs, fault=None, steps=MESH_LM_STEPS):
 
     AcceleratorState._reset_state()
     GradientState._reset_state()
-    config = LlamaConfig(**LM774M_KW)
+    config = dataclasses.replace(LlamaConfig(**LM774M_KW), n_layers=MESH_LM_LAYERS)
     acc = Accelerator(mixed_precision="no", rng_seed=0, device=dev,
                       parallelism_config=ParallelismConfig(**pc_kwargs))
     init = init_llama(config, torch.Generator(device=dev).manual_seed(0), device=dev,
@@ -3948,35 +4148,30 @@ def _lm_errs(leg, ref):
     return loss_err, norm_err, layer_err
 
 
-def phase_mesh_lm774m(dev, lm_ref):
-    """Config #4 at full width and depth under dp_shard 2 (two processes on
-    the one card over gloo), held to a one-process run of the same 3 steps
-    (whose losses must be ``phase_lm774m``'s): the bars of ``MESH_LM_*``;
-    each rank's peak memory under ``MESH_LM_PEAK_SHARE`` of
-    ``phase_lm774m``'s; at most 2 layers' gathered params alive; #1-#3
-    launched 72/36/36 times a step on each rank; each planted fault failing
-    a bar. Returns the launches of each rank."""
+def phase_mesh_lm774m(dev):
+    """Config #4 at full width, ``MESH_LM_LAYERS`` deep, under dp_shard 2
+    (two processes on the one card over gloo), held to a one-process run of
+    the same 3 steps: the bars of ``MESH_LM_*``; each rank's peak memory
+    under ``MESH_LM_PEAK_SHARE`` of the one-process run's; at most 2
+    layers' gathered params alive; #1-#3 launched 2/1/1 times a layer and
+    step on each rank; each planted fault failing a bar. Returns the
+    launches of each rank."""
     import tempfile
 
     from accelerate_tpu_torch import LlamaConfig
 
-    config = LlamaConfig(**LM774M_KW)
+    config = dataclasses.replace(LlamaConfig(**LM774M_KW), n_layers=MESH_LM_LAYERS)
     rows = LM774M_BATCH // 2
     check(FLASH_CASES["lm774m_rank"] == (rows, config.max_seq_len, config.n_heads,
                                          config.n_kv_heads, config.head_dim, None, False),
           "FLASH_CASES['lm774m_rank'] is not a dp_shard 2 rank's attention shape")
     _reset_states()
     ref = _mesh_lm_leg(dev, {})
-    err = max(abs(a - float(b)) / abs(float(b)) for a, b in zip(ref["losses"],
-                                                                lm_ref["losses"].tolist()))
-    print(f"[mesh-lm774m] one-process reference: {MESH_LM_STEPS} steps of prepare_train_step, "
+    print(f"[mesh-lm774m] one-process reference, {config.n_layers} of config #4's "
+          f"{LM774M_KW['n_layers']} layers: {MESH_LM_STEPS} steps of prepare_train_step, "
           f"losses " + " ".join(f"{v:.5f}" for v in ref["losses"]) + ", gradient norms "
           + " ".join(f"{v:.5f}" for v in ref["grad_norms"]) + f"; {ref['ms']:.1f} ms/step "
-          f"(first {ref['first_ms']:.1f}), peak {ref['peak'] / 2**30:.2f} GiB; against "
-          f"phase_lm774m's first {MESH_LM_STEPS} losses: max rel err {err:.3e} (bar "
-          f"{FSDP_LM_RTOL:g})")
-    check(err <= FSDP_LM_RTOL, f"[mesh-lm774m] the one-process steps' losses differ from "
-                               f"phase_lm774m's by {err}")
+          f"(first {ref['first_ms']:.1f}), peak {ref['peak'] / 2**30:.2f} GiB")
     _reset_states()
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory(prefix="mesh_lm_") as tmp:
@@ -3984,7 +4179,7 @@ def phase_mesh_lm774m(dev, lm_ref):
     want = {"flash_attention_fwd": 2 * config.n_layers * MESH_LM_STEPS,
             "flash_attention_dq": config.n_layers * MESH_LM_STEPS,
             "flash_attention_dkdv": config.n_layers * MESH_LM_STEPS}
-    limit = MESH_LM_PEAK_SHARE * lm_ref["peak"]
+    limit = MESH_LM_PEAK_SHARE * ref["peak"]
     for i, r in enumerate(ranks):
         leg = r["dp_shard2"]
         loss_err, norm_err, layer_err = _lm_errs(leg, ref)
@@ -3996,7 +4191,7 @@ def phase_mesh_lm774m(dev, lm_ref):
               f"first-step gradient norms max rel err {layer_err:.3e} (bar "
               f"{MESH_LM_LAYER_NORM_RTOL:g}); {leg['ms']:.1f} ms/step (first "
               f"{leg['first_ms']:.1f}), peak {leg['peak'] / 2**30:.2f} GiB ("
-              f"{leg['peak'] / lm_ref['peak']:.3f} of phase_lm774m's {lm_ref['peak'] / 2**30:.2f}, "
+              f"{leg['peak'] / ref['peak']:.3f} of one process's {ref['peak'] / 2**30:.2f}, "
               f"bar {MESH_LM_PEAK_SHARE}), params held {leg['local_param_bytes'] / 2**30:.3f} GiB; "
               f"live gathered layers at most {leg['max_live_layers']}, {leg['gathers']} layer "
               f"gathers in the last step; bytes a step {leg['comm_bytes']}; whole-tree gather "
@@ -4010,7 +4205,7 @@ def phase_mesh_lm774m(dev, lm_ref):
         check(leg["max_live_layers"] is not None and leg["max_live_layers"] <= 2,
               f"[mesh-lm774m] rank {i}: {leg['max_live_layers']} layers' gathered params alive")
         check(leg["peak"] < limit, f"[mesh-lm774m] rank {i} peak {leg['peak']} not below "
-                                   f"{MESH_LM_PEAK_SHARE} x phase_lm774m's {lm_ref['peak']}")
+                                   f"{MESH_LM_PEAK_SHARE} x one process's {ref['peak']}")
     for fault in MESH_LM_FAULTS:
         loss_err, norm_err, layer_err = (max(e) for e in zip(*(
             _lm_errs(r["faults"][fault], ref) for r in ranks)))
@@ -4104,7 +4299,8 @@ def _moe_ep_leg(dev, pc_kwargs, rules: bool, fault=None, steps=MOE_EP_STEPS):
 
     AcceleratorState._reset_state()
     GradientState._reset_state()
-    config = dataclasses.replace(LlamaConfig(**MOE_KW), max_seq_len=MOE_TRAIN_SEQ,
+    config = dataclasses.replace(LlamaConfig(**MOE_KW), n_layers=MOE_EP_LAYERS,
+                                 max_seq_len=MOE_TRAIN_SEQ,
                                  attn_impl="flash")
     acc = Accelerator(mixed_precision="no", rng_seed=0, device=dev,
                       parallelism_config=ParallelismConfig(**pc_kwargs),
@@ -4161,43 +4357,94 @@ def _moe_ep_leg(dev, pc_kwargs, rules: bool, fault=None, steps=MOE_EP_STEPS):
     return out
 
 
+def _moe_ep_greedy(dev, tmp: str) -> dict:
+    """phase_moe's greedy decode (its bf16 params from seed 0, its prompt)
+    under ep 2 with ``llama_shard_rules``: the tokens, ms a decode step, the
+    rank's expert bytes and the collectives' bytes by op."""
+    from accelerate_tpu_torch import (
+        Accelerator,
+        LlamaConfig,
+        greedy_generate,
+        init_llama,
+        llama_shard_rules,
+    )
+    from accelerate_tpu_torch.parallel.sharding import shard_params
+    from accelerate_tpu_torch.parallelism_config import ParallelismConfig
+    from accelerate_tpu_torch.state import AcceleratorState, GradientState
+    from accelerate_tpu_torch.utils import operations as ops
+
+    AcceleratorState._reset_state()
+    GradientState._reset_state()
+    config = LlamaConfig(**MOE_KW)
+    acc = Accelerator(device=dev, parallelism_config=ParallelismConfig(ep_size=2))
+    whole = init_llama(config, torch.Generator(device=dev).manual_seed(0), device=dev,
+                       dtype=torch.bfloat16)
+    params, _ = shard_params(whole, acc.mesh, rules=llama_shard_rules())
+    del whole
+    torch.cuda.empty_cache()
+    prompt = np.load(os.path.join(tmp, "moe_prompt.npy"))
+    ops.reset_comm_counters()
+    tokens, stats = greedy_generate(params, prompt, config, max_new_tokens=GEN_SHORT_NEW,
+                                    mesh=acc.mesh, return_stats=True)
+    moe = params["layers"]["moe"]
+    out = {"tokens": tokens.tolist(), "ms_per_step": 1e3 * stats["seconds_per_token"],
+           "expert_bytes": sum(moe[k]["kernel"].numel() * moe[k]["kernel"].element_size()
+                               for k in ("wi", "wo")),
+           "comm": {op: c["bytes"] for op, c in ops.get_comm_counters().items()}}
+    del params
+    torch.cuda.empty_cache()
+    return out
+
+
 def moe_ep_child(tmp: str) -> int:
     """One of ``phase_moe_ep``'s two processes: the sound leg under ep 2,
     then each planted fault."""
     state = _join_two(tmp)
-    report = {"ep2": _moe_ep_leg(state.device, {"ep_size": 2}, True)}
+    report = {"greedy": _moe_ep_greedy(state.device, tmp)}
+    report["ep2"] = _moe_ep_leg(state.device, {"ep_size": 2}, True)
     report["faults"] = {fault: _moe_ep_leg(state.device, {"ep_size": 2}, True, fault)
                         for fault in MOE_EP_FAULTS}
     return _leave_two(state, tmp, report)
 
 
 def phase_moe_ep(dev, moe_leg):
-    """phase_moe's model and training recipe under ``ParallelismConfig(
-    ep_size=2)`` with ``moe_shard_rules`` (two processes on the one card
-    over gloo), held to phase_moe's one-process steps: losses, the first
-    forward's aux loss and dropped token-choices (against a one-process
-    forward here), gradient norms, half the expert bytes a rank (4 of the
-    8 experts' worth), #1-#3 launched on each rank, the planted fault
-    failing a bar. Returns each rank's launches."""
+    """phase_moe's model (MOE_EP_LAYERS deep) and training recipe under
+    ``ParallelismConfig(ep_size=2)`` with ``moe_shard_rules`` (two
+    processes on the one card over gloo), held to one-process steps here:
+    losses, the first forward's aux loss and dropped token-choices,
+    gradient norms, half the expert bytes a rank (4 of the 8 experts'
+    worth), #1-#3 launched on each rank, the planted fault failing a bar;
+    and phase_moe's greedy decode under ep 2 at all 16 layers, equal to
+    its tokens. Returns each rank's launches."""
     import tempfile
 
     from accelerate_tpu_torch import LlamaConfig
 
-    config = LlamaConfig(**MOE_KW)
+    config = dataclasses.replace(LlamaConfig(**MOE_KW), n_layers=MOE_EP_LAYERS)
     _reset_states()
     ref = _moe_ep_leg(dev, {}, False)
-    err = max(abs(a - float(b)) / abs(float(b)) for a, b in zip(
-        ref["losses"], moe_leg["losses"].tolist()[:MOE_EP_STEPS]))
-    print(f"[moe-ep] one process: losses " + " ".join(f"{v:.5f}" for v in ref["losses"])
-          + f" (phase_moe's loop: max rel err {err:.3e}, bar {FSDP_LM_RTOL:g}), gradient "
+    print(f"[moe-ep] one process, {config.n_layers} of the model's {MOE_KW['n_layers']} layers: "
+          f"losses " + " ".join(f"{v:.5f}" for v in ref["losses"]) + ", gradient "
           f"norms " + " ".join(f"{v:.5f}" for v in ref["grad_norms"]) + ", aux "
           f"{ref['aux']:.6f}, drops {ref['drops']}; {ref['ms']:.1f} ms/step, peak "
           f"{ref['peak'] / 2**30:.2f} GiB, expert weights {ref['expert_bytes'] / 2**30:.3f} GiB")
-    check(err <= FSDP_LM_RTOL, f"[moe-ep] one-process steps differ from phase_moe's by {err}")
     _reset_states()
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory(prefix="moe_ep_") as tmp:
+        np.save(os.path.join(tmp, "moe_prompt.npy"), np.random.default_rng(0).integers(
+            0, config.vocab_size, (GEN_BATCH, GEN_PROMPT)).astype(np.int32))
         ranks = _run_two("--moe-ep-child", tmp, "moe-ep", MESH_2RANK_TIMEOUT_S)
+    want_tokens = np.asarray(moe_leg["greedy_short"])
+    for i, r in enumerate(ranks):
+        got = np.asarray(r["greedy"]["tokens"])
+        same = int((got == want_tokens).sum()) - GEN_BATCH * GEN_PROMPT
+        print(f"[moe-ep] greedy under ep 2, rank {i}: {GEN_BATCH} x {GEN_PROMPT} + "
+              f"{GEN_SHORT_NEW}, {same} of {GEN_BATCH * GEN_SHORT_NEW} tokens equal to "
+              f"phase_moe's one-process greedy; {r['greedy']['ms_per_step']:.2f} ms a decode "
+              f"step; expert weights {r['greedy']['expert_bytes'] / 2**30:.3f} GiB; collectives "
+              f"by op {r['greedy']['comm']}")
+        check(np.array_equal(got, want_tokens), f"[moe-ep] rank {i}'s greedy tokens under ep 2 "
+                                                "differ from phase_moe's")
     want = {"flash_attention_fwd": 2 * config.n_layers * MOE_EP_STEPS,
             "flash_attention_dq": config.n_layers * MOE_EP_STEPS,
             "flash_attention_dkdv": config.n_layers * MOE_EP_STEPS}
@@ -4249,6 +4496,206 @@ def _moe_ep_errs(leg, ref):
     return loss_err, norm_err
 
 
+# ------------------------------------------------------------ sharded decode --
+def _mesh_decode_params(dev):
+    """Config #5 at full width and depth from seed 0, in f32."""
+    from accelerate_tpu_torch import LlamaConfig, init_llama
+
+    config = LlamaConfig(**CONFIG_KW)
+    return config, init_llama(config, torch.Generator(device=dev).manual_seed(0), device=dev,
+                              dtype=torch.float32)
+
+
+def _engine_streams(params, config, dtype, mesh=None):
+    """The engine over _engine_prompts (ENGINE_NEW tokens each): the
+    streams, the stats, #6/#7 launches, the rank's pool bytes and the
+    wall."""
+    from accelerate_tpu_torch.ops import flash_attention as fa
+    from accelerate_tpu_torch.serving import ServingEngine
+
+    engine = ServingEngine(params, config, cache_dtype=dtype, mesh=mesh, **ENGINE_KW)
+    reqs = [engine.submit(p, ENGINE_NEW) for p in _engine_prompts(config)]
+    fa.paged_attention_decode.launches = 0
+    fa.paged_attention_prefill.launches = 0
+    t0 = time.perf_counter()
+    engine.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    stats = engine.stats()
+    out = {"streams": [r.output_ids().tolist() for r in reqs], "wall": wall,
+           "decode_steps": stats["decode_steps"], "prefill_chunks": stats["prefill_chunks"],
+           "decode_seconds": stats["decode_seconds"],
+           "launches": {"paged_attention_decode": fa.paged_attention_decode.launches,
+                        "paged_attention_prefill": fa.paged_attention_prefill.launches},
+           "pool_bytes": sum(t.numel() * t.element_size() for t in engine.pool.values()),
+           "pool_elements": sum(t.numel() for t in engine.pool.values())}
+    del engine
+    return out
+
+
+def mesh_decode_child(tmp: str) -> int:
+    """One of ``phase_mesh_decode``'s two processes: config #5 under tp 2,
+    greedy in f32, the engine in f32 and bf16, the planted fault."""
+    from accelerate_tpu_torch import Accelerator, greedy_generate, llama_shard_rules
+    from accelerate_tpu_torch.generation import MeshDecode
+    from accelerate_tpu_torch.parallel.sharding import shard_params
+    from accelerate_tpu_torch.parallelism_config import ParallelismConfig
+    from accelerate_tpu_torch.utils import operations as ops
+
+    state = _join_two(tmp)
+    dev = state.device
+    acc = Accelerator(device=dev, parallelism_config=ParallelismConfig(tp_size=2))
+    config, whole = _mesh_decode_params(dev)
+    whole_bytes = sum(t.numel() * t.element_size() for t in _leaves(whole))
+    params, _ = shard_params(whole, acc.mesh, rules=llama_shard_rules())
+    del whole
+    torch.cuda.empty_cache()
+    md = MeshDecode(params, config, acc.mesh)
+    prompt = np.load(os.path.join(tmp, "prompt.npy"))
+    report = {"param_bytes": md.block_bytes(), "whole_param_bytes": whole_bytes,
+              "cache_bytes": 2 * config.n_layers * GEN_BATCH * (GEN_PROMPT + GEN_NEW)
+              * md.kv_heads * config.head_dim * 4, "kv_heads": md.kv_heads}
+    ops.reset_comm_counters()
+    tokens, stats = greedy_generate(params, prompt, config, max_new_tokens=GEN_NEW,
+                                    cache_dtype=torch.float32, mesh=acc.mesh, return_stats=True)
+    report.update(tokens=tokens.tolist(), ms_per_step=1e3 * stats["seconds_per_token"],
+                  prefill_ms=1e3 * stats["prefill_seconds"],
+                  comm={op: c["bytes"] for op, c in ops.get_comm_counters().items()},
+                  comm_calls={op: c["calls"] for op, c in ops.get_comm_counters().items()})
+    ops.reset_comm_counters()
+    report["engine_f32"] = _engine_streams(params, config, torch.float32, acc.mesh)
+    report["engine_f32"]["comm"] = {op: c["bytes"] for op, c in
+                                    ops.get_comm_counters().items()}
+    bf16 = _tree_to(params, torch.bfloat16)
+    report["engine_bf16"] = _engine_streams(bf16, config, torch.bfloat16, acc.mesh)
+    del bf16
+    with _mesh_decode_fault():
+        report["fault_tokens"] = greedy_generate(
+            params, prompt, config, max_new_tokens=MESH_DECODE_FAULT_NEW,
+            cache_dtype=torch.float32, mesh=acc.mesh).tolist()
+    del params
+    torch.cuda.empty_cache()
+    return _leave_two(state, tmp, report)
+
+
+@contextlib.contextmanager
+def _mesh_decode_fault():
+    """The planted fault of phase_mesh_decode: no sum over tp after wo
+    (each rank keeps its heads' part of the attention output)."""
+    from accelerate_tpu_torch.generation import MeshDecode
+
+    real = MeshDecode.attn_out
+    MeshDecode.attn_out = lambda self, x: x
+    try:
+        yield
+    finally:
+        MeshDecode.attn_out = real
+
+
+def _tie_gaps(f32, config, rows, n_prompt, dev) -> torch.Tensor:
+    """How far each generated token of ``rows`` lies below the one-process
+    f32 argmax of the cached forward over those same rows."""
+    return _token_gaps(_generate_logits(f32, config, rows, n_prompt, dev), rows, n_prompt)
+
+
+def phase_mesh_decode(dev):
+    """Config #5 at full width and depth under tp 2 (two processes on the
+    one card over gloo): f32 greedy and the engine (f32, bf16) held to
+    one-process runs here (see MESH_DECODE_TIE), per-rank param, cache and
+    pool bytes, ms a decode step and the collectives' bytes by op, #6/#7
+    launched on each rank, the planted fault failing the token bar.
+    Returns each rank's #6/#7 launches of the bf16 engine."""
+    import tempfile
+
+    from accelerate_tpu_torch import greedy_generate
+
+    t_phase = time.perf_counter()
+    _reset_states()
+    config, f32 = _mesh_decode_params(dev)
+    prompt = np.random.default_rng(0).integers(0, config.vocab_size,
+                                               (GEN_BATCH, GEN_PROMPT)).astype(np.int32)
+    ref, ref_stats = greedy_generate(f32, prompt, config, max_new_tokens=GEN_NEW,
+                                     cache_dtype=torch.float32, return_stats=True)
+    ref_engine = _engine_streams(f32, config, torch.float32)
+    print(f"[mesh-decode] one process, f32, config #5 ({config.n_layers} layers, dim "
+          f"{config.dim}, {config.n_heads}/{config.n_kv_heads} heads, vocab {config.vocab_size}): "
+          f"greedy {GEN_BATCH} x {GEN_PROMPT} + {GEN_NEW} at "
+          f"{1e3 * ref_stats['seconds_per_token']:.2f} ms a decode step; engine "
+          f"{len(ref_engine['streams'])} requests in {ref_engine['wall']:.2f} s, pool "
+          f"{ref_engine['pool_bytes'] / 2**20:.1f} MiB")
+    with tempfile.TemporaryDirectory(prefix="mesh_decode_") as tmp:
+        np.save(os.path.join(tmp, "prompt.npy"), prompt)
+        ranks = _run_two("--mesh-decode-child", tmp, "mesh-decode", MESH_2RANK_TIMEOUT_S)
+    launches = []
+    for i, r in enumerate(ranks):
+        check(r["tokens"] == ranks[0]["tokens"], f"[mesh-decode] rank {i}'s tokens differ from "
+                                                 "rank 0's")
+        check(r["param_bytes"] <= MESH_DECODE_PARAM_SHARE * r["whole_param_bytes"],
+              f"[mesh-decode] rank {i} holds {r['param_bytes']} of {r['whole_param_bytes']} "
+              "param bytes")
+        check(r["kv_heads"] == config.n_kv_heads // 2, f"[mesh-decode] rank {i} cache heads "
+                                                       f"{r['kv_heads']}")
+        print(f"[mesh-decode] tp 2 rank {i}: params {r['param_bytes'] / 2**30:.3f} GiB of "
+              f"{r['whole_param_bytes'] / 2**30:.3f} ({r['param_bytes'] / r['whole_param_bytes']:.4f}), "
+              f"f32 cache {r['cache_bytes'] / 2**20:.1f} MiB ({r['kv_heads']} kv heads); greedy "
+              f"prefill {r['prefill_ms']:.1f} ms, {r['ms_per_step']:.2f} ms a decode step (one "
+              f"process {1e3 * ref_stats['seconds_per_token']:.2f}); collectives of the greedy "
+              f"run, bytes by op {r['comm']}, calls by op {r['comm_calls']}")
+        for kind in ("engine_f32", "engine_bf16"):
+            eng = r[kind]
+            half = 2 * eng["pool_elements"] == ref_engine["pool_elements"]
+            check(half, f"[mesh-decode] rank {i} {kind} pool of {eng['pool_elements']} elements, "
+                        f"not half of {ref_engine['pool_elements']}")
+            want = {"paged_attention_decode": config.n_layers * eng["decode_steps"],
+                    "paged_attention_prefill": config.n_layers * eng["prefill_chunks"]}
+            check(eng["launches"] == want and min(want.values()) > 0,
+                  f"[mesh-decode] rank {i} {kind} launches {eng['launches']}, want {want}")
+            print(f"[mesh-decode] rank {i} {kind}: {len(eng['streams'])} requests in "
+                  f"{eng['wall']:.2f} s ({eng['decode_steps']} decode steps, "
+                  f"{1e3 * eng['decode_seconds'] / eng['decode_steps']:.2f} ms a step), pool "
+                  f"{eng['pool_bytes'] / 2**20:.1f} MiB (half), launches {eng['launches']}"
+                  + (f", collectives by op {eng['comm']}" if "comm" in eng else ""))
+        launches.append(r["engine_bf16"]["launches"])
+    got = np.asarray(ranks[0]["tokens"])
+    gaps = _tie_gaps(f32, config, got, GEN_PROMPT, dev)
+    same = int((got[:, GEN_PROMPT:] == ref[:, GEN_PROMPT:]).sum())
+    print(f"[mesh-decode] f32 greedy under tp 2: {same} of {got[:, GEN_PROMPT:].size} tokens equal "
+          f"to one process; largest gap below the one-process f32 argmax over its own rows "
+          f"{float(gaps.max()):.3e} (bar {MESH_DECODE_TIE:g})")
+    check(float(gaps.max()) <= MESH_DECODE_TIE, f"[mesh-decode] a greedy token lies "
+                                                f"{float(gaps.max())} below the f32 argmax")
+    worst, same, total, by_len = 0.0, 0, 0, {}
+    for got_s, ref_s, p in zip(ranks[0]["engine_f32"]["streams"], ref_engine["streams"],
+                               _engine_prompts(config)):
+        by_len.setdefault((len(p), len(got_s)), []).append(got_s)
+        same += sum(a == b for a, b in zip(got_s[len(p):], ref_s[len(p):]))
+        total += len(ref_s) - len(p)
+    for (n_prompt, _), rows in by_len.items():  # the streams of one length in one batch
+        worst = max(worst, float(_tie_gaps(f32, config, np.asarray(rows), n_prompt, dev).max()))
+    print(f"[mesh-decode] f32 engine under tp 2: {same} of {total} tokens equal to the "
+          f"one-process engine; largest gap below the one-process f32 argmax over its own "
+          f"streams {worst:.3e} (bar {MESH_DECODE_TIE:g})")
+    check(worst <= MESH_DECODE_TIE, f"[mesh-decode] an engine token lies {worst} below the f32 "
+                                    "argmax")
+    bad = np.asarray(ranks[0]["fault_tokens"])
+    bad_gap = float(_tie_gaps(f32, config, bad, GEN_PROMPT, dev).max())
+    print(f"[mesh-decode] planted fault (no sum over tp after wo): largest gap {bad_gap:.3e} "
+          f"(bar {MESH_DECODE_TIE:g})")
+    check(bad_gap > MESH_DECODE_TIE, "[mesh-decode] the planted fault passes the token bar")
+    del f32
+    torch.cuda.empty_cache()
+    print(f"[mesh-decode] phase seconds {time.perf_counter() - t_phase:.1f}")
+    return launches
+
+
+def _timed(phase, *args):
+    """``phase(*args)``, with its wall seconds printed."""
+    t0 = time.perf_counter()
+    out = phase(*args)
+    print(f"[time] {phase.__name__} {time.perf_counter() - t0:.1f} s", flush=True)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -4256,7 +4703,7 @@ def main() -> int:
     here = os.path.dirname(os.path.abspath(__file__))
     sys.path.insert(0, here)
     children = {"--mesh-2rank-child": mesh_2rank_child, "--mesh-lm-child": mesh_lm_child,
-                "--moe-ep-child": moe_ep_child}
+                "--moe-ep-child": moe_ep_child, "--mesh-decode-child": mesh_decode_child}
     if sys.argv[1:2] and sys.argv[1] in children:
         return children[sys.argv[1]](sys.argv[2])
     import accelerate_tpu_torch
@@ -4276,10 +4723,10 @@ def main() -> int:
     print(f"[env] python {sys.version.split()[0]} torch {torch.__version__} "
           f"cuda {torch.version.cuda} device {torch.cuda.get_device_name(0)}; every number "
           f"below is from this card: {card}")
-    phase_build()
-    kernel_results = phase_kernels(dev)
-    phase_decode_splits(dev)
-    fused_results = phase_fused_kernels(dev)
+    _timed(phase_build)
+    kernel_results = _timed(phase_kernels, dev)
+    _timed(phase_decode_splits, dev)
+    fused_results = _timed(phase_fused_kernels, dev)
 
     config = LlamaConfig(**CONFIG_KW)
     torch.cuda.synchronize()
@@ -4292,54 +4739,58 @@ def main() -> int:
                    for t in (e.values() if isinstance(e, dict) else [e]))
     print(f"[model] {n_params / 1e9:.3f} B params in bf16, head_dim {config.head_dim}, "
           f"ffn {config.hidden_dim}")
-    launches = phase_engine(params, config, dev)
-    phase_profile(params, config, dev)
-    phase_cached_vs_full(params, config, dev)
-    prompt, greedy16, greedy4 = phase_generate(params, config, dev, load_s)
-    phase_offload(params, config, dev, prompt, greedy16, greedy4)
+    launches = _timed(phase_engine, params, config, dev)
+    _timed(phase_profile, params, config, dev)
+    _timed(phase_cached_vs_full, params, config, dev)
+    prompt, greedy16, greedy4 = _timed(phase_generate, params, config, dev, load_s)
+    _timed(phase_offload, params, config, dev, prompt, greedy16, greedy4)
     del params
     serve_config = LlamaConfig(**SERVE_BENCH_KW)
     serve_params = init_llama(serve_config, torch.Generator(device=dev).manual_seed(0),
                               device=dev, dtype=torch.bfloat16)
-    spec_results = phase_spec_decode(serve_params, serve_config)
-    phase_sampling(serve_params, serve_config, dev)
-    phase_static(serve_params, serve_config)
+    spec_results = _timed(phase_spec_decode, serve_params, serve_config)
+    _timed(phase_sampling, serve_params, serve_config, dev)
+    _timed(phase_static, serve_params, serve_config)
     del serve_params
-    train_launches = phase_train(dev)
-    phase_train_check(dev)
-    phase_train_check_fp16(dev)
-    accum_launches = phase_grad_accum(dev)
-    fp16_launches = phase_fp16(dev)
-    flash_results = phase_flash_kernels(dev)
-    llama_launches = phase_llama_train(dev)
-    phase_llama_train_check(dev)
-    lm_launches, offload_dots_launches, lm_ref = phase_lm774m(dev)
-    phase_lm774m_check(dev)
-    phase_resnet(dev)
-    phase_t5(dev)
-    moe_engine_launches, moe_train_launches, moe_leg = phase_moe(dev)
-    phase_mesh_ops(dev)
-    fsdp_launches, _ = phase_fsdp_lm(dev, lm_ref)
-    mesh_launches = phase_mesh_2rank(dev)
-    mesh_lm_launches = phase_mesh_lm774m(dev, lm_ref)
-    moe_ep_launches = phase_moe_ep(dev, moe_leg)
+    train_launches = _timed(phase_train, dev)
+    _timed(phase_train_check, dev)
+    _timed(phase_train_check_fp16, dev)
+    accum_launches = _timed(phase_grad_accum, dev)
+    fp16_launches = _timed(phase_fp16, dev)
+    flash_results = _timed(phase_flash_kernels, dev)
+    llama_launches = _timed(phase_llama_train, dev)
+    _timed(phase_llama_train_check, dev)
+    lm_launches, offload_dots_launches, lm_ref = _timed(phase_lm774m, dev)
+    _timed(phase_lm774m_check, dev)
+    _timed(phase_resnet, dev)
+    _timed(phase_t5, dev)
+    moe_engine_launches, moe_train_launches, moe_leg = _timed(phase_moe, dev)
+    _timed(phase_mesh_ops, dev)
+    fsdp_launches, _ = _timed(phase_fsdp_lm, dev, lm_ref)
+    mesh_launches, bert_tp_launches = _timed(phase_mesh_2rank, dev)
+    mesh_lm_launches = _timed(phase_mesh_lm774m, dev)
+    moe_ep_launches = _timed(phase_moe_ep, dev, moe_leg)
+    mesh_decode_launches = _timed(phase_mesh_decode, dev)
 
     keys =("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     records = []
-    for name, kind, spec_kind, source, replaces in (
-        ("paged_attention_decode", "decode", "draft", "accelerate_tpu_torch/csrc/paged_decode.cu",
-         "accelerate_tpu/ops/flash_attention.py:619"),
-        ("paged_attention_prefill", "prefill256", "verify",
+    for name, kind, spec_kind, tp_kind, source, replaces in (
+        ("paged_attention_decode", "decode", "draft", "decode_tp",
+         "accelerate_tpu_torch/csrc/paged_decode.cu", "accelerate_tpu/ops/flash_attention.py:619"),
+        ("paged_attention_prefill", "prefill256", "verify", "prefill_tp",
          "accelerate_tpu_torch/csrc/paged_prefill.cu",
          "accelerate_tpu/ops/flash_attention.py:753"),
     ):
         rec = kernel_results[(kind, torch.bfloat16)]
         spec_rec = kernel_results[(spec_kind, torch.bfloat16)]
+        tp_rec = kernel_results[(tp_kind, torch.bfloat16)]
         records.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
                         "launches": launches[name], **{k: rec[k] for k in keys},
                         spec_kind: {k: spec_rec[k] for k in keys},
+                        tp_kind: {k: tp_rec[k] for k in keys},
                         "launches_spec_decode": spec_results["spec"]["launches"][name],
-                        "launches_moe_engine": moe_engine_launches[name]})
+                        "launches_moe_engine": moe_engine_launches[name],
+                        "launches_mesh_decode": [r[name] for r in mesh_decode_launches]})
     for name, kind, replaces in (
         ("fused_attention_fwd", "fwd", "accelerate_tpu/ops/fused_attention.py:90"),
         ("fused_attention_bwd", "bwd", "accelerate_tpu/ops/fused_attention.py:107"),
@@ -4351,6 +4802,7 @@ def main() -> int:
                         "launches": train_launches[name], **{k: rec[k] for k in keys},
                         "launches_grad_accum": accum_launches[name],
                         "launches_fp16": fp16_launches[name],
+                        "launches_mesh_2rank_bert": [r[name] for r in bert_tp_launches],
                         "fp16": {k: rec16[k] for k in keys}})
     for name, kind, source, line in (
         ("flash_attention_fwd", "fwd", "flash_fwd", 166),

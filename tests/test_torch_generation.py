@@ -18,8 +18,8 @@ crossed through ``models.convert.params_from_numpy``, f32 params and cache.
 - ``generate_dispatched`` over CPU offload, disk offload and a mixed map
   equals JAX's ``generate_dispatched`` over the same map and the port's
   own ``greedy_generate``, including an early exit at eos;
-- ``return_stats`` has JAX's keys; ``mesh=`` raises; an MoE config
-  generates JAX's greedy tokens (more in ``tests/test_torch_moe.py``).
+- ``return_stats`` has JAX's keys; ``mesh=`` of one device gives the plain
+  path's tokens; an MoE config generates JAX's greedy tokens (more in ``tests/test_torch_moe.py``).
 """
 
 import itertools
@@ -263,14 +263,27 @@ def test_return_stats_has_jax_keys(params, prompt):
 
 
 def test_mesh_and_moe_raise(params, prompt):
-    _, tp = params
-    for fn in (tg.greedy_generate, tg.sample_generate, tg.beam_generate):
-        with pytest.raises(NotImplementedError, match="Queue A item 6"):
-            fn(tp, prompt, TCFG, max_new_tokens=2, mesh=object(), **CPU)
-    with pytest.raises(NotImplementedError, match="Queue A item 6"):
-        tg.generation_shardings(object(), B, TCFG)
-    with pytest.raises(NotImplementedError, match="Queue A item 6"):
-        tg.serving_shardings(object(), TCFG)
+    """``mesh=`` raised until sharded decode was ported; the name is kept and
+    the case now runs: on a mesh of one device (no process group) greedy,
+    sampled and beam decode give the plain path's tokens, JAX's; the
+    placements are JAX's (more in ``tests/test_torch_mesh_decode.py``)."""
+    from accelerate_tpu_torch.parallelism_config import ParallelismConfig
+
+    jp, tp = params
+    one = ParallelismConfig().build_mesh(1)
+    for fn, jfn, kw in ((tg.greedy_generate, jg.greedy_generate, {}),
+                        (tg.sample_generate, jg.sample_generate, {"top_k": 20}),
+                        (tg.beam_generate, jg.beam_generate, {"num_beams": 2})):
+        want = np.asarray(jfn(jp, prompt, JCFG, max_new_tokens=3, cache_dtype=jnp.float32,
+                              **kw))
+        got = fn(tp, prompt, TCFG, max_new_tokens=3, mesh=one, cache_dtype=torch.float32,
+                 **kw, **CPU)
+        np.testing.assert_array_equal(got, fn(tp, prompt, TCFG, max_new_tokens=3,
+                                              cache_dtype=torch.float32, **kw, **CPU))
+        np.testing.assert_array_equal(got, want)
+    assert tuple(tg.generation_shardings({"tp": 2}, B, TCFG)[1]) == (None, None, None, "tp",
+                                                                     None)
+    assert tuple(tg.serving_shardings({"tp": 2}, TCFG)) == (None, None, None, "tp")
     # MoE configs generate (the decode capacity floor), JAX's tokens
     jmoe = jt.LlamaConfig(**{**JCFG.__dict__, "moe_experts": 4})
     moe = tt.LlamaConfig(**{**TCFG.__dict__, "moe_experts": 4})

@@ -1,7 +1,8 @@
 """The port's multi-process scenarios over ``gloo`` on the CPU, at 1, 2 and
 3 processes: the JAX package's ``topology``, ``ops``, ``dataloader``,
 ``dispatcher``, ``dispatcher_ragged`` and ``training`` scenarios with their
-assertions (:mod:`accelerate_tpu_torch.test_utils.scripts.
+assertions, and ``rng_sync`` (a prepared loader's ``rng_types`` give every
+rank rank 0's host streams at each epoch) (:mod:`accelerate_tpu_torch.test_utils.scripts.
 multihost_script`), each process count launched once for the module.
 
 The ``training`` scenario's loss trajectory (data-parallel SGD, global
@@ -42,7 +43,7 @@ from accelerate_tpu_torch.test_utils.scripts import multihost_script as ms
 from accelerate_tpu_torch.test_utils.testing import execute_multiprocess
 
 SCRIPT = ["-m", "accelerate_tpu_torch.test_utils.scripts.multihost_script"]
-SCENARIOS = "topology,ops,dataloader,dispatcher,dispatcher_ragged,training"
+SCENARIOS = "topology,ops,dataloader,dispatcher,dispatcher_ragged,rng_sync,training"
 
 
 def _path(path) -> str:

@@ -120,7 +120,7 @@ def test_dcn_override_matches_jax_and_multi_slice_mesh_raises(monkeypatch):
     cfg = dict(dp_shard_size=4, tp_size=2)
     assert (tpc.ParallelismConfig(**cfg).dcn_mesh_shapes(8, 2)
             == jpc.ParallelismConfig(**cfg).dcn_mesh_shapes(8, 2))
-    with pytest.raises(NotImplementedError, match="item 6, second half"):
+    with pytest.raises(NotImplementedError, match="item 6, step 8"):
         tpc.ParallelismConfig(**cfg).build_mesh(8)
 
 

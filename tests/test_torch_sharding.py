@@ -2,8 +2,10 @@
 processes: spec inference reads only the mesh's axis sizes.
 
 - ``infer_param_specs`` path by path for tiny Llama with and without
-  ``llama_tp_rules``, tiny ResNet with ``resnet_shard_rules`` and tiny T5
-  with ``t5_shard_rules``, on the meshes (dp_shard 2, tp 2), (dp_replicate
+  ``llama_tp_rules``, tiny Llama, its MoE variant (4 experts) and tiny
+  BERT under the models' own ``llama_shard_rules`` / ``bert_shard_rules``,
+  tiny ResNet with ``resnet_shard_rules`` and tiny T5 with
+  ``t5_shard_rules``, on the meshes (dp_shard 2, tp 2), (dp_replicate
   2, dp_shard 2, tp 2), (dp_shard 8), (tp 4) and (dp_replicate 8);
 - each rank's block (offset and size per dim) against the JAX sharding's
   ``devices_indices_map`` for the device at the same mesh coordinates, and
@@ -14,6 +16,8 @@ processes: spec inference reads only the mesh's axis sizes.
 - what ``llama_tp_rules`` shard on the stacked ``[L, in, out]`` tree
   (ROADMAP.md Queue C): the table is the JAX package's own behaviour.
 """
+
+import dataclasses
 
 import jax
 import numpy as np
@@ -28,6 +32,7 @@ from accelerate_tpu.parallel import sharding as jsh
 from accelerate_tpu.parallelism_config import ParallelismConfig as JParallelismConfig
 from accelerate_tpu_torch.models import resnet as tresnet
 from accelerate_tpu_torch.models import t5 as tt5
+from accelerate_tpu_torch.models import transformer as ttr
 from accelerate_tpu_torch.parallel import sharding as tsh
 from accelerate_tpu_torch.parallelism_config import ParallelismConfig
 
@@ -47,6 +52,13 @@ def models():
         "llama": (jt.init_llama(jt.LlamaConfig.tiny(), key), None, None),
         "llama_tp": (jt.init_llama(jt.LlamaConfig.tiny(), key), jsh.llama_tp_rules(),
                      tsh.llama_tp_rules()),
+        "llama_shard": (jt.init_llama(jt.LlamaConfig.tiny(), key), jt.llama_shard_rules(),
+                        ttr.llama_shard_rules()),
+        "llama_moe_shard": (jt.init_llama(dataclasses.replace(jt.LlamaConfig.tiny(),
+                                                              moe_experts=4), key),
+                            jt.llama_shard_rules(), ttr.llama_shard_rules()),
+        "bert_shard": (jt.init_bert(jt.BertConfig.tiny(), key), jt.bert_shard_rules(),
+                       ttr.bert_shard_rules()),
         "resnet": (jresnet.init_resnet(jresnet.ResNetConfig.tiny(), key),
                    jresnet.resnet_shard_rules(), tresnet.resnet_shard_rules()),
         "t5": (jt5.init_t5(jt5.T5Config.tiny(), key), jt5.t5_shard_rules(),
@@ -87,7 +99,8 @@ def _shapes(params_np) -> dict:
 
 
 @pytest.mark.parametrize("mesh_name", list(MESHES))
-@pytest.mark.parametrize("model", ["llama", "llama_tp", "resnet", "t5"])
+@pytest.mark.parametrize("model", ["llama", "llama_tp", "llama_shard", "llama_moe_shard",
+                                   "bert_shard", "resnet", "t5"])
 def test_specs_and_blocks_match_jax(models, model, mesh_name):
     jparams, jrules, trules = models[model]
     kwargs = MESHES[mesh_name]

@@ -58,6 +58,20 @@ def _fresh_port_state():
     AcceleratorState._reset_state(reset_partial_state=True)
     GradientState._reset_state()
 
+@pytest.fixture(scope="module", autouse=True)
+def _two_torch_threads():
+    """Two intra-op threads for this module's CPU-bound steps, restored
+    after it: the suite runs several test workers on one machine, and a
+    worker whose every op spreads over all the cores slows the others
+    several times over. Every bar here is a tolerance, or an equality
+    between two runs of this module (one thread count), so the order of a
+    few CPU sums cannot move a result past it."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
+
+
 
 def test_synthetic_mrpc_is_the_examples_copy(monkeypatch):
     from pathlib import Path
