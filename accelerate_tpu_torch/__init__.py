@@ -74,12 +74,17 @@ from .scheduler import AcceleratedScheduler
 from .state import AcceleratorState, GradientState, PartialState
 from .utils.dataclasses import (
     DataLoaderConfiguration,
+    DDPCommunicationHookType,
     DeepSpeedPlugin,
+    DistributedDataParallelKwargs,
     DistributedType,
     DummyOptim,
     DummyScheduler,
+    FullyShardedDataParallelPlugin,
     GradientAccumulationPlugin,
     GradScalerConfig,
+    InitProcessGroupKwargs,
+    MegatronLMPlugin,
 )
 from .big_modeling import (
     DispatchedParams,
@@ -150,8 +155,13 @@ __all__ = [
     "BertConfig",
     "BucketLattice",
     "DataLoader",
+    "DDPCommunicationHookType",
     "DataLoaderConfiguration",
     "DeepSpeedPlugin",
+    "DistributedDataParallelKwargs",
+    "FullyShardedDataParallelPlugin",
+    "InitProcessGroupKwargs",
+    "MegatronLMPlugin",
     "DispatchedParams",
     "DistributedType",
     "DummyOptim",

@@ -43,9 +43,19 @@ hold between steps. ZeRO-1 where the fused update cannot run shards the
 optimizer state by annotation (:class:`~.optimizer.AnnotatedZero1`);
 adafactor and a global-norm clip read whole params on split blocks; under
 fp16 every rank takes the same finite decision; ``gradient_fn`` gives each
-rank its blocks of the global gradient. Not ported yet (see ROADMAP.md):
-``mixed_precision="fp8"``, adafactor under ZeRO-1, cp, sp and pp axes,
-optimizer offload, trackers and checkpointing.
+rank its blocks of the global gradient.
+
+The kwargs handlers and plugins are the JAX package's:
+``DistributedDataParallelKwargs(comm_hook=)`` bounds the (reduced,
+still loss-scaled) gradient to fp16 or bf16; ``InitProcessGroupKwargs``
+reaches the process group; ``DeepSpeedPlugin`` (with its ``hf_ds_config``),
+``FullyShardedDataParallelPlugin`` and ``MegatronLMPlugin`` set the mesh,
+the accumulation steps, the precision, a clip chained ahead of the
+optimizer and the optimizer state's offload to pinned host memory
+(``prepare_train_step(offload_optimizer=)``). :meth:`Accelerator.
+lomo_backward` fuses the SGD update into the backward. Not ported yet (see
+ROADMAP.md): ``mixed_precision="fp8"`` (item 8), cp, sp and pp axes (item
+11), trackers and checkpointing (item 7).
 """
 
 from __future__ import annotations
@@ -60,15 +70,24 @@ import numpy as np
 import torch
 
 from .data_loader import DataLoader, DataLoaderShard, prepare_data_loader, skip_first_batches
-from .optimizer import AcceleratedOptimizer, OptimizerFactory, param_leaves
+from .optimizer import (
+    AcceleratedOptimizer,
+    OptimizerFactory,
+    clip_by_global_norm,
+    param_leaves,
+)
 from .scheduler import AcceleratedScheduler
 from .state import AcceleratorState, GradientState
 from .utils.dataclasses import (
     DataLoaderConfiguration,
+    DistributedDataParallelKwargs,
     DummyOptim,
     DummyScheduler,
+    FullyShardedDataParallelPlugin,
     GradientAccumulationPlugin,
     GradScalerConfig,
+    InitProcessGroupKwargs,
+    MegatronLMPlugin,
     PrecisionType,
 )
 from .parallel.sharding import (
@@ -82,9 +101,16 @@ from .parallelism_config import ParallelismConfig
 from .state import PartialState
 from .utils import operations as ops
 from .utils.dataclasses import DeepSpeedPlugin
+from .utils.environment import parse_flag_from_env
 from .utils.operations import _tree_map, stack_batches
 
 __all__ = ["Accelerator", "set_seed"]
+
+#: kwargs handlers of the JAX package that later items of ROADMAP.md Queue A
+#: port: the class name -> the item
+_LATER_HANDLERS = {"CheckpointConfig": "7", "AutocastConfig": "14", "ProfileConfig": "12",
+                   "FP8RecipeKwargs": "8", "TERecipeKwargs": "8", "AORecipeKwargs": "8",
+                   "MSAMPRecipeKwargs": "8"}
 
 
 def set_seed(seed: int) -> None:
@@ -163,27 +189,101 @@ class Accelerator:
                  deepspeed_plugin: Optional[DeepSpeedPlugin] = None,
                  shard_rules: Optional[ShardingRules] = None,
                  dataloader_config: Optional[DataLoaderConfiguration] = None,
-                 rng_types: Optional[Sequence[str]] = None):
+                 rng_types: Optional[Sequence[str]] = None,
+                 fsdp_plugin: Optional[FullyShardedDataParallelPlugin] = None,
+                 megatron_lm_plugin: Optional[MegatronLMPlugin] = None):
+        # the kwargs handlers: one a class, each steering one part
+        self.ddp_handler: Optional[DistributedDataParallelKwargs] = None
+        init_pg_kwargs: dict = {}
+        seen: set = set()
+        for handler in kwargs_handlers or ():
+            if type(handler) in seen:
+                raise ValueError(f"duplicate kwargs handler of type {type(handler).__name__}")
+            seen.add(type(handler))
+            if isinstance(handler, InitProcessGroupKwargs):
+                init_pg_kwargs = {k: v for k, v in handler.to_dict().items() if v is not None}
+                ids = init_pg_kwargs.pop("local_device_ids", None)
+                if ids is not None and len(ids) > 1:
+                    raise ValueError(f"local_device_ids={ids}: a process of the port drives "
+                                     "one device")
+            elif isinstance(handler, GradScalerConfig):
+                if grad_scaler_config is not None:
+                    raise ValueError("grad_scaler_config given both directly and as a handler")
+                grad_scaler_config = handler
+            elif isinstance(handler, DistributedDataParallelKwargs):
+                self.ddp_handler = handler
+            elif type(handler).__name__ in _LATER_HANDLERS:
+                raise NotImplementedError(
+                    f"{type(handler).__name__} is not ported yet (ROADMAP.md Queue A item "
+                    f"{_LATER_HANDLERS[type(handler).__name__]})")
+            else:
+                raise ValueError(f"unsupported kwargs handler: {handler!r}")
+
+        # the plugins: each is an intent for the mesh, the precision, the
+        # clip and the optimizer state's placement
+        if fsdp_plugin is not None and deepspeed_plugin is not None:
+            raise ValueError("pass fsdp_plugin or deepspeed_plugin, not both")
+        if deepspeed_plugin is None and fsdp_plugin is None and parse_flag_from_env(
+                "ACCELERATE_USE_DEEPSPEED"):
+            deepspeed_plugin = DeepSpeedPlugin.from_env()
+        plugin = fsdp_plugin or deepspeed_plugin
+        self.deepspeed_plugin = deepspeed_plugin
+        self.fsdp_plugin = fsdp_plugin
+        self.megatron_lm_plugin = megatron_lm_plugin
+        if megatron_lm_plugin is not None:
+            if plugin is not None:
+                raise ValueError("megatron_lm_plugin cannot be combined with fsdp_plugin/"
+                                 "deepspeed_plugin")
+            if parallelism_config is not None:
+                raise ValueError("pass megatron_lm_plugin OR parallelism_config, not both — the "
+                                 "plugin's tp/pp/ep/cp degrees define the mesh")
+            parallelism_config = megatron_lm_plugin.to_parallelism_config()
+            if gradient_accumulation_steps == 1 and megatron_lm_plugin.num_micro_batches > 1:
+                gradient_accumulation_steps = megatron_lm_plugin.num_micro_batches
+        plugin_mp = getattr(deepspeed_plugin, "mixed_precision", None)
+        if plugin_mp is not None:
+            # the ds config's precision wins over the launcher's environment;
+            # a constructor value that disagrees is an error
+            if mixed_precision is not None and str(mixed_precision) != plugin_mp:
+                raise ValueError(f"mixed_precision={mixed_precision!r} disagrees with the ds "
+                                 f"config's {plugin_mp!r} section; align them")
+            env_mp = os.environ.get("ACCELERATE_MIXED_PRECISION")
+            if env_mp and env_mp != plugin_mp:
+                warnings.warn(f"launcher mixed precision {env_mp!r} differs from the ds config's "
+                              f"{plugin_mp!r} section; the ds config wins")
+            mixed_precision = plugin_mp
+        self._plugin_grad_clip = getattr(deepspeed_plugin, "gradient_clipping", None)
+        if self._plugin_grad_clip is None:
+            self._plugin_grad_clip = getattr(megatron_lm_plugin, "gradient_clipping", None)
+        offload_dev = getattr(deepspeed_plugin, "offload_optimizer_device", None)
+        if offload_dev == "nvme":
+            warnings.warn("offload_optimizer_device='nvme' degrades to HOST RAM here (pinned "
+                          "host memory) — there is no disk tier; make sure the optimizer state "
+                          "fits host memory")
+        self._offload_optimizer = bool(offload_dev in ("cpu", "nvme")
+                                       or getattr(fsdp_plugin, "cpu_offload", False))
+        if plugin is not None:
+            if not hasattr(plugin, "to_parallelism_config"):
+                raise TypeError(f"{type(plugin).__name__} is not a FullyShardedDataParallelPlugin/"
+                                "DeepSpeedPlugin (missing to_parallelism_config)")
+            if parallelism_config is None:
+                parallelism_config = plugin.to_parallelism_config(
+                    PartialState(cpu=cpu, device=device, **init_pg_kwargs).num_devices)
+            if (deepspeed_plugin is not None and gradient_accumulation_steps == 1
+                    and deepspeed_plugin.gradient_accumulation_steps > 1):
+                gradient_accumulation_steps = deepspeed_plugin.gradient_accumulation_steps
+
         precision = PrecisionType(str(mixed_precision if mixed_precision is not None
                                       else os.environ.get("ACCELERATE_MIXED_PRECISION", "no")))
         if precision == PrecisionType.FP8:
             raise NotImplementedError(
                 "mixed_precision='fp8' is not ported yet (it needs the JAX package's scaled fp8 "
-                "matmuls; see ROADMAP.md)")
+                "matmuls; ROADMAP.md Queue A item 8)")
         if gradient_accumulation_plugin is None:
+            env_steps = int(os.environ.get("ACCELERATE_GRADIENT_ACCUMULATION_STEPS", 1))
             gradient_accumulation_plugin = GradientAccumulationPlugin(
-                num_steps=gradient_accumulation_steps)
-        for handler in kwargs_handlers or ():
-            if not isinstance(handler, GradScalerConfig):
-                raise ValueError(f"unsupported kwargs handler: {handler!r} (the port takes "
-                                 "GradScalerConfig only)")
-            if grad_scaler_config is not None:
-                raise ValueError("grad_scaler_config given both directly and as a handler")
-            grad_scaler_config = handler
-        if deepspeed_plugin is not None and parallelism_config is None:
-            parallelism_config = deepspeed_plugin.to_parallelism_config(
-                PartialState(cpu=cpu, device=device).num_devices)
-        self.deepspeed_plugin = deepspeed_plugin
+                num_steps=gradient_accumulation_steps if gradient_accumulation_steps != 1
+                else env_steps)
         self._zero1_axis = ("dp_replicate" if getattr(deepspeed_plugin, "zero_stage", None) == 1
                             else None)
         self.shard_rules = shard_rules
@@ -191,13 +291,17 @@ class Accelerator:
         self.rng_types = list(rng_types) if rng_types is not None else ["numpy"]
         self._sharding_plan = None
         self.state = AcceleratorState(mixed_precision=precision.value, cpu=cpu, device=device,
-                                      parallelism_config=parallelism_config)
+                                      parallelism_config=parallelism_config, **init_pg_kwargs)
         self.gradient_state = GradientState(gradient_accumulation_plugin)
         self.grad_scaler_config = grad_scaler_config or GradScalerConfig()
         self.step_scheduler_with_optimizer = step_scheduler_with_optimizer
         self.device_placement = device_placement
         self._optimizers: list = []
         self._accum_count = 0
+        # lomo_backward's dynamic loss scale under fp16 (host values)
+        self._lomo_scale = float(self.grad_scaler_config.init_scale)
+        self._lomo_scale_growth = 0
+        self.lomo_stats: dict = {}
         if rng_seed is not None:
             set_seed(rng_seed)
 
@@ -422,9 +526,15 @@ class Accelerator:
         return _tree_map(place, params)
 
     def prepare_optimizer(self, optimizer) -> AcceleratedOptimizer:
+        """An :class:`AcceleratedOptimizer` over ``optimizer`` (bound to the
+        params by :meth:`prepare`); a plugin's ``gradient_clipping`` is
+        chained ahead of it as :func:`~.optimizer.clip_by_global_norm`."""
         if not isinstance(optimizer, AcceleratedOptimizer):
             optimizer = AcceleratedOptimizer(
                 optimizer, accumulation_steps=self.gradient_accumulation_steps)
+            if self._plugin_grad_clip is not None:
+                optimizer.transforms = (clip_by_global_norm(self._plugin_grad_clip),
+                                        *optimizer.transforms)
         self._optimizers.append(optimizer)
         return optimizer
 
@@ -533,11 +643,17 @@ class Accelerator:
         # for bf16 params under "bf16"), which the flat path does here
         cast = policy.param_dtype is not None and any(p.dtype != policy.param_dtype
                                                       for p in bound)
+        # DistributedDataParallelKwargs(comm_hook=): the gradient bounded to
+        # the compressed dtype, as the JAX package does it: on the global
+        # (reduced) gradient, still loss-scaled, so that under fp16 a small
+        # gradient rides the scale above fp16's subnormal floor
+        compress = (self.ddp_handler.gradient_compression_dtype()
+                    if self.ddp_handler is not None else None)
         # the gradients as one flat tensor: one op each for the cast, the
-        # sum over the batch ranks, the unscale, the finite check, the
-        # zeroing, the norm and the accumulation
+        # sum over the batch ranks, the compression, the unscale, the finite
+        # check, the zeroing, the norm and the accumulation
         flat_path = (meshed or fp16 or compute_grad_norm or optimizer.accumulation_steps > 1
-                     or cast)
+                     or cast or compress is not None)
         if fp16:
             optimizer.init_loss_scale(self.grad_scaler_config, bound[0].device)
 
@@ -579,6 +695,8 @@ class Accelerator:
             flat = None
             if flat_path:
                 flat = flat_grads()
+                if compress is not None:
+                    flat = flat.to(compress).to(flat.dtype)
                 if fp16:
                     flat = flat / optimizer.loss_scale
                     finite = torch.isfinite(flat).all()
@@ -601,14 +719,35 @@ class Accelerator:
 
     def prepare_train_step(self, loss_fn: Callable,
                            optimizer: Optional[AcceleratedOptimizer] = None,
-                           has_aux: bool = False, compute_grad_norm: bool = False) -> Callable:
+                           has_aux: bool = False, compute_grad_norm: bool = False,
+                           offload_optimizer: Optional[bool] = None) -> Callable:
         """``step(params, opt_state, batch) -> (params, opt_state, metrics)``
         for ``loss_fn(params, batch) -> scalar`` (``(loss, aux)`` with
         ``has_aux``); one micro-step, updating in place. ``compute_grad_norm``
         adds the global L2 norm of this micro-step's (unscaled, zeroed on
-        overflow) gradients."""
-        return self._build_train_step(loss_fn, self._resolve_optimizer(optimizer), has_aux,
-                                      compute_grad_norm)
+        overflow) gradients.
+
+        ``offload_optimizer=True`` keeps the optimizer state (this rank's,
+        under a mesh) in pinned host memory between steps and stages it onto
+        the device group by group inside each update, double-buffered on a
+        side stream (:class:`~.parallel.sharding.OptimizerOffload`): the
+        ZeRO-Offload of the JAX package, whose XLA program stages the state
+        inside the step. ``None`` takes it from the plugins:
+        ``DeepSpeedPlugin(offload_optimizer_device="cpu"|"nvme")`` or
+        ``FullyShardedDataParallelPlugin(cpu_offload=True)``; ``False`` keeps
+        (or brings back) the state on the device. The arithmetic is the
+        plain step's, element for element."""
+        if offload_optimizer is None:
+            offload_optimizer = self._offload_optimizer
+        if offload_optimizer:
+            live = optimizer if optimizer is not None else (
+                self._optimizers[-1] if self._optimizers else None)
+            if live is None or live.opt_state is None:
+                raise ValueError("offload_optimizer needs the live optimizer state — call "
+                                 "prepare(params, optimizer) first")
+        optimizer = self._resolve_optimizer(optimizer)
+        optimizer.offload_state(bool(offload_optimizer))
+        return self._build_train_step(loss_fn, optimizer, has_aux, compute_grad_norm)
 
     def prepare_train_loop(self, loss_fn: Callable,
                            optimizer: Optional[AcceleratedOptimizer] = None,
@@ -618,7 +757,14 @@ class Accelerator:
         :func:`~accelerate_tpu_torch.utils.operations.stack_batches`) and every
         metric is stacked ``[K]``. The same update as K calls of the
         :meth:`prepare_train_step` function, run as a Python loop with no
-        host sync; params and optimizer state are updated in place."""
+        host sync; params and optimizer state are updated in place. A
+        plugin's optimizer offload is not applied here (as in the JAX
+        package, whose scanned loop keeps the state on the device): use
+        :meth:`prepare_train_step`."""
+        if self._offload_optimizer:
+            warnings.warn("optimizer host-offload is configured but not applied in the scanned "
+                          "train loop — state must stay in HBM across the K scanned steps; use "
+                          "prepare_train_step for per-step offload")
         step = self._build_train_step(loss_fn, self._resolve_optimizer(optimizer), has_aux,
                                       compute_grad_norm)
 
@@ -702,6 +848,152 @@ class Accelerator:
             return ((value, _detach(aux)) if has_aux else value), tree
 
         return value_and_grad
+
+    # ------------------------------------------------------------------ lomo --
+    def lomo_backward(self, loss_fn: Callable, params, *args, learning_rate: float = 1e-3):
+        """LOMO (the JAX package's ``lomo_backward``): one backward of
+        ``loss_fn(params, *args)`` fused with the SGD update ``p - lr * g``
+        (``g`` cast to ``p``'s dtype, ``lr`` rounded to it first), so the
+        whole gradient tree never exists beside the params. Returns ``(loss,
+        params)``: the loss (f32, unscaled) and the same params, updated in
+        place (the port's counterpart of JAX's donated buffers; nothing is
+        compiled, so JAX's cache of compiled steps has none).
+
+        The loss runs on ``policy.cast_to_compute(params)``. Each gradient is
+        applied, then freed, as soon as it is complete: the leaves outside a
+        stacked ``layers`` subtree (embedding, head, final norm) by their
+        own post-accumulate hooks, and the stacked layers one layer at a time
+        as that layer's backward ends, through the per-layer mechanism of
+        :class:`~.parallel.sharding.LayerStack` (a hook on a stacked leaf
+        would fire only after the last layer's backward). A model that reads
+        ``layers`` whole (BERT) updates each stacked leaf when its whole
+        gradient is complete.
+
+        Under ``mixed_precision="fp16"`` the loss scale is dynamic and kept
+        on the ``Accelerator`` (``grad_scaler_config``'s backoff and growth).
+        An update made inside a hook cannot be taken back, so fp16 takes
+        LOMO's two-pass form: a first backward only records whether every
+        (unscaled) gradient is finite, freeing each one; a second backward
+        applies the update, only when the first found no overflow. That
+        costs a second forward and backward; an overflowed step leaves the
+        params unchanged and backs the scale off. bf16 and f32 take one
+        pass. Under more than one process the mesh must be pure
+        ``dp_replicate``: each gradient is all-reduced (as a mean) before
+        its update, and the loss is the mean over the ranks."""
+        fp16 = self.state.mixed_precision == PrecisionType.FP16
+        axes = self._lomo_axes()
+        scale = self._lomo_scale if fp16 else 1.0
+        if not fp16:
+            loss, _ = self._lomo_pass(loss_fn, params, args, scale, learning_rate, axes)
+            return loss, params
+        loss, finite = self._lomo_pass(loss_fn, params, args, scale, None, axes)
+        finite = bool(finite)
+        if finite:
+            self._lomo_pass(loss_fn, params, args, scale, learning_rate, axes)
+        cfg = self.grad_scaler_config
+        if finite:
+            self._lomo_scale_growth += 1
+            if self._lomo_scale_growth >= cfg.growth_interval:
+                self._lomo_scale = scale * cfg.growth_factor
+                self._lomo_scale_growth = 0
+        else:
+            self._lomo_scale = max(1.0, scale * cfg.backoff_factor)
+            self._lomo_scale_growth = 0
+        return loss, params
+
+    def _lomo_axes(self) -> tuple:
+        """The mesh axes LOMO averages gradients over: none on one process,
+        ``dp_replicate`` on a pure data-parallel mesh; any other raises."""
+        sizes = {a: n for a, n in self.mesh.shape.items() if n > 1}
+        if not sizes:
+            return ()
+        if set(sizes) == {"dp_replicate"}:
+            return ("dp_replicate",)
+        raise NotImplementedError(
+            f"lomo_backward on a mesh of {sizes} is not ported yet: it runs on one process or "
+            "a pure dp_replicate mesh (ROADMAP.md Queue A item 11)")
+
+    def _lomo_pass(self, loss_fn: Callable, params, args: tuple, scale: float,
+                   learning_rate: Optional[float], axes: tuple):
+        """One forward and backward at loss scale ``scale``. Each gradient,
+        once complete, is averaged over ``axes``, unscaled and then either
+        applied (``learning_rate``) or checked for finiteness (``None``),
+        and freed. Returns ``(loss, finite)``: the unscaled f32 loss (the
+        mean over ``axes``) and, for the check, a device bool (None
+        otherwise). :attr:`lomo_stats` holds the pass's gradient bytes:
+        ``max_live_bytes``, the most that were alive at once (a gradient
+        counts from its arrival until it is garbage), and ``total_bytes``."""
+        import weakref
+
+        from .optimizer import _scalar
+        from .parallel.sharding import LayerStack
+
+        policy = self.state.mixed_precision_policy
+        mesh = self.mesh
+        n = int(np.prod([mesh.shape[a] for a in axes])) if axes else 1
+        stats = self.lomo_stats = {"live_bytes": 0, "max_live_bytes": 0, "total_bytes": 0}
+        finite: list = [None]
+
+        def freed(nbytes):
+            stats["live_bytes"] -= nbytes
+
+        @torch.no_grad()
+        def take(targets: list, grads: list) -> None:
+            for g in grads:
+                nbytes = g.numel() * g.element_size()
+                stats["live_bytes"] += nbytes
+                stats["total_bytes"] += nbytes
+                weakref.finalize(g, freed, nbytes)
+            stats["max_live_bytes"] = max(stats["max_live_bytes"], stats["live_bytes"])
+            if axes:
+                flat = torch.cat([g.reshape(-1) for g in grads])
+                all_reduce_axes(flat, mesh, axes)
+                flat /= n
+                grads = [f.view_as(g) for f, g in zip(flat.split([g.numel() for g in grads]),
+                                                       grads)]
+                del flat
+            if scale != 1.0:
+                grads = [g / scale for g in grads]
+            if learning_rate is None:
+                ok = torch.stack([torch.isfinite(g).all() for g in grads]).all()
+                finite[0] = ok if finite[0] is None else finite[0] & ok
+                return
+            for (p, row), g in zip(targets, grads):
+                dst = p.detach() if row is None else p.detach()[row]
+                dst.sub_(g.to(p.dtype) * _scalar(learning_rate, p.dtype))
+
+        def leaf_hook(p):
+            g, p.grad = p.grad, None
+            if g is not None:  # a stacked leaf read per layer gets none here
+                take([(p, None)], [g])
+
+        def layer_hook(group, i, grads):
+            take([(t, i) for t in group.leaves], list(grads))
+
+        for p in param_leaves(params):
+            if p.is_floating_point() and not p.requires_grad:
+                p.requires_grad_(True)
+        handles = [p.register_post_accumulate_grad_hook(leaf_hook)
+                   for p in param_leaves(params) if p.requires_grad]
+        try:
+            full = params
+            if isinstance(params, dict) and isinstance(params.get("layers"), dict):
+                from .parallel.sharding import _map
+
+                layers = params["layers"]
+                stack = LayerStack(mesh, layers, _map(lambda _: None, layers),
+                                   dtype=policy.compute_dtype, grad_hook=layer_hook)
+                full = {k: stack if k == "layers" else v for k, v in params.items()}
+            loss = loss_fn(policy.cast_to_compute(full), *args).float()
+            scaled = loss * scale
+            scaled.backward()
+        finally:
+            for h in handles:
+                h.remove()
+        loss = scaled.detach() / scale
+        if axes:
+            loss = all_reduce_axes(loss.clone(), mesh, axes) / n
+        return loss, finite[0]
 
     @contextlib.contextmanager
     def accumulate(self, *models):

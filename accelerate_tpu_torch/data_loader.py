@@ -4,8 +4,13 @@
 The samplers are the JAX package's index math, written again for this
 package: a shuffled epoch is ``numpy.random.default_rng(seed +
 epoch).permutation``, so the batch order is identical to the JAX
-package's. ``DataLoader`` collates map-style samples into numpy batches
-(``np.stack``).
+package's. ``DataLoader`` collates map-style samples into numpy batches:
+a leaf of ``_PIN_MIN_BYTES`` (1 MiB) or more through the native memcpy
+team (:func:`~.native.parallel_collate`) once the library is loaded (the
+loader warms its build at construction), on a CUDA host straight into
+pinned memory, which the prepared loader's copy to the card then reads
+without pinning again; smaller leaves through ``np.stack``, the same
+bytes.
 
 :func:`prepare_data_loader` shards the loader over the mesh's
 data-parallel rows (``dp_replicate × dp_shard``; ranks that differ only
@@ -33,9 +38,7 @@ batches ahead (2 by default) on a producer thread; on a CUDA device that
 thread copies each batch on the loader's side stream (a leaf of
 ``_PIN_MIN_BYTES`` or more from pinned memory), and the batch is made
 ready (an event) when it is yielded. ``prefetch_depth=0`` is
-the synchronous path. The JAX package's native C++ collate for large
-leaves is not ported: ``np.stack`` gives the same bytes (ROADMAP.md Queue
-A item 6).
+the synchronous path.
 """
 
 from __future__ import annotations
@@ -317,15 +320,40 @@ class IterableDatasetShard:
         yield from window[start:start + self.batch_size]
 
 
+def _pinned_out(shape: tuple, dtype: np.dtype) -> Optional[np.ndarray]:
+    """The numpy view of a new pinned CPU tensor of ``shape`` and ``dtype``
+    on a CUDA host (None elsewhere, or for a dtype torch does not hold)."""
+    if not torch.cuda.is_available():
+        return None
+    try:
+        torch_dtype = torch.from_numpy(np.empty(0, dtype)).dtype
+    except TypeError:
+        return None
+    return torch.empty(shape, dtype=torch_dtype, pin_memory=True).numpy()
+
+
 def default_collate(samples: list) -> Any:
-    """Stack a list of samples (dicts, tuples, arrays, scalars) into a batch
-    with ``np.stack``."""
+    """Stack a list of samples (dicts, tuples, arrays, scalars) into a
+    batch. A leaf of ``_PIN_MIN_BYTES`` or more in all goes through the
+    native memcpy team once its library is loaded (never built here: the
+    hot path does not compile), into pinned memory on a CUDA host; every
+    other leaf through ``np.stack``, which gives the same bytes."""
     first = samples[0]
     if isinstance(first, dict):
         return type(first)((k, default_collate([s[k] for s in samples])) for k in first)
     if isinstance(first, (list, tuple)) and not isinstance(first, str):
         return type(first)(default_collate([s[i] for s in samples]) for i in range(len(first)))
-    return np.stack([np.asarray(s) for s in samples])
+    arrs = [np.asarray(s) for s in samples]
+    a0 = arrs[0]
+    if a0.nbytes * len(arrs) >= _PIN_MIN_BYTES:
+        from .native import is_native_ready, parallel_collate
+
+        if is_native_ready():
+            out = None
+            if all(a.shape == a0.shape and a.dtype == a0.dtype for a in arrs):
+                out = _pinned_out((len(arrs),) + a0.shape, a0.dtype)
+            return parallel_collate(arrs, out=out)
+    return np.stack(arrs)
 
 
 class DataLoader:
@@ -337,6 +365,11 @@ class DataLoader:
                  batch_sampler=None, sampler=None):
         self.dataset = dataset
         self.collate_fn = collate_fn or default_collate
+        from .native import warm_build
+
+        # the native library is built off this thread (once), so that the
+        # first large collate finds it ready
+        warm_build()
         if batch_sampler is not None:
             self.batch_sampler = batch_sampler
             self.batch_size = getattr(batch_sampler, "batch_size", None)
@@ -595,7 +628,7 @@ class DataLoaderShard:
                 if arr.dtype.kind not in "biuf":
                     return x
                 t = torch.from_numpy(np.ascontiguousarray(arr))
-            if t.device.type == "cpu" and t.nbytes >= _PIN_MIN_BYTES:
+            if t.device.type == "cpu" and t.nbytes >= _PIN_MIN_BYTES and not t.is_pinned():
                 t = t.pin_memory()
             return t.to(dev, non_blocking=self.non_blocking)
 

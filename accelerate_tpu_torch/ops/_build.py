@@ -8,6 +8,11 @@ Libraries are loaded with ``ctypes`` and every exported function gets
 explicit ``argtypes``: ``c_void_p`` for each pointer and the stream, so no
 pointer is cut to 32 bits. Importing this module needs no ``nvcc``; using a
 kernel without one raises.
+
+:func:`build_host` compiles the host libraries (``native/src/<name>.cc``,
+the data pipeline) the same way with the host compiler (``$CXX``, else
+``g++``) into the same directory; they build wherever a C++17 compiler
+is, this machine's CPU-only hosts included.
 """
 
 from __future__ import annotations
@@ -20,11 +25,15 @@ import subprocess
 import time
 from pathlib import Path
 
-__all__ = ["KERNELS", "build", "load", "nvcc_path"]
+__all__ = ["HOST_FLAGS", "KERNELS", "build", "build_host", "load", "nvcc_path"]
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
+NATIVE_SRC = _PKG / "native" / "src"
 BUILD_DIR = _PKG / "_build"
+
+#: the JAX package's flags for its host library (``native/build.py``)
+HOST_FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC", "-pthread")
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -127,6 +136,32 @@ def build(names=None) -> "dict[str, dict]":
     if failures:
         raise RuntimeError("\n".join(failures))
     return out
+
+
+def build_host(name: str) -> "dict":
+    """Compile ``native/src/<name>.cc`` with ``$CXX`` (else ``g++``) and
+    :data:`HOST_FLAGS` unless an up-to-date library exists (named by a hash
+    of the source, the compiler and the flags). Returns ``{"path",
+    "seconds", "log"}``; raises with the compiler's output on failure."""
+    cxx = os.environ.get("CXX") or "g++"
+    src = NATIVE_SRC / f"{name}.cc"
+    h = hashlib.sha256(" ".join((cxx, *HOST_FLAGS)).encode() + src.read_bytes())
+    path = BUILD_DIR / f"{name}-host-{h.hexdigest()[:16]}.so"
+    if path.exists():
+        return {"path": path, "seconds": 0.0, "log": ""}
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = path.with_suffix(f".{os.getpid()}.tmp")
+    t0 = time.perf_counter()
+    try:
+        proc = subprocess.run([cxx, *HOST_FLAGS, str(src), "-o", str(tmp)],
+                              capture_output=True, text=True, timeout=300)
+    except (OSError, subprocess.SubprocessError) as e:
+        raise RuntimeError(f"{cxx} could not build {src.name}: {e}") from e
+    if proc.returncode != 0:
+        raise RuntimeError(f"{cxx} failed for {src.name} (exit {proc.returncode}):\n"
+                           f"{proc.stdout}{proc.stderr}")
+    os.replace(tmp, path)
+    return {"path": path, "seconds": time.perf_counter() - t0, "log": proc.stderr}
 
 
 def load(name: str) -> ctypes.CDLL:

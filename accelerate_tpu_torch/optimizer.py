@@ -257,7 +257,12 @@ class Adafactor(torch.optim.Optimizer):
     shape, each row or column mean and each RMS is the blocks' sum
     all-reduced over the axes that split the reduced dims, over the global
     count, and ``v_row``/``v_col`` are split as the param's spec implies
-    (its spec without the reduced dim).
+    (its spec without the reduced dim). Under ZeRO-1 by annotation a rank
+    owns dim-0 rows of each param that ``zero1_state_specs`` splits, and
+    the rows are such a block, split over the ZeRO-1 axis: the moment that
+    keeps dim 0 holds the rank's rows, the one reduced over dim 0 is whole
+    (the same on every rank), and the column statistics, the block RMS of
+    the update and the param's RMS are summed over the axis.
     """
 
     takes_grads = True
@@ -554,6 +559,7 @@ class AcceleratedOptimizer:
         self.plan = None  # the ShardingPlan of the params it was bound to under a mesh
         self.zero1 = None  # FusedZero1Update when the fused ZeRO-1 path is on
         self.zero1_rows: Optional[AnnotatedZero1] = None  # ZeRO-1 by annotation
+        self.offload = None  # OptimizerOffload when the state lives on the host
 
     def init(self, params, plan=None):
         """Bind to ``params`` (a nested dict of tensors): a factory becomes
@@ -569,10 +575,11 @@ class AcceleratedOptimizer:
             leaves = param_leaves(params)
             zero1 = (plan is not None and plan.zero1_axis is not None
                      and plan.mesh.shape.get(plan.zero1_axis, 1) > 1)
-            if zero1 and getattr(self.base_optimizer, "cls", None) is Adafactor:
-                raise NotImplementedError(
-                    "adafactor under ZeRO-1 (its factored state is not param-shaped) is not "
-                    "ported yet (ROADMAP.md Queue A item 6, step 6)")
+            is_adafactor = getattr(self.base_optimizer, "cls", None) is Adafactor
+            if plan is not None and plan.fused_zero1 and is_adafactor:
+                # the fused update refuses adafactor (its statistics span a
+                # whole param), as the JAX package's does: by annotation
+                plan.zero1 = None
             if plan is not None and plan.fused_zero1:
                 from .parallel.weight_update import init_bucketed_opt_state
 
@@ -585,6 +592,15 @@ class AcceleratedOptimizer:
                 self.zero1_rows = AnnotatedZero1(leaves, _leaves(plan.param_specs), plan.mesh,
                                                  plan.zero1_axis)
                 self.optimizer = self.base_optimizer(self.zero1_rows.owned)
+                if isinstance(self.optimizer, Adafactor):
+                    # a rank's rows are a block of the param split on dim 0
+                    # over the ZeRO-1 axis: every statistic stays the whole
+                    # param's (the blocks' sums all-reduced over the axis)
+                    shapes, dim_axes = plan.leaf_splits(leaves)
+                    for j, rows in enumerate(self.zero1_rows.rows):
+                        if rows is not None:
+                            dim_axes[j] = ((plan.zero1_axis,), *dim_axes[j][1:])
+                    self.optimizer.shard(self.zero1_rows.owned, shapes, dim_axes, plan.mesh)
                 return self.opt_state
             self.optimizer = self.base_optimizer(leaves)
             if plan is not None and plan.sharded and isinstance(self.optimizer, Adafactor):
@@ -622,8 +638,41 @@ class AcceleratedOptimizer:
 
     def state_bytes(self) -> int:
         """Bytes of this rank's optimizer array state (scalars such as the
-        step counts left out)."""
+        step counts left out), wherever it lives."""
         return state_bytes(self.optimizer)
+
+    def device_state_bytes(self) -> int:
+        """Bytes of that state on the device (0 between steps when it is
+        offloaded)."""
+        return sum(v.numel() * v.element_size() for s in self.optimizer.state.values()
+                   for v in s.values() if isinstance(v, torch.Tensor) and v.dim() > 0
+                   and v.device.type != "cpu")
+
+    def offload_state(self, enable: bool = True) -> None:
+        """Keep the optimizer state in pinned host memory between updates
+        and stage it onto the device group by group inside each one
+        (:class:`~.parallel.sharding.OptimizerOffload`); ``enable=False``
+        brings it back to the device. AdamW, Adam and SGD are elementwise:
+        their params may be staged in blocks of rows."""
+        if self.optimizer is None:
+            raise ValueError("offload_optimizer needs the live optimizer state — call "
+                             "prepare(params, optimizer) first")
+        if not enable:
+            if self.offload is not None:
+                device = self.offload.device
+                with torch.no_grad():
+                    for st in self.optimizer.state.values():
+                        for k, v in st.items():
+                            if isinstance(v, torch.Tensor) and v.dim() > 0:
+                                st[k] = v.to(device)
+                self.offload = None
+            return
+        if self.offload is None:
+            from .parallel.sharding import OptimizerOffload
+
+            elementwise = isinstance(self.optimizer, (torch.optim.Adam, torch.optim.AdamW,
+                                                      torch.optim.SGD, SGD))
+            self.offload = OptimizerOffload(self.optimizer, self.params[0].device, elementwise)
 
     # ------------------------------------------------------------ updates --
     def _grads(self) -> list:
@@ -663,13 +712,14 @@ class AcceleratedOptimizer:
             grads = transform(grads, self._leaf_sumsq)
         if self.zero1_rows is not None:
             grads = self.zero1_rows.owned_grads(grads)
+        update = self.optimizer.step if self.offload is None else self.offload.step
         if getattr(self.optimizer, "takes_grads", False):
-            self.optimizer.step(grads=grads)
+            update(grads=grads)
         else:
             for p, g in zip(self.params, grads or ()):
                 if p.is_floating_point():  # a non-floating leaf has no gradient
                     p.grad = g.to(p.dtype)
-            self.optimizer.step()
+            update()
         if self.zero1 is not None:
             self.zero1.all_gather()
         if self.zero1_rows is not None:

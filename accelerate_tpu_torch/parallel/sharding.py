@@ -45,6 +45,7 @@ at most two layers' gathered params are alive at any point of a step.
 
 from __future__ import annotations
 
+import contextlib
 import re
 import weakref
 from collections.abc import Mapping
@@ -62,6 +63,7 @@ __all__ = [
     "FSDP_AXES",
     "GRAD_SUM_AXES",
     "LayerStack",
+    "OptimizerOffload",
     "PartitionSpec",
     "ShardingPlan",
     "ShardingRules",
@@ -598,10 +600,17 @@ class LayerStack(Mapping):
     ``stats`` (the plan's ``layer_stats``) counts, for the step, the most
     layers whose gathered params were alive at once (``max_live_layers``)
     and the gathers (``gathers``: forward, prefetched, and again in the
-    backward)."""
+    backward).
 
-    def __init__(self, mesh, local, layouts, dtype=None, stats: Optional[dict] = None):
+    ``grad_hook(group, i, grads)``, when given, takes each layer's gradient
+    (one full per-layer tensor for each of ``group.leaves``, in their
+    dtype) in place of the reduction into ``.grad``: ``lomo_backward``
+    updates layer ``i`` there as its backward ends."""
+
+    def __init__(self, mesh, local, layouts, dtype=None, stats: Optional[dict] = None,
+                 grad_hook=None):
         self.local, self.layouts, self.dtype = local, layouts, dtype
+        self.grad_hook = grad_hook
         self.stats = stats if stats is not None else {}
         self.stats.update(max_live_layers=0, gathers=0)
         paths: list = []
@@ -683,7 +692,10 @@ class LayerStack(Mapping):
         group = self.groups[g]
         grads = [torch.zeros(s, dtype=t.dtype, device=t.device) if gr is None
                  else gr.to(t.dtype) for gr, s, t in zip(grads, group.shapes, group.leaves)]
-        group.reduce(i, grads)
+        if self.grad_hook is not None:
+            self.grad_hook(group, i, grads)
+        else:
+            group.reduce(i, grads)
 
     def layer(self, i: int) -> dict:
         """Layer ``i``'s params (the tree of one layer), gathered: an
@@ -935,3 +947,261 @@ def llama_tp_rules() -> ShardingRules:
         (r"(embed_tokens|wte|embedding)/(embedding|kernel)", P("tp", None)),
         (r"lm_head/kernel", P(None, "tp")),
     ])
+
+
+# ---------------------------------------------------------------------------
+# Optimizer state offloaded to host memory (ZeRO-Offload, FSDP cpu_offload)
+
+
+def _offloadable(v) -> bool:
+    """A state tensor that lives on the host between steps: any tensor with
+    a dim (step counts and other scalars stay where the optimizer keeps
+    them)."""
+    return isinstance(v, torch.Tensor) and v.dim() > 0
+
+
+class OptimizerOffload:
+    """The optimizer state of one torch optimizer in pinned host memory
+    between steps: the port of the JAX package's
+    ``make_host_offloaded_step``, whose XLA program stages the state into
+    device memory and commits it back inside the step.
+
+    Every state tensor with a dim (AdamW's ``exp_avg``/``exp_avg_sq``,
+    adafactor's factored moments, SGD's trace; of the tensors the optimizer
+    owns: a rank's blocks, ZeRO-1 rows or chunks) is held on the host;
+    scalars (AdamW's step counts) stay where the optimizer keeps them. The
+    port keeps the fp16 loss scale on the ``AcceleratedOptimizer``, not in
+    the optimizer's state, so it is not offloaded. :meth:`step` runs the
+    optimizer's own ``step`` group by group:
+
+    - a group is a run of params whose state holds at most ``group_bytes``.
+      An elementwise optimizer (``elementwise=True``: AdamW, Adam, SGD) may
+      take a param in blocks of rows, each updated through a view of the
+      param, its gradient and its state (the same per-element arithmetic);
+      any other (adafactor: its statistics span a whole param) takes whole
+      params, a param larger than the bound forming a group of its own;
+    - two device buffers alternate: group ``i+1`` is copied host to device
+      on a side stream while group ``i`` is updated on the current stream;
+      group ``i`` is then copied back device to host on the side stream,
+      after an event that marks its update, and before group ``i+2`` is
+      copied into the same buffer; each copy waits for an event of what it
+      reads, and a copy into a buffer waits for the work queued on the
+      current stream before it (the caching allocator may hand the buffer
+      memory that work still reads). So at most two groups' state is on the device at any time
+      (a state tensor the optimizer allocates anew, as adafactor's moving
+      averages, joins its group until copied back; ``record_stream`` keeps
+      it for the side stream's copy).
+
+    A group holds at most :attr:`GROUP_BYTES`, 128 MiB: the two buffers then hold
+    256 MiB, under 4 % of config #4's 6.88 GB of AdamW state, while each
+    copy (about 5 ms over PCIe 5) is long enough that its launch and the
+    group's Python work (under 1 ms) stay small beside it. The first step
+    creates the state on the device and moves it to the host. The step
+    waits for the last copy back before it returns, so the host state is
+    complete when the caller reads it. On the CPU the same code runs with
+    copies from the CPU to the CPU and no streams."""
+
+    GROUP_BYTES = 128 << 20
+    ALIGN = 256
+
+    def __init__(self, optimizer: torch.optim.Optimizer, device, elementwise: bool):
+        self.optimizer = optimizer
+        self.device = torch.device(device)
+        self.elementwise = elementwise
+        self.group_bytes = self.GROUP_BYTES
+        self.cuda = self.device.type == "cuda"
+        self.stream = torch.cuda.Stream(self.device) if self.cuda else None
+        self.stats = {"steps": 0, "groups": 0, "h2d_bytes": 0, "d2h_bytes": 0}
+        with torch.no_grad():
+            for st in optimizer.state.values():
+                for k, v in list(st.items()):
+                    if _offloadable(v) and not self._on_host(v):
+                        st[k] = self._host_like(v.shape, v.dtype).copy_(v)
+
+    # -- where the state lives --
+    def _on_host(self, v: torch.Tensor) -> bool:
+        return v.device.type == "cpu" and (not self.cuda or v.is_pinned())
+
+    def _host_like(self, shape, dtype) -> torch.Tensor:
+        return torch.empty(tuple(shape), dtype=dtype, pin_memory=self.cuda)
+
+    def host_bytes(self) -> int:
+        """Bytes of offloaded state on the host."""
+        return sum(v.numel() * v.element_size() for st in self.optimizer.state.values()
+                   for v in st.values() if _offloadable(v))
+
+    # -- the plan --
+    def _state_bytes(self, p) -> int:
+        st = self.optimizer.state.get(p, {})
+        held = sum(v.numel() * v.element_size() for v in st.values() if _offloadable(v))
+        return held or 2 * p.numel() * p.element_size()  # the first step: AdamW's two moments
+
+    def _items(self, params: list) -> list:
+        """``(index, rows, bytes)`` of each piece of the update: a whole
+        param (``rows`` None) or a block of its rows."""
+        items = []
+        for i, p in enumerate(params):
+            nbytes = self._state_bytes(p)
+            if (self.elementwise and p.dim() >= 1 and p.shape[0] > 1
+                    and nbytes > self.group_bytes):
+                per_row = nbytes / p.shape[0]
+                step = max(1, int(self.group_bytes // per_row))
+                for a in range(0, p.shape[0], step):
+                    b = min(a + step, p.shape[0])
+                    items.append((i, slice(a, b), int(per_row * (b - a))))
+            else:
+                items.append((i, None, nbytes))
+        return items
+
+    def _groups(self, items: list) -> list:
+        groups, cur, held = [], [], 0
+        for item in items:
+            if cur and held + item[2] > self.group_bytes:
+                groups.append(cur)
+                cur, held = [], 0
+            cur.append(item)
+            held += item[2]
+        return groups + ([cur] if cur else [])
+
+    # -- staging --
+    def _stage(self, params: list, grads: Optional[list], group: list, slot: int,
+               before: list):
+        """Copy one group's host state into device buffer ``slot`` (on the
+        side stream when there is one) and give each piece its target: the
+        param itself or a view of its rows, with the view's state and
+        gradient. ``before`` holds, per param, its scalar state and the keys
+        of its offloaded state as they were when the update began."""
+        sizes = []
+        for i, rows, _ in group:
+            for k, v in self.optimizer.state.get(params[i], {}).items():
+                if k in before[i][1]:
+                    n = (v[rows] if rows is not None else v).numel() * v.element_size()
+                    sizes.append(-(-n // self.ALIGN) * self.ALIGN)
+        total = sum(sizes)
+        buf = self._buffers[slot]
+        if total and (buf is None or buf.numel() < total):
+            buf = self._buffers[slot] = torch.empty(total, dtype=torch.uint8,
+                                                    device=self.device)
+        pieces, offset = [], 0
+        if self.stream is not None:
+            # the buffer's memory may have been freed by work still queued on
+            # the current stream: the copies into it wait for that work
+            self.stream.wait_stream(torch.cuda.current_stream(self.device))
+        with self._side():
+            for i, rows, _ in group:
+                p = params[i]
+                host = self.optimizer.state.get(p, {})
+                target = p if rows is None else p.detach()[rows]
+                staged, host_refs = {}, {}
+                # the state as it was before this update: a block of a param
+                # that an earlier group already wrote back reads the same
+                # scalars, and one whose state is not made yet none at all
+                held_scalars, held_keys = before[i]
+                for k, v in host.items():
+                    if k in held_keys:
+                        host_refs[k] = v
+                        src = v[rows] if rows is not None else v
+                        n = src.numel() * src.element_size()
+                        dst = buf[offset:offset + n].view(src.dtype).view(src.shape)
+                        offset += -(-n // self.ALIGN) * self.ALIGN
+                        dst.copy_(src, non_blocking=True)
+                        staged[k] = dst
+                        self.stats["h2d_bytes"] += n
+                if rows is not None:  # a view takes a copy of the step count
+                    for k, v in held_scalars.items():
+                        staged[k] = v.clone() if isinstance(v, torch.Tensor) else v
+                grad = None
+                if grads is not None:
+                    grad = grads[i] if rows is None else grads[i][rows]
+                elif rows is not None and p.grad is not None:
+                    grad = p.grad[rows]
+                pieces.append((i, rows, target, staged, grad, host_refs))
+        event = self.stream.record_event() if self.stream is not None else None
+        return pieces, event
+
+    def _side(self):
+        return (torch.cuda.stream(self.stream) if self.stream is not None
+                else contextlib.nullcontext())
+
+    def _write_back(self, params: list, pieces: list) -> None:
+        """Copy a group's updated state to the host (on the side stream) and
+        put the host tensors back into the optimizer's state."""
+        state = self.optimizer.state
+        with self._side():
+            for i, rows, target, _, _, host_refs in pieces:
+                p = params[i]
+                held = state.setdefault(p, {})
+                updated = dict(held) if target is p else state.pop(target)
+                for k, v in updated.items():
+                    if not _offloadable(v):
+                        held[k] = v  # a scalar: the optimizer's own, or the view's copy
+                        continue
+                    whole = host_refs.get(k)
+                    if whole is None and rows is not None and _offloadable(held.get(k)):
+                        whole = held[k]  # made by an earlier block of the same param
+                    if whole is None:  # the first step made this state on the device
+                        shape = v.shape if rows is None else (p.shape[0], *v.shape[1:])
+                        whole = self._host_like(shape, v.dtype)
+                    if self.stream is not None:
+                        v.record_stream(self.stream)
+                    (whole if rows is None else whole[rows]).copy_(v, non_blocking=True)
+                    held[k] = whole
+                    self.stats["d2h_bytes"] += v.numel() * v.element_size()
+
+    @torch.no_grad()
+    def step(self, grads: Optional[list] = None) -> None:
+        """One update of the optimizer (``grads``, one per param, for an
+        optimizer that takes them; else each param's ``.grad``), staged
+        group by group as the class docstring says."""
+        opt = self.optimizer
+        saved = opt.param_groups
+        params = [p for g in saved for p in g["params"]]
+        owner = {id(p): k for k, g in enumerate(saved) for p in g["params"]}
+        groups = self._groups(self._items(params))
+        self._buffers = [None, None]
+        main = torch.cuda.current_stream(self.device) if self.cuda else None
+        takes_grads = grads is not None
+        before = []
+        for p in params:
+            st = opt.state.get(p, {})
+            before.append(({k: v.clone() if isinstance(v, torch.Tensor) else v
+                            for k, v in st.items() if not _offloadable(v)},
+                           {k for k, v in st.items() if _offloadable(v)}))
+        staged = self._stage(params, grads, groups[0], 0, before) if groups else None
+        try:
+            for gi, group in enumerate(groups):
+                pieces, ready = staged
+                if gi + 1 < len(groups):  # the next group's copy runs beside this update
+                    staged = self._stage(params, grads, groups[gi + 1], (gi + 1) % 2, before)
+                if ready is not None:
+                    main.wait_event(ready)
+                opt.param_groups = [dict(g, params=[]) for g in saved]
+                sub_grads = []
+                for i, rows, target, st, grad, _ in pieces:
+                    opt.param_groups[owner[id(params[i])]]["params"].append(target)
+                    if rows is None:
+                        opt.state[target].update(st)
+                    else:
+                        opt.state[target] = st
+                        if not takes_grads:
+                            target.grad = grad
+                    sub_grads.append(grad)
+                if takes_grads:
+                    opt.step(grads=sub_grads)
+                else:
+                    opt.step()
+                for _, rows, target, _, _, _ in pieces:
+                    if rows is not None:
+                        target.grad = None
+                opt.param_groups = saved
+                if main is not None:
+                    self.stream.wait_event(main.record_event())
+                self._write_back(params, pieces)
+                self.stats["groups"] += 1
+        finally:
+            opt.param_groups = saved
+        if self.stream is not None:
+            self.stream.synchronize()
+        self._buffers = [None, None]
+        self.stats["steps"] += 1
+

@@ -12,9 +12,16 @@ cp, sp, tp, ep``). Under a process group it holds a
 ``torch.distributed.device_mesh.DeviceMesh`` with those names, whose
 per-axis groups carry the collectives.
 
-GPUs have no slice index, so a multi-slice (DCN) placement raises; the
-arithmetic of :meth:`ParallelismConfig.dcn_mesh_shapes` is ported all the
-same.
+Across nodes, the port's counterpart of a TPU slice is a node: a rank's
+node is ``rank // LOCAL_WORLD_SIZE`` (the launcher's environment, which
+torchrun and the JAX package's launcher set), or each process is its own
+unit with ``ACCELERATE_HYBRID_MESH_GRANULE=process`` (JAX's
+``process_is_granule``). With more than one unit, ``build_mesh`` lays the
+rank grid out as JAX's ``mesh_utils.create_hybrid_device_mesh`` does: the
+factors of :meth:`ParallelismConfig.dcn_mesh_shapes` on the outer axes,
+across units, and each unit's ranks, in order, on the inner axes. A unit
+count the axes cannot absorb raises JAX's ``ValueError``; the grid is never
+flattened. With one unit the grid is the ranks in row-major order.
 """
 
 from __future__ import annotations
@@ -45,8 +52,6 @@ DP_SHARD_CP_AXES = ("dp_shard", "cp")
 DP_CP_AXES = ("dp_replicate", "dp_shard", "cp")
 BATCH_AXES = ("dp_replicate", "dp_shard", "cp", "sp")
 
-_MULTI_SLICE = ("a multi-slice (DCN) mesh is not ported yet: GPUs have no slice index "
-                "(ROADMAP.md Queue A item 6, step 8)")
 
 
 class Mesh:
@@ -54,14 +59,15 @@ class Mesh:
 
     ``shape`` is an ordered ``{axis: size}`` as ``jax.sharding.Mesh.shape``
     gives it, ``devices`` the rank grid, ``rank`` and ``coords`` this
-    process's place in it. ``device_mesh`` is the torch ``DeviceMesh``
-    under a process group (``None`` for a mesh built without one, as spec
-    inference and the tests use), and :meth:`group` the process group of
-    one axis, ``None`` when that axis has size 1."""
+    process's place in it. ``devices`` is the ranks in row-major order
+    unless a grid is given (a multi-node layout). ``device_mesh`` is the
+    torch ``DeviceMesh`` under a process group (``None`` for a mesh built
+    without one, as spec inference and the tests use), and :meth:`group`
+    the process group of one axis, ``None`` when that axis has size 1."""
 
     axis_names = MESH_AXIS_NAMES
 
-    def __init__(self, shape, rank: int = 0, device_mesh=None):
+    def __init__(self, shape, rank: int = 0, device_mesh=None, devices=None):
         shape = tuple(int(s) for s in shape)
         if len(shape) != len(MESH_AXIS_NAMES):
             raise ValueError(f"a mesh needs {len(MESH_AXIS_NAMES)} sizes "
@@ -71,8 +77,12 @@ class Mesh:
         if not 0 <= rank < self.size:
             raise ValueError(f"rank {rank} is outside a mesh of {self.size}")
         self.rank = rank
-        self.devices = np.arange(self.size).reshape(shape)
-        self.coords = dict(zip(MESH_AXIS_NAMES, (int(c) for c in np.unravel_index(rank, shape))))
+        self.devices = (np.arange(self.size).reshape(shape) if devices is None
+                        else np.asarray(devices).reshape(shape))
+        if sorted(self.devices.ravel().tolist()) != list(range(self.size)):
+            raise ValueError(f"a mesh grid must hold every rank once: {self.devices.ravel()}")
+        where = np.argwhere(self.devices == rank)[0]
+        self.coords = dict(zip(MESH_AXIS_NAMES, (int(c) for c in where)))
         self.device_mesh = device_mesh
 
     def group(self, axis: str):
@@ -216,13 +226,6 @@ class ParallelismConfig:
             )
         return shape
 
-    @staticmethod
-    def _num_slices(devices) -> int:
-        """Distinct ``slice_index`` values across ``devices`` (1 when the
-        attribute is absent, as on every GPU)."""
-        ids = {getattr(d, "slice_index", None) for d in devices}
-        return 1 if None in ids else len(ids)
-
     def dcn_mesh_shapes(self, num_devices: int, num_slices: int):
         """``(per_slice_shape, dcn_shape)``: the slice count lands on the
         outermost axes first (``pp``, then ``dp_replicate``), unless
@@ -270,20 +273,48 @@ class ParallelismConfig:
         per_slice = tuple(s // d for s, d in zip(shape, dcn))
         return per_slice, dcn
 
+    @staticmethod
+    def _units(num_devices: int) -> list:
+        """The DCN unit of each rank: its node (``rank // LOCAL_WORLD_SIZE``,
+        one node when the launcher does not say), or the rank itself under
+        ``ACCELERATE_HYBRID_MESH_GRANULE=process``."""
+        granule = os.environ.get("ACCELERATE_HYBRID_MESH_GRANULE", "slice").strip().lower()
+        if granule == "process":
+            return list(range(num_devices))
+        local = int(os.environ.get("LOCAL_WORLD_SIZE", "").strip() or num_devices)
+        return [r // max(local, 1) for r in range(num_devices)]
+
+    def rank_grid(self, num_devices: int) -> np.ndarray:
+        """The ranks laid out on the mesh's axes: row-major on one unit;
+        across units, JAX's hybrid layout (the DCN factors on the outer
+        axes, a unit's ranks in order on the inner ones)."""
+        shape = self.mesh_shape(num_devices)
+        units = self._units(num_devices)
+        keys = sorted(set(units))
+        if len(keys) == 1:
+            return np.arange(num_devices).reshape(shape)
+        per_unit, dcn = self.dcn_mesh_shapes(num_devices, len(keys))
+        members = [[r for r, u in enumerate(units) if u == k] for k in keys]
+        if any(len(m) != int(np.prod(per_unit)) for m in members):
+            raise ValueError(f"the DCN units hold {[len(m) for m in members]} ranks; each must "
+                             f"hold {int(np.prod(per_unit))} (mesh {shape}, dcn {dcn})")
+        blocks = np.asarray(members).reshape(*dcn, *per_unit)
+        n = len(shape)
+        # unit position i on axis a and local position j: i * per_unit[a] + j
+        order = [ax for a in range(n) for ax in (a, n + a)]
+        return blocks.transpose(order).reshape(shape)
+
     def build_mesh(self, num_devices: Optional[int] = None, device_type: Optional[str] = None,
                    rank: Optional[int] = None) -> Mesh:
         """The :class:`Mesh` of this config over the process group's ranks
-        (its world size and rank by default), with a ``DeviceMesh`` of
-        type ``device_type`` (``"cuda"`` or ``"cpu"``) when a process group
-        is running. Without one, ``num_devices`` (1 by default) and ``rank``
-        (0) describe the grid and nothing is communicated. The config must
-        use every process: one process is one device."""
+        (its world size and rank by default), laid out by :meth:`rank_grid`,
+        with a ``DeviceMesh`` of type ``device_type`` (``"cuda"`` or
+        ``"cpu"``) when a process group is running. Without one,
+        ``num_devices`` (1 by default) and ``rank`` (0) describe the grid and
+        nothing is communicated. The config must use every process: one
+        process is one device."""
         import torch.distributed as dist
 
-        if (os.environ.get("ACCELERATE_DCN_MESH_SHAPE", "").strip()
-                or os.environ.get("ACCELERATE_HYBRID_MESH_GRANULE", "slice").strip().lower()
-                == "process"):
-            raise NotImplementedError(_MULTI_SLICE)
         live = dist.is_available() and dist.is_initialized()
         if num_devices is None:
             num_devices = dist.get_world_size() if live else 1
@@ -296,16 +327,22 @@ class ParallelismConfig:
                 "(the port runs one process per device, and a mesh uses them all)"
             )
         shape = self.mesh_shape(num_devices)
+        grid = self.rank_grid(num_devices)
         device_mesh = None
         if live:
-            from torch.distributed.device_mesh import init_device_mesh
+            import torch
+            from torch.distributed.device_mesh import DeviceMesh, init_device_mesh
 
             if dist.get_world_size() != num_devices:
                 raise ValueError(f"the process group has {dist.get_world_size()} ranks, "
                                  f"not {num_devices}")
-            device_mesh = init_device_mesh(device_type or "cuda", shape,
-                                           mesh_dim_names=MESH_AXIS_NAMES)
-        return Mesh(shape, rank=rank, device_mesh=device_mesh)
+            if np.array_equal(grid.ravel(), np.arange(num_devices)):
+                device_mesh = init_device_mesh(device_type or "cuda", shape,
+                                               mesh_dim_names=MESH_AXIS_NAMES)
+            else:
+                device_mesh = DeviceMesh(device_type or "cuda", torch.from_numpy(grid),
+                                         mesh_dim_names=MESH_AXIS_NAMES)
+        return Mesh(shape, rank=rank, device_mesh=device_mesh, devices=grid)
 
     def describe(self, num_devices: Optional[int] = None) -> str:
         if num_devices is not None:

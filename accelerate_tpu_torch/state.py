@@ -96,6 +96,7 @@ class PartialState:
             ("ACCELERATE_PROCESS_ID", "RANK"), 0)))
         self.local_process_index = get_int_from_env(
             ("ACCELERATE_LOCAL_PROCESS_INDEX", "LOCAL_RANK"), 0)
+        timeout = kwargs.pop("initialization_timeout", None)
         coordinator = kwargs.pop("coordinator_address", None) or os.environ.get(
             "ACCELERATE_COORDINATOR_ADDRESS")
         if not coordinator and os.environ.get("MASTER_ADDR"):
@@ -118,14 +119,14 @@ class PartialState:
                     "ACCELERATE_NUM_PROCESSES) but no rendezvous address is set: launch with "
                     "torchrun (MASTER_ADDR and MASTER_PORT) or set "
                     "ACCELERATE_COORDINATOR_ADDRESS (host:port or file:///path)")
-            timeout = kwargs.pop("initialization_timeout", None)
             if timeout is None:
                 timeout = parse_seconds_from_env("ACCELERATE_INITIALIZATION_TIMEOUT", 300.0)
             timeout = float(getattr(timeout, "total_seconds", lambda: timeout)())
             if backend is None:
                 backend = "gloo" if self.device.type == "cpu" else "nccl"
             store = _rendezvous_store(coordinator, rank, world_size, timeout)
-            dist.init_process_group(backend, store=store, rank=rank, world_size=world_size)
+            dist.init_process_group(backend, store=store, rank=rank, world_size=world_size,
+                                    timeout=datetime.timedelta(seconds=timeout))
         if kwargs:
             raise TypeError(f"unexpected PartialState arguments: {sorted(kwargs)}")
         self.num_processes = world_size

@@ -308,6 +308,10 @@ MESH_STEPS, MESH_LR = 5, 1e-3
 # the legs of the options a sharded step takes, at 4 ranks and 3 steps:
 # (name, ParallelismConfig kwargs, llama_tp_rules, leg options)
 OPTION_STEPS = 3
+# small enough that the offload leg stages every rank's AdamW state in
+# several groups and splits the embedding's rows
+OFFLOAD_GROUP_BYTES = 64 << 10
+DCN_DP_SHARD_ENV = {"LOCAL_WORLD_SIZE": "2", "ACCELERATE_DCN_MESH_SHAPE": "1,1,2,1,1,1,1"}
 FP16_SCALER = dict(init_scale=2.0 ** 40, growth_factor=2.0 ** 30, backoff_factor=2.0 ** -30,
                    growth_interval=2)
 OPTION_LEGS = (
@@ -324,7 +328,36 @@ OPTION_LEGS = (
     ("zero1_fused_off", {"dp_replicate_size": 4}, False,
      {"zero1": True, "env": {"ACCELERATE_ZERO1_FUSED": "0"}}),
     ("zero1_int_leaf", {"dp_replicate_size": 4}, False, {"zero1": True, "int_leaf": True}),
+    # adafactor under ZeRO-1 (by annotation: the fused update refuses it)
+    ("zero1_adafactor_dp_replicate4", {"dp_replicate_size": 4}, False,
+     {"zero1": True, "factory": "adafactor"}),
+    ("zero1_adafactor_dp_replicate2_tp2", {"dp_replicate_size": 2, "tp_size": 2}, True,
+     {"zero1": True, "factory": "adafactor"}),
+    ("comm_bf16_dp_shard4", {"dp_shard_size": 4}, False, {"comm_hook": "bf16"}),
+    ("offload_dp_shard4", {"dp_shard_size": 4}, False,
+     {"offload": True, "offload_group_bytes": OFFLOAD_GROUP_BYTES}),
+    ("lomo_dp_replicate4", {"dp_replicate_size": 4}, False, {"lomo": True}),
+    # two "nodes" of two ranks: dp_replicate across them, dp_shard inside;
+    # then dp_shard placed across them by ACCELERATE_DCN_MESH_SHAPE
+    ("multinode_dp_replicate2_dp_shard2", {"dp_replicate_size": 2, "dp_shard_size": 2}, False,
+     {"env": {"LOCAL_WORLD_SIZE": "2"}}),
+    ("multinode_dcn_dp_shard", {"dp_replicate_size": 2, "dp_shard_size": 2}, False,
+     {"env": DCN_DP_SHARD_ENV}),
 )
+# each new leg's planted fault, which must fail the leg's bar: the leg's
+# options with ``fault`` set (see ``_fault``)
+FAULT_LEGS = (
+    ("zero1_adafactor_dp_replicate4_fault", "zero1_adafactor_dp_replicate4",
+     "adafactor_local_stats"),
+    ("comm_bf16_dp_shard4_fault", "comm_bf16_dp_shard4", "compress_before_reduce"),
+    ("offload_dp_shard4_fault", "offload_dp_shard4", "offload_lost_write_back"),
+    ("lomo_dp_replicate4_fault", "lomo_dp_replicate4", "lomo_local_gradients"),
+    ("multinode_dcn_dp_shard_fault", "multinode_dcn_dp_shard", "flattened_grid"),
+)
+OPTION_LEGS = OPTION_LEGS + tuple(
+    (name, *next((pc, tp, dict(opts, fault=fault))
+                 for leg, pc, tp, opts in OPTION_LEGS if leg == base))
+    for name, base, fault in FAULT_LEGS)
 # one step at each remat policy (the live gathered layers counted) under
 # dp_shard 4 (each rank holds one whole layer: a gather is a broadcast) and
 # dp_shard 2 x tp 2 with llama_tp_rules (tp on the layer axis of wo and w2)
@@ -346,12 +379,68 @@ def _factory(name: str):
     raise ValueError(name)
 
 
+@contextlib.contextmanager
+def _fault(name):
+    """A planted fault of one of the ``FAULT_LEGS`` (none for ``None``);
+    ``chip_smoke.py`` plants ``"offload_lost_write_back"`` on the card."""
+    from accelerate_tpu_torch import accelerator as acc_mod
+    from accelerate_tpu_torch import optimizer as opt_mod
+    from accelerate_tpu_torch import parallelism_config as pc_mod
+    from accelerate_tpu_torch.parallel import sharding as sh
+    from accelerate_tpu_torch.utils import dataclasses as dc
+
+    with contextlib.ExitStack() as stack:
+        if name == "adafactor_local_stats":  # a block's sums never summed over the axis
+            stack.enter_context(_planted(opt_mod._Split, "sum", lambda self, x, axes: x))
+        elif name == "compress_before_reduce":  # each rank's own gradient cast to bf16
+            bf = lambda g: g.to(torch.bfloat16).to(g.dtype)  # noqa: E731
+            for target, attr, wrap in (
+                    (sh._Layout, "scatter_grad", lambda f: lambda self, g: f(self, bf(g))),
+                    (sh._LayerGroup, "reduce",
+                     lambda f: lambda self, i, grads: f(self, i, [bf(g) for g in grads])),
+                    (sh.ShardingPlan, "reduce_grads",
+                     lambda f: lambda self, grads: f(self, [bf(g) for g in grads])),
+                    (dc.DistributedDataParallelKwargs, "gradient_compression_dtype",
+                     lambda f: lambda self: None)):
+                stack.enter_context(_planted(target, attr, wrap(getattr(target, attr))))
+        elif name == "offload_lost_write_back":  # the first group's update never lands
+            real_stage, real_back = sh.OptimizerOffload._stage, sh.OptimizerOffload._write_back
+
+            def stage(self, params, grads, group, slot, before):
+                pieces, event = real_stage(self, params, grads, group, slot, before)
+                if group[0][0] == 0:
+                    self._lost = [(v, v.clone()) for piece in pieces for v in piece[5].values()]
+                return pieces, event
+
+            def write_back(self, params, pieces):
+                real_back(self, params, pieces)
+                if pieces[0][0] == 0:
+                    if self.stream is not None:  # the copy back runs on it
+                        self.stream.synchronize()
+                    for ref, old in self._lost:
+                        ref.copy_(old)
+
+            stack.enter_context(_planted(sh.OptimizerOffload, "_stage", stage))
+            stack.enter_context(_planted(sh.OptimizerOffload, "_write_back", write_back))
+        elif name == "lomo_local_gradients":  # no mean over the ranks
+            stack.enter_context(_planted(acc_mod, "all_reduce_axes", lambda x, *a, **k: x))
+        elif name == "flattened_grid":  # the ranks in row-major order, nodes ignored
+            stack.enter_context(_planted(pc_mod.ParallelismConfig, "rank_grid",
+                                         lambda self, n: np.arange(n).reshape(
+                                             self.mesh_shape(n))))
+        elif name is not None:
+            raise ValueError(f"unknown fault {name}")
+        yield
+
+
 def mesh_train_leg(params_np: dict, batches: dict, pc_kwargs: dict, zero1: bool,
                    tp_rules: bool, device="cpu", factory: str = "adamw",
                    precision: str = "no", scaler: dict = None, remat=False,
                    steps: int = None, env: dict = None, int_leaf: bool = False,
                    moe: bool = False, moe_rules: bool = True,
-                   prepare_rules: str = None) -> dict:
+                   prepare_rules: str = None, comm_hook: str = None, offload: bool = False,
+                   offload_group_bytes: int = None, lomo: bool = False,
+                   fault: str = None) -> dict:
     """``steps`` (all of ``batches`` by default) training steps of Llama at
     tiny widths (f32 params, plain attention) on one mesh, one step for each
     ``[K, ...]`` slice of ``batches`` (global ``input_ids`` and
@@ -362,7 +451,13 @@ def mesh_train_leg(params_np: dict, batches: dict, pc_kwargs: dict, zero1: bool,
     ``moe_shard_rules`` (whole experts on every rank without ``moe_rules``)
     and the first step's routed and dropped token-choices of this rank's
     rows; ``int_leaf`` adds an int32 leaf; ``prepare_rules="llama"`` passes
-    ``llama_shard_rules()`` to ``prepare(..., shard_rules=)``."""
+    ``llama_shard_rules()`` to ``prepare(..., shard_rules=)``; ``comm_hook``
+    passes ``DistributedDataParallelKwargs(comm_hook=)``; ``offload`` keeps
+    the optimizer state on the host (``offload_group_bytes`` a group);
+    ``lomo`` takes ``lomo_backward`` steps of ``sgd(MESH_LR)`` instead (no
+    gradient norms); ``fault`` plants one of ``_fault``'s faults. The
+    mesh's rank grid and this rank's node (``rank // LOCAL_WORLD_SIZE``)
+    are in ``mesh_grid`` and ``node``."""
     from accelerate_tpu_torch import Accelerator
     from accelerate_tpu_torch.data_loader import GlobalBatchAssembler
     from accelerate_tpu_torch.models import transformer as tt
@@ -382,32 +477,53 @@ def mesh_train_leg(params_np: dict, batches: dict, pc_kwargs: dict, zero1: bool,
         rules = tmoe.moe_shard_rules() + (rules or ShardingRules())
     if int_leaf:
         params_np = dict(params_np, step={"count": np.zeros(4, np.int32)})
-    with patch_environment(**(env or {})):
-        acc = Accelerator(device=device, mixed_precision=precision,
-                          parallelism_config=ParallelismConfig(**pc_kwargs),
-                          deepspeed_plugin=DeepSpeedPlugin(zero_stage=1) if zero1 else None,
-                          shard_rules=rules,
-                          grad_scaler_config=GradScalerConfig(**scaler) if scaler else None)
-        params, opt = acc.prepare(params_np, _factory(factory), shard_rules=(
-            tt.llama_shard_rules() if prepare_rules == "llama" else None))
-    step = acc.prepare_train_step(
-        lambda p, b: tt.llama_loss(p, b, cfg, mesh=acc.mesh, remat=remat),
-        compute_grad_norm=True)
-    assembler = GlobalBatchAssembler(acc.mesh, device=acc.device)
-    out = {"losses": [], "grad_norms": [], "loss_scale": [], "grads_finite": []}
-    n_steps = batches["input_ids"].shape[0] if steps is None else steps
-    for k in range(n_steps):
-        batch = assembler.to_global(assembler.local_block({n: b[k] for n, b in batches.items()}))
-        drops = {} if moe and k == 0 else None
-        with _count_drops(drops):
-            params, _, metrics = step(params, opt.opt_state, batch)
-        if drops is not None:
-            out["drops"] = {key: int(v) for key, v in drops.items()}
-        out["losses"].append(float(metrics["loss"]))
-        out["grad_norms"].append(float(metrics["grad_norm"]))
-        if precision == "fp16":
-            out["loss_scale"].append(float(metrics["loss_scale"]))
-            out["grads_finite"].append(bool(metrics["grads_finite"]))
+    from accelerate_tpu_torch.utils.dataclasses import DistributedDataParallelKwargs
+
+    handlers = [DistributedDataParallelKwargs(comm_hook=comm_hook)] if comm_hook else None
+    with contextlib.ExitStack() as stack:
+        stack.enter_context(_fault(fault))
+        with patch_environment(**(env or {})):
+            acc = Accelerator(device=device, mixed_precision=precision,
+                              parallelism_config=ParallelismConfig(**pc_kwargs),
+                              deepspeed_plugin=DeepSpeedPlugin(zero_stage=1) if zero1 else None,
+                              shard_rules=rules, kwargs_handlers=handlers,
+                              grad_scaler_config=GradScalerConfig(**scaler) if scaler else None)
+            params, opt = acc.prepare(params_np, _factory(factory), shard_rules=(
+                tt.llama_shard_rules() if prepare_rules == "llama" else None))
+            node = acc.process_index // int(os.environ.get("LOCAL_WORLD_SIZE",
+                                                           acc.num_processes))
+
+        def loss_fn(p, b):
+            return tt.llama_loss(p, b, cfg, mesh=acc.mesh, remat=remat)
+
+        step = None if lomo else acc.prepare_train_step(
+            loss_fn, compute_grad_norm=True, offload_optimizer=offload)
+        if offload and offload_group_bytes:
+            opt.offload.group_bytes = offload_group_bytes
+        assembler = GlobalBatchAssembler(acc.mesh, device=acc.device)
+        out = {"losses": [], "grad_norms": [], "loss_scale": [], "grads_finite": [],
+               "mesh_grid": acc.mesh.devices.ravel().tolist(), "node": node}
+        n_steps = batches["input_ids"].shape[0] if steps is None else steps
+        for k in range(n_steps):
+            batch = assembler.to_global(assembler.local_block(
+                {n: b[k] for n, b in batches.items()}))
+            if lomo:
+                loss, params = acc.lomo_backward(loss_fn, params, batch, learning_rate=MESH_LR)
+                out["losses"].append(float(loss))
+                continue
+            drops = {} if moe and k == 0 else None
+            with _count_drops(drops):
+                params, _, metrics = step(params, opt.opt_state, batch)
+            if drops is not None:
+                out["drops"] = {key: int(v) for key, v in drops.items()}
+            out["losses"].append(float(metrics["loss"]))
+            out["grad_norms"].append(float(metrics["grad_norm"]))
+            if precision == "fp16":
+                out["loss_scale"].append(float(metrics["loss_scale"]))
+                out["grads_finite"].append(bool(metrics["grads_finite"]))
+    out["offload"] = None if opt.offload is None else {
+        "groups": opt.offload.stats["groups"], "device_state_bytes": opt.device_state_bytes(),
+        "host_state_bytes": opt.offload.host_bytes()}
     full = acc.sharding_plan.gather_params_no_grad(params)
     flat = {}
     _map_with_path(lambda path, x: flat.__setitem__(path, x.detach().cpu().numpy()), full)
@@ -597,6 +713,14 @@ def _read_tree(path: str) -> dict:
     return tree
 
 
+def pc_kwargs_shape(pc_kwargs: dict) -> tuple:
+    from accelerate_tpu_torch.parallelism_config import ParallelismConfig
+
+    pc = ParallelismConfig(**pc_kwargs)
+    return (pc.pp_size, pc.dp_replicate_size, pc.dp_shard_size, pc.cp_size, pc.sp_size,
+            pc.tp_size, pc.ep_size)
+
+
 def _run_legs(accelerator, tmpdir: str, params_np: dict, batches: dict, legs, report: dict,
               prefix: str = "mesh") -> None:
     """Each of ``legs`` (``(name, ParallelismConfig kwargs, llama_tp_rules,
@@ -614,10 +738,14 @@ def _run_legs(accelerator, tmpdir: str, params_np: dict, batches: dict, legs, re
         comm = sorted(ops.get_comm_counters())
         report[name] = {"losses": out["losses"], "grad_norms": out["grad_norms"],
                         "fused_zero1": out["fused_zero1"], "zero1_rows": out["zero1_rows"],
-                        "comm": ops.gather_object(comm),
+                        "comm": ops.gather_object(comm), "mesh_grid": out["mesh_grid"],
                         **{key: ops.gather_object(out[key])
                            for key in ("opt_state_bytes", "loss_scale", "grads_finite",
-                                       "layer_stats")}}
+                                       "layer_stats", "node", "offload")}}
+        if accelerator.is_main_process and "multinode" in name:
+            print(f"[{name}] rank grid {out['mesh_grid']} (pp, dp_replicate, dp_shard, cp, sp, "
+                  f"tp, ep = {[int(v) for v in pc_kwargs_shape(pc_kwargs)]}), nodes by rank "
+                  f"{report[name]['node']}", flush=True)
         for key in ("aux", "drops"):
             if key in out:
                 report[name][key] = ops.gather_object(out[key])

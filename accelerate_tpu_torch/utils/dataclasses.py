@@ -1,5 +1,6 @@
-"""Settings: the port of the precision, loss-scaling, accumulation and
-placeholder-optimizer parts of ``accelerate_tpu.utils.dataclasses``.
+"""Settings: the port of the precision, loss-scaling, accumulation,
+placeholder-optimizer, kwargs-handler and plugin parts of
+``accelerate_tpu.utils.dataclasses``.
 
 The policy casts at well-defined boundaries, as the JAX package does,
 rather than through ``torch.autocast``: under bf16 the whole param tree is
@@ -10,24 +11,38 @@ dtype per operator from its own lists.
 
 from __future__ import annotations
 
+import json
+import os
 import warnings
-from dataclasses import dataclass
+from dataclasses import dataclass, field
+from datetime import timedelta
 from enum import Enum
-from typing import Callable, Optional, Union
+from typing import Any, Callable, Optional, Union
 
 import torch
 
 __all__ = [
+    "DDPCommunicationHookType",
     "DataLoaderConfiguration",
     "DeepSpeedPlugin",
+    "DistributedDataParallelKwargs",
     "DistributedType",
     "DummyOptim",
     "DummyScheduler",
+    "FullyShardedDataParallelPlugin",
     "GradScalerConfig",
     "GradientAccumulationPlugin",
+    "HfDeepSpeedConfig",
+    "InitProcessGroupKwargs",
+    "KwargsHandler",
+    "MegatronLMPlugin",
     "MixedPrecisionPolicy",
     "PrecisionType",
     "RNGType",
+    "deepspeed_required",
+    "disable_fsdp_ram_efficient_loading",
+    "enable_fsdp_ram_efficient_loading",
+    "get_active_deepspeed_plugin",
 ]
 
 
@@ -221,24 +236,393 @@ class DummyScheduler:
         self.kwargs = kwargs
 
 
-@dataclass
-class DeepSpeedPlugin:
-    """The ZeRO stage of the JAX package's ``DeepSpeedPlugin``, the only
-    field of it the port reads: stage 1 keeps the params replicated and
-    shards the optimizer state over ``dp_replicate`` (the fused ZeRO-1
-    update of :mod:`..parallel.weight_update`, on a pure data-parallel mesh
-    of floating params; the ``Accelerator`` raises on any other); stages 2
-    and 3 are FSDP over ``dp_shard``; stage 0 is plain replication."""
 
-    zero_stage: int = 2
+
+# ---------------------------------------------------------------------------
+# The kwargs handlers and plugins of the JAX package. Each translates a
+# reference spelling into the port's own configuration: a mesh
+# (ParallelismConfig), a precision, a clip chained ahead of the optimizer,
+# the optimizer state offloaded to pinned host memory.
+
+
+class KwargsHandler:
+    """Base of the kwargs handlers (the JAX package's): ``to_dict`` gives
+    every field, ``to_kwargs`` the fields that differ from the defaults."""
+
+    def to_dict(self) -> dict:
+        return dict(self.__dict__)
+
+    def to_kwargs(self) -> dict:
+        from dataclasses import fields
+
+        default = self.__class__()
+        return {f.name: getattr(self, f.name) for f in fields(self)
+                if getattr(self, f.name) != getattr(default, f.name)}
+
+
+def _num_processes() -> int:
+    """The processes of the run: the process group's size when one is up,
+    else the launcher's ``WORLD_SIZE`` (or ``ACCELERATE_NUM_PROCESSES``). The
+    port runs one process per device, so this is its device count."""
+    import torch.distributed as dist
+
+    from .environment import get_int_from_env
+
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_world_size()
+    return get_int_from_env(("ACCELERATE_NUM_PROCESSES", "WORLD_SIZE"), 1)
+
+
+@dataclass
+class InitProcessGroupKwargs(KwargsHandler):
+    """Options of the process group (the JAX package's fields):
+    ``coordinator_address`` (``host:port`` or ``file:///path``),
+    ``num_processes``, ``process_id``, and ``initialization_timeout``, which
+    bounds the rendezvous and is the timeout of ``init_process_group``.
+    ``local_device_ids`` is accepted for the surface: a process drives one
+    device, so at most one id may be given."""
+
+    coordinator_address: Optional[str] = None
+    num_processes: Optional[int] = None
+    process_id: Optional[int] = None
+    local_device_ids: Optional[list] = None
+    initialization_timeout: timedelta = field(default_factory=lambda: timedelta(seconds=300))
+
+
+class DDPCommunicationHookType(str, Enum):
+    """Gradient-compression choices (the JAX package's)."""
+
+    NO = "no"
+    FP16 = "fp16"
+    BF16 = "bf16"
+    POWER_SGD = "power_sgd"
+    BATCHED_POWER_SGD = "batched_power_sgd"
+
+    def __str__(self) -> str:
+        return self.value
+
+
+@dataclass
+class DistributedDataParallelKwargs(KwargsHandler):
+    """The JAX package's ``DistributedDataParallelKwargs``: the bucket and
+    graph fields are accepted and have no effect; ``comm_hook`` selects
+    :meth:`gradient_compression_dtype`, which the train step applies to the
+    gradient: cast to that dtype and back, after the reduction over the
+    batch ranks and before the fp16 unscale (the JAX package's arithmetic;
+    the wire itself still carries the gradient's own dtype)."""
+
+    bucket_cap_mb: int = 25
+    find_unused_parameters: bool = False
+    gradient_as_bucket_view: bool = False
+    static_graph: bool = False
+    comm_hook: DDPCommunicationHookType = DDPCommunicationHookType.NO
 
     def __post_init__(self):
+        self.comm_hook = DDPCommunicationHookType(str(self.comm_hook))
+
+    def gradient_compression_dtype(self) -> Optional[torch.dtype]:
+        """The dtype the gradient is bounded to, or None. PowerSGD has no
+        counterpart: it warns and gives bf16, as in the JAX package."""
+        if self.comm_hook == DDPCommunicationHookType.FP16:
+            return torch.float16
+        if self.comm_hook == DDPCommunicationHookType.BF16:
+            return torch.bfloat16
+        if self.comm_hook in (DDPCommunicationHookType.POWER_SGD,
+                              DDPCommunicationHookType.BATCHED_POWER_SGD):
+            warnings.warn("PowerSGD low-rank gradient compression has no XLA counterpart; "
+                          "falling back to a bf16 cast of the gradient signal.")
+            return torch.bfloat16
+        return None
+
+
+@dataclass
+class FullyShardedDataParallelPlugin(KwargsHandler):
+    """The JAX package's FSDP plugin: FSDP is the ``dp_shard`` mesh axis, so
+    the plugin's job is :meth:`to_parallelism_config`. ``sharding_strategy``
+    takes the reference spellings (``FULL_SHARD``, ``SHARD_GRAD_OP``,
+    ``NO_SHARD``, ``HYBRID_SHARD``, their codes 1–4, or
+    ``ShardingStrategy.X``); ``cpu_offload`` offloads the optimizer state to
+    pinned host memory (``Accelerator.prepare_train_step``);
+    ``activation_checkpointing`` is :attr:`remat`;
+    ``cpu_ram_efficient_loading`` defaults to ``FSDP_CPU_RAM_EFFICIENT_LOADING``
+    (true when unset), an explicit value wins."""
+
+    sharding_strategy: Any = "FULL_SHARD"
+    cpu_offload: bool = False
+    activation_checkpointing: bool = False
+    state_dict_type: str = "SHARDED_STATE_DICT"
+    cpu_ram_efficient_loading: Optional[bool] = None
+
+    _STRATEGIES = {1: "FULL_SHARD", 2: "SHARD_GRAD_OP", 3: "NO_SHARD", 4: "HYBRID_SHARD"}
+
+    def __post_init__(self):
+        if self.cpu_ram_efficient_loading is None:
+            flag = os.environ.get("FSDP_CPU_RAM_EFFICIENT_LOADING", "true")
+            self.cpu_ram_efficient_loading = flag.strip().lower() in ("1", "true", "yes")
+        s = self.sharding_strategy
+        if isinstance(s, int):
+            if s not in self._STRATEGIES:
+                raise ValueError(f"unknown sharding_strategy code {s} "
+                                 f"(valid: {sorted(self._STRATEGIES)})")
+            s = self._STRATEGIES[s]
+        s = str(s).rsplit(".", 1)[-1].upper()
+        if s not in self._STRATEGIES.values():
+            raise ValueError(f"unknown sharding_strategy {self.sharding_strategy!r}")
+        self.sharding_strategy = s
+
+    @property
+    def remat(self) -> Union[bool, str]:
+        """``activation_checkpointing`` as a forward's ``remat=``: the
+        ``"dots_no_batch"`` policy, or False."""
+        return "dots_no_batch" if self.activation_checkpointing else False
+
+    def to_parallelism_config(self, num_devices: Optional[int] = None,
+                              dp_replicate_size: int = 1):
+        """The mesh config: ``NO_SHARD`` replicates over ``num_devices`` (the
+        process count by default; one process per device), the others shard
+        over ``dp_shard``; ``HYBRID_SHARD`` needs ``dp_replicate_size > 1``."""
+        from ..parallelism_config import ParallelismConfig
+
+        if self.sharding_strategy == "NO_SHARD":
+            return ParallelismConfig(dp_replicate_size=num_devices or _num_processes())
+        if self.sharding_strategy == "HYBRID_SHARD" and dp_replicate_size == 1:
+            raise ValueError("HYBRID_SHARD requires dp_replicate_size > 1")
+        return ParallelismConfig(dp_replicate_size=dp_replicate_size, dp_shard_size=-1)
+
+
+def _is_auto(v) -> bool:
+    return isinstance(v, str) and v == "auto"
+
+
+@dataclass
+class DeepSpeedPlugin(KwargsHandler):
+    """The JAX package's DeepSpeed plugin. ZeRO stages are meshes: stage 0
+    replicates; stage 1 keeps the params replicated and shards the optimizer
+    state over ``dp_replicate`` (the fused ZeRO-1 update of
+    :mod:`..parallel.weight_update` on a pure data-parallel mesh of floating
+    params, by annotation elsewhere); stages 2 and 3 are FSDP over
+    ``dp_shard``. ``gradient_clipping`` is chained ahead of the optimizer as
+    ``clip_by_global_norm``; ``offload_optimizer_device`` ``"cpu"`` (or
+    ``"nvme"``, which warns and means host memory) offloads the optimizer
+    state to pinned host memory. ``hf_ds_config`` (a dict) fills each field
+    still at its default (an explicit value wins, with a warning when they
+    differ; ``"auto"`` fills nothing), and gives :attr:`mixed_precision`,
+    :meth:`dummy_optim_kwargs` and :meth:`dummy_scheduler_kwargs`.
+    ``offload_param_device``, ``zero3_init_flag`` and ``zero3_save_16bit_model``
+    are kept for the surface."""
+
+    zero_stage: int = 2
+    gradient_accumulation_steps: int = 1
+    gradient_clipping: Optional[float] = None
+    offload_optimizer_device: Optional[str] = None
+    offload_param_device: Optional[str] = None
+    zero3_init_flag: bool = False
+    zero3_save_16bit_model: bool = False
+    hf_ds_config: Optional[dict] = None
+
+    def __post_init__(self):
+        cfg = self.hf_ds_config or {}
+        zero = cfg.get("zero_optimization", {})
+
+        def fill(attr, value, cast):
+            if value is None or _is_auto(value):
+                return
+            value = cast(value)
+            current = getattr(self, attr)
+            if current == type(self).__dataclass_fields__[attr].default:
+                setattr(self, attr, value)
+            elif current != value:
+                warnings.warn(f"DeepSpeedPlugin.{attr}={current!r} (explicit) disagrees with "
+                              f"hf_ds_config value {value!r}; keeping the explicit value")
+
+        fill("zero_stage", zero.get("stage"), int)
+        fill("gradient_accumulation_steps", cfg.get("gradient_accumulation_steps"), int)
+        fill("gradient_clipping", cfg.get("gradient_clipping"), float)
+        for src, attr in (("offload_optimizer", "offload_optimizer_device"),
+                          ("offload_param", "offload_param_device")):
+            dev = zero.get(src, {}).get("device")
+            if dev and dev != "none":
+                fill(attr, dev, str)
         if not 0 <= self.zero_stage <= 3:
             raise ValueError(f"zero_stage must be 0-3, got {self.zero_stage}")
 
-    def to_parallelism_config(self, num_devices: int):
+    @classmethod
+    def from_env(cls) -> "DeepSpeedPlugin":
+        """From the launcher's environment: ``ACCELERATE_DEEPSPEED_ZERO_STAGE``,
+        ``ACCELERATE_GRADIENT_CLIPPING``, the offload devices
+        (``ACCELERATE_DEEPSPEED_OFFLOAD_{OPTIMIZER,PARAM}_DEVICE``),
+        ``ACCELERATE_DEEPSPEED_CONFIG_FILE`` (a JSON file read into
+        ``hf_ds_config``) and ``ACCELERATE_GRADIENT_ACCUMULATION_STEPS``."""
+        kwargs: dict = {}
+        stage = os.environ.get("ACCELERATE_DEEPSPEED_ZERO_STAGE")
+        if stage is not None and not _is_auto(stage):
+            kwargs["zero_stage"] = int(stage)
+        clip = os.environ.get("ACCELERATE_GRADIENT_CLIPPING")
+        if clip is not None and not _is_auto(clip):
+            kwargs["gradient_clipping"] = float(clip)
+        for env, attr in (("ACCELERATE_DEEPSPEED_OFFLOAD_OPTIMIZER_DEVICE",
+                           "offload_optimizer_device"),
+                          ("ACCELERATE_DEEPSPEED_OFFLOAD_PARAM_DEVICE", "offload_param_device")):
+            dev = os.environ.get(env)
+            if dev and dev != "none":
+                kwargs[attr] = dev
+        config_file = os.environ.get("ACCELERATE_DEEPSPEED_CONFIG_FILE")
+        if config_file:
+            with open(config_file) as f:
+                kwargs["hf_ds_config"] = json.load(f)
+        accum = os.environ.get("ACCELERATE_GRADIENT_ACCUMULATION_STEPS")
+        if accum is not None and not _is_auto(accum):
+            kwargs["gradient_accumulation_steps"] = int(accum)
+        return cls(**kwargs)
+
+    def to_parallelism_config(self, num_devices: Optional[int] = None):
+        """Stages 0 and 1 replicate over ``num_devices`` (the process count
+        by default); stages 2 and 3 shard over ``dp_shard``."""
         from ..parallelism_config import ParallelismConfig
 
         if self.zero_stage in (0, 1):
-            return ParallelismConfig(dp_replicate_size=num_devices)
+            return ParallelismConfig(dp_replicate_size=num_devices or _num_processes())
         return ParallelismConfig(dp_shard_size=-1)
+
+    @property
+    def mixed_precision(self) -> Optional[str]:
+        """``"bf16"`` or ``"fp16"`` when the ds config enables that section,
+        else None."""
+        cfg = self.hf_ds_config or {}
+        if cfg.get("bf16", {}).get("enabled") is True:
+            return "bf16"
+        if cfg.get("fp16", {}).get("enabled") is True:
+            return "fp16"
+        return None
+
+    def dummy_optim_kwargs(self) -> dict:
+        """``DummyOptim`` keyword arguments from the ds config's optimizer
+        params (``lr``, ``weight_decay``, ``betas``, ``eps``; ``"auto"``
+        left out)."""
+        params = (self.hf_ds_config or {}).get("optimizer", {}).get("params", {})
+        out: dict = {}
+        for key, cast in (("lr", float), ("weight_decay", float), ("betas", tuple),
+                          ("eps", float)):
+            v = params.get(key)
+            if v is not None and not _is_auto(v):
+                out[key] = cast(v)
+        return out
+
+    def dummy_scheduler_kwargs(self) -> dict:
+        """``DummyScheduler`` fields from the ds config's scheduler params
+        (``total_num_steps``, ``warmup_num_steps``)."""
+        params = (self.hf_ds_config or {}).get("scheduler", {}).get("params", {})
+        out: dict = {}
+        for key in ("total_num_steps", "warmup_num_steps"):
+            v = params.get(key)
+            if v is not None and not _is_auto(v):
+                out[key] = int(v)
+        return out
+
+
+@dataclass
+class MegatronLMPlugin(KwargsHandler):
+    """The JAX package's Megatron-LM plugin: its degrees are the mesh
+    (:meth:`to_parallelism_config`; ``dp_shard`` takes the rest).
+    ``num_micro_batches`` becomes the accumulation steps,
+    ``gradient_clipping`` a clip chained ahead of the optimizer,
+    ``recompute_activations`` :attr:`remat`; ``sequence_parallelism`` maps to
+    nothing (a flag on the ``tp`` group, not an axis). A ``pp`` or ``cp``
+    degree above 1 raises when the step is built (ROADMAP.md Queue A item
+    11)."""
+
+    tp_degree: int = 1
+    pp_degree: int = 1
+    num_micro_batches: int = 1
+    expert_model_parallel_size: int = 1
+    context_parallel_size: int = 1
+    sequence_parallelism: bool = False
+    gradient_clipping: Optional[float] = None
+    use_distributed_optimizer: bool = False
+    recompute_activations: bool = False
+    other_megatron_args: Optional[dict] = None
+
+    @property
+    def remat(self) -> Union[bool, str]:
+        return "dots_no_batch" if self.recompute_activations else False
+
+    def to_parallelism_config(self):
+        from ..parallelism_config import ParallelismConfig
+
+        return ParallelismConfig(tp_size=self.tp_degree, pp_size=self.pp_degree,
+                                 ep_size=self.expert_model_parallel_size,
+                                 cp_size=self.context_parallel_size, dp_shard_size=-1)
+
+
+class HfDeepSpeedConfig:
+    """A ds config (a dict, or the path of a JSON file) with dotted-path
+    access and the stage probes (the JAX package's)."""
+
+    def __init__(self, config_file_or_dict):
+        if isinstance(config_file_or_dict, dict):
+            self.config = dict(config_file_or_dict)
+        else:
+            with open(config_file_or_dict) as f:
+                self.config = json.load(f)
+
+    def get_value(self, ds_key_long: str, default=None):
+        node = self.config
+        for part in ds_key_long.split("."):
+            if not isinstance(node, dict) or part not in node:
+                return default
+            node = node[part]
+        return node
+
+    def is_true(self, ds_key_long: str) -> bool:
+        return bool(self.get_value(ds_key_long))
+
+    def is_false(self, ds_key_long: str) -> bool:
+        value = self.get_value(ds_key_long)
+        return value is not None and not bool(value)
+
+    def is_zero2(self) -> bool:
+        return self.get_value("zero_optimization.stage") == 2
+
+    def is_zero3(self) -> bool:
+        return self.get_value("zero_optimization.stage") == 3
+
+    def is_offload(self) -> bool:
+        return any(self.get_value(f"zero_optimization.{key}.device") not in (None, "none")
+                   for key in ("offload_optimizer", "offload_param"))
+
+
+def get_active_deepspeed_plugin(state_or_accelerator):
+    """The active :class:`DeepSpeedPlugin` of an ``Accelerator`` (or anything
+    with ``deepspeed_plugin``; of a dict of them, the ``selected`` one);
+    raises when there is none."""
+    plugin = getattr(state_or_accelerator, "deepspeed_plugin", None)
+    if isinstance(plugin, dict):
+        for p in plugin.values():
+            if getattr(p, "selected", False):
+                return p
+        raise ValueError("no DeepSpeedPlugin in the dict is selected")
+    if plugin is None:
+        raise ValueError("no DeepSpeedPlugin is active; pass deepspeed_plugin= to Accelerator")
+    return plugin
+
+
+def deepspeed_required(func):
+    """Decorator: the method needs an active :class:`DeepSpeedPlugin`."""
+    import functools
+
+    @functools.wraps(func)
+    def wrapper(self, *args, **kwargs):
+        get_active_deepspeed_plugin(self)
+        return func(self, *args, **kwargs)
+
+    return wrapper
+
+
+def enable_fsdp_ram_efficient_loading() -> None:
+    """Make :class:`FullyShardedDataParallelPlugin` default to
+    ``cpu_ram_efficient_loading=True`` (``FSDP_CPU_RAM_EFFICIENT_LOADING``)."""
+    os.environ["FSDP_CPU_RAM_EFFICIENT_LOADING"] = "true"
+
+
+def disable_fsdp_ram_efficient_loading() -> None:
+    os.environ["FSDP_CPU_RAM_EFFICIENT_LOADING"] = "false"

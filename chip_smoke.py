@@ -5,7 +5,9 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It needs one
 CUDA card, ``nvcc`` (the kernels are built from ``accelerate_tpu_torch/
 csrc`` at first use) and no network. Phases, each of which fails the run:
 
-1. build the CUDA kernels (one ``nvcc`` per source, in parallel); check
+1. build the CUDA kernels (one ``nvcc`` per source, in parallel) and the
+   native host pipeline (``g++``; ``parallel_collate`` held to
+   ``np.stack``'s bytes and timed against it); check
    that the flash forward, dq and dk/dv libraries, the fused forward and
    backward and the paged prefill hold tensor-core (``HGMMA``)
    instructions in their SASS and that no tensor-core variant and no
@@ -91,7 +93,18 @@ csrc`` at first use) and no network. Phases, each of which fails the run:
    and takes back in one step; 3 f32 steps at its width and 2 layers, remat
    (``"dots_no_batch"`` and ``"offload_dots"``) against none and kernels
    against plain attention;
-   the adafactor update on the card against the CPU;
+   the adafactor update on the card against the CPU; then config #4 at
+   full width and depth through ``Accelerator.lomo_backward`` (3 steps of
+   SGD fused into the backward: the gradient bytes left after a step and
+   the most alive at once held to shares of the tree, losses held to the
+   plain SGD step's, an fp16 leg at 4 layers whose planted overflow leaves
+   the params bitwise unchanged, and a planted fault), and config #4 with
+   f32 params and the recipe of
+   ``examples/deepspeed_config_templates/zero_stage3_offload_config.json``
+   through ``DeepSpeedPlugin(hf_ds_config=...)``: its AdamW state offloaded
+   to pinned host memory, held bitwise to the plain step, with the peak
+   below it by 0.75 of the state's bytes, the copies' GB/s against one
+   pinned pass alone and their overlap with kernels, and a planted fault;
 7. the rest of the model zoo: ``bench.py``'s config #2 (ResNet-50, 1000
    classes, batch 64 x 192^2, bf16 params, ``sgd(0.1, momentum=0.9)``, 20
    timed steps through the Accelerator, a profiled step), the loss falling
@@ -115,8 +128,10 @@ csrc`` at first use) and no network. Phases, each of which fails the run:
    (``--mesh-2rank-child``): two processes share the card over ``gloo``
    and train the long-context widths at 4 layers and S=2048 under
    dp_shard 2, tp 2, fused ZeRO-1, ZeRO-1 by annotation, dp_shard 2 in
-   fp16 and tp 2 through ``prepare(..., shard_rules=llama_shard_rules())``,
-   each leg held to a one-process run, with flash #1-#3 launched on each
+   fp16, tp 2 through ``prepare(..., shard_rules=llama_shard_rules())``,
+   adafactor under ZeRO-1, the bf16 comm hook and the optimizer state on
+   the host, each leg held to a one-process run or to its leg without the
+   option, with flash #1-#3 launched on each
    rank (the fp16 leg: plain attention, the kernels take bf16 and f32),
    and BERT-base in phase_train's recipe under tp 2 through
    ``bert_shard_rules()``, held to one process with #4/#5 on each rank;
@@ -335,7 +350,32 @@ MESH_2RANK_LEGS = (  # (name, ParallelismConfig kwargs, ZeRO-1, llama_tp_rules, 
     # the models' own rules through prepare(..., shard_rules=llama_shard_rules()):
     # tp splits the heads' and the ffn's out or in dims, gathered per layer
     ("tp2_llama_shard_rules", {"tp_size": 2}, False, False, {"prepare_rules": True}),
+    # adafactor(MESH_2RANK_LR) on dp_replicate 2, held to a one-process
+    # adafactor run; then under ZeRO-1 (by annotation: the fused update
+    # refuses adafactor), held to that leg
+    ("dp_replicate2_adafactor", {"dp_replicate_size": 2}, False, False,
+     {"factory": "adafactor", "ref": "adafactor"}),
+    ("dp_replicate2_adafactor_zero1", {"dp_replicate_size": 2}, True, False,
+     {"factory": "adafactor", "ref": "dp_replicate2_adafactor"}),
+    # DistributedDataParallelKwargs(comm_hook="bf16"), held to one process
+    # with the same hook
+    ("dp_shard2_comm_bf16", {"dp_shard_size": 2}, False, False,
+     {"comm_hook": "bf16", "ref": "comm_bf16"}),
+    # the optimizer state of each rank's blocks on the host: bitwise dp_shard2
+    ("dp_shard2_offload", {"dp_shard_size": 2}, False, False,
+     {"offload": True, "ref": "dp_shard2"}),
 )
+# the one-process runs the legs are held to (a leg's "ref" names one of
+# these, or another leg): options of _mesh_2rank_leg
+MESH_2RANK_REFS = {"f32": {}, "fp16": {"fp16": True}, "adafactor": {"factory": "adafactor"},
+                   "comm_bf16": {"comm_hook": "bf16"}}
+# adafactor under ZeRO-1 against adafactor on the same mesh without it: the
+# same gradients, the statistics summed from the ranks' blocks (f32 sums in
+# another order), so losses and gradient norms within 1e-5; adafactor
+# divides by the root of its second moments, as AdamW does, so its 3-step
+# updates are held to TRAIN_UPDATE_RTOL (a CPU rehearsal at 2 layers, dim
+# 128, measured 1.5e-5 on layers/wv/kernel)
+MESH_2RANK_ZERO1_ADAFACTOR_RTOL = 1e-5
 MESH_2RANK_FAULTS = (("tp2_summed_over_tp", "tp2"), ("dp_shard2_not_divided", "dp_shard2"))
 MESH_2RANK_LOSS_RTOL = MESH_2RANK_NORM_RTOL = 1e-5
 # The fp16 leg: the flash kernels take bf16 and f32, so it runs the plain
@@ -483,6 +523,35 @@ def time_ms(fn, n_copies: int, iters: int, behind_sleep: bool = True) -> float:
     raise SmokeFailure("could not queue the timed calls behind the device sleep")
 
 
+def _native_collate():
+    """The native pipeline's ``parallel_collate`` against ``np.stack`` on
+    phase_train's batches (32 samples of 128 int32 ids, below the C++
+    team's 1 MiB threshold: one thread) and on 64 samples of 1 MiB (the
+    thread team): the same bytes, host ms of each (best of 5)."""
+    from accelerate_tpu_torch import native
+    from accelerate_tpu_torch.utils.synthetic import make_synthetic_mrpc
+
+    data = make_synthetic_mrpc(TRAIN_BATCH, TRAIN_SEQ, 30522, seed=0)
+    rng = np.random.default_rng(0)
+    cases = {"phase_train batch": [data["input_ids"][i] for i in range(TRAIN_BATCH)],
+             "64 x 1 MiB": [rng.integers(0, 2**31, (1 << 18,), dtype=np.int32)
+                            for _ in range(64)]}
+    for name, samples in cases.items():
+        times = {}
+        for label, fn in (("parallel_collate", native.parallel_collate), ("np.stack", np.stack)):
+            best = math.inf
+            for _ in range(5):
+                t0 = time.perf_counter()
+                out = fn(samples)
+                best = min(best, time.perf_counter() - t0)
+            times[label] = (best * 1e3, out)
+        same = times["parallel_collate"][1].tobytes() == times["np.stack"][1].tobytes()
+        print(f"[build] native collate, {name} ({times['np.stack'][1].nbytes / 2**20:.3f} MiB): "
+              f"parallel_collate {times['parallel_collate'][0]:.4f} ms, np.stack "
+              f"{times['np.stack'][0]:.4f} ms; bytes equal {same}")
+        check(same, f"parallel_collate of {name} does not give np.stack's bytes")
+
+
 # Libraries whose bf16 products must run on tensor cores: each must hold
 # warpgroup MMA (HGMMA) instructions in its SASS.
 TENSOR_CORE_LIBS = ("flash_fwd", "flash_dq", "flash_dkdv", "fused_attention_fwd",
@@ -490,11 +559,23 @@ TENSOR_CORE_LIBS = ("flash_fwd", "flash_dq", "flash_dkdv", "fused_attention_fwd"
 
 
 def phase_build():
+    """The CUDA kernels (``nvcc``) and, beside them, the native host
+    pipeline (``g++``); see :func:`_native_collate` for the latter's check."""
+    import threading
+
     from accelerate_tpu_torch.ops import _build
 
     t0 = time.perf_counter()
+    host = {}
+    thread = threading.Thread(target=lambda: host.update(_build.build_host("pipeline")))
+    thread.start()  # the host compiler runs beside the nvcc processes
     built = _build.build()
-    print(f"[build] {len(built)} kernel libraries in {time.perf_counter() - t0:.2f} s")
+    thread.join()
+    check("path" in host, "the native pipeline library did not build")
+    print(f"[build] {len(built)} kernel libraries and the native pipeline in "
+          f"{time.perf_counter() - t0:.2f} s (pipeline: {host['path'].name}, g++ "
+          f"{host['seconds']:.2f} s)")
+    _native_collate()
     spilled = []
     for name, info in built.items():
         print(f"[build] {name}: {info['path'].name} nvcc {info['seconds']:.2f} s")
@@ -1689,16 +1770,16 @@ def phase_generate(params, config, dev, load_s):
     return prompt, greedy16, greedy4
 
 
-def _copy_overlap(prof):
-    """(host→device copy µs, of it µs overlapping a kernel on another
-    stream, kernel µs) from a profiler's device events, or None when the
-    profiler gives no device events with streams."""
+def _copy_overlap(prof, kind: str = "HtoD"):
+    """(copy µs of ``kind`` (``"HtoD"`` or ``"DtoH"``), of it µs overlapping
+    a kernel on another stream, kernel µs) from a profiler's device events,
+    or None when the profiler gives no device events with streams."""
     copies, kernels = [], []
     for e in prof.events():
         if e.device_type != torch.autograd.DeviceType.CUDA:
             continue
         span = (e.time_range.start, e.time_range.end, getattr(e, "device_resource_id", None))
-        if "Memcpy HtoD" in e.name:
+        if f"Memcpy {kind}" in e.name:
             copies.append(span)
         elif "Memcpy" not in e.name and "Memset" not in e.name:
             kernels.append(span)
@@ -3623,7 +3704,7 @@ def _mesh_fault(fault):
 
 
 def _mesh_2rank_leg(dev, config, pc_kwargs, zero1, tp_rules, options=None, ref_updates=None,
-                    updates: bool = True, fault=None):
+                    updates: bool = True, fault=None, save_updates=None):
     """``MESH_2RANK_STEPS`` f32 AdamW steps of ``config`` through a mesh of
     the running processes (or of none): the losses, global gradient norms,
     flash launches, peak memory, optimizer-state bytes, the bytes the
@@ -3634,41 +3715,51 @@ def _mesh_2rank_leg(dev, config, pc_kwargs, zero1, tp_rules, options=None, ref_u
     other. ``options``: ``env`` (set around ``prepare``) and ``fp16``
     (mixed precision with ``MESH_2RANK_FP16_SCALER``, plain attention; the
     loss scales and finite flags are returned), ``prepare_rules`` (pass
-    ``llama_shard_rules()`` to ``prepare``)."""
+    ``llama_shard_rules()`` to ``prepare``), ``factory`` (``"adafactor"``
+    for ``adafactor(MESH_2RANK_LR)``), ``comm_hook`` (a
+    ``DistributedDataParallelKwargs`` handler), ``offload`` (the optimizer
+    state on the host; its groups a step are returned). ``save_updates``
+    is a path the updates are also saved to."""
     from accelerate_tpu_torch import Accelerator, LlamaConfig, init_llama, llama_loss
     from accelerate_tpu_torch import llama_shard_rules
     from accelerate_tpu_torch.data_loader import GlobalBatchAssembler
     from accelerate_tpu_torch.ops import flash_attention as fa
-    from accelerate_tpu_torch.optimizer import adamw
+    from accelerate_tpu_torch.optimizer import adafactor, adamw
     from accelerate_tpu_torch.parallel.sharding import _map_with_path, llama_tp_rules
     from accelerate_tpu_torch.parallelism_config import ParallelismConfig
     from accelerate_tpu_torch.state import AcceleratorState, GradientState
     from accelerate_tpu_torch.utils import operations as ops
-    from accelerate_tpu_torch.utils.dataclasses import DeepSpeedPlugin
-
-    from accelerate_tpu_torch.utils.dataclasses import GradScalerConfig
+    from accelerate_tpu_torch.utils.dataclasses import (
+        DeepSpeedPlugin,
+        DistributedDataParallelKwargs,
+        GradScalerConfig,
+    )
     from accelerate_tpu_torch.utils.environment import patch_environment
 
     options = options or {}
     fp16 = options.get("fp16", False)
     AcceleratorState._reset_state()
     GradientState._reset_state()
+    hook = options.get("comm_hook")
+    factory = (adafactor if options.get("factory") == "adafactor" else adamw)(MESH_2RANK_LR)
     with patch_environment(**options.get("env", {})):
         acc = Accelerator(mixed_precision="fp16" if fp16 else "no", rng_seed=0, device=dev,
                           parallelism_config=ParallelismConfig(**pc_kwargs),
                           deepspeed_plugin=DeepSpeedPlugin(zero_stage=1) if zero1 else None,
                           shard_rules=llama_tp_rules() if tp_rules else None,
+                          kwargs_handlers=[DistributedDataParallelKwargs(comm_hook=hook)]
+                          if hook else None,
                           grad_scaler_config=GradScalerConfig(**MESH_2RANK_FP16_SCALER)
                           if fp16 else None)
         init = init_llama(config, torch.Generator(device=dev).manual_seed(0), device=dev)
-        params, opt = acc.prepare(init, adamw(MESH_2RANK_LR), shard_rules=(
+        params, opt = acc.prepare(init, factory, shard_rules=(
             llama_shard_rules() if options.get("prepare_rules") else None))
     plan = acc.sharding_plan
     impl = "xla" if fp16 else None  # the flash kernels take bf16 and f32
     with _mesh_fault(fault if fault == "dp_shard2_not_divided" else None):
         step = acc.prepare_train_step(
             lambda p, b: llama_loss(p, b, config, mesh=acc.mesh, attention_impl=impl), opt,
-            compute_grad_norm=True)
+            compute_grad_norm=True, offload_optimizer=options.get("offload", False))
     ids = np.random.default_rng(0).integers(
         0, config.vocab_size, (MESH_2RANK_STEPS, MESH_2RANK_BATCH, config.max_seq_len))
     assembler = GlobalBatchAssembler(acc.mesh, device=dev)
@@ -3705,12 +3796,17 @@ def _mesh_2rank_leg(dev, config, pc_kwargs, zero1, tp_rules, options=None, ref_u
            "fused_zero1": opt.zero1 is not None, "zero1_rows": opt.zero1_rows is not None,
            "sharded": plan.sharded, "loss_scale": [float(v) for v in scales],
            "grads_finite": [bool(v) for v in finite],
-           "max_live_layers": plan.layer_stats.get("max_live_layers")}
+           "max_live_layers": plan.layer_stats.get("max_live_layers"),
+           "device_state_bytes": opt.device_state_bytes(),
+           "offload_groups": None if opt.offload is None else
+           opt.offload.stats["groups"] // max(opt.offload.stats["steps"], 1)}
     if updates:
         final, start = {}, {}
         _map_with_path(lambda path, a: final.__setitem__(path, a), full)
         _map_with_path(lambda path, a: start.__setitem__(path, a), init)
         upd = {k: final[k].detach().float() - start[k].float() for k in final}
+        if save_updates is not None:
+            torch.save({k: v.cpu() for k, v in upd.items()}, save_updates)
         if ref_updates is None:
             out["updates"] = {k: v.cpu() for k, v in upd.items()}
         else:
@@ -3783,12 +3879,20 @@ def mesh_2rank_child(tmp: str) -> int:
     refs = {}
     if state.is_main_process:
         refs = {kind: torch.load(os.path.join(tmp, f"ref_updates_{kind}.pt"))
-                for kind in ("f32", "fp16")}
+                for kind in MESH_2RANK_REFS}
     report = {}
+    names = {leg[0] for leg in MESH_2RANK_LEGS}
+    # legs held to another leg: both save their updates for the parent
+    paired = {opts["ref"] for *_, opts in MESH_2RANK_LEGS if opts.get("ref") in names}
     for name, pc_kwargs, zero1, tp_rules, options in MESH_2RANK_LEGS:
-        ref = refs.get("fp16" if options.get("fp16") else "f32")
-        report[name] = _mesh_2rank_leg(state.device, config, pc_kwargs, zero1, tp_rules, options,
-                                       ref, updates=state.is_main_process)
+        kind = options.get("ref", "fp16" if options.get("fp16") else "f32")
+        save = state.is_main_process and (name in paired or kind in names)
+        out = _mesh_2rank_leg(state.device, config, pc_kwargs, zero1, tp_rules, options,
+                              refs.get(kind), updates=state.is_main_process,
+                              save_updates=os.path.join(tmp, f"updates_{name}.pt") if save
+                              else None)
+        out.pop("updates", None)
+        report[name] = out
     legs = {leg[0]: leg[1:] for leg in MESH_2RANK_LEGS}
     report["faults"] = {fault: _mesh_2rank_leg(state.device, config, *legs[leg], refs.get("f32"),
                                                updates=state.is_main_process, fault=fault)
@@ -3860,12 +3964,17 @@ def _run_two(flag: str, tmp: str, tag: str, timeout_s: float) -> list:
 def phase_mesh_2rank(dev):
     """Two processes on the one card over gloo: each of ``MESH_2RANK_LEGS``
     (dp_shard 2; tp 2 with ``llama_tp_rules``; dp_replicate 2 with fused
-    ZeRO-1, and with ZeRO-1 by annotation; dp_shard 2 under fp16) runs 3
-    steps, held to a one-process run of the same steps here (losses,
-    gradient norms, updates; the fp16 leg to a one-process fp16 run, with
-    its loss-scale and finite-flag sequences equal); flash #1-#3 must launch
+    ZeRO-1, and with ZeRO-1 by annotation; dp_shard 2 under fp16; adafactor
+    on dp_replicate 2, with and without ZeRO-1; dp_shard 2 with the bf16
+    comm hook; dp_shard 2 with its optimizer state on the host) runs 3
+    steps, held to a one-process run of the same steps here
+    (``MESH_2RANK_REFS``: losses, gradient norms, updates; the fp16 leg to
+    a one-process fp16 run, with its loss-scale and finite-flag sequences
+    equal) or to another leg (ZeRO-1 adafactor to adafactor without it,
+    with less state a rank; the offloaded leg bitwise to dp_shard 2);
+    flash #1-#3 must launch
     on each rank of every leg but the fp16 one, at the shapes
-    ``FLASH_CASES`` held them to their plain versions; each ZeRO-1 leg must
+    ``FLASH_CASES`` held them to their plain versions; each AdamW ZeRO-1 leg must
     hold half the AdamW moments on each rank; each of
     ``MESH_2RANK_FAULTS`` must fail a bar. Per-rank peak memory,
     optimizer-state bytes, collective bytes and the gather's ms are
@@ -3885,13 +3994,14 @@ def phase_mesh_2rank(dev):
               f"FLASH_CASES[{case!r}] is not a rank's attention shape in the two-process legs")
     _reset_states()
     t0 = time.perf_counter()
-    refs = {"f32": _mesh_2rank_leg(dev, config, {}, False, False)}
-    refs["fp16"] = _mesh_2rank_leg(dev, config, {}, False, False, {"fp16": True})
+    refs = {kind: _mesh_2rank_leg(dev, config, {}, False, False, opts)
+            for kind, opts in MESH_2RANK_REFS.items()}
     ref_s = time.perf_counter() - t0
     for kind, ref in refs.items():
+        opt_name = MESH_2RANK_REFS[kind].get("factory", "adamw")
         print(f"[mesh-2rank] one-process reference ({kind}): {config.n_layers} layers, dim "
               f"{config.dim}, {config.n_heads}/{config.n_kv_heads} heads, vocab "
-              f"{config.vocab_size}, batch {MESH_2RANK_BATCH} x {config.max_seq_len}, adamw("
+              f"{config.vocab_size}, batch {MESH_2RANK_BATCH} x {config.max_seq_len}, {opt_name}("
               f"{MESH_2RANK_LR:g}): losses " + " ".join(f"{v:.5f}" for v in ref["losses"])
               + f"; {ref['ms']:.1f} ms/step, peak {ref['peak'] / 2**30:.2f} GiB, optimizer "
               f"state {ref['opt_state_bytes'] / 2**20:.1f} MiB"
@@ -3909,6 +4019,9 @@ def phase_mesh_2rank(dev):
             torch.save(ref.pop("updates"), os.path.join(tmp, f"ref_updates_{kind}.pt"))
         ranks = _run_two("--mesh-2rank-child", tmp, "mesh-2rank", MESH_2RANK_TIMEOUT_S)
         bert = torch.load(os.path.join(tmp, "bert_tp2.pt"))
+        saved = {name: torch.load(os.path.join(tmp, f"updates_{name}.pt"))
+                 for name, *_ in MESH_2RANK_LEGS
+                 if os.path.exists(os.path.join(tmp, f"updates_{name}.pt"))}
     bert_want = {"fused_attention_fwd": 3 * 12, "fused_attention_bwd": 3 * 12}
     for i, r in enumerate(ranks):
         check(r["bert_tp2"]["sharded"], f"[mesh-2rank] BERT tp 2 rank {i}: no param split")
@@ -3927,14 +4040,20 @@ def phase_mesh_2rank(dev):
     launches = {}
     for name, _, zero1, _, options in MESH_2RANK_LEGS:
         fp16 = options.get("fp16", False)
-        ref = refs["fp16" if fp16 else "f32"]
+        kind = options.get("ref", "fp16" if fp16 else "f32")
+        paired = kind not in refs  # held to another leg, rank by rank
         loss_tol = TRAIN_FP16_RTOL if fp16 else MESH_2RANK_LOSS_RTOL
         norm_tol = TRAIN_FP16_RTOL if fp16 else MESH_2RANK_NORM_RTOL
         upd_tol = TRAIN_FP16_UPDATE_RTOL if fp16 else TRAIN_UPDATE_RTOL
+        if options.get("offload"):  # the same arithmetic as its reference leg: bitwise
+            loss_tol = norm_tol = upd_tol = 0.0
+        elif paired:
+            loss_tol = norm_tol = MESH_2RANK_ZERO1_ADAFACTOR_RTOL
         legs = [r[name] for r in ranks]
         launches[name] = [leg["launches"] for leg in legs]
         loss_err = norm_err = 0.0
         for i, leg in enumerate(legs):
+            ref = ranks[i][kind] if paired else refs[kind]
             leg_want = {k: 0 for k in want} if fp16 else want
             check(leg["launches"] == leg_want, f"[mesh-2rank] {name} rank {i} launches "
                                                f"{leg['launches']}, want {leg_want}")
@@ -3951,18 +4070,35 @@ def phase_mesh_2rank(dev):
                   f"flags {leg['grads_finite']}, one process {ref['loss_scale']} and "
                   f"{ref['grads_finite']}")
             loss_err, norm_err = max(loss_err, rank_loss_err), max(norm_err, rank_norm_err)
-        _, _, worst, upd_err = _mesh_2rank_errs(legs[0], ref)
+        if paired:
+            worst, upd_err = _saved_update_err(saved[name], saved[kind])
+        else:
+            _, _, worst, upd_err = _mesh_2rank_errs(legs[0], ref)
         check(upd_err <= upd_tol, f"[mesh-2rank] {name}: 3-step update of {worst} "
-                                  f"rel L2 err {upd_err} against one process")
-        check(legs[0]["fused_zero1"] == (zero1 and "env" not in options),
+                                  f"rel L2 err {upd_err} against {kind}")
+        adafactor = options.get("factory") == "adafactor"
+        check(legs[0]["fused_zero1"] == (zero1 and "env" not in options and not adafactor),
               f"[mesh-2rank] {name}: fused ZeRO-1 {legs[0]['fused_zero1']}")
-        if zero1:
+        if options.get("offload"):
+            check(all(leg["device_state_bytes"] == 0 and leg["offload_groups"] for leg in legs),
+                  f"[mesh-2rank] {name}: optimizer state left on the device "
+                  f"{[leg['device_state_bytes'] for leg in legs]}")
+        if zero1 and adafactor:  # each rank its rows of every split moment
+            whole = [r[kind]["opt_state_bytes"] for r in ranks]
+            check(all(leg["opt_state_bytes"] < w for leg, w in zip(legs, whole)),
+                  f"[mesh-2rank] {name}: adafactor state per rank "
+                  f"{[leg['opt_state_bytes'] for leg in legs]}, not below {whole} without "
+                  "ZeRO-1")
+            print(f"[mesh-2rank] {name}: adafactor state a rank "
+                  f"{[leg['opt_state_bytes'] for leg in legs]} B against {whole} B without "
+                  f"ZeRO-1 ({legs[0]['opt_state_bytes'] / whole[0]:.3f})")
+        elif zero1:
             check(all(2 * leg["opt_state_bytes"] == ref["opt_state_bytes"] for leg in legs),
                   f"[mesh-2rank] {name}: optimizer state per rank "
                   f"{[leg['opt_state_bytes'] for leg in legs]}, not half of "
                   f"{ref['opt_state_bytes']}")
         print(f"[mesh-2rank] {name}: losses " + " ".join(f"{v:.5f}" for v in legs[0]["losses"])
-              + f" (max rel err {loss_err:.3e}, bar {loss_tol:g}); gradient norms "
+              + f" against {kind} (max rel err {loss_err:.3e}, bar {loss_tol:g}); gradient norms "
               + " ".join(f"{v:.5f}" for v in legs[0]["grad_norms"])
               + f" (max rel err {norm_err:.3e}, bar {norm_tol:g}); worst 3-step "
               f"update {worst} rel L2 {upd_err:.3e} (bar {upd_tol:g})"
@@ -3972,6 +4108,8 @@ def phase_mesh_2rank(dev):
                   f"optimizer state {leg['opt_state_bytes'] / 2**20:.1f} MiB, collectives "
                   f"{leg['comm_bytes']} B, gather {leg['gather_ms']:.1f} ms, live gathered "
                   f"layers at most {leg['max_live_layers']}, launches {leg['launches']}"
+                  + (f", offload groups a step {leg['offload_groups']}, state on the device "
+                     f"{leg['device_state_bytes']} B" if options.get("offload") else "")
                   for i, leg in enumerate(legs)))
     for fault, leg_name in MESH_2RANK_FAULTS:
         ref = refs["f32"]
@@ -3984,6 +4122,16 @@ def phase_mesh_2rank(dev):
               f"{caught or 'no bar'}")
         check(bool(caught), f"[mesh-2rank] the planted fault {fault} passes every bar")
     return launches, [r["bert_tp2"]["launches"] for r in ranks]
+
+
+def _saved_update_err(got: dict, want: dict) -> tuple:
+    """(worst leaf, its 3-step update's rel L2 error) of one leg's saved
+    updates against another's."""
+    errs = {k: float(torch.linalg.vector_norm(v - want[k])
+                     / max(float(torch.linalg.vector_norm(want[k])), 1e-30))
+            for k, v in got.items()}
+    worst = max(errs, key=errs.get)
+    return worst, errs[worst]
 
 
 def _mesh_2rank_errs(leg, ref):
@@ -4688,6 +4836,397 @@ def phase_mesh_decode(dev):
     return launches
 
 
+# -- LOMO and the optimizer state offloaded to host memory (Queue A item 6) --
+# phase_lomo: config #4 (LM774M_KW) at full width and depth in its recipe
+# (bf16 params, remat "dots_no_batch", flash), LOMO_STEPS lomo_backward
+# steps of SGD(LOMO_LR) on one fixed batch of 8 x 512, against as many
+# prepare_train_step steps of sgd(LOMO_LR) from the same params: the same
+# arithmetic with the whole gradient tree alive. The peak of both may fall
+# at the loss head or the start of the backward, before any gradient
+# exists (the f32 logits of 8 x 512 x 50257 are 0.82 GB, their gradient as
+# much again), so the peak is printed without a bar; the bars are on the
+# gradient bytes: memory allocated after the step returns less its value
+# before the forward is the whole tree (1.72 GB) in the plain step and at
+# most LOMO_LEFT_SHARE of it under LOMO; the most gradient bytes alive at
+# once under LOMO (counted from each gradient's arrival until it is
+# garbage) at most LOMO_LIVE_SHARE of the tree. Losses equal the plain
+# steps' within LOMO_LOSS_RTOL (the same forward and the same bf16 update:
+# only a kernel's summation order may differ). The fp16 leg: the same
+# width at LOMO_FP16_LAYERS layers, f32 masters, plain attention (#1-#3
+# take bf16 and f32); a planted overflow (the loss times an infinity from
+# the batch) must leave the params bitwise unchanged and halve the scale,
+# and the planted fault (the update applied in the finite-check pass)
+# must fail that bar.
+LOMO_LR, LOMO_STEPS, LOMO_FP16_LAYERS = 1e-2, 3, 4
+LOMO_LEFT_SHARE, LOMO_LIVE_SHARE, LOMO_LOSS_RTOL = 0.1, 0.25, 1e-3
+# phase_offload_opt: config #4 at full width and depth with f32 params and
+# the whole recipe of examples/deepspeed_config_templates/
+# zero_stage3_offload_config.json, through Accelerator(deepspeed_plugin=
+# DeepSpeedPlugin(hf_ds_config=...)): bf16, AdamW from dummy_optim_kwargs,
+# the template's gradient_clipping chained ahead, the optimizer state
+# offloaded to pinned host memory; OFFLOAD_STEPS steps, held to as many
+# steps of the same Accelerator's prepare_train_step(offload_optimizer=
+# False) from the same params and batches: the arithmetic is the same per
+# element (bitwise expected; any difference printed, under
+# OFFLOAD_PARAM_RTOL relative). The peak (steps 2 on, once the state
+# exists) must lie below the plain step's by OFFLOAD_PEAK_SHARE of the
+# state's bytes. A group whose write-back is lost (the planted fault)
+# must fail the equality bar.
+OFFLOAD_TEMPLATE = "examples/deepspeed_config_templates/zero_stage3_offload_config.json"
+OFFLOAD_STEPS, OFFLOAD_PARAM_RTOL, OFFLOAD_PEAK_SHARE = 3, 1e-6, 0.75
+
+
+def _lm774m_batch(dev, config, seed=0):
+    ids = np.random.default_rng(seed).integers(0, config.vocab_size,
+                                               (LM774M_BATCH, config.max_seq_len))
+    return {"input_ids": torch.from_numpy(ids.astype(np.int32)).to(dev)}
+
+
+def _zero_flash_counters():
+    from accelerate_tpu_torch.ops import flash_attention as fa
+
+    for kern in FLASH_KERNELS:
+        getattr(fa, kern).launches = 0
+
+
+def _flash_counts() -> dict:
+    from accelerate_tpu_torch.ops import flash_attention as fa
+
+    return {kern: getattr(fa, kern).launches for kern in FLASH_KERNELS}
+
+
+def _lomo_plain_leg(dev, config, batch):
+    """LOMO_STEPS prepare_train_step steps of sgd(LOMO_LR): losses, ms a
+    step, peak, and the bytes left after each step less before its forward
+    (the gradient tree, which the plain step keeps in ``.grad``)."""
+    from accelerate_tpu_torch import Accelerator, init_llama, llama_loss
+    from accelerate_tpu_torch.optimizer import sgd
+
+    _reset_states()
+    acc = Accelerator(mixed_precision="no", device=dev)
+    params, opt = acc.prepare(init_llama(config, torch.Generator(device=dev).manual_seed(0),
+                                         device=dev, dtype=torch.bfloat16), sgd(LOMO_LR))
+    seen = {}
+
+    def loss_fn(p, b):
+        seen["before"] = torch.cuda.memory_allocated()
+        return llama_loss(p, b, config, remat="dots_no_batch")
+
+    step = acc.prepare_train_step(loss_fn, opt)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, left = [], []
+    for k in range(LOMO_STEPS):
+        if k == 1:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+        params, _, m = step(params, opt.opt_state, batch)
+        left.append(torch.cuda.memory_allocated() - seen["before"])
+        losses.append(m["loss"])
+    torch.cuda.synchronize()
+    out = {"ms": (time.perf_counter() - t0) / (LOMO_STEPS - 1) * 1e3,
+           "peak": torch.cuda.max_memory_allocated(), "left": left,
+           "losses": [float(v) for v in losses]}
+    del params, opt, step
+    torch.cuda.empty_cache()
+    return out
+
+
+def _lomo_fp16_leg(dev, fault: bool = False):
+    """The fp16 leg: a normal LOMO step, then one on a batch whose loss is
+    multiplied by an infinity. Returns (params unchanged bitwise by the
+    overflowed step, the scale before and after it, the normal step moved
+    the params). ``fault`` applies the update in the finite-check pass."""
+    from accelerate_tpu_torch import Accelerator, LlamaConfig, init_llama, llama_loss
+    from accelerate_tpu_torch.optimizer import param_leaves
+    from accelerate_tpu_torch.utils.dataclasses import GradScalerConfig
+
+    config = LlamaConfig(**dict(LM774M_KW, n_layers=LOMO_FP16_LAYERS, attn_impl="xla"))
+    _reset_states()
+    # a scale far inside fp16 for the normal step; the overflow is planted
+    acc = Accelerator(mixed_precision="fp16", device=dev,
+                      grad_scaler_config=GradScalerConfig(init_scale=2.0 ** 10))
+    params = acc.prepare(init_llama(config, torch.Generator(device=dev).manual_seed(0),
+                                    device=dev))
+    batch = _lm774m_batch(dev, config)
+
+    def loss_fn(p, b, mul):
+        return llama_loss(p, b, config) * mul
+
+    real_pass = Accelerator._lomo_pass
+    if fault:  # the check pass updates too: an update made before the finite check
+        def faulty(self, loss_fn, params, args, scale, learning_rate, axes):
+            return real_pass(self, loss_fn, params, args, scale, learning_rate or LOMO_LR, axes)
+
+        Accelerator._lomo_pass = faulty
+    try:
+        start = [t.detach().clone() for t in param_leaves(params)]
+        acc.lomo_backward(loss_fn, params, batch, torch.ones((), device=dev),
+                          learning_rate=LOMO_LR)
+        moved = any(not torch.equal(a, b) for a, b in zip(start, param_leaves(params)))
+        before = [t.detach().clone() for t in param_leaves(params)]
+        scale0 = acc._lomo_scale
+        loss, _ = acc.lomo_backward(loss_fn, params, batch, torch.full((), math.inf, device=dev),
+                                    learning_rate=LOMO_LR)
+        unchanged = all(torch.equal(a, b) for a, b in zip(before, param_leaves(params)))
+        scale1 = acc._lomo_scale
+    finally:
+        Accelerator._lomo_pass = real_pass
+    del params, start, before
+    torch.cuda.empty_cache()
+    return unchanged, scale0, scale1, moved
+
+
+def phase_lomo(dev):
+    """``Accelerator.lomo_backward`` on config #4 (see LOMO_LR's comment):
+    bars on the gradient bytes, losses against the plain SGD step, #1-#3's
+    launches (72 / 36 / 36 a step), the fp16 overflow and its planted
+    fault. Returns the LOMO leg's flash launches."""
+    from accelerate_tpu_torch import Accelerator, LlamaConfig, init_llama, llama_loss
+    from accelerate_tpu_torch.optimizer import param_leaves
+
+    config = LlamaConfig(**LM774M_KW)
+    batch = _lm774m_batch(dev, config)
+    _reset_states()
+    acc = Accelerator(mixed_precision="no", device=dev)
+    params = acc.prepare(init_llama(config, torch.Generator(device=dev).manual_seed(0),
+                                    device=dev, dtype=torch.bfloat16))
+    tree = sum(t.numel() * t.element_size() for t in param_leaves(params))
+
+    def loss_fn(p, b):
+        return llama_loss(p, b, config, remat="dots_no_batch")
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_flash_counters()
+    losses, left, live = [], [], []
+    for k in range(LOMO_STEPS):
+        if k == 1:  # the first step warms up: steps 2 on are timed
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+        before = torch.cuda.memory_allocated()
+        loss, params = acc.lomo_backward(loss_fn, params, batch, learning_rate=LOMO_LR)
+        left.append(torch.cuda.memory_allocated() - before)
+        live.append(acc.lomo_stats["max_live_bytes"])
+        losses.append(loss)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) / (LOMO_STEPS - 1) * 1e3
+    peak = torch.cuda.max_memory_allocated()
+    launches = _flash_counts()
+    losses = [float(v) for v in losses]
+    del params
+    torch.cuda.empty_cache()
+    plain = _lomo_plain_leg(dev, config, batch)
+    print(f"[lomo] config #4, bf16 params, remat 'dots_no_batch', flash, batch "
+          f"{LM774M_BATCH} x {config.max_seq_len}, SGD({LOMO_LR:g}); gradient tree "
+          f"{tree / 1e9:.3f} GB")
+    print(f"[lomo] LOMO: {ms:.1f} ms/step, peak {peak / 2**30:.2f} GiB, bytes left after the "
+          f"step {left}, most gradient bytes alive {max(live) / 1e9:.4f} GB "
+          f"({max(live) / tree:.4f} of the tree); losses " + " ".join(f"{v:.5f}" for v in losses))
+    print(f"[lomo] plain SGD step: {plain['ms']:.1f} ms/step, peak {plain['peak'] / 2**30:.2f} "
+          f"GiB, bytes left after the step {plain['left']}; losses "
+          + " ".join(f"{v:.5f}" for v in plain["losses"]))
+    print(f"[lomo] launches in {LOMO_STEPS} LOMO steps: {launches}")
+    want = {"flash_attention_fwd": 2 * config.n_layers * LOMO_STEPS,
+            "flash_attention_dq": config.n_layers * LOMO_STEPS,
+            "flash_attention_dkdv": config.n_layers * LOMO_STEPS}
+    check(launches == want, f"[lomo] launches {launches}, want {want}")
+    check(max(left) <= LOMO_LEFT_SHARE * tree,
+          f"[lomo] {max(left)} bytes left after a LOMO step, over {LOMO_LEFT_SHARE} of the "
+          f"{tree}-byte gradient tree")
+    check(min(plain["left"]) >= 0.9 * tree,
+          f"[lomo] the plain step keeps {plain['left']} bytes, not its gradient tree ({tree}): "
+          "the measurement does not see the gradients")
+    check(max(live) <= LOMO_LIVE_SHARE * tree,
+          f"[lomo] {max(live)} gradient bytes alive at once, over {LOMO_LIVE_SHARE} of {tree}")
+    err = max(abs(a - b) / abs(b) for a, b in zip(losses, plain["losses"]))
+    print(f"[lomo] losses against the plain SGD steps: max rel err {err:.3e} "
+          f"(bar {LOMO_LOSS_RTOL:g})")
+    check(err <= LOMO_LOSS_RTOL, f"[lomo] losses {losses} vs plain {plain['losses']}")
+    unchanged, s0, s1, moved = _lomo_fp16_leg(dev)
+    print(f"[lomo] fp16 leg ({LOMO_FP16_LAYERS} layers, plain attention): a normal step moved "
+          f"the params {moved}; the planted overflow left them bitwise unchanged {unchanged}, "
+          f"scale {s0:g} -> {s1:g}")
+    check(moved and unchanged and s1 == s0 / 2,
+          "[lomo] fp16: the overflowed step changed the params or did not halve the scale")
+    f_unchanged, _, f_s1, _ = _lomo_fp16_leg(dev, fault=True)
+    print(f"[lomo] planted fault (the update applied before the finite check): params "
+          f"unchanged {f_unchanged}, scale -> {f_s1:g}; caught {not f_unchanged}")
+    check(not f_unchanged, "[lomo] the planted fault passes the overflow bar")
+    return launches
+
+
+def _offload_leg(dev, acc, plugin, config, batches, offload: bool, fault=None,
+                 profile: bool = False):
+    """OFFLOAD_STEPS steps of config #4 through ``acc`` from the seed-0 f32
+    params (``offload`` keeps the optimizer state on the host): losses, the
+    final params, ms a step and peak over steps 2 on, the state's bytes on
+    the device and the host, and with ``profile`` one more profiled step
+    (the copies' device time and overlap). ``fault`` plants one of
+    ``multihost_script._fault``'s faults."""
+    from accelerate_tpu_torch import init_llama, llama_loss
+    from accelerate_tpu_torch.utils.dataclasses import DummyOptim
+
+    params, opt = acc.prepare(init_llama(config, torch.Generator(device=dev).manual_seed(0),
+                                         device=dev), DummyOptim(**plugin.dummy_optim_kwargs()))
+    step = acc.prepare_train_step(lambda p, b: llama_loss(p, b, config, remat="dots_no_batch"),
+                                  opt, offload_optimizer=offload)
+    check(offload == (opt.offload is not None), f"[offload-opt] offload {offload} not applied")
+    from accelerate_tpu_torch.test_utils.scripts.multihost_script import _fault
+
+    with _fault(fault):
+        losses = []
+        params, _, m = step(params, opt.opt_state, batches[0])
+        losses.append(m["loss"])
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _zero_flash_counters()
+        t0 = time.perf_counter()
+        for b in batches[1:]:
+            params, _, m = step(params, opt.opt_state, b)
+            losses.append(m["loss"])
+        torch.cuda.synchronize()
+    out = {"ms": (time.perf_counter() - t0) / (len(batches) - 1) * 1e3,
+           "peak": torch.cuda.max_memory_allocated(), "launches": _flash_counts(),
+           "losses": [float(v) for v in losses],
+           "params": [t.detach().to("cpu", copy=True) for t in _leaves(params)],
+           "device_state": opt.device_state_bytes(), "state": opt.state_bytes()}
+    if offload:
+        out["host_state"] = opt.offload.host_bytes()
+        out["groups"] = opt.offload.stats["groups"] // opt.offload.stats["steps"]
+        out["offload"] = opt.offload
+    if profile:
+        from torch.profiler import ProfilerActivity, profile as torch_profile
+
+        h2d0, d2h0 = opt.offload.stats["h2d_bytes"], opt.offload.stats["d2h_bytes"]
+        prof = torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+        prof.start()
+        step(params, opt.opt_state, batches[-1])
+        torch.cuda.synchronize()
+        prof.stop()
+        out["profile"] = (prof, opt.offload.stats["h2d_bytes"] - h2d0,
+                          opt.offload.stats["d2h_bytes"] - d2h0)
+    # nothing of this leg may stay on the card during the next: the
+    # Accelerator keeps its prepared optimizers, which hold the params, their
+    # last gradients and the state
+    opt.zero_grad(set_to_none=True)
+    acc._optimizers.remove(opt)
+    del params, opt, step
+    torch.cuda.empty_cache()
+    return out
+
+
+def _param_errs(got, want) -> tuple:
+    """(bitwise equal, largest relative L2 error of a leaf)."""
+    same = all(torch.equal(a, b) for a, b in zip(got, want))
+    err = max(float(torch.linalg.vector_norm((a - b).float())
+                    / max(float(torch.linalg.vector_norm(b.float())), 1e-30))
+              for a, b in zip(got, want))
+    return same, err
+
+
+def _pinned_copy_rates(offload, dev) -> tuple:
+    """GB/s of one host-to-device and one device-to-host pass over every
+    offloaded state tensor, alone (CUDA events around the pass)."""
+    host = [v for st in offload.optimizer.state.values() for v in st.values()
+            if isinstance(v, torch.Tensor) and v.dim() > 0]
+    nbytes = sum(v.numel() * v.element_size() for v in host)
+    dev_copies = [torch.empty_like(v, device=dev) for v in host]
+    rates = []
+    for direction in ("h2d", "d2h"):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        torch.cuda.synchronize()
+        ev[0].record()
+        for h, d in zip(host, dev_copies):
+            (d.copy_(h, non_blocking=True) if direction == "h2d"
+             else h.copy_(d, non_blocking=True))
+        ev[1].record()
+        torch.cuda.synchronize()
+        rates.append(nbytes / (ev[0].elapsed_time(ev[1]) * 1e-3) / 1e9)
+    del dev_copies
+    torch.cuda.empty_cache()
+    return nbytes, rates[0], rates[1]
+
+
+def phase_offload_opt(dev):
+    """Config #4's AdamW state offloaded to pinned host memory, through the
+    DeepSpeed plugin and its template (see OFFLOAD_TEMPLATE's comment):
+    equality with the plain step, the peak bar, the bytes on the device
+    and on the host, host-to-device and device-to-host GB/s in the step
+    against one pinned pass of the same bytes alone, the copies' overlap
+    with kernels in a profiled step, and the planted fault. Returns the
+    offloaded leg's flash launches."""
+    from accelerate_tpu_torch import Accelerator, LlamaConfig
+    from accelerate_tpu_torch.utils.dataclasses import DeepSpeedPlugin
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    with open(os.path.join(here, OFFLOAD_TEMPLATE)) as f:
+        plugin = DeepSpeedPlugin(hf_ds_config=json.load(f))
+    config = LlamaConfig(**LM774M_KW)
+    batches = [_lm774m_batch(dev, config, seed) for seed in range(OFFLOAD_STEPS)]
+    _reset_states()
+    acc = Accelerator(deepspeed_plugin=plugin, device=dev)
+    check(acc.mixed_precision == "bf16" and acc._offload_optimizer
+          and acc._plugin_grad_clip == 1.0 and plugin.zero_stage == 3,
+          f"[offload-opt] the template's recipe was not taken: {plugin}")
+    print(f"[offload-opt] {OFFLOAD_TEMPLATE}: zero stage {plugin.zero_stage}, mixed precision "
+          f"{acc.mixed_precision}, AdamW {plugin.dummy_optim_kwargs()}, gradient clipping "
+          f"{plugin.gradient_clipping}, optimizer offload {plugin.offload_optimizer_device!r}; "
+          f"config #4 f32 params, remat 'dots_no_batch', flash, batch {LM774M_BATCH} x "
+          f"{config.max_seq_len}")
+    plain = _offload_leg(dev, acc, plugin, config, batches, offload=False)
+    off = _offload_leg(dev, acc, plugin, config, batches, offload=True, profile=True)
+    same, err = _param_errs(off["params"], plain["params"])
+    losses_same = off["losses"] == plain["losses"]
+    state = plain["state"]
+    prof, h2d_bytes, d2h_bytes = off.pop("profile")
+    nbytes, h2d_alone, d2h_alone = _pinned_copy_rates(off.pop("offload"), dev)
+    rates = {}
+    for kind, moved in (("HtoD", h2d_bytes), ("DtoH", d2h_bytes)):
+        ov = _copy_overlap(prof, kind)
+        rates[kind] = None if ov is None else (moved / (ov[0] * 1e-6) / 1e9, ov[1] / ov[0])
+    print(f"[offload-opt] plain: {plain['ms']:.1f} ms/step, peak {plain['peak'] / 2**30:.2f} "
+          f"GiB, optimizer state on the device {plain['device_state'] / 1e9:.3f} GB; losses "
+          + " ".join(f"{v:.5f}" for v in plain["losses"]))
+    print(f"[offload-opt] offloaded: {off['ms']:.1f} ms/step, peak {off['peak'] / 2**30:.2f} "
+          f"GiB, optimizer state on the device {off['device_state'] / 1e9:.3f} GB, on the host "
+          f"{off['host_state'] / 1e9:.3f} GB, {off['groups']} groups a step; losses "
+          + " ".join(f"{v:.5f}" for v in off["losses"]))
+    for kind, alone in (("HtoD", h2d_alone), ("DtoH", d2h_alone)):
+        r = rates[kind]
+        print(f"[offload-opt] {kind} in a profiled step: "
+              + ("not measured (the profiler gave no device copies)" if r is None else
+                 f"{r[0]:.2f} GB/s, {r[1]:.3f} of the copy time beside kernels on another "
+                 f"stream") + f"; one pinned pass of the {nbytes / 1e9:.3f} GB alone "
+              f"{alone:.2f} GB/s")
+    print(f"[offload-opt] against the plain steps: losses equal {losses_same}, params bitwise "
+          f"{same} (largest leaf rel L2 {err:.3e}, bar {OFFLOAD_PARAM_RTOL:g}); peak "
+          f"{(plain['peak'] - off['peak']) / 1e9:.3f} GB below the plain step's "
+          f"({(plain['peak'] - off['peak']) / state:.3f} of the state's {state / 1e9:.3f} GB, "
+          f"bar {OFFLOAD_PEAK_SHARE})")
+    check(off["device_state"] == 0 and off["host_state"] == state,
+          f"[offload-opt] state on the device {off['device_state']}, host {off['host_state']}")
+    check(err <= OFFLOAD_PARAM_RTOL and max(
+        abs(a - b) / abs(b) for a, b in zip(off["losses"], plain["losses"])) <= OFFLOAD_PARAM_RTOL,
+          f"[offload-opt] the offloaded steps differ from the plain ones: params {err}")
+    check(plain["peak"] - off["peak"] >= OFFLOAD_PEAK_SHARE * state,
+          f"[offload-opt] peak {off['peak']} not {OFFLOAD_PEAK_SHARE} of {state} below "
+          f"{plain['peak']}")
+    want = {"flash_attention_fwd": 2 * config.n_layers * (OFFLOAD_STEPS - 1),
+            "flash_attention_dq": config.n_layers * (OFFLOAD_STEPS - 1),
+            "flash_attention_dkdv": config.n_layers * (OFFLOAD_STEPS - 1)}
+    check(off["launches"] == want == plain["launches"],
+          f"[offload-opt] launches {off['launches']} / {plain['launches']}, want {want}")
+    del plain["params"]
+    fault = _offload_leg(dev, acc, plugin, config, batches, offload=True,
+                         fault="offload_lost_write_back")
+    f_same, f_err = _param_errs(fault["params"], off["params"])
+    print(f"[offload-opt] planted fault (the first group's write-back lost): params rel L2 "
+          f"{f_err:.3e} from the sound run; caught {f_err > OFFLOAD_PARAM_RTOL}")
+    check(f_err > OFFLOAD_PARAM_RTOL, "[offload-opt] the planted fault passes the equality bar")
+    return off["launches"]
+
+
 def _timed(phase, *args):
     """``phase(*args)``, with its wall seconds printed."""
     t0 = time.perf_counter()
@@ -4762,6 +5301,8 @@ def main() -> int:
     _timed(phase_llama_train_check, dev)
     lm_launches, offload_dots_launches, lm_ref = _timed(phase_lm774m, dev)
     _timed(phase_lm774m_check, dev)
+    lomo_launches = _timed(phase_lomo, dev)
+    offload_opt_launches = _timed(phase_offload_opt, dev)
     _timed(phase_resnet, dev)
     _timed(phase_t5, dev)
     moe_engine_launches, moe_train_launches, moe_leg = _timed(phase_moe, dev)
@@ -4826,6 +5367,8 @@ def main() -> int:
                            for case, r in mesh_recs.items()},
                         "launches_lm774m": lm_launches[name],
                         "launches_lm774m_offload_dots": offload_dots_launches[name],
+                        "launches_lomo": lomo_launches[name],
+                        "launches_offload_opt": offload_opt_launches[name],
                         "launches_moe_train": moe_train_launches[name],
                         "launches_fsdp_lm": fsdp_launches[name],
                         "launches_mesh_2rank": {leg: [r[name] for r in per_rank]

@@ -116,12 +116,75 @@ def test_invalid_configs_raise_as_in_jax(kwargs):
 
 
 def test_dcn_override_matches_jax_and_multi_slice_mesh_raises(monkeypatch):
+    """The multi-slice mesh raised until nodes took the place of slices; the
+    name is kept, and the case now builds: with one node the override is
+    not read (JAX's one-slice path), with two it places dp_shard across
+    the nodes exactly as JAX's grid over two fake slices."""
     monkeypatch.setenv("ACCELERATE_DCN_MESH_SHAPE", "1,1,2,1,1,1,1")
-    cfg = dict(dp_shard_size=4, tp_size=2)
+    cfg = dict(dp_replicate_size=2, dp_shard_size=2, tp_size=2)
     assert (tpc.ParallelismConfig(**cfg).dcn_mesh_shapes(8, 2)
             == jpc.ParallelismConfig(**cfg).dcn_mesh_shapes(8, 2))
-    with pytest.raises(NotImplementedError, match="item 6, step 8"):
-        tpc.ParallelismConfig(**cfg).build_mesh(8)
+    one_node = tpc.ParallelismConfig(**cfg).build_mesh(8)
+    np.testing.assert_array_equal(one_node.devices.ravel(), np.arange(8))
+    monkeypatch.setenv("LOCAL_WORLD_SIZE", "4")
+    got = tpc.ParallelismConfig(**cfg).build_mesh(8).devices
+    np.testing.assert_array_equal(got, _jax_grid(cfg, 8, 2))
+    assert not np.array_equal(got.ravel(), np.arange(8))
+
+
+def _jax_grid(cfg, n, slices):
+    """JAX's device-id grid for ``cfg`` over ``n`` fake devices in
+    ``slices`` slices (ids in order, slice = id // (n / slices))."""
+    from accelerate_tpu.test_utils import fake_slice_devices
+
+    mesh = jpc.ParallelismConfig(**cfg).build_mesh(devices=fake_slice_devices(n, slices))
+    return np.vectorize(lambda d: d.id)(mesh.devices)
+
+
+@pytest.mark.parametrize("cfg,slices", [
+    ({"dp_replicate_size": 2, "dp_shard_size": 4}, 2),
+    ({"pp_size": 2, "dp_replicate_size": 2, "dp_shard_size": 2}, 4),
+    ({"pp_size": 2, "dp_replicate_size": 2, "tp_size": 2}, 2),
+])
+def test_multi_node_rank_grid_matches_jax_fake_slices(cfg, slices, monkeypatch):
+    """A node (``rank // LOCAL_WORLD_SIZE``) is the port's slice: the rank
+    grid equals JAX's ``build_mesh`` device-id grid over fake slices, and
+    every index of the outermost split axis lies inside one node."""
+    monkeypatch.setenv("LOCAL_WORLD_SIZE", str(8 // slices))
+    mesh = tpc.ParallelismConfig(**cfg).build_mesh(8)
+    np.testing.assert_array_equal(mesh.devices, _jax_grid(cfg, 8, slices))
+    node = mesh.devices // (8 // slices)
+    for r in range(cfg["dp_replicate_size"]):  # one dp_replicate row, one node
+        for p in range(cfg.get("pp_size", 1)):
+            assert len(np.unique(node[p, r])) == 1
+    for rank in range(8):  # each rank's coordinates name its place in the grid
+        coords = tpc.ParallelismConfig(**cfg).build_mesh(8, rank=rank).coords
+        assert mesh.devices[tuple(coords.values())] == rank
+
+
+def test_multi_node_unfactorable_raises_as_jax(monkeypatch):
+    from accelerate_tpu.test_utils import fake_slice_devices
+
+    monkeypatch.setenv("LOCAL_WORLD_SIZE", "4")
+    with pytest.raises(ValueError, match="ACCELERATE_DCN_MESH_SHAPE"):
+        tpc.ParallelismConfig(dp_shard_size=8).build_mesh(8)
+    with pytest.raises(ValueError):
+        jpc.ParallelismConfig(dp_shard_size=8).build_mesh(devices=fake_slice_devices(8, 2))
+
+
+def test_multi_node_granule_process_matches_jax(monkeypatch):
+    """``ACCELERATE_HYBRID_MESH_GRANULE=process``: each process is a unit
+    (JAX's ``process_is_granule``; a fake device's process is its slice)."""
+    monkeypatch.setenv("ACCELERATE_HYBRID_MESH_GRANULE", "process")
+    cfg = {"pp_size": 2, "dp_replicate_size": 4}
+    np.testing.assert_array_equal(tpc.ParallelismConfig(**cfg).build_mesh(8).devices,
+                                  _jax_grid(cfg, 8, 8))
+    with pytest.raises(ValueError, match="ACCELERATE_DCN_MESH_SHAPE"):
+        tpc.ParallelismConfig(dp_replicate_size=2, dp_shard_size=4).build_mesh(8)
+    monkeypatch.setenv("ACCELERATE_DCN_MESH_SHAPE", "1,2,4,1,1,1,1")
+    cfg = {"dp_replicate_size": 2, "dp_shard_size": 4}
+    np.testing.assert_array_equal(tpc.ParallelismConfig(**cfg).build_mesh(8).devices,
+                                  _jax_grid(cfg, 8, 8))
 
 
 ENV_VALUES = [None, "", "1", "0", "yes", "No", " true ", "off", "maybe", "3", "-2", "1.5e3",
