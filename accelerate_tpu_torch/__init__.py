@@ -58,10 +58,21 @@ Ported so far:
   training under DP, FSDP, TP and fused ZeRO-1 (``parallel.sharding``,
   ``parallel.weight_update``, ``Accelerator(parallelism_config=...)``,
   ``llama_loss(mesh=...)``), data loading across processes
-  (``data_loader``), and the multi-process test launcher (``test_utils``).
+  (``data_loader``), and the multi-process test launcher (``test_utils``);
+- checkpoints and trackers: ``save_state``/``load_state`` in the JAX
+  package's layout and formats, blocking or async (``checkpointing``,
+  ``checkpoint_async``), sharded per process under a mesh
+  (``sharded_checkpoint`` over ``native.io``), ``save_model``, the
+  trackers (``tracking``), the HF converters (``models.convert``) and the
+  ``Accelerator``'s small helpers; ``utils.api_boundary`` lists the public
+  names of ``accelerate_tpu`` still to port, with their items.
 """
 
 from .accelerator import Accelerator
+from .checkpointing import load_checkpoint_in_model
+from .optimizer import AcceleratedOptimizer
+from .sharded_checkpoint import CheckpointCorruptError, CheckpointTopologyError
+from .utils.random import synchronize_rng_states
 from .data_loader import DataLoader, skip_first_batches
 from .optimizer import (
     constant_schedule,
@@ -73,6 +84,9 @@ from .parallelism_config import ParallelismConfig
 from .scheduler import AcceleratedScheduler
 from .state import AcceleratorState, GradientState, PartialState
 from .utils.dataclasses import (
+    AutocastConfig,
+    AutocastKwargs,
+    CheckpointConfig,
     DataLoaderConfiguration,
     DDPCommunicationHookType,
     DeepSpeedPlugin,
@@ -83,8 +97,14 @@ from .utils.dataclasses import (
     FullyShardedDataParallelPlugin,
     GradientAccumulationPlugin,
     GradScalerConfig,
+    GradScalerKwargs,
     InitProcessGroupKwargs,
+    LoggerType,
     MegatronLMPlugin,
+    MixedPrecisionPolicy,
+    PrecisionType,
+    ProjectConfiguration,
+    SaveFormat,
 )
 from .big_modeling import (
     DispatchedParams,
@@ -149,8 +169,22 @@ from .utils.modeling import (
 )
 
 __all__ = [
+    "AcceleratedOptimizer",
     "AcceleratedScheduler",
     "Accelerator",
+    "AutocastConfig",
+    "AutocastKwargs",
+    "CheckpointConfig",
+    "CheckpointCorruptError",
+    "CheckpointTopologyError",
+    "GradScalerKwargs",
+    "LoggerType",
+    "MixedPrecisionPolicy",
+    "PrecisionType",
+    "ProjectConfiguration",
+    "SaveFormat",
+    "load_checkpoint_in_model",
+    "synchronize_rng_states",
     "AcceleratorState",
     "BertConfig",
     "BucketLattice",

@@ -53,9 +53,19 @@ reaches the process group; ``DeepSpeedPlugin`` (with its ``hf_ds_config``),
 the accumulation steps, the precision, a clip chained ahead of the
 optimizer and the optimizer state's offload to pinned host memory
 (``prepare_train_step(offload_optimizer=)``). :meth:`Accelerator.
-lomo_backward` fuses the SGD update into the backward. Not ported yet (see
-ROADMAP.md): ``mixed_precision="fp8"`` (item 8), cp, sp and pp axes (item
-11), trackers and checkpointing (item 7).
+lomo_backward` fuses the SGD update into the backward.
+
+Checkpoints and trackers are the JAX package's: ``save_state`` (blocking,
+or ``blocking=False`` with one writer thread, :mod:`.checkpoint_async`),
+``load_state`` (``"latest"`` committed, elastic across ``dp_replicate``
+widths), sharded saves under a mesh of more than one process
+(:mod:`.sharded_checkpoint`), ``save_model`` / ``get_state_dict``, custom
+objects and save/load pre-hooks (:mod:`.checkpointing`), and
+``init_trackers`` / ``log`` over :mod:`.tracking`. A load writes into the
+prepared tensors in place, so prepared steps keep running on them. Not
+ported yet (see ROADMAP.md): ``mixed_precision="fp8"`` (item 8), cp, sp
+and pp axes (item 11), the telemetry, profiler and watchdog parts of the
+JAX package's ``Accelerator`` (item 12).
 """
 
 from __future__ import annotations
@@ -79,6 +89,8 @@ from .optimizer import (
 from .scheduler import AcceleratedScheduler
 from .state import AcceleratorState, GradientState
 from .utils.dataclasses import (
+    AutocastConfig,
+    CheckpointConfig,
     DataLoaderConfiguration,
     DistributedDataParallelKwargs,
     DummyOptim,
@@ -88,7 +100,9 @@ from .utils.dataclasses import (
     GradScalerConfig,
     InitProcessGroupKwargs,
     MegatronLMPlugin,
+    MixedPrecisionPolicy,
     PrecisionType,
+    ProjectConfiguration,
 )
 from .parallel.sharding import (
     GRAD_SUM_AXES,
@@ -104,20 +118,46 @@ from .utils.dataclasses import DeepSpeedPlugin
 from .utils.environment import parse_flag_from_env
 from .utils.operations import _tree_map, stack_batches
 
-__all__ = ["Accelerator", "set_seed"]
+__all__ = ["Accelerator", "RemovableHandle", "set_seed"]
 
 #: kwargs handlers of the JAX package that later items of ROADMAP.md Queue A
 #: port: the class name -> the item
-_LATER_HANDLERS = {"CheckpointConfig": "7", "AutocastConfig": "14", "ProfileConfig": "12",
+_LATER_HANDLERS = {"ProfileConfig": "12",
                    "FP8RecipeKwargs": "8", "TERecipeKwargs": "8", "AORecipeKwargs": "8",
                    "MSAMPRecipeKwargs": "8"}
 
 
 def set_seed(seed: int) -> None:
-    """Seed Python's, numpy's and torch's generators (every device)."""
+    """Seed Python's, numpy's and torch's generators (every device) and the
+    global key (``jax.random.PRNGKey(seed)``, :func:`~.utils.random.
+    get_rng_key`)."""
+    from .utils.random import set_global_key
+
     random.seed(seed)
     np.random.seed(seed)
     torch.manual_seed(seed)
+    set_global_key(seed)
+
+
+class RemovableHandle:
+    """What the state-hook registrars return: ``remove()`` (or leaving a
+    ``with`` block) unregisters the hook."""
+
+    _next_id = 0
+
+    def __init__(self, registry: dict):
+        self._registry = registry
+        self.id = RemovableHandle._next_id
+        RemovableHandle._next_id += 1
+
+    def remove(self) -> None:
+        self._registry.pop(self.id, None)
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.remove()
 
 
 def _children(node) -> list:
@@ -191,9 +231,14 @@ class Accelerator:
                  dataloader_config: Optional[DataLoaderConfiguration] = None,
                  rng_types: Optional[Sequence[str]] = None,
                  fsdp_plugin: Optional[FullyShardedDataParallelPlugin] = None,
-                 megatron_lm_plugin: Optional[MegatronLMPlugin] = None):
+                 megatron_lm_plugin: Optional[MegatronLMPlugin] = None,
+                 project_dir: Optional[str] = None,
+                 project_config: Optional[ProjectConfiguration] = None,
+                 checkpoint_config: Optional[CheckpointConfig] = None,
+                 log_with=None):
         # the kwargs handlers: one a class, each steering one part
         self.ddp_handler: Optional[DistributedDataParallelKwargs] = None
+        self.autocast_handler: Optional[AutocastConfig] = None
         init_pg_kwargs: dict = {}
         seen: set = set()
         for handler in kwargs_handlers or ():
@@ -212,6 +257,12 @@ class Accelerator:
                 grad_scaler_config = handler
             elif isinstance(handler, DistributedDataParallelKwargs):
                 self.ddp_handler = handler
+            elif isinstance(handler, CheckpointConfig):
+                if checkpoint_config is not None:
+                    raise ValueError("checkpoint_config given both directly and as a handler")
+                checkpoint_config = handler
+            elif isinstance(handler, AutocastConfig):
+                self.autocast_handler = handler
             elif type(handler).__name__ in _LATER_HANDLERS:
                 raise NotImplementedError(
                     f"{type(handler).__name__} is not ported yet (ROADMAP.md Queue A item "
@@ -296,7 +347,27 @@ class Accelerator:
         self.grad_scaler_config = grad_scaler_config or GradScalerConfig()
         self.step_scheduler_with_optimizer = step_scheduler_with_optimizer
         self.device_placement = device_placement
+        self.project_configuration = project_config or ProjectConfiguration(
+            project_dir=project_dir)
+        if project_dir is not None and self.project_configuration.project_dir is None:
+            self.project_configuration.set_directories(project_dir)
+        self.checkpoint_config = checkpoint_config or CheckpointConfig()
+        self._checkpoint_manager = None  # the writer of async saves, made at the first
+        self.last_checkpoint = None  # the CheckpointSnapshot of the last save (its timings)
+        # what save_state / load_state cover, in prepare order (the JAX package's lists);
+        # _plans[i] is the sharding plan _models[i] was placed by
+        self._models: list = []
+        self._plans: list = []
         self._optimizers: list = []
+        self._schedulers: list = []
+        self._dataloaders: list = []
+        self._custom_objects: list = []
+        self._save_state_pre_hooks: dict = {}
+        self._load_state_pre_hooks: dict = {}
+        self._autocast_enabled = True
+        self.flag_tensor = None
+        self.trackers: list = []
+        self.log_with = log_with
         self._accum_count = 0
         # lomo_backward's dynamic loss scale under fp16 (host values)
         self._lomo_scale = float(self.grad_scaler_config.init_scale)
@@ -365,6 +436,10 @@ class Accelerator:
     @property
     def use_distributed(self) -> bool:
         return self.partial_state.use_distributed
+
+    @property
+    def project_dir(self) -> Optional[str]:
+        return self.project_configuration.project_dir
 
     @property
     def sharding_plan(self):
@@ -490,6 +565,7 @@ class Accelerator:
                 results[i] = AcceleratedScheduler(
                     underlying, step_with_optimizer=self.step_scheduler_with_optimizer,
                     num_processes=1)
+                self._schedulers.append(results[i])
             elif isinstance(obj, (AcceleratedScheduler, torch.optim.lr_scheduler.LRScheduler)):
                 results[i] = self.prepare_scheduler(obj)
         if params_seen is not None:
@@ -523,7 +599,10 @@ class Accelerator:
             return t.requires_grad_(True) if t.is_floating_point() else t
 
         self._sharding_plan = plan
-        return _tree_map(place, params)
+        placed = _tree_map(place, params)
+        self._models.append(placed)
+        self._plans.append(plan)
+        return placed
 
     def prepare_optimizer(self, optimizer) -> AcceleratedOptimizer:
         """An :class:`AcceleratedOptimizer` over ``optimizer`` (bound to the
@@ -566,6 +645,8 @@ class Accelerator:
         if not isinstance(scheduler, AcceleratedScheduler):
             scheduler = AcceleratedScheduler(
                 scheduler, step_with_optimizer=self.step_scheduler_with_optimizer)
+        if not any(s is scheduler for s in self._schedulers):
+            self._schedulers.append(scheduler)
         return scheduler
 
     def prepare_data_loader(self, dataloader) -> DataLoaderShard:
@@ -577,6 +658,8 @@ class Accelerator:
         (``TypeError`` for a loader that cannot be rebuilt), as in the JAX
         package."""
         if isinstance(dataloader, DataLoaderShard):
+            if not any(d is dataloader for d in self._dataloaders):
+                self._dataloaders.append(dataloader)
             return dataloader
         cfg = self.dataloader_config
         if cfg.use_stateful_dataloader and not isinstance(dataloader, DataLoader) and not (
@@ -598,13 +681,15 @@ class Accelerator:
                     "rebuild it. Install torchdata>=0.8.0, or use the native DataLoader "
                     "(stateful out of the box).")
             dataloader = rebuilt
-        return prepare_data_loader(
+        prepared = prepare_data_loader(
             dataloader, self.device, mesh=self.mesh, device_placement=self.device_placement,
             split_batches=cfg.split_batches, even_batches=cfg.even_batches,
             dispatch_batches=cfg.dispatch_batches,
             rng_types=self.rng_types if self.num_processes > 1 else None,
             data_seed=cfg.data_seed, use_seedable_sampler=cfg.use_seedable_sampler,
             prefetch_depth=cfg.prefetch_depth, non_blocking=cfg.non_blocking)
+        self._dataloaders.append(prepared)
+        return prepared
 
     def skip_first_batches(self, dataloader, num_batches: int = 0):
         """The loader resuming ``num_batches`` into its next epoch
@@ -624,6 +709,8 @@ class Accelerator:
     def _build_train_step(self, loss_fn: Callable, optimizer: AcceleratedOptimizer,
                           has_aux: bool, compute_grad_norm: bool) -> Callable:
         policy = self.state.mixed_precision_policy
+        if not self._autocast_enabled:  # built inside autocast(AutocastConfig(enabled=False))
+            policy = MixedPrecisionPolicy.from_precision(PrecisionType.NO)
         fp16 = self.state.mixed_precision == PrecisionType.FP16
         plan = optimizer.plan
         # a plan that communicates (see the module docstring); otherwise the plain step
@@ -1035,3 +1122,236 @@ class Accelerator:
     def clip_grad_value_(self, grads, clip_value: float):
         """Every gradient element clipped to ``[-clip_value, clip_value]``."""
         return _tree_map(lambda g: torch.clamp(g, -clip_value, clip_value), grads)
+
+    # ------------------------------------------------------- small helpers --
+    @contextlib.contextmanager
+    def join_uneven_inputs(self, joinables=None, even_batches=None):
+        """Nothing to join: a prepared loader's ``even_batches`` wraps
+        around, so every rank takes the same number of steps."""
+        yield
+
+    def set_trigger(self) -> None:
+        """Flag this process, for :meth:`check_trigger` on every process."""
+        self.flag_tensor = True
+
+    def check_trigger(self) -> bool:
+        """True on every process when any process called
+        :meth:`set_trigger` since the last check (the flags gathered over
+        the process group); clears this process's flag."""
+        flags = ops.gather_object(bool(self.flag_tensor))
+        self.flag_tensor = False
+        return any(flags)
+
+    def unwrap_model(self, model, keep_fp32_wrapper: bool = True):
+        """``model`` itself: params are never wrapped."""
+        return model
+
+    def free_memory(self, *objects):
+        """Drop the prepared models, optimizers, schedulers, loaders and
+        registered objects, collect garbage and empty CUDA's cache."""
+        import gc
+
+        for lst in (self._models, self._plans, self._optimizers, self._schedulers,
+                    self._dataloaders, self._custom_objects):
+            lst.clear()
+        self._sharding_plan = None
+        gc.collect()
+        if self.device.type == "cuda":
+            torch.cuda.empty_cache()
+        return objects
+
+    @contextlib.contextmanager
+    def autocast(self, autocast_handler: Optional[AutocastConfig] = None):
+        """Train steps built inside ``autocast(AutocastConfig(enabled=
+        False))`` (or under the ``AutocastConfig`` handler) compute in the
+        param dtype; steps built before, or after, keep the policy they
+        were built with."""
+        handler = autocast_handler or self.autocast_handler
+        prev = self._autocast_enabled
+        if handler is not None:
+            self._autocast_enabled = bool(handler.enabled)
+        try:
+            yield
+        finally:
+            self._autocast_enabled = prev
+
+    # ------------------------------------------------------- checkpointing --
+    def _plan_for(self, params):
+        """The plan ``params`` were prepared with (the last plan when they
+        are not a prepared tree)."""
+        for model, plan in zip(self._models, self._plans):
+            if model is params:
+                return plan
+        return self._sharding_plan
+
+    def register_for_checkpointing(self, *objects) -> None:
+        """Objects with ``state_dict``/``load_state_dict`` that
+        ``save_state``/``load_state`` cover (``custom_checkpoint_<i>``)."""
+        for obj in objects:
+            if not (hasattr(obj, "state_dict") and hasattr(obj, "load_state_dict")):
+                raise ValueError(f"{obj} lacks state_dict/load_state_dict")
+            self._custom_objects.append(obj)
+
+    def register_save_state_pre_hook(self, hook: Callable) -> RemovableHandle:
+        """``hook(models, output_dir)`` runs at the start of every
+        :meth:`save_state`, with the resolved directory."""
+        handle = RemovableHandle(self._save_state_pre_hooks)
+        self._save_state_pre_hooks[handle.id] = hook
+        return handle
+
+    def register_load_state_pre_hook(self, hook: Callable) -> RemovableHandle:
+        """``hook(models, input_dir)`` runs at the start of every
+        :meth:`load_state`, with the resolved directory."""
+        handle = RemovableHandle(self._load_state_pre_hooks)
+        self._load_state_pre_hooks[handle.id] = hook
+        return handle
+
+    def save_state(self, output_dir: Optional[str] = None, params=None, opt_state=None,
+                   blocking: Optional[bool] = None, **kwargs) -> str:
+        """A resumable checkpoint of the prepared state (or of ``params`` and
+        the optimizer of ``opt_state``) in ``output_dir`` (``checkpoint_<i>``
+        under the project dir with automatic naming). Blocking by default
+        (``CheckpointConfig.async_save`` flips it): with ``blocking=False``
+        it returns once every byte is on the host, and the writer thread
+        writes and commits; the directory is on disk after
+        :meth:`wait_for_checkpoint`. Either way the save is
+        crash-consistent (see :mod:`.checkpointing`). Returns the final
+        directory; :attr:`last_checkpoint` holds the save's timings."""
+        from .checkpointing import save_accelerator_state, snapshot_accelerator_state
+
+        if blocking is None:
+            blocking = not self.checkpoint_config.async_save
+        kwargs.setdefault("save_on_each_node", self.checkpoint_config.save_on_each_node)
+        if blocking:
+            if self._checkpoint_manager is not None:
+                self._checkpoint_manager.drain()  # saves land in call order
+            return save_accelerator_state(self, output_dir=output_dir, params=params,
+                                          opt_state=opt_state, **kwargs)
+        if self._checkpoint_manager is None:
+            from .checkpoint_async import CheckpointManager
+
+            self._checkpoint_manager = CheckpointManager(self.checkpoint_config.max_in_flight)
+        manager = self._checkpoint_manager
+        manager.check_error()
+        manager.reserve_slot()
+        try:
+            snap = snapshot_accelerator_state(self, output_dir=output_dir, params=params,
+                                              opt_state=opt_state,
+                                              active_staging=manager.active_staging(), **kwargs)
+            self.last_checkpoint = snap
+            return manager.submit(snap)
+        except BaseException:
+            manager.release_slot()
+            raise
+
+    def wait_for_checkpoint(self, timeout: Optional[float] = None) -> None:
+        """Wait until every async save has committed; raises the first
+        writer error."""
+        if self._checkpoint_manager is not None:
+            self._checkpoint_manager.drain(timeout=timeout)
+
+    @property
+    def resume_from_checkpoint(self) -> Optional[str]:
+        """``ACCELERATE_RESUME_FROM_CHECKPOINT`` (``"latest"`` or a
+        directory), or None when no resume was asked for."""
+        raw = os.environ.get("ACCELERATE_RESUME_FROM_CHECKPOINT", "").strip()
+        return raw or None
+
+    def load_state(self, input_dir: Optional[str] = None, params=None, opt_state=None,
+                   **kwargs):
+        """Restore a checkpoint into the prepared state in place
+        (:func:`~.checkpointing.load_accelerator_state`); ``None`` or
+        ``"latest"`` takes the newest committed ``checkpoint_<i>`` of the
+        project dir. ``elastic=True`` re-shards across ``dp_replicate``
+        widths. An async save in flight commits first."""
+        from .checkpointing import load_accelerator_state
+
+        if input_dir == "latest":
+            input_dir = None
+        self.wait_for_checkpoint()
+        return load_accelerator_state(self, input_dir=input_dir, params=params,
+                                      opt_state=opt_state, **kwargs)
+
+    def get_state_dict(self, params, unwrap: bool = True):
+        """``params`` as whole CPU tensors of their own (each gathered over
+        the mesh when the plan splits it): copies, which later steps do not
+        change."""
+        plan = self._plan_for(params)
+        if plan is not None and plan.distributed:
+            params = plan.gather_params_no_grad(params)
+        return _tree_map(lambda t: t.detach().to("cpu", copy=True)
+                         if isinstance(t, torch.Tensor) else t, params)
+
+    def save_model(self, params, save_directory: str, max_shard_size="10GB",
+                   safe_serialization: bool = True) -> list:
+        """``params`` (gathered whole) as safetensors or npz
+        (:func:`~.checkpointing.save_model`), written by the main process;
+        returns the files (none on the other processes)."""
+        from .checkpointing import save_model
+
+        full = self.get_state_dict(params)
+        written = []
+        if self.is_main_process:
+            written = save_model(full, save_directory, max_shard_size=max_shard_size,
+                                 safe_serialization=safe_serialization)
+        self.wait_for_everyone()
+        return written
+
+    # ------------------------------------------------------------ trackers --
+    def init_trackers(self, project_name: str, config: Optional[dict] = None,
+                      init_kwargs: Optional[dict] = None) -> None:
+        """Start the trackers of ``log_with`` (:func:`~.tracking.
+        filter_trackers`), logging under the project's ``logging_dir``."""
+        from .tracking import filter_trackers
+
+        self.trackers = filter_trackers(self.log_with, project_name,
+                                        self.project_configuration.logging_dir, config,
+                                        init_kwargs or {})
+
+    def get_tracker(self, name: str, unwrap: bool = False):
+        for tracker in self.trackers:
+            if getattr(tracker, "name", None) == name:
+                return tracker.tracker if unwrap else tracker
+        raise ValueError(f"no tracker named {name!r} (have {[t.name for t in self.trackers]})")
+
+    def log(self, values: dict, step: Optional[int] = None,
+            log_kwargs: Optional[dict] = None) -> None:
+        if self.is_main_process:
+            for tracker in self.trackers:
+                tracker.log(values, step=step, **((log_kwargs or {}).get(tracker.name, {})))
+
+    def log_images(self, values: dict, step: Optional[int] = None,
+                   log_kwargs: Optional[dict] = None) -> None:
+        if self.is_main_process:
+            for tracker in self.trackers:
+                tracker.log_images(values, step=step,
+                                   **((log_kwargs or {}).get(tracker.name, {})))
+
+    def log_table(self, table_name: str, columns: Optional[list] = None,
+                  data: Optional[list] = None, dataframe=None, step: Optional[int] = None,
+                  log_kwargs: Optional[dict] = None) -> None:
+        if self.is_main_process:
+            for tracker in self.trackers:
+                tracker.log_table(table_name, columns=columns, data=data, dataframe=dataframe,
+                                  step=step, **((log_kwargs or {}).get(tracker.name, {})))
+
+    def end_training(self) -> None:
+        """Drain and stop the checkpoint writer (its errors raise here),
+        finish the trackers, and wait for every process."""
+        if self._checkpoint_manager is not None:
+            self._checkpoint_manager.shutdown(drain=True)
+            self._checkpoint_manager = None
+        if self.is_main_process:
+            for tracker in self.trackers:
+                tracker.finish()
+        self.wait_for_everyone()
+
+    def __del__(self):
+        # an interpreter exiting with an async save in flight must not tear
+        # its write (the writer is a daemon thread)
+        try:
+            manager = getattr(self, "_checkpoint_manager", None)
+            if manager is not None:
+                manager.shutdown(drain=True)
+        except Exception:
+            pass

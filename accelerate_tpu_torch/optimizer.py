@@ -763,6 +763,72 @@ class AcceleratedOptimizer:
         if self.optimizer is not None:
             self.optimizer.zero_grad(set_to_none=set_to_none)
 
+    def update(self, grads, opt_state, params):
+        """The JAX package's pure ``update``: ``(updates, new_state)`` for
+        one update from ``grads`` (a tree like ``params``), leaving
+        ``params`` and ``opt_state`` (:attr:`opt_state`) untouched. The
+        step runs on copies of the params and of the torch optimizer;
+        ``updates`` is the new copy less ``params`` in each param's dtype
+        (what ``optax.apply_updates`` adds: exact whenever the two lie
+        within a factor of two of each other, as one step's do), and
+        ``new_state`` the copy's ``state_dict()``. One process's unsharded
+        state, one update a call (no accumulation window)."""
+        import copy
+
+        from .utils.operations import _tree_map
+
+        if self.optimizer is None:
+            raise ValueError("the optimizer is not bound to params: prepare it with them")
+        if opt_state is not self.opt_state:
+            raise ValueError("opt_state is not this optimizer's state")
+        if (self.zero1 is not None or self.zero1_rows is not None or self.offload is not None
+                or (self.plan is not None and self.plan.distributed)
+                or self.accumulation_steps > 1):
+            raise NotImplementedError("update() takes one process's unsharded, on-device state "
+                                      "and no accumulation window; the prepared step updates "
+                                      "the others")
+        bound = self.params
+        leaves = param_leaves(params)
+        if len(leaves) != len(bound) or any(a is not b for a, b in zip(leaves, bound)):
+            raise ValueError("params are not the tensors the optimizer was prepared with")
+        with torch.no_grad():
+            clones = [p.detach().clone() for p in bound]
+            opt = copy.deepcopy(self.optimizer, {id(p): c for p, c in zip(bound, clones)})
+            if self.schedule is not None:
+                lr = float(self.schedule(self.gradient_step))
+                for group in opt.param_groups:
+                    group["lr"] = lr
+            grads = [g.detach() for g in param_leaves(grads)]
+            for transform in self.transforms:
+                grads = transform(grads, _local_leaf_sumsq)
+            if getattr(opt, "takes_grads", False):
+                opt.step(grads=grads)
+            else:
+                for c, g in zip(clones, grads):
+                    if c.is_floating_point():
+                        c.grad = g.to(c.dtype)
+                opt.step()
+            deltas = iter([c - p.detach() for c, p in zip(clones, bound)])
+        return _tree_map(lambda _: next(deltas), params), opt.state_dict()
+
+    def sync_from_params(self) -> None:
+        """Refresh the copies of the params the optimizer owns (the fused
+        ZeRO-1 chunks, the annotated ZeRO-1 rows) from the params, after
+        the params were written in place (a checkpoint load)."""
+        if self.optimizer is None:
+            return
+        with torch.no_grad():
+            if self.zero1 is not None:
+                z = self.zero1
+                buckets = z.plan.bucket_tree([p.detach() for p in z.params])
+                for chunk, name in zip(z.chunks, z.plan.bucket_names):
+                    chunk.copy_(z._my_chunk(buckets[name], name))
+            if self.zero1_rows is not None:
+                z = self.zero1_rows
+                for p, rows, owned in zip(z.params, z.rows, z.owned):
+                    if rows is not None:
+                        owned.copy_(p.detach()[rows])
+
     # ------------------------------------------------------- loss scaling --
     def init_loss_scale(self, config, device) -> None:
         """Start the fp16 loss scale at ``config.init_scale`` (once: a scale

@@ -782,6 +782,95 @@ def check_mesh_train(accelerator, tmpdir: str):
     accelerator.wait_for_everyone()
 
 
+# the sharded checkpoint legs at 4 ranks: (name, ParallelismConfig kwargs,
+# fused ZeRO-1, optimizer); CKPT_STEPS steps with a save after CKPT_SAVE_AT
+CKPT_LEGS = (
+    ("dp2_shard2", {"dp_replicate_size": 2, "dp_shard_size": 2}, False, "adafactor"),
+    ("zero1_dp4", {"dp_replicate_size": 4}, True, "adamw"),
+)
+CKPT_STEPS, CKPT_SAVE_AT = 4, 2
+
+
+def _ckpt_setup(params_np: dict, pc_kwargs: dict, zero1: bool, factory: str, device="cpu"):
+    from accelerate_tpu_torch import Accelerator
+    from accelerate_tpu_torch.data_loader import GlobalBatchAssembler
+    from accelerate_tpu_torch.models import transformer as tt
+    from accelerate_tpu_torch.parallelism_config import ParallelismConfig
+    from accelerate_tpu_torch.state import AcceleratorState, GradientState
+    from accelerate_tpu_torch.utils.dataclasses import DeepSpeedPlugin
+
+    AcceleratorState._reset_state()
+    GradientState._reset_state()
+    cfg = _llama_config(params_np)
+    acc = Accelerator(device=device, parallelism_config=ParallelismConfig(**pc_kwargs),
+                      deepspeed_plugin=DeepSpeedPlugin(zero_stage=1) if zero1 else None)
+    params, opt = acc.prepare(params_np, _factory(factory))
+    step = acc.prepare_train_step(lambda p, b: tt.llama_loss(p, b, cfg, mesh=acc.mesh))
+    return acc, params, opt, step, GlobalBatchAssembler(acc.mesh, device=acc.device)
+
+
+def ckpt_leg(params_np: dict, batches: dict, pc_kwargs: dict, zero1: bool, factory: str,
+             ckpt_dir: str, device="cpu") -> dict:
+    """``CKPT_STEPS`` steps of tiny Llama with a ``save_state`` into
+    ``ckpt_dir`` after ``CKPT_SAVE_AT`` (sharded: each rank its blocks);
+    then a fresh ``Accelerator`` on zeroed params loads it and takes the
+    steps after the save. Returns both runs' losses, the whole params at
+    the save (``saved``), the bytes this rank wrote and whether the save
+    was sharded."""
+    from accelerate_tpu_torch.parallel.sharding import _map_with_path
+
+    acc, params, opt, step, assembler = _ckpt_setup(params_np, pc_kwargs, zero1, factory,
+                                                    device)
+
+    def batch(k):
+        return assembler.to_global(assembler.local_block({n: b[k] for n, b in batches.items()}))
+
+    out = {"losses": [], "resumed": []}
+    for k in range(CKPT_STEPS):
+        if k == CKPT_SAVE_AT:
+            acc.save_state(ckpt_dir)
+            out["bytes"] = acc.last_checkpoint.nbytes
+            out["sharded"] = acc.last_checkpoint.sharded
+            saved = {}
+            _map_with_path(lambda path, x: saved.__setitem__(path, x.numpy()),
+                           acc.get_state_dict(params))
+            out["saved"] = saved
+        params, _, metrics = step(params, opt.opt_state, batch(k))
+        out["losses"].append(float(metrics["loss"]))
+    from accelerate_tpu_torch.utils.operations import _tree_map
+
+    acc, params, opt, step, assembler = _ckpt_setup(_tree_map(np.zeros_like, params_np),
+                                                    pc_kwargs, zero1, factory, device)
+    acc.load_state(ckpt_dir)
+    for k in range(CKPT_SAVE_AT, CKPT_STEPS):
+        params, _, metrics = step(params, opt.opt_state, batch(k))
+        out["resumed"].append(float(metrics["loss"]))
+    return out
+
+
+def check_mesh_ckpt(accelerator, tmpdir: str):
+    """The ``CKPT_LEGS`` on ``llama_params.npz`` and ``llama_batches.npz``,
+    each into ``ckpt_<leg>``; the main process writes each leg's params at
+    the save into ``ckpt_<leg>_saved.npz`` and ``mesh_ckpt.json``."""
+    from accelerate_tpu_torch.utils import operations as ops
+
+    params_np = _read_tree(os.path.join(tmpdir, "llama_params.npz"))
+    with np.load(os.path.join(tmpdir, "llama_batches.npz")) as f:
+        batches = {k: f[k][:CKPT_STEPS] for k in f.files}
+    report = {}
+    for name, pc_kwargs, zero1, factory in CKPT_LEGS:
+        out = ckpt_leg(params_np, batches, pc_kwargs, zero1, factory,
+                       os.path.join(tmpdir, f"ckpt_{name}"))
+        report[name] = {"losses": out["losses"], "resumed": out["resumed"],
+                        "sharded": out["sharded"], "bytes": ops.gather_object(out["bytes"])}
+        if accelerator.is_main_process:
+            np.savez(os.path.join(tmpdir, f"ckpt_{name}_saved.npz"), **out["saved"])
+    if accelerator.is_main_process:
+        with open(os.path.join(tmpdir, "mesh_ckpt.json"), "w") as f:
+            json.dump(report, f)
+    accelerator.wait_for_everyone()
+
+
 # the MoE Llama's legs at 4 ranks (tp 2 with no tp rules fills a mesh that
 # needs only 2: its ranks compute the same rows alike), with moe_shard_rules
 MOE_LEGS = (
@@ -1056,6 +1145,8 @@ def main():
             check_training(accelerator, args.tmpdir)
         elif scenario == "mesh_train":
             check_mesh_train(accelerator, args.tmpdir)
+        elif scenario == "mesh_ckpt":
+            check_mesh_ckpt(accelerator, args.tmpdir)
         elif scenario == "mesh_moe":
             check_mesh_moe(accelerator, args.tmpdir)
         elif scenario == "zoo_train":

@@ -22,6 +22,9 @@ from typing import Any, Callable, Optional, Union
 import torch
 
 __all__ = [
+    "AutocastConfig",
+    "AutocastKwargs",
+    "CheckpointConfig",
     "DDPCommunicationHookType",
     "DataLoaderConfiguration",
     "DeepSpeedPlugin",
@@ -31,14 +34,18 @@ __all__ = [
     "DummyScheduler",
     "FullyShardedDataParallelPlugin",
     "GradScalerConfig",
+    "GradScalerKwargs",
     "GradientAccumulationPlugin",
     "HfDeepSpeedConfig",
     "InitProcessGroupKwargs",
     "KwargsHandler",
+    "LoggerType",
     "MegatronLMPlugin",
     "MixedPrecisionPolicy",
     "PrecisionType",
+    "ProjectConfiguration",
     "RNGType",
+    "SaveFormat",
     "deepspeed_required",
     "disable_fsdp_ram_efficient_loading",
     "enable_fsdp_ram_efficient_loading",
@@ -81,6 +88,38 @@ class RNGType(str, Enum):
     PYTHON = "python"
     TORCH = "torch"
     GENERATOR = "generator"
+
+    def __str__(self) -> str:
+        return self.value
+
+
+class LoggerType(str, Enum):
+    """The trackers by name (the JAX package's ``LoggerType``)."""
+
+    ALL = "all"
+    TENSORBOARD = "tensorboard"
+    WANDB = "wandb"
+    MLFLOW = "mlflow"
+    COMETML = "comet_ml"
+    AIM = "aim"
+    CLEARML = "clearml"
+    DVCLIVE = "dvclive"
+    SWANLAB = "swanlab"
+    TRACKIO = "trackio"
+    JSONL = "jsonl"
+
+    def __str__(self) -> str:
+        return self.value
+
+
+class SaveFormat(str, Enum):
+    """The JAX package's ``SaveFormat`` names (the port writes ``npz`` and
+    ``safetensors``)."""
+
+    MSGPACK = "msgpack"
+    SAFETENSORS = "safetensors"
+    NUMPY = "npz"
+    ORBAX = "orbax"
 
     def __str__(self) -> str:
         return self.value
@@ -258,6 +297,70 @@ class KwargsHandler:
         default = self.__class__()
         return {f.name: getattr(self, f.name) for f in fields(self)
                 if getattr(self, f.name) != getattr(default, f.name)}
+
+
+@dataclass
+class ProjectConfiguration(KwargsHandler):
+    """Where checkpoints and logs go (the JAX package's): ``project_dir``,
+    ``logging_dir`` (the project dir unless given), automatic
+    ``checkpoint_<i>`` naming with its ``iteration`` counter, and the
+    ``total_limit`` of automatically named checkpoints kept."""
+
+    project_dir: Optional[str] = None
+    logging_dir: Optional[str] = None
+    automatic_checkpoint_naming: bool = False
+    total_limit: Optional[int] = None
+    iteration: int = 0
+    save_on_each_node: bool = False
+
+    def set_directories(self, project_dir: Optional[str] = None) -> None:
+        self.project_dir = project_dir
+        if self.logging_dir is None:
+            self.logging_dir = project_dir
+
+    def __post_init__(self):
+        if self.logging_dir is None:
+            self.logging_dir = self.project_dir
+
+
+@dataclass
+class CheckpointConfig(KwargsHandler):
+    """Asynchronous checkpointing (the JAX package's). ``async_save``: the
+    default of ``Accelerator.save_state``'s ``blocking`` (``blocking=not
+    async_save``), seeded from ``ACCELERATE_ASYNC_CHECKPOINT``; an async
+    save returns after the snapshot to host memory and one writer thread
+    writes and commits it. ``max_in_flight``: how many snapshots may be
+    queued or writing at once (a further save waits for a slot).
+    ``save_on_each_node``: the default of ``save_state``'s keyword."""
+
+    async_save: bool = field(
+        default_factory=lambda: _env_flag("ACCELERATE_ASYNC_CHECKPOINT"))
+    max_in_flight: int = 1
+    save_on_each_node: bool = False
+
+    def __post_init__(self):
+        if self.max_in_flight < 1:
+            raise ValueError(f"max_in_flight must be >= 1, got {self.max_in_flight}")
+
+
+@dataclass
+class AutocastConfig(KwargsHandler):
+    """Scoped opt-out of the compute policy (the JAX package's): train
+    steps built inside ``Accelerator.autocast(AutocastConfig(enabled=
+    False))`` compute in the param dtype; steps built before keep theirs."""
+
+    enabled: bool = True
+    cache_enabled: bool = True
+
+
+#: the JAX package's spellings of the same handlers
+AutocastKwargs = AutocastConfig
+
+
+def _env_flag(key: str) -> bool:
+    from .environment import parse_flag_from_env
+
+    return parse_flag_from_env(key, False)
 
 
 def _num_processes() -> int:
@@ -626,3 +729,6 @@ def enable_fsdp_ram_efficient_loading() -> None:
 
 def disable_fsdp_ram_efficient_loading() -> None:
     os.environ["FSDP_CPU_RAM_EFFICIENT_LOADING"] = "false"
+
+
+GradScalerKwargs = GradScalerConfig

@@ -57,6 +57,7 @@ __all__ = [
     "lookup_device",
     "named_parameters",
     "retie_parameters",
+    "save_safetensors",
     "total_byte_size",
     "unflatten_parameters",
 ]
@@ -498,6 +499,63 @@ def load_safetensors(path: str, names=None) -> dict:
         if missing:
             raise KeyError(f"{path} holds no tensor {missing[0]!r}")
     return out
+
+
+# numpy dtype → safetensors dtype name (torch bf16 and the fp8 formats are
+# taken by their torch dtype below)
+_ST_NAMES = {np.dtype(np.float64): "F64", np.dtype(np.float32): "F32",
+             np.dtype(np.float16): "F16", np.dtype(np.int64): "I64", np.dtype(np.int32): "I32",
+             np.dtype(np.int16): "I16", np.dtype(np.int8): "I8", np.dtype(np.uint8): "U8",
+             np.dtype(np.bool_): "BOOL", np.dtype(np.uint16): "U16",
+             np.dtype(np.uint32): "U32", np.dtype(np.uint64): "U64"}
+_ST_TORCH_NAMES = {torch.bfloat16: "BF16", torch.float8_e4m3fn: "F8_E4M3",
+                   torch.float8_e5m2: "F8_E5M2"}
+
+
+def _st_bytes(value) -> tuple:
+    """``(dtype name, shape, little-endian bytes)`` of a tensor or array."""
+    if isinstance(value, torch.Tensor):
+        t = value.detach().cpu().contiguous()
+        name = _ST_TORCH_NAMES.get(t.dtype)
+        if name is not None:
+            return name, list(t.shape), t.view(torch.uint8).numpy().tobytes()
+        value = t.numpy()
+    arr = np.asarray(value)
+    if arr.dtype == np.dtype("V2"):  # bf16 bits, as np.savez keeps them
+        return "BF16", list(arr.shape), np.ascontiguousarray(arr).tobytes()
+    if arr.dtype not in _ST_NAMES:
+        raise ValueError(f"safetensors cannot hold dtype {arr.dtype}")
+    le = np.ascontiguousarray(arr, dtype=arr.dtype.newbyteorder("<"))
+    return _ST_NAMES[arr.dtype], list(arr.shape), le.tobytes()
+
+
+def save_safetensors(tensors: Mapping[str, Any], path: str,
+                     metadata: Optional[Mapping[str, str]] = None) -> None:
+    """Write ``{name: tensor or array}`` as a ``.safetensors`` file (the
+    writer beside :func:`load_safetensors`, so no ``safetensors`` package is
+    needed): an 8-byte little-endian header length, the JSON header padded
+    with spaces to a multiple of 8, then each tensor's little-endian bytes
+    back to back, in name order. A bf16 tensor (or ``|V2`` array) is
+    written as BF16."""
+    header: dict = {}
+    if metadata:
+        header["__metadata__"] = {str(k): str(v) for k, v in metadata.items()}
+    blobs, offset = [], 0
+    for name in sorted(tensors):
+        dtype, shape, data = _st_bytes(tensors[name])
+        header[name] = {"dtype": dtype, "shape": shape,
+                        "data_offsets": [offset, offset + len(data)]}
+        blobs.append(data)
+        offset += len(data)
+    raw = json.dumps(header, separators=(",", ":")).encode()
+    raw += b" " * (-len(raw) % 8)
+    tmp = f"{path}.{os.getpid()}.tmp"
+    with open(tmp, "wb") as f:
+        f.write(struct.pack("<Q", len(raw)))
+        f.write(raw)
+        for blob in blobs:
+            f.write(blob)
+    os.replace(tmp, path)
 
 
 def load_state_dict(checkpoint_file: str, device_map: Optional[dict] = None) -> dict:

@@ -28,7 +28,8 @@ from typing import Iterable
 import numpy as np
 import torch
 
-__all__ = ["fold_in", "gumbel", "prng_key", "random_bits", "synchronize_rng_state",
+__all__ = ["capture_rng_states", "fold_in", "get_rng_key", "gumbel", "prng_key", "random_bits",
+           "restore_rng_states", "set_global_key", "synchronize_rng_state",
            "synchronize_rng_states", "threefry2x32", "uniform"]
 
 _MASK = 0xFFFFFFFF
@@ -36,6 +37,10 @@ _ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
 _PARITY = 0x1BD11BDA
 _TINY = torch.finfo(torch.float32).tiny
 _ONE_BITS = 0x3F800000  # 1.0f
+
+# the global key ``set_seed`` sets, as the JAX package's ``_GLOBAL_KEY``:
+# ``PRNGKey(seed)`` as a uint32 numpy array [2] (None before a seed)
+_GLOBAL_KEY = None
 
 
 def _rotl(x: torch.Tensor, r: int) -> torch.Tensor:
@@ -101,7 +106,9 @@ def synchronize_rng_state(rng_type=None, generator=None) -> None:
     """Every process takes rank 0's state of one host stream (``numpy`` by
     default; ``python``, ``torch`` or ``generator``, the given
     ``torch.Generator``). The JAX package's ``jax`` stream is its global
-    key, which the port does not keep: it raises."""
+    key: the port keeps one (:func:`get_rng_key`, for checkpoints), but
+    its draws take explicit keys (:func:`prng_key`), so that stream
+    raises."""
     import torch.distributed as dist
 
     from .dataclasses import RNGType
@@ -109,8 +116,8 @@ def synchronize_rng_state(rng_type=None, generator=None) -> None:
 
     rng_type = RNGType(str(rng_type)) if rng_type is not None else RNGType.NUMPY
     if rng_type == RNGType.JAX:
-        raise ValueError("rng_types: the 'jax' stream is the JAX package's global key, which "
-                         "the port does not keep (its keys are explicit, utils.random.prng_key)")
+        raise ValueError("rng_types: the 'jax' stream is the JAX package's global key; the "
+                         "port's draws take explicit keys (utils.random.prng_key)")
     if not (dist.is_available() and dist.is_initialized()) or dist.get_world_size() == 1:
         return
     if rng_type == RNGType.PYTHON:
@@ -127,3 +134,41 @@ def synchronize_rng_states(rng_types: Iterable, generator=None) -> None:
     """:func:`synchronize_rng_state` for each of ``rng_types``."""
     for rng_type in rng_types:
         synchronize_rng_state(rng_type, generator=generator)
+
+
+def set_global_key(seed: int) -> None:
+    """Set the global key to ``jax.random.PRNGKey(seed)`` (``set_seed``
+    calls this)."""
+    global _GLOBAL_KEY
+    _GLOBAL_KEY = np.array([0, int(seed) & _MASK], dtype=np.uint32)
+
+
+def get_rng_key():
+    """The global key (a uint32 numpy array ``[2]``), or None before a
+    seed."""
+    return _GLOBAL_KEY
+
+
+def capture_rng_states(include_torch: bool = True) -> dict:
+    """Every host random stream and the global key, for a checkpoint, under
+    the JAX package's names: ``python``, ``numpy``, ``jax_key`` (a uint32
+    numpy array or None) and ``torch`` (the CPU generator's state). A
+    pickle of it holds numpy and torch objects only, so either package
+    restores the other's."""
+    states = {"python": random.getstate(), "numpy": np.random.get_state(),
+              "jax_key": None if _GLOBAL_KEY is None else np.array(_GLOBAL_KEY, dtype=np.uint32)}
+    if include_torch:
+        states["torch"] = torch.get_rng_state()
+    return states
+
+
+def restore_rng_states(states: dict) -> None:
+    """Inverse of :func:`capture_rng_states` (a missing ``torch`` entry
+    leaves torch's generator as it is)."""
+    global _GLOBAL_KEY
+    random.setstate(states["python"])
+    np.random.set_state(states["numpy"])
+    if states.get("jax_key") is not None:
+        _GLOBAL_KEY = np.asarray(states["jax_key"]).astype(np.uint32)
+    if states.get("torch") is not None:
+        torch.set_rng_state(torch.as_tensor(states["torch"], dtype=torch.uint8))

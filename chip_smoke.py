@@ -147,8 +147,18 @@ csrc`` at first use) and no network. Phases, each of which fails the run:
    (``--mesh-decode-child``, ``llama_shard_rules``): f32 greedy 8 x 128 +
    64 and the engine's requests (f32 and bf16, #6/#7 on each rank's 16/4
    heads) held to one-process runs at near-ties, with per-rank bytes, ms a
-   decode step, the collectives' bytes and a planted fault;
-9. the card's name and power limit, one JSON line of kernel records, and
+   decode step, the collectives' bytes and a planted fault; the dp_shard 2
+   leg of config #4 also saves sharded, steps, loads and steps again
+   (bitwise), and that checkpoint loads into one process;
+9. checkpoints (``phase_checkpoint``): config #4 at full width and depth
+   saved after 2 steps and resumed in a fresh ``Accelerator`` to step 3
+   bitwise; an async save with 2 steps at once behind it (stall, writer
+   time, step ms with a writer in flight, device-to-host and disk GB/s),
+   its files equal to a blocking save's; ``save_model`` and
+   ``load_checkpoint_in_model`` bitwise; planted faults (a flipped byte in
+   a shard file, a newest directory left uncommitted) caught; phase_train
+   logs its steps through the JSONL tracker and reads them back;
+10. the card's name and power limit, one JSON line of kernel records, and
    a last line ``{"ok": true, "device": {...}}``.
 
 Without a CUDA device, or without the package beside it, it exits non-zero
@@ -2077,7 +2087,32 @@ def phase_train(dev):
           + " ".join(f"{x:.4f}" for x in losses.tolist()))
     print(f"[train] launches on the main path ({steps} steps): {launches}")
     _profile_step(loop, params, state, stack_batches([batches[0]]), "train-profile", 5)
+    _log_read_back(losses.tolist())
     return launches
+
+
+def _log_read_back(losses):
+    """phase_train's losses through ``init_trackers``/``log`` into the JSONL
+    tracker, read back from its file: one ``log`` line a step, equal."""
+    import tempfile
+
+    from accelerate_tpu_torch import Accelerator
+
+    with tempfile.TemporaryDirectory(prefix="train_log_") as tmp:
+        _reset_states()
+        acc = Accelerator(device="cuda", project_dir=tmp, log_with="jsonl")
+        acc.init_trackers("train", config={"lr": TRAIN_LR, "batch": TRAIN_BATCH})
+        for i, loss in enumerate(losses):
+            acc.log({"loss": loss}, step=i)
+        acc.end_training()
+        with open(os.path.join(tmp, "train.jsonl")) as f:
+            lines = [json.loads(line) for line in f]
+    logged = [line for line in lines if line["_type"] == "log"]
+    same = [line["loss"] for line in logged] == losses and [line["step"] for line in logged] \
+        == list(range(len(losses)))
+    print(f"[train] JSONL tracker: {len(lines)} lines ({len(logged)} log lines, config "
+          f"{lines[0].get('lr')!r}); losses read back equal: {same}")
+    check(lines[0]["_type"] == "config" and same, f"[train] the JSONL log differs: {lines}")
 
 
 def _profile_step(loop, params, state, one, tag, n_plain, match=None):
@@ -4277,15 +4312,115 @@ def _mesh_lm_leg(dev, pc_kwargs, fault=None, steps=MESH_LM_STEPS):
     return out
 
 
+def _mesh_ckpt_leg(dev, ckpt_dir: str) -> dict:
+    """Config #4 at ``MESH_LM_LAYERS`` under dp_shard 2 (this process's
+    rank): 2 steps, a sharded ``save_state`` into ``ckpt_dir`` (each rank
+    its blocks), step 3, ``load_state``, step 3 again: the loss and the
+    rank's blocks bitwise."""
+    from accelerate_tpu_torch import Accelerator, LlamaConfig, init_llama, llama_loss
+    from accelerate_tpu_torch.data_loader import GlobalBatchAssembler
+    from accelerate_tpu_torch.optimizer import adafactor, param_leaves
+    from accelerate_tpu_torch.parallelism_config import ParallelismConfig
+    from accelerate_tpu_torch.state import AcceleratorState, GradientState
+
+    AcceleratorState._reset_state()
+    GradientState._reset_state()
+    config = dataclasses.replace(LlamaConfig(**LM774M_KW), n_layers=MESH_LM_LAYERS)
+    acc = Accelerator(mixed_precision="no", rng_seed=0, device=dev,
+                      parallelism_config=ParallelismConfig(dp_shard_size=2))
+    init = init_llama(config, torch.Generator(device=dev).manual_seed(0), device=dev,
+                      dtype=torch.bfloat16)
+    params, opt = acc.prepare(init, adafactor(LM774M_LR))
+    del init
+    step = acc.prepare_train_step(
+        lambda p, b: llama_loss(p, b, config, remat="dots_no_batch", mesh=acc.mesh), opt)
+    ids = np.random.default_rng(0).integers(0, config.vocab_size,
+                                            (LM774M_K, LM774M_BATCH, config.max_seq_len))
+    assembler = GlobalBatchAssembler(acc.mesh, device=dev)
+    batches = [assembler.to_global(assembler.local_block(
+        {"input_ids": ids[k % LM774M_K].astype(np.int32)})) for k in range(3)]
+    state = opt.opt_state
+    for k in range(2):
+        params, state, m = step(params, state, batches[k])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    acc.save_state(ckpt_dir)
+    save_s = time.perf_counter() - t0
+    snap = acc.last_checkpoint
+    params, state, m = step(params, state, batches[2])
+    loss3 = float(m["loss"])
+    ref = [t.detach().clone() for t in param_leaves(params)]
+    t0 = time.perf_counter()
+    acc.load_state(ckpt_dir)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    params, state, m = step(params, state, batches[2])
+    again = float(m["loss"])
+    bitwise = all(torch.equal(a, b) for a, b in zip(param_leaves(params), ref))
+    out = {"loss3": loss3, "again": again, "bitwise": bitwise, "bytes": snap.nbytes,
+           "sharded": snap.sharded, "save_s": save_s, "load_s": load_s}
+    del params, opt, step, state, ref
+    torch.cuda.empty_cache()
+    return out
+
+
 def mesh_lm_child(tmp: str) -> int:
     """One of ``phase_mesh_lm774m``'s two processes: the sound leg under
     dp_shard 2, then each planted fault on a copy, one step (the first
-    step's gradient norms show both)."""
+    step's gradient norms show both), then the sharded checkpoint leg
+    (``_mesh_ckpt_leg``, into ``tmp/ckpt``)."""
     state = _join_two(tmp)
     report = {"dp_shard2": _mesh_lm_leg(state.device, {"dp_shard_size": 2})}
     report["faults"] = {fault: _mesh_lm_leg(state.device, {"dp_shard_size": 2}, fault, steps=1)
                         for fault in MESH_LM_FAULTS}
+    report["ckpt"] = _mesh_ckpt_leg(state.device, os.path.join(tmp, "ckpt"))
     return _leave_two(state, tmp, report)
+
+
+def _mesh_ckpt_one_process(dev, ckpt_dir: str, ranks: list) -> None:
+    """The dp_shard 2 ranks' sharded checkpoint loaded into one process
+    (params from another seed): every param bitwise ``consolidate_sharded``'s
+    array, and step 3 from it within ``MESH_LM_LOSS_RTOL`` of the ranks'
+    step 3."""
+    from accelerate_tpu_torch import Accelerator, LlamaConfig, init_llama, llama_loss
+    from accelerate_tpu_torch.optimizer import adafactor
+    from accelerate_tpu_torch.sharded_checkpoint import consolidate_sharded, flatten_with_path
+
+    for i, r in enumerate(ranks):
+        c = r["ckpt"]
+        print(f"[mesh-lm774m] sharded checkpoint, rank {i}: wrote {c['bytes'] / 1e9:.3f} GB "
+              f"(sharded {c['sharded']}) in {c['save_s']:.3f} s, loaded in {c['load_s']:.3f} s; "
+              f"step 3 loss {c['loss3']!r}, after the load {c['again']!r}; its blocks bitwise "
+              f"{c['bitwise']}")
+        check(c["sharded"] and c["bitwise"] and c["again"] == c["loss3"],
+              f"[mesh-lm774m] rank {i}: the sharded save did not resume bitwise: {c}")
+    _reset_states()
+    config = dataclasses.replace(LlamaConfig(**LM774M_KW), n_layers=MESH_LM_LAYERS)
+    acc = Accelerator(mixed_precision="no", rng_seed=0, device=dev)
+    init = init_llama(config, torch.Generator(device=dev).manual_seed(1), device=dev,
+                      dtype=torch.bfloat16)
+    params, opt = acc.prepare(init, adafactor(LM774M_LR))
+    del init
+    step = acc.prepare_train_step(lambda p, b: llama_loss(p, b, config, remat="dots_no_batch"),
+                                  opt)
+    acc.load_state(ckpt_dir)
+    full = consolidate_sharded(ckpt_dir, "model")
+    same = all(torch.equal(t.float().cpu(), torch.from_numpy(full[k]))
+               for k, t in flatten_with_path(params))
+    ids = np.random.default_rng(0).integers(0, config.vocab_size,
+                                            (LM774M_K, LM774M_BATCH, config.max_seq_len))
+    _, _, m = step(params, opt.opt_state,
+                   {"input_ids": torch.from_numpy(ids[0].astype(np.int32)).to(dev)})
+    loss = float(m["loss"])
+    err = abs(loss - ranks[0]["ckpt"]["loss3"]) / abs(ranks[0]["ckpt"]["loss3"])
+    print(f"[mesh-lm774m] that checkpoint in one process: params bitwise consolidate_sharded's "
+          f"{same}; step 3 loss {loss!r} (rel err {err:.3e} from the ranks', bar "
+          f"{MESH_LM_LOSS_RTOL:g})")
+    check(same and err <= MESH_LM_LOSS_RTOL, f"[mesh-lm774m] one-process load: bitwise {same}, "
+                                             f"loss rel err {err}")
+    del params, opt, step, full
+    _reset_states()
+    torch.cuda.empty_cache()
 
 
 def _lm_errs(leg, ref):
@@ -4324,6 +4459,7 @@ def phase_mesh_lm774m(dev):
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory(prefix="mesh_lm_") as tmp:
         ranks = _run_two("--mesh-lm-child", tmp, "mesh-lm774m", MESH_2RANK_TIMEOUT_S)
+        _mesh_ckpt_one_process(dev, os.path.join(tmp, "ckpt"), ranks)
     want = {"flash_attention_fwd": 2 * config.n_layers * MESH_LM_STEPS,
             "flash_attention_dq": config.n_layers * MESH_LM_STEPS,
             "flash_attention_dkdv": config.n_layers * MESH_LM_STEPS}
@@ -5107,12 +5243,11 @@ def _offload_leg(dev, acc, plugin, config, batches, offload: bool, fault=None,
         out["profile"] = (prof, opt.offload.stats["h2d_bytes"] - h2d0,
                           opt.offload.stats["d2h_bytes"] - d2h0)
     # nothing of this leg may stay on the card during the next: the
-    # Accelerator keeps its prepared optimizers, which hold the params, their
-    # last gradients and the state
+    # Accelerator keeps what it prepared (the params, and the optimizers that
+    # hold their last gradients and the state) until free_memory
     opt.zero_grad(set_to_none=True)
-    acc._optimizers.remove(opt)
     del params, opt, step
-    torch.cuda.empty_cache()
+    acc.free_memory()
     return out
 
 
@@ -5226,6 +5361,227 @@ def phase_offload_opt(dev):
     check(f_err > OFFLOAD_PARAM_RTOL, "[offload-opt] the planted fault passes the equality bar")
     return off["launches"]
 
+# phase_checkpoint: config #4 at full width and depth in phase_lm774m's
+# recipe (bf16 params, adafactor(1e-4), flash, remat "dots_no_batch"), one
+# step a call through prepare_train_step on batches of default_rng(seed)
+CKPT_SEEDS = (0, 1, 2)  # the batches of steps 1-3
+CKPT_SHARD = "1GB"  # save_model's max_shard_size (the f32 export of 1.72 GB of bf16)
+
+
+def _ckpt_setup(dev, seed, project_dir):
+    from accelerate_tpu_torch import Accelerator, LlamaConfig, init_llama, llama_loss
+    from accelerate_tpu_torch.optimizer import adafactor
+
+    _reset_states()
+    config = LlamaConfig(**LM774M_KW)
+    acc = Accelerator(mixed_precision="no", rng_seed=0, device=dev, project_dir=project_dir)
+    init = init_llama(config, torch.Generator(device=dev).manual_seed(seed), device=dev,
+                      dtype=torch.bfloat16)
+    params, opt = acc.prepare(init, adafactor(LM774M_LR))
+    del init
+    step = acc.prepare_train_step(lambda p, b: llama_loss(p, b, config, remat="dots_no_batch"),
+                                  opt)
+    return acc, config, params, opt, step
+
+
+def _npz_arrays(path) -> dict:
+    with np.load(path, allow_pickle=False) as f:
+        return {k: f[k] for k in f.files}
+
+
+def _same_arrays(a: dict, b: dict) -> bool:
+    return a.keys() == b.keys() and all(
+        a[k].dtype == b[k].dtype and a[k].shape == b[k].shape and a[k].tobytes() == b[k].tobytes()
+        for k in a)
+
+
+def _pinned_pass_gbs(tensors) -> float:
+    """GB/s of one device-to-host pass of ``tensors`` into pinned buffers
+    (CUDA events around the copies)."""
+    host = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True) for t in tensors]
+    nbytes = sum(t.numel() * t.element_size() for t in tensors)
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    torch.cuda.synchronize()
+    ev[0].record()
+    for h, t in zip(host, tensors):
+        h.copy_(t, non_blocking=True)
+    ev[1].record()
+    torch.cuda.synchronize()
+    return nbytes / (ev[0].elapsed_time(ev[1]) * 1e-3) / 1e9
+
+
+def phase_checkpoint(dev):
+    """Checkpoints of config #4 at full width and depth: 2 steps, a
+    blocking ``save_state``, step 3; a fresh ``Accelerator`` with params
+    from another seed, ``load_state``, step 3 again: the loss and every
+    param bitwise, flash #1-#3 launched 2/1/1 times a layer. Then, on the
+    resumed run: 2 steps with no writer, a blocking save, an async save
+    followed at once by 2 steps (the snapshot stall, the writer's time,
+    the step ms with the writer in flight against none, device-to-host
+    GB/s against one pinned pass of the same tensors, disk write and
+    (warm) read GB/s, free disk before), and the async save's arrays equal
+    to the blocking save's, byte for byte, though the steps behind it
+    changed the params; ``save_model`` (``CKPT_SHARD`` shards) and
+    ``load_checkpoint_in_model`` bitwise; planted faults: a flipped byte
+    in a shard file raises ``CheckpointCorruptError`` naming it, and a
+    newest ``checkpoint_<i>`` without ``_COMMITTED`` is passed over by
+    ``load_state("latest")``."""
+    import shutil
+    import tempfile
+
+    from accelerate_tpu_torch.checkpointing import (
+        CheckpointCorruptError,
+        find_latest_checkpoint,
+        load_checkpoint_in_model,
+        load_flat,
+    )
+    from accelerate_tpu_torch.optimizer import param_leaves
+
+    tmp = tempfile.mkdtemp(prefix="ckpt_")
+    try:
+        free = shutil.disk_usage(tmp).free
+        acc, config, params, opt, step = _ckpt_setup(dev, 0, tmp)
+        batches = [_lm774m_batch(dev, config, seed) for seed in CKPT_SEEDS]
+        state = opt.opt_state
+        for k in range(2):
+            params, state, m = step(params, state, batches[k])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        dir_a = acc.save_state(os.path.join(tmp, "a"))
+        save_s = time.perf_counter() - t0
+        snap_a = acc.last_checkpoint
+        params, state, m = step(params, state, batches[2])
+        loss3 = float(m["loss"])
+        ref = [t.detach().clone() for t in param_leaves(params)]
+        del acc, params, opt, step, state, m
+        torch.cuda.empty_cache()
+
+        acc, config, params, opt, step = _ckpt_setup(dev, 1, tmp)
+        t0 = time.perf_counter()
+        acc.load_state(dir_a)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        _zero_flash_counters()
+        params, state, m = step(params, opt.opt_state, batches[2])
+        torch.cuda.synchronize()
+        launches = _flash_counts()
+        resumed = float(m["loss"])
+        bitwise = all(torch.equal(a, b) for a, b in zip(param_leaves(params), ref))
+        del ref
+        print(f"[checkpoint] config #4 ({config.n_layers} layers, dim {config.dim}, bf16 params, "
+              f"adafactor({LM774M_LR:g}), flash, remat 'dots_no_batch', batch {LM774M_BATCH} x "
+              f"{config.max_seq_len}); blocking save of {snap_a.nbytes / 1e9:.3f} GB after 2 "
+              f"steps: {save_s:.3f} s (snapshot {snap_a.snapshot_s:.3f} s, write "
+              f"{snap_a.write_s:.3f} s, commit {snap_a.commit_s:.3f} s); load into a fresh "
+              f"Accelerator (params from seed 1) {load_s:.3f} s")
+        print(f"[checkpoint] step 3: loss {loss3!r} uninterrupted, {resumed!r} resumed; params "
+              f"bitwise {bitwise}; launches in the resumed step {launches}")
+        want = {"flash_attention_fwd": 2 * config.n_layers,
+                "flash_attention_dq": config.n_layers, "flash_attention_dkdv": config.n_layers}
+        check(launches == want, f"[checkpoint] launches {launches}, want {want}")
+        check(resumed == loss3 and bitwise, f"[checkpoint] the resumed step 3 differs: loss "
+                                            f"{resumed!r} vs {loss3!r}, params bitwise {bitwise}")
+
+        def timed(n):
+            nonlocal params, state
+            walls = []
+            for k in range(n):
+                t0 = time.perf_counter()
+                params, state, _ = step(params, state, batches[k % len(batches)])
+                torch.cuda.synchronize()
+                walls.append(1e3 * (time.perf_counter() - t0))
+            return walls
+
+        plain_ms = timed(2)
+        dir_c = acc.save_state(os.path.join(tmp, "c"))
+        t0 = time.perf_counter()
+        dir_b = acc.save_state(os.path.join(tmp, "b"), blocking=False)
+        stall_s = time.perf_counter() - t0
+        snap_b = acc.last_checkpoint
+        inflight_ms = timed(2)
+        in_flight = acc._checkpoint_manager.pending()
+        t0 = time.perf_counter()
+        acc.wait_for_checkpoint()
+        drain_s = time.perf_counter() - t0
+        same = all(_same_arrays(_npz_arrays(os.path.join(dir_b, f)),
+                                _npz_arrays(os.path.join(dir_c, f)))
+                   for f in ("model.npz", "optimizer.npz"))
+        emb = _npz_arrays(os.path.join(dir_b, "model.npz"))["embed_tokens/embedding"]
+        live = params["embed_tokens"]["embedding"].detach().view(torch.int16).cpu().numpy()
+        moved = live.tobytes() != emb.tobytes()
+        leaves = param_leaves(params) + [v for st in opt.optimizer.state.values()
+                                         for v in st.values() if isinstance(v, torch.Tensor)]
+        pinned = _pinned_pass_gbs(leaves)
+        path = os.path.join(dir_b, "model.npz")
+        t0 = time.perf_counter()
+        load_flat(path)
+        read_gbs = os.path.getsize(path) / (time.perf_counter() - t0) / 1e9
+        write_bytes = sum(os.path.getsize(os.path.join(dir_b, f)) for f in os.listdir(dir_b))
+        print(f"[checkpoint] async save of {snap_b.nbytes / 1e9:.3f} GB: save_state returned in "
+              f"{stall_s:.3f} s (snapshot {snap_b.snapshot_s:.3f} s, device-to-host "
+              f"{snap_b.nbytes / snap_b.snapshot_s / 1e9:.2f} GB/s; one pinned pass of the same "
+              f"tensors alone {pinned:.2f} GB/s); writer {snap_b.write_s:.3f} s write + "
+              f"{snap_b.commit_s:.3f} s commit ({write_bytes / snap_b.write_s / 1e9:.2f} GB/s "
+              f"to disk), {in_flight} save(s) still in flight after the 2 steps, drain "
+              f"{drain_s:.3f} s; disk read {read_gbs:.2f} GB/s (warm); free disk before "
+              f"{free / 1e9:.1f} GB")
+        print(f"[checkpoint] step ms with no writer " + " ".join(f"{v:.1f}" for v in plain_ms)
+              + ", with the writer in flight " + " ".join(f"{v:.1f}" for v in inflight_ms)
+              + f"; async files equal the blocking save's byte for byte: {same}; the steps "
+              f"after it changed the params: {moved}")
+        check(same and moved, f"[checkpoint] the async save holds other bytes than the blocking "
+                              f"one (equal {same}) or the steps did not move the params ({moved})")
+        shutil.rmtree(dir_c)
+
+        t0 = time.perf_counter()
+        files = acc.save_model(params, os.path.join(tmp, "model"), max_shard_size=CKPT_SHARD)
+        export_s = time.perf_counter() - t0
+        back = load_checkpoint_in_model(params, os.path.join(tmp, "model"))
+        export_same = all(torch.equal(a, b) for a, b in zip(param_leaves(back), param_leaves(params)))
+        del back
+        torch.cuda.empty_cache()
+        print(f"[checkpoint] save_model(max_shard_size={CKPT_SHARD!r}): {len(files)} safetensors "
+              f"files, {sum(os.path.getsize(f) for f in files) / 1e9:.3f} GB (bf16 as f32) in "
+              f"{export_s:.3f} s; load_checkpoint_in_model bitwise {export_same}")
+        check(export_same and len(files) > 1, f"[checkpoint] save_model round trip: bitwise "
+                                              f"{export_same}, {len(files)} files")
+        shutil.rmtree(os.path.join(tmp, "model"))
+
+        dir_s = acc.save_state(os.path.join(tmp, "s"), sharded=True)
+        shard = os.path.join(dir_s, "model-shard-00000.bin")
+        with open(shard, "r+b") as f:
+            f.seek(os.path.getsize(shard) // 2)
+            byte = f.read(1)
+            f.seek(-1, 1)
+            f.write(bytes([byte[0] ^ 0xFF]))
+        try:
+            acc.load_state(dir_s)
+            caught = None
+        except CheckpointCorruptError as e:
+            caught = e.path
+        print(f"[checkpoint] planted fault: one byte flipped in {os.path.basename(shard)}; "
+              f"load_state raised CheckpointCorruptError naming {caught}")
+        check(caught == shard, f"[checkpoint] the flipped byte was not caught ({caught})")
+        shutil.rmtree(dir_s)
+
+        acc.project_configuration.automatic_checkpoint_naming = True
+        first = acc.save_state()
+        torn = os.path.join(os.path.dirname(first), "checkpoint_1")
+        shutil.copytree(first, torn)
+        os.remove(os.path.join(torn, "_COMMITTED"))
+        os.remove(os.path.join(torn, "model.npz"))
+        latest = find_latest_checkpoint(os.path.dirname(first))
+        acc.load_state("latest")
+        print(f"[checkpoint] planted fault: newest dir {os.path.basename(torn)} left uncommitted "
+              f"(no _COMMITTED, no model.npz); load_state('latest') took "
+              f"{os.path.basename(latest)}")
+        check(latest == first, f"[checkpoint] 'latest' took {latest}, not {first}")
+        acc.end_training()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    _reset_states()
+    torch.cuda.empty_cache()
+
 
 def _timed(phase, *args):
     """``phase(*args)``, with its wall seconds printed."""
@@ -5303,6 +5659,7 @@ def main() -> int:
     _timed(phase_lm774m_check, dev)
     lomo_launches = _timed(phase_lomo, dev)
     offload_opt_launches = _timed(phase_offload_opt, dev)
+    _timed(phase_checkpoint, dev)
     _timed(phase_resnet, dev)
     _timed(phase_t5, dev)
     moe_engine_launches, moe_train_launches, moe_leg = _timed(phase_moe, dev)

@@ -1,10 +1,14 @@
 """The CUDA kernels (paged attention, fused attention forward and backward,
 flash attention forward, dq and dk/dv) against their plain PyTorch
 versions, on the card (marker ``cuda``; skipped where no GPU is present);
-and two card-only properties of the offload paths: offloaded greedy
+two card-only properties of the offload paths: offloaded greedy
 decoding (pinned host memory, copies on a side stream) gives the resident
 path's tokens bit for bit, and ``remat="offload_dots"`` keeps its saved
-projections in pinned host memory.
+projections in pinned host memory; and two of checkpoints, which need no
+kernel: an async ``save_state`` owns its host bytes when it returns (the
+params changed on the card right after it do not reach the file), and bf16
+params on the card round-trip through ``model.npz`` (``|V2``) and the
+sharded format bitwise.
 
 This file imports no JAX, so on a machine with a GPU and no JAX it runs
 alone: ``python -m pytest --noconftest -p no:cacheprovider -m cuda
@@ -702,3 +706,53 @@ def test_offload_dots_saves_to_pinned_host_memory(dev, monkeypatch):
     assert launches == [2 * L, L, L]
     for a, b in zip(got, base):
         assert float((a - b).abs().max()) <= 1e-6 * float(b.abs().max())
+
+
+def _ckpt_acc(tmp_path):
+    from accelerate_tpu_torch import Accelerator
+    from accelerate_tpu_torch.state import AcceleratorState, GradientState
+
+    AcceleratorState._reset_state(reset_partial_state=True)
+    GradientState._reset_state()
+    return Accelerator(device="cuda", project_dir=str(tmp_path))
+
+
+def test_async_snapshot_owns_its_bytes(dev, tmp_path):
+    """``save_state(blocking=False)`` returns after the copies to pinned
+    host memory have finished: work queued on the card right after it (a
+    long chain of in-place updates of every param) does not reach the
+    committed file, which holds the values at the call."""
+    acc = _ckpt_acc(tmp_path)
+    g = torch.Generator(device=dev).manual_seed(0)
+    params = acc.prepare({"w": torch.randn(4096, 1024, device=dev, generator=g),
+                          "b": torch.randn(1024, device=dev, generator=g).bfloat16()})
+    want = {k: v.detach().cpu().clone() for k, v in params.items()}
+    out = acc.save_state(str(tmp_path / "ck"), blocking=False)
+    with torch.no_grad():
+        for _ in range(50):
+            for v in params.values():
+                v.mul_(1.5).add_(1.0)
+    acc.wait_for_checkpoint()
+    with np.load(f"{out}/model.npz") as f:
+        assert np.array_equal(f["w"], want["w"].numpy())
+        assert f["b"].dtype == np.dtype("V2")
+        assert f["b"].tobytes() == want["b"].view(torch.int16).numpy().tobytes()
+    assert not torch.equal(params["w"].cpu(), want["w"])
+    acc.end_training()
+
+
+@pytest.mark.parametrize("sharded", [False, True], ids=["npz", "sharded"])
+def test_bf16_params_round_trip(dev, tmp_path, sharded):
+    """bf16 params on the card saved (``|V2`` bits in ``model.npz``, or f32
+    chunks of a ``bfloat16`` leaf in the shard set) and loaded into other
+    params in place: bitwise, still bf16, still on the card."""
+    acc = _ckpt_acc(tmp_path)
+    g = torch.Generator(device=dev).manual_seed(1)
+    params = acc.prepare({"w": torch.randn(64, 32, device=dev, generator=g).bfloat16()})
+    want = params["w"].detach().clone()
+    out = acc.save_state(str(tmp_path / "ck"), sharded=sharded)
+    with torch.no_grad():
+        params["w"].zero_()
+    acc.load_state(out)
+    assert params["w"].dtype == torch.bfloat16 and params["w"].is_cuda
+    assert torch.equal(params["w"], want)

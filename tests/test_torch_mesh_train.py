@@ -40,6 +40,13 @@ gathers the stacked layers one at a time (``LayerStack``).
   ``jax.value_and_grad`` of the global loss.
 - fp16 under dp_shard 4 with an infinity planted in one rank's block of
   one gradient: every rank takes the same decision.
+- sharded checkpoints in the same launch (scenario ``mesh_ckpt``): 4
+  steps with a ``save_state`` after 2, under (dp_replicate 2, dp_shard 2)
+  with adafactor and under dp_replicate 4 with fused ZeRO-1 and AdamW;
+  a fresh ``Accelerator`` on zeroed params loads it and takes steps 3-4
+  with the uninterrupted run's losses bitwise. The shard set (each rank
+  its replica-0 blocks) loads into the JAX package on 4 virtual devices
+  and consolidates there to the params at the save, bitwise.
 
 Tolerances, f32 on every side with the sums in another order: losses and
 the global gradient norms (which a gradient summed over the wrong axes
@@ -120,12 +127,18 @@ def run(tmp_path_factory):
     batches = {"input_ids": rng.integers(1, vocab, size=(ms.MESH_STEPS, B, S), dtype=np.int32),
                "loss_mask": (rng.random((ms.MESH_STEPS, B, S)) < 0.7).astype(np.int32)}
     np.savez(tmp / "llama_batches.npz", **batches)
-    outs = execute_multiprocess(SCRIPT + ["--scenario", "mesh_train", "--tmpdir", str(tmp)],
-                                num_processes=4, timeout=300)
+    outs = execute_multiprocess(SCRIPT + ["--scenario", "mesh_train,mesh_ckpt", "--tmpdir",
+                                          str(tmp)], num_processes=4, timeout=300)
     for out in outs:
         assert "ALL OK" in out, out[-2000:]
     with open(tmp / "mesh_train.json") as f:
         report = json.load(f)
+    with open(tmp / "mesh_ckpt.json") as f:
+        report["ckpt"] = json.load(f)
+    for name in report["ckpt"]:
+        with np.load(tmp / f"ckpt_{name}_saved.npz") as f:
+            report["ckpt"][name]["saved"] = {k: f[k] for k in f.files}
+        report["ckpt"][name]["dir"] = str(tmp / f"ckpt_{name}")
     legs = {}
     for name in [*LEGS, *OPTIONS, *REMATS]:
         with np.load(tmp / f"mesh_{name}.npz") as f:
@@ -558,3 +571,46 @@ def test_multi_node_mesh_matches_one_node(run, leg):
     np.testing.assert_allclose(got["losses"], one["losses"][:ms.OPTION_STEPS], rtol=1e-6)
     np.testing.assert_allclose(got["grad_norms"], one["grad_norms"][:ms.OPTION_STEPS],
                                rtol=1e-6)
+
+
+CKPT_LEGS = [name for name, *_ in ms.CKPT_LEGS]
+
+
+@pytest.mark.parametrize("leg", CKPT_LEGS)
+def test_sharded_checkpoint_resumes_bitwise(run, leg):
+    """Steps 3-4 after a load of the sharded save equal the uninterrupted
+    run's losses bitwise; every rank wrote its part."""
+    rec = run[2]["ckpt"][leg]
+    assert rec["sharded"] and all(b > 0 for b in rec["bytes"])
+    assert rec["resumed"] == rec["losses"][ms.CKPT_SAVE_AT:]
+
+
+@pytest.mark.parametrize("leg", CKPT_LEGS)
+def test_sharded_checkpoint_loads_in_jax(run, leg):
+    """The port's shard set of the model loads into the JAX package on 4
+    virtual devices (split on the first dim where it divides) and
+    consolidates there: the params at the save, bitwise."""
+    from accelerate_tpu import sharded_checkpoint as jsc
+    from jax.sharding import Mesh as JMesh
+    from jax.sharding import NamedSharding
+    from jax.sharding import PartitionSpec as JP
+
+    rec = run[2]["ckpt"][leg]
+    saved = rec["saved"]
+    merged = jsc.consolidate_sharded(rec["dir"], "model")
+    assert merged.keys() == saved.keys()
+    for k, v in saved.items():
+        np.testing.assert_array_equal(merged[k], v, err_msg=k)
+    mesh = JMesh(np.array(jax.devices()[:4]), ("fsdp",))
+    template = {k: jax.device_put(jnp.zeros_like(v), NamedSharding(
+        mesh, JP("fsdp") if v.shape[0] % 4 == 0 else JP())) for k, v in saved.items()}
+    nested: dict = {}
+    for k, v in template.items():
+        node = nested
+        *head, last = k.split("/")
+        for part in head:
+            node = node.setdefault(part, {})
+        node[last] = v
+    got = _flat(jsc.load_sharded_pytree(nested, rec["dir"], prefix="model"))
+    for k, v in saved.items():
+        np.testing.assert_array_equal(got[k], v, err_msg=k)
