@@ -65,7 +65,14 @@ Ported so far:
   (``sharded_checkpoint`` over ``native.io``), ``save_model``, the
   trackers (``tracking``), the HF converters (``models.convert``) and the
   ``Accelerator``'s small helpers; ``utils.api_boundary`` lists the public
-  names of ``accelerate_tpu`` still to port, with their items.
+  names of ``accelerate_tpu`` still to port, with their items;
+- fp8 training and weight quantization: delayed-scaling ``fp8_dot``
+  (``ops.fp8``, ``torch._scaled_mm`` on the card) through Llama and BERT
+  (``dtype_recipe="fp8"``), ``Accelerator(mixed_precision="fp8")`` and its
+  optimizer partition, fused ZeRO-1 and ``LayerStack``; blockwise int8 and
+  NF4/fp4 ``QuantizedArray`` weights (``ops.quantization``,
+  ``utils.quantization``) through generation and the serving engine, and
+  the int8×int8 ``int8_dynamic_matmul`` (``torch._int_mm`` on the card).
 """
 
 from .accelerator import Accelerator
@@ -158,6 +165,13 @@ from .serving.buckets import BucketLattice
 from .serving.engine import ServingEngine, paged_forward
 from .serving.scheduler import Request, RequestStatus
 from .ops.flash_attention import flash_attention  # after serving: the two import each other
+from .utils.quantization import (
+    QuantizationConfig,
+    QuantizedArray,
+    dequantize_params,
+    load_and_quantize_model,
+    quantize_params,
+)
 from .utils.modeling import (
     abstract_params,
     compute_module_sizes,
@@ -206,6 +220,8 @@ __all__ = [
     "LlamaConfig",
     "ParallelismConfig",
     "PartialState",
+    "QuantizationConfig",
+    "QuantizedArray",
     "Request",
     "RequestStatus",
     "ResNetConfig",
@@ -222,6 +238,7 @@ __all__ = [
     "cosine_decay_schedule",
     "cpu_offload",
     "cpu_offload_with_hook",
+    "dequantize_params",
     "disk_offload",
     "dispatch_model",
     "dispatch_params",
@@ -247,10 +264,12 @@ __all__ = [
     "llama_forward",
     "llama_loss",
     "llama_shard_rules",
+    "load_and_quantize_model",
     "load_checkpoint_and_dispatch",
     "load_checkpoint_in_params",
     "moe_ffn",
     "paged_forward",
+    "quantize_params",
     "resnet_forward",
     "resnet_loss",
     "sample_generate",

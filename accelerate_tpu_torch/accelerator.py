@@ -62,10 +62,20 @@ widths), sharded saves under a mesh of more than one process
 (:mod:`.sharded_checkpoint`), ``save_model`` / ``get_state_dict``, custom
 objects and save/load pre-hooks (:mod:`.checkpointing`), and
 ``init_trackers`` / ``log`` over :mod:`.tracking`. A load writes into the
-prepared tensors in place, so prepared steps keep running on them. Not
-ported yet (see ROADMAP.md): ``mixed_precision="fp8"`` (item 8), cp, sp
-and pp axes (item 11), the telemetry, profiler and watchdog parts of the
-JAX package's ``Accelerator`` (item 12).
+prepared tensors in place, so prepared steps keep running on them.
+
+``mixed_precision="fp8"`` computes in bf16 with f32 masters, as "bf16"
+does, and partitions the optimizer of a model whose params carry fp8
+delayed-scaling meta (``dtype_recipe="fp8"``, :mod:`.ops.fp8`): the torch
+optimizer owns the real params, and each meta leaf is replaced by its
+gradient (its rolled amax histories) every micro-step. Meta gradients are
+values: they stay out of the accumulation window, the loss scale and
+every sum over ranks, which takes their MAX instead. One fp8 recipe
+handler at most (``FP8RecipeKwargs`` or its TE/AO/MS-AMP spellings) is
+kept as :attr:`fp8_recipe`, and, as in the JAX package, nothing reads it.
+Not ported yet (see ROADMAP.md): cp, sp and pp axes (item 11), the
+telemetry, profiler and watchdog parts of the JAX package's
+``Accelerator`` (item 12).
 """
 
 from __future__ import annotations
@@ -95,6 +105,7 @@ from .utils.dataclasses import (
     DistributedDataParallelKwargs,
     DummyOptim,
     DummyScheduler,
+    FP8RecipeKwargs,
     FullyShardedDataParallelPlugin,
     GradientAccumulationPlugin,
     GradScalerConfig,
@@ -122,9 +133,7 @@ __all__ = ["Accelerator", "RemovableHandle", "set_seed"]
 
 #: kwargs handlers of the JAX package that later items of ROADMAP.md Queue A
 #: port: the class name -> the item
-_LATER_HANDLERS = {"ProfileConfig": "12",
-                   "FP8RecipeKwargs": "8", "TERecipeKwargs": "8", "AORecipeKwargs": "8",
-                   "MSAMPRecipeKwargs": "8"}
+_LATER_HANDLERS = {"ProfileConfig": "12"}
 
 
 def set_seed(seed: int) -> None:
@@ -239,6 +248,8 @@ class Accelerator:
         # the kwargs handlers: one a class, each steering one part
         self.ddp_handler: Optional[DistributedDataParallelKwargs] = None
         self.autocast_handler: Optional[AutocastConfig] = None
+        self.fp8_recipe_handler: Optional[FP8RecipeKwargs] = None
+        self.fp8_recipe = None
         init_pg_kwargs: dict = {}
         seen: set = set()
         for handler in kwargs_handlers or ():
@@ -263,6 +274,15 @@ class Accelerator:
                 checkpoint_config = handler
             elif isinstance(handler, AutocastConfig):
                 self.autocast_handler = handler
+            elif isinstance(handler, FP8RecipeKwargs):
+                # the spellings are subclasses: two different ones conflict too
+                if self.fp8_recipe_handler is not None:
+                    raise ValueError(
+                        "multiple fp8 recipe handlers given "
+                        f"({type(self.fp8_recipe_handler).__name__} and "
+                        f"{type(handler).__name__}); pass exactly one")
+                self.fp8_recipe_handler = handler
+                self.fp8_recipe = handler.to_native()
             elif type(handler).__name__ in _LATER_HANDLERS:
                 raise NotImplementedError(
                     f"{type(handler).__name__} is not ported yet (ROADMAP.md Queue A item "
@@ -326,10 +346,6 @@ class Accelerator:
 
         precision = PrecisionType(str(mixed_precision if mixed_precision is not None
                                       else os.environ.get("ACCELERATE_MIXED_PRECISION", "no")))
-        if precision == PrecisionType.FP8:
-            raise NotImplementedError(
-                "mixed_precision='fp8' is not ported yet (it needs the JAX package's scaled fp8 "
-                "matmuls; ROADMAP.md Queue A item 8)")
         if gradient_accumulation_plugin is None:
             env_steps = int(os.environ.get("ACCELERATE_GRADIENT_ACCUMULATION_STEPS", 1))
             gradient_accumulation_plugin = GradientAccumulationPlugin(
@@ -569,8 +585,15 @@ class Accelerator:
             elif isinstance(obj, (AcceleratedScheduler, torch.optim.lr_scheduler.LRScheduler)):
                 results[i] = self.prepare_scheduler(obj)
         if params_seen is not None:
+            # fp8 models: the optimizer is partitioned (meta leaves replaced by
+            # their gradient), whichever order the two were prepared in
+            from .ops.fp8 import has_fp8_meta
+
+            partition = (self.state.mixed_precision == PrecisionType.FP8
+                         and has_fp8_meta(params_seen))
             for opt in self._optimizers:
                 if opt.optimizer is None:
+                    opt.fp8_partition = opt.fp8_partition or partition
                     opt.init(params_seen, plan=self._sharding_plan)
         return results[0] if len(results) == 1 else tuple(results)
 
@@ -708,6 +731,8 @@ class Accelerator:
 
     def _build_train_step(self, loss_fn: Callable, optimizer: AcceleratedOptimizer,
                           has_aux: bool, compute_grad_norm: bool) -> Callable:
+        from .ops import fp8
+
         policy = self.state.mixed_precision_policy
         if not self._autocast_enabled:  # built inside autocast(AutocastConfig(enabled=False))
             policy = MixedPrecisionPolicy.from_precision(PrecisionType.NO)
@@ -743,6 +768,15 @@ class Accelerator:
                      or cast or compress is not None)
         if fp16:
             optimizer.init_loss_scale(self.grad_scaler_config, bound[0].device)
+        # fp8 meta replaced by its gradient (the partition, or the fused
+        # ZeRO-1 path's passthrough slots); outside those its gradient would
+        # be summed over the ranks like a param's
+        meta = optimizer.meta
+        if meshed and not meta and any(optimizer.meta_mask):
+            raise NotImplementedError(
+                "fp8 meta on a mesh needs mixed_precision='fp8' (or the fused ZeRO-1 path): its "
+                "gradients are new histories, which a sum over the ranks would corrupt")
+        cotangent_scale = n if meta else 1
 
         def flat_grads():
             if not meshed:
@@ -767,18 +801,31 @@ class Accelerator:
             if opt_state is not optimizer.opt_state:
                 raise ValueError("opt_state is not the state of the prepared optimizer (the port "
                                  "updates the optimizer's own state in place)")
-            leaves = param_leaves(params)
-            if len(leaves) != len(bound) or any(a is not b for a, b in zip(leaves, bound)):
+            leaves, meta_leaves = optimizer.split_leaves(param_leaves(params))
+            if (len(leaves) != len(bound) or any(a is not b for a, b in zip(leaves, bound))
+                    or any(a is not b for a, b in zip(meta_leaves, meta))):
                 raise ValueError("params are not the tensors the optimizer was prepared with")
             torch_opt.zero_grad(set_to_none=True)
-            for p in bound:  # under ZeRO-1 the optimizer owns chunks or rows, not the params
+            for p in (*bound, *meta):  # under ZeRO-1 the optimizer owns chunks or rows
                 p.grad = None
             full = plan.gather_params(params, policy.compute_dtype) if meshed else params
-            out = loss_fn(policy.cast_to_compute(full), policy.cast_to_compute(batch))
-            loss, aux = out if has_aux else (out, None)
-            loss = loss.float()
-            (loss * optimizer.loss_scale if fp16 else loss).backward()
+            with fp8.cotangent_scale(cotangent_scale):
+                out = loss_fn(policy.cast_to_compute(full), policy.cast_to_compute(batch))
+                loss, aux = out if has_aux else (out, None)
+                loss = loss.float()
+                (loss * optimizer.loss_scale if fp16 else loss).backward()
             metrics = {"loss": plan.mean_over_batch(loss.detach()) if meshed else loss.detach()}
+            meta_grads = None
+            if meta:
+                meta_grads = [m.grad if m.grad is not None else torch.zeros_like(m)
+                              for m in meta]
+                if meshed and n > 1:  # new histories: the MAX over the ranks, never a sum
+                    flat_meta = all_reduce_axes(torch.cat([g.reshape(-1) for g in meta_grads]),
+                                                plan.mesh, GRAD_SUM_AXES, op="max")
+                    meta_grads = [g.view_as(m) for g, m in zip(
+                        flat_meta.split([m.numel() for m in meta]), meta)]
+                if compress is not None:  # the JAX package compresses the whole tree
+                    meta_grads = [g.to(compress).to(g.dtype) for g in meta_grads]
             flat = None
             if flat_path:
                 flat = flat_grads()
@@ -793,9 +840,12 @@ class Accelerator:
                     # an overflow feeds zeros: the update still runs, as in the JAX package
                     flat = torch.where(finite, flat, 0.0)
                     metrics["grads_finite"] = finite
-                if compute_grad_norm:
-                    metrics["grad_norm"] = torch.sqrt(sum_of_squares(flat))
-            optimizer.micro_step(flat)
+                if compute_grad_norm:  # over the whole tree, meta histories included
+                    sq = sum_of_squares(flat)
+                    if meta_grads:
+                        sq = sq + sum(torch.sum(g * g) for g in meta_grads)
+                    metrics["grad_norm"] = torch.sqrt(sq)
+            optimizer.micro_step(flat, meta_grads)
             if fp16:
                 metrics["loss_scale"] = optimizer.update_loss_scale(finite)
             if aux is not None:

@@ -55,7 +55,6 @@ import torch
 
 from .models.transformer import (
     LlamaConfig,
-    _check_supported,
     apply_rope,
     layer_params,
     llama_ffn,
@@ -340,8 +339,10 @@ class MeshDecode:
                                             or config.moe_capacity_factor),
                            mesh=self.mesh, batch_axes=self.batch_axes)
             return self.ffn_out(y)
-        gate = torch.nn.functional.silu(x @ layer["w1"]["kernel"])
-        return self.ffn_out((gate * (x @ layer["w3"]["kernel"])) @ layer["w2"]["kernel"])
+        from .models.transformer import _proj
+
+        gate = torch.nn.functional.silu(_proj(layer["w1"], x))
+        return self.ffn_out(_proj(layer["w2"], gate * _proj(layer["w3"], x)))
 
     def agree(self, t: torch.Tensor) -> torch.Tensor:
         """Every rank takes rank 0's ``t`` (the selected tokens: the ranks
@@ -392,14 +393,21 @@ def _masked_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Ten
     return torch.einsum("bhqk,bkhd->bqhd", probs, v_cache.to(q.dtype))
 
 
+def _dense(entry: dict, x: torch.Tensor) -> torch.Tensor:
+    return x @ entry["kernel"]
+
+
 def _project_qkv(layer: dict, x: torch.Tensor, positions: torch.Tensor,
-                 cos: torch.Tensor, sin: torch.Tensor, config: LlamaConfig):
+                 cos: torch.Tensor, sin: torch.Tensor, config: LlamaConfig, proj=_dense):
     """x ``[B, S, dim]`` at per-row ``positions [B, S]`` → ``(q, k, v)`` in
-    BSHD with RoPE applied to q and k."""
+    BSHD with RoPE applied to q and k. ``proj(entry, x)`` is each product:
+    plain on the decode paths, as the JAX package's decode computes them
+    (an fp8 model's attention projections included); the training forward
+    passes ``transformer._proj``."""
     B, S, _ = x.shape  # the heads a rank holds under tp: the product's width says
-    q = (x @ layer["wq"]["kernel"]).reshape(B, S, -1, config.head_dim)
-    k = (x @ layer["wk"]["kernel"]).reshape(B, S, -1, config.head_dim)
-    v = (x @ layer["wv"]["kernel"]).reshape(B, S, -1, config.head_dim)
+    q = proj(layer["wq"], x).reshape(B, S, -1, config.head_dim)
+    k = proj(layer["wk"], x).reshape(B, S, -1, config.head_dim)
+    v = proj(layer["wv"], x).reshape(B, S, -1, config.head_dim)
     q = apply_rope(q, cos, sin, positions=positions)
     k = apply_rope(k, cos, sin, positions=positions)
     return q, k, v
@@ -563,7 +571,6 @@ def _cached_generate(params, prompt_ids, config: LlamaConfig, max_new_tokens: in
     folded at once on the device, so no step waits on the host. The
     tokens are read back once, after the loop. Under ``mesh`` each rank
     runs its rows and heads, and selects on the whole batch's logits."""
-    _check_supported(config)
     dev = resolve_device(device)
     prompt, prompt_host = _prompt_tensor(prompt_ids, dev)
     B, S = prompt.shape
@@ -694,7 +701,6 @@ def beam_generate(params, prompt_ids, config: LlamaConfig, num_beams: int = 4,
     normalised score ``[B]`` with ``return_scores``. Under ``mesh`` each
     rank holds its rows' beams and heads, and every rank ranks the whole
     batch's candidates (rank 0's choice is taken)."""
-    _check_supported(config)
     dev = resolve_device(device)
     prompt, prompt_host = _prompt_tensor(prompt_ids, dev)
     B, S = prompt.shape
@@ -790,7 +796,6 @@ def generate_dispatched(dispatched, prompt_ids, config: LlamaConfig, max_new_tok
     read each step, and decoding stops once every row has emitted
     ``eos_token_id``. ``warmup`` repeats the first decode step before
     timing (greedy decoding rewrites the same cache values)."""
-    _check_supported(config)
     dev = dispatched.execution_device
     prompt, prompt_host = _prompt_tensor(prompt_ids, dev)
     B, S = prompt.shape

@@ -19,14 +19,26 @@ __all__ = ["bert_params_from_hf", "llama_params_from_hf", "params_from_numpy", "
            "t5_params_from_hf"]
 
 
+def _torch_dtype(dtype) -> torch.dtype:
+    """A numpy or ml_dtypes dtype (or scalar type) as the torch dtype of
+    the same name."""
+    return getattr(torch, np.dtype(dtype).name)
+
+
 def params_from_numpy(tree, device=None, dtype: Optional[torch.dtype] = None):
     """Nested dict/list/tuple of array-likes → the same nesting (same
     container types) of tensors on ``device`` (the CUDA device when omitted;
     raises without a GPU unless ``device="cpu"``), cast to ``dtype`` when
-    given."""
+    given. fp8 meta (under an ``fp8_meta`` key) keeps its f32 whatever
+    ``dtype`` says, and a JAX ``QuantizedArray`` leaf (codes, scales and its
+    static fields) becomes the port's
+    :class:`~..ops.quantization.QuantizedArray`, its codes and scales
+    unchanged."""
+    from ..ops.quantization import QuantizedArray
+
     dev = resolve_device(device)
 
-    def leaf(x):
+    def leaf(x, cast):
         arr = np.array(x, copy=True)
         # numpy has no native bf16: such leaves arrive as an extension
         # dtype torch cannot wrap, so they cross as (exact) f32
@@ -34,9 +46,22 @@ def params_from_numpy(tree, device=None, dtype: Optional[torch.dtype] = None):
         if native is not None:
             arr = arr.astype(np.float32)
         t = torch.from_numpy(arr)
-        return t.to(device=dev, dtype=dtype or native or t.dtype)
+        return t.to(device=dev, dtype=cast or native or t.dtype)
 
-    return _tree_map(leaf, tree)
+    def walk(node, in_meta):
+        if isinstance(node, dict):
+            return type(node)((k, walk(v, in_meta or k == "fp8_meta")) for k, v in node.items())
+        if isinstance(node, (list, tuple)):
+            mapped = [walk(v, in_meta) for v in node]
+            return type(node)(*mapped) if hasattr(node, "_fields") else type(node)(mapped)
+        if all(hasattr(node, a) for a in ("codes", "scales", "bits", "block_size",
+                                          "quant_type")):
+            return QuantizedArray(leaf(node.codes, None), leaf(node.scales, None), node.shape,
+                                  _torch_dtype(node.dtype), node.bits, node.block_size,
+                                  node.quant_type)
+        return leaf(node, None if in_meta else dtype)
+
+    return walk(tree, False)
 
 
 def params_to_numpy(params):

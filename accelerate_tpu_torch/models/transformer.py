@@ -9,14 +9,19 @@ JAX initializer load unchanged through :mod:`.convert`. Matmuls are
 
 ``moe_experts > 0`` swaps each layer's dense SwiGLU FFN for the MoE FFN
 of :mod:`..parallel.moe` (``params["layers"]["moe"]``, stacked ``[L,
-...]``), as in the JAX package. ``dtype_recipe="fp8"`` (ROADMAP.md Queue A
-item 8) and ``llama_forward``'s ``attention_fn`` raise
-``NotImplementedError``.
+...]``), as in the JAX package. ``dtype_recipe="fp8"`` adds a stacked
+``fp8_meta`` (:func:`~..ops.fp8.init_fp8_meta`) to every projection entry,
+and the training forwards run those products through
+:func:`~..ops.fp8.fp8_dot` (:func:`_proj`); the cached decode paths run
+the attention projections as plain products and the FFN through
+:func:`_proj`, from the frozen histories, as the JAX package's do.
+``llama_forward``'s ``attention_fn`` raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
 
 import collections
+import collections.abc
 import contextlib
 import functools
 import math
@@ -104,8 +109,8 @@ class LlamaConfig:
     (``"auto"`` is the einsum path, ``"flash"`` the blocked kernels);
     ``unroll_layers`` selects JAX-only machinery and is carried for parity
     and ignored; ``moe_experts > 0`` gives every layer a top-``moe_top_k``
-    MoE FFN; ``dtype_recipe="fp8"`` is not ported yet and raises at
-    init."""
+    MoE FFN; ``dtype_recipe="fp8"`` runs the QKV/O and SwiGLU projections
+    through :func:`~..ops.fp8.fp8_dot` (not with MoE)."""
 
     vocab_size: int = 32000
     dim: int = 2048
@@ -140,13 +145,30 @@ class LlamaConfig:
         return cls(vocab_size=512, dim=128, n_layers=2, n_heads=4, n_kv_heads=2, max_seq_len=256)
 
 
-def _check_supported(config) -> None:
-    """Raise on the Llama/BERT config options that are not ported yet."""
-    if config.dtype_recipe is not None:
-        raise NotImplementedError(
-            f"dtype_recipe={config.dtype_recipe!r} is not ported yet: it comes with ROADMAP.md "
-            "Queue A item 8"
-        )
+META_KEY = "fp8_meta"  # ops.fp8.META_KEY (ops is imported late: it imports this module)
+
+
+def _check_dtype_recipe(recipe) -> None:
+    if recipe not in (None, "fp8"):
+        raise ValueError(f"dtype_recipe must be None or 'fp8', got {recipe!r}")
+
+
+def _stacked_fp8_meta(n_layers: int, device) -> dict:
+    """Per-layer fp8 meta stacked on the layer axis (f32 whatever the
+    params' dtype), so it is sliced per layer with the kernels."""
+    from ..ops.fp8 import init_fp8_meta
+
+    return {k: v[None].repeat(n_layers, 1) for k, v in init_fp8_meta(device=device).items()}
+
+
+def _proj(entry: dict, x: torch.Tensor) -> torch.Tensor:
+    """``x @ entry["kernel"]``, through :func:`~..ops.fp8.fp8_dot` when the
+    entry carries fp8 meta."""
+    if META_KEY in entry:
+        from ..ops.fp8 import fp8_dot
+
+        return fp8_dot(x, entry["kernel"], entry[META_KEY])
+    return x @ entry["kernel"]
 
 
 def init_llama(config: LlamaConfig, generator: Optional[torch.Generator] = None,
@@ -158,8 +180,12 @@ def init_llama(config: LlamaConfig, generator: Optional[torch.Generator] = None,
     ``w1``/``w3``/``w2``. Draws come from ``generator`` (a fresh one seeded
     0 on the target device when omitted), so they differ from JAX's
     threefry draws — parity tests load JAX-made weights through
-    :mod:`.convert` instead."""
-    _check_supported(config)
+    :mod:`.convert` instead. ``dtype_recipe="fp8"`` adds a stacked
+    ``fp8_meta`` to ``wq``/``wk``/``wv``/``wo``/``w1``/``w3``/``w2``; with MoE
+    it raises ``ValueError``, as in the JAX package."""
+    _check_dtype_recipe(config.dtype_recipe)
+    if config.dtype_recipe == "fp8" and config.moe_experts > 0:
+        raise ValueError("dtype_recipe='fp8' does not support MoE layers yet")
     dev = resolve_device(device)
     if generator is None:
         generator = torch.Generator(device=dev).manual_seed(0)
@@ -197,6 +223,9 @@ def init_llama(config: LlamaConfig, generator: Optional[torch.Generator] = None,
         },
         "final_norm": {"scale": ones(D)},
     }
+    if config.dtype_recipe == "fp8":
+        for name in ("wq", "wk", "wv", "wo", "w1", "w3", "w2"):
+            params["layers"][name][META_KEY] = _stacked_fp8_meta(L, dev)
     if not config.tie_embeddings:
         params["lm_head"] = {"kernel": dense(D, config.vocab_size, scale=0.02)}
     return params
@@ -282,9 +311,9 @@ def llama_ffn(layer: dict, x: torch.Tensor, config: LlamaConfig, mesh=None,
             layer["moe"], x, top_k=config.moe_top_k, mesh=mesh,
             capacity_factor=(config.moe_capacity_factor if capacity_factor is None
                              else capacity_factor))
-    gate = torch.nn.functional.silu(x @ layer["w1"]["kernel"])
-    up = x @ layer["w3"]["kernel"]
-    return (gate * up) @ layer["w2"]["kernel"], 0.0
+    gate = torch.nn.functional.silu(_proj(layer["w1"], x))
+    up = _proj(layer["w3"], x)
+    return _proj(layer["w2"], gate * up), 0.0
 
 
 def lm_logits(params: dict, h: torch.Tensor, config: LlamaConfig) -> torch.Tensor:
@@ -482,7 +511,6 @@ def llama_forward(params: dict, input_ids: torch.Tensor, config: LlamaConfig,
     from ..generation import _project_qkv
     from ..ops.attention import dot_product_attention
 
-    _check_supported(config)
     if attention_fn is not None:
         raise NotImplementedError("attention_fn (context/sequence parallelism) is not ported yet "
                                   "(see ROADMAP.md)")
@@ -504,9 +532,9 @@ def llama_forward(params: dict, input_ids: torch.Tensor, config: LlamaConfig,
 
     def decoder_layer(h, layer):
         x = rms_norm(h, layer["attn_norm"]["scale"], config.norm_eps)
-        q, k, v = _project_qkv(layer, x, positions, cos, sin, config)
+        q, k, v = _project_qkv(layer, x, positions, cos, sin, config, proj=_proj)
         attn = dot_product_attention(q, k, v, causal=True, segment_ids=segment_ids, impl=impl)
-        h = h + attn.reshape(B, S, -1) @ layer["wo"]["kernel"]
+        h = h + _proj(layer["wo"], attn.reshape(B, S, -1))
         x = rms_norm(h, layer["mlp_norm"]["scale"], config.norm_eps)
         y, aux = llama_ffn(layer, x, config, mesh=mesh)
         return h + y, aux
@@ -586,8 +614,9 @@ class BertConfig:
     """Same fields and defaults as the JAX package's ``BertConfig``.
     ``unroll_layers`` is carried for parity and ignored; ``attn_impl`` picks
     the :func:`~accelerate_tpu_torch.ops.attention.dot_product_attention`
-    implementation; ``dtype_recipe="fp8"`` is not ported yet and raises at
-    init."""
+    implementation; ``dtype_recipe="fp8"`` runs the attention and FFN
+    projections through :func:`~..ops.fp8.fp8_dot` (the pooler and the
+    classifier stay plain)."""
 
     vocab_size: int = 30522
     dim: int = 768
@@ -621,8 +650,10 @@ def init_bert(config: BertConfig, generator: Optional[torch.Generator] = None,
     per-layer projections stacked on a leading layer axis, pooler and
     classifier; kernels ``N(0, 0.02^2)``, biases zero, norm scales one.
     Draws come from ``generator`` (a fresh one seeded 0 on the target
-    device when omitted), so they differ from JAX's threefry draws."""
-    _check_supported(config)
+    device when omitted), so they differ from JAX's threefry draws.
+    ``dtype_recipe="fp8"`` adds a stacked ``fp8_meta`` to ``wq``/``wk``/
+    ``wv``/``wo``/``fc1``/``fc2``."""
+    _check_dtype_recipe(config.dtype_recipe)
     dev = resolve_device(device)
     if generator is None:
         generator = torch.Generator(device=dev).manual_seed(0)
@@ -644,7 +675,7 @@ def init_bert(config: BertConfig, generator: Optional[torch.Generator] = None,
     def dense(a, b):
         return {"kernel": normal(L, a, b), "bias": zeros(L, b)}
 
-    return {
+    params = {
         "embeddings": {
             "word": {"embedding": normal(config.vocab_size, D)},
             "position": {"embedding": normal(config.max_seq_len, D)},
@@ -664,6 +695,10 @@ def init_bert(config: BertConfig, generator: Optional[torch.Generator] = None,
         "pooler": {"kernel": normal(D, D), "bias": zeros(D)},
         "classifier": {"kernel": normal(D, config.num_labels), "bias": zeros(config.num_labels)},
     }
+    if config.dtype_recipe == "fp8":
+        for name in ("wq", "wk", "wv", "wo", "fc1", "fc2"):
+            params["layers"][name][META_KEY] = _stacked_fp8_meta(L, dev)
+    return params
 
 
 def bert_forward(params: dict, batch: dict, config: BertConfig,
@@ -675,7 +710,6 @@ def bert_forward(params: dict, batch: dict, config: BertConfig,
     defaults to ``config.attn_impl``."""
     from ..ops.attention import dot_product_attention
 
-    _check_supported(config)
     impl = config.attn_impl if attention_impl is None else attention_impl
     ids = batch["input_ids"].long()
     B, S = ids.shape
@@ -689,12 +723,20 @@ def bert_forward(params: dict, batch: dict, config: BertConfig,
     seg_ids = None if mask is None else mask.to(torch.int32)
     # one unbind per stacked leaf: its backward is a single stack, where
     # indexing each layer would scatter into a full-size zero tensor per layer
-    layers = {name: {k: t.unbind(0) for k, t in entry.items()}
-              for name, entry in params["layers"].items()}
+    def unbind(node):
+        if isinstance(node, collections.abc.Mapping):
+            return {k: unbind(v) for k, v in node.items()}
+        return node.unbind(0)
+
+    def pick(node, i):
+        return {k: pick(v, i) for k, v in node.items()} if isinstance(node, dict) else node[i]
+
+    layers = unbind(params["layers"])
     heads = (B, S, config.n_heads, config.head_dim)
 
-    def dense(name, i, x):
-        return x @ layers[name]["kernel"][i] + layers[name]["bias"][i]
+    def dense(name, i, x):  # the bias add stays outside fp8_dot, as in the JAX package
+        entry = pick(layers[name], i)
+        return _proj(entry, x) + entry["bias"]
 
     def norm(name, i, x):
         return layer_norm(x, layers[name]["scale"][i], layers[name]["bias"][i], config.norm_eps)

@@ -127,12 +127,16 @@ def param_leaves(params) -> list:
     """The tensor leaves of a nested param dict/list/tuple: dict keys in
     insertion order, list and tuple items by index. (``jax.tree_util``
     sorts dict keys; the leaves are the same, and the order of a list's
-    items is the same.)"""
+    items is the same.) A ``QuantizedArray`` is one leaf."""
     if isinstance(params, dict):
         return [t for v in params.values() for t in param_leaves(v)]
     if isinstance(params, (list, tuple)):
         return [t for v in params for t in param_leaves(v)]
-    return [params] if isinstance(params, torch.Tensor) else []
+    if isinstance(params, torch.Tensor):
+        return [params]
+    from .ops.quantization import QuantizedArray
+
+    return [params] if isinstance(params, QuantizedArray) else []
 
 
 @dataclass(frozen=True)
@@ -539,10 +543,18 @@ class AcceleratedOptimizer:
     """Wraps a ``torch.optim.Optimizer``, or a factory that makes one from
     the param list (:func:`adamw`); :meth:`init` binds the factory. With
     ``accumulation_steps = k > 1`` every ``k``-th micro-step updates, on the
-    mean of the window's gradients (``optax.MultiSteps``)."""
+    mean of the window's gradients (``optax.MultiSteps``).
+
+    ``fp8_partition`` is the JAX package's fp8 optimizer partition: the
+    fp8 delayed-scaling meta leaves of the params (:attr:`meta`) stay out
+    of the torch optimizer, of the flat gradients and of the accumulation
+    window, and each micro-step replaces each of them by its gradient (its
+    new histories), as ``old + (new - old)``. Under fused ZeRO-1 the meta
+    leaves are the bucket plan's passthrough slots, partition or not, and
+    take their gradient verbatim, as the JAX package's fused update does."""
 
     def __init__(self, optimizer: Union[torch.optim.Optimizer, Callable],
-                 accumulation_steps: int = 1):
+                 accumulation_steps: int = 1, fp8_partition: bool = False):
         if accumulation_steps < 1:
             raise ValueError(f"accumulation_steps must be >= 1, got {accumulation_steps}")
         self.base_optimizer = optimizer
@@ -560,6 +572,10 @@ class AcceleratedOptimizer:
         self.zero1 = None  # FusedZero1Update when the fused ZeRO-1 path is on
         self.zero1_rows: Optional[AnnotatedZero1] = None  # ZeRO-1 by annotation
         self.offload = None  # OptimizerOffload when the state lives on the host
+        self.fp8_partition = fp8_partition
+        self.meta_mask: list = []  # per param leaf (tree order): under an fp8_meta key
+        self.meta: list = []  # the meta leaves replaced by their gradient, when split out
+        self._meta_copy = False  # install the gradient verbatim (fused ZeRO-1)
 
     def init(self, params, plan=None):
         """Bind to ``params`` (a nested dict of tensors): a factory becomes
@@ -571,8 +587,10 @@ class AcceleratedOptimizer:
         an :class:`Adafactor` reads whole params (:meth:`Adafactor.shard`).
         Returns :attr:`opt_state`."""
         if self.optimizer is None:
+            from .ops.fp8 import fp8_meta_mask
+
             self.plan = plan
-            leaves = param_leaves(params)
+            self.meta_mask = fp8_meta_mask(params)
             zero1 = (plan is not None and plan.zero1_axis is not None
                      and plan.mesh.shape.get(plan.zero1_axis, 1) > 1)
             is_adafactor = getattr(self.base_optimizer, "cls", None) is Adafactor
@@ -580,6 +598,15 @@ class AcceleratedOptimizer:
                 # the fused update refuses adafactor (its statistics span a
                 # whole param), as the JAX package's does: by annotation
                 plan.zero1 = None
+            passthrough = plan is not None and plan.fused_zero1 and bool(
+                plan.zero1.passthrough_indices)
+            leaves = param_leaves(params)
+            if any(self.meta_mask) and (self.fp8_partition or passthrough):
+                self._meta_copy = passthrough
+                self.meta = [t for t, m in zip(leaves, self.meta_mask) if m]
+                leaves = [t for t, m in zip(leaves, self.meta_mask) if not m]
+                if plan is not None:
+                    plan.meta_indices = tuple(i for i, m in enumerate(self.meta_mask) if m)
             if plan is not None and plan.fused_zero1:
                 from .parallel.weight_update import init_bucketed_opt_state
 
@@ -587,9 +614,7 @@ class AcceleratedOptimizer:
                     self.base_optimizer, leaves, plan.zero1, plan.mesh)
                 return self.opt_state
             if zero1:
-                from .parallel.sharding import _leaves
-
-                self.zero1_rows = AnnotatedZero1(leaves, _leaves(plan.param_specs), plan.mesh,
+                self.zero1_rows = AnnotatedZero1(leaves, plan.bound_specs(), plan.mesh,
                                                  plan.zero1_axis)
                 self.optimizer = self.base_optimizer(self.zero1_rows.owned)
                 if isinstance(self.optimizer, Adafactor):
@@ -606,6 +631,28 @@ class AcceleratedOptimizer:
             if plan is not None and plan.sharded and isinstance(self.optimizer, Adafactor):
                 self.optimizer.shard(leaves, *plan.leaf_splits(leaves), plan.mesh)
         return self.opt_state
+
+    def split_leaves(self, leaves: list) -> tuple:
+        """``(params, meta)``: the leaves the optimizer updates and the fp8
+        meta leaves it replaces (none unless the meta was split out)."""
+        if not self.meta:
+            return leaves, []
+        return ([t for t, m in zip(leaves, self.meta_mask) if not m],
+                [t for t, m in zip(leaves, self.meta_mask) if m])
+
+    @torch.no_grad()
+    def install_meta(self, grads: Optional[list] = None) -> None:
+        """Each meta leaf replaced by its gradient (``grads``, or its
+        ``.grad``; zeros without one, as JAX's cotangent of an unused leaf),
+        which is then cleared."""
+        if grads is None:
+            grads = [m.grad if m.grad is not None else torch.zeros_like(m) for m in self.meta]
+        for m, g in zip(self.meta, grads):
+            if self._meta_copy:
+                m.copy_(g)
+            else:  # optax's apply_updates of the partition's update, new - old
+                m.add_(g - m)
+            m.grad = None
 
     @property
     def opt_state(self):
@@ -726,9 +773,13 @@ class AcceleratedOptimizer:
             self.zero1_rows.all_gather()
         self.gradient_step += 1
 
-    def micro_step(self, flat: Optional[torch.Tensor] = None) -> None:
+    def micro_step(self, flat: Optional[torch.Tensor] = None,
+                   meta_grads: Optional[list] = None) -> None:
         """One micro-step on ``flat`` gradients (:meth:`flat_grads`'s
-        layout), or on the params' ``.grad`` when ``None``."""
+        layout), or on the params' ``.grad`` when ``None``; the fp8 meta
+        takes ``meta_grads`` (or its ``.grad``) on every micro-step."""
+        if self.meta:
+            self.install_meta(meta_grads)
         k = self.accumulation_steps
         if k == 1:
             self._inner_step(None if flat is None else self._split(flat))
@@ -752,16 +803,19 @@ class AcceleratedOptimizer:
         ``params``."""
         if self.optimizer is None:
             self.init(params)
-        flat = None
+        flat = meta_grads = None
         if grads is not None:
+            real, meta_grads = self.split_leaves(param_leaves(grads))
             flat = torch.cat([g.reshape(-1).to(p.dtype)
-                              for p, g in zip(self._grad_layout, param_leaves(grads))])
-        self.micro_step(flat)
+                              for p, g in zip(self._grad_layout, real)])
+        self.micro_step(flat, meta_grads or None)
         return params
 
     def zero_grad(self, set_to_none: bool = True) -> None:
         if self.optimizer is not None:
             self.optimizer.zero_grad(set_to_none=set_to_none)
+        for m in self.meta:
+            m.grad = None
 
     def update(self, grads, opt_state, params):
         """The JAX package's pure ``update``: ``(updates, new_state)`` for
@@ -783,10 +837,10 @@ class AcceleratedOptimizer:
             raise ValueError("opt_state is not this optimizer's state")
         if (self.zero1 is not None or self.zero1_rows is not None or self.offload is not None
                 or (self.plan is not None and self.plan.distributed)
-                or self.accumulation_steps > 1):
-            raise NotImplementedError("update() takes one process's unsharded, on-device state "
-                                      "and no accumulation window; the prepared step updates "
-                                      "the others")
+                or self.accumulation_steps > 1 or self.meta):
+            raise NotImplementedError("update() takes one process's unsharded, on-device state, "
+                                      "no accumulation window and no fp8 partition; the "
+                                      "prepared step updates the others")
         bound = self.params
         leaves = param_leaves(params)
         if len(leaves) != len(bound) or any(a is not b for a, b in zip(leaves, bound)):

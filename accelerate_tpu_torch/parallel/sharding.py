@@ -82,6 +82,7 @@ __all__ = [
 ]
 
 FSDP_AXES = ("dp_shard", "cp")
+_META_KEY = "fp8_meta"  # ops.fp8.META_KEY
 # the axes the batch rows are split over: a gradient is summed over these
 GRAD_SUM_AXES = ("dp_replicate", "dp_shard")
 
@@ -203,7 +204,10 @@ def _merge_fsdp_into_spec(spec, shape, fsdp_axes: tuple, fsdp_size: int, sizes: 
 def infer_param_specs(params, mesh, parallelism_config: Optional[ParallelismConfig] = None,
                       rules: Optional[ShardingRules] = None, min_fsdp_size: int = 2 ** 10):
     """The canonical :class:`PartitionSpec` tree of ``params`` on ``mesh``
-    (a :class:`~..parallelism_config.Mesh` or ``{axis: size}``)."""
+    (a :class:`~..parallelism_config.Mesh` or ``{axis: size}``). fp8
+    delayed-scaling meta is always whole: its gradients are new histories,
+    MAX-reduced and never summed to an owner (FSDP would split a stack of
+    64 layers or more in the JAX package, which reduces them in XLA)."""
     sizes = axis_sizes(mesh)
     pc = parallelism_config
     fsdp_on = pc is not None and pc.fsdp_enabled
@@ -212,6 +216,8 @@ def infer_param_specs(params, mesh, parallelism_config: Optional[ParallelismConf
 
     def spec(path, value):
         shape = tuple(np.shape(value))
+        if _META_KEY in path.split("/"):
+            return PartitionSpec()
         base = rules.match(path) if rules is not None else None
         if fsdp_on and fsdp_size > 1 and int(np.prod(shape or (1,))) >= min_fsdp_size:
             return _merge_fsdp_into_spec(base, shape, fsdp_axes, fsdp_size, sizes)
@@ -473,8 +479,9 @@ class _LayerGroup:
     """The stacked leaves of one layout and dtype, gathered and reduced
     together: one collective a stage for all of them on the layer axis."""
 
-    def __init__(self, mesh, dims, leaves):
+    def __init__(self, mesh, dims, leaves, meta: bool = False):
         self.mesh, self.leaves = mesh, leaves
+        self.meta = meta  # fp8 meta: never cast to the compute dtype
         self.axes0 = next((axes for d, axes in dims if d == 0), ())
         self.rest = tuple((d - 1, axes) for d, axes in dims if d > 0)
         self.parts = int(np.prod([mesh.shape[a] for a in self.axes0])) if self.axes0 else 1
@@ -618,12 +625,13 @@ class LayerStack(Mapping):
         by_key: dict = {}
         for path, x, lay in zip(paths, _leaves(local), _leaves(layouts)):
             dims = lay.dims if lay is not None else ()
-            by_key.setdefault((dims, x.dtype), []).append((path, x))
+            meta = _META_KEY in path.split("/")
+            by_key.setdefault((dims, x.dtype, meta), []).append((path, x))
         self.groups, self._where = [], {}
-        for (dims, _), members in by_key.items():
+        for (dims, _, meta), members in by_key.items():
             for k, (path, _) in enumerate(members):
                 self._where[path] = (len(self.groups), k)
-            self.groups.append(_LayerGroup(mesh, dims, [x for _, x in members]))
+            self.groups.append(_LayerGroup(mesh, dims, [x for _, x in members], meta))
         self._paths = paths
         self.n_layers = self.groups[0].n_layers
         self._pending: dict = {}  # (i, g) -> _Pending
@@ -635,7 +643,9 @@ class LayerStack(Mapping):
     def __getitem__(self, key):
         full = _map(lambda x, lay: x if lay is None else _GatherParam.apply(x, lay),
                     self.local[key], self.layouts[key])
-        return _map(lambda x: x.to(self.dtype) if self.dtype is not None else x, full)
+        return _map_with_path(
+            lambda path, x: x if self.dtype is None or _META_KEY in path.split("/")
+            else x.to(self.dtype), full, str(key))
 
     def __iter__(self):
         return iter(self.local)
@@ -676,7 +686,7 @@ class LayerStack(Mapping):
         self.stats["gathers"] += 1
         outs = []
         for k, piece in enumerate(group.finish(pending)):
-            out = piece.to(self.dtype) if self.dtype is not None else piece
+            out = piece.to(self.dtype) if self.dtype is not None and not group.meta else piece
             if out._base is not None:  # each output owns its storage: pack finds it there
                 out = out.clone(memory_format=torch.contiguous_format)
             if group.axes0:
@@ -746,10 +756,19 @@ class ShardingPlan:
     zero1: Optional[Any] = None  # Zero1BucketPlan when the fused path is on
     # the last step's per-layer gather counts (see LayerStack)
     layer_stats: dict = field(default_factory=dict)
+    # leaf indices (tree order) of the fp8 meta that the optimizer replaces:
+    # its gradients are no part of the bound params' collectives
+    meta_indices: tuple = ()
 
     @property
     def grad_specs(self):
         return self.param_specs
+
+    def bound_specs(self) -> list:
+        """The specs of the leaves the optimizer updates (tree order): all
+        but :attr:`meta_indices`."""
+        skip = set(self.meta_indices)
+        return [s for i, s in enumerate(_leaves(self.param_specs)) if i not in skip]
 
     @property
     def fused_zero1(self) -> bool:
@@ -824,7 +843,7 @@ class ShardingPlan:
         """``grads`` (one per param leaf, in tree order, after the backward)
         summed over the batch axes that do not shard each param: one
         all-reduce per group of params with the same axes and dtype."""
-        specs = _leaves(self.param_specs)
+        specs = self.bound_specs()
         sizes = axis_sizes(self.mesh)
         groups: dict = {}
         for i, (g, spec) in enumerate(zip(grads, specs)):
@@ -858,7 +877,7 @@ class ShardingPlan:
         each param's global shape and, per dim, the mesh axes (of size > 1)
         that split it."""
         shapes, dim_axes = [], []
-        for x, spec in zip(leaves, _leaves(self.param_specs)):
+        for x, spec in zip(leaves, self.bound_specs()):
             axes = tuple(tuple(a for a in _dim_axes(spec[d]) if self.mesh.shape[a] > 1)
                          if d < len(spec) else () for d in range(x.dim()))
             dim_axes.append(axes)
@@ -870,7 +889,7 @@ class ShardingPlan:
         """Each full gradient's sum of squares (f32) from the ranks' blocks:
         each block's sum, summed over the axes that split its param (one
         all-reduce per group of leaves split alike)."""
-        specs = _leaves(self.param_specs)
+        specs = self.bound_specs()
         out = [torch.sum(g.float() * g.float()) for g in grads]
         groups: dict = {}
         for i, spec in enumerate(specs):
@@ -926,8 +945,11 @@ def make_sharding_plan(params, mesh, parallelism_config: Optional[ParallelismCon
     from .weight_update import build_bucket_plan
 
     try:
+        # fp8 meta rides beside the buckets as passthrough slots (its
+        # gradient is its new value), so the fused path stays engaged
         plan.zero1 = build_bucket_plan(params, zero1_axis, sizes[zero1_axis],
-                                       bucket_bytes=zero1_bucket_bytes)
+                                       bucket_bytes=zero1_bucket_bytes,
+                                       passthrough=lambda path: _META_KEY in path)
     except ValueError:
         plan.zero1 = None
     return plan

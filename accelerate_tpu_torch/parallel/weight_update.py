@@ -22,6 +22,13 @@ no HLO): the port counts what it sends, under ``step:reduce_scatter`` and
 ``step:all_gather`` in :func:`~..utils.operations.get_comm_counters`.
 ``ACCELERATE_ZERO1_FUSED=0`` turns the fused path off, as in the JAX
 package; ``ACCELERATE_ZERO1_BUCKET_MB`` sets the bucket size.
+
+Leaves that a ``passthrough`` predicate picks (the fp8 delayed-scaling
+meta, whose gradient is its new value) stay out of the buckets, the
+optimizer and the collectives: the plan lists them in
+``passthrough_indices`` and the optimizer installs their gradient as it
+is (:meth:`~..optimizer.AcceleratedOptimizer.install_meta`), as the JAX
+package's fused update does.
 """
 
 from __future__ import annotations
@@ -70,7 +77,7 @@ def bucket_bytes_from_env(default: int = DEFAULT_BUCKET_BYTES) -> int:
 class _LeafSlot:
     """Where one param leaf lives in the buckets."""
 
-    leaf_index: int  # position among the param leaves (the port's tree order)
+    leaf_index: int  # position among the bucketed leaves (the port's tree order)
     bucket: str
     offset: int  # element offset into the bucket
     size: int
@@ -92,6 +99,9 @@ class Zero1BucketPlan:
     bucket_sizes: dict  # padded element counts
     bucket_dtypes: dict  # torch dtype per bucket
     n_elements: int = 0
+    # positions among all param leaves (the port's tree order) of the leaves
+    # kept out of the buckets; the slots index the others
+    passthrough_indices: tuple = ()
 
     @property
     def bucket_names(self) -> list:
@@ -116,8 +126,8 @@ class Zero1BucketPlan:
         return sum(self.bucket_nbytes.values())
 
     def bucket_tree(self, leaves: list) -> dict:
-        """``{bucket: 1-D tensor}`` from the param leaves (tree order);
-        padding is zeros."""
+        """``{bucket: 1-D tensor}`` from the bucketed leaves (tree order,
+        without the passthrough ones); padding is zeros."""
         parts: dict = {name: [] for name in self.bucket_sizes}
         filled = dict.fromkeys(self.bucket_sizes, 0)
         for slot in self.slots:
@@ -168,21 +178,30 @@ def _sorted_paths(tree) -> list:
     return out
 
 
-def build_bucket_plan(params, axis: str, axis_size: int,
-                      bucket_bytes: Optional[int] = None) -> Zero1BucketPlan:
+def build_bucket_plan(params, axis: str, axis_size: int, bucket_bytes: Optional[int] = None,
+                      passthrough=None) -> Zero1BucketPlan:
     """Pack every param leaf greedily, in the JAX package's leaf order,
     into a bucket of its dtype; a bucket closes when the next leaf would
     take it past ``bucket_bytes``. Raises ``ValueError`` for a leaf that
-    is not floating."""
+    is not floating. ``passthrough`` (a predicate over a leaf's path, the
+    tuple of its keys) keeps a leaf out of the buckets."""
     if bucket_bytes is None:
         bucket_bytes = bucket_bytes_from_env()
+    paths = _sorted_paths(params)
+    skipped = sorted(index for path, index, _ in paths
+                     if passthrough is not None and passthrough(path))
+    # a bucketed leaf's index among the bucketed leaves, in the port's order
+    skip = set(skipped)
+    rank = {index: r for r, index in enumerate(i for i in range(len(paths)) if i not in skip)}
     slots = []
     bucket_sizes: dict = {}
     bucket_dtypes: dict = {}
     open_bucket: dict = {}
     fill: dict = {}
     total = 0
-    for path, index, leaf in _sorted_paths(params):
+    for path, index, leaf in paths:
+        if index not in rank:
+            continue
         if isinstance(leaf, torch.Tensor):
             dtype, shape = leaf.dtype, tuple(leaf.shape)
         else:
@@ -204,20 +223,21 @@ def build_bucket_plan(params, axis: str, axis_size: int,
             bucket_sizes[name] = 0
             bucket_dtypes[name] = dtype
             fill[name] = 0
-        slots.append(_LeafSlot(leaf_index=index, bucket=name, offset=fill[name], size=size,
-                               shape=shape, dtype=key))
+        slots.append(_LeafSlot(leaf_index=rank[index], bucket=name, offset=fill[name],
+                               size=size, shape=shape, dtype=key))
         fill[name] += size
     for name, n in fill.items():
         bucket_sizes[name] = -(-n // axis_size) * axis_size
     return Zero1BucketPlan(axis=axis, axis_size=axis_size, slots=slots,
                            bucket_sizes=bucket_sizes, bucket_dtypes=bucket_dtypes,
-                           n_elements=total)
+                           n_elements=total, passthrough_indices=tuple(skipped))
 
 
 class FusedZero1Update:
     """The fused update of one prepared model: ``params`` are the
-    replicated param leaves (tree order); :attr:`chunks` are this rank's
-    ``1/N`` of each bucket, the tensors the optimizer owns."""
+    replicated bucketed leaves (tree order, without the passthrough ones);
+    :attr:`chunks` are this rank's ``1/N`` of each bucket, the tensors the
+    optimizer owns."""
 
     def __init__(self, plan: Zero1BucketPlan, mesh, params: list):
         if len(params) != len(plan.slots):

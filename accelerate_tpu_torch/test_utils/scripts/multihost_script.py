@@ -367,9 +367,25 @@ REMAT_LEGS = tuple((f"{mesh}_{remat}", pc, tp, {"remat": remat, "steps": 1})
                    for remat in (False, True, "dots_no_batch"))
 
 
-def _factory(name: str):
-    from accelerate_tpu_torch.optimizer import adafactor, adamw, chain, clip_by_global_norm
+# fp8 training (the tiny Llama with dtype_recipe="fp8") at 4 ranks and
+# FP8_STEPS steps of sgd(FP8_LR) under mixed_precision="fp8" (the second
+# step's quantization reads the first step's histories): (name,
+# ParallelismConfig kwargs, fused ZeRO-1, planted fault); each fault leg
+# sums the meta gradients over the ranks where their MAX is taken
+FP8_STEPS, FP8_LR = 2, 1e-2
+FP8_LEGS = (
+    ("fp8_dp_replicate4_zero1", {"dp_replicate_size": 4}, True, None),
+    ("fp8_dp_replicate2_dp_shard2", {"dp_replicate_size": 2, "dp_shard_size": 2}, False, None),
+)
+FP8_LEGS = FP8_LEGS + tuple((f"{name}_fault", pc, zero1, "fp8_meta_summed")
+                            for name, pc, zero1, _ in FP8_LEGS)
 
+
+def _factory(name: str):
+    from accelerate_tpu_torch.optimizer import adafactor, adamw, chain, clip_by_global_norm, sgd
+
+    if name == "sgd":
+        return sgd(FP8_LR)
     if name == "adamw":
         return adamw(MESH_LR)
     if name == "adafactor":
@@ -424,6 +440,10 @@ def _fault(name):
             stack.enter_context(_planted(sh.OptimizerOffload, "_write_back", write_back))
         elif name == "lomo_local_gradients":  # no mean over the ranks
             stack.enter_context(_planted(acc_mod, "all_reduce_axes", lambda x, *a, **k: x))
+        elif name == "fp8_meta_summed":  # the meta gradients' MAX over the ranks a sum
+            real = acc_mod.all_reduce_axes
+            stack.enter_context(_planted(acc_mod, "all_reduce_axes", lambda x, mesh, axes, op="sum":
+                                         real(x, mesh, axes, "sum" if op == "max" else op)))
         elif name == "flattened_grid":  # the ranks in row-major order, nodes ignored
             stack.enter_context(_planted(pc_mod.ParallelismConfig, "rank_grid",
                                          lambda self, n: np.arange(n).reshape(
@@ -457,7 +477,10 @@ def mesh_train_leg(params_np: dict, batches: dict, pc_kwargs: dict, zero1: bool,
     ``lomo`` takes ``lomo_backward`` steps of ``sgd(MESH_LR)`` instead (no
     gradient norms); ``fault`` plants one of ``_fault``'s faults. The
     mesh's rank grid and this rank's node (``rank // LOCAL_WORLD_SIZE``)
-    are in ``mesh_grid`` and ``node``."""
+    are in ``mesh_grid`` and ``node``. Params with fp8 meta train the
+    ``dtype_recipe="fp8"`` config; ``meta`` is this rank's meta leaves
+    after the steps (``/``-joined paths), ``fp8`` the optimizer's meta and
+    passthrough counts."""
     from accelerate_tpu_torch import Accelerator
     from accelerate_tpu_torch.data_loader import GlobalBatchAssembler
     from accelerate_tpu_torch.models import transformer as tt
@@ -527,6 +550,15 @@ def mesh_train_leg(params_np: dict, batches: dict, pc_kwargs: dict, zero1: bool,
     full = acc.sharding_plan.gather_params_no_grad(params)
     flat = {}
     _map_with_path(lambda path, x: flat.__setitem__(path, x.detach().cpu().numpy()), full)
+    from accelerate_tpu_torch.ops.fp8 import fp8_meta_mask
+    from accelerate_tpu_torch.optimizer import param_leaves
+
+    paths = []
+    _map_with_path(lambda path, x: paths.append(path), params)
+    out["meta"] = {path: x.detach().cpu().numpy()
+                   for path, x, m in zip(paths, param_leaves(params), fp8_meta_mask(params)) if m}
+    out["fp8"] = {"meta_leaves": len(opt.meta), "passthrough": len(
+        opt.zero1.plan.passthrough_indices) if opt.zero1 is not None else None}
     out.update(params=flat, opt_state_bytes=opt.state_bytes(), fused_zero1=opt.zero1 is not None,
                zero1_rows=opt.zero1_rows is not None,
                layer_stats=dict(acc.sharding_plan.layer_stats))
@@ -574,7 +606,9 @@ def _llama_config(params_np: dict):
     n_layers = int(layers["wq"]["kernel"].shape[0])
     moe = layers.get("moe")
     experts = dict(moe_experts=int(moe["router"]["kernel"].shape[-1])) if moe else {}
-    return dataclasses.replace(tt.LlamaConfig.tiny(), n_layers=n_layers, **experts)
+    recipe = "fp8" if "fp8_meta" in layers["wq"] else None
+    return dataclasses.replace(tt.LlamaConfig.tiny(), n_layers=n_layers, dtype_recipe=recipe,
+                               **experts)
 
 
 def gradient_fn_leg(params_np: dict, batch: dict, pc_kwargs: dict, tp_rules: bool,
@@ -776,10 +810,29 @@ def check_mesh_train(accelerator, tmpdir: str):
         "value", "coords", "params_grad_untouched")})
     report["fp16_local_overflow"] = ops.gather_object(
         fp16_local_overflow_leg(params_np, {n: b[:OPTION_STEPS] for n, b in batches.items()}))
+    check_fp8_legs(accelerator, tmpdir, {n: b[:FP8_STEPS] for n, b in batches.items()}, report)
     if accelerator.is_main_process:
         with open(os.path.join(tmpdir, "mesh_train.json"), "w") as f:
             json.dump(report, f)
     accelerator.wait_for_everyone()
+
+
+def check_fp8_legs(accelerator, tmpdir: str, batches: dict, report: dict) -> None:
+    """The ``FP8_LEGS`` on ``fp8_params.npz``: each leg's numbers into
+    ``report`` with every rank's meta gathered (``meta_ranks``), its final
+    params (meta included) into ``mesh_<leg>.npz``."""
+    from accelerate_tpu_torch.utils import operations as ops
+
+    params_np = _read_tree(os.path.join(tmpdir, "fp8_params.npz"))
+    for name, pc_kwargs, zero1, fault in FP8_LEGS:
+        out = mesh_train_leg(params_np, batches, pc_kwargs, zero1, False, factory="sgd",
+                             precision="fp8", fault=fault)
+        metas = ops.gather_object({k: v.tolist() for k, v in out["meta"].items()})
+        report[name] = {"losses": out["losses"], "grad_norms": out["grad_norms"],
+                        "fused_zero1": out["fused_zero1"], "fp8": out["fp8"],
+                        "meta_ranks_equal": all(m == metas[0] for m in metas[1:])}
+        if accelerator.is_main_process:
+            np.savez(os.path.join(tmpdir, f"mesh_{name}.npz"), **out["params"])
 
 
 # the sharded checkpoint legs at 4 ranks: (name, ParallelismConfig kwargs,

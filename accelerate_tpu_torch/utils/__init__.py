@@ -3,13 +3,17 @@ exported here, as the JAX package's ``accelerate_tpu.utils`` exports
 them."""
 
 from .dataclasses import (
+    AORecipeKwargs,
     DDPCommunicationHookType,
     DistributedDataParallelKwargs,
+    FP8RecipeKwargs,
     FullyShardedDataParallelPlugin,
     HfDeepSpeedConfig,
     InitProcessGroupKwargs,
     KwargsHandler,
     MegatronLMPlugin,
+    MSAMPRecipeKwargs,
+    TERecipeKwargs,
     deepspeed_required,
     disable_fsdp_ram_efficient_loading,
     enable_fsdp_ram_efficient_loading,
@@ -17,13 +21,17 @@ from .dataclasses import (
 )
 
 __all__ = [
+    "AORecipeKwargs",
     "DDPCommunicationHookType",
     "DistributedDataParallelKwargs",
+    "FP8RecipeKwargs",
     "FullyShardedDataParallelPlugin",
     "HfDeepSpeedConfig",
     "InitProcessGroupKwargs",
     "KwargsHandler",
+    "MSAMPRecipeKwargs",
     "MegatronLMPlugin",
+    "TERecipeKwargs",
     "deepspeed_required",
     "disable_fsdp_ram_efficient_loading",
     "enable_fsdp_ram_efficient_loading",

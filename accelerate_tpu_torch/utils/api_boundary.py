@@ -11,7 +11,6 @@ from __future__ import annotations
 
 __all__ = ["LATER_ITEMS"]
 
-_QUANT = "8: fp8 and quantization (utils/quantization.py)"
 _MEMORY = "12: the operations stack (utils/memory.py)"
 _LAUNCH = "12: the operations stack (launchers.py)"
 _CONSOLE = "12: the operations stack (utils/rich.py, utils/tqdm.py, utils/imports.py)"
@@ -22,11 +21,6 @@ _PIPELINE = "11: remaining parallelism (parallel/pipeline.py)"
 LATER_ITEMS: "dict[str, str]" = {
     "LocalSGD": "11: remaining parallelism (local_sgd.py)",
     "ProfileKwargs": "12: the operations stack (Accelerator.profile)",
-    "QuantizationConfig": _QUANT,
-    "QuantizedArray": _QUANT,
-    "dequantize_params": _QUANT,
-    "load_and_quantize_model": _QUANT,
-    "quantize_params": _QUANT,
     "clear_device_cache": _MEMORY,
     "find_executable_batch_size": _MEMORY,
     "release_memory": _MEMORY,

@@ -22,6 +22,7 @@ from typing import Any, Callable, Optional, Union
 import torch
 
 __all__ = [
+    "AORecipeKwargs",
     "AutocastConfig",
     "AutocastKwargs",
     "CheckpointConfig",
@@ -32,6 +33,7 @@ __all__ = [
     "DistributedType",
     "DummyOptim",
     "DummyScheduler",
+    "FP8RecipeKwargs",
     "FullyShardedDataParallelPlugin",
     "GradScalerConfig",
     "GradScalerKwargs",
@@ -40,12 +42,14 @@ __all__ = [
     "InitProcessGroupKwargs",
     "KwargsHandler",
     "LoggerType",
+    "MSAMPRecipeKwargs",
     "MegatronLMPlugin",
     "MixedPrecisionPolicy",
     "PrecisionType",
     "ProjectConfiguration",
     "RNGType",
     "SaveFormat",
+    "TERecipeKwargs",
     "deepspeed_required",
     "disable_fsdp_ram_efficient_loading",
     "enable_fsdp_ram_efficient_loading",
@@ -146,13 +150,16 @@ class DataLoaderConfiguration:
     prefetch_depth: int = 2
 
 
-def _map_floats(tree, fn):
+def _map_floats(tree, fn, skip_meta: bool = False):
     """``fn`` on every floating tensor leaf of a nested dict/list/tuple;
-    integer leaves and non-tensors pass through."""
+    integer leaves and non-tensors (a ``QuantizedArray`` among them) pass
+    through, and with ``skip_meta`` so does every subtree under an
+    ``"fp8_meta"`` key."""
     if isinstance(tree, dict):
-        return type(tree)((k, _map_floats(v, fn)) for k, v in tree.items())
+        return type(tree)((k, v if skip_meta and k == "fp8_meta" else
+                           _map_floats(v, fn, skip_meta)) for k, v in tree.items())
     if isinstance(tree, (list, tuple)):
-        return type(tree)(_map_floats(v, fn) for v in tree)
+        return type(tree)(_map_floats(v, fn, skip_meta) for v in tree)
     if isinstance(tree, torch.Tensor) and tree.is_floating_point():
         return fn(tree)
     return tree
@@ -180,16 +187,19 @@ class MixedPrecisionPolicy:
         return cls(torch.float32, torch.bfloat16, torch.float32)
 
     @staticmethod
-    def _cast(tree, dtype):
+    def _cast(tree, dtype, skip_meta: bool = False):
         if dtype is None:
             return tree
-        return _map_floats(tree, lambda t: t.to(dtype))
+        return _map_floats(tree, lambda t: t.to(dtype), skip_meta)
 
     def cast_to_compute(self, tree):
         """Floating leaves to the compute dtype. On tensors that require
         grad this is an autograd op: gradients flow back through it to the
-        param dtype, which is :meth:`cast_to_param` of the gradients."""
-        return self._cast(tree, self.compute_dtype)
+        param dtype, which is :meth:`cast_to_param` of the gradients. fp8
+        delayed-scaling meta and ``QuantizedArray`` leaves pass through
+        untouched, as in the JAX package (bf16 histories and scales would
+        lose their precision)."""
+        return self._cast(tree, self.compute_dtype, skip_meta=True)
 
     def cast_to_param(self, tree):
         return self._cast(tree, self.param_dtype)
@@ -655,6 +665,71 @@ class MegatronLMPlugin(KwargsHandler):
         return ParallelismConfig(tp_size=self.tp_degree, pp_size=self.pp_degree,
                                  ep_size=self.expert_model_parallel_size,
                                  cp_size=self.context_parallel_size, dp_shard_size=-1)
+
+
+@dataclass
+class FP8RecipeKwargs(KwargsHandler):
+    """The JAX package's ``FP8RecipeKwargs``: every backend spelling maps
+    onto the one delayed-scaling recipe of :mod:`..ops.fp8`
+    (:meth:`to_native`). ``interval``, ``override_linear_precision`` and
+    ``use_autocast_during_eval`` are accepted for the surface."""
+
+    backend: Optional[str] = None
+    margin: int = 0
+    interval: int = 1
+    fp8_format: str = "HYBRID"
+    amax_history_len: int = 16
+    amax_compute_algo: str = "max"
+    override_linear_precision: Any = None
+    use_autocast_during_eval: bool = False
+
+    def __post_init__(self):
+        if self.backend is not None:
+            self.backend = str(self.backend).upper()
+            if self.backend not in ("TE", "MSAMP", "AO"):
+                raise ValueError(f"unknown fp8 backend {self.backend!r}")
+        self.fp8_format = str(self.fp8_format).upper()
+        if self.fp8_format not in ("HYBRID", "E4M3"):
+            raise ValueError(f"unknown fp8_format {self.fp8_format!r} (valid: HYBRID, E4M3)")
+
+    def to_native(self):
+        from ..ops.fp8 import FP8Recipe
+
+        return FP8Recipe(margin=self.margin, amax_history_len=self.amax_history_len,
+                         amax_compute_algo=self.amax_compute_algo, fp8_format=self.fp8_format)
+
+
+@dataclass
+class TERecipeKwargs(FP8RecipeKwargs):
+    """The TransformerEngine spelling of :class:`FP8RecipeKwargs`."""
+
+    def __post_init__(self):
+        self.backend = "TE"
+        super().__post_init__()
+
+
+@dataclass
+class AORecipeKwargs(FP8RecipeKwargs):
+    """The torchao spelling; ``config`` and ``module_filter_func`` are
+    accepted for the surface."""
+
+    config: Any = None
+    module_filter_func: Any = None
+
+    def __post_init__(self):
+        self.backend = "AO"
+        super().__post_init__()
+
+
+@dataclass
+class MSAMPRecipeKwargs(FP8RecipeKwargs):
+    """The MS-AMP spelling; ``opt_level`` is accepted for the surface."""
+
+    opt_level: str = "O2"
+
+    def __post_init__(self):
+        self.backend = "MSAMP"
+        super().__post_init__()
 
 
 class HfDeepSpeedConfig:

@@ -46,7 +46,13 @@ csrc`` at first use) and no network. Phases, each of which fails the run:
    the copy time that runs beside the layers' kernels in a profile;
    ``disk_offload`` and ``load_checkpoint_and_dispatch`` from an ``.npz``
    of the same weights (layers on the card, on the host and two on disk),
-   4 tokens each, the same tokens;
+   4 tokens each, the same tokens; the same weights quantized to int8 and
+   NF4 (``phase_quant``): bytes an element, greedy decoding token for token
+   the dense run's over the dequantized params with tokens/s and the extra
+   peak memory against the bf16 run, the serving engine on the NF4 params
+   equal to the engine over the dequantized ones, and
+   ``int8_dynamic_matmul``'s int32 block partials through ``_int_mm``
+   bitwise the plain product's;
    then ``benchmarks/serving/run.py``'s legs at their TPU configuration
    (dim 1024, 8 layers, 16/8 heads, vocab 32000, random bf16 weights from
    seed 0; 8 slots, 160 blocks of 16; the bench's seeded open-loop
@@ -105,6 +111,14 @@ csrc`` at first use) and no network. Phases, each of which fails the run:
    to pinned host memory, held bitwise to the plain step, with the peak
    below it by 0.75 of the state's bytes, the copies' GB/s against one
    pinned pass alone and their overlap with kernels, and a planted fault;
+   fp8 (``phase_fp8``): the JAX bench's fp8 leg (``benchmarks/attention/
+   run.py``'s TPU configuration, fp8 against bf16 step ms and the loss
+   delta), ``fp8_dot``'s three products through ``_scaled_mm`` against the
+   plain product at config #4's shapes, and config #4 at full width and
+   depth under ``mixed_precision="fp8"`` with ``dtype_recipe="fp8"`` in
+   ``phase_lm774m``'s recipe with accumulation 2: histories rolling every
+   micro-step and params moving on boundaries only, every product
+   launched through ``_scaled_mm``, step ms and peak against bf16;
 7. the rest of the model zoo: ``bench.py``'s config #2 (ResNet-50, 1000
    classes, batch 64 x 192^2, bf16 params, ``sgd(0.1, momentum=0.9)``, 20
    timed steps through the Accelerator, a profiled step), the loss falling
@@ -131,7 +145,9 @@ csrc`` at first use) and no network. Phases, each of which fails the run:
    fp16, tp 2 through ``prepare(..., shard_rules=llama_shard_rules())``,
    adafactor under ZeRO-1, the bf16 comm hook and the optimizer state on
    the host, each leg held to a one-process run or to its leg without the
-   option, with flash #1-#3 launched on each
+   option, and fp8 under dp_replicate 2 with fused ZeRO-1 (the ranks' meta
+   bitwise equal after every step, a passthrough slot for every meta leaf,
+   losses held to one process), with flash #1-#3 launched on each
    rank (the fp16 leg: plain attention, the kernels take bf16 and f32),
    and BERT-base in phase_train's recipe under tp 2 through
    ``bert_shard_rules()``, held to one process with #4/#5 on each rank;
@@ -143,14 +159,14 @@ csrc`` at first use) and no network. Phases, each of which fails the run:
    ep 2 (``moe_shard_rules``), held to a one-process run at that depth with
    equal drops and half the expert bytes a rank, and its greedy decode at
    all 16 layers under ep 2 equal to phase_moe's tokens;
-   then config #5 at full width and depth decoded under tp 2
+   then config #5 at full width, 8 of its 16 layers, decoded under tp 2
    (``--mesh-decode-child``, ``llama_shard_rules``): f32 greedy 8 x 128 +
    64 and the engine's requests (f32 and bf16, #6/#7 on each rank's 16/4
    heads) held to one-process runs at near-ties, with per-rank bytes, ms a
    decode step, the collectives' bytes and a planted fault; the dp_shard 2
    leg of config #4 also saves sharded, steps, loads and steps again
    (bitwise), and that checkpoint loads into one process;
-9. checkpoints (``phase_checkpoint``): config #4 at full width and depth
+9. checkpoints (``phase_checkpoint``): config #4 at full width, 12 of its 36 layers
    saved after 2 steps and resumed in a fresh ``Accelerator`` to step 3
    bitwise; an async save with 2 steps at once behind it (stall, writer
    time, step ms with a writer in flight, device-to-host and disk GB/s),
@@ -169,6 +185,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import gc
 import json
 import math
 import os
@@ -398,6 +415,17 @@ MESH_2RANK_LOSS_RTOL = MESH_2RANK_NORM_RTOL = 1e-5
 MESH_2RANK_FP16_SCALER = dict(init_scale=2.0 ** 40, growth_factor=2.0 ** 30,
                               backoff_factor=2.0 ** -30, growth_interval=2)
 MESH_2RANK_TIMEOUT_S = 600
+# The fp8 leg (dtype_recipe="fp8" under mixed_precision="fp8", dp_replicate 2
+# with fused ZeRO-1, the meta as passthrough slots) against one process,
+# sgd(1e-2). The first step runs on the same params and histories, held to
+# MESH_2RANK_LOSS_RTOL; the meta after every step must be bitwise equal on
+# both ranks. The compute is bf16, so each rank rounds its half of a
+# weight gradient to bf16 before the sum over the ranks where one process
+# rounds the whole sum once (the fp8 products' f32 sums split the same
+# way), and the updated params part by an ulp, which later fp8 casts may
+# carry: later steps are held to 1e-3 (measured on an H100: 1.18e-4 and
+# 1.4e-5 at steps 2 and 3 with SGD, 1.9e-5 and 1.2e-4 with AdamW).
+MESH_2RANK_FP8_LR, MESH_2RANK_FP8_RTOL = 1e-2, 1e-3
 MESH_OPS_GATHER_MB = 64
 # phase_mesh_lm774m: config #4 (LM774M_KW, its recipe: bf16 params,
 # adafactor(1e-4), remat "dots_no_batch", flash) at full width, its depth
@@ -461,7 +489,7 @@ MOE_EP_FAULTS = ("expert_input_grad_not_summed",)
 # phase_moe's one-process greedy of the same length (the expert products
 # are the same products, and the sum of one rank's term and the other's
 # zero is exact).
-# phase_mesh_decode: config #5 (CONFIG_KW) at full width and depth under
+# phase_mesh_decode: config #5 (CONFIG_KW) at full width (MESH_DECODE_LAYERS deep) under
 # ParallelismConfig(tp_size=2), two processes on the one card over gloo,
 # params placed by shard_params(rules=llama_shard_rules()) (each rank its
 # 16 of 32 q heads and 4 of 8 kv heads, half of every ffn product and
@@ -477,6 +505,9 @@ MOE_EP_FAULTS = ("expert_input_grad_not_summed",)
 # fault (no sum over tp after wo) must fail the token bar.
 MESH_DECODE_TIE = 1e-3
 MESH_DECODE_PARAM_SHARE = 0.55
+# depth cut to 8 of config #5's 16 layers for the script's clock
+# (the whole script took 1084.5 s on a slow host): every check is per layer
+MESH_DECODE_LAYERS = 8
 MESH_DECODE_FAULT_NEW = 8
 
 
@@ -3932,6 +3963,7 @@ def mesh_2rank_child(tmp: str) -> int:
     report["faults"] = {fault: _mesh_2rank_leg(state.device, config, *legs[leg], refs.get("f32"),
                                                updates=state.is_main_process, fault=fault)
                         for fault, leg in MESH_2RANK_FAULTS}
+    report["fp8"] = _mesh_2rank_fp8_leg(state.device, config, {"dp_replicate_size": 2}, True)
     bert = _bert_tp_leg(state.device, {"tp_size": 2})
     if state.is_main_process:
         torch.save({"losses": bert["losses"], "updates": bert["updates"]},
@@ -4049,6 +4081,8 @@ def phase_mesh_2rank(dev):
     _reset_states()
     bert_ref = _bert_tp_leg(dev)
     _reset_states()
+    fp8_ref = _mesh_2rank_fp8_leg(dev, config, {}, False)
+    _reset_states()
     with tempfile.TemporaryDirectory(prefix="mesh_2rank_") as tmp:
         for kind, ref in refs.items():
             torch.save(ref.pop("updates"), os.path.join(tmp, f"ref_updates_{kind}.pt"))
@@ -4146,6 +4180,29 @@ def phase_mesh_2rank(dev):
                   + (f", offload groups a step {leg['offload_groups']}, state on the device "
                      f"{leg['device_state_bytes']} B" if options.get("offload") else "")
                   for i, leg in enumerate(legs)))
+    fp8_legs = [r["fp8"] for r in ranks]
+    fp8_launches = 3 * 7 * config.n_layers * MESH_2RANK_STEPS
+    for i, leg in enumerate(fp8_legs):
+        check(leg["fused_zero1"] and leg["passthrough"] == leg["meta_leaves"] == 7 * 3,
+              f"[mesh-2rank] fp8 rank {i}: fused {leg['fused_zero1']}, passthrough "
+              f"{leg['passthrough']}, meta leaves {leg['meta_leaves']} (want 21 of each)")
+        check(leg["launches"] == fp8_launches, f"[mesh-2rank] fp8 rank {i}: {leg['launches']} "
+                                               f"scaled_mm launches, want {fp8_launches}")
+        errs = [abs(a - b) / abs(b) for a, b in zip(leg["losses"], fp8_ref["losses"])]
+        check(errs[0] <= MESH_2RANK_LOSS_RTOL and max(errs[1:]) <= MESH_2RANK_FP8_RTOL,
+              f"[mesh-2rank] fp8 rank {i} losses {leg['losses']} vs one process "
+              f"{fp8_ref['losses']}: rel errs {errs}, bars {MESH_2RANK_LOSS_RTOL:g} at the first "
+              f"step, {MESH_2RANK_FP8_RTOL:g} after")
+    check(fp8_legs[0]["meta_digests"] == fp8_legs[1]["meta_digests"],
+          "[mesh-2rank] fp8: the two ranks' meta differ after a step")
+    print(f"[mesh-2rank] fp8 (dtype_recipe='fp8', mixed_precision='fp8', sgd("
+          f"{MESH_2RANK_FP8_LR:g})) under dp_replicate 2 with fused ZeRO-1: losses "
+          + " ".join(f"{v:.5f}" for v in fp8_legs[0]["losses"]) + " against one process "
+          + " ".join(f"{v:.5f}" for v in fp8_ref["losses"]) + f" (bars {MESH_2RANK_LOSS_RTOL:g} "
+          f"at the first step, {MESH_2RANK_FP8_RTOL:g} after); "
+          f"meta bitwise equal on both ranks after each of {MESH_2RANK_STEPS} steps; "
+          f"{fp8_legs[0]['passthrough']} passthrough slots = meta leaves; scaled_mm launches a "
+          f"rank {[leg['launches'] for leg in fp8_legs]}")
     for fault, leg_name in MESH_2RANK_FAULTS:
         ref = refs["f32"]
         loss_err, norm_err, worst, upd_err = _mesh_2rank_errs(ranks[0]["faults"][fault], ref)
@@ -4782,10 +4839,11 @@ def _moe_ep_errs(leg, ref):
 
 # ------------------------------------------------------------ sharded decode --
 def _mesh_decode_params(dev):
-    """Config #5 at full width and depth from seed 0, in f32."""
+    """Config #5 at full width, ``MESH_DECODE_LAYERS`` deep, from seed 0, in
+    f32."""
     from accelerate_tpu_torch import LlamaConfig, init_llama
 
-    config = LlamaConfig(**CONFIG_KW)
+    config = LlamaConfig(**dict(CONFIG_KW, n_layers=MESH_DECODE_LAYERS))
     return config, init_llama(config, torch.Generator(device=dev).manual_seed(0), device=dev,
                               dtype=torch.float32)
 
@@ -4883,7 +4941,7 @@ def _tie_gaps(f32, config, rows, n_prompt, dev) -> torch.Tensor:
 
 
 def phase_mesh_decode(dev):
-    """Config #5 at full width and depth under tp 2 (two processes on the
+    """Config #5 at full width, ``MESH_DECODE_LAYERS`` deep, under tp 2 (two processes on the
     one card over gloo): f32 greedy and the engine (f32, bf16) held to
     one-process runs here (see MESH_DECODE_TIE), per-rank param, cache and
     pool bytes, ms a decode step and the collectives' bytes by op, #6/#7
@@ -5361,11 +5419,14 @@ def phase_offload_opt(dev):
     check(f_err > OFFLOAD_PARAM_RTOL, "[offload-opt] the planted fault passes the equality bar")
     return off["launches"]
 
-# phase_checkpoint: config #4 at full width and depth in phase_lm774m's
+# phase_checkpoint: config #4 at full width, CKPT_LAYERS deep, in phase_lm774m's
 # recipe (bf16 params, adafactor(1e-4), flash, remat "dots_no_batch"), one
 # step a call through prepare_train_step on batches of default_rng(seed)
 CKPT_SEEDS = (0, 1, 2)  # the batches of steps 1-3
-CKPT_SHARD = "1GB"  # save_model's max_shard_size (the f32 export of 1.72 GB of bf16)
+CKPT_SHARD = "500MB"  # save_model's max_shard_size: several shards of the f32 export
+# depth cut to 12 of config #4's 36 layers for the script's clock
+# (the whole script took 1084.5 s on a slow host): every check is bitwise
+CKPT_LAYERS = 12
 
 
 def _ckpt_setup(dev, seed, project_dir):
@@ -5373,7 +5434,7 @@ def _ckpt_setup(dev, seed, project_dir):
     from accelerate_tpu_torch.optimizer import adafactor
 
     _reset_states()
-    config = LlamaConfig(**LM774M_KW)
+    config = LlamaConfig(**dict(LM774M_KW, n_layers=CKPT_LAYERS))
     acc = Accelerator(mixed_precision="no", rng_seed=0, device=dev, project_dir=project_dir)
     init = init_llama(config, torch.Generator(device=dev).manual_seed(seed), device=dev,
                       dtype=torch.bfloat16)
@@ -5411,7 +5472,7 @@ def _pinned_pass_gbs(tensors) -> float:
 
 
 def phase_checkpoint(dev):
-    """Checkpoints of config #4 at full width and depth: 2 steps, a
+    """Checkpoints of config #4 at full width, ``CKPT_LAYERS`` deep: 2 steps, a
     blocking ``save_state``, step 3; a fresh ``Accelerator`` with params
     from another seed, ``load_state``, step 3 again: the loss and every
     param bitwise, flash #1-#3 launched 2/1/1 times a layer. Then, on the
@@ -5583,6 +5644,423 @@ def phase_checkpoint(dev):
     torch.cuda.empty_cache()
 
 
+# ------------------------------------------------------------ fp8 and quant --
+# phase_fp8, leg 1: the JAX package's own fp8 leg (benchmarks/attention/
+# run.py:171-232, its TPU configuration): dim 1024, 8 layers, 16/8 heads,
+# vocab 32000, batch 4 x 1024, sgd(1e-3); f32 params through fp8_dot against
+# the same step on bf16-cast params. attn_impl="flash", as for config #4.
+FP8_BENCH_KW = dict(vocab_size=32000, dim=1024, n_layers=8, n_heads=16, n_kv_heads=8,
+                    max_seq_len=1024, attn_impl="flash")
+FP8_BENCH_BATCH, FP8_BENCH_LR, FP8_BENCH_STEPS = 4, 1e-3, 10
+# leg 2: config #4 (LM774M_KW) in phase_lm774m's recipe (bf16 params,
+# adafactor(1e-4), remat "dots_no_batch") under Accelerator(mixed_precision=
+# "fp8") with dtype_recipe="fp8" and accumulation FP8_ACCUM: one window to
+# warm, then FP8_MICRO micro-steps timed, checked and counted; a bf16 run
+# of the same steps beside it. Under remat each product's forward runs twice a
+# micro-step (forward and recompute), as the flash forward does.
+FP8_ACCUM, FP8_MICRO = 2, 4
+# _scaled_mm against the plain version (the same fp8 operands upcast, an f32
+# product on the card with TF32 off) at config #4's three product shapes
+# (M, K, N) of a micro-step's 8 x 512 tokens: both accumulate the exact fp8
+# products in f32 in another order (cuBLASLt's fp8 tensor cores keep a
+# narrower partial sum between its promotions to f32), so each product is
+# held to FP8_PRODUCT_RTOL of the plain output's largest magnitude
+FP8_PRODUCT_SHAPES = {"qkvo": (4096, 1280, 1280), "w1_w3": (4096, 1280, 3584),
+                      "w2": (4096, 3584, 1280)}
+FP8_PRODUCT_RTOL = 2e-3
+PEAK_FP8_OPS_PER_S = 1979e12  # dense fp8 and int8 tensor cores, H100 SXM data sheet
+# phase_quant: config #5 (CONFIG_KW, bf16) quantized to int8 and NF4 (the
+# JAX package's QuantizationConfig defaults: blocks of 64, embeddings and
+# head dense, leaves of at least 4096 elements); int8_dynamic_matmul at a
+# 1024-token chunk through config #5's w1 (2048 x 5632), k-blocks of 128
+QUANT_KINDS = (("int8", dict(load_in_8bit=True)), ("nf4", dict(load_in_4bit=True)))
+INT8_MM_SHAPE, INT8_MM_BLOCK = (1024, 2048, 5632), 128
+
+
+def _fp8_bench_leg(dev):
+    """The JAX bench's fp8 leg on the card: ``fp8_step_ms``, ``bf16_step_ms``,
+    ``fp8_over_bf16`` and ``loss_rel_delta`` (the first step's losses, from
+    the same init), with the scaled_mm launches of the fp8 steps counted."""
+    from accelerate_tpu_torch import LlamaConfig, init_llama, llama_loss
+    from accelerate_tpu_torch.ops import fp8
+    from accelerate_tpu_torch.optimizer import AcceleratedOptimizer, param_leaves, sgd
+
+    base = LlamaConfig(**FP8_BENCH_KW)
+    ids = np.random.default_rng(0).integers(0, base.vocab_size,
+                                            (FP8_BENCH_BATCH, base.max_seq_len))
+    batch = {"input_ids": torch.from_numpy(ids.astype(np.int32)).to(dev)}
+
+    def run(recipe):
+        cfg = dataclasses.replace(base, dtype_recipe=recipe)
+        params = init_llama(cfg, torch.Generator(device=dev).manual_seed(0), device=dev,
+                            dtype=torch.float32 if recipe else torch.bfloat16)
+        for t in param_leaves(params):
+            t.requires_grad_(True)
+        opt = (fp8.make_fp8_optimizer(sgd(FP8_BENCH_LR), params) if recipe
+               else AcceleratedOptimizer(sgd(FP8_BENCH_LR)))
+        opt.init(params)
+
+        def step():
+            loss = llama_loss(params, batch, cfg)
+            loss.backward()
+            opt.step()
+            opt.zero_grad()
+            return loss.detach()
+
+        first = float(step())
+        step()
+        torch.cuda.synchronize()
+        fp8.scaled_mm.launches = 0
+        t0 = time.perf_counter()
+        for _ in range(FP8_BENCH_STEPS):
+            step()
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) / FP8_BENCH_STEPS * 1e3
+        return ms, first, fp8.scaled_mm.launches
+
+    bf16_ms, bf16_loss, _ = run(None)
+    fp8_ms, fp8_loss, launches = run("fp8")
+    want = 3 * 7 * base.n_layers * FP8_BENCH_STEPS
+    check(launches == want, f"[fp8-bench] scaled_mm launches {launches}, want {want}")
+    out = {"bf16_step_ms": round(bf16_ms, 3), "fp8_step_ms": round(fp8_ms, 3),
+           "fp8_over_bf16": round(fp8_ms / bf16_ms, 3),
+           "loss_rel_delta": round(abs(fp8_loss - bf16_loss) / max(abs(bf16_loss), 1e-9), 5),
+           "seq": base.max_seq_len, "batch": FP8_BENCH_BATCH}
+    check(math.isfinite(fp8_loss) and out["loss_rel_delta"] < 1e-2,
+          f"[fp8-bench] first-step losses fp8 {fp8_loss} vs bf16 {bf16_loss}")
+    print(f"[fp8-bench] benchmarks/attention/run.py's fp8 leg (dim {base.dim}, {base.n_layers} "
+          f"layers, {base.n_heads}/{base.n_kv_heads} heads, batch {FP8_BENCH_BATCH} x "
+          f"{base.max_seq_len}, sgd({FP8_BENCH_LR:g}), f32 params through fp8_dot vs bf16 "
+          f"params): {json.dumps(out)}; scaled_mm launches in {FP8_BENCH_STEPS} steps "
+          f"{launches}")
+    return out
+
+
+def _fp8_products(dev):
+    """Each of ``FP8_PRODUCT_SHAPES``: the forward, dx and dw products of
+    fp8_dot (e4m3 x and w, e5m2 g, scales from primed histories) through
+    ``scaled_mm`` against the plain version on the same fp8 tensors, with
+    device times, the bound and one bf16 ``torch.matmul`` of the shape."""
+    from accelerate_tpu_torch.ops import fp8
+
+    recipe = fp8.FP8Recipe()
+    gen = torch.Generator(device=dev).manual_seed(0)
+    rows = {}
+    for name, (M, K, N) in FP8_PRODUCT_SHAPES.items():
+        x = torch.randn(M, K, generator=gen, device=dev, dtype=torch.bfloat16)
+        w = (torch.randn(K, N, generator=gen, device=dev) * K ** -0.5).to(torch.bfloat16)
+        g = (torch.randn(M, N, generator=gen, device=dev) * 1e-3).to(torch.bfloat16)
+        scales = [fp8._scale_from_history(fp8._amax(t).float().reshape(1), m, recipe)
+                  for t, m in ((x, fp8.E4M3_MAX), (w, fp8.E4M3_MAX), (g, recipe.grad_max))]
+        sx, sw, sg = scales
+        qx = fp8._quantize(x, sx, fp8.E4M3_MAX, torch.float8_e4m3fn)
+        qw = fp8._quantize(w, sw, fp8.E4M3_MAX, torch.float8_e4m3fn)
+        qg = fp8._quantize(g, sg, recipe.grad_max, recipe.grad_dtype)
+        products = {"fwd": (qx, qw.T.contiguous(), sx, sw, M, K, N),
+                    "dx": (qg, qw, sg, sw, M, N, K),
+                    "dw": (qx.T.contiguous(), qg.T.contiguous(), sx, sg, K, M, N)}
+        for kind, (a, b_t, sa, sb, m, k, n) in products.items():
+            got = fp8.scaled_mm(a, b_t, sa, sb)
+            want = (a.float() @ b_t.float().T) / (sa * sb)
+            err = float((got - want).abs().max() / want.abs().max())
+            check(err <= FP8_PRODUCT_RTOL, f"[fp8-products] {name} {kind}: max err {err} of the "
+                                           f"largest output, bar {FP8_PRODUCT_RTOL}")
+            a16, b16 = a.to(torch.bfloat16), b_t.T.to(torch.bfloat16)
+            launches = fp8.scaled_mm.launches
+            ms = time_ms(lambda i: fp8.scaled_mm(a, b_t, sa, sb), 1, 20)
+            fast_ms = time_ms(lambda i: torch._scaled_mm(
+                a, b_t.T, scale_a=torch.reciprocal(sa).reshape(()),
+                scale_b=torch.reciprocal(sb).reshape(()), out_dtype=torch.float32,
+                use_fast_accum=True), 1, 20)
+            fp8.scaled_mm.launches = launches  # timing launches are not the path's
+            plain_ms = time_ms(lambda i: (a.float() @ b_t.float().T) / (sa * sb), 1, 20)
+            library_ms = time_ms(lambda i: a16 @ b16, 1, 20)
+            ops_s = 2.0 * m * k * n / PEAK_FP8_OPS_PER_S
+            bytes_s = (m * k + k * n + 4 * m * n) / HBM_BYTES_PER_S
+            rows[f"{name}_{kind}"] = {
+                "shape": [m, k, n], "max_err_rel": err, "ms": ms, "fast_accum_ms": fast_ms,
+                "plain_ms": plain_ms, "library_bf16_ms": library_ms,
+                "bound_ms": max(ops_s, bytes_s) * 1e3,
+                "bound_by": "operations" if ops_s >= bytes_s else "bytes"}
+    print(f"[fp8-products] _scaled_mm (use_fast_accum=False, the port's) against the plain f32 "
+          f"product of the same fp8 operands, bar {FP8_PRODUCT_RTOL} of the largest output; "
+          f"fast_accum_ms (not used by the port) and one bf16 torch.matmul of the shape as "
+          f"yardsticks: {json.dumps(rows)}")
+    return rows
+
+
+def _fp8_lm774m(dev):
+    """Config #4 under ``mixed_precision="fp8"``: the histories roll every
+    micro-step and the params change on accumulation boundaries only; every
+    projection's products go through scaled_mm (7 x 36 forwards, twice
+    under remat, and 2 x 7 x 36 backward products a micro-step); step ms,
+    peak memory and the losses of the first window against a bf16 run."""
+    from accelerate_tpu_torch import Accelerator, LlamaConfig, init_llama, llama_loss
+    from accelerate_tpu_torch.ops import fp8
+    from accelerate_tpu_torch.optimizer import adafactor
+
+    config = LlamaConfig(**LM774M_KW)
+    ids = np.random.default_rng(0).integers(0, config.vocab_size,
+                                            (FP8_MICRO, LM774M_BATCH, config.max_seq_len))
+    batches = {"input_ids": torch.from_numpy(ids.astype(np.int32)).to(dev)}
+    remat = "dots_no_batch"
+
+    def setup(cfg, precision):
+        _reset_states()
+        acc = Accelerator(mixed_precision=precision, gradient_accumulation_steps=FP8_ACCUM,
+                          rng_seed=0)
+        params = init_llama(cfg, torch.Generator(device=dev).manual_seed(0), device=dev,
+                            dtype=torch.bfloat16)
+        params, opt = acc.prepare(params, adafactor(LM774M_LR))
+        loop = acc.prepare_train_loop(lambda p, b: llama_loss(p, b, cfg, remat=remat), opt)
+        return params, opt, loop
+
+    def window(k0, k1):
+        return {"input_ids": batches["input_ids"][k0:k1]}
+
+    out = {}
+    for tag, cfg, precision in (("bf16", config, "bf16"),
+                                ("fp8", dataclasses.replace(config, dtype_recipe="fp8"), "fp8")):
+        params, opt, loop = setup(cfg, precision)
+        state = opt.opt_state
+        params, state, m = loop(params, state, window(0, FP8_ACCUM))
+        first = m["loss"].cpu()
+        meta = params["layers"]["wq"].get("fp8_meta", {}).get("x_hist")
+        kernel = params["layers"]["wq"]["kernel"]
+        if tag == "fp8":
+            check(opt.fp8_partition and len(opt.meta) == 7 * 3,
+                  f"[fp8-lm774m] {len(opt.meta)} meta leaves split out, want 21")
+            fp8.scaled_mm.launches = 0
+            fp8.PRODUCTS.update(forward=0, backward=0)
+        # the timed micro-steps one a call: the fp8 run checks each one's
+        # histories and params (a call's host cost is a few ms of ~1 s)
+        seen = [(None if meta is None else meta.clone(), kernel[0].clone())]
+        losses = []
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        for k in range(FP8_MICRO):
+            params, state, m = loop(params, state, window(k, k + 1))
+            losses.append(m["loss"])
+            if meta is not None:
+                seen.append((meta.clone(), kernel[0].clone()))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        out[tag] = {"ms": wall / FP8_MICRO * 1e3, "peak": torch.cuda.max_memory_allocated(),
+                    "first": first, "losses": torch.cat(losses).cpu()}
+        check(bool(torch.isfinite(out[tag]["losses"]).all()), f"[fp8-lm774m] {tag} losses")
+        for i in range(1, len(seen) if meta is not None else 0):
+            check(not torch.equal(seen[i][0], seen[i - 1][0]),
+                  f"[fp8-lm774m] histories did not roll on micro-step {i}")
+            boundary = i % FP8_ACCUM == 0
+            check(torch.equal(seen[i][1], seen[i - 1][1]) != boundary,
+                  f"[fp8-lm774m] micro-step {i}: params "
+                  f"{'unchanged on a boundary' if boundary else 'moved mid-window'}")
+        if tag == "fp8":
+            n = 7 * config.n_layers * FP8_MICRO
+            want = {"forward": n * (2 if remat else 1), "backward": 2 * n}
+            check(dict(fp8.PRODUCTS) == want and fp8.scaled_mm.launches == sum(want.values()),
+                  f"[fp8-lm774m] fp8 products {dict(fp8.PRODUCTS)} and scaled_mm launches "
+                  f"{fp8.scaled_mm.launches}, want {want} all launched")
+            out["launches"] = fp8.scaled_mm.launches
+            print(f"[fp8-lm774m] histories rolled on each of 4 micro-steps, params moved on the "
+                  f"2 boundaries only; {FP8_MICRO} micro-steps: fp8 products {dict(fp8.PRODUCTS)}"
+                  f", scaled_mm launches {fp8.scaled_mm.launches}")
+        del params, opt, loop, state
+        torch.cuda.empty_cache()
+    delta = float(((out["fp8"]["first"] - out["bf16"]["first"]).abs()
+                   / out["bf16"]["first"].abs()).max())
+    check(delta < 1e-2, f"[fp8-lm774m] first-window losses fp8 {out['fp8']['first'].tolist()} "
+                        f"vs bf16 {out['bf16']['first'].tolist()}")
+    print(f"[fp8-lm774m] config #4 ({config.n_layers} layers, dim {config.dim}, batch "
+          f"{LM774M_BATCH} x {config.max_seq_len}), "
+          f"adafactor({LM774M_LR:g}), remat {remat!r}, accumulation {FP8_ACCUM}: fp8 "
+          f"{out['fp8']['ms']:.1f} ms/micro-step, peak {out['fp8']['peak'] / 2**30:.2f} GiB; bf16 "
+          f"{out['bf16']['ms']:.1f} ms/micro-step, peak {out['bf16']['peak'] / 2**30:.2f} GiB; "
+          f"fp8/bf16 {out['fp8']['ms'] / out['bf16']['ms']:.3f}; first-window losses fp8 "
+          f"{[round(v, 5) for v in out['fp8']['first'].tolist()]} bf16 "
+          f"{[round(v, 5) for v in out['bf16']['first'].tolist()]} (max rel delta {delta:.2e})")
+    return out
+
+
+def phase_fp8(dev):
+    """fp8 on the card: the JAX bench's fp8 leg, the three products at
+    config #4's shapes against their plain version, and config #4 at full
+    width and depth under ``mixed_precision="fp8"``. Returns the scaled_mm
+    launches of config #4's timed micro-steps."""
+    _fp8_bench_leg(dev)
+    _fp8_products(dev)
+    return _fp8_lm774m(dev)["launches"]
+
+
+def _int8_matmul_check(dev):
+    """``int8_dynamic_matmul``'s int32 block partials through ``_int_mm``
+    against the plain product of the same int8 values (on the card an f32
+    product, exact: every partial sum is an integer below 2**24), bitwise;
+    times beside the bound and one bf16 ``torch.matmul`` of the shape."""
+    from accelerate_tpu_torch.ops import quantization as q_ops
+
+    M, K, N = INT8_MM_SHAPE
+    gen = torch.Generator(device=dev).manual_seed(0)
+    x = torch.randn(M, K, generator=gen, device=dev, dtype=torch.bfloat16)
+    w = (torch.randn(K, N, generator=gen, device=dev) * K ** -0.5).to(torch.bfloat16)
+    wq = q_ops.quantize_int8_matmul_weight(w, block_size=INT8_MM_BLOCK)
+    q_ops.int_mm.launches = 0
+    partials, x_scale = q_ops.int8_block_partials(x, wq)
+    nblk = wq.codes.shape[0]
+    check(q_ops.int_mm.launches == nblk, f"[int8-mm] {q_ops.int_mm.launches} _int_mm launches, "
+                                         f"want {nblk}")
+    xb, _ = q_ops.quantize_rows(x, wq)
+    plain = torch.stack([xb[:, b].float() @ wq.codes[b].float() for b in range(nblk)])
+    check(torch.equal(partials, plain.to(torch.int32)), "[int8-mm] int32 block partials differ "
+                                                          "from the plain product")
+    out = q_ops.int8_dynamic_matmul(x, wq, preferred_dtype=torch.float32)
+    rel = float(torch.linalg.vector_norm(out - x.float() @ w.float())
+                / torch.linalg.vector_norm(x.float() @ w.float()))
+    check(rel < 0.02, f"[int8-mm] int8_dynamic_matmul rel L2 {rel} from the bf16 product")
+    xs = [xb[:, b].contiguous() for b in range(nblk)]
+    ms = time_ms(lambda i: [q_ops.int_mm(xs[b], wq.codes[b]) for b in range(nblk)], 1, 10)
+    plain_ms = time_ms(lambda i: [xs[b].float() @ wq.codes[b].float() for b in range(nblk)], 1, 10)
+    library_ms = time_ms(lambda i: x @ w, 1, 10)
+    ops_s = 2.0 * M * K * N / PEAK_FP8_OPS_PER_S
+    bytes_s = (M * K + K * N + 4 * nblk * M * N) / HBM_BYTES_PER_S
+    row = {"shape": [M, K, N], "blocks": nblk, "bitwise": True, "rel_l2_vs_bf16": rel, "ms": ms,
+           "plain_ms": plain_ms, "library_bf16_ms": library_ms,
+           "bound_ms": max(ops_s, bytes_s) * 1e3,
+           "bound_by": "operations" if ops_s >= bytes_s else "bytes"}
+    q_ops.int_mm.launches = nblk
+    print(f"[int8-mm] int8_dynamic_matmul x {M}x{K} by w {K}x{N} in k-blocks of {INT8_MM_BLOCK}: "
+          f"{nblk} _int_mm launches, int32 partials bitwise the plain product's; "
+          f"{json.dumps(row)}")
+    return row
+
+
+def phase_quant(params, config, dev):
+    """Config #5 quantized to int8 and NF4: bytes against the dense tree,
+    greedy 8 x 128 + 64 token for token the dense run over the dequantized
+    params, tokens/s against the bf16 dense run and the extra peak memory
+    of each call; the serving engine on the NF4 params equal to the engine
+    over the dequantized ones (#6/#7 launched); the int8 _int_mm check."""
+    from accelerate_tpu_torch import (
+        QuantizationConfig,
+        QuantizedArray,
+        dequantize_params,
+        greedy_generate,
+        quantize_params,
+    )
+    from accelerate_tpu_torch.ops import flash_attention as fa
+    from accelerate_tpu_torch.ops.quantization import quantized_byte_size
+    from accelerate_tpu_torch.optimizer import param_leaves
+    from accelerate_tpu_torch.serving import ServingEngine
+
+    prompt = np.random.default_rng(0).integers(0, config.vocab_size,
+                                               (GEN_BATCH, GEN_PROMPT)).astype(np.int32)
+
+    def generate(tree):
+        gc.collect()  # an earlier call's garbage freed mid-call would hide this one's peak
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        # no warm-up run: phase_generate warmed this path, and eager torch
+        # compiles nothing at a first call
+        tokens, stats = greedy_generate(tree, prompt, config, max_new_tokens=GEN_NEW,
+                                        return_stats=True)
+        return tokens, stats, torch.cuda.max_memory_allocated() - base
+
+    dense_bytes = quantized_byte_size(params)
+    dense_tokens, dense_stats, dense_peak = generate(params)
+    print(f"[quant] config #5 dense bf16: {dense_bytes / 2**30:.3f} GiB, greedy {GEN_BATCH} x "
+          f"{GEN_PROMPT} + {GEN_NEW}: {dense_stats['decode_tokens_per_sec']:.1f} decode tok/s, "
+          f"extra peak {dense_peak / 2**30:.3f} GiB")
+    for kind, kw in QUANT_KINDS:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        q = quantize_params(params, QuantizationConfig(**kw))
+        torch.cuda.synchronize()
+        quant_s = time.perf_counter() - t0
+        leaves = [t for t in param_leaves(q) if isinstance(t, QuantizedArray)]
+        per_elem = sum(t.nbytes_quantized for t in leaves) / sum(t.size for t in leaves)
+        q_bytes = quantized_byte_size(q)
+        tokens, stats, peak = generate(q)
+        deq = dequantize_params(q)
+        deq_tokens = greedy_generate(deq, prompt, config, max_new_tokens=GEN_NEW)
+        check(np.array_equal(tokens, deq_tokens),
+              f"[quant] {kind}: {int((tokens != deq_tokens).sum())} greedy tokens differ from the "
+              "dense run over the dequantized params")
+        print(f"[quant] {kind}: {len(leaves)} leaves quantized in {quant_s:.2f} s, "
+              f"{per_elem:.4f} bytes an element of them (bf16: 2); tree {q_bytes / 2**30:.3f} GiB "
+              f"({q_bytes / dense_bytes:.4f} of dense); greedy equal to the dequantized dense run "
+              f"token for token; {stats['decode_tokens_per_sec']:.1f} decode tok/s "
+              f"({stats['decode_tokens_per_sec'] / dense_stats['decode_tokens_per_sec']:.3f} of "
+              f"dense bf16), prefill {stats['prefill_seconds']:.4f} s, extra peak "
+              f"{peak / 2**30:.3f} GiB; {int((tokens != dense_tokens).sum())} of "
+              f"{GEN_BATCH * (GEN_PROMPT + GEN_NEW)} tokens differ from the bf16 weights' run")
+        if kind == "nf4":
+            streams = {}
+            for tag, tree in (("nf4", q), ("dequantized", deq)):
+                engine = ServingEngine(tree, config, **ENGINE_KW)
+                reqs = [engine.submit(p, ENGINE_NEW) for p in _engine_prompts(config)]
+                fa.paged_attention_decode.launches = fa.paged_attention_prefill.launches = 0
+                engine.run()
+                launches = (fa.paged_attention_decode.launches,
+                            fa.paged_attention_prefill.launches)
+                check(all(n > 0 for n in launches), f"[quant] engine {tag}: launches {launches}")
+                streams[tag] = [list(r.generated) for r in reqs]
+            check(streams["nf4"] == streams["dequantized"],
+                  "[quant] the engine's NF4 streams differ from the dequantized run's")
+            print(f"[quant] ServingEngine on the NF4 params: {len(streams['nf4'])} requests equal "
+                  f"to the engine over the dequantized params, token for token; paged decode / "
+                  f"prefill launches {launches}")
+        del q, deq
+        torch.cuda.empty_cache()
+    return _int8_matmul_check(dev)
+
+
+def _mesh_2rank_fp8_leg(dev, config, pc_kwargs, zero1):
+    """``MESH_2RANK_STEPS`` steps of ``sgd(MESH_2RANK_FP8_LR)`` on ``config`` with ``dtype_recipe=
+    "fp8"`` under ``Accelerator(mixed_precision="fp8")`` through a mesh of
+    the running processes (or of none): the losses, a digest of this
+    rank's meta after each step, the meta and passthrough counts, whether
+    the fused ZeRO-1 path ran, and the scaled_mm launches."""
+    import hashlib
+
+    from accelerate_tpu_torch import Accelerator, init_llama, llama_loss
+    from accelerate_tpu_torch.data_loader import GlobalBatchAssembler
+    from accelerate_tpu_torch.ops import fp8
+    from accelerate_tpu_torch.optimizer import sgd
+    from accelerate_tpu_torch.parallelism_config import ParallelismConfig
+    from accelerate_tpu_torch.state import AcceleratorState, GradientState
+    from accelerate_tpu_torch.utils.dataclasses import DeepSpeedPlugin
+
+
+    AcceleratorState._reset_state()
+    GradientState._reset_state()
+    cfg = dataclasses.replace(config, dtype_recipe="fp8")
+    acc = Accelerator(mixed_precision="fp8", rng_seed=0, device=dev,
+                      parallelism_config=ParallelismConfig(**pc_kwargs),
+                      deepspeed_plugin=DeepSpeedPlugin(zero_stage=1) if zero1 else None)
+    init = init_llama(cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
+    params, opt = acc.prepare(init, sgd(MESH_2RANK_FP8_LR))
+    del init
+    step = acc.prepare_train_step(lambda p, b: llama_loss(p, b, cfg, mesh=acc.mesh), opt)
+    ids = np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (MESH_2RANK_STEPS, MESH_2RANK_BATCH, cfg.max_seq_len))
+    assembler = GlobalBatchAssembler(acc.mesh, device=dev)
+    state, losses, digests = opt.opt_state, [], []
+    fp8.scaled_mm.launches = 0
+    for k in range(MESH_2RANK_STEPS):
+        batch = assembler.to_global(assembler.local_block({"input_ids": ids[k].astype(np.int32)}))
+        params, state, m = step(params, state, batch)
+        losses.append(float(m["loss"]))
+        digests.append(hashlib.sha256(b"".join(
+            t.detach().cpu().numpy().tobytes() for t in opt.meta)).hexdigest())
+    out = {"losses": losses, "meta_digests": digests, "meta_leaves": len(opt.meta),
+           "passthrough": (len(opt.zero1.plan.passthrough_indices) if opt.zero1 is not None
+                           else None),
+           "fused_zero1": opt.zero1 is not None, "launches": fp8.scaled_mm.launches}
+    del params, opt, step, state
+    torch.cuda.empty_cache()
+    return out
 def _timed(phase, *args):
     """``phase(*args)``, with its wall seconds printed."""
     t0 = time.perf_counter()
@@ -5639,6 +6117,7 @@ def main() -> int:
     _timed(phase_cached_vs_full, params, config, dev)
     prompt, greedy16, greedy4 = _timed(phase_generate, params, config, dev, load_s)
     _timed(phase_offload, params, config, dev, prompt, greedy16, greedy4)
+    _timed(phase_quant, params, config, dev)
     del params
     serve_config = LlamaConfig(**SERVE_BENCH_KW)
     serve_params = init_llama(serve_config, torch.Generator(device=dev).manual_seed(0),
@@ -5659,6 +6138,7 @@ def main() -> int:
     _timed(phase_lm774m_check, dev)
     lomo_launches = _timed(phase_lomo, dev)
     offload_opt_launches = _timed(phase_offload_opt, dev)
+    _timed(phase_fp8, dev)
     _timed(phase_checkpoint, dev)
     _timed(phase_resnet, dev)
     _timed(phase_t5, dev)

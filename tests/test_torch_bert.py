@@ -120,5 +120,16 @@ def test_init_bert_layout_matches_jax():
 
 
 def test_fp8_recipe_is_not_ported():
-    with pytest.raises(NotImplementedError, match="fp8"):
-        tt.init_bert(dataclasses.replace(TCFG, dtype_recipe="fp8"), device="cpu")
+    """The name is older than the port of the recipe: BERT's fp8 init now
+    carries the JAX package's meta tree (a zero f32 history of 16 per role
+    and layer on each of the six projections)."""
+    tp = tt.init_bert(dataclasses.replace(TCFG, dtype_recipe="fp8"), device="cpu",
+                      dtype=torch.bfloat16)
+    jp = jax.eval_shape(lambda: jt.init_bert(dataclasses.replace(JCFG, dtype_recipe="fp8"),
+                                             jax.random.PRNGKey(0)))
+    assert jax.tree_util.tree_map(lambda x: tuple(x.shape), jp) == jax.tree_util.tree_map(
+        lambda x: tuple(x.shape), tp)
+    for name in ("wq", "wk", "wv", "wo", "fc1", "fc2"):
+        for hist in tp["layers"][name]["fp8_meta"].values():
+            assert hist.dtype == torch.float32 and not hist.any()
+    assert "fp8_meta" not in tp["pooler"]

@@ -179,10 +179,10 @@ def test_kwargs_handlers_route_as_in_jax():
                                        ("ProfileConfig", "12"), ("FP8RecipeKwargs", "8")])
 def test_handlers_of_later_items_raise_naming_the_item(name, item):
     """A handler of an item still to port raises naming the item; one of
-    an item ported since (7, 14) is taken as the port's own class, and the
-    JAX package's object of it is refused like any foreign handler."""
+    an item ported since (7, 14, 8) is taken as the port's own class, and
+    the JAX package's object of it is refused like any foreign handler."""
     handler = getattr(jdc, name)()  # the JAX package's own object
-    if item in ("7", "14"):
+    if item in ("7", "14", "8"):
         Accelerator(cpu=True, kwargs_handlers=[getattr(tdc, name)()])
         with pytest.raises(ValueError, match="unsupported kwargs handler"):
             Accelerator(cpu=True, kwargs_handlers=[handler])

@@ -8,7 +8,12 @@ projections in pinned host memory; and two of checkpoints, which need no
 kernel: an async ``save_state`` owns its host bytes when it returns (the
 params changed on the card right after it do not reach the file), and bf16
 params on the card round-trip through ``model.npz`` (``|V2``) and the
-sharded format bitwise.
+sharded format bitwise. And the two library routes of fp8 training and
+weight quantization, which replace no TPU kernel: ``fp8_dot``'s products
+through ``torch._scaled_mm`` against the plain product of the same fp8
+operands (with the zero padding of dimensions that are not multiples of
+16), and ``int8_dynamic_matmul``'s block partials through
+``torch._int_mm`` bitwise against the plain int32 product.
 
 This file imports no JAX, so on a machine with a GPU and no JAX it runs
 alone: ``python -m pytest --noconftest -p no:cacheprovider -m cuda
@@ -756,3 +761,67 @@ def test_bf16_params_round_trip(dev, tmp_path, sharded):
     acc.load_state(out)
     assert params["w"].dtype == torch.bfloat16 and params["w"].is_cuda
     assert torch.equal(params["w"], want)
+
+
+@pytest.mark.parametrize("shape", [(256, 128, 192), (200, 72, 40)], ids=["aligned", "padded"])
+def test_scaled_mm_route_matches_the_plain_fp8_product(dev, shape):
+    """The three products of ``fp8_dot`` on the card: forward, dx and dw
+    through ``scaled_mm`` (``_scaled_mm``, counted) against the plain
+    version on the same fp8 tensors. Both add the exact fp8 products in f32,
+    in another order (the fp8 tensor cores keep a narrower partial sum
+    between promotions): measured within 2.2e-4 of the largest output on
+    an H100 at config #4's shapes (``chip_smoke.py``'s ``_fp8_products``).
+    The autograd function rounds out, dx and dw to bf16, so they are held
+    to one bf16 step of the largest output, 2**-7 of it; its meta
+    gradients bitwise."""
+    from accelerate_tpu_torch.ops import fp8
+
+    M, K, N = shape
+    gen = torch.Generator(device=dev).manual_seed(0)
+    x = torch.randn(M, K, generator=gen, device=dev, dtype=torch.bfloat16)
+    w = (torch.randn(K, N, generator=gen, device=dev) * K ** -0.5).to(torch.bfloat16)
+    g = (torch.randn(M, N, generator=gen, device=dev) * 1e-3).to(torch.bfloat16)
+    hist = {k: torch.full((16,), v, device=dev) for k, v in
+            (("x_hist", float(x.abs().max())), ("w_hist", float(w.abs().max())),
+             ("g_hist", float(g.abs().max())))}
+
+    def run(device):
+        tx = x.to(device, copy=True).requires_grad_(True)
+        tw = w.to(device, copy=True).requires_grad_(True)
+        tm = {k: v.to(device, copy=True).requires_grad_(True) for k, v in hist.items()}
+        out = fp8.fp8_dot(tx, tw, tm)
+        out.backward(g.to(device))
+        return [t.detach().float().cpu() for t in (out, tx.grad, tw.grad)], {
+            k: v.grad.cpu() for k, v in tm.items()}
+
+    before = fp8.scaled_mm.launches
+    (out, dx, dw), meta = run(dev)
+    assert fp8.scaled_mm.launches - before == 3
+    (pout, pdx, pdw), pmeta = run("cpu")
+    for got, want in ((out, pout), (dx, pdx), (dw, pdw)):
+        assert float((got - want).abs().max()) <= 2.0 ** -7 * float(want.abs().max())
+    for k in meta:
+        assert torch.equal(meta[k], pmeta[k])
+
+
+def test_int_mm_route_matches_the_plain_int32_product_bitwise(dev):
+    """``int8_dynamic_matmul``'s int32 block partials through ``_int_mm``
+    (rows not a multiple of 16, padded) equal the plain int32 product of
+    the same int8 values, computed on the CPU, bit for bit."""
+    from accelerate_tpu_torch.ops import quantization as q
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+    x = torch.randn(40, 256, generator=gen, device=dev, dtype=torch.bfloat16)
+    w = (torch.randn(256, 96, generator=gen, device=dev) / 16).to(torch.bfloat16)
+    wq = q.quantize_int8_matmul_weight(w, block_size=128)
+    before = q.int_mm.launches
+    partials, x_scale = q.int8_block_partials(x, wq)
+    assert q.int_mm.launches - before == 2
+    xb, _ = q.quantize_rows(x, wq)
+    plain = torch.stack([q.int_mm(xb[:, b].cpu(), wq.codes[b].cpu()) for b in range(2)])
+    assert torch.equal(partials.cpu(), plain)
+    out = q.int8_dynamic_matmul(x, wq, preferred_dtype=torch.float32)
+    cpu_wq = wq.to("cpu")
+    assert torch.allclose(out.cpu(), q.int8_dynamic_matmul(x.cpu(), cpu_wq,
+                                                           preferred_dtype=torch.float32),
+                          rtol=1e-6, atol=1e-6)

@@ -8,6 +8,8 @@ forward's logits at rtol 1e-5 with atol 1e-5 (logits near 0 have no
 meaningful relative error).
 """
 
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -165,6 +167,8 @@ def test_unported_features_raise():
     got = tt.llama_forward(params_from_numpy(jax.tree_util.tree_map(np.asarray, jp),
                                              device="cpu"), torch.from_numpy(ids), moe)
     np.testing.assert_allclose(got.numpy(), want, atol=1e-5, rtol=1e-5)
-    with pytest.raises(NotImplementedError, match="fp8"):
-        tt.init_llama(tt.LlamaConfig(dim=64, n_layers=1, n_heads=2, n_kv_heads=1,
-                                     dtype_recipe="fp8"), device="cpu")
+    # fp8 with MoE layers raises ValueError in both packages' init
+    with pytest.raises(ValueError, match="MoE"):
+        jt.init_llama(dataclasses.replace(jmoe, dtype_recipe="fp8"), jax.random.PRNGKey(0))
+    with pytest.raises(ValueError, match="MoE"):
+        tt.init_llama(dataclasses.replace(moe, dtype_recipe="fp8"), device="cpu")

@@ -40,6 +40,14 @@ gathers the stacked layers one at a time (``LayerStack``).
   ``jax.value_and_grad`` of the global loss.
 - fp16 under dp_shard 4 with an infinity planted in one rank's block of
   one gradient: every rank takes the same decision.
+- fp8 (``dtype_recipe="fp8"``, ``mixed_precision="fp8"``, ``sgd(1e-2)``,
+  2 steps) under dp_replicate 4 with fused ZeRO-1 (the meta as passthrough
+  slots) and under (dp_replicate 2, dp_shard 2) (its layers through
+  ``LayerStack``), held to the JAX package's run under dp_replicate 4 with
+  fused ZeRO-1 (the same global function): every rank's
+  meta bitwise equal, the passthrough count the meta leaf count, and a
+  planted fault (the meta gradients summed over the ranks, not MAX-reduced)
+  failing the meta bar.
 - sharded checkpoints in the same launch (scenario ``mesh_ckpt``): 4
   steps with a ``save_state`` after 2, under (dp_replicate 2, dp_shard 2)
   with adafactor and under dp_replicate 4 with fused ZeRO-1 and AdamW;
@@ -65,7 +73,13 @@ frameworks round matmul outputs at different places, so losses within
 2e-3 relative and params within 2e-2 relative L2 (the bars of
 ``tests/test_torch_grad_accum.py`` for fp16, whose docstring gives the
 measurements), while the loss-scale and finite-flag sequences are
-decisions and must equal JAX's exactly.
+decisions and must equal JAX's exactly. fp8: bf16 compute, where XLA's
+CPU backend fuses elementwise chains in f32 and torch rounds each op, and
+an amax is the largest of those roundings, which the fp8 casts then carry
+on: losses within 1e-3 relative (measured 1.7e-4 over 3 steps), the
+histories within 0.25 of each leaf's largest value (measured 0.17; the
+planted sum over the ranks moves them by 63x), kernels within 2e-3
+relative L2 (measured 1.7e-4).
 """
 
 import dataclasses
@@ -97,8 +111,10 @@ SCRIPT = ["-m", "accelerate_tpu_torch.test_utils.scripts.multihost_script"]
 LEGS = {name: (pc, zero1, tp) for name, pc, zero1, tp in ms.MESH_LEGS}
 OPTIONS = {name: (pc, tp, opts) for name, pc, tp, opts in ms.OPTION_LEGS}
 REMATS = {name: (pc, tp, opts) for name, pc, tp, opts in ms.REMAT_LEGS}
+FP8 = {name: (pc, zero1, fault) for name, pc, zero1, fault in ms.FP8_LEGS}
 B, S = 8, 64
 CFG = dataclasses.replace(jt.LlamaConfig.tiny(), n_layers=4)
+FP8_CFG = dataclasses.replace(CFG, dtype_recipe="fp8")
 
 
 def _path(path) -> str:
@@ -122,6 +138,7 @@ def run(tmp_path_factory):
     tmp = tmp_path_factory.mktemp("mesh_train")
     jparams = jt.init_llama(CFG, jax.random.PRNGKey(0))
     np.savez(tmp / "llama_params.npz", **_flat(jparams))
+    np.savez(tmp / "fp8_params.npz", **_flat(jt.init_llama(FP8_CFG, jax.random.PRNGKey(0))))
     vocab = CFG.vocab_size
     rng = np.random.default_rng(0)
     batches = {"input_ids": rng.integers(1, vocab, size=(ms.MESH_STEPS, B, S), dtype=np.int32),
@@ -140,7 +157,7 @@ def run(tmp_path_factory):
             report["ckpt"][name]["saved"] = {k: f[k] for k in f.files}
         report["ckpt"][name]["dir"] = str(tmp / f"ckpt_{name}")
     legs = {}
-    for name in [*LEGS, *OPTIONS, *REMATS]:
+    for name in [*LEGS, *OPTIONS, *REMATS, *FP8]:
         with np.load(tmp / f"mesh_{name}.npz") as f:
             legs[name] = {k: f[k] for k in f.files}
     for i in range(4):
@@ -162,6 +179,8 @@ def world1(run):
 
 
 def _jax_optimizer(factory: str):
+    if factory == "sgd":
+        return optax.sgd(ms.FP8_LR)
     if factory == "adamw":
         return optax.adamw(ms.MESH_LR)
     if factory == "adafactor":
@@ -614,3 +633,46 @@ def test_sharded_checkpoint_loads_in_jax(run, leg):
     got = _flat(jsc.load_sharded_pytree(nested, rec["dir"], prefix="model"))
     for k, v in saved.items():
         np.testing.assert_array_equal(got[k], v, err_msg=k)
+
+
+# -- fp8 --
+
+@pytest.fixture(scope="module")
+def fp8_jax(run):
+    """The JAX package's fp8 run under dp_replicate 4 with fused ZeRO-1: the
+    global function both fp8 legs compute (its run on dp_replicate 2 ×
+    dp_shard 2 gives the same numbers to the bars' precision)."""
+    _, batches, _, _ = run
+    jparams = jt.init_llama(FP8_CFG, jax.random.PRNGKey(0))
+    steps = {n: b[:ms.FP8_STEPS] for n, b in batches.items()}
+    return _jax_leg(jparams, steps, {"dp_replicate_size": 4}, True, False, factory="sgd",
+                    precision="fp8")
+
+
+def _hold_fp8(got: dict, want: dict):
+    np.testing.assert_allclose(got["losses"], want["losses"], rtol=1e-3)
+    assert sorted(got["params"]) == sorted(want["params"])
+    for path, value in got["params"].items():
+        ref = want["params"][path]
+        if "fp8_meta" in path:
+            assert np.abs(value - ref).max() <= 0.25 * np.abs(ref).max(), path
+        elif path.endswith("kernel"):
+            assert _rel_l2(value, ref) <= 2e-3, (path, _rel_l2(value, ref))
+
+
+@pytest.mark.parametrize("leg", [name for name, (_, _, fault) in FP8.items() if fault is None])
+def test_fp8_leg_matches_jax_and_its_fault_fails(run, fp8_jax, leg):
+    """The meta's gradients MAX-reduced over the batch ranks reproduce
+    JAX's global amax; every rank holds the same meta, bitwise; under
+    fused ZeRO-1 the meta leaves are the plan's passthrough slots and the
+    fused path stays engaged."""
+    got = _got(run, leg)
+    pc, zero1, _ = FP8[leg]
+    assert got["fused_zero1"] == zero1
+    assert got["fp8"]["meta_leaves"] == 7 * 3  # 7 product sites, 3 histories each
+    if zero1:
+        assert got["fp8"]["passthrough"] == got["fp8"]["meta_leaves"]
+    assert got["meta_ranks_equal"] and run[2][leg + "_fault"]["meta_ranks_equal"]
+    assert any(v.max() > 0 for k, v in got["params"].items() if k.endswith("g_hist"))
+    _hold_fp8(got, fp8_jax)
+    assert _fails(_hold_fp8, _got(run, leg + "_fault"), fp8_jax)

@@ -254,10 +254,21 @@ def test_precision_policy_casts_floats_only():
 
 
 def test_unported_modes_raise():
-    """fp8 is not ported; fp16 and gradient accumulation are, and
-    ``tests/test_torch_grad_accum.py`` holds them to the JAX package."""
-    with pytest.raises(NotImplementedError, match="fp8"):
-        Accelerator(mixed_precision="fp8", cpu=True)
+    """The name is older than the fp8 port: ``mixed_precision="fp8"`` now
+    builds as in the JAX package (bf16 compute over f32 masters, one fp8
+    recipe handler kept and never read; ``tests/test_torch_fp8.py`` trains
+    with it), and an unsupported handler still raises."""
+    from accelerate_tpu_torch.ops.fp8 import FP8Recipe
+    from accelerate_tpu_torch.utils.dataclasses import AORecipeKwargs, TERecipeKwargs
+
+    acc = Accelerator(mixed_precision="fp8", cpu=True,
+                      kwargs_handlers=[TERecipeKwargs(amax_history_len=8)])
+    assert acc.mixed_precision == "fp8"
+    assert acc.state.mixed_precision_policy.compute_dtype == torch.bfloat16
+    assert acc.fp8_recipe == FP8Recipe(amax_history_len=8)
+    AcceleratorState._reset_state(reset_partial_state=True)
+    with pytest.raises(ValueError, match="multiple fp8 recipe handlers"):
+        Accelerator(cpu=True, kwargs_handlers=[TERecipeKwargs(), AORecipeKwargs()])
     with pytest.raises(ValueError, match="unsupported kwargs handler"):
         Accelerator(cpu=True, kwargs_handlers=[object()])
 
