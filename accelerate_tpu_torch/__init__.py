@@ -72,7 +72,15 @@ Ported so far:
   optimizer partition, fused ZeRO-1 and ``LayerStack``; blockwise int8 and
   NF4/fp4 ``QuantizedArray`` weights (``ops.quantization``,
   ``utils.quantization``) through generation and the serving engine, and
-  the int8×int8 ``int8_dynamic_matmul`` (``torch._int_mm`` on the card).
+  the int8×int8 ``int8_dynamic_matmul`` (``torch._int_mm`` on the card);
+- fleet serving: thread and process replicas of the engine
+  (``serving.replica``), the router with admission control, failover,
+  self-heal and correctness canaries (``serving.router``,
+  ``serving.admission``, ``serving.canary``), disaggregated prefill/decode
+  joined by a KV handoff in the JAX package's wire form
+  (``serving.disagg``), the decode tier's autoscaler
+  (``serving.autoscaler``) and the SLO burn-rate monitor
+  (``telemetry.slo``).
 """
 
 from .accelerator import Accelerator

@@ -15,7 +15,8 @@ The rule for every wrapper: tensors on the CPU go to the plain version;
 tensors on a CUDA device launch the kernel or raise — there is no switch
 and no fallback. Each wrapper counts its kernel launches in a plain integer
 attribute (``paged_attention_decode.launches``), so a run can show that its
-path went through the kernel.
+path went through the kernel; the count is taken under a lock, since thread
+replicas of the serving fleet launch from several threads at once.
 
 The flash kernels' bf16 variants at head dims 64 and 128 (every training
 path) run their products on Hopper's tensor cores (``wgmma``, with tiles
@@ -44,6 +45,7 @@ from __future__ import annotations
 
 import functools
 import math
+import threading
 from dataclasses import dataclass
 from typing import Optional
 
@@ -147,6 +149,15 @@ def _decode_split_keys(B, Hkv, keys, n_sms):
     return _DECODE_SPLIT_KEYS[-1]
 
 
+_COUNT_LOCK = threading.Lock()
+
+
+def _count(wrapper) -> None:
+    """One more launch on ``wrapper.launches`` (atomic across threads)."""
+    with _COUNT_LOCK:
+        wrapper.launches += 1
+
+
 @functools.lru_cache(maxsize=None)
 def _sm_count(device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
@@ -211,7 +222,7 @@ def paged_attention_decode(q, k_pool, v_pool, block_tables, kv_lens, scale=None)
     )
     if err:
         raise _launch_error(lib, err, "paged_decode")
-    paged_attention_decode.launches += 1
+    _count(paged_attention_decode)
     return out
 
 
@@ -243,7 +254,7 @@ def paged_attention_prefill(q, k_pool, v_pool, block_tables, q_positions, scale=
     )
     if err:
         raise _launch_error(lib, err, "paged_prefill")
-    paged_attention_prefill.launches += 1
+    _count(paged_attention_prefill)
     return out
 
 
@@ -555,7 +566,7 @@ def flash_attention_fwd(q, k, v, seg, ids, counts, cfg: _FlashConfig):
     )
     if err:
         raise _launch_error(lib, err, "flash_fwd")
-    flash_attention_fwd.launches += 1
+    _count(flash_attention_fwd)
     return out, lse
 
 
@@ -579,7 +590,7 @@ def flash_attention_dq(q, k, v, seg, lse, delta, do, ids, counts, cfg: _FlashCon
     )
     if err:
         raise _launch_error(lib, err, "flash_dq")
-    flash_attention_dq.launches += 1
+    _count(flash_attention_dq)
     return dq
 
 
@@ -603,7 +614,7 @@ def flash_attention_dkdv(q, k, v, seg, lse, delta, do, idsT, countsT, cfg: _Flas
     )
     if err:
         raise _launch_error(lib, err, "flash_dkdv")
-    flash_attention_dkdv.launches += 1
+    _count(flash_attention_dkdv)
     return dk, dv
 
 

@@ -6,7 +6,9 @@ nothing here bounds a compile cache; the lattice still decides the shapes
 every step runs at — the prefill chunk length (largest bucket) and padding,
 the decode batch and table widths — so the port's engine walks exactly the
 same shapes, chunks and padded writes as the reference, and the kernels are
-launched at the shapes the main path gives them.
+launched at the shapes the main path gives them. The points
+(:meth:`BucketLattice.decode_points`, :meth:`~BucketLattice.prefill_points`)
+are what the engine's ``warmup`` runs once each.
 """
 
 from __future__ import annotations
@@ -78,3 +80,24 @@ class BucketLattice:
 
     def prefill_bucket(self, prompt_len: int) -> int:
         return self.bucket_for(max(1, prompt_len), self.prefill_buckets)
+
+    def decode_points(self) -> "list[tuple[int, int]]":
+        """All (slot, block) decode points, for warmup."""
+        return [(s, b) for s in self.slot_buckets for b in self.block_buckets]
+
+    def prefill_points(self) -> "list[tuple[int, int]]":
+        """All (prefill_len, block) prefill points: a prefill always runs at
+        the widest block bucket, so one width per chunk length."""
+        widest = self.block_buckets[-1]
+        return [(s, widest) for s in self.prefill_buckets]
+
+    def size(self) -> int:
+        """Decode points plus prefill points."""
+        return len(self.decode_points()) + len(self.prefill_points())
+
+    def warmup_points(self, prefix_cache: bool = False, spec_decode: bool = False) -> int:
+        """Points ``ServingEngine.warmup`` visits: the lattice, one
+        copy-on-write point with prefix caching, and with speculative
+        decoding one draft and one verify point per decode point."""
+        extra = 2 * len(self.decode_points()) if spec_decode else 0
+        return self.size() + (1 if prefix_cache else 0) + extra

@@ -28,10 +28,18 @@ block_size, Hkv/tp, D]``, and every paged forward is the Megatron layer of
 heads. The selected tokens are rank 0's on every rank, so the schedulers
 never part.
 
-The port runs eagerly: the reference's jit/AOT machinery (``warmup``, the
-compile cache) has no counterpart, and the layer loop is a Python loop in
-place of ``lax.scan``. Chaos hooks, telemetry, tracing and the watchdog
-are not ported yet (see ROADMAP.md).
+The port runs eagerly and the layer loop is a Python loop in place of
+``lax.scan``. :meth:`ServingEngine.warmup` runs every point the reference
+compiles — each prefill and decode point of the lattice, the draft and
+verify points with ``spec_tokens``, the copy-on-write copy with the prefix
+cache — once, through the step functions it serves with, so the kernels
+are loaded and have made their first launches before a replica takes
+traffic; it returns the points it ran under the reference's
+``*_compiles`` keys, and :meth:`~ServingEngine.jit_cache_sizes` counts
+the distinct shapes each step function has run at, the eager counterpart
+of the reference's jit caches. The compile cache (``compile_cache_dir``,
+AOT loads), chaos hooks, telemetry, tracing and the watchdog heartbeat are
+not ported yet (ROADMAP.md, Queue A item 12).
 """
 
 from __future__ import annotations
@@ -142,7 +150,9 @@ class ServingEngine:
     ``device`` defaults to ``"cuda"``; the params must already live there.
     ``mesh``: this rank's engine of a sharded one (the module docstring);
     ``param_specs`` name the params' placement when it is not
-    ``llama_shard_rules``'."""
+    ``llama_shard_rules``'. ``heartbeat_name`` is kept as the reference's
+    watchdog source name (a replica's name rides on it); the watchdog
+    itself is not ported yet."""
 
     def __init__(self, params, config: LlamaConfig, *, num_blocks: int = 64,
                  block_size: int = 16, max_slots: int = 4,
@@ -153,7 +163,13 @@ class ServingEngine:
                  continuous: bool = True, admit_watermark_blocks: int = 0,
                  lattice: Optional[BucketLattice] = None, prefix_cache: bool = True,
                  spec_tokens: int = 0, draft_layers: Optional[int] = None, device=None,
-                 mesh=None, param_specs=None):
+                 mesh=None, param_specs=None, heartbeat_name: str = "serving_decode",
+                 compile_cache_dir: Optional[str] = None):
+        if compile_cache_dir is not None:
+            raise NotImplementedError(
+                "compile_cache_dir: the compile cache is not ported yet "
+                "(ROADMAP.md, Queue A item 12)"
+            )
         self.device = resolve_device(device)
         emb = params["embed_tokens"]["embedding"]
         if emb.device.type != self.device.type:
@@ -168,6 +184,7 @@ class ServingEngine:
             raise ValueError("spec_tokens > 0 requires draft_layers (the self-draft depth)")
         self.params = params
         self.config = config
+        self.heartbeat_name = heartbeat_name
         self.block_size = block_size
         self.max_slots = max_slots
         self.temperature = temperature
@@ -239,6 +256,11 @@ class ServingEngine:
         #: device→host read of the selected tokens
         self.prefill_seconds = 0.0
         self.decode_seconds = 0.0
+        #: the distinct shapes each step function has run at
+        #: (:meth:`jit_cache_sizes`)
+        self._shapes: "dict[str, set]" = {
+            name: set() for name in ("prefill", "decode", "cow", "draft", "verify")
+        }
 
     def _to_device(self, array: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(array).to(self.device)
@@ -267,6 +289,80 @@ class ServingEngine:
             req.generated = [int(t) for t in generated]
         self.scheduler.submit(req)
         return req
+
+    def warmup(self) -> dict:
+        """Run every point the reference compiles once, through the step
+        functions the engine serves with: each prefill point (a chunk of
+        zeros at the widest table), each decode point, with
+        ``spec_tokens`` a draft and a verify step at each decode point, and
+        with the prefix cache the copy-on-write copy. Every table is the
+        null block's, so nothing live is written. Returns
+        :meth:`jit_cache_sizes`, which then equals the lattice's counts."""
+        for Sb, W in self.lattice.prefill_points():
+            table = torch.full((1, W), NULL_BLOCK, dtype=torch.int32, device=self.device)
+            logits, self.pool = paged_forward(
+                self.params, torch.zeros((1, Sb), dtype=torch.int64, device=self.device),
+                self.pool, table, torch.arange(Sb, device=self.device)[None], self.config,
+                self.block_size, rope=self.rope, mesh=self._md,
+            )
+            self._select(logits[0, :1], self._warm_keys(1))
+            self._shapes["prefill"].add((Sb, W))
+        for Bb, W in self.lattice.decode_points():
+            tables = torch.full((Bb, W), NULL_BLOCK, dtype=torch.int32, device=self.device)
+            zeros = torch.zeros((Bb, 1), dtype=torch.int64, device=self.device)
+            logits, self.pool = paged_forward(
+                self.params, zeros, self.pool, tables, zeros, self.config, self.block_size,
+                rope=self.rope, mesh=self._md,
+            )
+            self._select(logits[:, -1], self._warm_keys(Bb))
+            self._shapes["decode"].add((Bb, W))
+        if self.spec_tokens > 0:
+            width = self.spec_tokens + 1
+            for Bb, W in self.lattice.decode_points():
+                tables = torch.full((Bb, W), NULL_BLOCK, dtype=torch.int32, device=self.device)
+                zeros = torch.zeros((Bb, 1), dtype=torch.int64, device=self.device)
+                logits, self.pool = paged_forward(
+                    self.draft_params, zeros, self.pool, tables, zeros, self.draft_config,
+                    self.block_size, rope=self.rope, mesh=self._draft_md,
+                )
+                self._select(logits[:, -1], self._warm_keys(Bb))
+                self._shapes["draft"].add((Bb, W))
+                cols = torch.arange(width, device=self.device)
+                logits, self.pool = paged_forward(
+                    self.params, torch.zeros((Bb, width), dtype=torch.int64, device=self.device),
+                    self.pool, tables, zeros + cols[None], self.config, self.block_size,
+                    rope=self.rope, mesh=self._md,
+                )
+                keys = self._warm_keys(Bb * width)
+                self._select(logits.reshape(Bb * width, -1), keys, cols.repeat(Bb))
+                self._shapes["verify"].add((Bb, W))
+        if self.prefix_cache:
+            self._cow(NULL_BLOCK, NULL_BLOCK)
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        return self.jit_cache_sizes()
+
+    def _warm_keys(self, rows: int) -> Optional[torch.Tensor]:
+        """Zero key rows for a warm-up selection (None when greedy)."""
+        if self.temperature == 0.0:
+            return None
+        return torch.zeros((rows, 3), dtype=torch.int64, device=self.device)
+
+    def jit_cache_sizes(self) -> dict:
+        """The distinct shapes each step function has run at, under the
+        reference's keys (its jit caches hold one program a shape): after
+        :meth:`warmup` they equal the lattice's point counts and serving
+        adds none."""
+        out = {
+            "prefill_compiles": len(self._shapes["prefill"]),
+            "decode_compiles": len(self._shapes["decode"]),
+        }
+        if self.prefix_cache:
+            out["cow_compiles"] = len(self._shapes["cow"])
+        if self.spec_tokens > 0:
+            out["draft_compiles"] = len(self._shapes["draft"])
+            out["verify_compiles"] = len(self._shapes["verify"])
+        return out
 
     def step(self, now: Optional[float] = None) -> "list[Request]":
         """One engine iteration: admit + prefill, decode for every live
@@ -369,8 +465,7 @@ class ServingEngine:
         prefix = req.output_ids()
         if req.cow_block is not None:
             src, dst = req.cow_block
-            for name in ("k", "v"):
-                self.pool[name][:, dst] = self.pool[name][:, src]
+            self._cow(src, dst)
             self.allocator.cow_done(src)
             req.cow_block = None
         W = self.lattice.block_buckets[-1]  # a prefill runs at the widest table
@@ -400,11 +495,18 @@ class ServingEngine:
             last = logits[0, chunk.size - 1 : chunk.size]
             start += chunk.size
             self.prefill_chunks += 1
+            self._shapes["prefill"].add((Sb, W))
         req.generated.append(int(self._select(last, self._key_rows([req], 1))[0]))
         if req.first_token_t is None:
             req.first_token_t = now
         self.prefill_calls += 1
         self.prefill_seconds += time.perf_counter() - t0
+
+    def _cow(self, src: int, dst: int) -> None:
+        """Copy block ``src`` onto ``dst`` in every layer's K and V pools."""
+        for name in ("k", "v"):
+            self.pool[name][:, dst] = self.pool[name][:, src]
+        self._shapes["cow"].add(())
 
     def _batch(self, running: "list[Request]"):
         """The bucketed decode batch of ``running``: (rows, last tokens
@@ -447,6 +549,7 @@ class ServingEngine:
             self._register_written(req, req.prefix_len - 2)
         self.decode_tokens += len(running)
         self.decode_steps += 1
+        self._shapes["decode"].add((Bb, tables.shape[1]))
         self.decode_seconds += time.perf_counter() - t0
 
     def _spec_decode_batch(self, running: "list[Request]") -> None:
@@ -511,6 +614,8 @@ class ServingEngine:
         self.decode_tokens += emitted
         self.draft_steps += k
         self.verify_steps += 1
+        self._shapes["draft"].add((Bb, tables.shape[1]))
+        self._shapes["verify"].add((Bb, tables.shape[1]))
         self.decode_seconds += time.perf_counter() - t0
 
     def stats(self) -> dict:
@@ -529,6 +634,7 @@ class ServingEngine:
             "preemptions": self.scheduler.preemption_count,
             "max_running": self.max_running,
             "mean_occupancy": round(self._occupancy_sum / max(self._occupancy_steps, 1), 6),
+            **self.jit_cache_sizes(),
             "prefill_seconds": self.prefill_seconds,
             "decode_seconds": self.decode_seconds,
             **self.allocator.stats(),

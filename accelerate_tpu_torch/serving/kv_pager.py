@@ -14,8 +14,9 @@ through its table and run the shared masked-attention core. The CUDA
 kernels behind ``ops.flash_attention.paged_attention`` replace the gather
 with a walk over the table; this function stays the reference semantics.
 
-The KV-handoff helpers of the reference (``chain_hashes``,
-``adopt_block``) serve disaggregated serving and are not ported yet.
+``chain_hashes`` and ``adopt_block`` are the two halves of a KV handoff's
+addressing (``serving/disagg.py``): the content addresses of a prefilled
+sequence's full blocks, and a handed-off block parked in the LRU pool.
 """
 
 from __future__ import annotations
@@ -346,6 +347,35 @@ class BlockAllocator:
                 self._block_hash[blk] = h
                 new += 1
         return new
+
+    def chain_hashes(self, seq_id) -> "list[bytes]":
+        """The sequence's registered full-block chain hashes, oldest first:
+        the content addresses a KV handoff ships. Raises on an unknown or
+        freed sequence like every other lookup."""
+        if seq_id not in self._tables:
+            raise BlockAllocatorError(
+                f"chain_hashes of unknown/freed sequence {seq_id!r} (use-after-free?)"
+            )
+        return list(self._chain.get(seq_id, []))
+
+    def adopt_block(self, chain_hash: bytes) -> Optional[int]:
+        """Content-index one externally produced full block (the decode side
+        of a KV handoff): take a block, register it under ``chain_hash`` and
+        park it unreferenced in the LRU pool, where the next admission's
+        :meth:`plan_prefix` can match it and pressure can reclaim it. The
+        caller writes the block's content at the returned index. ``None``
+        when the hash is already cached (nothing to copy)."""
+        if not self.prefix_caching:
+            raise BlockAllocatorError("adopt_block requires prefix_caching=True")
+        if chain_hash in self._cached:
+            return None
+        if self.available_blocks < 1:
+            raise BlockPoolExhausted("no block available to adopt a handed-off KV block")
+        blk = self._take_block()
+        self._cached[chain_hash] = blk
+        self._block_hash[blk] = chain_hash
+        self._lru[blk] = None
+        return blk
 
     def append(self, seq_id, n_tokens: int = 1) -> "list[int]":
         """Grow a sequence by ``n_tokens``; on exhaustion the sequence is

@@ -63,7 +63,21 @@ csrc`` at first use) and no network. Phases, each of which fails the run:
    a bar, and an f32 run of 4 requests whose streams must match; the same
    workload sampled (top-k, top-p), with and without speculation, each leg
    run twice to the same tokens, and the sampler's launches and device ms;
-   continuous against static batching on 32 requests. Phase 2 also runs
+   continuous against static batching on 32 requests; then the serving
+   fleet (``phase_fleet``) over config #5's model built by
+   ``ReplicaSpec.build_params``: the JAX serving bench's replicated legs
+   (16 requests through 1 and 2 thread replicas and 2 with one killed after
+   4 completions, outputs bitwise equal), 2 process replicas with one
+   SIGKILLed (each child's time to ready), the correctness canary (a
+   replica of another param seed drained, no false positive), and the
+   disaggregated leg (1 prefill + 1 decode replica, the SLO autoscaler
+   under a 1 µs ttft objective scaling the decode tier up, open-loop at
+   0.02 s a step) against one monolithic replica, with the KV handoffs' MB
+   and pack and land ms, each step of a handoff timed alone, a planted
+   landing fault that must break the near-tie bar on bf16 partings, and in
+   f32 every resume path (kill, process, disaggregated, and a planted
+   corrupt handoff caught and its prefill re-run) equal to its reference;
+   #6/#7 launches counted on every leg, a child's from its own counters. Phase 2 also runs
    the paged kernels at a draft step's and a verify step's shapes, and at
    a tp 2 rank's heads of config #5 (16 q over 4 kv heads);
 5. training: BERT-base at full width (``attn_impl="fused"``, S=128, batch
@@ -151,15 +165,15 @@ csrc`` at first use) and no network. Phases, each of which fails the run:
    rank (the fp16 leg: plain attention, the kernels take bf16 and f32),
    and BERT-base in phase_train's recipe under tp 2 through
    ``bert_shard_rules()``, held to one process with #4/#5 on each rank;
-   config #4 at full width, 12 of its 36 layers (``MESH_LM_LAYERS``),
+   config #4 at full width, 8 of its 36 layers (``MESH_LM_LAYERS``),
    under dp_shard 2, its layers gathered one at a time, held to a
    one-process run at the same depth with its peak memory a rank under
    0.75 of that run's, two planted faults failing a bar; phase_moe's model
-   at 4 of its 16 layers (``MOE_EP_LAYERS``) and its training recipe under
+   at 2 of its 16 layers (``MOE_EP_LAYERS``) and its training recipe under
    ep 2 (``moe_shard_rules``), held to a one-process run at that depth with
    equal drops and half the expert bytes a rank, and its greedy decode at
    all 16 layers under ep 2 equal to phase_moe's tokens;
-   then config #5 at full width, 8 of its 16 layers, decoded under tp 2
+   then config #5 at full width, 4 of its 16 layers, decoded under tp 2
    (``--mesh-decode-child``, ``llama_shard_rules``): f32 greedy 8 x 128 +
    64 and the engine's requests (f32 and bf16, #6/#7 on each rank's 16/4
    heads) held to one-process runs at near-ties, with per-rank bytes, ms a
@@ -192,6 +206,7 @@ import os
 import re
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -448,8 +463,9 @@ MESH_OPS_GATHER_MB = 64
 # a bar: layer 0's gradient not summed over dp_shard, and layer i computed
 # with layer i+1's prefetched params (layer 0 then has no gradient). Peak
 # a rank under 0.75 of the one-process run's (at 36 layers it measured
-# 0.535 of phase_lm774m's 8.10 GiB).
-MESH_LM_LAYERS = 12
+# 0.535 of phase_lm774m's 8.10 GiB, at 12 0.550 of 4.56 GiB). Cut from 12
+# to 8 layers in PR 20 for the script's clock (see MESH_DECODE_LAYERS).
+MESH_LM_LAYERS = 8
 MESH_LM_STEPS = 3
 MESH_LM_LOSS_RTOL, MESH_LM_NORM_RTOL, MESH_LM_LAYER_NORM_RTOL = 1e-3, 8e-3, 2e-2
 MESH_LM_PEAK_SHARE = 0.75
@@ -479,7 +495,8 @@ MESH_LM_FAULTS = ("layer_grads_not_summed", "next_layer_params")
 # which a slow host would take to ~1200 s. The cuts took ~100 s off
 # (phase_mesh_lm774m 65.9 -> 33-35 s, phase_moe_ep 113.3 -> 39-49 s), and
 # the cut script took 625.5-721.7 s: ~810-940 s on the slowest host seen.
-MOE_EP_LAYERS = 4
+# Cut from 4 to 2 layers (one a rank) in PR 20 (see MESH_DECODE_LAYERS).
+MOE_EP_LAYERS = 2
 MOE_EP_STEPS = 2
 MOE_EP_LOSS_RTOL, MOE_EP_AUX_RTOL = 1e-5, 1e-5
 MOE_EP_FAULTS = ("expert_input_grad_not_summed",)
@@ -506,8 +523,11 @@ MOE_EP_FAULTS = ("expert_input_grad_not_summed",)
 MESH_DECODE_TIE = 1e-3
 MESH_DECODE_PARAM_SHARE = 0.55
 # depth cut to 8 of config #5's 16 layers for the script's clock
-# (the whole script took 1084.5 s on a slow host): every check is per layer
-MESH_DECODE_LAYERS = 8
+# (the whole script took 1084.5 s on a slow host): every check is per layer.
+# Cut to 4 in PR 20, with MESH_LM_LAYERS 12 -> 8 and MOE_EP_LAYERS 4 -> 2:
+# with phase_fleet the whole script took 1190.7 s on a host 1.2-1.9x
+# slower a phase than the one of its 743.4 s, at the 1200 s limit.
+MESH_DECODE_LAYERS = 4
 MESH_DECODE_FAULT_NEW = 8
 
 
@@ -6061,6 +6081,627 @@ def _mesh_2rank_fp8_leg(dev, config, pc_kwargs, zero1):
     del params, opt, step, state
     torch.cuda.empty_cache()
     return out
+# phase_fleet: the fleet (router, admission, thread and process replicas,
+# the canary, disaggregated prefill/decode and the SLO autoscaler) over
+# config #5's serving Llama-1B (CONFIG_KW, bench.py:569-570) at full width
+# and depth, bf16, SERVE_ENGINE_KW's pool, one coarse bucket per axis and
+# the seeded workloads of the JAX serving bench's replicated and
+# disaggregated legs (benchmarks/serving/run.py:128-291, :412-600;
+# build_workload's arguments). Weights come from ReplicaSpec.build_params
+# (a CPU generator seeded param_seed): one CPU init a seed, shared by the
+# thread replicas and cast to each dtype. Every resume path (a failover, a
+# thread or process replica's; a handoff; a corrupt handoff's re-prefill)
+# runs in f32 params and cache, where its outputs must equal its
+# reference's bitwise. The bf16 legs give the rates and hold 1 and 2
+# thread replicas bitwise; their resume paths may part from the reference
+# only on a request that took the resume path (a retry, a handoff), and
+# only at a near-tie: the two tokens' logits in the f32 forward of the same
+# weights on the reference's prefix lie within FLEET_NEAR_TIE. The bar was
+# set from the largest such gap in sound runs (3.7e-2) and is held against
+# a planted landing fault (bf16, the first handed-off block's content
+# landed in every adopted place), which must break it.
+FLEET_WORKLOAD = (16, 0, (16, 128), (16, 64), 2.0)
+FLEET_DISAGG_WORKLOAD = (16, 0, (64, 256), (2, 24), 2.0)
+FLEET_KILL_AFTER = 4
+FLEET_ARRIVAL_DT_S = 0.02
+FLEET_CANARY = dict(count=2, max_new_tokens=6)
+FLEET_BAD_SEED = 1234
+FLEET_CANARY_INTERVAL_S = 0.5
+FLEET_NEAR_TIE = 0.1
+FLEET_FAULT_REQUESTS = 4
+FLEET_HANDOFF_REPS = 5
+_FLEET_WEIGHTS: dict = {}
+_FLEET_LOCK = threading.Lock()
+
+
+def _fleet_spec(workload_args, dev, **kw):
+    """The fleet's ReplicaSpec for ``workload_args``: one slot bucket (8),
+    one table width (the longest request's blocks plus one) and one
+    prefill bucket (the longest prompt plus the largest budget), as the JAX
+    bench sets them; its thread replicas share one copy of each
+    (seed, dtype) of weights."""
+    from accelerate_tpu_torch.serving import ReplicaSpec
+
+    class FleetSpec(ReplicaSpec):
+        def build_params(self):
+            # ReplicaSpec.build_params at f32 on the CPU once a seed (its
+            # slow part, the seeded draws), then the cast and move it makes
+            with _FLEET_LOCK:
+                cpu = ("cpu", self.param_seed)
+                if cpu not in _FLEET_WEIGHTS:
+                    _FLEET_WEIGHTS[cpu] = ReplicaSpec.build_params(
+                        dataclasses.replace(self, param_dtype="float32", device="cpu"))
+                key = (self.param_seed, self.param_dtype, self.device)
+                if key not in _FLEET_WEIGHTS:
+                    cast = _tree_to(_FLEET_WEIGHTS[cpu], getattr(torch, self.param_dtype))
+                    _FLEET_WEIGHTS[key] = _tree_to(cast, torch.device(self.device))
+            return _FLEET_WEIGHTS[key]
+
+    bs, slots = SERVE_ENGINE_KW["block_size"], SERVE_ENGINE_KW["max_slots"]
+    max_len = workload_args[2][1] + workload_args[3][1]
+    return FleetSpec(model=dict(CONFIG_KW), **SERVE_ENGINE_KW, slot_buckets=(slots,),
+                     block_buckets=(-(-max_len // bs) + 1,), prefill_buckets=(max_len,),
+                     device=dev.type, **kw)
+
+
+def _fleet_f32(spec):
+    return dataclasses.replace(spec, param_dtype="float32", cache_dtype="float32")
+
+
+def _engines(router) -> dict:
+    """Every thread replica's engine, by replica name."""
+    return {n: r._worker.engine for n, r in router.replicas.items()
+            if getattr(r, "_worker", None) is not None}
+
+
+def _fleet_launch_check(tag, router, launches, warmed_in_window=()):
+    """#6/#7 launched exactly once a layer for every decode step and
+    prefill chunk the leg's engines ran (and for the warm-up points of the
+    replicas that joined inside the window): the wrappers count under a
+    lock, so the threads' launches add up."""
+    n_layers = CONFIG_KW["n_layers"]
+    want = {"paged_attention_decode": 0, "paged_attention_prefill": 0}
+    for name, eng in _engines(router).items():
+        st = eng.stats()
+        want["paged_attention_prefill"] += n_layers * st["prefill_chunks"]
+        want["paged_attention_decode"] += n_layers * st["decode_steps"]
+        if name in warmed_in_window:
+            ready = router.replicas[name].ready_info
+            want["paged_attention_prefill"] += n_layers * ready["prefill_compiles"]
+            want["paged_attention_decode"] += n_layers * ready["decode_compiles"]
+    check(launches == want and all(v > 0 for v in launches.values()),
+          f"[{tag}] launches {launches} against {want} from the engines' steps and chunks")
+
+
+def _fleet_drive(tag, router, workload, *, kill_after=None, arrival_dt_s=None, dev=None):
+    """Submit ``workload`` (``rng_seed`` = index; all at once, or open-loop
+    at ``arrival_dt_s`` a step) and poll until every request is terminal,
+    killing ``r0`` after ``kill_after`` completions. The launch counters are
+    zeroed just before and read just after. Returns (leg metrics, requests,
+    launches)."""
+    from accelerate_tpu_torch.ops import flash_attention as fa
+    from accelerate_tpu_torch.serving import RouterRequestStatus
+
+    fa.paged_attention_decode.launches = 0
+    fa.paged_attention_prefill.launches = 0
+    t0 = time.monotonic()
+    reqs, nxt, killed = [], 0, False
+    while nxt < len(workload) or not all(r.status.terminal for r in reqs):
+        now = time.monotonic()
+        while nxt < len(workload) and (arrival_dt_s is None
+                                       or workload[nxt][0] * arrival_dt_s <= now - t0):
+            _, prompt, new = workload[nxt]
+            reqs.append(router.submit(prompt, new, rng_seed=nxt))
+            nxt += 1
+        router.poll()
+        done = sum(r.status is RouterRequestStatus.FINISHED for r in reqs)
+        if kill_after is not None and not killed and done >= kill_after:
+            router.replicas["r0"].kill()
+            killed = True
+        check(time.monotonic() - t0 < 600, f"[{tag}] wedged")
+        time.sleep(0.001)
+    if dev is not None and dev.type == "cuda":
+        torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    launches = {"paged_attention_decode": fa.paged_attention_decode.launches,
+                "paged_attention_prefill": fa.paged_attention_prefill.launches}
+    done = [r for r in reqs if r.status is RouterRequestStatus.FINISHED]
+    tokens = sum(len(r.generated) for r in done)
+    lat = [(r.finish_t - r.arrival_t) * 1e3 for r in done]
+    ttft = [(r.first_token_t - r.arrival_t) * 1e3 for r in done if r.first_token_t]
+    leg = dict(tokens=tokens, wall_s=wall, tokens_per_s=tokens / wall, lost=len(reqs) - len(done),
+               failovers=router.failovers, killed=killed,
+               retried=[i for i, r in enumerate(reqs) if r.retries],
+               p50_latency_ms=float(np.percentile(lat, 50)),
+               p99_latency_ms=float(np.percentile(lat, 99)),
+               p50_ttft_ms=float(np.percentile(ttft, 50)),
+               p99_ttft_ms=float(np.percentile(ttft, 99)))
+    return leg, reqs, launches
+
+
+def _wait_ready(router, timeout_s=600.0) -> dict:
+    """Poll until no replica is STARTING; seconds from now to each
+    replica's ready event."""
+    from accelerate_tpu_torch.serving import ReplicaState
+
+    t0 = time.monotonic()
+    ready = {}
+    while True:
+        router.poll()
+        for name, rep in router.replicas.items():
+            if name not in ready and rep.state is not ReplicaState.STARTING:
+                ready[name] = time.monotonic() - t0
+        if len(ready) == len(router.replicas):
+            return ready
+        check(time.monotonic() - t0 < timeout_s, f"replicas never became ready: {ready}")
+        time.sleep(0.005)
+
+
+def _fleet_leg(tag, replicas, workload, dev, *, router_cls=None, kill_after=None,
+               arrival_dt_s=None, inspect=None, **router_kw):
+    """A router over ``replicas`` (the router's positional arguments; its
+    queue sized so nothing sheds) drains ``workload``; ``inspect(router)``
+    runs before the router is closed, in place of the launch check of the
+    thread replicas' engines. Returns (metrics, outputs, router)."""
+    from accelerate_tpu_torch.ops import flash_attention as fa
+    from accelerate_tpu_torch.serving import AdmissionController, ServingRouter
+
+    cls = router_cls or ServingRouter
+    router = cls(*replicas, admission=AdmissionController(max_queue=len(workload) + 1),
+                 health_timeout_s=30.0, **router_kw)
+    try:
+        ready = _wait_ready(router)
+        leg, reqs, launches = _fleet_drive(tag, router, workload, kill_after=kill_after,
+                                           arrival_dt_s=arrival_dt_s, dev=dev)
+        autoscaler = router_kw.get("autoscaler")
+        joiners = ()
+        if autoscaler is not None:
+            # let a join finish warming: its warm-up belongs to this window
+            t0 = time.monotonic()
+            while autoscaler.stats()["pending_joins"]:
+                router.poll()
+                check(time.monotonic() - t0 < 300, f"[{tag}] a join never became ready")
+                time.sleep(0.005)
+            launches = {k: getattr(fa, k).launches for k in launches}
+            joiners = [e["replica"] for e in autoscaler.events if e["action"] == "scale_up"]
+        if inspect is None:
+            _fleet_launch_check(tag, router, launches, joiners)
+        else:
+            launches = inspect(router)
+        leg.update(ready_s=ready, launches=launches)
+        check(leg["lost"] == 0, f"[{tag}] lost {leg['lost']} request(s)")
+        return leg, [list(r.generated) for r in reqs], router
+    finally:
+        router.close()
+
+
+def _print_leg(tag, leg, card, extra=""):
+    print(f"[{tag}] {leg['tokens']} tokens in {leg['wall_s']:.3f} s: "
+          f"{leg['tokens_per_s']:.1f} tok/s, latency p50 {leg['p50_latency_ms']:.1f} ms p99 "
+          f"{leg['p99_latency_ms']:.1f} ms, ttft p50 {leg['p50_ttft_ms']:.1f} ms p99 "
+          f"{leg['p99_ttft_ms']:.1f} ms, failovers {leg['failovers']}, lost {leg['lost']}, "
+          f"ready {', '.join(f'{n} {s:.2f} s' for n, s in leg['ready_s'].items())}, "
+          f"launches {leg['launches']}{extra} ({card})", flush=True)
+
+
+def _parted(got, want) -> list:
+    """(request, first differing index) of every output that differs."""
+    out = []
+    for i, (g, w) in enumerate(zip(got, want)):
+        if g != w:
+            j = _first_divergence(g, w)
+            out.append((i, min(len(g), len(w)) if j is None else j))
+    return out
+
+
+def _partings(tag, spec, workload, got, want, dev) -> list:
+    """Each parted request's first differing token, both tokens, and their
+    logit gap in the f32 forward of the same weights on the reference's
+    prefix (a near-tie shows as a small gap), printed; returns (request,
+    index, gap) of each."""
+    config = spec.config()
+    f32 = _fleet_f32(spec).build_params()
+    out = []
+    for i, j in _parted(got, want):
+        prompt = workload[i][1]
+        ids = np.concatenate([prompt, np.asarray(want[i][:j + 1], np.int32)])[None]
+        logits = _f32_logits(f32, config, ids, ids.shape[1] - 1, dev)[0, -1]
+        a, b = want[i][j] if j < len(want[i]) else None, got[i][j] if j < len(got[i]) else None
+        gap = (float(logits[a] - logits[b]) if a is not None and b is not None else float("nan"))
+        print(f"[{tag}] request {i} parts at token {j}: reference {a}, this leg {b}, "
+              f"f32 logit gap {gap:.4e}", flush=True)
+        out.append((i, j, gap))
+    return out
+
+
+def _near_ties_only(partings, resumed) -> bool:
+    """Every parting on a request that took the resume path, at an f32
+    logit gap within FLEET_NEAR_TIE (a NaN gap, a stream cut short, fails)."""
+    return all(i in resumed and abs(gap) < FLEET_NEAR_TIE for i, _, gap in partings)
+
+
+def _hold_bf16_leg(tag, spec, workload, got, want, resumed, dev) -> list:
+    """A bf16 leg against its reference: partings only on ``resumed``
+    requests and only at near-ties. Returns the partings."""
+    parts = _partings(tag, spec, workload, got, want, dev)
+    check(_near_ties_only(parts, set(resumed)),
+          f"[{tag}] partings {parts} off the resume path {sorted(resumed)} or at an f32 logit "
+          f"gap of {FLEET_NEAR_TIE} or more")
+    print(f"[{tag}] {len(parts)} of {len(workload)} outputs parted from the reference, each on "
+          f"the resume path at an f32 logit gap under {FLEET_NEAR_TIE}", flush=True)
+    return parts
+
+
+class _StampedQueue:
+    """A child replica's event queue that notes when its ``ready`` event
+    arrived (the child's time to ready, whoever polls it later)."""
+
+    def __init__(self, inner):
+        self._inner, self.ready_t = inner, None
+
+    def put(self, item, *args, **kwargs):
+        if self.ready_t is None and item.get("event") == "ready":
+            self.ready_t = time.monotonic()
+        self._inner.put(item, *args, **kwargs)
+
+    def get_nowait(self):
+        return self._inner.get_nowait()
+
+
+def _spawn_children(spec) -> list:
+    """Two ``ProcessReplica`` children of a plain ``ReplicaSpec`` copy of
+    ``spec`` (a child rebuilds the spec from JSON), started now so they warm
+    while other legs run."""
+    from accelerate_tpu_torch.serving import ProcessReplica, ReplicaSpec
+
+    plain = ReplicaSpec(**{f.name: getattr(spec, f.name) for f in dataclasses.fields(ReplicaSpec)})
+    children = []
+    for i in range(2):
+        rep = ProcessReplica(f"r{i}", plain)
+        rep.spawned_t, rep._outbox = time.monotonic(), _StampedQueue(rep._outbox)
+        children.append(rep)
+    return children
+
+
+def _proc_leg(tag, children, workload, dev):
+    leg, out, router = _fleet_leg(tag, [children], workload, dev, kill_after=FLEET_KILL_AFTER,
+                                  inspect=_child_launches)
+    check(router.replicas["r0"].proc.returncode == -9, f"[{tag}] r0 was not SIGKILLed")
+    check(leg["failovers"] >= 1, f"[{tag}] no failover")
+    leg["ready_s"] = {c.name: c._outbox.ready_t - c.spawned_t for c in children}
+    return leg, out
+
+
+def _corrupt_leg(tag, spec, workload, dev):
+    """The planted fault: the first wire a prefill engine packs is damaged
+    in transit (``corrupt_wire``, after its CRC). The router must catch it
+    and re-run that prefill."""
+    from accelerate_tpu_torch.serving import disagg as disagg_mod
+
+    real_pack = disagg_mod.LocalBlockCopyTransport.pack
+    packed = []
+
+    def corrupt_first(self, engine, req):
+        wire = real_pack(self, engine, req)
+        packed.append(req)
+        return disagg_mod.corrupt_wire(wire) if len(packed) == 1 else wire
+
+    disagg_mod.LocalBlockCopyTransport.pack = corrupt_first
+    try:
+        leg, out, router = _disagg_leg(tag, spec, workload, dev)
+    finally:
+        disagg_mod.LocalBlockCopyTransport.pack = real_pack
+    check(router.handoff_corrupt >= 1 and len(packed) == len(workload) + router.handoff_corrupt,
+          f"[{tag}] {router.handoff_corrupt} corrupt handoffs caught, {len(packed)} packed")
+    print(f"[{tag}] {router.handoff_corrupt} corrupt handoff caught and its prefill re-run "
+          f"({len(packed)} packed for {len(workload)} requests)", flush=True)
+    return leg, out
+
+
+def phase_fleet(dev):
+    """The fleet at config #5's serving widths, in bf16: replicated legs (1,
+    2, and 2 thread replicas with r0 killed after FLEET_KILL_AFTER
+    completions), 2 process replicas with one SIGKILLed (started at the
+    phase's start, so they warm while the thread legs run), the canary (a
+    good replica and one of another param seed), the disaggregated leg (1
+    prefill + 1 decode with the SLO autoscaler under a 1 µs ttft objective,
+    open-loop) against one monolithic replica, the near-tie bar's planted
+    landing fault and the handoff's steps timed alone; then every resume
+    path in f32 (the kill, process, disaggregated and planted corrupt
+    handoff legs) against its f32 reference. Prints each leg's rates beside
+    the card; returns each leg's #6/#7 launches."""
+    from accelerate_tpu_torch.serving import (
+        CanaryProbe,
+        LocalReplica,
+        ReplicaState,
+        ServingRouter,
+        precompute_goldens,
+    )
+    from accelerate_tpu_torch.utils.device import gpu_info
+
+    card = gpu_info()["line"] if dev.type == "cuda" else "cpu"
+    launches = {}
+    workload = build_workload(*FLEET_WORKLOAD, CONFIG_KW["vocab_size"])
+    spec = _fleet_spec(FLEET_WORKLOAD, dev)
+    children = _spawn_children(spec)
+    t0 = time.perf_counter()
+    spec.build_params()
+    print(f"[fleet] weights built by ReplicaSpec.build_params in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+
+    def replicated(spec, kill_after=None, n=2, tag="fleet"):
+        return _fleet_leg(tag, [[LocalReplica(f"r{i}", spec) for i in range(n)]], workload,
+                          dev, kill_after=kill_after)
+
+    # -- replicated legs ----------------------------------------------------
+    one, out1, _ = _fleet_leg("fleet-1r", [[LocalReplica("r0", spec)]], workload, dev)
+    many, out2, _ = replicated(spec, tag="fleet-2r")
+    kill, outk, _ = replicated(spec, FLEET_KILL_AFTER, tag="fleet-2r-kill")
+    for tag, leg in (("fleet-1r", one), ("fleet-2r", many), ("fleet-2r-kill", kill)):
+        _print_leg(tag, leg, card)
+        launches[tag] = leg["launches"]
+    check(kill["killed"] and kill["failovers"] >= 1, f"kill leg: {kill['failovers']} failovers")
+    check(out2 == out1, f"2 replicas parted from 1 at {_parted(out2, out1)}")
+    print(f"[fleet] 2r/1r tok/s {many['tokens_per_s'] / one['tokens_per_s']:.3f}; kill leg "
+          f"{kill['failovers']} failovers, requests {kill['retried']} retried ({card})",
+          flush=True)
+    _hold_bf16_leg("fleet-2r-kill", spec, workload, outk, out2, kill["retried"], dev)
+
+    # -- process replicas ---------------------------------------------------
+    proc, outp = _proc_leg("fleet-proc", children, workload, dev)
+    _print_leg("fleet-proc", proc, card)
+    launches["fleet-proc"] = proc["launches"]
+    print(f"[fleet-proc] proc/1r tok/s {proc['tokens_per_s'] / one['tokens_per_s']:.3f}; "
+          f"requests {proc['retried']} retried", flush=True)
+    _hold_bf16_leg("fleet-proc", spec, workload, outp, out2, proc["retried"], dev)
+
+    # -- the canary ---------------------------------------------------------
+    # a healthy replica answers through #6/#7 over the bf16 pool, the
+    # goldens come from greedy_generate: they must agree, or the canary
+    # would drain a healthy replica
+    goldens = precompute_goldens(spec, **FLEET_CANARY)
+    eng = spec.build_engine()
+    eng.warmup()
+    answers = [eng.submit(np.asarray(g.prompt, np.int32), g.max_new_tokens, rng_seed=g.rng_seed)
+               for g in goldens]
+    eng.run()
+    got = [list(r.generated) for r in answers]
+    want = [list(g.expected) for g in goldens]
+    del eng
+    check(got == want, f"bf16 goldens (greedy_generate) parted from one engine at "
+                       f"{_parted(got, want)}")
+    print(f"[fleet-canary] bf16 goldens (greedy_generate) equal one engine's answers on "
+          f"{len(goldens)} of {len(goldens)}", flush=True)
+    probe = CanaryProbe(goldens, interval_s=FLEET_CANARY_INTERVAL_S)
+    router = ServingRouter([LocalReplica("good", spec),
+                            LocalReplica("bad", dataclasses.replace(spec,
+                                                                    param_seed=FLEET_BAD_SEED))],
+                           canary=probe, health_timeout_s=30.0)
+    try:
+        _wait_ready(router)
+        t0 = time.monotonic()
+        while (probe.by_replica.get("bad", {}).get("failures", 0) < 1
+               or probe.by_replica.get("good", {}).get("probes", 0) < 2 or router._inflight):
+            router.poll()
+            check(time.monotonic() - t0 < 300, f"canary probes stalled: {probe.stats()}")
+            time.sleep(0.002)
+    finally:
+        router.close()
+    check(router.replicas["bad"].state is ReplicaState.DRAINING, "the bad replica kept serving")
+    check(probe.by_replica["bad"]["failures"] >= 1, f"no canary failure: {probe.stats()}")
+    check(probe.by_replica["good"]["failures"] == 0, f"a false positive: {probe.stats()}")
+    print(f"[fleet-canary] {probe.stats()} (bf16; {card})", flush=True)
+
+    # -- disaggregated prefill/decode --------------------------------------
+    dworkload = build_workload(*FLEET_DISAGG_WORKLOAD, CONFIG_KW["vocab_size"])
+    dspec = _fleet_spec(FLEET_DISAGG_WORKLOAD, dev)
+    mono, outm, _ = _fleet_leg("fleet-mono", [[LocalReplica("m0", dspec)]], dworkload, dev)
+    _print_leg("fleet-mono", mono, card)
+    launches["fleet-mono"] = mono["launches"]
+    leg, outd, router = _disagg_leg("fleet-disagg", dspec, dworkload, dev, autoscale=True)
+    _print_leg("fleet-disagg", leg, card, _handoff_line(router, leg))
+    launches["fleet-disagg"] = leg["launches"]
+    _check_disagg(router, dworkload)
+    ups = [e for e in router.autoscaler.events if e["action"] == "scale_up"]
+    joins = [e for e in router.autoscaler.events if e["action"] == "join_ready"]
+    print(f"[fleet-disagg] scale-ups {len(ups)}, joins ready in "
+          f"{[j['time_to_ready_s'] for j in joins]} s, join_compiles "
+          f"{sum(j['join_compiles'] for j in joins)}; disagg/mono tok/s "
+          f"{leg['tokens_per_s'] / mono['tokens_per_s']:.3f}", flush=True)
+    # every request of a disaggregated leg took the resume path (a handoff)
+    _hold_bf16_leg("fleet-disagg", dspec, dworkload, outd, outm, range(len(dworkload)), dev)
+    _landing_fault_leg("fleet-fault", dspec, dworkload[:FLEET_FAULT_REQUESTS],
+                       outm[:FLEET_FAULT_REQUESTS], dev)
+    _handoff_split(dspec, dworkload, dev, card)
+
+    # -- the resume paths in f32 -------------------------------------------
+    s32, d32 = _fleet_f32(spec), _fleet_f32(dspec)
+    children32 = _spawn_children(s32)  # they warm during the thread legs below
+    _, ref32, _ = replicated(s32, tag="fleet-2r-f32")
+    leg32, out32, _ = replicated(s32, FLEET_KILL_AFTER, tag="fleet-2r-kill-f32")
+    check(leg32["failovers"] >= 1 and out32 == ref32,
+          f"f32 kill leg: {leg32['failovers']} failovers, parted at {_parted(out32, ref32)}")
+    _, out32 = _proc_leg("fleet-proc-f32", children32, workload, dev)
+    check(out32 == ref32, f"f32 process leg parted at {_parted(out32, ref32)}")
+    _, refm32, _ = _fleet_leg("fleet-mono-f32", [[LocalReplica("m0", d32)]], dworkload, dev)
+    _, outd32, router = _disagg_leg("fleet-disagg-f32", d32, dworkload, dev, autoscale=True)
+    _check_disagg(router, dworkload)
+    check(outd32 == refm32, f"f32 disagg leg parted at {_parted(outd32, refm32)}")
+    # the planted corrupt handoff: caught, its prefill re-run, the same outputs
+    _, outc32 = _corrupt_leg("fleet-corrupt-f32", d32, dworkload, dev)
+    check(outc32 == refm32, f"f32 corrupt leg parted at {_parted(outc32, refm32)}")
+    print(f"[fleet-f32] the kill, process, disaggregated (autoscaled) and corrupt-handoff legs "
+          f"equal their references in f32 (params and cache)", flush=True)
+    _FLEET_WEIGHTS.clear()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return launches
+
+
+def _check_disagg(router, workload):
+    """The disaggregated leg's pass conditions beside its outputs: every
+    request handed off, none corrupt, at least one scale-up and every join
+    ready."""
+    ups = [e for e in router.autoscaler.events if e["action"] == "scale_up"]
+    joins = [e for e in router.autoscaler.events if e["action"] == "join_ready"]
+    check(len(ups) >= 1 and len(joins) == len(ups), f"autoscaler: {router.autoscaler.events}")
+    check(router.handoff_corrupt == 0 and router.handoffs >= len(workload),
+          f"{router.handoffs} handoffs, {router.handoff_corrupt} corrupt")
+
+
+def _landing_fault_leg(tag, spec, workload, want, dev):
+    """The near-tie bar's planted fault: the decode side lands the first
+    handed-off block's content in every adopted place (bf16, a backlog).
+    Its partings from the monolith must break FLEET_NEAR_TIE."""
+    from accelerate_tpu_torch.serving import DecodeEngine
+
+    real = DecodeEngine.land_blocks
+
+    def land_first(self, blocks, k, v):
+        first = [0] * len(blocks)
+        real(self, blocks, k[first], v[first])
+
+    DecodeEngine.land_blocks = land_first
+    try:
+        _, out, _ = _disagg_leg(tag, spec, workload, dev)
+    finally:
+        DecodeEngine.land_blocks = real
+    parts = _partings(tag, spec, workload, out, want, dev)
+    check(not _near_ties_only(parts, set(range(len(workload)))),
+          f"[{tag}] the planted landing fault passed the near-tie bar: {parts}")
+    print(f"[{tag}] planted landing fault: {len(parts)} of {len(workload)} outputs parted, f32 "
+          f"logit gaps {[round(g, 4) for *_, g in parts]}: the near-tie bar fails it", flush=True)
+
+
+def _handoff_split(spec, workload, dev, card):
+    """The handoff's steps one by one, alone, on the FLEET_HANDOFF_REPS
+    longest prompts (the most blocks), each step timed after the device
+    queue drained: the capture's gather and device-to-host copy, its CRC,
+    the base64 of ``to_wire``, the JSON line a process replica's pipe
+    carries; on the decode side the base64 decode of ``from_wire`` and the
+    landing (adoption, host-to-device copy, pool write) up to the device's
+    end. Prints the medians."""
+    import zlib
+
+    from accelerate_tpu_torch.serving import KVHandoff, LocalBlockCopyTransport
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+
+    rows = []
+
+    class Timed(LocalBlockCopyTransport):
+        def pack(self, engine, req):
+            sync()  # the prefill's own kernels end before the clock starts
+            t0 = time.perf_counter()
+            ho = KVHandoff.capture(engine, req)  # gather, copy, CRC
+            t1 = time.perf_counter()
+            zlib.crc32(ho.v.tobytes(), zlib.crc32(ho.k.tobytes()))
+            t2 = time.perf_counter()
+            wire = ho.to_wire()
+            t3 = time.perf_counter()
+            json.dumps(wire)
+            t4 = time.perf_counter()
+            rows.append(dict(mb=ho.nbytes / 1e6, copy=(t1 - t0) - (t2 - t1), crc=t2 - t1,
+                             b64=t3 - t2, json=t4 - t3))
+            return wire
+
+    pe = dataclasses.replace(spec, role="prefill").build_engine()
+    de = dataclasses.replace(spec, role="decode").build_engine()
+    pe.transport = Timed()
+    pe.warmup()
+    de.warmup()
+    longest = sorted(range(len(workload)), key=lambda i: -workload[i][1].size)
+    for i in longest[:FLEET_HANDOFF_REPS]:
+        pe.submit(workload[i][1], 2)
+        pe.step()
+        ((_, wire),) = pe.pop_handoffs()
+        t0 = time.perf_counter()
+        back = KVHandoff.from_wire(wire)
+        t1 = time.perf_counter()
+        de.transport.deliver(back, de)
+        sync()
+        rows[-1].update(unb64=t1 - t0, land=time.perf_counter() - t1)
+    med = {k: float(np.median([r[k] for r in rows])) for k in rows[0]}
+    print(f"[fleet-handoff] {len(rows)} handoffs alone, median {med['mb']:.2f} MB (f32 k and v): "
+          f"gather + device-to-host copy {med['copy'] * 1e3:.2f} ms, CRC {med['crc'] * 1e3:.2f} "
+          f"ms, base64 {med['b64'] * 1e3:.2f} ms, JSON line {med['json'] * 1e3:.2f} ms; decode "
+          f"side: base64 decode {med['unb64'] * 1e3:.2f} ms, land with the device write "
+          f"{med['land'] * 1e3:.2f} ms ({card})", flush=True)
+    del pe, de
+
+
+def _disagg_leg(tag, spec, workload, dev, autoscale=False):
+    """1 prefill + 1 decode thread replica under a DisaggRouter; with
+    ``autoscale`` the SLO autoscaler (a 1 µs ttft objective: burning as
+    soon as 4 requests finish) and open-loop arrivals, as the JAX bench's
+    disaggregated leg; otherwise the backlog at once."""
+    import dataclasses as _dc
+
+    from accelerate_tpu_torch.serving import AutoscalerPolicy, DisaggRouter, LocalReplica
+    from accelerate_tpu_torch.telemetry import SLOMonitor, serving_slos
+
+    pspec, dspec = (_dc.replace(spec, role=r) for r in ("prefill", "decode"))
+    kw = {}
+    if autoscale:
+        kw = dict(slo_monitor=SLOMonitor(serving_slos(ttft_threshold_s=1e-6), min_events=4),
+                  slo_eval_interval_s=0.0,
+                  autoscaler=AutoscalerPolicy(dspec, min_decode=1, max_decode=2,
+                                              cooldown_s=30.0, idle_shrink_after_s=3600.0))
+    return _fleet_leg(tag, [[LocalReplica("p0", pspec)], [LocalReplica("d0", dspec)]], workload,
+                      dev, router_cls=DisaggRouter,
+                      arrival_dt_s=FLEET_ARRIVAL_DT_S if autoscale else None, **kw)
+
+
+def _handoff_line(router, leg) -> str:
+    """Handoffs, MB a handoff (the f32 k and v blocks) and, on the host's
+    clock inside the leg, the prefill side's pack ms (its copy waits for
+    whatever the stream has queued) and the decode side's land ms (the
+    device write left queued) a handoff; _handoff_split times the steps
+    alone."""
+    engines = _engines(router)
+    packed = sum(e.stats().get("handoffs_packed", 0) for e in engines.values())
+    landed = sum(e.stats().get("handoffs_landed", 0) for e in engines.values())
+    blocks = sum(e.stats().get("handoff_blocks", 0) for e in engines.values())
+    pack_s = sum(e.stats().get("pack_seconds", 0.0) for e in engines.values())
+    land_s = sum(e.stats().get("land_seconds", 0.0) for e in engines.values())
+    c = CONFIG_KW
+    block_mb = (2 * c["n_layers"] * SERVE_ENGINE_KW["block_size"] * c["n_kv_heads"]
+                * (c["dim"] // c["n_heads"]) * 4 / 1e6)
+    leg.update(handoffs=router.handoffs, handoff_corrupt=router.handoff_corrupt,
+               mb_per_handoff=blocks * block_mb / max(landed, 1),
+               capture_ms=pack_s / max(packed, 1) * 1e3, land_ms=land_s / max(landed, 1) * 1e3)
+    return (f"; handoffs {router.handoffs} ({router.handoff_corrupt} corrupt), "
+            f"{leg['mb_per_handoff']:.2f} MB a handoff ({blocks} blocks landed), host ms in "
+            f"the leg: pack {leg['capture_ms']:.2f} and land (queued) {leg['land_ms']:.2f} a "
+            f"handoff")
+
+
+def _child_launches(router) -> dict:
+    """The surviving child's own #6/#7 counts (its ``stats`` event: the
+    parent's counters never see a child's launches), held to one launch a
+    layer for each of its decode steps, prefill chunks and warm-up points."""
+    rep = router.replicas["r1"]
+    rep.request_stats()
+    t0 = time.monotonic()
+    while True:
+        got = [e for e in rep.drain_events() if e.get("event") == "stats"]
+        if got:
+            break
+        check(time.monotonic() - t0 < 60, "the surviving child sent no stats")
+        time.sleep(0.01)
+    st, launches = got[0]["engine"], got[0]["launches"]
+    n_layers = CONFIG_KW["n_layers"]
+    want = {"paged_attention_prefill": n_layers * (st["prefill_chunks"]
+                                                   + rep.ready_info["prefill_compiles"]),
+            "paged_attention_decode": n_layers * (st["decode_steps"]
+                                                  + rep.ready_info["decode_compiles"])}
+    check(launches == want and all(v > 0 for v in launches.values()),
+          f"[fleet-proc] the survivor's launches {launches} against {want}")
+    return launches
+
+
 def _timed(phase, *args):
     """``phase(*args)``, with its wall seconds printed."""
     t0 = time.perf_counter()
@@ -6126,6 +6767,7 @@ def main() -> int:
     _timed(phase_sampling, serve_params, serve_config, dev)
     _timed(phase_static, serve_params, serve_config)
     del serve_params
+    fleet_launches = _timed(phase_fleet, dev)
     train_launches = _timed(phase_train, dev)
     _timed(phase_train_check, dev)
     _timed(phase_train_check_fp16, dev)
@@ -6168,7 +6810,8 @@ def main() -> int:
                         tp_kind: {k: tp_rec[k] for k in keys},
                         "launches_spec_decode": spec_results["spec"]["launches"][name],
                         "launches_moe_engine": moe_engine_launches[name],
-                        "launches_mesh_decode": [r[name] for r in mesh_decode_launches]})
+                        "launches_mesh_decode": [r[name] for r in mesh_decode_launches],
+                        "launches_fleet": {leg: n[name] for leg, n in fleet_launches.items()}})
     for name, kind, replaces in (
         ("fused_attention_fwd", "fwd", "accelerate_tpu/ops/fused_attention.py:90"),
         ("fused_attention_bwd", "bwd", "accelerate_tpu/ops/fused_attention.py:107"),
