@@ -73,9 +73,12 @@ values: they stay out of the accumulation window, the loss scale and
 every sum over ranks, which takes their MAX instead. One fp8 recipe
 handler at most (``FP8RecipeKwargs`` or its TE/AO/MS-AMP spellings) is
 kept as :attr:`fp8_recipe`, and, as in the JAX package, nothing reads it.
-Not ported yet (see ROADMAP.md): cp, sp and pp axes (item 11), the
-telemetry, profiler and watchdog parts of the JAX package's
-``Accelerator`` (item 12).
+A mesh that splits the sequence over ``cp`` or ``sp`` trains through
+:meth:`Accelerator.context_parallel_attention` (the model's
+``attention_fn``), the prepared loader's sequence split and the step's
+sums over those axes. Not ported yet (see ROADMAP.md): a ``pp`` axis
+(item 11b), the telemetry, profiler and watchdog parts of the JAX
+package's ``Accelerator`` (item 12).
 """
 
 from __future__ import annotations
@@ -1048,7 +1051,7 @@ class Accelerator:
             return ("dp_replicate",)
         raise NotImplementedError(
             f"lomo_backward on a mesh of {sizes} is not ported yet: it runs on one process or "
-            "a pure dp_replicate mesh (ROADMAP.md Queue A item 11)")
+            "a pure dp_replicate mesh (ROADMAP.md Queue A item 11b)")
 
     def _lomo_pass(self, loss_fn: Callable, params, args: tuple, scale: float,
                    learning_rate: Optional[float], axes: tuple):
@@ -1172,6 +1175,39 @@ class Accelerator:
     def clip_grad_value_(self, grads, clip_value: float):
         """Every gradient element clipped to ``[-clip_value, clip_value]``."""
         return _tree_map(lambda g: torch.clamp(g, -clip_value, clip_value), grads)
+
+    # ------------------------------------------------------- long context --
+    def context_parallel_attention(self, strategy: Optional[str] = None):
+        """The ``attention_fn`` of the mesh: over ``cp`` with ``strategy``
+        (default the config's ``cp_rotate_method``), Ulysses over ``sp``,
+        plain attention otherwise. Pass it to the model's ``attention_fn``."""
+        from .ops.attention import dot_product_attention
+        from .parallel.long_context import make_context_parallel_attention
+
+        axis = self.mesh.sequence_axis
+        if axis == "cp":
+            return make_context_parallel_attention(
+                self.mesh, strategy=strategy or self.parallelism_config.cp_rotate_method)
+        if axis == "sp":
+            return make_context_parallel_attention(self.mesh, strategy="ulysses")
+        return lambda q, k, v, causal=True, scale=None: dot_product_attention(
+            q, k, v, causal=causal, scale=scale)
+
+    @contextlib.contextmanager
+    def maybe_context_parallel(self, buffers=None, buffer_seq_dims=None, no_restore_buffers=None):
+        """The JAX package's parity shim for the reference's per-step buffer
+        sharding: the prepared loader already yields each rank's chunk of
+        the sequence and :meth:`context_parallel_attention` does the rest,
+        so buffer arguments are ignored, with a warning."""
+        if buffers is not None or buffer_seq_dims is not None or no_restore_buffers is not None:
+            warnings.warn(
+                "maybe_context_parallel buffer arguments are ignored under SPMD: "
+                "sequence sharding comes from the prepared dataloader (seq_dim) "
+                "and the attention_fn from accelerator.get_attention_fn(); no "
+                "per-step in-place buffer resharding exists or is needed",
+                stacklevel=2,
+            )
+        yield
 
     # ------------------------------------------------------- small helpers --
     @contextlib.contextmanager

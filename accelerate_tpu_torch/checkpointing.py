@@ -102,9 +102,16 @@ SCHEDULER_NAME = "scheduler"
 SAMPLER_NAME = "dataloader"
 RNG_NAME = "random_states"
 CUSTOM_NAME = "custom_checkpoint"
+SAFE_MODEL_NAME = MODEL_NAME
 SAFE_WEIGHTS_NAME = "model.safetensors"
 SAFE_WEIGHTS_INDEX_NAME = "model.safetensors.index.json"
+SAFE_WEIGHTS_PATTERN_NAME = "model{suffix}.safetensors"
 WEIGHTS_NAME = "model.npz"
+WEIGHTS_INDEX_NAME = "model.npz.index.json"
+WEIGHTS_PATTERN_NAME = "model{suffix}.npz"
+RNG_STATE_NAME = RNG_NAME
+SCALER_NAME = "scaler"  # the fp16 scale state lives inside the optimizer state
+PROFILE_PATTERN_NAME = "profile_{suffix}.json"
 
 COMMITTED_MARKER = "_COMMITTED"
 STAGING_SUFFIX = ".tmp"

@@ -397,18 +397,18 @@ _END = object()  # no batch left
 
 class GlobalBatchAssembler:
     """The batch layout over the mesh: dim 0 split over ``(dp_replicate,
-    dp_shard)``, replicated over ``tp`` and ``ep``. Each process holds the
-    rows of its own data-parallel row, the rank's ``Shard(0)`` of the global
-    batch. A sequence split over ``cp`` or ``sp`` is not ported yet
-    (ROADMAP.md Queue A item 11)."""
+    dp_shard)``, the sequence dim (``seq_dim``) of every leaf of more dims
+    than ``seq_dim`` over ``cp`` when that axis is split, else over ``sp``,
+    and replicated over ``tp`` and ``ep``. Each process holds the rows of
+    its own data-parallel row and its own chunk of the sequence: the rank's
+    block of the global batch."""
 
-    def __init__(self, mesh, device=None):
+    def __init__(self, mesh, device=None, seq_dim: int = 1):
         self.mesh = mesh
         self.device = device
+        self.seq_dim = seq_dim
         sizes = dict(mesh.shape)
-        if sizes.get("cp", 1) > 1 or sizes.get("sp", 1) > 1:
-            raise NotImplementedError("a batch split over cp or sp is not ported yet "
-                                      "(ROADMAP.md Queue A item 11)")
+        self._seq_axis = mesh.sequence_axis
         self._dp_size = sizes.get("dp_replicate", 1) * sizes.get("dp_shard", 1)
 
     @property
@@ -423,9 +423,26 @@ class GlobalBatchAssembler:
         """The data-parallel rows this process reads: its own."""
         return [self._dp_row(self.mesh.coords)]
 
+    def _seq_chunk(self, x):
+        """This rank's chunk of ``x``'s sequence dim (``x`` whole when the
+        sequence is not split or ``x`` has no such dim)."""
+        if self._seq_axis is None or getattr(x, "ndim", 0) <= self.seq_dim:
+            return x
+        n, length = self.mesh.shape[self._seq_axis], x.shape[self.seq_dim]
+        if length % n != 0:
+            raise ValueError(f"sequence dim ({length}) not divisible by {self._seq_axis} "
+                             f"size {n}")
+        chunk = length // n
+        start = self.mesh.sequence_span(chunk)[0]
+        index = [slice(None)] * x.ndim
+        index[self.seq_dim] = slice(start, start + chunk)
+        return x[tuple(index)]
+
     def to_global(self, local_block):
-        """The rank's block (its rows) as tensors on the device: the
-        ``Shard(0)`` of the global batch this rank holds."""
+        """The rank's block (its rows, and its chunk of the sequence when
+        that is split) as tensors on the device."""
+        if self._seq_axis is not None:
+            local_block = recursively_apply(self._seq_chunk, local_block)
         return send_to_device(local_block, self.device)
 
     def local_block(self, global_batch):
@@ -1123,7 +1140,8 @@ def prepare_data_loader(dataloader, device=None, state=None, mesh=None,
                         dispatch_batches: Optional[bool] = None,
                         rng_types: Optional[Sequence[str]] = None,
                         data_seed: Optional[int] = None, use_seedable_sampler: bool = True,
-                        prefetch_depth: int = 2, non_blocking: bool = True) -> DataLoaderShard:
+                        prefetch_depth: int = 2, non_blocking: bool = True,
+                        seq_dim: int = 1) -> DataLoaderShard:
     """Wrap ``dataloader`` for the mesh (the :class:`~.state.
     AcceleratorState`'s by default): a :class:`DataLoader` is resharded so
     this process reads its data-parallel row's batches (``batch_size``
@@ -1134,7 +1152,9 @@ def prepare_data_loader(dataloader, device=None, state=None, mesh=None,
     ``SeedableRandomSampler(seed=data_seed or 0)`` whatever
     ``use_seedable_sampler`` says, as there). Another iterable of batches
     is taken as this process's already. With ``device_placement=False``
-    the batches stay numpy."""
+    the batches stay numpy. Under a mesh that splits ``cp`` (else ``sp``),
+    dim ``seq_dim`` of every leaf with more dims is split over it too, as
+    the JAX package's loader does; a length it does not divide raises."""
     if isinstance(dataloader, DataLoaderShard):
         return dataloader
     from .state import AcceleratorState, PartialState
@@ -1145,7 +1165,8 @@ def prepare_data_loader(dataloader, device=None, state=None, mesh=None,
         device = PartialState().device
     assembler = None
     if mesh is not None:
-        assembler = GlobalBatchAssembler(mesh, device=device if device_placement else None)
+        assembler = GlobalBatchAssembler(mesh, device=device if device_placement else None,
+                                         seq_dim=seq_dim)
     dp_size = assembler.dp_size if assembler else 1
     cls = DataLoaderDispatcher if dispatch_batches else DataLoaderShard
     place = device if device_placement else None
@@ -1203,5 +1224,6 @@ def prepare_data_loader(dataloader, device=None, state=None, mesh=None,
                                    device_placement=device_placement,
                                    split_batches=split_batches, even_batches=even_batches,
                                    dispatch_batches=dispatch_batches, rng_types=rng_types,
-                                   prefetch_depth=prefetch_depth, non_blocking=non_blocking)
+                                   prefetch_depth=prefetch_depth, non_blocking=non_blocking,
+                                   seq_dim=seq_dim)
     return cls(dataloader, place, **common)

@@ -15,7 +15,10 @@ and the training forwards run those products through
 :func:`~..ops.fp8.fp8_dot` (:func:`_proj`); the cached decode paths run
 the attention projections as plain products and the FFN through
 :func:`_proj`, from the frozen histories, as the JAX package's do.
-``llama_forward``'s ``attention_fn`` raises ``NotImplementedError``.
+``llama_forward``'s ``attention_fn`` replaces the attention (context and
+sequence parallelism plug in there, :mod:`..parallel.long_context`); with
+a sequence split over ``cp`` or ``sp`` the RoPE positions and the loss's
+next-token targets are global (``Mesh.sequence_span``, :func:`_roll_left`).
 """
 
 from __future__ import annotations
@@ -452,21 +455,52 @@ def _activation_spec(mesh, *logical):
 
 def _constrain(x: torch.Tensor, mesh, *logical) -> torch.Tensor:
     """Where the JAX package pins an activation's sharding, the port holds
-    the rank's block already: the rows of its batch axes, every other dim
-    whole (a ``tp`` split of the vocab is computed whole on every ``tp``
-    rank, the same values). A split of any other dim than the rows over
-    the batch axes raises, so a layout this forward does not compute cannot
-    pass unnoticed."""
+    the rank's block already: the rows of its batch axes, its chunk of the
+    sequence axis (``cp`` or ``sp``) on dim 1, every other dim whole (a
+    ``tp`` split of the vocab is computed whole on every ``tp`` rank, the
+    same values). Any other split raises, so a layout this forward does not
+    compute cannot pass unnoticed."""
     if mesh is None:
         return x
     spec = _activation_spec(mesh, *logical)
     for d, axes in enumerate(spec):
         if axes is None or (d == 0 and set(axes if isinstance(axes, tuple) else (axes,))
-                            <= {"dp_replicate", "dp_shard"}) or axes == "tp":
+                            <= {"dp_replicate", "dp_shard"}) or axes == "tp" or (
+                d == 1 and axes in ("cp", "sp")):
             continue
-        raise NotImplementedError(f"an activation split over {axes} on dim {d} is not ported "
-                                  "yet (ROADMAP.md Queue A item 11: ring attention)")
+        raise NotImplementedError(f"an activation split over {axes} on dim {d} is not ported")
     return x
+
+
+def _sequence_axis(mesh) -> Optional[str]:
+    return None if mesh is None else mesh.sequence_axis
+
+
+def _sequence_span(S: int, mesh) -> tuple:
+    return (0, S) if mesh is None else mesh.sequence_span(S)
+
+
+def _chunk_positions(S: int, mesh, device) -> torch.Tensor:
+    """The global positions ``[S]`` of this rank's chunk of the sequence:
+    ``arange(S)`` offset by the chunk's start on the sequence axis."""
+    start = _sequence_span(S, mesh)[0]
+    return torch.arange(start, start + S, device=device)
+
+
+def _roll_left(x: torch.Tensor, mesh) -> torch.Tensor:
+    """``roll(x, -1)`` along the global sequence of this rank's ``[B,
+    S_loc]`` chunk: the chunk's last column takes the next sequence rank's
+    first (the last rank's, rank 0's), as the JAX package's ``jnp.roll``
+    over the whole split sequence gives it."""
+    rolled = torch.roll(x, -1, dims=1)
+    axis = _sequence_axis(mesh)
+    if axis is None:
+        return rolled
+    from ..parallel.long_context import _ppermute
+
+    n = mesh.shape[axis]
+    first = _ppermute(x[:, :1].contiguous(), mesh, axis, [(i, (i - 1) % n) for i in range(n)])
+    return torch.cat([rolled[:, :-1], first], dim=1)
 
 
 def llama_forward(params: dict, input_ids: torch.Tensor, config: LlamaConfig,
@@ -484,8 +518,10 @@ def llama_forward(params: dict, input_ids: torch.Tensor, config: LlamaConfig,
     serving path is held to, ``"flash"`` the blocked kernels. ``segment_ids``
     packs documents into a row (``[B, S]``, 0 = padding): tokens attend only
     within their segment, causally, and RoPE positions restart per segment
-    unless ``positions`` is given. ``attention_fn`` (context parallelism)
-    is not ported and raises.
+    unless ``positions`` is given. ``attention_fn(q, k, v, causal=True)``
+    replaces the attention (context parallelism:
+    :func:`~..parallel.long_context.make_context_parallel_attention`); it
+    cannot take ``segment_ids``.
 
     ``remat`` (JAX's knob) recomputes each decoder layer in the backward
     (``torch.utils.checkpoint``, non-reentrant); the embedding and the head
@@ -507,13 +543,20 @@ def llama_forward(params: dict, input_ids: torch.Tensor, config: LlamaConfig,
     gathers one layer at a time (the sharded train step hands it so).
     Every rank of a ``tp`` group computes the same rows with all heads; the
     MoE FFN routes over the global batch and computes the rank's ``ep``
-    experts. A sequence split over ``cp`` or ``sp`` raises."""
+    experts. With the sequence split over ``cp`` or ``sp`` the ids are the
+    rank's chunk of it, the RoPE positions the chunk's global ones, and the
+    attention must come from an ``attention_fn`` over that axis (the plain
+    attention of a chunk would miss the others; it raises). MoE routing
+    does not cover a sequence split yet and raises there."""
     from ..generation import _project_qkv
     from ..ops.attention import dot_product_attention
 
-    if attention_fn is not None:
-        raise NotImplementedError("attention_fn (context/sequence parallelism) is not ported yet "
-                                  "(see ROADMAP.md)")
+    if segment_ids is not None and attention_fn is not None:
+        raise ValueError("segment_ids (packing) cannot combine with attention_fn (CP/SP)")
+    seq_axis = _sequence_axis(mesh)
+    if seq_axis is not None and attention_fn is None:
+        raise ValueError(f"a sequence split over {seq_axis} needs an attention_fn over that axis "
+                         "(parallel.long_context.make_context_parallel_attention)")
     context_fn = _remat_context(remat) if remat else None
     impl = config.attn_impl if attention_impl is None else attention_impl
     dev = input_ids.device
@@ -522,7 +565,7 @@ def llama_forward(params: dict, input_ids: torch.Tensor, config: LlamaConfig,
     B, S = input_ids.shape
     if positions is None:
         positions = (segment_positions(segment_ids) if segment_ids is not None
-                     else torch.arange(S, device=dev)[None].expand(B, S))
+                     else _chunk_positions(S, mesh, dev)[None].expand(B, S))
     positions = positions.long()
     batch_axes = ("dp_replicate", "dp_shard")
     # the table is whole here: the step gathered it (the JAX package gathers
@@ -533,7 +576,11 @@ def llama_forward(params: dict, input_ids: torch.Tensor, config: LlamaConfig,
     def decoder_layer(h, layer):
         x = rms_norm(h, layer["attn_norm"]["scale"], config.norm_eps)
         q, k, v = _project_qkv(layer, x, positions, cos, sin, config, proj=_proj)
-        attn = dot_product_attention(q, k, v, causal=True, segment_ids=segment_ids, impl=impl)
+        if attention_fn is not None:
+            attn = attention_fn(q, k, v, causal=True)
+        else:
+            attn = dot_product_attention(q, k, v, causal=True, segment_ids=segment_ids,
+                                         impl=impl)
         h = h + _proj(layer["wo"], attn.reshape(B, S, -1))
         x = rms_norm(h, layer["mlp_norm"]["scale"], config.norm_eps)
         y, aux = llama_ffn(layer, x, config, mesh=mesh)
@@ -575,9 +622,12 @@ def llama_loss(params: dict, batch: dict, config: LlamaConfig, **fwd_kwargs) -> 
     boundaries, padding (id 0) and masked positions do not count. MoE
     configs add ``moe_aux_weight`` times the forward's aux loss.
 
-    With ``mesh`` (a forward kwarg) the rows are one rank's: the count of
-    positions that count is summed over the batch ranks, and the value is
-    ``n · (this rank's sum) / (global count)`` for ``n`` batch ranks, so
+    With ``mesh`` (a forward kwarg) the rows are one rank's (and under a
+    sequence split over ``cp`` or ``sp``, its chunk of the sequence: the
+    targets, the mask and the last position are the global sequence's):
+    the count of positions that count is summed over the batch ranks (those
+    axes and the data-parallel ones), and the value is ``n · (this rank's
+    sum) / (global count)`` for ``n`` batch ranks, so
     that its mean over the ranks (what the sharded train step reports, and
     the mean of whose gradients it takes) is the JAX package's loss over the
     global batch, masks and packing included."""
@@ -592,20 +642,24 @@ def llama_loss(params: dict, batch: dict, config: LlamaConfig, **fwd_kwargs) -> 
     logits = llama_forward(params, ids, config, with_aux=moe, **fwd_kwargs)
     if moe:
         logits, moe_aux = logits
-    targets = torch.roll(ids, -1, dims=1)
+    mesh = fwd_kwargs.get("mesh")
+    targets = _roll_left(ids, mesh)
     logp = torch.log_softmax(logits.float(), dim=-1)
     nll = -logp.gather(-1, targets[..., None])[..., 0]  # [B, S]
-    # position S-1 has no next token; its rolled target is position 0
-    valid = (torch.arange(seq_len, device=ids.device) < seq_len - 1).float()[None].expand_as(nll)
+    # the global last position has no next token; its rolled target is
+    # position 0. Under a sequence split the rank's chunk starts at `start`
+    start, total = _sequence_span(seq_len, mesh)
+    pos = torch.arange(start, start + seq_len, device=ids.device)
+    valid = (pos < total - 1).float()[None].expand_as(nll)
     if segment_ids is not None:
-        same_seg = torch.roll(segment_ids, -1, dims=1) == segment_ids
+        same_seg = _roll_left(segment_ids, mesh) == segment_ids
         valid = valid * same_seg.float() * (segment_ids > 0).float()
     mask = batch.get("loss_mask")
     if mask is not None:
-        valid = valid * torch.roll(mask, -1, dims=1).float()
+        valid = valid * _roll_left(mask, mesh).float()
     from ..parallel.sharding import global_mean
 
-    loss = global_mean((nll * valid).sum(), valid.sum(), fwd_kwargs.get("mesh"))
+    loss = global_mean((nll * valid).sum(), valid.sum(), mesh)
     return loss + config.moe_aux_weight * moe_aux if moe else loss
 
 

@@ -22,7 +22,7 @@ from typing import Optional
 
 import torch
 
-__all__ = ["dot_product_attention", "segment_mask"]
+__all__ = ["dot_product_attention", "make_padding_mask", "segment_mask"]
 
 
 def segment_mask(segment_ids: torch.Tensor) -> torch.Tensor:
@@ -115,3 +115,9 @@ def _xla_attention(q, k, v, *, causal, mask, scale, window=None):
             logits = logits + mask.float()
     probs = torch.softmax(logits, dim=-1).to(q.dtype)
     return torch.einsum("bhqk,bkhd->bqhd", probs, v)
+
+
+def make_padding_mask(attention_mask: torch.Tensor, sq: int) -> torch.Tensor:
+    """``[B, Skv]`` 1/0 padding mask → ``[B, 1, Sq, Skv]`` bool mask."""
+    return attention_mask[:, None, None, :].bool().expand(
+        attention_mask.shape[0], 1, sq, attention_mask.shape[1])

@@ -63,6 +63,7 @@ __all__ = [
     "flash_attention_dq_reference",
     "flash_attention_fwd",
     "flash_attention_fwd_reference",
+    "flash_attention_lse",
     "paged_attention",
     "paged_attention_decode",
     "paged_attention_decode_plain",
@@ -622,39 +623,47 @@ flash_attention_dkdv.launches = 0
 
 
 class _FlashAttention(torch.autograd.Function):
-    """Forward through kernel #1 (saving ``lse``, the output and the
-    lattice), backward through kernel #2 then kernel #3, with ``δ = Σ dO·O``
-    formed in f32 between them — on the CPU, through their plain versions,
-    so the split is the same on both devices."""
+    """Forward through kernel #1, returning ``(out, lse)`` with ``lse [B,
+    H, S]`` (f32) and saving both and the lattice; backward through kernel
+    #2 then kernel #3, with ``δ = Σ dO·O`` formed in f32 between them — on
+    the CPU, through their plain versions, so the split is the same on both
+    devices. Both outputs are differentiable, for a caller that merges
+    blocks of one softmax (the ring's blocks of
+    :mod:`..parallel.long_context`).
+
+    A gradient on ``lse`` runs kernels #2 and #3 unchanged, with ``δ −
+    dlse`` in place of ``δ``: with ``P = exp(S − lse)`` and a loss on ``out
+    = P V`` and on ``lse``, the gradient of the scores is ``dS = P ⊙ (dP −
+    δ) + dlse · P = P ⊙ (dP − (δ − dlse))`` (``dP = dO Vᵀ``, ``δ = Σ dO ⊙ O``
+    over the head dim, since ``∂lse/∂S = P``), and ``dV = Pᵀ dO`` does not
+    see ``lse``. Where ``lse`` is unused its gradient is None (grads are
+    not materialised) and ``δ`` is left as it is."""
 
     @staticmethod
     def forward(ctx, q, k, v, seg, cfg):
+        ctx.set_materialize_grads(False)
         ids, counts, idsT, countsT = _block_lattice(seg, cfg)
         out, lse = flash_attention_fwd(q, k, v, seg, ids, counts, cfg)
         ctx.save_for_backward(q, k, v, seg, lse, out, ids, counts, idsT, countsT)
         ctx.cfg = cfg
-        return out
+        return out, lse
 
     @staticmethod
-    def backward(ctx, do):
+    def backward(ctx, do, dlse):
         q, k, v, seg, lse, out, ids, counts, idsT, countsT = ctx.saved_tensors
-        do = do.contiguous()
-        delta = (do.float() * out.float()).sum(-1).transpose(1, 2).contiguous()  # [B, H, S]
+        do = torch.zeros_like(out) if do is None else do.contiguous()
+        delta = (do.float() * out.float()).sum(-1).transpose(1, 2)  # [B, H, S]
+        if dlse is not None:
+            delta = delta - dlse.float()
+        delta = delta.contiguous()
         dq = flash_attention_dq(q, k, v, seg, lse, delta, do, ids, counts, ctx.cfg)
         dk, dv = flash_attention_dkdv(q, k, v, seg, lse, delta, do, idsT, countsT, ctx.cfg)
         return dq, dk, dv, None, None
 
 
-def flash_attention(q, k, v, *, causal: bool = False, scale: Optional[float] = None,
-                    segment_ids: Optional[torch.Tensor] = None, window: Optional[int] = None,
-                    block_q: int = 128, block_kv: int = 128) -> torch.Tensor:
-    """Blocked streaming flash attention (BSHD in and out), forward and
-    backward: ``q [B, S, H, D]``, ``k, v [B, S, Hkv, D]``, ``segment_ids [B,
-    S]`` (padding = 0; position ``i`` attends ``j`` iff their ids match),
-    ``window`` a causal sliding band (attend iff ``0 <= i - j < window``).
-    Shapes the blocked walk cannot tile (``Sq != Skv``, S not a multiple of
-    the block) raise: the JAX package drops to its einsum path there, the
-    port leaves that choice to the caller (``impl='xla'``)."""
+def _flash_config(q, k, causal, scale, window, block_q, block_kv, use_seg) -> _FlashConfig:
+    """The config of one flash call; raises where the blocked walk cannot
+    tile the shapes (it needs ``Sq == Skv``, a multiple of both blocks)."""
     if window is not None:
         if not causal:
             raise ValueError("window requires causal=True (the sliding window is a causal band)")
@@ -669,9 +678,35 @@ def flash_attention(q, k, v, *, causal: bool = False, scale: Optional[float] = N
         raise ValueError(
             f"flash attention cannot tile q={tuple(q.shape)} k={tuple(k.shape)} with blocks "
             f"({bq}, {bkv}): it needs Sq == Skv, a multiple of both blocks; use impl='xla'")
-    cfg = _FlashConfig(scale=1.0 / math.sqrt(D) if scale is None else float(scale),
-                       causal=bool(causal), window=window, block_q=bq, block_kv=bkv, h=H,
-                       hkv=Hkv, use_seg=segment_ids is not None)
+    return _FlashConfig(scale=1.0 / math.sqrt(D) if scale is None else float(scale),
+                        causal=bool(causal), window=window, block_q=bq, block_kv=bkv, h=H,
+                        hkv=Hkv, use_seg=use_seg)
+
+
+def flash_attention_lse(q, k, v, *, causal: bool = False, scale: Optional[float] = None,
+                        block_q: int = 128, block_kv: int = 128):
+    """:func:`flash_attention` without segments or a window, returning
+    ``(out, lse)``: ``out [B, S, H, D]`` and the rows' log-sum-exp of the
+    scaled scores, ``lse [B, H, S]`` (f32), both differentiable. Blocks of
+    one softmax split over keys merge from these: ``lse = logaddexp(lse₁,
+    lse₂)``, ``out = Σ exp(lseᵢ − lse) · outᵢ``."""
+    cfg = _flash_config(q, k, causal, scale, None, block_q, block_kv, False)
+    seg = torch.zeros(q.shape[0], q.shape[1], dtype=torch.int32, device=q.device)
+    return _FlashAttention.apply(q, k, v, seg, cfg)
+
+
+def flash_attention(q, k, v, *, causal: bool = False, scale: Optional[float] = None,
+                    segment_ids: Optional[torch.Tensor] = None, window: Optional[int] = None,
+                    block_q: int = 128, block_kv: int = 128) -> torch.Tensor:
+    """Blocked streaming flash attention (BSHD in and out), forward and
+    backward: ``q [B, S, H, D]``, ``k, v [B, S, Hkv, D]``, ``segment_ids [B,
+    S]`` (padding = 0; position ``i`` attends ``j`` iff their ids match),
+    ``window`` a causal sliding band (attend iff ``0 <= i - j < window``).
+    Shapes the blocked walk cannot tile (``Sq != Skv``, S not a multiple of
+    the block) raise: the JAX package drops to its einsum path there, the
+    port leaves that choice to the caller (``impl='xla'``)."""
+    cfg = _flash_config(q, k, causal, scale, window, block_q, block_kv, segment_ids is not None)
+    B, Sq = q.shape[:2]
     seg = (segment_ids.to(torch.int32).contiguous() if segment_ids is not None
            else torch.zeros(B, Sq, dtype=torch.int32, device=q.device))
-    return _FlashAttention.apply(q, k, v, seg, cfg)
+    return _FlashAttention.apply(q, k, v, seg, cfg)[0]

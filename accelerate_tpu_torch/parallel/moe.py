@@ -35,7 +35,8 @@ sum their gradient over ``ep``). The expert weights' gradient is
 gathered over ``ep`` to the rank that keeps it (a layer of the sharded
 step's :class:`~.sharding.LayerStack` names it), or all-gathered where no
 rank is named, so that the rank holds the whole gradient of every param,
-as under ``tp``, and none is summed over it.
+as under ``tp``, and none is summed over it. A sequence split over ``cp``
+or ``sp`` is not routed yet and raises.
 :func:`moe_shard_rules` is the JAX package's table.
 """
 
@@ -124,13 +125,13 @@ def _batch_rank(mesh, axes) -> tuple:
 
 
 def _batch_axes(mesh, batch_axes) -> tuple:
-    """The axes that split the batch: ``batch_axes`` when given, else every
-    data axis of size > 1."""
-    from .sharding import GRAD_SUM_AXES
+    """The axes that split the batch rows: ``batch_axes`` when given, else
+    every data-parallel axis of size > 1."""
+    from ..parallelism_config import DP_AXES
 
     if mesh is None:
         return ()
-    axes = GRAD_SUM_AXES if batch_axes is None else batch_axes
+    axes = DP_AXES if batch_axes is None else batch_axes
     return tuple(a for a in axes if mesh.shape.get(a, 1) > 1)
 
 
@@ -141,9 +142,15 @@ def route(router_kernel: torch.Tensor, x: torch.Tensor, top_k: int, capacity_fac
     ``batch_axes`` (``(dp_replicate, dp_shard)`` by default). The groups are
     those of the global token order; each token's slot counts, per expert,
     the tokens of the lower ranks in its group (one all-gather of the
-    per-group counts over the batch ranks)."""
+    per-group counts over the batch ranks). A sequence split over ``cp``
+    or ``sp`` raises: each rank would route its chunk as if its tokens were
+    a contiguous run of the global order."""
     from .sharding import _all_gather_dim
 
+    if mesh is not None and mesh.sequence_axis is not None:
+        raise NotImplementedError(
+            f"MoE routing of a sequence split over {mesh.sequence_axis} is not ported: the "
+            "groups and capacity slots count only the batch ranks' tokens")
     B, S, D = x.shape
     E = router_kernel.shape[-1]
     batch_axes = _batch_axes(mesh, batch_axes)

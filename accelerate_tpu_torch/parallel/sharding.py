@@ -21,7 +21,8 @@ Compute runs on plain tensors: :meth:`ShardingPlan.gather_params`
 all-gathers every sharded param to its full value (minor axis first)
 through an autograd function whose backward hands each rank its block of
 the gradient: a reduce-scatter over the batch axes (``dp_replicate``,
-``dp_shard``) that shard the dim, a local slice over the others (``tp``:
+``dp_shard``, and ``cp``/``sp``, which split the sequence) that shard the
+dim, a local slice over the others (``tp``:
 the activations are replicated there, so every ``tp`` rank already holds
 the same gradient, and ``ep``, whose MoE FFN hands every rank the whole
 expert gradient).
@@ -83,8 +84,11 @@ __all__ = [
 
 FSDP_AXES = ("dp_shard", "cp")
 _META_KEY = "fp8_meta"  # ops.fp8.META_KEY
-# the axes the batch rows are split over: a gradient is summed over these
-GRAD_SUM_AXES = ("dp_replicate", "dp_shard")
+# the axes the global batch's tokens are split over (the rows over
+# dp_replicate and dp_shard, the sequence over cp or sp): each rank's
+# gradient is its tokens' part, summed over these, and a step's mean loss
+# divides by their ranks' count, as the JAX package's global mean does
+GRAD_SUM_AXES = ("dp_replicate", "dp_shard", "cp", "sp")
 
 
 class PartitionSpec(tuple):
@@ -776,7 +780,8 @@ class ShardingPlan:
 
     @property
     def batch_ranks(self) -> int:
-        """How many data-parallel ranks split the global batch."""
+        """How many ranks split the global batch's tokens (the rows over
+        the data-parallel axes, the sequence over ``cp`` or ``sp``)."""
         sizes = axis_sizes(self.mesh)
         return int(np.prod([sizes.get(a, 1) for a in GRAD_SUM_AXES]))
 
@@ -793,14 +798,12 @@ class ShardingPlan:
         return self.sharded or self.batch_ranks > 1 or self.fused_zero1
 
     def check_supported(self) -> None:
-        """Raise for a mesh the port's sharded step does not run yet."""
+        """Raise for a mesh the port's sharded step does not run yet: a
+        ``pp`` axis (ROADMAP.md Queue A item 11b)."""
         sizes = axis_sizes(self.mesh)
-        for axis, item in (("cp", "11 (ring attention)"), ("sp", "11 (ring attention)"),
-                           ("pp", "11 (pipelines)")):
-            if sizes.get(axis, 1) > 1:
-                raise NotImplementedError(
-                    f"a {axis} axis of size {sizes[axis]} is not ported yet (ROADMAP.md "
-                    f"Queue A item {item})")
+        if sizes.get("pp", 1) > 1:
+            raise NotImplementedError(f"a pp axis of size {sizes['pp']} is not ported yet "
+                                      "(ROADMAP.md Queue A item 11b: pipelines)")
 
     def layouts(self):
         """The :class:`_Layout` tree of the params (``None`` for a param
@@ -941,7 +944,7 @@ def make_sharding_plan(params, mesh, parallelism_config: Optional[ParallelismCon
     if not zero1_fused:
         return plan
     if plan.sharded:
-        return plan  # composite mesh: the JAX package's annotation path (not ported)
+        return plan  # composite mesh: ZeRO-1 by annotation (optimizer.AnnotatedZero1)
     from .weight_update import build_bucket_plan
 
     try:

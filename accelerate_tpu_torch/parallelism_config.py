@@ -94,6 +94,21 @@ class Mesh:
                                "was built without a process group")
         return self.device_mesh.get_group(axis)
 
+    @property
+    def sequence_axis(self) -> Optional[str]:
+        """The axis (of size > 1) the sequence dim is split over: ``cp``,
+        else ``sp``, as the JAX package's loader picks it; None for none."""
+        return next((a for a in ("cp", "sp") if self.shape[a] > 1), None)
+
+    def sequence_span(self, chunk: int) -> tuple:
+        """``(start, total)`` for this rank's ``chunk`` positions of a
+        sequence split over :attr:`sequence_axis`: the chunk's first global
+        position and the global length (``(0, chunk)`` when not split)."""
+        axis = self.sequence_axis
+        if axis is None:
+            return 0, chunk
+        return chunk * self.coords[axis], chunk * self.shape[axis]
+
     def __repr__(self) -> str:
         return "Mesh(" + ", ".join(f"{a}={s}" for a, s in self.shape.items()) + f"; rank={self.rank})"
 

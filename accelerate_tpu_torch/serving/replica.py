@@ -192,14 +192,14 @@ class _EngineWorker:
         self.idle_beat_s = idle_beat_s
 
     def _stats_event(self) -> dict:
-        from ..ops import flash_attention as fa
+        from ..ops.flash_attention import paged_attention_decode, paged_attention_prefill
 
         return {
             "event": "stats",
             "engine": self.engine.stats(),
             "launches": {
-                "paged_attention_decode": fa.paged_attention_decode.launches,
-                "paged_attention_prefill": fa.paged_attention_prefill.launches,
+                "paged_attention_decode": paged_attention_decode.launches,
+                "paged_attention_prefill": paged_attention_prefill.launches,
             },
         }
 

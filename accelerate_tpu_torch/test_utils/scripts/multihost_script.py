@@ -5,8 +5,10 @@
 the port's own: ``rng_sync`` (a loader's ``rng_types``), ``mesh_train`` (a
 few Llama training steps on each of several meshes and with each option of a sharded step: adafactor,
 a global-norm clip, fp16, ZeRO-1 by annotation, every remat policy,
-``gradient_fn``), ``mesh_moe`` (the MoE Llama under dp_shard, ep and both)
-and ``zoo_train`` (ResNet and T5 under data parallelism and FSDP), whose
+``gradient_fn``), ``mesh_moe`` (the MoE Llama under dp_shard, ep and both),
+``long_context`` (context and sequence parallel attention alone, in the
+Llama forward and in training) and ``zoo_train`` (ResNet and T5 under
+data parallelism and FSDP), whose
 losses, gradient norms, final params and optimizer-state bytes they write
 for the caller to compare.
 
@@ -448,6 +450,19 @@ def _fault(name):
             stack.enter_context(_planted(pc_mod.ParallelismConfig, "rank_grid",
                                          lambda self, n: np.arange(n).reshape(
                                              self.mesh_shape(n))))
+        elif name == "cp_local_positions":  # each sequence chunk's RoPE from position 0
+            from accelerate_tpu_torch.models import transformer as tt
+
+            stack.enter_context(_planted(tt, "_chunk_positions", lambda S, mesh, device:
+                                         torch.arange(S, device=device)))
+        elif name == "cp_local_roll":  # each chunk's targets rolled within the chunk
+            from accelerate_tpu_torch.models import transformer as tt
+
+            stack.enter_context(_planted(tt, "_roll_left",
+                                         lambda x, mesh: torch.roll(x, -1, dims=1)))
+        elif name == "cp_grads_not_summed":  # the tokens' split over cp left out of the sums
+            stack.enter_context(_planted(sh, "GRAD_SUM_AXES",
+                                         tuple(a for a in sh.GRAD_SUM_AXES if a != "cp")))
         elif name is not None:
             raise ValueError(f"unknown fault {name}")
         yield
@@ -460,7 +475,7 @@ def mesh_train_leg(params_np: dict, batches: dict, pc_kwargs: dict, zero1: bool,
                    moe: bool = False, moe_rules: bool = True,
                    prepare_rules: str = None, comm_hook: str = None, offload: bool = False,
                    offload_group_bytes: int = None, lomo: bool = False,
-                   fault: str = None) -> dict:
+                   attention: bool = False, fault: str = None) -> dict:
     """``steps`` (all of ``batches`` by default) training steps of Llama at
     tiny widths (f32 params, plain attention) on one mesh, one step for each
     ``[K, ...]`` slice of ``batches`` (global ``input_ids`` and
@@ -480,7 +495,9 @@ def mesh_train_leg(params_np: dict, batches: dict, pc_kwargs: dict, zero1: bool,
     are in ``mesh_grid`` and ``node``. Params with fp8 meta train the
     ``dtype_recipe="fp8"`` config; ``meta`` is this rank's meta leaves
     after the steps (``/``-joined paths), ``fp8`` the optimizer's meta and
-    passthrough counts."""
+    passthrough counts. ``attention`` runs the model's attention through
+    ``Accelerator.context_parallel_attention()`` (the mesh's ``cp`` or
+    ``sp`` split of the sequence)."""
     from accelerate_tpu_torch import Accelerator
     from accelerate_tpu_torch.data_loader import GlobalBatchAssembler
     from accelerate_tpu_torch.models import transformer as tt
@@ -516,8 +533,11 @@ def mesh_train_leg(params_np: dict, batches: dict, pc_kwargs: dict, zero1: bool,
             node = acc.process_index // int(os.environ.get("LOCAL_WORLD_SIZE",
                                                            acc.num_processes))
 
+        attention_fn = acc.context_parallel_attention() if attention else None
+
         def loss_fn(p, b):
-            return tt.llama_loss(p, b, cfg, mesh=acc.mesh, remat=remat)
+            return tt.llama_loss(p, b, cfg, mesh=acc.mesh, remat=remat,
+                                 attention_fn=attention_fn)
 
         step = None if lomo else acc.prepare_train_step(
             loss_fn, compute_grad_norm=True, offload_optimizer=offload)
@@ -607,8 +627,10 @@ def _llama_config(params_np: dict):
     moe = layers.get("moe")
     experts = dict(moe_experts=int(moe["router"]["kernel"].shape[-1])) if moe else {}
     recipe = "fp8" if "fp8_meta" in layers["wq"] else None
-    return dataclasses.replace(tt.LlamaConfig.tiny(), n_layers=n_layers, dtype_recipe=recipe,
-                               **experts)
+    tiny = tt.LlamaConfig.tiny()
+    n_kv_heads = int(layers["wk"]["kernel"].shape[-1]) // tiny.head_dim
+    return dataclasses.replace(tiny, n_layers=n_layers, n_kv_heads=n_kv_heads,
+                               dtype_recipe=recipe, **experts)
 
 
 def gradient_fn_leg(params_np: dict, batch: dict, pc_kwargs: dict, tp_rules: bool,
@@ -833,6 +855,168 @@ def check_fp8_legs(accelerator, tmpdir: str, batches: dict, report: dict) -> Non
                         "meta_ranks_equal": all(m == metas[0] for m in metas[1:])}
         if accelerator.is_main_process:
             np.savez(os.path.join(tmpdir, f"mesh_{name}.npz"), **out["params"])
+
+
+# Context and sequence parallelism at 4 ranks (scenario "long_context").
+# The attention alone, as the JAX package's tests/test_long_context.py at 4
+# ranks, on q, k, v of _make_qkv's draws (np.random.default_rng(0), f32):
+# (name, strategy, ParallelismConfig kwargs, causal, (B, S, H, Hkv, D),
+# gradients of sum(out ** 2) too)
+LC_ATTENTION_CASES = tuple(
+    (f"{strategy}_{'causal' if causal else 'full'}", strategy,
+     {"sp_size": 4} if strategy == "ulysses" else {"cp_size": 4}, causal, (2, 64, 4, 4, 16), False)
+    for strategy in ("ring", "zigzag", "allgather", "ulysses") for causal in (True, False)
+) + tuple(
+    (f"{strategy}_gqa8_{hkv}", strategy, {"cp_size": 2, "dp_shard_size": 2}, False,
+     (4 if hkv == 2 else 2, 32, 8, hkv, 16), False)
+    for strategy in ("ring", "zigzag", "allgather") for hkv in (2, 1)
+) + tuple(
+    (f"{strategy}_grads", strategy, {"sp_size": 4} if strategy == "ulysses" else {"cp_size": 4},
+     True, (2, 32, 4, 4, 16), True)
+    for strategy in ("ring", "zigzag", "ulysses"))
+# Llama forward (lc_llama_params.npz, ids [2, 64] of lc_llama_ids.npy)
+# through each strategy under (cp 2, dp_shard 2)
+LC_LLAMA_FORWARD = ("ring", "zigzag")
+LC_PC = {"cp_size": 2, "dp_shard_size": 2}
+# training on llama_params.npz (Hkv 2) and llama_kv4_params.npz (Hkv 4, for
+# Ulysses over 4 ranks), LC_STEPS steps of the mesh_train batches: (name,
+# ParallelismConfig kwargs, params file, leg options); each planted fault
+# runs one step and must fail the leg's bars
+LC_STEPS = 3
+LC_LEGS = (
+    ("cp2_dp_shard2_zigzag", dict(LC_PC, cp_rotate_method="zigzag"), "llama_params.npz",
+     {"prepare_rules": "llama", "attention": True}),
+    ("sp4", {"sp_size": 4}, "llama_kv4_params.npz", {"prepare_rules": "llama", "attention": True}),
+)
+LC_FAULTS = ("cp_local_positions", "cp_local_roll", "cp_grads_not_summed")
+# examples/sequence_parallelism.py's recipe at --sp 4 --dp-shard 1 (f32,
+# train-size 16, batch 4, 1 epoch, seq-len 128, adam(1e-3), seed 0) on
+# lc_example_params.npz
+LC_EXAMPLE = dict(train_size=16, batch_size=4, seq_len=128, lr=1e-3, seed=0)
+
+
+def lc_qkv(B, S, H, Hkv, D, seed=0):
+    """q, k, v as the JAX package's ``tests/test_long_context._make_qkv``."""
+    rng = np.random.default_rng(seed)
+    return (rng.normal(size=(B, S, H, D)).astype(np.float32),
+            rng.normal(size=(B, S, Hkv, D)).astype(np.float32),
+            rng.normal(size=(B, S, Hkv, D)).astype(np.float32))
+
+
+def lc_block(x, mesh, axis: str):
+    """This rank's block of a global ``[B, S, ...]`` array: its rows of the
+    data-parallel axes, its chunk of ``axis``."""
+    dp = mesh.shape["dp_replicate"] * mesh.shape["dp_shard"]
+    row = mesh.coords["dp_replicate"] * mesh.shape["dp_shard"] + mesh.coords["dp_shard"]
+    n, c = mesh.shape[axis], mesh.coords[axis]
+    B, S = x.shape[:2]
+    return x[row * B // dp:(row + 1) * B // dp, c * S // n:(c + 1) * S // n]
+
+
+def _lc_example(accelerator_cls, params_np: dict) -> list:
+    """``examples/sequence_parallelism.py``'s training loop in the port at
+    ``sp 4`` (``LC_EXAMPLE``): the loss of each step."""
+    from accelerate_tpu_torch import DataLoader
+    from accelerate_tpu_torch.models import transformer as tt
+    from accelerate_tpu_torch.optimizer import adam
+    from accelerate_tpu_torch.parallel.long_context import sequence_parallel_attention
+    from accelerate_tpu_torch.parallelism_config import ParallelismConfig
+    from accelerate_tpu_torch.state import AcceleratorState, GradientState
+
+    class _Dataset:
+        def __init__(self, data):
+            self.data = data
+
+        def __len__(self):
+            return len(next(iter(self.data.values())))
+
+        def __getitem__(self, i):
+            return {k: v[i] for k, v in self.data.items()}
+
+    AcceleratorState._reset_state()
+    GradientState._reset_state()
+    ex = LC_EXAMPLE
+    acc = accelerator_cls(mixed_precision="no", cpu=True, rng_seed=ex["seed"],
+                          parallelism_config=ParallelismConfig(sp_size=4, dp_shard_size=1))
+    config = dataclasses.replace(tt.LlamaConfig.tiny(), max_seq_len=ex["seq_len"], n_heads=4,
+                                 n_kv_heads=4)
+    # make_synthetic_lm(train_size, seq_len, vocab, seed=0) of examples/example_utils.py
+    rng = np.random.default_rng(0)
+    motif = rng.integers(2, config.vocab_size, size=(ex["train_size"], 4), dtype=np.int32)
+    ids = np.tile(motif, (1, -(-ex["seq_len"] // 4)))[:, :ex["seq_len"]]
+    dl = DataLoader(_Dataset({"input_ids": ids}), batch_size=ex["batch_size"], shuffle=True,
+                    seed=ex["seed"])
+    params, opt, dl = acc.prepare(params_np, adam(ex["lr"]), dl,
+                                  shard_rules=tt.llama_shard_rules())
+    attn = sequence_parallel_attention(acc.mesh)
+    step = acc.prepare_train_step(
+        lambda p, b: tt.llama_loss(p, b, config, attention_fn=attn, mesh=acc.mesh), opt)
+    state, losses = opt.opt_state, []
+    for batch in dl:
+        params, state, metrics = step(params, state, batch)
+        losses.append(float(metrics["loss"]))
+    return losses
+
+
+def check_long_context(accelerator, tmpdir: str):
+    """The ``LC_ATTENTION_CASES`` (each rank's output block, and of ``dq``,
+    ``dk``, ``dv`` where asked), the Llama forward through each of
+    ``LC_LLAMA_FORWARD`` (each rank's logits block), the ``LC_LEGS`` with
+    the planted ``LC_FAULTS`` on the first, and ``LC_EXAMPLE``: every rank
+    writes ``lc_rank<i>.npz``, the main process ``long_context.json`` and
+    ``lc_<leg>.npz`` (the legs' final params)."""
+    from accelerate_tpu_torch.models import transformer as tt
+    from accelerate_tpu_torch import Accelerator
+    from accelerate_tpu_torch.parallel.long_context import make_context_parallel_attention
+    from accelerate_tpu_torch.parallelism_config import ParallelismConfig
+    from accelerate_tpu_torch.utils import operations as ops
+
+    blocks, meshes = {}, {}
+    for name, strategy, pc_kwargs, causal, shape, grads in LC_ATTENTION_CASES:
+        key = tuple(sorted(pc_kwargs.items()))
+        mesh = meshes.get(key) or meshes.setdefault(
+            key, ParallelismConfig(**pc_kwargs).build_mesh(device_type="cpu"))
+        axis = "sp" if strategy == "ulysses" else "cp"
+        q, k, v = (torch.from_numpy(np.ascontiguousarray(lc_block(x, mesh, axis)))
+                   .requires_grad_(grads) for x in lc_qkv(*shape))
+        out = make_context_parallel_attention(mesh, strategy)(q, k, v, causal=causal)
+        blocks[f"{name}/out"] = out.detach().numpy()
+        if grads:
+            (out ** 2).sum().backward()
+            for key, x in zip(("dq", "dk", "dv"), (q, k, v)):
+                blocks[f"{name}/{key}"] = x.grad.numpy()
+    params_np = _read_tree(os.path.join(tmpdir, "lc_llama_params.npz"))
+    ids = np.load(os.path.join(tmpdir, "lc_llama_ids.npy"))
+    mesh = meshes[tuple(sorted(LC_PC.items()))]
+    cfg = dataclasses.replace(tt.LlamaConfig.tiny(), vocab_size=128, dim=64, n_heads=4,
+                              n_kv_heads=2, max_seq_len=64)
+    params = _torch_tree(params_np)
+    for strategy in LC_LLAMA_FORWARD:
+        with torch.no_grad():
+            logits = tt.llama_forward(params, torch.from_numpy(
+                np.ascontiguousarray(lc_block(ids, mesh, "cp"))), cfg, mesh=mesh,
+                attention_fn=make_context_parallel_attention(mesh, strategy))
+        blocks[f"llama_{strategy}/logits"] = logits.numpy()
+    np.savez(os.path.join(tmpdir, f"lc_rank{accelerator.process_index}.npz"), **blocks)
+
+    with np.load(os.path.join(tmpdir, "llama_batches.npz")) as f:
+        batches = {k: f[k][:LC_STEPS] for k in f.files}
+    report = {}
+    for name, pc_kwargs, params_file, options in LC_LEGS:
+        leg_params = _read_tree(os.path.join(tmpdir, params_file))
+        _run_legs(accelerator, tmpdir, leg_params, batches, [(name, pc_kwargs, False, options)],
+                  report, prefix="lc")
+        if name == LC_LEGS[0][0]:
+            _run_legs(accelerator, tmpdir, leg_params, {n: b[:1] for n, b in batches.items()},
+                      [(f"{name}_{fault}", pc_kwargs, False, dict(options, fault=fault))
+                       for fault in LC_FAULTS], report, prefix="lc")
+    report["example"] = _lc_example(Accelerator, _read_tree(
+        os.path.join(tmpdir, "lc_example_params.npz")))
+    report["coords"] = ops.gather_object(mesh.coords)
+    if accelerator.is_main_process:
+        with open(os.path.join(tmpdir, "long_context.json"), "w") as f:
+            json.dump(report, f)
+    accelerator.wait_for_everyone()
 
 
 # the sharded checkpoint legs at 4 ranks: (name, ParallelismConfig kwargs,
@@ -1198,6 +1382,8 @@ def main():
             check_training(accelerator, args.tmpdir)
         elif scenario == "mesh_train":
             check_mesh_train(accelerator, args.tmpdir)
+        elif scenario == "long_context":
+            check_long_context(accelerator, args.tmpdir)
         elif scenario == "mesh_ckpt":
             check_mesh_ckpt(accelerator, args.tmpdir)
         elif scenario == "mesh_moe":

@@ -29,6 +29,7 @@ __all__ = [
     "DDPCommunicationHookType",
     "DataLoaderConfiguration",
     "DeepSpeedPlugin",
+    "DeepSpeedSequenceParallelConfig",
     "DistributedDataParallelKwargs",
     "DistributedType",
     "DummyOptim",
@@ -50,6 +51,9 @@ __all__ = [
     "RNGType",
     "SaveFormat",
     "TERecipeKwargs",
+    "TorchContextParallelConfig",
+    "TorchTensorParallelConfig",
+    "TorchTensorParallelPlugin",
     "deepspeed_required",
     "disable_fsdp_ram_efficient_loading",
     "enable_fsdp_ram_efficient_loading",
@@ -640,9 +644,8 @@ class MegatronLMPlugin(KwargsHandler):
     ``num_micro_batches`` becomes the accumulation steps,
     ``gradient_clipping`` a clip chained ahead of the optimizer,
     ``recompute_activations`` :attr:`remat`; ``sequence_parallelism`` maps to
-    nothing (a flag on the ``tp`` group, not an axis). A ``pp`` or ``cp``
-    degree above 1 raises when the step is built (ROADMAP.md Queue A item
-    11)."""
+    nothing (a flag on the ``tp`` group, not an axis). A ``pp`` degree
+    above 1 raises when the step is built (ROADMAP.md Queue A item 11b)."""
 
     tp_degree: int = 1
     pp_degree: int = 1
@@ -665,6 +668,89 @@ class MegatronLMPlugin(KwargsHandler):
         return ParallelismConfig(tp_size=self.tp_degree, pp_size=self.pp_degree,
                                  ep_size=self.expert_model_parallel_size,
                                  cp_size=self.context_parallel_size, dp_shard_size=-1)
+
+
+@dataclass
+class TorchContextParallelConfig(KwargsHandler):
+    """The JAX package's migration shim for the reference's context
+    parallel config: ``cp_comm_strategy`` (``PARALLELISM_CONFIG_CP_COMM_
+    STRATEGY``, default ``"allgather"``) maps onto ``cp_rotate_method``:
+    ``allgather`` to the all-gather rotation, ``alltoall`` to the zig-zag
+    load-balanced ring."""
+
+    cp_comm_strategy: Optional[str] = None
+
+    def __post_init__(self):
+        if self.cp_comm_strategy is None:
+            self.cp_comm_strategy = os.environ.get("PARALLELISM_CONFIG_CP_COMM_STRATEGY",
+                                                   "allgather")
+        if self.cp_comm_strategy not in ("allgather", "alltoall"):
+            raise ValueError(f"cp_comm_strategy must be 'allgather' or 'alltoall', got "
+                             f"{self.cp_comm_strategy!r}")
+
+    @property
+    def cp_rotate_method(self) -> str:
+        return "allgather" if self.cp_comm_strategy == "allgather" else "zigzag"
+
+
+@dataclass
+class TorchTensorParallelConfig(KwargsHandler):
+    """The JAX package's migration shim for the reference's tensor parallel
+    config: ``enable_async_tp`` is accepted and ignored, with a warning (the
+    sharded step's collectives are the port's own)."""
+
+    enable_async_tp: bool = False
+
+    def __post_init__(self):
+        if self.enable_async_tp:
+            warnings.warn("async tensor parallelism is not a knob of the sharded step; "
+                          "ignoring enable_async_tp", stacklevel=2)
+
+
+@dataclass
+class TorchTensorParallelPlugin(KwargsHandler):
+    """The JAX package's migration shim: a TP plugin is the ``tp`` axis
+    size, ``dp_shard`` takes the rest."""
+
+    tp_size: int = 1
+    torch_device_mesh: Any = None  # accepted for signature parity
+
+    def to_parallelism_config(self):
+        from ..parallelism_config import ParallelismConfig
+
+        return ParallelismConfig(tp_size=self.tp_size, dp_shard_size=-1)
+
+
+@dataclass
+class DeepSpeedSequenceParallelConfig(KwargsHandler):
+    """The JAX package's migration shim for the reference's Ulysses
+    config: the sequence-length knobs are accepted (Ulysses runs at any
+    length that divides over ``sp``); ``sp_attn_implementation`` maps onto
+    ``attention_impl``. Defaults from ``PARALLELISM_CONFIG_SP_SEQ_LENGTH_IS_
+    VARIABLE`` (``"true"``) and ``PARALLELISM_CONFIG_SP_ATTN_
+    IMPLEMENTATION``."""
+
+    sp_seq_length: Optional[int] = None
+    sp_seq_length_is_variable: Optional[bool] = None
+    sp_attn_implementation: Optional[str] = None
+
+    def __post_init__(self):
+        if self.sp_seq_length_is_variable is None:
+            self.sp_seq_length_is_variable = os.environ.get(
+                "PARALLELISM_CONFIG_SP_SEQ_LENGTH_IS_VARIABLE", "true").lower() == "true"
+        if self.sp_attn_implementation is None:
+            self.sp_attn_implementation = os.environ.get(
+                "PARALLELISM_CONFIG_SP_ATTN_IMPLEMENTATION", None)
+        if self.sp_attn_implementation is not None and self.sp_attn_implementation not in (
+                "flash_attention_2", "flash_attention_3", "sdpa"):
+            raise ValueError(f"invalid sp_attn_implementation {self.sp_attn_implementation!r}")
+
+    @property
+    def attention_impl(self) -> str:
+        """The ``attention_impl`` of the model forward."""
+        if self.sp_attn_implementation in ("flash_attention_2", "flash_attention_3"):
+            return "flash"
+        return "xla"
 
 
 @dataclass

@@ -153,13 +153,20 @@ csrc`` at first use) and no network. Phases, each of which fails the run:
    ``Accelerator(parallelism_config=ParallelismConfig(dp_shard_size=1))``
    and ``prepare_train_step``, its losses held to ``phase_lm774m``'s and
    its flash launches counted; then the script starts itself twice
-   (``--mesh-2rank-child``): two processes share the card over ``gloo``
-   and train the long-context widths at 4 layers and S=2048 under
+   (``--cp-attn-child``): two processes share the card over ``gloo`` and
+   split the long-context attention's sequence (B=1, S=8192, 16/8 heads,
+   bf16) over cp 2 (the ring, zig-zag and all-gather) and sp 2
+   (Ulysses), forward and backward, each rank's blocks held to one
+   process's flash #1-#3 and to the plain attention, the ranks' #1-#3
+   launches counted, two planted faults failing a bar; then twice more
+   (``--mesh-2rank-child``) to train the long-context widths at 4 layers
+   and S=2048 under
    dp_shard 2, tp 2, fused ZeRO-1, ZeRO-1 by annotation, dp_shard 2 in
    fp16, tp 2 through ``prepare(..., shard_rules=llama_shard_rules())``,
-   adafactor under ZeRO-1, the bf16 comm hook and the optimizer state on
-   the host, each leg held to a one-process run or to its leg without the
-   option, and fp8 under dp_replicate 2 with fused ZeRO-1 (the ranks' meta
+   adafactor under ZeRO-1, the bf16 comm hook, the optimizer state on
+   the host, cp 2 with the zig-zag ring under ``llama_shard_rules`` (FSDP
+   over cp) and sp 2 (Ulysses), each leg held to a one-process run or to
+   its leg without the option, and fp8 under dp_replicate 2 with fused ZeRO-1 (the ranks' meta
    bitwise equal after every step, a passthrough slot for every meta leaf,
    losses held to one process), with flash #1-#3 launched on each
    rank (the fp16 leg: plain attention, the kernels take bf16 and f32),
@@ -198,6 +205,7 @@ and prints no result.
 from __future__ import annotations
 
 import contextlib
+import importlib
 import dataclasses
 import gc
 import json
@@ -283,7 +291,7 @@ ENGINE_KW = dict(num_blocks=160, block_size=16, max_slots=8, max_blocks_per_seq=
 # the same reasons (f32: another summation order; bf16: p and ds rounded at
 # the same points against the same running max — the kernel rescales at the
 # lattice's kv-block boundaries, as the plain version does).
-FLASH_CASES = {  # name: (B, S, H, Hkv, D, window, packed); all causal
+FLASH_CASES = {  # name: (B, S, H, Hkv, D, window, packed); causal but FLASH_FULL_CASES
     "llama_long": (1, 8192, 16, 8, 64, None, False),  # the training slice's shape
     "packed": (4, 2048, 16, 8, 64, None, True),
     "window": (2, 4096, 16, 8, 64, 1024, False),
@@ -295,7 +303,18 @@ FLASH_CASES = {  # name: (B, S, H, Hkv, D, window, packed); all causal
     # take the global batch of 2, a dp_shard 2 or dp_replicate 2 rank 1 row
     "mesh_2rank": (2, 2048, 16, 8, 64, None, False),
     "mesh_2rank_b1": (1, 2048, 16, 8, 64, None, False),
+    # a rank's blocks of the long-context attention split over cp 2
+    # (phase_context_parallel): the ring's full block (a rank's 4096 queries
+    # against another rank's 4096 keys) and zig-zag's full half-block (2048)
+    "ring_block": (1, 4096, 16, 8, 64, None, False),
+    "zigzag_block": (1, 2048, 16, 8, 64, None, False),
+    # phase_mesh_2rank's cp 2 zig-zag leg (f32): a rank's causal and full
+    # half-blocks of its 2 rows x 1024 tokens
+    "cp2_half": (2, 512, 16, 8, 64, None, False),
+    "cp2_half_full": (2, 512, 16, 8, 64, None, False),
 }
+# the cases whose blocks attend every key (no causal mask)
+FLASH_FULL_CASES = ("ring_block", "zigzag_block", "cp2_half_full")
 # The long-context Llama of the JAX package's run_bench_longcontext
 # (bench.py:936-938) at full width and depth, batch 1 x S=8192.
 LLAMA_KW = dict(vocab_size=32000, dim=1024, n_layers=16, n_heads=16, n_kv_heads=8,
@@ -406,6 +425,17 @@ MESH_2RANK_LEGS = (  # (name, ParallelismConfig kwargs, ZeRO-1, llama_tp_rules, 
     # the optimizer state of each rank's blocks on the host: bitwise dp_shard2
     ("dp_shard2_offload", {"dp_shard_size": 2}, False, False,
      {"offload": True, "ref": "dp_shard2"}),
+    # the sequence split over cp 2 with the zig-zag ring (Accelerator.
+    # context_parallel_attention) and llama_shard_rules; dp_shard -1 turns
+    # FSDP on over (dp_shard, cp), here cp, so each layer's gather and
+    # gradient reduce span the cp group. Every rank runs 5 flash blocks a
+    # layer (2 causal half-blocks and 1 full at home, 2 full after the
+    # rotation), forward and backward
+    ("cp2_zigzag", {"cp_size": 2, "dp_shard_size": -1, "cp_rotate_method": "zigzag"}, False,
+     False, {"prepare_rules": True, "attention": True, "flash_blocks": 5}),
+    # Ulysses over sp 2: the plain attention on each rank's 8 of 16 heads over
+    # the whole sequence, no flash launch
+    ("sp2", {"sp_size": 2}, False, False, {"attention": True, "flash_blocks": 0}),
 )
 # the one-process runs the legs are held to (a leg's "ref" names one of
 # these, or another leg): options of _mesh_2rank_leg
@@ -430,6 +460,28 @@ MESH_2RANK_LOSS_RTOL = MESH_2RANK_NORM_RTOL = 1e-5
 MESH_2RANK_FP16_SCALER = dict(init_scale=2.0 ** 40, growth_factor=2.0 ** 30,
                               backoff_factor=2.0 ** -30, growth_interval=2)
 MESH_2RANK_TIMEOUT_S = 600
+# phase_context_parallel: the attention alone at the long-context
+# configuration's length and widths (bench.py:936-938: B=1, S=8192, 16/8
+# heads, D=64, bf16), its sequence split over two processes sharing the card
+# over gloo: the ring, zig-zag and all-gather over cp 2 and Ulysses over sp
+# 2, forward and backward. Each rank's output and dq/dk/dv blocks are held
+# to one process's flash_attention (#1-#3) on the whole sequence and to the
+# plain attention (f32 math on the same bf16 inputs), both at
+# FUSED_RTOL[bf16] (2**-6 of the largest value), the bar of the bf16 flash
+# rows: each side rounds to bf16 once, the ring's blocks merge in f32. Each
+# planted fault must break a bar: zig-zag's inverse exchange left out (the
+# output) and the ring's k/v gradients not sent home (dk and dv).
+CP_ATTN_SHAPE = (1, 8192, 16, 8, 64)  # B, S, H, Hkv, D
+CP_ATTN_STRATEGIES = (("ring", {"cp_size": 2}), ("zigzag", {"cp_size": 2}),
+                      ("allgather", {"cp_size": 2}), ("ulysses", {"sp_size": 2}))
+CP_ATTN_FAULTS = (("zigzag_no_inverse_exchange", "zigzag"), ("ring_kv_grads_not_home", "ring"))
+# flash calls of one attention call a rank (forward; the backward the same
+# number of dq and dk/dv): the ring's rank 0 has its resident block only
+# (rank 1's keys all follow its queries), rank 1 two; zig-zag 3 at home and
+# 2 after the rotation on each; all-gather and Ulysses run plain attention
+CP_ATTN_FLASH_CALLS = {"ring": (1, 2), "zigzag": (5, 5), "allgather": (0, 0), "ulysses": (0, 0)}
+CP_ATTN_REPS = 3
+CP_ATTN_TIMEOUT_S = 600
 # The fp8 leg (dtype_recipe="fp8" under mixed_precision="fp8", dp_replicate 2
 # with fused ZeRO-1, the meta as passthrough slots) against one process,
 # sgd(1e-2). The first step runs on the same params and histories, held to
@@ -758,8 +810,7 @@ def _decode_poison_check(dev):
     the decode kernel's output must be bitwise that of the same table with
     those entries on the (finite) null block — it reads no entry past a
     row's kv_len."""
-    from accelerate_tpu_torch.ops import flash_attention as fa
-
+    fa = importlib.import_module("accelerate_tpu_torch.ops.flash_attention")
     for kind in ("decode", "decode_long"):
         for dtype in (torch.bfloat16, torch.float32):
             case = _kernel_case(kind, dtype, dev, seed=77)
@@ -789,8 +840,7 @@ def phase_decode_splits(dev):
     """The decode kernel at each keys-per-split C the wrapper can pick, on
     the DECODE_CASES in bf16: each checked against the plain version and
     timed, beside the C the wrapper's shape rule picks on this card."""
-    from accelerate_tpu_torch.ops import flash_attention as fa
-
+    fa = importlib.import_module("accelerate_tpu_torch.ops.flash_attention")
     rule = fa._decode_split_keys
     n_sms = torch.cuda.get_device_properties(dev).multi_processor_count
     for kind in DECODE_CASES:
@@ -817,7 +867,7 @@ def phase_decode_splits(dev):
 
 
 def phase_kernels(dev):
-    from accelerate_tpu_torch.ops import flash_attention as fa
+    fa = importlib.import_module("accelerate_tpu_torch.ops.flash_attention")
     from accelerate_tpu_torch.serving.kv_pager import gather_blocks
 
     sdpa = torch.nn.functional.scaled_dot_product_attention
@@ -920,8 +970,7 @@ def phase_fused_kernels(dev):
     dv), with kernel, plain, bound and SDPA times. The yardstick for #4 is
     one ``scaled_dot_product_attention`` call with the boolean mask; for #5,
     ``torch.autograd.grad`` through that call less the call itself."""
-    from accelerate_tpu_torch.ops import fused_attention as fa
-
+    fa = importlib.import_module("accelerate_tpu_torch.ops.fused_attention")
     sdpa = torch.nn.functional.scaled_dot_product_attention
     results = {}
 
@@ -1010,8 +1059,7 @@ def _fp16_overflow_check(dev):
     each of dq, dk and dv must be non-finite in kernel #5 exactly where it
     is in the plain version (element by element), so the loss scaler sees
     every overflow."""
-    from accelerate_tpu_torch.ops import fused_attention as fa
-
+    fa = importlib.import_module("accelerate_tpu_torch.ops.fused_attention")
     for name in ("bert", "gqa_causal"):
         B, S, H, Hkv, D, causal, _ = FUSED_CASES[name]
         q, k, v, do, seg = _fused_inputs(name, torch.float16, dev, seed=50)
@@ -1050,7 +1098,7 @@ ENGINE_NEW = 64
 
 
 def phase_engine(params, config, dev, tag="engine"):
-    from accelerate_tpu_torch.ops import flash_attention as fa
+    fa = importlib.import_module("accelerate_tpu_torch.ops.flash_attention")
     from accelerate_tpu_torch.serving import RequestStatus, ServingEngine
 
     warm = ServingEngine(params, config, **ENGINE_KW)
@@ -1192,7 +1240,7 @@ def _cached_logits(params, config, tokens, n_prompt, dev, chunk=128):
 
 def phase_cached_vs_full(params_bf16, config, dev):
     from accelerate_tpu_torch.models.transformer import llama_forward
-    from accelerate_tpu_torch.ops import flash_attention as fa
+    fa = importlib.import_module("accelerate_tpu_torch.ops.flash_attention")
     from accelerate_tpu_torch.serving import engine as engine_mod
 
     params = {k: ({kk: {kkk: t.float() for kkk, t in vv.items()} for kk, vv in v.items()}
@@ -1306,7 +1354,7 @@ def _serve_leg(params, config, workload, lattice, tag, capture=None, **engine_kw
     full budget, and the counters read after the run (zeroed just before
     it) must show every paged attention call of prefill, decode, draft and
     verify went through the kernels. Returns (metrics, requests, engine)."""
-    from accelerate_tpu_torch.ops import flash_attention as fa
+    fa = importlib.import_module("accelerate_tpu_torch.ops.flash_attention")
     from accelerate_tpu_torch.serving import RequestStatus, ServingEngine
 
     engine = ServingEngine(params, config, lattice=lattice, **SERVE_ENGINE_KW, **engine_kw)
@@ -2102,7 +2150,7 @@ def phase_train(dev):
     read after; then ``torch.profiler`` over one step. The loader comes
     through ``prepare`` at its default ``prefetch_depth``, held first to
     the synchronous loader (:func:`_loader_depths`)."""
-    from accelerate_tpu_torch.ops import fused_attention as fa
+    fa = importlib.import_module("accelerate_tpu_torch.ops.fused_attention")
     from accelerate_tpu_torch.utils.operations import stack_batches
 
     _loader_depths(dev)
@@ -2228,7 +2276,7 @@ def _train_run(dev, precision, plain):
     """3 steps from the same init and data (see :func:`_train_setup`),
     through the fused kernels or, with ``plain``, through their plain
     versions on the card. Returns (losses, {leaf: update}, metrics)."""
-    from accelerate_tpu_torch.ops import fused_attention as fa
+    fa = importlib.import_module("accelerate_tpu_torch.ops.fused_attention")
     from accelerate_tpu_torch.utils.operations import stack_batches
 
     config, params, opt, batches, loop = _train_setup(dev, precision, 3)
@@ -2337,8 +2385,7 @@ def _accum_run(dev, precision, tag):
     steps a call, 12 launches of each kernel a micro-step and finite
     losses; then profiles one 4-micro-step window. Returns the launches and
     the timed calls' metrics."""
-    from accelerate_tpu_torch.ops import fused_attention as fa
-
+    fa = importlib.import_module("accelerate_tpu_torch.ops.fused_attention")
     config, params, opt, stacked, window, loop = _accum_setup(dev, precision)
     state = opt.opt_state
     for _ in range(ACCUM_WARM):
@@ -2474,8 +2521,7 @@ def _packed_segments(rng, rows, seq):
 def _flash_inputs(name, dtype, dev, seed):
     """q, k, v, dO of one flash case from a seed; segment ids [B, S] int32
     (packed documents, or all zeros), the config and the lattice."""
-    from accelerate_tpu_torch.ops import flash_attention as fa
-
+    fa = importlib.import_module("accelerate_tpu_torch.ops.flash_attention")
     B, S, H, Hkv, D, window, packed = FLASH_CASES[name]
     rng = np.random.default_rng(seed)
 
@@ -2485,8 +2531,9 @@ def _flash_inputs(name, dtype, dev, seed):
     q, k, v, do = t(B, S, H, D), t(B, S, Hkv, D), t(B, S, Hkv, D), t(B, S, H, D)
     seg = (torch.from_numpy(_packed_segments(rng, B, S)) if packed
            else torch.zeros(B, S, dtype=torch.int32)).to(dev)
-    cfg = fa._FlashConfig(scale=1.0 / math.sqrt(D), causal=True, window=window, block_q=128,
-                          block_kv=128, h=H, hkv=Hkv, use_seg=packed)
+    cfg = fa._FlashConfig(scale=1.0 / math.sqrt(D), causal=name not in FLASH_FULL_CASES,
+                          window=window, block_q=128, block_kv=128, h=H, hkv=Hkv,
+                          use_seg=packed)
     return q, k, v, do, seg, cfg, fa._block_lattice(seg, cfg)
 
 
@@ -2497,7 +2544,7 @@ def _attended_pairs(seg, cfg):
     pairs = 0
     for r0 in range(0, S, 1024):
         qpos = kpos[r0 : r0 + 1024, None]
-        allow = (kpos[None] <= qpos)[None]
+        allow = ((kpos[None] <= qpos) | (not cfg.causal))[None]
         if cfg.window is not None:
             allow = allow & (qpos - kpos[None] < cfg.window)
         if cfg.use_seg:
@@ -2532,8 +2579,7 @@ def _poison_check(dev):
     """Block skipping on the card: NaN in K/V block 0 of the window case,
     which the lattice never walks for q blocks >= 9 (128-row blocks, window
     1024), must leave those rows of the output and of dq bitwise unchanged."""
-    from accelerate_tpu_torch.ops import flash_attention as fa
-
+    fa = importlib.import_module("accelerate_tpu_torch.ops.flash_attention")
     q, k, v, do, seg, cfg, (ids, counts, _, _) = _flash_inputs("window", torch.bfloat16, dev, 99)
     first = 9 * cfg.block_q
     check(bool((ids[:, 9:, 0] > 0).all()) and int(ids[:, 8, 0].max()) == 0,
@@ -2567,8 +2613,7 @@ def phase_flash_kernels(dev):
     one, ``enable_gqa``); for #2 and #3, ``torch.autograd.grad`` through
     it less the call itself — the library's one backward call computes dq,
     dk and dv, so the same number stands beside both kernels."""
-    from accelerate_tpu_torch.ops import flash_attention as fa
-
+    fa = importlib.import_module("accelerate_tpu_torch.ops.flash_attention")
     sdpa = torch.nn.functional.scaled_dot_product_attention
     _poison_check(dev)
     results = {}
@@ -2617,7 +2662,8 @@ def phase_flash_kernels(dev):
             dos = [c[3].transpose(1, 2) for c in copies]
 
             def library_fwd(i):
-                return sdpa(*leaves[i], attn_mask=mask, is_causal=mask is None, enable_gqa=True)
+                return sdpa(*leaves[i], attn_mask=mask, is_causal=cfg.causal and mask is None,
+                            enable_gqa=True)
 
             def library_fwd_bwd(i):
                 return torch.autograd.grad(library_fwd(i), leaves[i], dos[i])
@@ -2694,8 +2740,7 @@ def _lm_leg(dev, tag, config, batches, precision, factory, dtype, remat, calls, 
     ``profile``, ``torch.profiler`` over one step. Under remat each layer's
     flash forward runs twice a step (forward and recompute), dq and dk/dv
     once. Returns the launches and the leg's numbers."""
-    from accelerate_tpu_torch.ops import flash_attention as fa
-
+    fa = importlib.import_module("accelerate_tpu_torch.ops.flash_attention")
     K, B, S = batches["input_ids"].shape
     params, opt, loop = _llama_setup(dev, precision, config, factory, dtype, remat)
     state = opt.opt_state
@@ -2924,7 +2969,7 @@ def phase_lm774m_check(dev):
     ``phase_llama_train_check``; then the adafactor update on the card
     against the CPU."""
     from accelerate_tpu_torch import LlamaConfig
-    from accelerate_tpu_torch.ops import flash_attention as fa
+    fa = importlib.import_module("accelerate_tpu_torch.ops.flash_attention")
     from accelerate_tpu_torch.optimizer import adafactor
 
     config = LlamaConfig(**{**LM774M_KW, "n_layers": LM774M_CHECK_LAYERS})
@@ -3004,7 +3049,7 @@ def phase_llama_train_check(dev):
     versions on the card: per-step losses and every param leaf's 3-step
     update compared."""
     from accelerate_tpu_torch import LlamaConfig
-    from accelerate_tpu_torch.ops import flash_attention as fa
+    fa = importlib.import_module("accelerate_tpu_torch.ops.flash_attention")
     from accelerate_tpu_torch.optimizer import adamw
 
     config = LlamaConfig(**{**LLAMA_KW, "n_layers": LLAMA_CHECK_LAYERS,
@@ -3690,7 +3735,7 @@ def phase_fsdp_lm(dev, lm_ref):
     counted. A world of one leaves every axis at size 1, so the plan must
     be the plain step. The process group is closed after it."""
     from accelerate_tpu_torch import Accelerator, LlamaConfig, init_llama, llama_loss
-    from accelerate_tpu_torch.ops import flash_attention as fa
+    fa = importlib.import_module("accelerate_tpu_torch.ops.flash_attention")
     from accelerate_tpu_torch.optimizer import adafactor
     from accelerate_tpu_torch.parallelism_config import ParallelismConfig
     from accelerate_tpu_torch.state import AcceleratorState, GradientState, PartialState
@@ -3804,12 +3849,14 @@ def _mesh_2rank_leg(dev, config, pc_kwargs, zero1, tp_rules, options=None, ref_u
     ``llama_shard_rules()`` to ``prepare``), ``factory`` (``"adafactor"``
     for ``adafactor(MESH_2RANK_LR)``), ``comm_hook`` (a
     ``DistributedDataParallelKwargs`` handler), ``offload`` (the optimizer
-    state on the host; its groups a step are returned). ``save_updates``
-    is a path the updates are also saved to."""
+    state on the host; its groups a step are returned), ``attention``
+    (the loss's attention from ``Accelerator.context_parallel_attention()``,
+    the mesh's cp or sp split of the sequence). ``save_updates`` is a path
+    the updates are also saved to."""
     from accelerate_tpu_torch import Accelerator, LlamaConfig, init_llama, llama_loss
     from accelerate_tpu_torch import llama_shard_rules
     from accelerate_tpu_torch.data_loader import GlobalBatchAssembler
-    from accelerate_tpu_torch.ops import flash_attention as fa
+    fa = importlib.import_module("accelerate_tpu_torch.ops.flash_attention")
     from accelerate_tpu_torch.optimizer import adafactor, adamw
     from accelerate_tpu_torch.parallel.sharding import _map_with_path, llama_tp_rules
     from accelerate_tpu_torch.parallelism_config import ParallelismConfig
@@ -3842,9 +3889,11 @@ def _mesh_2rank_leg(dev, config, pc_kwargs, zero1, tp_rules, options=None, ref_u
             llama_shard_rules() if options.get("prepare_rules") else None))
     plan = acc.sharding_plan
     impl = "xla" if fp16 else None  # the flash kernels take bf16 and f32
+    attention_fn = acc.context_parallel_attention() if options.get("attention") else None
     with _mesh_fault(fault if fault == "dp_shard2_not_divided" else None):
         step = acc.prepare_train_step(
-            lambda p, b: llama_loss(p, b, config, mesh=acc.mesh, attention_impl=impl), opt,
+            lambda p, b: llama_loss(p, b, config, mesh=acc.mesh, attention_impl=impl,
+                                    attention_fn=attention_fn), opt,
             compute_grad_norm=True, offload_optimizer=options.get("offload", False))
     ids = np.random.default_rng(0).integers(
         0, config.vocab_size, (MESH_2RANK_STEPS, MESH_2RANK_BATCH, config.max_seq_len))
@@ -3919,7 +3968,7 @@ def _bert_tp_leg(dev, pc_kwargs=None):
         bert_shard_rules,
         init_bert,
     )
-    from accelerate_tpu_torch.ops import fused_attention as fa
+    fa = importlib.import_module("accelerate_tpu_torch.ops.fused_attention")
     from accelerate_tpu_torch.optimizer import adamw
     from accelerate_tpu_torch.parallelism_config import ParallelismConfig
     from accelerate_tpu_torch.state import AcceleratorState, GradientState
@@ -4053,14 +4102,16 @@ def phase_mesh_2rank(dev):
     (dp_shard 2; tp 2 with ``llama_tp_rules``; dp_replicate 2 with fused
     ZeRO-1, and with ZeRO-1 by annotation; dp_shard 2 under fp16; adafactor
     on dp_replicate 2, with and without ZeRO-1; dp_shard 2 with the bf16
-    comm hook; dp_shard 2 with its optimizer state on the host) runs 3
-    steps, held to a one-process run of the same steps here
+    comm hook; dp_shard 2 with its optimizer state on the host; cp 2 with
+    the zig-zag ring and ``llama_shard_rules``, FSDP over cp; sp 2 with
+    Ulysses) runs 3 steps, held to a one-process run of the same steps here
     (``MESH_2RANK_REFS``: losses, gradient norms, updates; the fp16 leg to
     a one-process fp16 run, with its loss-scale and finite-flag sequences
     equal) or to another leg (ZeRO-1 adafactor to adafactor without it,
     with less state a rank; the offloaded leg bitwise to dp_shard 2);
     flash #1-#3 must launch
-    on each rank of every leg but the fp16 one, at the shapes
+    on each rank of every leg but the fp16 and sp 2 ones (5 a layer under
+    cp 2: the zig-zag blocks), at the shapes
     ``FLASH_CASES`` held them to their plain versions; each AdamW ZeRO-1 leg must
     hold half the AdamW moments on each rank; each of
     ``MESH_2RANK_FAULTS`` must fail a bar. Per-rank peak memory,
@@ -4074,9 +4125,11 @@ def phase_mesh_2rank(dev):
 
     config = LlamaConfig(**MESH_2RANK_KW)
     # phase_flash_kernels held #1-#3 to their plain versions at each rank's shape
-    for case, rows in (("mesh_2rank", MESH_2RANK_BATCH),
-                       ("mesh_2rank_b1", MESH_2RANK_BATCH // 2)):
-        check(FLASH_CASES[case] == (rows, config.max_seq_len, config.n_heads, config.n_kv_heads,
+    for case, rows, seq in (("mesh_2rank", MESH_2RANK_BATCH, config.max_seq_len),
+                            ("mesh_2rank_b1", MESH_2RANK_BATCH // 2, config.max_seq_len),
+                            ("cp2_half", MESH_2RANK_BATCH, config.max_seq_len // 4),
+                            ("cp2_half_full", MESH_2RANK_BATCH, config.max_seq_len // 4)):
+        check(FLASH_CASES[case] == (rows, seq, config.n_heads, config.n_kv_heads,
                                     config.head_dim, None, False),
               f"FLASH_CASES[{case!r}] is not a rank's attention shape in the two-process legs")
     _reset_states()
@@ -4143,7 +4196,8 @@ def phase_mesh_2rank(dev):
         loss_err = norm_err = 0.0
         for i, leg in enumerate(legs):
             ref = ranks[i][kind] if paired else refs[kind]
-            leg_want = {k: 0 for k in want} if fp16 else want
+            blocks = options.get("flash_blocks", 0 if fp16 else 1)  # flash calls a layer
+            leg_want = {k: blocks * n for k, n in want.items()}
             check(leg["launches"] == leg_want, f"[mesh-2rank] {name} rank {i} launches "
                                                f"{leg['launches']}, want {leg_want}")
             rank_loss_err, rank_norm_err, _, _ = _mesh_2rank_errs(leg, ref)
@@ -4262,6 +4316,171 @@ def _mesh_2rank_errs(leg, ref):
     return loss_err, norm_err, worst, upd_err
 
 
+def _cp_attn_inputs(dev):
+    """q, k, v, dO of the long-context attention, bf16 on ``dev``, from a
+    seed (the same in every process)."""
+    B, S, H, Hkv, D = CP_ATTN_SHAPE
+    rng = np.random.default_rng(7)
+    return tuple(torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+                 .to(dev, torch.bfloat16)
+                 for shape in ((B, S, H, D), (B, S, Hkv, D), (B, S, Hkv, D), (B, S, H, D)))
+
+
+@contextlib.contextmanager
+def _cp_attn_fault(fault):
+    """One of ``CP_ATTN_FAULTS`` planted in ``parallel.long_context``."""
+    lc = importlib.import_module("accelerate_tpu_torch.parallel.long_context")
+    if fault is None:
+        yield
+        return
+    if fault == "zigzag_no_inverse_exchange":
+        owner, name = lc, "_zigzag_unexchange"
+        patched = lambda lane_a, lane_b, *args: torch.cat([lane_a, lane_b], dim=1)  # noqa: E731
+    else:  # ring_kv_grads_not_home: every rotation's gradient kept where it arrived
+        owner, name = lc._PPermute, "backward"
+        patched = staticmethod(lambda ctx, g: (g, None, None, None))
+    real = owner.__dict__[name]
+    setattr(owner, name, patched)
+    try:
+        yield
+    finally:
+        setattr(owner, name, real)
+
+
+def _cp_attn_run(mesh, strategy, q, k, v, do):
+    """One forward and backward of ``strategy``'s attention on this rank's
+    blocks: ``(out, dq, dk, dv)``."""
+    lc = importlib.import_module("accelerate_tpu_torch.parallel.long_context")
+    q, k, v = (x.detach().requires_grad_(True) for x in (q, k, v))
+    out = lc.make_context_parallel_attention(mesh, strategy)(q, k, v, causal=True)
+    out.backward(do)
+    return out.detach(), q.grad, k.grad, v.grad
+
+
+def cp_attn_child(tmp: str) -> int:
+    """One of ``phase_context_parallel``'s two processes (``chip_smoke.py
+    --cp-attn-child <dir>``): each strategy of ``CP_ATTN_STRATEGIES`` on
+    this rank's half of the sequence, its flash launches for one call, its
+    forward and backward device ms (CUDA events over ``CP_ATTN_REPS``
+    calls, the collectives' host staging included), and its blocks of the
+    output and gradients (and of each planted fault's) saved to ``dir``."""
+    from accelerate_tpu_torch.parallelism_config import ParallelismConfig
+
+    state = _join_two(tmp)
+    dev, rank = state.device, state.process_index
+    inputs = _cp_attn_inputs(dev)
+    S = CP_ATTN_SHAPE[1]
+    blocks = [x[:, rank * S // 2:(rank + 1) * S // 2].contiguous() for x in inputs]
+    report, meshes = {}, {}
+    for strategy, pc_kwargs in CP_ATTN_STRATEGIES:
+        key = tuple(sorted(pc_kwargs.items()))
+        mesh = meshes.get(key) or meshes.setdefault(key, ParallelismConfig(**pc_kwargs)
+                                                    .build_mesh(device_type=dev.type))
+        check(mesh.coords["cp" if "cp_size" in pc_kwargs else "sp"] == rank,
+              f"[cp-attention] rank {rank} holds another chunk of the sequence")
+        _zero_flash_counters()
+        got = _cp_attn_run(mesh, strategy, *blocks)
+        torch.cuda.synchronize()
+        launches = _flash_counts()
+        torch.save([x.cpu() for x in got], os.path.join(tmp, f"{strategy}_rank{rank}.pt"))
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+        lc = importlib.import_module("accelerate_tpu_torch.parallel.long_context")
+        attn = lc.make_context_parallel_attention(mesh, strategy)
+        fwd_ms = bwd_ms = 0.0
+        for _ in range(CP_ATTN_REPS):
+            q, k, v = (x.detach().requires_grad_(True) for x in blocks[:3])
+            state.wait_for_everyone()
+            torch.cuda.synchronize()
+            ev[0].record()
+            out = attn(q, k, v, causal=True)
+            ev[1].record()
+            out.backward(blocks[3])
+            ev[2].record()
+            torch.cuda.synchronize()
+            fwd_ms += ev[0].elapsed_time(ev[1]) / CP_ATTN_REPS
+            bwd_ms += ev[1].elapsed_time(ev[2]) / CP_ATTN_REPS
+        report[strategy] = {"launches": launches, "fwd_ms": fwd_ms, "bwd_ms": bwd_ms}
+    for fault, strategy in CP_ATTN_FAULTS:
+        mesh = meshes[tuple(sorted(dict(CP_ATTN_STRATEGIES)[strategy].items()))]
+        with _cp_attn_fault(fault):
+            got = _cp_attn_run(mesh, strategy, *blocks)
+        torch.save([x.cpu() for x in got], os.path.join(tmp, f"{fault}_rank{rank}.pt"))
+    return _leave_two(state, tmp, report)
+
+
+def phase_context_parallel(dev):
+    """The long-context attention (``CP_ATTN_SHAPE``) with its sequence
+    split over two processes sharing the card over gloo (``--cp-attn-child``):
+    for each of ``CP_ATTN_STRATEGIES`` each rank's output and dq/dk/dv
+    blocks against one process's ``flash_attention`` (#1-#3) on the whole
+    sequence and against the plain attention, each rank's #1-#3 launches
+    (``CP_ATTN_FLASH_CALLS``) and its forward and backward ms; each of
+    ``CP_ATTN_FAULTS`` must break a bar. Returns each strategy's launches
+    per rank."""
+    import tempfile
+
+    from accelerate_tpu_torch.ops.attention import _xla_attention
+
+    fa = importlib.import_module("accelerate_tpu_torch.ops.flash_attention")
+    q, k, v, do = _cp_attn_inputs(dev)
+    refs = {}
+    leaves = [x.detach().requires_grad_(True) for x in (q, k, v)]
+    out = fa.flash_attention(*leaves, causal=True)
+    out.backward(do)
+    refs["flash"] = [out.detach()] + [x.grad for x in leaves]
+    leaves = [x.detach().float().requires_grad_(True) for x in (q, k, v)]
+    out = _xla_attention(*leaves, causal=True, mask=None, scale=None)
+    out.backward(do.float())
+    refs["plain"] = [out.detach()] + [x.grad for x in leaves]
+    del leaves, out
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    names = ("out", "dq", "dk", "dv")
+    bar = FUSED_RTOL[torch.bfloat16]
+
+    def errs(got):
+        return {ref: {n: _errs([(g, w)])[1] for n, g, w in zip(names, got, want)}
+                for ref, want in refs.items()}
+
+    with tempfile.TemporaryDirectory(prefix="cp_attention_") as tmp:
+        ranks = _run_two("--cp-attn-child", tmp, "cp-attention", CP_ATTN_TIMEOUT_S)
+
+        def whole(name):  # the two ranks' halves of the sequence, on the card
+            parts = [torch.load(os.path.join(tmp, f"{name}_rank{i}.pt")) for i in range(2)]
+            return [torch.cat([a, b], dim=1).to(dev) for a, b in zip(*parts)]
+
+        results = {name: errs(whole(name)) for name in
+                   [s for s, _ in CP_ATTN_STRATEGIES] + [f for f, _ in CP_ATTN_FAULTS]}
+    launches = {}
+    for strategy, pc_kwargs in CP_ATTN_STRATEGIES:
+        per_rank = [r[strategy]["launches"] for r in ranks]
+        launches[strategy] = per_rank
+        for i, got in enumerate(per_rank):
+            want = {kern: CP_ATTN_FLASH_CALLS[strategy][i] for kern in FLASH_KERNELS}
+            check(got == want, f"[cp-attention] {strategy} rank {i} flash launches {got}, "
+                               f"want {want}")
+        worst = max(e for ref in results[strategy].values() for e in ref.values())
+        check(worst <= bar, f"[cp-attention] {strategy} against one process: "
+                            f"{results[strategy]} (bar {bar:g})")
+        print(f"[cp-attention] {strategy} over {'sp' if strategy == 'ulysses' else 'cp'} 2 at "
+              f"B={CP_ATTN_SHAPE[0]} S="
+              f"{CP_ATTN_SHAPE[1]} {CP_ATTN_SHAPE[2]}/{CP_ATTN_SHAPE[3]} heads D="
+              f"{CP_ATTN_SHAPE[4]} bf16: rel err against one process's flash "
+              + ", ".join(f"{n} {e:.3e}" for n, e in results[strategy]["flash"].items())
+              + "; against the plain attention "
+              + ", ".join(f"{n} {e:.3e}" for n, e in results[strategy]["plain"].items())
+              + f" (bar {bar:g}); " + "; ".join(
+                  f"rank {i}: flash launches {r[strategy]['launches']}, forward "
+                  f"{r[strategy]['fwd_ms']:.3f} ms, backward {r[strategy]['bwd_ms']:.3f} ms"
+                  for i, r in enumerate(ranks)), flush=True)
+    for fault, strategy in CP_ATTN_FAULTS:
+        caught = sorted({n for ref in results[fault].values() for n, e in ref.items() if e > bar})
+        print(f"[cp-attention] planted fault {fault} on {strategy}: rel errs "
+              f"{results[fault]['flash']}; caught by {caught or 'no bar'}", flush=True)
+        check(bool(caught), f"[cp-attention] the planted fault {fault} passes every bar")
+    return launches
+
+
 @contextlib.contextmanager
 def _mesh_lm_fault(fault):
     """A fault planted in the per-layer gather, for phase_mesh_lm774m's
@@ -4323,7 +4542,7 @@ def _mesh_lm_leg(dev, pc_kwargs, fault=None, steps=MESH_LM_STEPS):
     collective bytes a step and the whole tree's gather ms."""
     from accelerate_tpu_torch import Accelerator, LlamaConfig, init_llama, llama_loss
     from accelerate_tpu_torch.data_loader import GlobalBatchAssembler
-    from accelerate_tpu_torch.ops import flash_attention as fa
+    fa = importlib.import_module("accelerate_tpu_torch.ops.flash_attention")
     from accelerate_tpu_torch.optimizer import adafactor
     from accelerate_tpu_torch.parallelism_config import ParallelismConfig
     from accelerate_tpu_torch.state import AcceleratorState, GradientState
@@ -4650,7 +4869,7 @@ def _moe_ep_leg(dev, pc_kwargs, rules: bool, fault=None, steps=MOE_EP_STEPS):
     peak, the bytes of this rank's expert weights and of all its params."""
     from accelerate_tpu_torch import Accelerator, LlamaConfig, init_llama, llama_forward, llama_loss
     from accelerate_tpu_torch.data_loader import GlobalBatchAssembler
-    from accelerate_tpu_torch.ops import flash_attention as fa
+    fa = importlib.import_module("accelerate_tpu_torch.ops.flash_attention")
     from accelerate_tpu_torch.optimizer import adafactor
     from accelerate_tpu_torch.parallel import moe
     from accelerate_tpu_torch.parallel.sharding import _map_with_path
@@ -4872,7 +5091,7 @@ def _engine_streams(params, config, dtype, mesh=None):
     """The engine over _engine_prompts (ENGINE_NEW tokens each): the
     streams, the stats, #6/#7 launches, the rank's pool bytes and the
     wall."""
-    from accelerate_tpu_torch.ops import flash_attention as fa
+    fa = importlib.import_module("accelerate_tpu_torch.ops.flash_attention")
     from accelerate_tpu_torch.serving import ServingEngine
 
     engine = ServingEngine(params, config, cache_dtype=dtype, mesh=mesh, **ENGINE_KW)
@@ -5097,15 +5316,13 @@ def _lm774m_batch(dev, config, seed=0):
 
 
 def _zero_flash_counters():
-    from accelerate_tpu_torch.ops import flash_attention as fa
-
+    fa = importlib.import_module("accelerate_tpu_torch.ops.flash_attention")
     for kern in FLASH_KERNELS:
         getattr(fa, kern).launches = 0
 
 
 def _flash_counts() -> dict:
-    from accelerate_tpu_torch.ops import flash_attention as fa
-
+    fa = importlib.import_module("accelerate_tpu_torch.ops.flash_attention")
     return {kern: getattr(fa, kern).launches for kern in FLASH_KERNELS}
 
 
@@ -5968,7 +6185,7 @@ def phase_quant(params, config, dev):
         greedy_generate,
         quantize_params,
     )
-    from accelerate_tpu_torch.ops import flash_attention as fa
+    fa = importlib.import_module("accelerate_tpu_torch.ops.flash_attention")
     from accelerate_tpu_torch.ops.quantization import quantized_byte_size
     from accelerate_tpu_torch.optimizer import param_leaves
     from accelerate_tpu_torch.serving import ServingEngine
@@ -6179,7 +6396,7 @@ def _fleet_drive(tag, router, workload, *, kill_after=None, arrival_dt_s=None, d
     killing ``r0`` after ``kill_after`` completions. The launch counters are
     zeroed just before and read just after. Returns (leg metrics, requests,
     launches)."""
-    from accelerate_tpu_torch.ops import flash_attention as fa
+    fa = importlib.import_module("accelerate_tpu_torch.ops.flash_attention")
     from accelerate_tpu_torch.serving import RouterRequestStatus
 
     fa.paged_attention_decode.launches = 0
@@ -6243,7 +6460,7 @@ def _fleet_leg(tag, replicas, workload, dev, *, router_cls=None, kill_after=None
     queue sized so nothing sheds) drains ``workload``; ``inspect(router)``
     runs before the router is closed, in place of the launch check of the
     thread replicas' engines. Returns (metrics, outputs, router)."""
-    from accelerate_tpu_torch.ops import flash_attention as fa
+    fa = importlib.import_module("accelerate_tpu_torch.ops.flash_attention")
     from accelerate_tpu_torch.serving import AdmissionController, ServingRouter
 
     cls = router_cls or ServingRouter
@@ -6717,7 +6934,8 @@ def main() -> int:
     here = os.path.dirname(os.path.abspath(__file__))
     sys.path.insert(0, here)
     children = {"--mesh-2rank-child": mesh_2rank_child, "--mesh-lm-child": mesh_lm_child,
-                "--moe-ep-child": moe_ep_child, "--mesh-decode-child": mesh_decode_child}
+                "--moe-ep-child": moe_ep_child, "--mesh-decode-child": mesh_decode_child,
+                "--cp-attn-child": cp_attn_child}
     if sys.argv[1:2] and sys.argv[1] in children:
         return children[sys.argv[1]](sys.argv[2])
     import accelerate_tpu_torch
@@ -6787,6 +7005,7 @@ def main() -> int:
     moe_engine_launches, moe_train_launches, moe_leg = _timed(phase_moe, dev)
     _timed(phase_mesh_ops, dev)
     fsdp_launches, _ = _timed(phase_fsdp_lm, dev, lm_ref)
+    cp_launches = _timed(phase_context_parallel, dev)
     mesh_launches, bert_tp_launches = _timed(phase_mesh_2rank, dev)
     mesh_lm_launches = _timed(phase_mesh_lm774m, dev)
     moe_ep_launches = _timed(phase_moe_ep, dev, moe_leg)
@@ -6835,7 +7054,9 @@ def main() -> int:
         rank_rec = flash_results[("lm774m_rank", kind, torch.bfloat16)]
         moe_rec = flash_results[("moe_train", kind, torch.bfloat16)]
         mesh_recs = {case: flash_results[(case, kind, torch.float32)]
-                     for case in ("mesh_2rank", "mesh_2rank_b1")}
+                     for case in ("mesh_2rank", "mesh_2rank_b1", "cp2_half", "cp2_half_full")}
+        cp_recs = {case: flash_results[(case, kind, torch.bfloat16)]
+                   for case in ("ring_block", "zigzag_block")}
         records.append({"name": name, "route": "cuda",
                         "source": f"accelerate_tpu_torch/csrc/{source}.cu",
                         "replaces": f"accelerate_tpu/ops/flash_attention.py:{line}",
@@ -6845,6 +7066,9 @@ def main() -> int:
                         "moe_train": {k: moe_rec[k] for k in keys},
                         **{f"{case}_f32": {k: r[k] for k in keys}
                            for case, r in mesh_recs.items()},
+                        **{case: {k: r[k] for k in keys} for case, r in cp_recs.items()},
+                        "launches_cp_attention": {strategy: [r[name] for r in per_rank]
+                                                  for strategy, per_rank in cp_launches.items()},
                         "launches_lm774m": lm_launches[name],
                         "launches_lm774m_offload_dots": offload_dots_launches[name],
                         "launches_lomo": lomo_launches[name],

@@ -26,12 +26,12 @@ once). The fused and flash kernels' tolerances are stated beside their
 tests.
 """
 
+import importlib
 import numpy as np
 import pytest
 import torch
 
-from accelerate_tpu_torch.ops import flash_attention as fa
-
+fa = importlib.import_module("accelerate_tpu_torch.ops.flash_attention")
 pytestmark = pytest.mark.cuda
 
 ATOL = {torch.float32: 1e-5, torch.bfloat16: 2.0 ** -7}
@@ -307,8 +307,7 @@ def _close(a, b, dtype):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
 @pytest.mark.parametrize("B,S,H,Hkv,D,causal,padded", FUSED_CASES)
 def test_fused_kernels_match_plain(dev, dtype, B, S, H, Hkv, D, causal, padded):
-    from accelerate_tpu_torch.ops import fused_attention as fused
-
+    fused = importlib.import_module("accelerate_tpu_torch.ops.fused_attention")
     q, k, v, seg, do = _fused_case(2, B, S, H, Hkv, D, padded, dev, dtype)
     scale = 1.0 / np.sqrt(D)
     before = (fused.fused_attention_fwd.launches, fused.fused_attention_bwd.launches)
@@ -337,8 +336,7 @@ def test_fused_autograd_matches_plain_autograd(dev, dtype, D, causal, padded, Hk
     plain forward in f32; in bf16 and fp16 (the tensor-core backward)
     against the same Function with the plain versions in the kernels'
     place, which round p and ds at the same points."""
-    from accelerate_tpu_torch.ops import fused_attention as fused
-
+    fused = importlib.import_module("accelerate_tpu_torch.ops.fused_attention")
     q, k, v, seg, do = _fused_case(3, 2, 256, 4, Hkv, D, padded, dev, dtype)
 
     def run():
@@ -374,8 +372,7 @@ def test_fused_fp16_overflow_reaches_the_gradients(dev, B, S, H, Hkv, D, causal)
     ds = p (dp - δ) passes fp16's range: every element of dq, dk and dv is
     non-finite in the kernels exactly where it is in the plain version, so
     the loss scaler's finite check sees the overflow."""
-    from accelerate_tpu_torch.ops import fused_attention as fused
-
+    fused = importlib.import_module("accelerate_tpu_torch.ops.fused_attention")
     q, k, v, seg, do = _fused_case(5, B, S, H, Hkv, D, True, dev, torch.float16)
     scale = 1.0 / np.sqrt(D)
     out, lse = fused.fused_attention_fwd(q, k, v, seg, scale, causal)
@@ -567,8 +564,7 @@ def test_backward_kernels_are_deterministic(dev, kernel, D):
     """Each output row of the bf16 backward passes (flash dq, flash dk/dv,
     the fused backward's two) is summed by one block in a fixed order, with
     no atomics: two launches on the same inputs agree bitwise."""
-    from accelerate_tpu_torch.ops import fused_attention as fused
-
+    fused = importlib.import_module("accelerate_tpu_torch.ops.fused_attention")
     q, k, v, seg, do = _flash_case(11, 2, 1024, 8, 2, D, True, dev, torch.bfloat16)
     if kernel == "fused_bwd":
         out, lse = fused.fused_attention_fwd(q, k, v, seg, 1 / np.sqrt(D), True)

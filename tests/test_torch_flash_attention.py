@@ -27,8 +27,7 @@ import pytest
 import torch
 
 from accelerate_tpu_torch.ops import attention as tattn
-from accelerate_tpu_torch.ops import flash_attention as tfa
-
+tfa = importlib.import_module("accelerate_tpu_torch.ops.flash_attention")
 jfa = importlib.import_module("accelerate_tpu.ops.flash_attention")
 
 B, S, H, HKV, D = 2, 128, 4, 2, 16

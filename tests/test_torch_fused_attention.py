@@ -34,8 +34,7 @@ import torch
 from jax.experimental import pallas as pl
 
 from accelerate_tpu_torch.ops import attention as tattn
-from accelerate_tpu_torch.ops import fused_attention as tfa
-
+tfa = importlib.import_module("accelerate_tpu_torch.ops.fused_attention")
 jfa = importlib.import_module("accelerate_tpu.ops.fused_attention")
 
 TOL = {"float32": 1e-5, "bfloat16": 2.0 ** -6, "float16": 2.0 ** -9}

@@ -23,6 +23,7 @@ the reason written there (AdamW's g / (|g| + eps) magnifies the rounding
 noise of near-zero gradient elements).
 """
 
+import importlib
 import dataclasses
 
 import jax
@@ -40,7 +41,7 @@ from accelerate_tpu.utils.operations import stack_batches as jstack
 from accelerate_tpu_torch import Accelerator
 from accelerate_tpu_torch.models import transformer as tt
 from accelerate_tpu_torch.models.convert import params_from_numpy
-from accelerate_tpu_torch.ops import flash_attention as tfa
+tfa = importlib.import_module("accelerate_tpu_torch.ops.flash_attention")
 from accelerate_tpu_torch.optimizer import adamw
 from accelerate_tpu_torch.state import AcceleratorState, GradientState
 from accelerate_tpu_torch.utils import packing as tpacking
@@ -243,10 +244,23 @@ def test_pack_sequences_and_unpack_match_jax():
 
 
 def test_unported_forward_options_raise(params):
+    """``attention_fn`` raised until context parallelism was ported; the
+    name is kept, and the forward now runs the callback in place of the
+    attention, as JAX's does (here the plain attention, scaled by a half
+    so that a forward that ignored it would show)."""
+    from accelerate_tpu.ops.attention import dot_product_attention as j_dpa
+    from accelerate_tpu_torch.ops.attention import dot_product_attention as t_dpa
+
     tp = params_from_numpy(params[1], device="cpu")
     ids = torch.from_numpy(_ids(8, rows=1, seq=16))
-    with pytest.raises(NotImplementedError, match="attention_fn"):
-        tt.llama_forward(tp, ids, TCFG, attention_fn=lambda *a, **k: None)
+    got = tt.llama_forward(tp, ids, TCFG,
+                           attention_fn=lambda q, k, v, causal: 0.5 * t_dpa(q, k, v, causal=causal))
+    want = jt.llama_forward(params[0], jnp.asarray(ids.numpy()), JCFG,
+                            attention_fn=lambda q, k, v, causal: 0.5 * j_dpa(q, k, v,
+                                                                             causal=causal))
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(want), rtol=1e-5, atol=1e-5)
+    plain = tt.llama_forward(tp, ids, TCFG)
+    assert not torch.allclose(got, plain, rtol=1e-3, atol=1e-3)
     # MoE is ported: the loss adds the aux term, as JAX's does
     jmoe, moe = (dataclasses.replace(c, moe_experts=2) for c in (JCFG, TCFG))
     jp = jt.init_llama(jmoe, jax.random.PRNGKey(0))

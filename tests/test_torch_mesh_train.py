@@ -115,6 +115,15 @@ FP8 = {name: (pc, zero1, fault) for name, pc, zero1, fault in ms.FP8_LEGS}
 B, S = 8, 64
 CFG = dataclasses.replace(jt.LlamaConfig.tiny(), n_layers=4)
 FP8_CFG = dataclasses.replace(CFG, dtype_recipe="fp8")
+# context and sequence parallelism (scenario long_context): the Llama of the
+# JAX package's test_zigzag_in_llama_end_to_end, Ulysses' 4 kv heads
+LC_CFG = jt.LlamaConfig(vocab_size=128, dim=64, n_layers=2, n_heads=4, n_kv_heads=2,
+                        max_seq_len=64)
+KV4_CFG = dataclasses.replace(CFG, n_kv_heads=4)
+LC_CASES = {name: (strategy, pc, causal, shape, grads)
+            for name, strategy, pc, causal, shape, grads in ms.LC_ATTENTION_CASES}
+LC_LEGS = {name: (pc, params_file, opts) for name, pc, params_file, opts in ms.LC_LEGS}
+LC_LEG_NAMES = [*LC_LEGS, *(f"{ms.LC_LEGS[0][0]}_{fault}" for fault in ms.LC_FAULTS)]
 
 
 def _path(path) -> str:
@@ -131,6 +140,24 @@ def _reset_jax():
     JPartialState._reset_state()
 
 
+def _write_long_context_inputs(tmp):
+    """The long_context scenario's params (from the JAX initializer) and
+    token ids (a seeded numpy generator)."""
+    np.savez(tmp / "llama_kv4_params.npz", **_flat(jt.init_llama(KV4_CFG, jax.random.PRNGKey(0))))
+    np.savez(tmp / "lc_llama_params.npz", **_flat(jt.init_llama(LC_CFG, jax.random.PRNGKey(0))))
+    np.save(tmp / "lc_llama_ids.npy",
+            np.random.default_rng(0).integers(0, 128, (2, 64)).astype(np.int32))
+    ex = ms.LC_EXAMPLE
+    np.savez(tmp / "lc_example_params.npz",
+             **_flat(jt.init_llama(_example_config(), jax.random.PRNGKey(ex["seed"]))))
+
+
+def _example_config():
+    """``examples/sequence_parallelism.py``'s model at ``--sp 4``."""
+    return dataclasses.replace(jt.LlamaConfig.tiny(), max_seq_len=ms.LC_EXAMPLE["seq_len"],
+                               n_heads=4, n_kv_heads=4)
+
+
 @pytest.fixture(scope="module")
 def run(tmp_path_factory):
     """The 4-process launch: params and batches in, the report and each
@@ -144,8 +171,9 @@ def run(tmp_path_factory):
     batches = {"input_ids": rng.integers(1, vocab, size=(ms.MESH_STEPS, B, S), dtype=np.int32),
                "loss_mask": (rng.random((ms.MESH_STEPS, B, S)) < 0.7).astype(np.int32)}
     np.savez(tmp / "llama_batches.npz", **batches)
-    outs = execute_multiprocess(SCRIPT + ["--scenario", "mesh_train,mesh_ckpt", "--tmpdir",
-                                          str(tmp)], num_processes=4, timeout=300)
+    _write_long_context_inputs(tmp)
+    outs = execute_multiprocess(SCRIPT + ["--scenario", "mesh_train,mesh_ckpt,long_context",
+                                          "--tmpdir", str(tmp)], num_processes=4, timeout=300)
     for out in outs:
         assert "ALL OK" in out, out[-2000:]
     with open(tmp / "mesh_train.json") as f:
@@ -163,6 +191,14 @@ def run(tmp_path_factory):
     for i in range(4):
         with np.load(tmp / f"grads_rank{i}.npz") as f:
             legs[f"grads_rank{i}"] = {k: f[k] for k in f.files}
+    with open(tmp / "long_context.json") as f:
+        report["lc"] = json.load(f)
+    for i in range(4):
+        with np.load(tmp / f"lc_rank{i}.npz") as f:
+            legs[f"lc_rank{i}"] = {k: f[k] for k in f.files}
+    for name in LC_LEG_NAMES:
+        with np.load(tmp / f"lc_{name}.npz") as f:
+            legs[f"lc_{name}"] = {k: f[k] for k in f.files}
     return jparams, batches, report, legs
 
 
@@ -676,3 +712,255 @@ def test_fp8_leg_matches_jax_and_its_fault_fails(run, fp8_jax, leg):
     assert any(v.max() > 0 for k, v in got["params"].items() if k.endswith("g_hist"))
     _hold_fp8(got, fp8_jax)
     assert _fails(_hold_fp8, _got(run, leg + "_fault"), fp8_jax)
+
+
+# -- context and sequence parallelism --
+#
+# The long_context scenario runs every strategy of
+# ``make_context_parallel_attention`` on 4 gloo ranks (ring, zig-zag and
+# all-gather over cp 4, Ulysses over sp 4, GQA 8/2 and 8/1 under cp 2 ×
+# dp_shard 2), the Llama forward through the ring and the zig-zag ring, 3
+# training steps under (cp 2, dp_shard 2) with zig-zag and
+# ``llama_shard_rules`` and under sp 4, the three planted faults (one step
+# each), and examples/sequence_parallelism.py's recipe at sp 4. Each is
+# held to the JAX package's same function on 4 virtual devices and to one
+# process of the port. Tolerances are the JAX package's own
+# (tests/test_long_context.py): 2e-4 relative / 2e-5 absolute on outputs,
+# 5e-4 / 5e-5 on gradients, 5e-4 / 5e-4 on the Llama logits; the training
+# legs take the mesh legs' bars above (losses and gradient norms 1e-5,
+# params 2e-5 of JAX and 1e-5 of one process in relative L2).
+
+
+def _lc_assemble(blocks: list, pc: dict, axis: str) -> np.ndarray:
+    """The global array from the 4 ranks' blocks: each rank's rows of the
+    data-parallel axes and its chunk of ``axis``, by its mesh coordinates."""
+    from accelerate_tpu_torch.parallelism_config import Mesh
+
+    meshes = [Mesh(ms.pc_kwargs_shape(pc), rank=r) for r in range(4)]
+    dp = meshes[0].shape["dp_replicate"] * meshes[0].shape["dp_shard"]
+    b, s = blocks[0].shape[:2]
+    out = np.zeros((b * dp, s * meshes[0].shape[axis]) + blocks[0].shape[2:], blocks[0].dtype)
+    for mesh, x in zip(meshes, blocks):
+        row = mesh.coords["dp_replicate"] * mesh.shape["dp_shard"] + mesh.coords["dp_shard"]
+        c = mesh.coords[axis]
+        out[row * b:(row + 1) * b, c * s:(c + 1) * s] = x
+    return out
+
+
+def _jax_cp_attention(case: str) -> dict:
+    """The JAX package's ``make_context_parallel_attention`` of a case on
+    4 virtual devices: the output and, where asked, ``jax.grad`` of
+    ``sum(out ** 2)``."""
+    from accelerate_tpu.parallel.long_context import make_context_parallel_attention
+    from jax.sharding import NamedSharding
+    from jax.sharding import PartitionSpec as JP
+
+    strategy, pc, causal, shape, grads = LC_CASES[case]
+    axis = "sp" if strategy == "ulysses" else "cp"
+    mesh = JParallelismConfig(**pc).build_mesh()
+    attn = make_context_parallel_attention(mesh, strategy=strategy)
+    spec = NamedSharding(mesh, JP(("dp_replicate", "dp_shard"), axis, None, None))
+    q, k, v = (jax.device_put(jnp.asarray(x), spec) for x in ms.lc_qkv(*shape))
+    out = {"out": np.asarray(jax.jit(lambda a, b, c: attn(a, b, c, causal=causal))(q, k, v))}
+    if grads:
+        g = jax.jit(jax.grad(lambda a, b, c: jnp.sum(attn(a, b, c, causal=causal) ** 2),
+                             argnums=(0, 1, 2)))(q, k, v)
+        out.update(zip(("dq", "dk", "dv"), (np.asarray(x) for x in g)))
+    return out
+
+
+def _port_attention(case: str) -> dict:
+    """The port's plain attention of a case in one process, and autograd's
+    gradients of ``sum(out ** 2)``."""
+    import torch
+    from accelerate_tpu_torch.ops.attention import dot_product_attention
+
+    _, _, causal, shape, grads = LC_CASES[case]
+    q, k, v = (torch.from_numpy(x).requires_grad_(grads) for x in ms.lc_qkv(*shape))
+    out = dot_product_attention(q, k, v, causal=causal)
+    res = {"out": out.detach().numpy()}
+    if grads:
+        (out ** 2).sum().backward()
+        res.update(dq=q.grad.numpy(), dk=k.grad.numpy(), dv=v.grad.numpy())
+    return res
+
+
+@pytest.mark.parametrize("case", list(LC_CASES))
+def test_cp_sp_attention_matches_jax_and_one_process(run, case):
+    """Each strategy's output blocks (and ``dq``, ``dk``, ``dv`` separately
+    for the gradient cases: a k/v gradient not rotated home shows only
+    there), assembled from the 4 ranks, against JAX's
+    ``make_context_parallel_attention`` on 4 virtual devices and against
+    the port's plain attention in one process."""
+    strategy, pc, causal, shape, grads = LC_CASES[case]
+    axis = "sp" if strategy == "ulysses" else "cp"
+    legs = run[3]
+    keys = ("out", "dq", "dk", "dv") if grads else ("out",)
+    got = {key: _lc_assemble([legs[f"lc_rank{r}"][f"{case}/{key}"] for r in range(4)], pc, axis)
+           for key in keys}
+    for want in (_jax_cp_attention(case), _port_attention(case)):
+        for key in keys:
+            tol = dict(rtol=2e-4, atol=2e-5) if key == "out" else dict(rtol=5e-4, atol=5e-5)
+            np.testing.assert_allclose(got[key], want[key], err_msg=key, **tol)
+
+
+@pytest.mark.parametrize("strategy", ms.LC_LLAMA_FORWARD)
+def test_llama_forward_through_cp_attention_matches_jax(run, strategy):
+    """``llama_forward(attention_fn=)`` with the ring or the zig-zag ring
+    over cp 2 × dp_shard 2 (the RoPE positions global): the ranks' logits
+    against JAX's forward with its attention_fn on 4 virtual devices, and
+    against the port's plain forward in one process (the JAX package's
+    test_zigzag_in_llama_end_to_end / test_cp_in_llama_end_to_end)."""
+    import torch
+    from accelerate_tpu.parallel.long_context import make_context_parallel_attention
+    from accelerate_tpu.parallel.sharding import replicate
+    from accelerate_tpu_torch.models import transformer as tt
+    from accelerate_tpu_torch.models.convert import params_from_numpy
+    from jax.sharding import NamedSharding
+    from jax.sharding import PartitionSpec as JP
+
+    legs = run[3]
+    got = _lc_assemble([legs[f"lc_rank{r}"][f"llama_{strategy}/logits"] for r in range(4)],
+                       ms.LC_PC, "cp")
+    jparams = jt.init_llama(LC_CFG, jax.random.PRNGKey(0))
+    ids = np.random.default_rng(0).integers(0, 128, (2, 64)).astype(np.int32)
+    mesh = JParallelismConfig(**ms.LC_PC).build_mesh()
+    attn = make_context_parallel_attention(mesh, strategy=strategy)
+    ids_s = jax.device_put(jnp.asarray(ids), NamedSharding(mesh, JP(("dp_replicate", "dp_shard"),
+                                                                   "cp")))
+    want = jax.jit(lambda p, i: jt.llama_forward(p, i, LC_CFG, attention_fn=attn))(
+        replicate(jparams, mesh), ids_s)
+    np.testing.assert_allclose(got, np.asarray(want), rtol=5e-4, atol=5e-4)
+    cfg = tt.LlamaConfig(**dataclasses.asdict(LC_CFG))
+    params = params_from_numpy(jax.tree_util.tree_map(np.asarray, jparams), device="cpu")
+    with torch.no_grad():
+        one = tt.llama_forward(params, torch.from_numpy(ids), cfg).numpy()
+    np.testing.assert_allclose(got, one, rtol=5e-4, atol=5e-4)
+
+
+def _jax_lc_leg(name: str, batches: dict, steps: int) -> dict:
+    """The JAX package's run of a long-context leg: its ``Accelerator`` on
+    the same mesh with ``llama_shard_rules`` and the loss's ``attention_fn``
+    from ``context_parallel_attention()``. A cp leg's run takes the
+    all-gather rotation, the same global function as the zig-zag ring at
+    less than half its compile time here (the port's zig-zag is held to
+    JAX's zig-zag itself, forward and gradients, in the attention cases)."""
+    from accelerate_tpu.models.transformer import llama_shard_rules as j_rules
+
+    pc, params_file, _ = LC_LEGS[name]
+    if "cp_rotate_method" in pc:
+        pc = dict(pc, cp_rotate_method="allgather")
+    cfg = KV4_CFG if "kv4" in params_file else CFG
+    _reset_jax()
+    try:
+        acc = JAccelerator(parallelism_config=JParallelismConfig(**pc))
+        params, opt = acc.prepare(jt.init_llama(cfg, jax.random.PRNGKey(0)),
+                                  optax.adamw(ms.MESH_LR), shard_rules=j_rules())
+        attn = acc.context_parallel_attention()
+        step = acc.prepare_train_step(
+            lambda p, b: jt.llama_loss(p, b, cfg, attention_fn=attn, mesh=acc.mesh),
+            compute_grad_norm=True)
+        state, out = opt.opt_state, {"losses": [], "grad_norms": []}
+        for k in range(steps):
+            params, state, metrics = step(params, state, {n: b[k] for n, b in batches.items()})
+            out["losses"].append(float(metrics["loss"]))
+            out["grad_norms"].append(float(metrics["grad_norm"]))
+        out["params"] = _flat(params)
+        return out
+    finally:
+        _reset_jax()
+
+
+@pytest.fixture(scope="module")
+def lc_one_process(run):
+    """The port's one-process runs of the long-context legs' steps (the
+    plain step, plain attention, whole sequences), by params file."""
+    import torch
+
+    _, batches, _, _ = run
+    steps = {n: b[:ms.LC_STEPS] for n, b in batches.items()}
+    out, threads = {}, torch.get_num_threads()
+    torch.set_num_threads(1)  # the suite's workers share the cores
+    try:
+        for params_file, cfg in (("llama_params.npz", CFG), ("llama_kv4_params.npz", KV4_CFG)):
+            params_np = jax.tree_util.tree_map(np.asarray,
+                                               jt.init_llama(cfg, jax.random.PRNGKey(0)))
+            out[params_file] = ms.mesh_train_leg(params_np, steps, {}, False, False,
+                                                 device="cpu", prepare_rules="llama")
+    finally:
+        torch.set_num_threads(threads)
+        AcceleratorState._reset_state(reset_partial_state=True)
+        GradientState._reset_state()
+    return out
+
+
+@pytest.mark.parametrize("leg", list(LC_LEGS))
+def test_cp_sp_training_matches_jax_and_one_process(run, lc_one_process, leg):
+    """3 AdamW steps under (cp 2, dp_shard 2) with ``cp_rotate_method=
+    "zigzag"`` and ``llama_shard_rules`` (the FSDP dim split over
+    ``(dp_shard, cp)``, so each layer's gather and gradient reduce span
+    both) and under sp 4 (Ulysses), the prepared batches' sequence split
+    over the axis, a random ``loss_mask``: losses, gradient norms and final
+    params against JAX's run on the same mesh and against one process."""
+    from accelerate_tpu_torch.models.transformer import llama_shard_rules
+    from accelerate_tpu_torch.parallel.sharding import _leaves
+    from accelerate_tpu_torch.parallelism_config import MESH_AXIS_NAMES
+
+    _, batches, report, legs = run
+    steps = {n: b[:ms.LC_STEPS] for n, b in batches.items()}
+    got = {**report["lc"][leg], "params": legs[f"lc_{leg}"]}
+    _hold(got, _jax_lc_leg(leg, steps, ms.LC_STEPS), 1e-5, 2e-5)
+    _hold(got, lc_one_process[LC_LEGS[leg][1]], 1e-5, 1e-5)
+    pc = LC_LEGS[leg][0]
+    if pc.get("dp_shard_size", 1) > 1:  # FSDP over (dp_shard, cp): the layers gathered per layer
+        sizes = dict(zip(MESH_AXIS_NAMES, ms.pc_kwargs_shape(pc)))
+        specs = infer_param_specs(jax.tree_util.tree_map(np.asarray, run[0]), sizes,
+                                  ParallelismConfig(**pc), llama_shard_rules())
+        assert any(("dp_shard", "cp") in tuple(spec) for spec in _leaves(specs["layers"]))
+        assert all(stats["gathers"] > 0 for stats in got["layer_stats"])
+
+
+@pytest.mark.parametrize("fault", ms.LC_FAULTS)
+def test_cp_planted_fault_fails_a_bar(run, lc_one_process, fault):
+    """Each planted fault, one step under (cp 2, dp_shard 2) zig-zag: RoPE
+    positions local to each chunk, each chunk's targets rolled within the
+    chunk, or the gradients not summed over cp. Its loss or gradient norm
+    must miss the one-process step by more than the leg's 1e-5 bar."""
+    base = ms.LC_LEGS[0][0]
+    got = run[2]["lc"][f"{base}_{fault}"]
+    want = lc_one_process[LC_LEGS[base][1]]
+    errs = [abs(got[key][0] - want[key][0]) / abs(want[key][0])
+            for key in ("losses", "grad_norms")]
+    assert max(errs) > 1e-5, (fault, errs)
+    sound = run[2]["lc"][base]
+    assert max(abs(sound[key][0] - want[key][0]) / abs(want[key][0])
+               for key in ("losses", "grad_norms")) <= 1e-5
+
+
+def test_sequence_parallelism_example_matches_jax(run):
+    """examples/sequence_parallelism.py's recipe at ``--sp 4 --dp-shard 1``
+    (f32, adam, the prepared loader's sequence split, Ulysses through
+    ``sequence_parallel_attention``): the port's first and last step
+    losses against the JAX example's ``training_function`` on 4 virtual
+    devices."""
+    import argparse
+    import importlib.util
+    import pathlib
+
+    path = pathlib.Path(__file__).resolve().parent.parent / "examples" / "sequence_parallelism.py"
+    spec = importlib.util.spec_from_file_location("sequence_parallelism_example", path)
+    example = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(example)
+    ex = ms.LC_EXAMPLE
+    args = argparse.Namespace(sp=4, dp_shard=1, mixed_precision="no", cpu=True, seed=ex["seed"],
+                              seq_len=ex["seq_len"], train_size=ex["train_size"],
+                              batch_size=ex["batch_size"], lr=ex["lr"], epochs=1)
+    _reset_jax()
+    try:
+        want = example.training_function(args)
+    finally:
+        _reset_jax()
+    losses = run[2]["lc"]["example"]
+    assert len(losses) == ex["train_size"] // ex["batch_size"]
+    np.testing.assert_allclose([losses[0], losses[-1]], [want["first_loss"], want["train_loss"]],
+                               rtol=1e-5)

@@ -10,6 +10,7 @@
   raises when the compiler fails (driven with a stand-in ``nvcc`` script).
 """
 
+import importlib
 import os
 import pkgutil
 import subprocess
@@ -23,8 +24,8 @@ import torch
 
 import accelerate_tpu_torch
 from accelerate_tpu_torch.ops import _build
-from accelerate_tpu_torch.ops import flash_attention as fa
-from accelerate_tpu_torch.ops import fused_attention as fused
+fa = importlib.import_module("accelerate_tpu_torch.ops.flash_attention")
+fused = importlib.import_module("accelerate_tpu_torch.ops.fused_attention")
 from accelerate_tpu_torch.models.convert import params_from_numpy
 
 REPO = Path(__file__).resolve().parent.parent

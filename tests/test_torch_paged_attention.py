@@ -15,6 +15,7 @@ one bf16 rounding step of the output: atol 2**-7 covers one ulp for
 |out| < 2, and the outputs here are averages of N(0, 1) values.
 """
 
+import importlib
 import numpy as np
 import pytest
 import torch
@@ -24,7 +25,7 @@ import jax.numpy as jnp
 from accelerate_tpu.ops.flash_attention import paged_attention_decode as jax_decode
 from accelerate_tpu.ops.flash_attention import paged_attention_prefill as jax_prefill
 from accelerate_tpu.serving.kv_pager import paged_attention as jax_gather
-from accelerate_tpu_torch.ops import flash_attention as fa
+fa = importlib.import_module("accelerate_tpu_torch.ops.flash_attention")
 from accelerate_tpu_torch.serving.kv_pager import NULL_BLOCK, paged_attention as torch_gather
 
 F32_ATOL = 1e-5
